@@ -1,0 +1,189 @@
+"""Public stencil API of the port.
+
+    from repro_torch.core.api import StencilPlan, StencilProblem
+    p = StencilProblem("2d5p", shape=(512, 512))                 # on cuda
+    y = p.run(x, steps=100, plan=StencilPlan(backend="pallas"))
+
+``StencilPlan`` keeps the reference's field set and values, so a plan dict
+round-trips between the two packages (:func:`plan_to_dict`,
+:func:`plan_from_dict`).  The port runs one engine so far: the
+layout-resident sweep engine (``backend="pallas", sweep="resident"``),
+whose kernels here are hand-written CUDA for Hopper rather than Pallas —
+the backend keeps its reference name so that plans stay interchangeable.
+Every other backend, sweep engine and plan string raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import stencils
+
+
+def sweep_schedule(k: int, steps: int | None,
+                   remainder: str = "fused", ttile: int = 1
+                   ) -> tuple[list[tuple[int, int]], int]:
+    """The (depth, n_launches) blocks a ``steps``-long k-blocked run
+    executes: the ``ttile``-grouped main k-blocks, the ungrouped k-block
+    leftovers, then the remainder policy ("native": one k=rem sweep;
+    "fused": rem single-step sweeps).  ``steps=None`` yields one canonical
+    depth-``ttile·k`` block.  Returns (chunks, total steps to amortize
+    over).  ``ttile`` only regroups the main k-blocks, so any (steps, k,
+    remainder) run is bit-identical at every ttile."""
+    k = max(k, 1)
+    ttile = max(ttile, 1)
+    if steps is None:
+        return [(k * ttile, 1)], k * ttile
+    n_main, rem = divmod(steps, k)
+    n_tt, tt_rem = divmod(n_main, ttile)
+    chunks = []
+    if n_tt:
+        chunks.append((k * ttile, n_tt))
+    if tt_rem:
+        chunks.append((k, tt_rem))
+    if rem:
+        chunks.append((rem, 1) if remainder == "native" else (1, rem))
+    return chunks, steps
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """An execution plan; the field set and values are the reference's.
+
+    ``backend="pallas"`` names the layout-resident sweep engine, which the
+    port runs on hand-written CUDA kernels (``kernels/csrc``) on a CUDA
+    tensor and on their plain PyTorch versions on a CPU tensor.
+    """
+    scheme: str = "transpose"
+    k: int = 2
+    tiling: str = "none"           # none | tessellate
+    tile: tuple[int, ...] | None = None
+    height: int | None = None      # tessellation height (defaults to k)
+    vl: int = 8
+    m: int | None = None
+    backend: str = "jnp"           # jnp | pallas | mxu | distributed
+    t0: int | None = None          # n-D axis-0 rows per kernel tile
+    remainder: str = "fused"       # fused | native — steps % k policy
+    sweep: str = "resident"        # resident | roundtrip
+    decomp: tuple[int, ...] | None = None   # distributed: shards per axis
+    ttile: int = 1                 # temporal tile: k-blocks per launch
+    overlap: bool = False          # distributed resident: halo overlap
+
+
+def plan_to_dict(plan: StencilPlan) -> dict:
+    d = dataclasses.asdict(plan)
+    d["tile"] = list(plan.tile) if plan.tile is not None else None
+    d["decomp"] = list(plan.decomp) if plan.decomp is not None else None
+    return d
+
+
+def plan_from_dict(d: dict) -> StencilPlan:
+    d = dict(d)
+    if d.get("tile") is not None:
+        d["tile"] = tuple(d["tile"])
+    if d.get("decomp") is not None:
+        d["decomp"] = tuple(d["decomp"])
+    return StencilPlan(**d)
+
+
+# ROADMAP items that port what the reference runs for these plan values.
+_NOT_PORTED = {
+    "jnp": "the jnp schemes (ROADMAP A5)",
+    "mxu": "the MXU matrixization engine (ROADMAP A7)",
+    "distributed": "the distributed runtime (ROADMAP A9)",
+    "roundtrip": "the roundtrip sweep engine (ROADMAP A4)",
+    "auto": "the autotuner behind plan='auto' (ROADMAP A6)",
+    "default": "the default jnp plan (ROADMAP A5)",
+}
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card.  Without a CUDA device that raises: the
+    caller asks for the CPU explicitly, it is never chosen quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+class StencilProblem:
+    def __init__(self, name: str, shape: Sequence[int],
+                 dtype: torch.dtype = torch.float32, device=None):
+        self.spec = stencils.make(name)
+        if len(shape) != self.spec.ndim:
+            raise ValueError(f"{name} needs a {self.spec.ndim}-D shape, got {tuple(shape)}")
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.device = _resolve_device(device)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> torch.Tensor:
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(self.shape, generator=gen, dtype=self.dtype,
+                           device=self.device)
+
+    def reference(self, x: torch.Tensor, steps: int, bc="periodic") -> torch.Tensor:
+        return stencils.apply_steps(self.spec, x, steps, bc)
+
+    # ------------------------------------------------------------------
+    def run(self, x: torch.Tensor, steps: int,
+            plan: StencilPlan | str = "auto") -> torch.Tensor:
+        """Advance ``x`` by ``steps`` Jacobi steps (periodic BC) under
+        ``plan``.  Any step count is valid: the ``steps % k`` remainder
+        runs under ``plan.remainder`` inside the same resident run."""
+        if isinstance(plan, str):
+            if plan in ("auto", "default"):
+                raise NotImplementedError(
+                    f"plan={plan!r} is not ported yet: it needs {_NOT_PORTED[plan]}; "
+                    "pass a StencilPlan")
+            raise ValueError(f"unknown plan {plan!r}; expected 'auto', "
+                             f"'default' or a StencilPlan")
+        if not isinstance(plan, StencilPlan):
+            raise TypeError(f"plan must be a StencilPlan, got {type(plan).__name__}")
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"expected a grid of shape {self.shape}, got {tuple(x.shape)}")
+        if plan.ttile > 1 and not (
+                plan.backend in ("distributed", "mxu")
+                or (plan.backend == "pallas" and plan.sweep == "resident")):
+            raise ValueError(
+                f"ttile={plan.ttile} requires a resident sweep engine "
+                "(backend='pallas' with sweep='resident', backend='mxu', "
+                "or backend='distributed')")
+        if plan.overlap and not (plan.backend == "distributed"
+                                 and plan.scheme == "transpose"
+                                 and plan.sweep == "resident"):
+            raise ValueError(
+                "overlap=True requires the distributed shard-resident "
+                "engine (backend='distributed', scheme='transpose', "
+                "sweep='resident')")
+        if plan.backend in ("jnp", "mxu", "distributed"):
+            raise NotImplementedError(
+                f"backend={plan.backend!r} is not ported yet: it needs "
+                f"{_NOT_PORTED[plan.backend]}")
+        if plan.backend != "pallas":
+            raise ValueError(f"unknown backend {plan.backend!r}")
+        if plan.sweep == "roundtrip":
+            raise NotImplementedError(
+                f"sweep='roundtrip' is not ported yet: it needs {_NOT_PORTED['roundtrip']}")
+        if plan.sweep != "resident":
+            raise ValueError(f"unknown sweep engine {plan.sweep!r}")
+        from repro_torch.kernels import ops
+        # m=None means "pick the tile"; an explicit (vl, m) pair is honored.
+        vl = plan.vl if plan.m is not None else None
+        return ops.stencil_sweep_periodic(
+            self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
+            remainder=plan.remainder, ttile=plan.ttile)
+
+    # ------------------------------------------------------------------
+    def model_flops(self, steps: int) -> int:
+        return stencils.model_flops(self.spec, self.shape, steps)
+
+    def model_bytes(self, steps: int, k: int = 1) -> int:
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return stencils.model_bytes(self.spec, self.shape, steps,
+                                    itemsize=itemsize, k=k)

@@ -1,0 +1,113 @@
+"""Build the CUDA sources of ``kernels/csrc`` with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<hash>/<name>.so`` under
+the checkout root, where ``<hash>`` covers every source and the compiler
+flags, so an edited source builds anew and an unchanged one is reused.  The
+libraries have a plain C interface and are loaded with ``ctypes``; no
+PyTorch header is compiled, which keeps a build to seconds.  A build writes
+to a temporary name and moves the result into place, so a build cut short
+never leaves a library behind.  A failed build raises with nvcc's stderr.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("transpose", "stencil_sweep")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch/<hash of sources and flags>`` under the checkout."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    root = Path(__file__).resolve().parents[3]
+    return root / "build" / "repro_torch" / h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                           "kernels are built from source at first use")
+    return str(path)
+
+
+def _start(name: str, out_dir: Path) -> tuple[subprocess.Popen, Path, Path]:
+    tmp = out_dir / f"{name}.so.tmp{os.getpid()}"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out_dir / f"{name}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Build every missing library, one nvcc per source, all started
+    together.  Returns nvcc's report (``-Xptxas -v``) per source built."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not (out_dir / f"{n}.so").exists()]
+    jobs = {n: _start(n, out_dir) for n in todo}
+    reports, failures = {}, []
+    for name, (proc, tmp, final) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{err}{out}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, final)
+        reports[name] = err + out
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_dir() / f"{name}.so"
+            if not path.exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            _declare(name, lib)
+            _libs[name] = lib
+        return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    if name == "transpose":
+        lib.repro_transpose.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
+        lib.repro_transpose.restype = ctypes.c_int
+        lib.repro_transpose_smem_bytes.argtypes = [i64, i64, i64]
+        lib.repro_transpose_smem_bytes.restype = i64
+    elif name == "stencil_sweep":
+        lib.repro_stencil_sweep_f32.argtypes = [ptr, ptr] + [i64] * 16 + [ptr, ptr, i64, ptr]
+        lib.repro_stencil_sweep_f32.restype = ctypes.c_int
+        lib.repro_stencil_max_taps.argtypes = []
+        lib.repro_stencil_max_taps.restype = i64
+    else:
+        raise ValueError(f"unknown kernel library {name!r}")
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

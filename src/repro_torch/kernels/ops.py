@@ -1,0 +1,88 @@
+"""The layout-resident sweep driver and the GPU tile picker.
+
+``stencil_sweep_periodic`` is what ``StencilProblem.run`` calls for
+``backend="pallas", sweep="resident"``: transpose into the (…, nb, m, vl)
+layout once (K2), run every chunk of ``core.api.sweep_schedule`` as sweep
+launches of that depth (K1 in 1-D, K3 in 2-D/3-D), transpose out once.
+The grid stays in layout for the whole run; two layout buffers are
+ping-ponged between launches, so a run allocates two layout-sized buffers
+whatever its step count.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.api import sweep_schedule
+from repro_torch.core.stencils import StencilSpec
+from repro_torch.kernels import stencil_kernels as sk
+
+DEFAULT_VL = 32                  # one warp of lanes: a 128-byte f32 row
+M_CHOICES = (8, 4, 2, 1)         # vectors per set, largest first
+DEFAULT_T0 = {2: 32, 3: 16}      # axis-0 rows of a sweep kernel's tile
+
+
+def pick_tile(spec: StencilSpec, shape, vl: int | None = None,
+              m: int | None = None, t0: int | None = None):
+    """GPU tile: ``vl=32`` and the largest ``m`` in (8, 4, 2, 1) with
+    ``m >= r`` and ``vl·m`` dividing the minor extent; for n-D grids the
+    largest axis-0 tile ``t0 <= DEFAULT_T0`` dividing ``shape[0]`` with
+    ``t0 >= r``.  An explicit ``vl``, ``m`` or ``t0`` is honored (and
+    checked); a ValueError names the shape where no tile is legal."""
+    n_minor, r = shape[-1], spec.r
+    vl_req, m_req = vl, m
+    vl = vl or DEFAULT_VL
+    cands = (m,) if m else M_CHOICES
+    fit = [c for c in cands if c >= r and n_minor % (vl * c) == 0]
+    if not fit:
+        raise ValueError(
+            f"no legal GPU tile for stencil {spec.name!r} on shape {tuple(shape)}: "
+            f"need m >= r={r} with vl*m dividing n_minor={n_minor}"
+            + (f" at vl={vl}" if vl_req else f" (vl={vl})")
+            + (f", m={m_req}" if m_req else ""))
+    m = fit[0]
+    if len(shape) == 1:
+        return vl, m, None
+    n0 = shape[0]
+    if t0 is None:
+        t0 = min(DEFAULT_T0[len(shape)], n0)
+        while n0 % t0:
+            t0 -= 1
+    if t0 < r or n0 % t0:
+        raise ValueError(
+            f"no legal axis-0 tile for stencil {spec.name!r} on shape "
+            f"{tuple(shape)}: need t0 >= r={r} dividing n0={n0} (t0={t0})")
+    return vl, m, t0
+
+
+def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
+                           k: int = 2, vl: int | None = None,
+                           m: int | None = None, t0: int | None = None,
+                           remainder: str = "fused", donate: bool = False,
+                           ttile: int = 1) -> torch.Tensor:
+    """Advance ``x`` by ``steps`` periodic steps, layout-resident.
+
+    The run is the chunks of ``sweep_schedule(k, steps, remainder,
+    ttile)``: a depth-``ttile·k`` chunk is one time-tiled launch, plain
+    k-blocks and the remainder ("native": one k=rem sweep, "fused": rem
+    single steps) run at ``ttile=1``.  ``donate=True`` writes the result
+    into ``x``'s storage (the input is then overwritten) instead of a new
+    tensor."""
+    if remainder not in ("fused", "native"):
+        raise ValueError(f"unknown remainder policy {remainder!r}")
+    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
+    if steps <= 0:
+        return x
+    chunks, _ = sweep_schedule(k, steps, remainder, ttile)
+    if spec.ndim == 1:
+        def sweep(v, kk, tt, out):
+            return sk.stencil1d_sweep_ttile(spec, v, kk, tt, out=out)
+    else:
+        def sweep(v, kk, tt, out):
+            return sk.stencil_nd_sweep_ttile(spec, v, kk, tt, t0, out=out)
+    a = sk.block_transpose(x.contiguous(), vl, m)
+    b = torch.empty_like(a)
+    for depth, n in chunks:
+        kk, tt = (k, depth // k) if depth > k and depth % k == 0 else (depth, 1)
+        for _ in range(n):
+            a, b = sweep(a, kk, tt, b), a
+    return sk.block_untranspose(a, vl, m, out=x if donate else None)

@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every case compares bit for bit (``torch.equal``): the kernels sum the taps
+in the spec's order with one multiply and one add each (built with
+``-fmad=false``), as the plain versions do.  Without a CUDA device every
+test skips; run them where there is one with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import layouts, stencils
+from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
+from repro_torch.kernels import ops
+from repro_torch.kernels import stencil_kernels as sk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _x(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("shape,vl,m", [
+    ((256,), 8, 8), ((4096,), 32, 8), ((6, 8192), 32, 4), ((3, 5, 512), 32, 2),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_transpose_kernel_bitwise(cuda, shape, vl, m, dtype):
+    x = _x(shape, 0, cuda).to(dtype)
+    t = sk.block_transpose(x, vl, m)
+    assert torch.equal(t, sk.block_transpose_ref(x, vl, m))
+    back = sk.block_untranspose(t, vl, m)
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("name,shape,vl,m,t0", [
+    ("1d3p", (1 << 16,), 32, 8, None),
+    ("1d3p", (64,), 8, 4, None),            # nb=2: halo wraps past the grid
+    ("1d5p", (5 * 1024,), 32, 4, None),
+    ("2d5p", (96, 1024), 32, 8, 32),
+    ("2d5p", (4, 64), 8, 4, 2),             # halo deeper than the grid
+    ("2d9p", (64, 512), 32, 8, 16),
+    ("3d7p", (16, 12, 256), 32, 8, 8),
+    ("3d27p", (8, 6, 128), 32, 4, 4),
+])
+def test_sweep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth):
+    spec = stencils.make(name)
+    t = layouts.to_transpose_layout(_x(shape, 1, cuda), vl, m)
+    if spec.ndim == 1:
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
+        want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
+    else:
+        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+        want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_sweep_kernel_counts_and_raises(cuda):
+    spec = stencils.make("3d7p")
+    t = layouts.to_transpose_layout(_x((8, 8, 256), 2, cuda), 32, 8)
+    sk.reset_launches()
+    sk.stencil_nd_sweep_ttile(spec, t, 2, 1, 8)
+    assert sk.LAUNCHES == {"transpose": 0, "sweep_nd": 1, "sweep_1d": 0}
+    with pytest.raises(NotImplementedError, match="D1"):
+        sk.stencil_nd_sweep_ttile(spec, t.double(), 2, 1, 8)
+    with pytest.raises(ValueError, match="D2"):
+        sk.stencil_nd_sweep_ttile(spec, t, 32, 1, 8)
+    with pytest.raises(ValueError, match="in place"):
+        sk.stencil_nd_sweep_ttile(spec, t, 1, 1, 8, out=t)
+
+
+@pytest.mark.parametrize("remainder", ["fused", "native"])
+@pytest.mark.parametrize("name,shape", [
+    ("1d3p", (1 << 15,)), ("2d5p", (64, 1024)), ("3d7p", (16, 16, 256)),
+])
+def test_main_path_matches_plain(cuda, name, shape, remainder):
+    prob = StencilProblem(name, shape)
+    x = prob.init(0)
+    plan = StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+                       remainder=remainder)
+    sk.reset_launches()
+    got = prob.run(x, 7, plan)
+    assert sk.LAUNCHES["transpose"] == 2
+    chunks, _ = sweep_schedule(2, 7, remainder, 2)
+    assert sk.LAUNCHES["sweep_1d" if prob.spec.ndim == 1 else "sweep_nd"] == \
+        sum(n for _, n in chunks)
+    want = stencils.apply_steps(prob.spec, x, 7)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    donated = ops.stencil_sweep_periodic(prob.spec, x.clone(), 7, k=2, ttile=2,
+                                         remainder=remainder, donate=True)
+    assert torch.equal(donated, got)
