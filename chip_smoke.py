@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, one JSON line each, and any failure ends the script with a non-zero
-exit code:
+exit code.  Every path is driven with the launch counters set to 0 just
+before it and read just after; each path must launch exactly the kernels
+its schedule implies (every counter is compared, so a stray launch fails
+too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
+``init(seed)``, GPU default tile).
 
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, started together) and reports the time;
-  kernels    at the main path's shapes, each kernel (K2 transpose, K1 1-D
-             sweep, K3 n-D sweep) against its plain PyTorch version, bit for
-             bit, and its time beside the plain version's, a library call's
-             and its bound (CUDA events, median of repeats, after warm-up);
-  main_path  ``StencilProblem(name, shape).run(x, steps, plan)`` for 1d3p at
-             2**26, 2d5p at 8192**2 and 3d7p at 512**3 (f32, ``init(seed)``),
-             each under two resident plans: the launch counters must rise by
-             exactly the sweep schedule's launches and the result must match
-             the port's plain path on the same tensors;
-  small      3d7p at (16, 16, 256) on the card and on the CPU against the
+  main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
+             (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
+             per sweep; the result equals the port's plain path bit for bit;
+  roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
+             K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
+             result equals the resident run at ttile 1 and 2 bit for bit;
+  dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
+             Dirichlet ring, K2 per sweep), bit for bit its plain path;
+  onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
+             (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, bit
+             for bit the periodic oracle;
+  kernels    at those paths' shapes, each kernel against its plain PyTorch
+             version, bit for bit, and its time beside the plain version's,
+             a library call's and its bound (CUDA events, median of repeats,
+             after warm-up);
+  small      3d7p at (16, 16, 256) resident, and 2d5p at (64, 256) through
+             ``ops.stencil_run``, on the card and on the CPU against the
              float64 numpy oracle.
 
 Then the ``kernels`` summary line, the card's name and power limit as
@@ -40,15 +51,25 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 0
 CASES = (("1d3p", (1 << 26,)), ("2d5p", (8192, 8192)), ("3d7p", (512, 512, 512)))
-PLANS = (("fused", 16), ("native", 7))     # (remainder, steps), k=2, ttile=2
+PLANS = (("fused", 16), ("native", 7))     # (remainder, steps), k=2
+K = 2
+TTILE = 2                                  # the resident plans' temporal tile
+DIRICHLET_STEPS = 16
+ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
+    "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
 }
+_SK = "src/repro/kernels/stencil_kernels.py"
 REPLACES = {
-    "K1": "src/repro/kernels/stencil_kernels.py:114 (_kernel_1d via stencil1d_sweep_ttile)",
-    "K2": "src/repro/kernels/stencil_kernels.py:567 (_kernel_transpose via block_transpose/block_untranspose)",
-    "K3": "src/repro/kernels/stencil_kernels.py:339 (_kernel_nd via stencil_nd_sweep_ttile)",
+    "K1": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
+    "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
+    "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
+    "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
+    "K4b": f"{_SK}:339 (_kernel_nd via stencil_nd_multistep :398, stencil_nd_sweep_halo :262)",
+    "K5a": f"{_SK}:620 (_kernel_naive_1d via stencil1d_naive_onestep :634)",
+    "K5b": f"{_SK}:651 (_kernel_transpose_1d via stencil1d_transpose_onestep :669)",
 }
 
 
@@ -81,6 +102,7 @@ def main() -> int:
     from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
     from repro_torch.core.timing import bench
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels import stencil_kernels as sk
 
     torch.backends.cudnn.allow_tf32 = False
@@ -99,10 +121,34 @@ def main() -> int:
     def ms(fn, *args):
         return bench(fn, *args, device=dev, warmup=1, iters=5, min_time_s=0.1) * 1e3
 
-    def plain_path(spec, x, steps, remainder, vl, m, t0):
-        """The main path on the plain versions only (no kernel launches)."""
+    def counted(what, fn, owned):
+        """Run ``fn`` with every counter at 0 before; the counters after
+        must be exactly ``owned`` (all others 0).  Returns (result,
+        seconds, counters)."""
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        got = dict(sk.LAUNCHES)
+        want = dict.fromkeys(got, 0) | owned
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, the schedule says {want}")
+        return out, seconds, got
+
+    def same(what, got, want):
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: bad output")
+        err = (got.double() - want.double()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from its reference by {err}")
+        return err
+
+    def resident_plain(spec, x, steps, remainder, vl, m, t0):
+        """The resident path on the plain versions only (no launches)."""
         t = sk.block_transpose_ref(x, vl, m)
-        for depth, n in sweep_schedule(2, steps, remainder, 2)[0]:
+        for depth, n in sweep_schedule(K, steps, remainder, TTILE)[0]:
             for _ in range(n):
                 if spec.ndim == 1:
                     t = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
@@ -110,14 +156,44 @@ def main() -> int:
                     t = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
         return sk.block_untranspose_ref(t, vl, m)
 
-    def conv_steps(spec, x, depth, weight):
+    def dirichlet_plain(spec, x, steps, vl, m, t0):
+        """``ops.stencil_run`` on the plain versions only."""
+        for _ in range(steps // K):
+            t = sk.block_transpose_ref(x, vl, m)
+            if spec.ndim == 1:
+                t = sk.stencil1d_multistep_ref(spec, t, K)
+            else:
+                t = sk.stencil_nd_multistep_ref(spec, t, K, t0)
+            x = sk.block_untranspose_ref(t, vl, m)
+        return x
+
+    def conv_steps(spec, x, depth, weight, edge=False):
+        """``depth`` library convolutions: circular padding on every axis,
+        or (``edge``) zeros beyond axis 0 and circular elsewhere."""
         conv = (F.conv1d, F.conv2d, F.conv3d)[spec.ndim - 1]
         v = x[None, None]
+        r = spec.r
         for _ in range(depth):
-            v = conv(F.pad(v, (spec.r,) * (2 * spec.ndim), mode="circular"), weight)
+            if edge:
+                if spec.ndim > 1:
+                    v = F.pad(v, (r,) * (2 * spec.ndim - 2) + (0, 0), mode="circular")
+                v = F.pad(v, (0, 0) * (spec.ndim - 1) + (r, r))
+            else:
+                v = F.pad(v, (r,) * (2 * spec.ndim), mode="circular")
+            v = conv(v, weight)
         return v[0, 0]
 
     entries = []
+
+    def row(kid, fname, label, src, launches, err, kern, plain, b, library):
+        entries.append({
+            "name": f"{kid} {fname} [{label}]", "route": "cuda", "source": SOURCES[src],
+            "replaces": REPLACES[kid], "launches": launches, "max_abs_err": err,
+            "ms": ms(kern), "plain_ms": ms(plain), "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": library() if library else None,
+        })
+        emit({"phase": "kernels", **entries[-1]})
+
     for name, shape in CASES:
         prob = StencilProblem(name, shape)
         spec = prob.spec
@@ -125,70 +201,101 @@ def main() -> int:
         vl, m, t0 = ops.pick_tile(spec, shape)
         numel, itemsize = x.numel(), x.element_size()
         grid_bytes = 2 * numel * itemsize
+        dims = "x".join(map(str, shape))
+        sweep_key = "sweep_1d" if spec.ndim == 1 else "sweep_nd"
+        multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
+        weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
-        # -- main path (counted; one short uncounted run loads the kernels) --
-        prob.run(x, 2, StencilPlan(backend="pallas", sweep="resident", k=2))
-        sk.reset_launches()
-        runs = []
-        for remainder, steps in PLANS:
-            plan = StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+        def plan_of(sweep, remainder, ttile=1):
+            return StencilPlan(backend="pallas", sweep=sweep, k=K, ttile=ttile,
                                remainder=remainder)
+
+        # -- main path: resident (one short uncounted run loads the kernels) --
+        prob.run(x, 2, plan_of("resident", "fused"))
+        resident, counts = {}, {}
+        for remainder, steps in PLANS:
+            launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
+            y, seconds, got = counted(
+                f"{name} resident {remainder}",
+                lambda: prob.run(x, steps, plan_of("resident", remainder, TTILE)),
+                {"transpose": 2, sweep_key: launches})
+            counts[("resident", remainder)] = got
+            err = same(f"{name} resident {remainder} vs plain", y,
+                       resident_plain(spec, x, steps, remainder, vl, m, t0))
+            resident[remainder] = (y, seconds)
+            emit({"phase": "main_path", "case": name, "shape": list(shape),
+                  "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+                  "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
+                  "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
+                  "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
+                  "max_abs_err_vs_plain": err, "bitwise": True})
+
+        # -- roundtrip: the same runs, one pad/transpose/K4/transpose per sweep
+        prob.run(x, 2, plan_of("roundtrip", "fused"))
+        for remainder, steps in PLANS:
+            sweeps = sum(n for _, n in sweep_schedule(K, steps, remainder, 1)[0])
+            y, seconds, got = counted(
+                f"{name} roundtrip {remainder}",
+                lambda: prob.run(x, steps, plan_of("roundtrip", remainder)),
+                {"transpose": 2 * sweeps, multi_key: sweeps})
+            counts[("roundtrip", remainder)] = got
+            res2, res2_s = resident[remainder]
+            same(f"{name} roundtrip {remainder} vs resident ttile={TTILE}", y, res2)
             torch.cuda.synchronize()
             start = time.perf_counter()
-            y = prob.run(x, steps, plan)
+            res1 = prob.run(x, steps, plan_of("resident", remainder, 1))
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            runs.append((remainder, steps, y, seconds))
-        launches = dict(sk.LAUNCHES)
-        want_sweeps = sum(n for rem, steps in PLANS
-                          for _, n in sweep_schedule(2, steps, rem, 2)[0])
-        sweep_key = "sweep_1d" if spec.ndim == 1 else "sweep_nd"
-        want = {"transpose": 2 * len(PLANS), "sweep_1d": 0, "sweep_nd": 0}
-        want[sweep_key] = want_sweeps
-        if launches != want:
-            raise AssertionError(f"{name}: launches {launches}, schedule says {want}")
-        for remainder, steps, y, seconds in runs:
-            ref = plain_path(spec, x, steps, remainder, vl, m, t0)
-            if y.shape != x.shape or not bool(torch.isfinite(y).all()):
-                raise AssertionError(f"{name} {remainder}: bad output")
-            err = (y - ref).abs().max().item()
-            if not torch.allclose(y, ref, rtol=1e-6, atol=1e-6):
-                raise AssertionError(f"{name} {remainder}: max |kernel - plain| = {err}")
-            emit({"phase": "main_path", "case": name, "shape": list(shape),
-                  "plan": {"k": 2, "ttile": 2, "remainder": remainder}, "steps": steps,
-                  "schedule": sweep_schedule(2, steps, remainder, 2)[0],
-                  "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
-                  "gpoint_updates_per_s": numel * steps / seconds,
-                  "max_abs_err_vs_plain": err, "bitwise": bool(torch.equal(y, ref))})
-            del ref
-        del runs, y
+            res1_s = time.perf_counter() - start
+            err = same(f"{name} roundtrip {remainder} vs resident ttile=1", y, res1)
+            emit({"phase": "roundtrip", "case": name, "shape": list(shape),
+                  "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
+                  "steps": steps, "sweeps": sweeps, "launches": got,
+                  "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
+                  "resident_seconds": {"ttile=1": res1_s, f"ttile={TTILE}": res2_s},
+                  "resident_gpoint_updates_per_s": {
+                      "ttile=1": numel * steps / res1_s,
+                      f"ttile={TTILE}": numel * steps / res2_s},
+                  "roundtrip_over_resident_ttile2": seconds / res2_s,
+                  "max_abs_err_vs_resident": err, "bitwise_ttile1_and_2": True})
+            del y, res1
+        del resident
+
+        # -- dirichlet: ops.stencil_run, the Dirichlet ring along axis 0 ------
+        sweeps = DIRICHLET_STEPS // K
+        y, seconds, got = counted(
+            f"{name} dirichlet",
+            lambda: ops.stencil_run(spec, x, DIRICHLET_STEPS, k=K),
+            {"transpose": 2 * sweeps, multi_key: sweeps})
+        counts["dirichlet"] = got
+        err = same(f"{name} dirichlet vs plain", y,
+                   dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, t0))
+        emit({"phase": "dirichlet", "case": name, "shape": list(shape), "k": K,
+              "steps": DIRICHLET_STEPS, "launches": got, "seconds": seconds,
+              "gpoint_updates_per_s": numel * DIRICHLET_STEPS / seconds,
+              "max_abs_err_vs_plain": err, "bitwise": True})
+        del y
+        launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
 
         # -- K2: transpose in and out --------------------------------------
         t = sk.block_transpose(x, vl, m)
         back = sk.block_untranspose(t, vl, m)
-        err = max((t - sk.block_transpose_ref(x, vl, m)).abs().max().item(),
-                  (back - x).abs().max().item())
-        if not (torch.equal(t, sk.block_transpose_ref(x, vl, m)) and torch.equal(back, x)):
-            raise AssertionError(f"{name}: transpose kernel differs from its plain version")
+        err = max(same(f"{name} transpose", t, sk.block_transpose_ref(x, vl, m)),
+                  same(f"{name} untranspose", back, x))
+        del back
         buf = torch.empty_like(t)
         nb_total = numel // (vl * m)
-        entries.append({
-            "name": f"K2 block_transpose [{name} {'x'.join(map(str, shape))} vl={vl} m={m}]",
-            "route": "cuda", "source": SOURCES["transpose"], "replaces": REPLACES["K2"],
-            "launches": launches["transpose"], "max_abs_err": err,
-            "ms": ms(lambda: sk.block_transpose(x, vl, m, out=buf)),
-            "plain_ms": ms(lambda: sk.block_transpose_ref(x, vl, m)),
-            "bound_ms": bound(grid_bytes, 0)[0], "bound_by": "bytes",
-            "library_ms": ms(lambda: x.view(nb_total, vl, m).transpose(-1, -2).contiguous()),
-        })
-        emit({"phase": "kernels", **entries[-1]})
-        del back
+        row("K2", "block_transpose", f"{name} {dims} vl={vl} m={m}", "transpose",
+            launched["transpose"], err,
+            lambda: sk.block_transpose(x, vl, m, out=buf),
+            lambda: sk.block_transpose_ref(x, vl, m),
+            bound(grid_bytes, 0),
+            lambda: ms(lambda: x.view(nb_total, vl, m).transpose(-1, -2).contiguous()))
 
-        # -- K1 / K3: the sweep at every depth the main path launches -------
+        # -- K1 / K3: the resident sweep at every depth the main path launches
         kid = "K1" if spec.ndim == 1 else "K3"
-        weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+        fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
         for depth in (4, 2, 1):
-            kk, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+            kk, tt = (K, depth // K) if depth > K else (depth, 1)
             if spec.ndim == 1:
                 def kern():
                     return sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf)
@@ -201,41 +308,112 @@ def main() -> int:
 
                 def plain():
                     return sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t0)
-            got, ref = kern(), plain()
-            err = (got - ref).abs().max().item()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"{name} depth {depth}: sweep kernel differs from "
-                                     f"its plain version by {err}")
-            del ref
-            b_ms, b_by = bound(grid_bytes, depth * spec.flops_per_point * numel)
-            fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
-            entries.append({
-                "name": f"{kid} {fname} [{name} {'x'.join(map(str, shape))} depth={depth}]",
-                "route": "cuda", "source": SOURCES["sweep"], "replaces": REPLACES[kid],
-                "launches": launches[sweep_key], "max_abs_err": err,
-                "ms": ms(kern), "plain_ms": ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": ms(conv_steps, spec, x, depth, weight),
-            })
-            emit({"phase": "kernels", **entries[-1]})
-        del x, t, buf, got, weight
+            err = same(f"{name} {kid} depth {depth}", kern(), plain())
+            row(kid, fname, f"{name} {dims} depth={depth}", "sweep",
+                launched[sweep_key], err, kern, plain,
+                bound(grid_bytes, depth * spec.flops_per_point * numel),
+                lambda: ms(conv_steps, spec, x, depth, weight))
+        del t, buf
+
+        # -- K4: the multistep sweep at the roundtrip's padded shape ---------
+        kid = "K4a" if spec.ndim == 1 else "K4b"
+        fname = "stencil1d_multistep" if spec.ndim == 1 else "stencil_nd_multistep"
+        block = vl * m if spec.ndim == 1 else t0
+        pad = sk.sweep_halo_blocks(spec.r, K, block) * block
+        xp = ops.wrap_pad(x, pad)
+        tp = sk.block_transpose(xp, vl, m)
+        bufp = torch.empty_like(tp)
+        pdims = "x".join(map(str, xp.shape))
+        for edge_mask in (False, True):
+            for depth in (K, 1):
+                if spec.ndim == 1:
+                    def kern():
+                        return sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=bufp)
+
+                    def plain():
+                        return sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask)
+                else:
+                    def kern():
+                        return sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask,
+                                                       out=bufp)
+
+                    def plain():
+                        return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
+                edge = "ring" if edge_mask else "open"
+                err = same(f"{name} {kid} {edge} depth {depth}", kern(), plain())
+                row(kid, fname,
+                    f"{name} {pdims} {edge} depth={depth}; library: zero pad on axis 0, "
+                    "no ring restore", "sweep", launched[multi_key], err, kern, plain,
+                    bound(2 * xp.numel() * itemsize,
+                          depth * spec.flops_per_point * xp.numel()),
+                    lambda: ms(conv_steps, spec, xp, depth, weight, True))
+        del x, xp, tp, bufp, weight
         torch.cuda.empty_cache()
 
-    # -- small case on the card and on the CPU against the f64 oracle --------
-    spec = stencils.make("3d7p")
-    shape, steps = (16, 16, 256), 16
-    plan = StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2)
+    # -- onestep: the layout A/B, and its K5 rows --------------------------
+    vl, m = 32, 8
+    for name, n in ONESTEP:
+        spec = stencils.make(name)
+        x = StencilProblem(name, (n,)).init(SEED)
+        want = kref.onestep_periodic_ref(spec, x)
+        ops.stencil_onestep_naive(spec, x, vl)            # uncounted: loads the kernels
+        ops.stencil_onestep_transpose(spec, x, vl, m)
+        naive, s_naive, c_naive = counted(f"{name} onestep naive",
+                                          lambda: ops.stencil_onestep_naive(spec, x, vl),
+                                          {"onestep_naive": 1})
+        trans, s_trans, c_trans = counted(f"{name} onestep transpose",
+                                          lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
+                                          {"onestep_transpose": 1, "transpose": 2})
+        err_naive = same(f"{name} onestep naive", naive, want)
+        err_trans = same(f"{name} onestep transpose", trans, want)
+        emit({"phase": "onestep", "case": name, "shape": [n], "vl": vl, "m": m,
+              "naive": {"seconds": s_naive, "launches": c_naive},
+              "transpose": {"seconds": s_trans, "launches": c_trans},
+              "bitwise": True})
+        weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+        b = bound(2 * n * 4, spec.flops_per_point * n)
+        out = torch.empty_like(x)
+        row("K5a", "stencil1d_naive_onestep", f"{name} {n} vl={vl}", "onestep",
+            c_naive["onestep_naive"], err_naive,
+            lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
+            lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
+            lambda: ms(conv_steps, spec, x, 1, weight))
+        t = sk.block_transpose(x, vl, m)
+        tout = torch.empty_like(t)
+        row("K5b", "stencil1d_transpose_onestep", f"{name} {n} vl={vl} m={m}", "onestep",
+            c_trans["onestep_transpose"], err_trans,
+            lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
+            lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
+            lambda: ms(conv_steps, spec, x, 1, weight))
+        del x, want, naive, trans, t, tout, out
+        torch.cuda.empty_cache()
+
+    # -- small cases on the card and on the CPU against the f64 oracle -------
+    def small(case, spec, x, run, steps, bc):
+        y_gpu = run(x).cpu()
+        y_cpu = run(x.cpu())
+        oracle = x.cpu().double().numpy()
+        for _ in range(steps):
+            oracle = stencils.numpy_apply_once(spec, oracle, bc)
+        errs = {"gpu_vs_f64": float(np.abs(y_gpu.double().numpy() - oracle).max()),
+                "cpu_vs_f64": float(np.abs(y_cpu.double().numpy() - oracle).max()),
+                "gpu_vs_cpu": float((y_gpu - y_cpu).abs().max())}
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"small {case} off the f64 oracle: {errs}")
+        emit({"phase": "small", "case": case, "shape": list(x.shape), "steps": steps,
+              "bc": bc, **errs})
+
+    steps = 16
+    plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE)
+    shape = (16, 16, 256)
     x = StencilProblem("3d7p", shape).init(SEED)
-    y_gpu = StencilProblem("3d7p", shape).run(x, steps, plan).cpu()
-    y_cpu = StencilProblem("3d7p", shape, device="cpu").run(x.cpu(), steps, plan)
-    oracle = x.cpu().double().numpy()
-    for _ in range(steps):
-        oracle = stencils.numpy_apply_once(spec, oracle)
-    errs = {"gpu_vs_f64": float(np.abs(y_gpu.double().numpy() - oracle).max()),
-            "cpu_vs_f64": float(np.abs(y_cpu.double().numpy() - oracle).max()),
-            "gpu_vs_cpu": float((y_gpu - y_cpu).abs().max())}
-    if max(errs.values()) > 1e-5:
-        raise AssertionError(f"small 3d7p case off the f64 oracle: {errs}")
-    emit({"phase": "small", "case": "3d7p", "shape": list(shape), "steps": steps, **errs})
+    small("3d7p", stencils.make("3d7p"), x,
+          lambda v: StencilProblem("3d7p", shape, device=v.device).run(v, steps, plan),
+          steps, "periodic")
+    spec = stencils.make("2d5p")
+    x = StencilProblem("2d5p", (64, 256)).init(SEED)
+    small("2d5p dirichlet", spec, x, lambda v: ops.stencil_run(spec, v, steps, k=K),
+          steps, kref.kernel_bc(2))
 
     emit({"kernels": entries})
     print(gpu, flush=True)

@@ -6,12 +6,13 @@
 
 ``StencilPlan`` keeps the reference's field set and values, so a plan dict
 round-trips between the two packages (:func:`plan_to_dict`,
-:func:`plan_from_dict`).  The port runs one engine so far: the
-layout-resident sweep engine (``backend="pallas", sweep="resident"``),
-whose kernels here are hand-written CUDA for Hopper rather than Pallas —
-the backend keeps its reference name so that plans stay interchangeable.
-Every other backend, sweep engine and plan string raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+:func:`plan_from_dict`).  The port runs the two ``backend="pallas"``
+engines: the layout-resident sweep engine (``sweep="resident"``) and the
+per-sweep roundtrip engine (``sweep="roundtrip"``), whose kernels here are
+hand-written CUDA for Hopper rather than Pallas — the backend keeps its
+reference name so that plans stay interchangeable.  Every other backend
+and plan string raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def sweep_schedule(k: int, steps: int | None,
 class StencilPlan:
     """An execution plan; the field set and values are the reference's.
 
-    ``backend="pallas"`` names the layout-resident sweep engine, which the
+    ``backend="pallas"`` names the sweep engines (``sweep``), which the
     port runs on hand-written CUDA kernels (``kernels/csrc``) on a CUDA
     tensor and on their plain PyTorch versions on a CPU tensor.
     """
@@ -94,7 +95,6 @@ _NOT_PORTED = {
     "jnp": "the jnp schemes (ROADMAP A5)",
     "mxu": "the MXU matrixization engine (ROADMAP A7)",
     "distributed": "the distributed runtime (ROADMAP A9)",
-    "roundtrip": "the roundtrip sweep engine (ROADMAP A4)",
     "auto": "the autotuner behind plan='auto' (ROADMAP A6)",
     "default": "the default jnp plan (ROADMAP A5)",
 }
@@ -135,7 +135,8 @@ class StencilProblem:
             plan: StencilPlan | str = "auto") -> torch.Tensor:
         """Advance ``x`` by ``steps`` Jacobi steps (periodic BC) under
         ``plan``.  Any step count is valid: the ``steps % k`` remainder
-        runs under ``plan.remainder`` inside the same resident run."""
+        runs under ``plan.remainder`` (inside the same resident run, or as
+        further roundtrip sweeps)."""
         if isinstance(plan, str):
             if plan in ("auto", "default"):
                 raise NotImplementedError(
@@ -167,17 +168,36 @@ class StencilProblem:
                 f"{_NOT_PORTED[plan.backend]}")
         if plan.backend != "pallas":
             raise ValueError(f"unknown backend {plan.backend!r}")
-        if plan.sweep == "roundtrip":
-            raise NotImplementedError(
-                f"sweep='roundtrip' is not ported yet: it needs {_NOT_PORTED['roundtrip']}")
-        if plan.sweep != "resident":
-            raise ValueError(f"unknown sweep engine {plan.sweep!r}")
         from repro_torch.kernels import ops
         # m=None means "pick the tile"; an explicit (vl, m) pair is honored.
         vl = plan.vl if plan.m is not None else None
-        return ops.stencil_sweep_periodic(
-            self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
-            remainder=plan.remainder, ttile=plan.ttile)
+        if plan.sweep == "resident":
+            return ops.stencil_sweep_periodic(
+                self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
+                remainder=plan.remainder, ttile=plan.ttile)
+        if plan.sweep != "roundtrip":
+            raise ValueError(f"unknown sweep engine {plan.sweep!r}")
+        return self._chunked(
+            x, steps, plan.k,
+            lambda v, n, k: ops.stencil_run_periodic(
+                self.spec, v, n, k=k, vl=vl, m=plan.m, t0=plan.t0),
+            remainder=plan.remainder)
+
+    def _chunked(self, x: torch.Tensor, steps: int, k: int, step,
+                 remainder: str = "fused") -> torch.Tensor:
+        """Run ``steps`` as k-blocked sweeps plus a remainder:
+        ``step(x, n_steps, k)`` advances x by n_steps in k-step sweeps.
+        ``remainder="fused"`` runs the leftover steps one at a time (k=1),
+        ``"native"`` as one k=remainder sweep."""
+        if remainder not in ("fused", "native"):
+            raise ValueError(f"unknown remainder policy {remainder!r}")
+        main = steps - steps % k
+        if main:
+            x = step(x, main, k)
+        rem = steps - main
+        if rem:
+            x = step(x, rem, rem if remainder == "native" else 1)
+        return x
 
     # ------------------------------------------------------------------
     def model_flops(self, steps: int) -> int:

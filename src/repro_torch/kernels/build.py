@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep")
+SOURCES = ("transpose", "stencil_sweep", "onestep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,10 +99,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_transpose_smem_bytes.argtypes = [i64, i64, i64]
         lib.repro_transpose_smem_bytes.restype = i64
     elif name == "stencil_sweep":
-        lib.repro_stencil_sweep_f32.argtypes = [ptr, ptr] + [i64] * 16 + [ptr, ptr, i64, ptr]
+        lib.repro_stencil_sweep_f32.argtypes = [ptr, ptr] + [i64] * 18 + [ptr, ptr, i64, ptr]
         lib.repro_stencil_sweep_f32.restype = ctypes.c_int
         lib.repro_stencil_max_taps.argtypes = []
         lib.repro_stencil_max_taps.restype = i64
+    elif name == "onestep":
+        lib.repro_onestep_naive_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
+        lib.repro_onestep_naive_f32.restype = ctypes.c_int
+        lib.repro_onestep_transpose_f32.argtypes = [ptr, ptr] + [i64] * 5 + [ptr, ptr, ptr]
+        lib.repro_onestep_transpose_f32.restype = ctypes.c_int
+        for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_max_taps):
+            fn.argtypes = []
+            fn.restype = i64
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

@@ -1,12 +1,20 @@
-"""The layout-resident sweep driver and the GPU tile picker.
+"""The sweep engines and the GPU tile picker, natural layout in and out.
 
-``stencil_sweep_periodic`` is what ``StencilProblem.run`` calls for
-``backend="pallas", sweep="resident"``: transpose into the (…, nb, m, vl)
-layout once (K2), run every chunk of ``core.api.sweep_schedule`` as sweep
-launches of that depth (K1 in 1-D, K3 in 2-D/3-D), transpose out once.
-The grid stays in layout for the whole run; two layout buffers are
-ping-ponged between launches, so a run allocates two layout-sized buffers
-whatever its step count.
+  * ``stencil_sweep_periodic`` is what ``StencilProblem.run`` calls for
+    ``backend="pallas", sweep="resident"``: transpose into the
+    (…, nb, m, vl) layout once (K2), run every chunk of
+    ``core.api.sweep_schedule`` as sweep launches of that depth (K1 in
+    1-D, K3 in 2-D/3-D), transpose out once.  The grid stays in layout for
+    the whole run; two layout buffers are ping-ponged between launches.
+  * ``stencil_run_periodic`` is the roundtrip engine (``sweep="roundtrip"``):
+    every k-step sweep wrap-pads axis 0 by whole blocks / axis-0 tiles
+    covering k·r, transposes (K2), runs the multistep kernel (K4), transposes
+    back (K2) and crops.  Bit for bit the resident engine's result.
+  * ``stencil_run`` / ``stencil_multistep``: the same sweep with the
+    Dirichlet ring along axis 0 (periodic elsewhere), no pad.
+  * ``stencil_onestep_naive`` / ``stencil_onestep_transpose``: one periodic
+    1-D step in the natural and in the transpose layout (K5), the paper's
+    layout A/B.
 """
 from __future__ import annotations
 
@@ -86,3 +94,89 @@ def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
         for _ in range(n):
             a, b = sweep(a, kk, tt, b), a
     return sk.block_untranspose(a, vl, m, out=x if donate else None)
+
+
+def wrap_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` with ``pad`` periodic copies of its axis-0 cells on each side
+    (``pad`` may exceed the extent)."""
+    n = x.shape[0]
+    pieces, i, end = [], -pad, n + pad
+    while i < end:
+        start = i % n
+        size = min(n - start, end - i)
+        pieces.append(x.narrow(0, start, size))
+        i += size
+    return torch.cat(pieces)
+
+
+def stencil_multistep(spec: StencilSpec, x: torch.Tensor, k: int,
+                      vl: int | None = None, m: int | None = None,
+                      t0: int | None = None) -> torch.Tensor:
+    """Advance ``x`` by k steps in one multistep launch: Dirichlet along
+    axis 0 (the r first and last cells keep their value; in 1-D the
+    spatial axis itself), periodic along every other axis."""
+    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
+    t = sk.block_transpose(x.contiguous(), vl, m)
+    if spec.ndim == 1:
+        out = sk.stencil1d_multistep(spec, t, k)
+    else:
+        out = sk.stencil_nd_multistep(spec, t, k, t0)
+    return sk.block_untranspose(out, vl, m)
+
+
+def stencil_run(spec: StencilSpec, x: torch.Tensor, steps: int, k: int = 2,
+                vl: int | None = None, m: int | None = None,
+                t0: int | None = None) -> torch.Tensor:
+    """``steps / k`` Dirichlet sweeps of :func:`stencil_multistep`; steps
+    must divide into k-step sweeps."""
+    if steps % k:
+        raise ValueError(f"steps={steps} is not a multiple of k={k}")
+    for _ in range(steps // k):
+        x = stencil_multistep(spec, x, k, vl, m, t0)
+    return x
+
+
+def stencil_multistep_periodic(spec: StencilSpec, x: torch.Tensor, k: int,
+                               vl: int | None = None, m: int | None = None,
+                               t0: int | None = None) -> torch.Tensor:
+    """Advance ``x`` by k periodic steps: wrap-pad axis 0 by whole layout
+    blocks (1-D, open edges) or whole axis-0 tiles (n-D, Dirichlet ring)
+    covering k·r, run the multistep kernel in layout, crop.  What the
+    edges disturb lies within k·r of them, inside the pad."""
+    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
+    n0, r = x.shape[0], spec.r
+    if spec.ndim == 1:
+        pad = sk.sweep_halo_blocks(r, k, vl * m) * vl * m
+        t = sk.block_transpose(wrap_pad(x, pad), vl, m)
+        out = sk.stencil1d_multistep(spec, t, k, edge_mask=False)
+    else:
+        pad = sk.sweep_halo_blocks(r, k, t0) * t0
+        t = sk.block_transpose(wrap_pad(x, pad), vl, m)
+        out = sk.stencil_nd_multistep(spec, t, k, t0)
+    return sk.block_untranspose(out, vl, m).narrow(0, pad, n0)
+
+
+def stencil_run_periodic(spec: StencilSpec, x: torch.Tensor, steps: int, k: int = 2,
+                         vl: int | None = None, m: int | None = None,
+                         t0: int | None = None) -> torch.Tensor:
+    """``steps / k`` periodic roundtrip sweeps; steps must divide into
+    k-step sweeps (``StencilProblem`` runs the remainder as sweeps of
+    another k)."""
+    if steps % k:
+        raise ValueError(f"steps={steps} is not a multiple of k={k}")
+    for _ in range(steps // k):
+        x = stencil_multistep_periodic(spec, x, k, vl, m, t0)
+    return x
+
+
+def stencil_onestep_naive(spec: StencilSpec, x: torch.Tensor, vl: int = 8) -> torch.Tensor:
+    """One periodic 1-D step in the natural layout (K5a)."""
+    return sk.stencil1d_naive_onestep(spec, x.contiguous(), vl)
+
+
+def stencil_onestep_transpose(spec: StencilSpec, x: torch.Tensor, vl: int = 8,
+                              m: int | None = None) -> torch.Tensor:
+    """One periodic 1-D step in the transpose layout (K2, K5b, K2)."""
+    m = m or vl
+    t = sk.block_transpose(x.contiguous(), vl, m)
+    return sk.block_untranspose(sk.stencil1d_transpose_onestep(spec, t), vl, m)

@@ -7,6 +7,14 @@
     ``csrc/stencil_sweep.cu``: a fully periodic depth-``ttile·k`` advance of
     the layout-resident grid in one launch (reference: ``_kernel_1d`` and
     ``_kernel_nd``).
+  * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
+    wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernel with a
+    Dirichlet ring or open edges along axis 0 (reference: the same Pallas
+    bodies with ``edge_mask``).
+  * K5 ``stencil1d_naive_onestep`` / ``stencil1d_transpose_onestep`` —
+    ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
+    the transpose layout, the paper's layout A/B (reference:
+    ``_kernel_naive_1d`` and ``_kernel_transpose_1d``).
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
@@ -21,12 +29,13 @@ import ctypes
 import torch
 
 from repro_torch.core import layouts
-from repro_torch.core.stencils import StencilSpec, coeff
+from repro_torch.core.stencils import StencilSpec, apply_once, coeff
 from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_nd": 0}
+LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_nd": 0, "multistep_1d": 0,
+            "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
@@ -65,6 +74,15 @@ def _into(out: torch.Tensor | None, value: torch.Tensor, what: str) -> torch.Ten
     if out is None:
         return value
     return _out(out, value.shape, value, what).copy_(value)
+
+
+def _kernel_io(t: torch.Tensor, out: torch.Tensor, what: str) -> None:
+    """What every stencil kernel needs of its input and output buffers."""
+    if t.dtype != torch.float32:
+        raise NotImplementedError(f"{what} runs float32 only, got {t.dtype}; other "
+                                  "dtypes are ROADMAP D1")
+    if out.data_ptr() == t.data_ptr():
+        raise ValueError(f"{what} cannot update in place: out must be another buffer")
 
 
 # ---------------------------------------------------------------------------
@@ -198,15 +216,25 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
 
 
+_EDGES = {"periodic": 0, "ring": 1, "open": 2}   # csrc/stencil_sweep.cu's Edge
+
+
+def _taps(spec: StencilSpec, width: int):
+    """The taps as ctypes arrays: ``width`` int32 offsets per tap (the last
+    ``width`` axes, zero-filled in front) and the float32-rounded
+    coefficients."""
+    ntaps = len(spec.taps)
+    offs = (ctypes.c_int32 * (width * ntaps))()
+    coeffs = (ctypes.c_float * ntaps)()
+    for i, (off, c) in enumerate(spec.taps):
+        offs[width * i:width * (i + 1)] = list(((0,) * width + tuple(off))[-width:])
+        coeffs[i] = coeff(c, torch.float32)
+    return ntaps, offs, coeffs
+
+
 def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
-                  depth: int, t0: int | None) -> None:
-    if t.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA sweep kernel runs float32 only, got {t.dtype}; other "
-            "dtypes are ROADMAP D1")
-    if out.data_ptr() == t.data_ptr():
-        raise ValueError("the sweep kernel cannot update in place: out must be "
-                         "another buffer")
+                  depth: int, t0: int | None, edge: str = "periodic") -> None:
+    _kernel_io(t, out, "the CUDA sweep kernel")
     nb, m, vl = t.shape[-3:]
     lead = tuple(t.shape[:-3])
     nat = (1,) * (2 - len(lead)) + lead + (nb * m * vl,)
@@ -218,19 +246,15 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
         raise ValueError(f"{spec.name}: minor extent {nat[2]} has 2^31 or more "
                          f"columns of m={m}")
     lib = build.load("stencil_sweep")
-    ntaps = len(spec.taps)
+    ntaps, offs, coeffs = _taps(spec, 3)
     if ntaps > lib.repro_stencil_max_taps():
         raise ValueError(f"{spec.name}: {ntaps} taps exceed the kernel's limit")
-    offs = (ctypes.c_int32 * (3 * ntaps))()
-    coeffs = (ctypes.c_float * ntaps)()
-    for i, (off, c) in enumerate(spec.taps):
-        offs[3 * i:3 * i + 3] = list((0,) * (3 - len(off)) + tuple(off))
-        coeffs[i] = coeff(c, torch.float32)
     nd, r = spec.ndim, spec.r
     build.check(lib.repro_stencil_sweep_f32(
         t.data_ptr(), out.data_ptr(), *nat, vl, m, tz, ty, tx, hz, hy, hx,
-        r if nd == 3 else 0, r if nd >= 2 else 0, r, depth, ntaps,
-        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
+        r if nd == 3 else 0, r if nd >= 2 else 0, r, depth, _EDGES[edge],
+        3 - nd,                              # the stencil's axis 0 in (z, y, x)
+        ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
         smem, _stream()), f"{spec.name} sweep kernel")
 
 
@@ -285,3 +309,202 @@ def stencil_nd_sweep_periodic(spec: StencilSpec, t: torch.Tensor, k: int,
                               t0: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """n-D ``ttile=1`` slice of :func:`stencil_nd_sweep_ttile`."""
     return stencil_nd_sweep_ttile(spec, t, k, 1, t0, out=out)
+
+
+# ---------------------------------------------------------------------------
+# K4: the multistep sweeps with a Dirichlet ring or open axis-0 edges
+# ---------------------------------------------------------------------------
+
+def sweep_halo_blocks(r: int, k: int, block: int) -> int:
+    """Whole ``block``-sized units (layout blocks or axis-0 tiles) that
+    cover the k·r cells a k-step sweep corrupts next to an axis-0 edge."""
+    return -(-(k * r) // block)
+
+
+def _ring_mask(spec: StencilSpec, t: torch.Tensor) -> torch.Tensor:
+    """True on the r cells nearest each end of axis 0, in layout."""
+    r = spec.r
+    if spec.ndim == 1:
+        nb, m, vl = t.shape
+        g = (torch.arange(nb, device=t.device)[:, None, None] * (vl * m)
+             + torch.arange(vl, device=t.device)[None, None, :] * m
+             + torch.arange(m, device=t.device)[None, :, None])     # natural index
+        n = nb * vl * m
+    else:
+        n = t.shape[0]
+        g = torch.arange(n, device=t.device).reshape((n,) + (1,) * (t.ndim - 1))
+    return (g < r) | (g >= n - r)
+
+
+def _open_step(spec: StencilSpec, t: torch.Tensor) -> torch.Tensor:
+    """One layout step with zeros outside axis 0: a zero block (1-D) or r
+    zero rows (n-D) on each side, a periodic step, the domain cut out."""
+    width = 1 if spec.ndim == 1 else spec.r
+    z = t.new_zeros((width,) + tuple(t.shape[1:]))
+    ext = step_in_layout(spec, torch.cat([z, t, z]), ndim=spec.ndim)
+    return ext.narrow(0, width, t.shape[0])
+
+
+def _multistep_ref(spec: StencilSpec, t: torch.Tensor, k: int, edge_mask: bool) -> torch.Tensor:
+    if edge_mask:
+        ring = _ring_mask(spec, t)
+        for _ in range(k):
+            t = torch.where(ring, t, step_in_layout(spec, t, ndim=spec.ndim))
+        return t
+    for _ in range(k):
+        t = _open_step(spec, t)
+    return t
+
+
+def stencil1d_multistep_ref(spec: StencilSpec, t: torch.Tensor, k: int,
+                            edge_mask: bool = True) -> torch.Tensor:
+    """Plain version of :func:`stencil1d_multistep`: k layout steps, with
+    the ring restored (``edge_mask``) or zeros read beyond the ends."""
+    return _multistep_ref(spec, t, k, edge_mask)
+
+
+def stencil_nd_multistep_ref(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
+                             edge_mask: bool = True) -> torch.Tensor:
+    """Plain version of :func:`stencil_nd_multistep` (``t0`` only shapes
+    the kernel's tile)."""
+    return _multistep_ref(spec, t, k, edge_mask)
+
+
+def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
+                        edge_mask: bool = True, out: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """k steps of the (nb, m, vl) layout array in one launch.
+
+    ``edge_mask=True``: a Dirichlet ring — at every step the r cells
+    nearest each end of the array keep their value.  ``edge_mask=False``:
+    no ring; cells beyond either end hold 0 at every step (read as zeros,
+    never updated).  The reference's Pallas kernel leaves unspecified
+    values within k·r of the ends in that mode, which its callers crop."""
+    _check_layout(spec, t)
+    if spec.ndim != 1:
+        raise ValueError(f"{spec.name} is not a 1-D stencil")
+    if t.device.type == "cpu":
+        return _into(out, stencil1d_multistep_ref(spec, t, k, edge_mask), "stencil1d_multistep")
+    _check_cuda(t, "stencil1d_multistep")
+    dst = _out(out, t.shape, t, "stencil1d_multistep")
+    _sweep_launch(spec, t, dst, k, None, "ring" if edge_mask else "open")
+    LAUNCHES["multistep_1d"] += 1
+    return dst
+
+
+def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
+                         edge_mask: bool = True, out: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """k steps of the (n0, *mid, nb, m, vl) layout array in one launch:
+    axis 0 has the Dirichlet ring (``edge_mask=True``, its r first and last
+    rows keep their value) or open edges (``edge_mask=False``, rows beyond
+    either end hold 0), every other axis is periodic.  ``t0`` is the axis-0
+    rows of the kernel's tile; it must divide n0 and reach the radius, as
+    the reference's pipeline tile must."""
+    _check_layout(spec, t)
+    if spec.ndim not in (2, 3):
+        raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
+    n0 = t.shape[0]
+    if t0 < spec.r or n0 % t0:
+        raise ValueError(f"{spec.name}: axis-0 tile t0={t0} must divide n0={n0} "
+                         f"and be at least r={spec.r}")
+    if t.device.type == "cpu":
+        return _into(out, stencil_nd_multistep_ref(spec, t, k, t0, edge_mask),
+                     "stencil_nd_multistep")
+    _check_cuda(t, "stencil_nd_multistep")
+    dst = _out(out, t.shape, t, "stencil_nd_multistep")
+    _sweep_launch(spec, t, dst, k, t0, "ring" if edge_mask else "open")
+    LAUNCHES["multistep_nd"] += 1
+    return dst
+
+
+def stencil1d_sweep_halo(spec: StencilSpec, t: torch.Tensor, k: int, halo: int,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """One k-step sweep of a halo-extended (nb, m, vl) shard whose edge
+    blocks carry ``halo >= k·r`` exchanged ghost elements per side: open
+    edges, everything they disturb lies in the ghosts the caller crops."""
+    if halo < k * spec.r:
+        raise ValueError(f"halo {halo} is below k*r = {k * spec.r}")
+    return stencil1d_multistep(spec, t, k, edge_mask=False, out=out)
+
+
+def stencil_nd_sweep_halo(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
+                          halo: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """n-D analogue of :func:`stencil1d_sweep_halo`: ``halo`` exchanged
+    ghost rows per side on axis 0, whole ``t0``-row tiles."""
+    if halo < k * spec.r or halo % t0:
+        raise ValueError(f"halo {halo} must be at least k*r = {k * spec.r} and a "
+                         f"multiple of t0={t0}")
+    return stencil_nd_multistep(spec, t, k, t0, edge_mask=False, out=out)
+
+
+# ---------------------------------------------------------------------------
+# K5: one periodic step in the natural and in the transpose layout
+# ---------------------------------------------------------------------------
+
+def stencil1d_naive_onestep_ref(spec: StencilSpec, x: torch.Tensor,
+                                vl: int = 32) -> torch.Tensor:
+    """Plain version of :func:`stencil1d_naive_onestep`: one roll per tap."""
+    return apply_once(spec, x, bc="periodic")
+
+
+def stencil1d_transpose_onestep_ref(spec: StencilSpec, t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`stencil1d_transpose_onestep`."""
+    return step_in_layout(spec, t, ndim=1)
+
+
+def _onestep_lib(spec: StencilSpec):
+    lib = build.load("onestep")
+    if spec.r > lib.repro_onestep_max_reach() or len(spec.taps) > lib.repro_onestep_max_taps():
+        raise ValueError(f"{spec.name}: the one-step kernels take r <= "
+                         f"{lib.repro_onestep_max_reach()} and at most "
+                         f"{lib.repro_onestep_max_taps()} taps")
+    return lib
+
+
+def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
+    """One periodic step of the natural-layout (N,) array, viewed as
+    (N/vl, vl) rows: every tap shifts across lanes (the layout A/B's
+    baseline)."""
+    if spec.ndim != 1 or x.ndim != 1:
+        raise ValueError(f"{spec.name}: the natural-layout one-step takes a 1-D stencil "
+                         f"and a 1-D array, got shape {tuple(x.shape)}")
+    if x.shape[0] % vl:
+        raise ValueError(f"extent {x.shape[0]} is not a multiple of vl={vl}")
+    if x.device.type == "cpu":
+        return _into(out, stencil1d_naive_onestep_ref(spec, x, vl), "stencil1d_naive_onestep")
+    _check_cuda(x, "stencil1d_naive_onestep")
+    dst = _out(out, x.shape, x, "stencil1d_naive_onestep")
+    _kernel_io(x, dst, "the naive one-step kernel")
+    lib = _onestep_lib(spec)
+    ntaps, offs, coeffs = _taps(spec, 1)
+    build.check(lib.repro_onestep_naive_f32(
+        x.data_ptr(), dst.data_ptr(), x.shape[0], ntaps, ctypes.cast(offs, ctypes.c_void_p),
+        ctypes.cast(coeffs, ctypes.c_void_p), _stream()), f"{spec.name} naive one-step kernel")
+    LAUNCHES["onestep_naive"] += 1
+    return dst
+
+
+def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
+                                out: torch.Tensor | None = None) -> torch.Tensor:
+    """One periodic step of the (nb, m, vl) layout array: shifts inside a
+    vector set, the 2r Assembled rows carried across lanes."""
+    _check_layout(spec, t)
+    if spec.ndim != 1:
+        raise ValueError(f"{spec.name} is not a 1-D stencil")
+    if t.device.type == "cpu":
+        return _into(out, stencil1d_transpose_onestep_ref(spec, t),
+                     "stencil1d_transpose_onestep")
+    _check_cuda(t, "stencil1d_transpose_onestep")
+    dst = _out(out, t.shape, t, "stencil1d_transpose_onestep")
+    _kernel_io(t, dst, "the transpose one-step kernel")
+    lib = _onestep_lib(spec)
+    ntaps, offs, coeffs = _taps(spec, 1)
+    nb, m, vl = t.shape
+    build.check(lib.repro_onestep_transpose_f32(
+        t.data_ptr(), dst.data_ptr(), nb, m, vl, spec.r, ntaps,
+        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
+        f"{spec.name} transpose one-step kernel")
+    LAUNCHES["onestep_transpose"] += 1
+    return dst

@@ -72,7 +72,7 @@ def test_sweep_kernel_counts_and_raises(cuda):
     t = layouts.to_transpose_layout(_x((8, 8, 256), 2, cuda), 32, 8)
     sk.reset_launches()
     sk.stencil_nd_sweep_ttile(spec, t, 2, 1, 8)
-    assert sk.LAUNCHES == {"transpose": 0, "sweep_nd": 1, "sweep_1d": 0}
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_nd": 1}
     with pytest.raises(NotImplementedError, match="D1"):
         sk.stencil_nd_sweep_ttile(spec, t.double(), 2, 1, 8)
     with pytest.raises(ValueError, match="D2"):
@@ -101,3 +101,101 @@ def test_main_path_matches_plain(cuda, name, shape, remainder):
     donated = ops.stencil_sweep_periodic(prob.spec, x.clone(), 7, k=2, ttile=2,
                                          remainder=remainder, donate=True)
     assert torch.equal(donated, got)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("name,shape,vl,m,t0", [
+    ("1d3p", (1 << 16,), 32, 8, None),
+    ("1d3p", (64,), 8, 4, None),            # nb=2: the halo reaches past both ends
+    ("1d5p", (5 * 1024,), 32, 4, None),
+    ("2d5p", (96, 1024), 32, 8, 32),
+    ("2d5p", (6, 64), 8, 4, 1),             # ring and halo span several tiles
+    ("2d9p", (64, 512), 32, 8, 16),
+    ("3d7p", (16, 12, 256), 32, 8, 8),
+    ("3d7p", (4, 6, 128), 32, 4, 1),        # ring and halo span several tiles
+    ("3d27p", (8, 6, 128), 32, 4, 4),
+])
+def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask):
+    spec = stencils.make(name)
+    t = layouts.to_transpose_layout(_x(shape, 4, cuda), vl, m)
+    sk.reset_launches()
+    if spec.ndim == 1:
+        got = sk.stencil1d_multistep(spec, t, depth, edge_mask)
+        want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask)
+        key = "multistep_1d"
+    else:
+        got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
+        want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
+        key = "multistep_nd"
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
+@pytest.mark.parametrize("n,vl", [(1 << 20, 32), (96, 8), (40, 8), (16384 + 64, 32)])
+def test_onestep_naive_kernel_bitwise(cuda, name, n, vl):
+    spec = stencils.make(name)
+    x = _x((n,), 5, cuda)
+    sk.reset_launches()
+    got = sk.stencil1d_naive_onestep(spec, x, vl)
+    want = sk.stencil1d_naive_onestep_ref(spec, x, vl)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["onestep_naive"] == 1
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["1d3p", "1d5p"])
+@pytest.mark.parametrize("vl,m,nb", [
+    (32, 8, 4096), (8, 4, 5), (4, 2, 7), (32, 2, 33), (3, 5, 4), (4, 32, 3),   # m > 16
+])
+def test_onestep_transpose_kernel_bitwise(cuda, name, vl, m, nb):
+    spec = stencils.make(name)
+    t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda), vl, m)
+    sk.reset_launches()
+    got = sk.stencil1d_transpose_onestep(spec, t)
+    want = sk.stencil1d_transpose_onestep_ref(spec, t)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["onestep_transpose"] == 1
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("remainder", ["fused", "native"])
+@pytest.mark.parametrize("name,shape", [
+    ("1d3p", (1 << 15,)), ("1d5p", (4096,)), ("2d5p", (64, 1024)), ("3d7p", (16, 16, 256)),
+])
+def test_roundtrip_equals_resident(cuda, name, shape, remainder):
+    prob = StencilProblem(name, shape)
+    x = prob.init(1)
+    steps = 7
+    sk.reset_launches()
+    got = prob.run(x, steps, StencilPlan(backend="pallas", sweep="roundtrip", k=2,
+                                         remainder=remainder))
+    sweeps = sum(n for _, n in sweep_schedule(2, steps, remainder, 1)[0])
+    key = "multistep_1d" if prob.spec.ndim == 1 else "multistep_nd"
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: sweeps, "transpose": 2 * sweeps}
+    for ttile in (1, 2):
+        res = prob.run(x, steps, StencilPlan(backend="pallas", sweep="resident", k=2,
+                                             remainder=remainder, ttile=ttile))
+        assert torch.equal(got, res), (got - res).abs().max().item()
+
+
+def test_stencil_run_dirichlet_matches_plain(cuda):
+    spec = stencils.make("2d5p")
+    x = _x((64, 1024), 7, cuda)
+    got = ops.stencil_run(spec, x, 6, k=2)
+    want = stencils.apply_steps(spec, x, 6, bc=("dirichlet", "periodic"))
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_onestep_kernels_raise(cuda):
+    spec = stencils.make("1d3p")
+    x = _x((4096,), 8, cuda)
+    t = layouts.to_transpose_layout(x, 32, 8)
+    with pytest.raises(NotImplementedError, match="D1"):
+        sk.stencil1d_naive_onestep(spec, x.double(), 32)
+    with pytest.raises(ValueError, match="in place"):
+        sk.stencil1d_naive_onestep(spec, x, 32, out=x)
+    with pytest.raises(ValueError, match="in place"):
+        sk.stencil1d_transpose_onestep(spec, t, out=t)
