@@ -29,7 +29,29 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              after warm-up);
   small      3d7p at (16, 16, 256) resident, and 2d5p at (64, 256) through
              ``ops.stencil_run``, on the card and on the CPU against the
-             float64 numpy oracle.
+             float64 numpy oracle;
+  ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
+             (H=80, P=64, N=128, B and C shared by the heads through a
+             stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
+             Q=125, 251 at Q=1, and B and C per head; each against its plain
+             version on the card (TF32 off) at the reference's tolerances
+             (2e-4 f32, 5e-2 bf16), y and the final state; small shapes
+             against the token-recurrence oracle;
+  mamba2_serve  mamba2-2.7b at full width (64 layers, random weights from
+             the seed, bf16 copy of the weights) served by
+             ``ContinuousBatcher(n_slots=4, max_seq=4096)``, greedy: six
+             prompts of 2048, 1024, 512, 1000, 2048 and 256 tokens, 16 new
+             tokens each.  K6 launches exactly 64 times per prefill and
+             never in decode; every logit is finite; two requests give the
+             same tokens from fresh 1-slot engines; prefill and decode
+             logits of one request match ``forward`` — the float32 model
+             (``act_dtype=torch.float32``) within rtol = atol = 1e-3, the
+             served bf16 model within fixed limits on the mean and the
+             largest absolute difference (``BF16_CHECK``; over 64 layers
+             bf16 rounding exceeds the 2-layer grain rtol 6e-2, atol 0.2,
+             whose excess is reported); prefill tokens/s, decode ms per
+             step, peak memory, and (``torch.profiler``) kernels per decode
+             step and the device's idle share.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line
@@ -60,6 +82,7 @@ SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
+    "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 _SK = "src/repro/kernels/stencil_kernels.py"
 REPLACES = {
@@ -70,7 +93,18 @@ REPLACES = {
     "K4b": f"{_SK}:339 (_kernel_nd via stencil_nd_multistep :398, stencil_nd_sweep_halo :262)",
     "K5a": f"{_SK}:620 (_kernel_naive_1d via stencil1d_naive_onestep :634)",
     "K5b": f"{_SK}:651 (_kernel_transpose_1d via stencil1d_transpose_onestep :669)",
+    "K6": "src/repro/kernels/ssd_kernel.py:33 (_kernel via ssd_chunk_scan :71)",
 }
+SERVE_PROMPTS = (2048, 1024, 512, 1000, 2048, 256)    # tokens, drawn from the seed
+SERVE_NEW = 16
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
+SERVE_SINGLES = (3, 5)          # requests re-served by fresh 1-slot engines
+GRAIN = (6e-2, 0.2)             # (rtol, atol): logits at bf16 grain, 2 layers
+F32_CHECK = (1e-3, 1e-3)        # (rtol, atol): float32 logits, 64 layers
+# bf16 logits (std about 1), 64 layers: limits on the mean and the largest
+# absolute difference, set from sound runs (PERF.md §6)
+BF16_CHECK = {"mean_abs": 0.15, "max_abs": 1.0}
+SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (5e-2, 5e-2)}
 
 
 def emit(obj) -> None:
@@ -90,6 +124,257 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ssd_phase(dev, ms, close, bound) -> list:
+    """K6 against its plain version (and, small, the oracle); returns its
+    rows for the kernels line, launches to be filled from the serve run."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ssd_kernel as ssd
+
+    cfg = get_arch("mamba2-2.7b")
+    h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+
+    def inputs(nc, b, q, h, p, n, dtype, shared, seed=SEED):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        hb = 1 if shared else h
+        xh = (0.5 * torch.randn(nc, b, q, h, p, generator=g, device=dev)).to(dtype)
+        bm = 0.5 * torch.randn(nc, b, q, hb, n, generator=g, device=dev)
+        cm = 0.5 * torch.randn(nc, b, q, hb, n, generator=g, device=dev)
+        dt = F.softplus(torch.randn(nc, b, q, h, generator=g, device=dev) - 2.0)
+        a_neg = -torch.linspace(1.0, 16.0, h, device=dev)
+        if shared:
+            bm, cm = bm.expand(nc, b, q, h, n), cm.expand(nc, b, q, h, n)
+        return xh, bm, cm, dt, a_neg
+
+    rows = []
+    cases = (("2048 tokens Q=128", 16, 128, torch.bfloat16, True),
+             ("2048 tokens Q=128", 16, 128, torch.float32, True),
+             ("1000 tokens Q=125", 8, 125, torch.bfloat16, True),
+             ("251 tokens Q=1", 251, 1, torch.bfloat16, True),
+             ("2048 tokens Q=128, B and C per head", 16, 128, torch.bfloat16, False))
+    for label, nc, q, dtype, shared in cases:
+        args = inputs(nc, 1, q, h, p, n, dtype, shared)
+        y, state = ssd.ssd_chunk_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        y_ref, state_ref = ssd.ssd_chunk_scan_ref(*args, return_state=True)
+        rtol, atol = SSD_TOL[str(dtype).split(".")[-1]]
+        err = close(f"K6 {label} {dtype}", y, y_ref, rtol, atol)
+        err_state = close(f"K6 {label} {dtype} state", state, state_ref, *SSD_TOL["float32"])
+        xh, bm = args[0], args[1]
+        bc_bytes = 2 * nc * q * n * 4 * (1 if shared else h)
+        nbytes = 2 * xh.numel() * xh.element_size() + bc_bytes + args[3].numel() * 4 \
+            + h * 4 + state.numel() * 4
+        # the causal Q×Q products need the lower triangle only: Q(Q+1)/2 dots
+        flops = (q * (q + 1) * (n + p) + 4 * q * n * p) * h * nc
+        b = bound(nbytes, flops)
+        dims = f"nc={nc} B=1 Q={q} H={h} P={p} N={n} {str(dtype).split('.')[-1]}"
+        emit({"phase": "ssd_kernel", "case": label, "shape": list(xh.shape),
+              "dtype": str(dtype), "head_stride_bc": bm.stride(3),
+              "max_abs_err": err, "max_abs_err_state": err_state, "rtol": rtol, "atol": atol,
+              "bytes": nbytes, "flops": flops})
+        entry = {
+            "name": f"K6 ssd_chunk_scan [{label}: {dims}, return_state; "
+                    f"{'head stride 0' if shared else 'B, C per head'}]",
+            "route": "cuda", "source": SOURCES["ssd"], "replaces": REPLACES["K6"],
+            "launches": None, "max_abs_err": err,
+            "ms": ms(lambda: ssd.ssd_chunk_scan(*args, return_state=True)),
+            "plain_ms": ms(lambda: ssd.ssd_chunk_scan_ref(*args, return_state=True)),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        rows.append(entry)
+        del args, y, state, y_ref, state_ref
+
+    # small shapes against the token recurrence, f32
+    for shape in ((4, 2, 8, 2, 8, 4), (12, 1, 1, 3, 16, 8), (3, 2, 7, 8, 24, 16)):
+        args = inputs(*shape, torch.float32, False, seed=1)
+        y, state = ssd.ssd_chunk_scan(*args, return_state=True)
+        y_o, state_o = ssd.ssd_chunk_ref(*args, return_state=True)
+        emit({"phase": "ssd_kernel", "case": "vs the token recurrence", "shape": list(shape),
+              "max_abs_err": close(f"K6 {shape} vs oracle", y, y_o, *SSD_TOL["float32"]),
+              "max_abs_err_state": close(f"K6 {shape} state vs oracle", state, state_o,
+                                         *SSD_TOL["float32"])})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba2_serve(dev, counted, close) -> dict:
+    """mamba2-2.7b at full width served by the continuous batcher."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.timing import bench
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    cfg = get_arch("mamba2-2.7b")
+    model = zoo.build(cfg)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    params = transformer.cast_params(model.init(torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - start
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, length) for length in SERVE_PROMPTS]
+
+    # one short uncounted request loads the libraries and the GEMM handles
+    warm = ContinuousBatcher(model, params, n_slots=1, max_seq=SERVE_MAX_SEQ)
+    warm.submit(Request(rid=-1, prompt=prompts[-1][:64], max_new=2))
+    warm.run()
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = ContinuousBatcher(model, params, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    finite = []
+    step_fn, prefill_fn = eng.step_fn, eng.prefill_fn
+
+    def step_checked(*a):
+        tok, logits, cache = step_fn(*a)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return tok, logits, cache
+
+    def prefill_checked(*a):
+        logits, cache = prefill_fn(*a)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits, cache
+
+    eng.step_fn, eng.prefill_fn = step_checked, prefill_checked
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new=SERVE_NEW))
+    done, seconds, got = counted(
+        "mamba2 serve", lambda: eng.run(max_steps=4 * SERVE_NEW),
+        {"ssd_scan": cfg.n_layers * len(prompts)})
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(done, key=lambda r: r.rid)
+    if [r.rid for r in done] != list(range(len(prompts))) or \
+            any(len(r.out) != SERVE_NEW for r in done):
+        raise AssertionError("mamba2 serve: not every request finished with its tokens")
+    if not all(finite):
+        raise AssertionError(f"mamba2 serve: non-finite logits in {finite.count(False)} calls")
+    stats, lanes = dict(eng.stats), eng.lanes
+    del eng
+    torch.cuda.empty_cache()
+
+    # two of the requests again, each in a fresh 1-slot engine
+    for rid in SERVE_SINGLES:
+        one = ContinuousBatcher(model, params, n_slots=1, max_seq=SERVE_MAX_SEQ)
+        one.submit(Request(rid=rid, prompt=prompts[rid], max_new=SERVE_NEW))
+        alone = one.run(max_steps=4 * SERVE_NEW)[0].out
+        if alone != done[rid].out:
+            raise AssertionError(f"mamba2 serve: request {rid} gives {done[rid].out} in the "
+                                 f"batch and {alone} alone")
+        del one
+
+    # prefill + decode logits of the last request against forward: the
+    # float32 model (float32 weights and activations) within F32_CHECK, the
+    # served bf16 model within BF16_CHECK
+    rid = len(prompts) - 1
+    s0 = len(prompts[rid])
+    seq = torch.as_tensor(np.concatenate([prompts[rid], done[rid].out[:-1]]),
+                          device=dev)[None]
+    bf16 = teacher_forced(model, params, seq, s0)
+    masters = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    f32 = teacher_forced(zoo.build(cfg, act_dtype=torch.float32), masters, seq, s0)
+    del masters
+    torch.cuda.empty_cache()
+    f32_errs = [close(f"mamba2 float32 {what} vs forward", got, want, *F32_CHECK)
+                for what, got, want in f32["pairs"]]
+    served = torch.stack([g.float() for _, g, _ in bf16["pairs"]])
+    ref = torch.stack([w.float() for _, _, w in bf16["pairs"]])
+    if not bool(torch.isfinite(served).all()):
+        raise AssertionError("mamba2 bf16 prefill/decode: non-finite logits")
+    diff = (served - ref).abs()
+    bf16_err = {"mean_abs": diff.mean().item(), "max_abs": diff.max().item()}
+    if any(bf16_err[k] > limit for k, limit in BF16_CHECK.items()):
+        raise AssertionError(f"mamba2 bf16 prefill/decode vs forward: {bf16_err}, "
+                             f"over {BF16_CHECK}")
+    grain_excess = (diff - (GRAIN[1] + GRAIN[0] * ref.abs())).max().item()
+    noise = (bf16["forward"].float() - f32["forward"].float()).abs()
+    noise = {"mean_abs": noise.mean().item(), "max_abs": noise.max().item()}
+    del bf16, f32, served, ref, diff
+
+    # a 2048-token prefill alone (CUDA events), for K6's share of it
+    p2048 = torch.as_tensor(prompts[0], device=dev)[None]
+    prefill_ms = bench(lambda: model.prefill(params, {"tokens": p2048}), device=dev,
+                       warmup=1, iters=3, min_time_s=0.0) * 1e3
+
+    # kernels per decode step and the device's idle share, under the profiler
+    prof_line = profile_decode(model, params, dev, lanes)
+
+    new_tokens = SERVE_NEW * len(prompts)
+    out = {"phase": "mamba2_serve", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": zoo.param_count(params),
+           "weights_dtype": "bfloat16 copy (cast once)", "slots": SERVE_SLOTS,
+           "decode_lanes": lanes, "max_seq": SERVE_MAX_SEQ,
+           "prompts": list(SERVE_PROMPTS), "max_new": SERVE_NEW, "seconds": seconds,
+           "init_seconds": init_s, "launches": got,
+           "prefill_tokens_per_s": stats["prefill_tokens"] / stats["prefill_s"],
+           "prefill_seconds": stats["prefill_s"], "prefills": stats["prefills"],
+           "decode_steps": stats["decode_steps"],
+           "decode_ms_per_step": stats["decode_s"] / stats["decode_steps"] * 1e3,
+           "decode_tokens_per_s": new_tokens / stats["decode_s"],
+           "prefill_2048_ms": prefill_ms,
+           "peak_memory_bytes": peak, "init_peak_memory_bytes": init_peak,
+           "singles_match": list(SERVE_SINGLES),
+           "check_positions": len(f32_errs),
+           "f32_prefill_decode_vs_forward_max_abs_err": max(f32_errs),
+           "f32_check_rtol_atol": F32_CHECK,
+           "bf16_prefill_decode_vs_forward": bf16_err, "bf16_check": BF16_CHECK,
+           "bf16_forward_vs_f32_forward": noise,
+           "bf16_excess_over_grain": grain_excess, "grain_rtol_atol": GRAIN,
+           "all_logits_finite": True, **prof_line}
+    emit(out)
+    return out
+
+
+def teacher_forced(model, params, seq, s0) -> dict:
+    """``forward`` over ``seq``, and ``prefill`` of its first ``s0`` tokens
+    then ``decode_step`` over the rest; the (what, got, want) logit pairs."""
+    import torch
+    full, _ = model.forward(params, {"tokens": seq})
+    last, cache = model.prefill(params, {"tokens": seq[:, :s0]}, max_seq=SERVE_MAX_SEQ)
+    pairs = [("prefill", last[0, 0], full[0, s0 - 1])]
+    for i in range(s0, seq.shape[1]):
+        logits, cache = model.decode_step(params, cache, {"tokens": seq[:, i:i + 1]},
+                                          torch.tensor([i], device=seq.device))
+        pairs.append((f"decode {i}", logits[0, 0], full[0, i]))
+    return {"forward": full[0], "pairs": pairs}
+
+
+def profile_decode(model, params, dev, lanes: int, steps: int = 4) -> dict:
+    """Kernels per decode step and the device's busy share of the window,
+    from ``torch.profiler`` (null, with the reason, where it records no
+    device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    cache = model.init_cache(lanes, SERVE_MAX_SEQ, device=dev)
+    tok = {"tokens": torch.zeros(lanes, 1, dtype=torch.int64, device=dev)}
+    pos = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    model.decode_step(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"profile": "no device events recorded", "decode_kernels_per_step": None,
+                "decode_device_idle_share": None}
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return {"profile": f"{steps} decode steps, {lanes} lanes, under torch.profiler",
+            "decode_kernels_per_step": len(kernels) / steps,
+            "decode_profiled_ms_per_step": wall_us / steps / 1e3,
+            "decode_device_busy_ms_per_step": busy_us / steps / 1e3,
+            "decode_device_idle_share": 1 - busy_us / wall_us}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -103,6 +388,7 @@ def main() -> int:
     from repro_torch.core.timing import bench
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssd_kernel as ssd
     from repro_torch.kernels import stencil_kernels as sk
 
     torch.backends.cudnn.allow_tf32 = False
@@ -126,12 +412,13 @@ def main() -> int:
         must be exactly ``owned`` (all others 0).  Returns (result,
         seconds, counters)."""
         sk.reset_launches()
+        ssd.reset_launches()
         torch.cuda.synchronize()
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        got = dict(sk.LAUNCHES)
+        got = {**sk.LAUNCHES, **ssd.LAUNCHES}
         want = dict.fromkeys(got, 0) | owned
         if got != want:
             raise AssertionError(f"{what}: launches {got}, the schedule says {want}")
@@ -144,6 +431,18 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"{what}: differs from its reference by {err}")
         return err
+
+    def close(what, got, want, rtol, atol):
+        """``got`` within ``atol + rtol·|want|`` of ``want``; the max error."""
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: bad output")
+        diff = (got - want).abs()
+        excess = (diff - (atol + rtol * want.abs())).max().item()
+        if excess > 0:
+            raise AssertionError(f"{what}: off its reference by {excess} beyond "
+                                 f"rtol={rtol}, atol={atol}")
+        return diff.max().item()
 
     def resident_plain(spec, x, steps, remainder, vl, m, t0):
         """The resident path on the plain versions only (no launches)."""
@@ -414,6 +713,15 @@ def main() -> int:
     x = StencilProblem("2d5p", (64, 256)).init(SEED)
     small("2d5p dirichlet", spec, x, lambda v: ops.stencil_run(spec, v, steps, k=K),
           steps, kref.kernel_bc(2))
+    del x
+
+    k6_rows = ssd_phase(dev, ms, close, bound)
+    serve = mamba2_serve(dev, counted, close)
+    for entry in k6_rows:
+        entry["launches"] = serve["launches"]["ssd_scan"]
+        entry["launches_per_prefill"] = serve["launches"]["ssd_scan"] / serve["prefills"]
+        entries.append(entry)
+        emit({"phase": "kernels", **entry})
 
     emit({"kernels": entries})
     print(gpu, flush=True)

@@ -100,7 +100,7 @@ _NOT_PORTED = {
 }
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """``None`` means the card.  Without a CUDA device that raises: the
     caller asks for the CPU explicitly, it is never chosen quietly."""
     dev = torch.device("cuda" if device is None else device)
@@ -119,7 +119,7 @@ class StencilProblem:
             raise ValueError(f"{name} needs a {self.spec.ndim}-D shape, got {tuple(shape)}")
         self.shape = tuple(shape)
         self.dtype = dtype
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> torch.Tensor:

@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "onestep")
+SOURCES = ("transpose", "stencil_sweep", "onestep", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +109,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_onestep_transpose_f32.argtypes = [ptr, ptr] + [i64] * 5 + [ptr, ptr, ptr]
         lib.repro_onestep_transpose_f32.restype = ctypes.c_int
         for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_max_taps):
+            fn.argtypes = []
+            fn.restype = i64
+    elif name == "ssd_scan":
+        lib.repro_ssd_scan.argtypes = [ptr] * 7 + [i64] * 7 + [ptr, ptr]
+        lib.repro_ssd_scan.restype = ctypes.c_int
+        for fn in (lib.repro_ssd_max_chunk, lib.repro_ssd_max_state):
             fn.argtypes = []
             fn.restype = i64
     else:

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every case compares bit for bit (``torch.equal``): the kernels sum the taps
-in the spec's order with one multiply and one add each (built with
-``-fmad=false``), as the plain versions do.  Without a CUDA device every
-test skips; run them where there is one with
+Every stencil case compares bit for bit (``torch.equal``): the kernels sum
+the taps in the spec's order with one multiply and one add each (built with
+``-fmad=false``), as the plain versions do.  K6 (the SSD chunk scan) sums
+its products in another order than the plain version's einsums and is held
+at the reference's tolerances: 2e-4 in float32, 5e-2 in bfloat16.  Without
+a CUDA device every test skips; run them where there is one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -14,6 +16,7 @@ import torch
 from repro_torch.core import layouts, stencils
 from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_kernel as ssd
 from repro_torch.kernels import stencil_kernels as sk
 
 pytestmark = pytest.mark.gpu
@@ -199,3 +202,117 @@ def test_onestep_kernels_raise(cuda):
         sk.stencil1d_naive_onestep(spec, x, 32, out=x)
     with pytest.raises(ValueError, match="in place"):
         sk.stencil1d_transpose_onestep(spec, t, out=t)
+
+
+def _ssd_inputs(nc, b, q, h, p, n, device, dtype=torch.float32, shared_bc=False, seed=0):
+    """K6's inputs; ``shared_bc`` gives B and C a head axis of stride 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    hb = 1 if shared_bc else h
+    xh = (0.5 * torch.randn(nc, b, q, h, p, generator=g, device=device)).to(dtype)
+    bm = 0.5 * torch.randn(nc, b, q, hb, n, generator=g, device=device)
+    cm = 0.5 * torch.randn(nc, b, q, hb, n, generator=g, device=device)
+    if shared_bc:
+        bm, cm = bm.expand(nc, b, q, h, n), cm.expand(nc, b, q, h, n)
+    dt = torch.nn.functional.softplus(torch.randn(nc, b, q, h, generator=g, device=device))
+    a_neg = -torch.linspace(0.5, 2.0, h, device=device)
+    return xh, bm, cm, dt, a_neg
+
+
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,shared_bc", [
+    ((16, 1, 128, 80, 64, 128), True),      # mamba2-2.7b, a 2048-token prompt
+    ((8, 1, 125, 80, 64, 128), True),       # a 1000-token prompt runs at Q = 125
+    ((37, 2, 1, 4, 64, 128), False),        # a prime length runs at Q = 1
+    ((4, 2, 8, 2, 8, 4), False),            # the reference test's shapes
+    ((2, 1, 16, 4, 20, 8), False),          # P not a multiple of the 16-column tile
+    ((3, 2, 33, 8, 16, 16), True),
+])
+def test_ssd_kernel_matches_plain(cuda, shape, shared_bc, dtype):
+    args = _ssd_inputs(*shape, cuda, dtype, shared_bc)
+    ssd.reset_launches()
+    y, state = ssd.ssd_chunk_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_scan": 1}
+    y_ref, state_ref = ssd.ssd_chunk_scan_ref(*args, return_state=True)
+    assert y.dtype == dtype and y.shape == args[0].shape
+    torch.testing.assert_close(y.float(), y_ref.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, state_ref, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 8, 2, 8, 4), (12, 1, 1, 3, 16, 8), (3, 1, 7, 8, 24, 16)])
+def test_ssd_kernel_matches_oracle(cuda, shape):
+    args = _ssd_inputs(*shape, cuda, seed=1)
+    y, state = ssd.ssd_chunk_scan(*args, return_state=True)
+    y_o, state_o = ssd.ssd_chunk_ref(*args, return_state=True)
+    torch.testing.assert_close(y, y_o, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, state_o, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_writes_strided_out(cuda):
+    xh, bm, cm, dt, a = _ssd_inputs(4, 2, 16, 4, 32, 16, cuda, seed=2)
+    buf = torch.full((2, 4, 16, 4, 32), float("nan"), device=cuda)
+    ssd.ssd_chunk_scan(xh.transpose(0, 1).contiguous().transpose(0, 1), bm, cm, dt, a,
+                       out=buf.transpose(0, 1))
+    torch.testing.assert_close(buf.transpose(0, 1), ssd.ssd_chunk_scan_ref(xh, bm, cm, dt, a),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_raises(cuda):
+    args = _ssd_inputs(2, 1, 8, 2, 8, 4, cuda)
+    xh, bm, cm, dt, a = args
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd.ssd_chunk_scan(*_ssd_inputs(1, 1, 129, 2, 8, 4, cuda))
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd.ssd_chunk_scan(*_ssd_inputs(1, 1, 8, 2, 8, 129, cuda))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd.ssd_chunk_scan(xh, bm.cpu(), cm, dt, a)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd._launch(xh.cpu(), bm.cpu(), cm.cpu(), dt.cpu(), a.cpu(), xh.cpu(), None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd.ssd_chunk_scan(xh.half(), bm, cm, dt, a)
+    with pytest.raises(TypeError, match="bm must be float32"):
+        ssd.ssd_chunk_scan(xh, bm.double(), cm, dt, a)
+
+
+def test_ssd_counter_per_prefill(cuda):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = get_arch("mamba2-2.7b").smoke()
+    model = zoo.build(cfg)
+    params = transformer.cast_params(model.init(torch.Generator(device=cuda).manual_seed(0)))
+    eng = ContinuousBatcher(model, params, n_slots=2, max_seq=64)
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate((5, 17, 9)):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n), max_new=4))
+    ssd.reset_launches()
+    done = eng.run(max_steps=64)
+    assert len(done) == 3
+    assert ssd.LAUNCHES == {"ssd_scan": 3 * cfg.n_layers}     # decode launches no K6
+    full, _ = model.forward(params, {"tokens": torch.tensor(done[0].prompt[None], device=cuda)})
+    assert torch.isfinite(full).all()
+
+
+@pytest.mark.parametrize("seq,chunk", [(24, 8), (20, 8), (13, 8)])    # Q = 8, 5, 1
+def test_ssd_full_on_card_matches_cpu(cuda, seq, chunk):
+    """``ssd_full`` hands K6 chunk-major views of the projection (and B, C
+    with a head stride of 0): on the card it matches the plain path on the
+    CPU, output and final state, in float32."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import ssm, transformer
+    cfg = dataclasses.replace(get_arch("mamba2-2.7b").smoke(), ssm_chunk=chunk)
+    p = ssm.init_ssm(torch.Generator().manual_seed(0), cfg)
+    x = 0.5 * torch.randn(2, seq, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    want, st_want = ssm.ssd_full(p, x, cfg, return_state=True)
+    ssd.reset_launches()
+    got, st_got = ssm.ssd_full(transformer.tree_map(lambda a: a.to(cuda), p), x.to(cuda), cfg,
+                               return_state=True)
+    assert ssd.LAUNCHES == {"ssd_scan": 1}
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st_got.h.cpu(), st_want.h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st_got.conv.cpu(), st_want.conv, rtol=1e-4, atol=1e-4)
