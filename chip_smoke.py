@@ -11,10 +11,14 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
 ``init(seed)``, GPU default tile).
 
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, started together) and reports the time;
+             (one nvcc per source, started together) and reports the time,
+             and K1's warp kernel's registers and spills per instance;
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
-             per sweep; the result equals the port's plain path bit for bit;
+             per sweep; the result equals the port's plain path bit for bit.
+             1d3p runs K1 on the warp kernel (vl=32); a third run, fused 16
+             at the JAX package's vl=128, m=8, takes K1's shared-memory
+             route (counted as ``sweep_1d_smem``);
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
@@ -62,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,15 +83,18 @@ K = 2
 TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
+SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, K1's shared-memory route
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
+    "sweep1d_warp": "src/repro_torch/kernels/csrc/sweep1d_warp.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 _SK = "src/repro/kernels/stencil_kernels.py"
 REPLACES = {
     "K1": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
+    "K1-smem": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
     "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
@@ -116,6 +124,35 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(report: str, kernel: str) -> list:
+    """Registers, spills and stack of each instance of ``kernel`` from
+    nvcc's ``-Xptxas -v`` report (template arguments as in the mangled
+    name)."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            cur = None
+            if kernel in name:
+                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                cur = {"instance": "<" + ", ".join(args) + ">"}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if spill:
+            cur.update(stack_bytes=int(spill.group(1)), spill_stores=int(spill.group(2)),
+                       spill_loads=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used.group(1))
+            cur = None
+    return rows
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -402,7 +439,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "gpu": gpu,
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
-                    for n, r in reports.items()}})
+                    for n, r in reports.items()},
+          "sweep1d_warp_f32 <M, R, B, order>": ptxas_kernels(build.report("sweep1d_warp"),
+                                                             "sweep1d_warp_f32")})
 
     def ms(fn, *args):
         return bench(fn, *args, device=dev, warmup=1, iters=5, min_time_s=0.1) * 1e3
@@ -505,9 +544,9 @@ def main() -> int:
         multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
-        def plan_of(sweep, remainder, ttile=1):
+        def plan_of(sweep, remainder, ttile=1, tile=(None, None)):
             return StencilPlan(backend="pallas", sweep=sweep, k=K, ttile=ttile,
-                               remainder=remainder)
+                               remainder=remainder, vl=tile[0] or 8, m=tile[1])
 
         # -- main path: resident (one short uncounted run loads the kernels) --
         prob.run(x, 2, plan_of("resident", "fused"))
@@ -528,6 +567,27 @@ def main() -> int:
                   "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
                   "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
                   "max_abs_err_vs_plain": err, "bitwise": True})
+        if spec.ndim == 1:
+            # the same fused run at the JAX package's tile: K1's smem route
+            remainder, steps = PLANS[0]
+            vl2, m2 = SMEM_TILE
+            plan = plan_of("resident", remainder, TTILE, SMEM_TILE)
+            prob.run(x, 2, plan)
+            launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
+            y, seconds, got = counted(f"{name} resident {remainder} vl={vl2}",
+                                      lambda: prob.run(x, steps, plan),
+                                      {"transpose": 2, "sweep_1d_smem": launches})
+            counts[("resident smem", remainder)] = got
+            err = same(f"{name} resident {remainder} vl={vl2} vs plain", y,
+                       resident_plain(spec, x, steps, remainder, vl2, m2, None))
+            same(f"{name} resident {remainder} vl={vl2} vs vl={vl}", y, resident[remainder][0])
+            emit({"phase": "main_path", "case": name, "shape": list(shape),
+                  "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+                  "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
+                  "tile": {"vl": vl2, "m": m2, "t0": None}, "route": "sweep_1d_smem",
+                  "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
+                  "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
+            del y
 
         # -- roundtrip: the same runs, one pad/transpose/K4/transpose per sweep
         prob.run(x, 2, plan_of("roundtrip", "fused"))
@@ -593,6 +653,7 @@ def main() -> int:
         # -- K1 / K3: the resident sweep at every depth the main path launches
         kid = "K1" if spec.ndim == 1 else "K3"
         fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
+        src = "sweep1d_warp" if spec.ndim == 1 else "sweep"
         for depth in (4, 2, 1):
             kk, tt = (K, depth // K) if depth > K else (depth, 1)
             if spec.ndim == 1:
@@ -608,11 +669,31 @@ def main() -> int:
                 def plain():
                     return sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t0)
             err = same(f"{name} {kid} depth {depth}", kern(), plain())
-            row(kid, fname, f"{name} {dims} depth={depth}", "sweep",
+            row(kid, fname, f"{name} {dims} vl={vl} m={m} depth={depth}", src,
                 launched[sweep_key], err, kern, plain,
                 bound(grid_bytes, depth * spec.flops_per_point * numel),
                 lambda: ms(conv_steps, spec, x, depth, weight))
         del t, buf
+        if spec.ndim == 1:
+            # K1's shared-memory route, at the vl=128 run's depth 4
+            vl2, m2 = SMEM_TILE
+            t2 = sk.block_transpose(x, vl2, m2)
+            buf2 = torch.empty_like(t2)
+            depth = K * TTILE
+            if sk.sweep1d_route(vl2, m2, depth, spec.r) != "smem":
+                raise AssertionError(f"vl={vl2}, m={m2} does not take the smem route")
+
+            def kern():
+                return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
+
+            def plain():
+                return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
+            err = same(f"{name} K1-smem depth {depth}", kern(), plain())
+            row("K1-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
+                launched["sweep_1d_smem"], err, kern, plain,
+                bound(grid_bytes, depth * spec.flops_per_point * numel),
+                lambda: ms(conv_steps, spec, x, depth, weight))
+            del t2, buf2
 
         # -- K4: the multistep sweep at the roundtrip's padded shape ---------
         kid = "K4a" if spec.ndim == 1 else "K4b"

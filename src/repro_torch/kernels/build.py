@@ -6,7 +6,9 @@ flags, so an edited source builds anew and an unchanged one is reused.  The
 libraries have a plain C interface and are loaded with ``ctypes``; no
 PyTorch header is compiled, which keeps a build to seconds.  A build writes
 to a temporary name and moves the result into place, so a build cut short
-never leaves a library behind.  A failed build raises with nvcc's stderr.
+never leaves a library behind.  A failed build raises with nvcc's stderr;
+a build that succeeds keeps nvcc's report (``-Xptxas -v``: registers,
+spills, stack per kernel) beside its library as ``<name>.ptxas.txt``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "onestep", "ssd_scan")
+SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "onestep", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,11 +72,19 @@ def build_all(names=SOURCES) -> dict[str, str]:
             failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{err}{out}")
             tmp.unlink(missing_ok=True)
             continue
-        os.replace(tmp, final)
         reports[name] = err + out
+        log = out_dir / f"{name}.ptxas.txt"
+        log.write_text(reports[name])
+        os.replace(tmp, final)
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def report(name: str) -> str:
+    """nvcc's report from the build of ``csrc/<name>.cu`` ("" if unbuilt)."""
+    log = build_dir() / f"{name}.ptxas.txt"
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -103,6 +113,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_stencil_sweep_f32.restype = ctypes.c_int
         lib.repro_stencil_max_taps.argtypes = []
         lib.repro_stencil_max_taps.restype = i64
+    elif name == "sweep1d_warp":
+        lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 7 + [ptr, ptr, ptr]
+        lib.repro_sweep1d_warp_f32.restype = ctypes.c_int
+        lib.repro_sweep1d_warp_blocks.argtypes = [i64]
+        lib.repro_sweep1d_warp_blocks.restype = i64
     elif name == "onestep":
         lib.repro_onestep_naive_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
         lib.repro_onestep_naive_f32.restype = ctypes.c_int

@@ -1,0 +1,301 @@
+// Depth-`depth` fully periodic advance of a 1-D grid held in the paper's
+// local transpose layout (nb, m, vl = 32), one launch per sweep chunk: K1's
+// warp-register kernel.
+//
+// Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d as launched by
+// stencil1d_sweep_ttile (K1), for vl = 32, m in {1, 2, 4, 8} and
+// depth * r <= 32 * m (stencil_kernels.sweep1d_route picks it before the
+// launch).  Every other shape, and K4a's ring and open modes, take the
+// shared-memory kernel of csrc/stencil_sweep.cu.
+//
+// Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
+// A block row of the layout is 32 floats, one per lane, so lane j of a warp
+// holds natural column j of a block: its m consecutive natural elements, in
+// m registers.  A warp owns a run of B consecutive blocks and loads it with
+// one halo block on each side: B + 2 slots of m registers per lane, each
+// row one coalesced 128-byte load.  The halo blocks' indices wrap mod nb,
+// so a grid of fewer blocks (down to nb = 1) loads the same block into
+// several slots.  The slots hold (B + 2) * 32 * m consecutive natural
+// elements of the periodic grid.
+//
+// Each step runs in registers.  A tap shift inside a column is a register
+// index.  The r rows beyond each end of a column come from lane j - 1 and
+// lane j + 1, one shuffle each; lane 0 (31) takes its left (right) rows from
+// lane 31 (0) of the previous (next) slot, which that lane sends in place of
+// its own: a select before the shuffle, the paper's Assemble.  Slots are
+// updated in place in ascending order.  The r old tail rows of the previous
+// slot are carried in registers, because lane 31 sends them to the next
+// slot's lane 0 after their slot was overwritten; the next slot's head rows
+// are still old when they are sent.  Every edge row of a slot is shuffled
+// before the slot is overwritten.
+//
+// The two ends of the loaded span have no loaded neighbour (the slot's own
+// rows stand in), so after `depth` steps the outer depth * r elements of
+// each end are wrong.  They lie inside the halo slots as long as
+// depth * r <= 32 * m, and only the middle B slots are stored, those whose
+// block index is below nb: never a wrapped duplicate.  No shared memory, no
+// barrier, no division per element.  Idle warps of the last CTA compute
+// the last run again and store nothing, so every lane runs every shuffle.
+//
+// Taps are summed in the spec's order, one multiply and one add each, with
+// the coefficients already rounded to float; built with -fmad=false this is
+// bit for bit the plain PyTorch version.  The two orders the registry's 1-D
+// stencils use (0, -1, 1, -2, 2, ... and -r..r) are template parameters, so
+// every offset is a constant; any other tap list goes through a
+// warp-uniform switch per tap and slot, as in K5b.
+//
+// Bound on H100: bytes.  A launch must read the grid once and write it once
+// (2 * numel * 4 bytes); its arithmetic is depth * (2 * taps - 1) flops per
+// point, far below the FP32 rate.  Each block is read from device memory by
+// its own warp; the halo slots are the neighbouring warps' blocks, mostly
+// L2 hits.  The cost of the design is the 2 / B halo recompute; B is chosen
+// per m so that a lane's (B + 2) * m values stay at 80 or below.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kVl = 32;       // the layout's vl: one lane per column
+constexpr int kWarps = 4;     // warps per CTA
+constexpr int kMaxTaps = 16;
+constexpr int kMaxR = 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Blocks per warp run, by m (stencil_kernels.WARP_BLOCKS holds the same).
+// m = 1 stops at 32: nvcc leaves a loop of 66 slots rolled, which puts them
+// in local memory.
+constexpr int run_blocks(int m) { return m == 1 ? 32 : m == 2 ? 32 : m == 4 ? 16 : 8; }
+
+struct Taps1 {
+  int n;
+  int o[kMaxTaps];
+  float c[kMaxTaps];
+};
+
+__device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
+  if (i >= 0 && i < n) return i;
+  const int64_t r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// acc[s] (+)= ext[R + s + O] * cf for every row s: a register index.  ext
+// holds the column's rows with R Assembled rows on each side.
+template <int M, int R, int O>
+__device__ __forceinline__ void add_tap(float (&acc)[M], const float (&ext)[M + 2 * R],
+                                        float cf, bool first) {
+  if constexpr (O >= -R && O <= R) {
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      const float term = ext[R + s + O] * cf;
+      acc[s] = first ? term : acc[s] + term;
+    }
+  }
+}
+
+// Taps read at run time: a warp-uniform switch per tap (as K5b).
+template <int M, int R>
+__device__ __forceinline__ void apply_runtime_taps(float (&acc)[M],
+                                                   const float (&ext)[M + 2 * R],
+                                                   const Taps1& taps) {
+  // kept rolled: unrolled, it stops nvcc unrolling the slot loop at m = 1,
+  // which then puts the slots in local memory
+#pragma unroll 1
+  for (int t = 0; t < taps.n; ++t) {
+    const float cf = taps.c[t];
+    const bool first = t == 0;
+    switch (taps.o[t]) {   // the same case on every thread: no divergence
+      case -4: add_tap<M, R, -4>(acc, ext, cf, first); break;
+      case -3: add_tap<M, R, -3>(acc, ext, cf, first); break;
+      case -2: add_tap<M, R, -2>(acc, ext, cf, first); break;
+      case -1: add_tap<M, R, -1>(acc, ext, cf, first); break;
+      case 0: add_tap<M, R, 0>(acc, ext, cf, first); break;
+      case 1: add_tap<M, R, 1>(acc, ext, cf, first); break;
+      case 2: add_tap<M, R, 2>(acc, ext, cf, first); break;
+      case 3: add_tap<M, R, 3>(acc, ext, cf, first); break;
+      case 4: add_tap<M, R, 4>(acc, ext, cf, first); break;
+      default: break;   // the entry point checks |o| <= r
+    }
+  }
+}
+
+// The order of the taps, when it is one the kernel knows at compile time:
+// the registry's star stencils list 0, -1, 1, -2, 2, ... (kCenterFirst),
+// heat1d lists -r..r (kAscending); any other list is read at run time.
+enum Order : int { kRuntime = 0, kCenterFirst = 1, kAscending = 2 };
+
+template <int R, int kOrder>
+__host__ __device__ constexpr int tap_offset(int t) {
+  return kOrder == kAscending ? t - R : t == 0 ? 0 : (t + 1) / 2 * (t % 2 ? -1 : 1);
+}
+
+// The 2R+1 taps of a known order: every offset and `first` a constant.
+template <int M, int R, int kOrder, int T = 0>
+__device__ __forceinline__ void fixed_taps(float (&acc)[M], const float (&ext)[M + 2 * R],
+                                           const Taps1& taps) {
+  if constexpr (T < 2 * R + 1) {
+    add_tap<M, R, tap_offset<R, kOrder>(T)>(acc, ext, taps.c[T], T == 0);
+    fixed_taps<M, R, kOrder, T + 1>(acc, ext, taps);
+  }
+}
+
+template <int M, int R, int kOrder>
+__device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&ext)[M + 2 * R],
+                                           const Taps1& taps) {
+  if constexpr (kOrder != kRuntime) {
+    fixed_taps<M, R, kOrder>(acc, ext, taps);
+  } else {
+    apply_runtime_taps<M, R>(acc, ext, taps);
+  }
+}
+
+template <int M, int R, int B, int kOrder>
+__global__ void __launch_bounds__(kVl * kWarps, 1)
+sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t nb,
+                 int64_t nruns, int depth, Taps1 taps) {
+  constexpr int S = B + 2;   // slots: the halo block, the run, the halo block
+  const int lane = threadIdx.x & (kVl - 1);
+  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = w < nruns;
+  const int64_t b0 = (live ? w : nruns - 1) * B;   // the run's first block
+  // v[i][s]: row s of this lane's column in slot i (block b0 - 1 + i)
+  float v[S][M];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float* src = in + wrap(b0 - 1 + i, nb) * (M * kVl) + lane;
+#pragma unroll
+    for (int s = 0; s < M; ++s) v[i][s] = src[s * kVl];
+  }
+  const int left = (lane + kVl - 1) & (kVl - 1);
+  const int right = (lane + 1) & (kVl - 1);
+#pragma unroll 1
+  for (int step = 0; step < depth; ++step) {
+    // old rows M-1-q of the previous slot (slot 0 has none loaded: its own
+    // rows stand in, inside the error the left halo slot absorbs)
+    float tail[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) tail[q] = v[0][M - 1 - q];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      constexpr int kLast = S - 1;
+      const int nxt = i < kLast ? i + 1 : kLast;   // past the right end: own rows
+      float ext[M + 2 * R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const float to_right = lane == kVl - 1 ? tail[q] : v[i][M - 1 - q];
+        ext[R - 1 - q] = __shfl_sync(kFull, to_right, left);
+        const float to_left = lane == 0 ? v[nxt][q] : v[i][q];
+        ext[R + M + q] = __shfl_sync(kFull, to_left, right);
+      }
+#pragma unroll
+      for (int s = 0; s < M; ++s) ext[R + s] = v[i][s];
+#pragma unroll
+      for (int q = 0; q < R; ++q) tail[q] = v[i][M - 1 - q];
+      float acc[M] = {};
+      apply_taps<M, R, kOrder>(acc, ext, taps);
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[i][s] = acc[s];
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 1; i <= B; ++i) {
+      const int64_t b = b0 - 1 + i;
+      if (b < nb) {
+        float* dst = out + b * (M * kVl) + lane;
+#pragma unroll
+        for (int s = 0; s < M; ++s) dst[s * kVl] = v[i][s];
+      }
+    }
+  }
+}
+
+template <int M, int R>
+int launch(const float* in, float* out, int64_t nb, int depth, const Taps1& taps,
+           int order, cudaStream_t stream) {
+  constexpr int B = run_blocks(M);
+  const int64_t nruns = (nb + B - 1) / B;
+  const int64_t ctas = (nruns + kWarps - 1) / kWarps;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)ctas;
+  constexpr int kThreads = kVl * kWarps;
+  switch (order) {
+    case kCenterFirst:
+      sweep1d_warp_f32<M, R, B, kCenterFirst><<<grid, kThreads, 0, stream>>>(
+          in, out, nb, nruns, depth, taps);
+      break;
+    case kAscending:
+      sweep1d_warp_f32<M, R, B, kAscending><<<grid, kThreads, 0, stream>>>(
+          in, out, nb, nruns, depth, taps);
+      break;
+    default:
+      sweep1d_warp_f32<M, R, B, kRuntime><<<grid, kThreads, 0, stream>>>(
+          in, out, nb, nruns, depth, taps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// r <= m: the instances that exist
+template <int M>
+int launch_m(const float* in, float* out, int64_t nb, int r, int depth, const Taps1& taps,
+             int order, cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch<M, 1>(in, out, nb, depth, taps, order, stream);
+    case 2:
+      if constexpr (M >= 2) return launch<M, 2>(in, out, nb, depth, taps, order, stream);
+      break;
+    case 3:
+      if constexpr (M >= 4) return launch<M, 3>(in, out, nb, depth, taps, order, stream);
+      break;
+    case 4:
+      if constexpr (M >= 4) return launch<M, 4>(in, out, nb, depth, taps, order, stream);
+      break;
+    default: break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Which Order the r-reach list of offsets is in.
+int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
+  if (ntaps != 2 * r + 1) return kRuntime;
+  bool center = true, ascending = true;
+  for (int t = 0; t < ntaps; ++t) {
+    center = center && offsets[t] == (t == 0 ? 0 : (t + 1) / 2 * (t % 2 ? -1 : 1));
+    ascending = ascending && offsets[t] == t - r;
+  }
+  return center ? kCenterFirst : ascending ? kAscending : kRuntime;
+}
+
+}  // namespace
+
+extern "C" int64_t repro_sweep1d_warp_blocks(int64_t m) { return run_blocks((int)m); }
+
+// `depth` fully periodic steps of the (nb, m, vl) layout array `in` into
+// `out` (another buffer), for a stencil of reach r.  `blocks` must be the
+// run length this build uses for m; `offsets` / `coeffs`: ntaps tap offsets
+// and float coefficients in host memory.  Returns the CUDA error code.
+extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int64_t m,
+                                      int64_t vl, int64_t r, int64_t blocks, int64_t depth,
+                                      int64_t ntaps, const int32_t* offsets,
+                                      const float* coeffs, void* stream) {
+  if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || blocks != run_blocks((int)m) ||
+      nb < 1 || r < 1 || r > m || r > kMaxR || depth < 0 || depth * r > kVl * m ||
+      ntaps < 1 || ntaps > kMaxTaps)
+    return (int)cudaErrorInvalidValue;
+  Taps1 taps;
+  taps.n = (int)ntaps;
+  for (int t = 0; t < ntaps; ++t) {
+    if (offsets[t] < -r || offsets[t] > r) return (int)cudaErrorInvalidValue;
+    taps.o[t] = offsets[t];
+    taps.c[t] = coeffs[t];
+  }
+  const float* src = static_cast<const float*>(in);
+  float* dst = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rr = (int)r, d = (int)depth, order = tap_order(offsets, ntaps, r);
+  switch (m) {
+    case 1: return launch_m<1>(src, dst, nb, rr, d, taps, order, st);
+    case 2: return launch_m<2>(src, dst, nb, rr, d, taps, order, st);
+    case 4: return launch_m<4>(src, dst, nb, rr, d, taps, order, st);
+    default: return launch_m<8>(src, dst, nb, rr, d, taps, order, st);
+  }
+}

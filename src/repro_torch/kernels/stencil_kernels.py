@@ -3,10 +3,13 @@
   * K2 ``block_transpose`` / ``block_untranspose`` — ``csrc/transpose.cu``:
     (..., N) ↔ (..., nb, m, vl), the per-block (vl, m) ↔ (m, vl) transpose
     (reference: ``stencil_kernels.py::_kernel_transpose``).
-  * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile`` —
-    ``csrc/stencil_sweep.cu``: a fully periodic depth-``ttile·k`` advance of
-    the layout-resident grid in one launch (reference: ``_kernel_1d`` and
-    ``_kernel_nd``).
+  * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
+    periodic depth-``ttile·k`` advance of the layout-resident grid in one
+    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 takes one of
+    two kernels, chosen by shape before the launch (:func:`sweep1d_route`):
+    the warp-register kernel ``csrc/sweep1d_warp.cu`` at ``vl = 32``, or
+    the shared-memory kernel ``csrc/stencil_sweep.cu``, which K3 always
+    takes.
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernel with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -18,9 +21,10 @@
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``; the
-plain versions count nothing.  Outputs are allocated here (or passed in
-as ``out``); the kernels allocate nothing.
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` (K1's
+two routes count under ``sweep_1d``, the warp kernel, and
+``sweep_1d_smem``); the plain versions count nothing.  Outputs are
+allocated here (or passed in as ``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
 
@@ -34,12 +38,16 @@ from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_nd": 0, "multistep_1d": 0,
-            "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
+LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0, "sweep_nd": 0,
+            "multistep_1d": 0, "multistep_nd": 0, "onestep_naive": 0,
+            "onestep_transpose": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
+# blocks per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
+WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
+WARP_VL, WARP_MAX_R = 32, 4
 
 
 def reset_launches() -> None:
@@ -258,11 +266,34 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
         smem, _stream()), f"{spec.name} sweep kernel")
 
 
+def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
+    """The kernel a CUDA :func:`stencil1d_sweep_ttile` launches: ``"warp"``
+    (``csrc/sweep1d_warp.cu``) when a block row is one warp (``vl = 32``),
+    ``m`` has an instance and the ``depth·r`` elements a sweep corrupts at
+    each end of a warp's span fit in its halo block (``depth·r <= vl·m``);
+    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise."""
+    if vl == WARP_VL and m in WARP_BLOCKS and r <= WARP_MAX_R and depth * r <= vl * m:
+        return "warp"
+    return "smem"
+
+
+def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int) -> None:
+    _kernel_io(t, out, "the warp sweep kernel")
+    nb, m, vl = t.shape
+    lib = build.load("sweep1d_warp")
+    ntaps, offs, coeffs = _taps(spec, 1)
+    build.check(lib.repro_sweep1d_warp_f32(
+        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[m], depth, ntaps,
+        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
+        f"{spec.name} warp sweep kernel")
+
+
 def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                           ttile: int = 1, out: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps (``depth = ttile·k`` steps) of
-    the layout-resident (nb, m, vl) array in one launch."""
+    the layout-resident (nb, m, vl) array in one launch, on the kernel
+    :func:`sweep1d_route` names."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -270,8 +301,14 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_sweep_ttile_ref(spec, t, k, ttile), "stencil1d_sweep_ttile")
     _check_cuda(t, "stencil1d_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil1d_sweep_ttile")
-    _sweep_launch(spec, t, dst, sweep_depth(k, ttile), None)
-    LAUNCHES["sweep_1d"] += 1
+    depth = sweep_depth(k, ttile)
+    nb, m, vl = t.shape
+    if sweep1d_route(vl, m, depth, spec.r) == "warp":
+        _warp_launch(spec, t, dst, depth)
+        LAUNCHES["sweep_1d"] += 1
+    else:
+        _sweep_launch(spec, t, dst, depth, None)
+        LAUNCHES["sweep_1d_smem"] += 1
     return dst
 
 

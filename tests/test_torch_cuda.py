@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core import layouts, stencils
 from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import ssd_kernel as ssd
 from repro_torch.kernels import stencil_kernels as sk
 
@@ -84,6 +84,81 @@ def test_sweep_kernel_counts_and_raises(cuda):
         sk.stencil_nd_sweep_ttile(spec, t, 1, 1, 8, out=t)
 
 
+def _warp_cases():
+    """The CPU transcription's grid (tests/test_torch_sweep1d_warp.py):
+    every m with m >= r, and nb in {1, 2, B-1, B, B+1, 3B+2}."""
+    cases = []
+    for name in ("1d3p", "1d5p", "heat1d"):
+        for m, blocks in sk.WARP_BLOCKS.items():
+            if m >= stencils.make(name).r:
+                cases += [(name, m, nb) for nb in
+                          sorted({1, 2, blocks - 1, blocks, blocks + 1, 3 * blocks + 2})]
+    return cases + [("1d3p", 8, (1 << 20) // 256), ("1d5p", 4, (1 << 20) // 128)]
+
+
+@pytest.mark.parametrize("name,m,nb", _warp_cases())
+def test_sweep1d_warp_kernel_bitwise(cuda, name, m, nb):
+    spec = stencils.make(name)
+    t = layouts.to_transpose_layout(_x((nb * 32 * m,), nb + m, cuda), 32, m)
+    out = torch.empty_like(t)
+    for depth in range(1, 13):
+        sk.reset_launches()
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=out)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_1d": 1}
+        want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
+        assert torch.equal(got, want), (depth, (got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("taps", [
+    (((1,), 0.25), ((0,), 0.5), ((-1,), 0.25)),
+    (((0,), 0.375), ((-1,), 0.25), ((1,), 0.25), ((0,), 0.125)),     # 0 twice
+    (((2,), 0.125), ((-1,), 0.25), ((0,), 0.25), ((1,), 0.25), ((-2,), 0.125)),
+])
+def test_sweep1d_warp_kernel_runtime_taps(cuda, taps):
+    """Tap lists in no order the warp kernel knows at compile time."""
+    r = max(abs(off[0]) for off, _ in taps)
+    spec = stencils.StencilSpec("custom1d", 1, r, "star", taps)
+    t = layouts.to_transpose_layout(_x((35 * 32 * 4,), 9, cuda), 32, 4)
+    for depth in (1, 5, 12):
+        sk.reset_launches()
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_1d": 1}
+        assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1))
+
+
+def test_sweep1d_routes_count_and_raise(cuda):
+    spec = stencils.make("1d3p")
+    x = _x((1 << 15,), 3, cuda)
+    for vl, m, depth, key in ((32, 8, 4, "sweep_1d"), (128, 8, 4, "sweep_1d_smem"),
+                              (32, 1, 33, "sweep_1d_smem")):
+        t = layouts.to_transpose_layout(x, vl, m)
+        sk.reset_launches()
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1))
+        with pytest.raises(ValueError, match="in place"):
+            sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=t)
+    with pytest.raises(NotImplementedError, match="D1"):
+        sk.stencil1d_sweep_ttile(spec, layouts.to_transpose_layout(x, 32, 8).double(), 2, 2)
+    lib = build.load("sweep1d_warp")
+    assert {m: lib.repro_sweep1d_warp_blocks(m) for m in sk.WARP_BLOCKS} == sk.WARP_BLOCKS
+
+
+@pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d_smem")])
+def test_main_path_1d_route_counts(cuda, vl, m, key):
+    prob = StencilProblem("1d3p", (1 << 15,))
+    x = prob.init(0)
+    sk.reset_launches()
+    got = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+                                      vl=vl, m=m))
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2, key: 4}
+    want = stencils.apply_steps(prob.spec, x, 16)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
 @pytest.mark.parametrize("remainder", ["fused", "native"])
 @pytest.mark.parametrize("name,shape", [
     ("1d3p", (1 << 15,)), ("2d5p", (64, 1024)), ("3d7p", (16, 16, 256)),
@@ -95,10 +170,10 @@ def test_main_path_matches_plain(cuda, name, shape, remainder):
                        remainder=remainder)
     sk.reset_launches()
     got = prob.run(x, 7, plan)
-    assert sk.LAUNCHES["transpose"] == 2
     chunks, _ = sweep_schedule(2, 7, remainder, 2)
-    assert sk.LAUNCHES["sweep_1d" if prob.spec.ndim == 1 else "sweep_nd"] == \
-        sum(n for _, n in chunks)
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
+        "transpose": 2, "sweep_1d" if prob.spec.ndim == 1 else "sweep_nd":
+        sum(n for _, n in chunks)}
     want = stencils.apply_steps(prob.spec, x, 7)
     assert torch.equal(got, want), (got - want).abs().max().item()
     donated = ops.stencil_sweep_periodic(prob.spec, x.clone(), 7, k=2, ttile=2,
