@@ -12,13 +12,17 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
 
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, started together) and reports the time,
-             and K1's warp kernel's registers and spills per instance;
+             and the warp kernels' registers, spills and stack per instance
+             (K1's ``sweep1d_warp_f32``, K3's 2-D ``sweep2d_warp_f32``);
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
-             per sweep; the result equals the port's plain path bit for bit.
-             1d3p runs K1 on the warp kernel (vl=32); a third run, fused 16
-             at the JAX package's vl=128, m=8, takes K1's shared-memory
-             route (counted as ``sweep_1d_smem``);
+             per sweep; the result equals the port's plain path bit for bit;
+             the counted run's seconds, and the median of five more runs;
+             1d3p runs K1 on its warp kernel and 2d5p K3 on its 2-D warp
+             kernel (vl=32; counted as ``sweep_1d`` / ``sweep_2d``); a third
+             run, fused 16 at the JAX package's vl=128, m=8, takes the
+             shared-memory route (``sweep_1d_smem`` / ``sweep_nd``) and
+             equals the vl=32 run;
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
@@ -30,7 +34,13 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
   kernels    at those paths' shapes, each kernel against its plain PyTorch
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
-             after warm-up);
+             after warm-up); K1-smem and K3-smem time the shared-memory
+             route at vl=128;
+  tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
+             1d5p 96, 2d5p 64x48, 3d7p 16x8x16) at the tile the GPU picker
+             chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
+             (fused 16, native 7) and roundtrip, and ``ops.stencil_run``,
+             each bit for bit the same call on the CPU (the plain versions);
   small      3d7p at (16, 16, 256) resident, and 2d5p at (64, 256) through
              ``ops.stencil_run``, on the card and on the CPU against the
              float64 numpy oracle;
@@ -83,11 +93,13 @@ K = 2
 TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
-SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, K1's shared-memory route
+SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, the shared-memory route
+TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
     "sweep1d_warp": "src/repro_torch/kernels/csrc/sweep1d_warp.cu",
+    "sweep2d_warp": "src/repro_torch/kernels/csrc/sweep2d_warp.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
@@ -97,6 +109,7 @@ REPLACES = {
     "K1-smem": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
     "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
+    "K3-smem": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
     "K4b": f"{_SK}:339 (_kernel_nd via stencil_nd_multistep :398, stencil_nd_sweep_halo :262)",
     "K5a": f"{_SK}:620 (_kernel_naive_1d via stencil1d_naive_onestep :634)",
@@ -441,7 +454,9 @@ def main() -> int:
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
                     for n, r in reports.items()},
           "sweep1d_warp_f32 <M, R, B, order>": ptxas_kernels(build.report("sweep1d_warp"),
-                                                             "sweep1d_warp_f32")})
+                                                             "sweep1d_warp_f32"),
+          "sweep2d_warp_f32 <M, R, D, order>": ptxas_kernels(build.report("sweep2d_warp"),
+                                                             "sweep2d_warp_f32")})
 
     def ms(fn, *args):
         return bench(fn, *args, device=dev, warmup=1, iters=5, min_time_s=0.1) * 1e3
@@ -462,6 +477,19 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"{what}: launches {got}, the schedule says {want}")
         return out, seconds, got
+
+    def host_median(fn, runs=5):
+        """Median host-clock seconds of ``runs`` further runs of ``fn``, each
+        between two synchronizes (one run alone is at the mercy of the
+        shared host)."""
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        return float(np.median(times))
 
     def same(what, got, want):
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
@@ -493,6 +521,21 @@ def main() -> int:
                 else:
                     t = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
         return sk.block_untranspose_ref(t, vl, m)
+
+    def resident_counts(spec, steps, remainder, vl, m):
+        """The launches a resident run makes, by the route of each chunk."""
+        owned = {"transpose": 2}
+        for depth, n in sweep_schedule(K, steps, remainder, TTILE)[0]:
+            if spec.ndim == 1:
+                key = "sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
+                    else "sweep_1d_smem"
+            elif spec.ndim == 2:
+                key = "sweep_2d" if sk.sweep2d_route(vl, m, depth, spec.r) == "warp" \
+                    else "sweep_nd"
+            else:
+                key = "sweep_nd"
+            owned[key] = owned.get(key, 0) + n
+        return owned
 
     def dirichlet_plain(spec, x, steps, vl, m, t0):
         """``ops.stencil_run`` on the plain versions only."""
@@ -540,7 +583,8 @@ def main() -> int:
         numel, itemsize = x.numel(), x.element_size()
         grid_bytes = 2 * numel * itemsize
         dims = "x".join(map(str, shape))
-        sweep_key = "sweep_1d" if spec.ndim == 1 else "sweep_nd"
+        sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_nd"}[spec.ndim]
+        smem_key = "sweep_1d_smem" if spec.ndim == 1 else "sweep_nd"
         multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
@@ -552,40 +596,44 @@ def main() -> int:
         prob.run(x, 2, plan_of("resident", "fused"))
         resident, counts = {}, {}
         for remainder, steps in PLANS:
-            launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
             y, seconds, got = counted(
                 f"{name} resident {remainder}",
                 lambda: prob.run(x, steps, plan_of("resident", remainder, TTILE)),
-                {"transpose": 2, sweep_key: launches})
+                resident_counts(spec, steps, remainder, vl, m))
             counts[("resident", remainder)] = got
             err = same(f"{name} resident {remainder} vs plain", y,
                        resident_plain(spec, x, steps, remainder, vl, m, t0))
             resident[remainder] = (y, seconds)
+            median = host_median(lambda: prob.run(x, steps, plan_of("resident", remainder, TTILE)))
             emit({"phase": "main_path", "case": name, "shape": list(shape),
                   "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
                   "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
                   "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
+                  "seconds_median_of_5": median,
                   "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
                   "max_abs_err_vs_plain": err, "bitwise": True})
-        if spec.ndim == 1:
-            # the same fused run at the JAX package's tile: K1's smem route
+        if spec.ndim <= 2:
+            # the same fused run at the JAX package's tile: the smem route
             remainder, steps = PLANS[0]
             vl2, m2 = SMEM_TILE
+            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
             plan = plan_of("resident", remainder, TTILE, SMEM_TILE)
             prob.run(x, 2, plan)
             launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
             y, seconds, got = counted(f"{name} resident {remainder} vl={vl2}",
                                       lambda: prob.run(x, steps, plan),
-                                      {"transpose": 2, "sweep_1d_smem": launches})
+                                      {"transpose": 2, smem_key: launches})
             counts[("resident smem", remainder)] = got
             err = same(f"{name} resident {remainder} vl={vl2} vs plain", y,
-                       resident_plain(spec, x, steps, remainder, vl2, m2, None))
+                       resident_plain(spec, x, steps, remainder, vl2, m2, t02))
             same(f"{name} resident {remainder} vl={vl2} vs vl={vl}", y, resident[remainder][0])
             emit({"phase": "main_path", "case": name, "shape": list(shape),
                   "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
                   "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
-                  "tile": {"vl": vl2, "m": m2, "t0": None}, "route": "sweep_1d_smem",
-                  "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
+                  "tile": {"vl": vl2, "m": m2, "t0": t02}, "route": smem_key,
+                  "seconds": seconds,
+                  "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+                  "gpoint_updates_per_s": numel * steps / seconds,
                   "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
             del y
 
@@ -653,7 +701,7 @@ def main() -> int:
         # -- K1 / K3: the resident sweep at every depth the main path launches
         kid = "K1" if spec.ndim == 1 else "K3"
         fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
-        src = "sweep1d_warp" if spec.ndim == 1 else "sweep"
+        src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep"}[spec.ndim]
         for depth in (4, 2, 1):
             kk, tt = (K, depth // K) if depth > K else (depth, 1)
             if spec.ndim == 1:
@@ -674,23 +722,29 @@ def main() -> int:
                 bound(grid_bytes, depth * spec.flops_per_point * numel),
                 lambda: ms(conv_steps, spec, x, depth, weight))
         del t, buf
-        if spec.ndim == 1:
-            # K1's shared-memory route, at the vl=128 run's depth 4
+        if spec.ndim <= 2:
+            # the shared-memory route, at the vl=128 run's depth 4
             vl2, m2 = SMEM_TILE
+            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
             t2 = sk.block_transpose(x, vl2, m2)
             buf2 = torch.empty_like(t2)
             depth = K * TTILE
-            if sk.sweep1d_route(vl2, m2, depth, spec.r) != "smem":
+            route = sk.sweep1d_route if spec.ndim == 1 else sk.sweep2d_route
+            if route(vl2, m2, depth, spec.r) != "smem":
                 raise AssertionError(f"vl={vl2}, m={m2} does not take the smem route")
 
             def kern():
-                return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
+                if spec.ndim == 1:
+                    return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
+                return sk.stencil_nd_sweep_ttile(spec, t2, K, TTILE, t02, out=buf2)
 
             def plain():
-                return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
-            err = same(f"{name} K1-smem depth {depth}", kern(), plain())
-            row("K1-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
-                launched["sweep_1d_smem"], err, kern, plain,
+                if spec.ndim == 1:
+                    return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
+                return sk.stencil_nd_sweep_ttile_ref(spec, t2, K, TTILE, t02)
+            err = same(f"{name} {kid}-smem depth {depth}", kern(), plain())
+            row(f"{kid}-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
+                launched[smem_key], err, kern, plain,
                 bound(grid_bytes, depth * spec.flops_per_point * numel),
                 lambda: ms(conv_steps, spec, x, depth, weight))
             del t2, buf2
@@ -767,6 +821,35 @@ def main() -> int:
             lambda: ms(conv_steps, spec, x, 1, weight))
         del x, want, naive, trans, t, tout, out
         torch.cuda.empty_cache()
+
+    # -- tiles: the GPU picker's tiles off vl=32, each run vs the CPU's ------
+    for name, shape in TILE_CASES:
+        prob, prob_cpu = StencilProblem(name, shape), StencilProblem(name, shape, device="cpu")
+        spec = prob.spec
+        x = prob.init(SEED)
+        x_cpu = x.cpu()
+        vl, m, t0 = ops.pick_tile(spec, shape)
+        multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
+        runs = []
+        for sweep, ttile in (("resident", TTILE), ("roundtrip", 1)):
+            for remainder, steps in PLANS:
+                plan = StencilPlan(backend="pallas", sweep=sweep, k=K, ttile=ttile,
+                                   remainder=remainder)
+                sweeps = sum(n for _, n in sweep_schedule(K, steps, remainder, 1)[0])
+                owned = resident_counts(spec, steps, remainder, vl, m) if sweep == "resident" \
+                    else {"transpose": 2 * sweeps, multi_key: sweeps}
+                runs.append((f"{sweep} {remainder} {steps}", owned,
+                             lambda p, v, n=steps, plan=plan: p.run(v, n, plan)))
+        sweeps = DIRICHLET_STEPS // K
+        runs.append((f"stencil_run {DIRICHLET_STEPS}", {"transpose": 2 * sweeps, multi_key: sweeps},
+                     lambda p, v: ops.stencil_run(spec, v, DIRICHLET_STEPS, k=K)))
+        for label, owned, run in runs:
+            y, seconds, got = counted(f"tiles {name} {label}", lambda: run(prob, x), owned)
+            same(f"tiles {name} {label} vs the CPU", y.cpu(), run(prob_cpu, x_cpu))
+            emit({"phase": "tiles", "case": name, "shape": list(shape), "run": label,
+                  "tile": {"vl": vl, "m": m, "t0": t0},
+                  "launches": {key: n for key, n in got.items() if n}, "bitwise": True})
+        del x, x_cpu
 
     # -- small cases on the card and on the CPU against the f64 oracle -------
     def small(case, spec, x, run, steps, bc):

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "onestep", "ssd_scan")
+SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep2d_warp", "onestep", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,6 +118,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sweep1d_warp_f32.restype = ctypes.c_int
         lib.repro_sweep1d_warp_blocks.argtypes = [i64]
         lib.repro_sweep1d_warp_blocks.restype = i64
+    elif name == "sweep2d_warp":
+        lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
+        lib.repro_sweep2d_warp_f32.restype = ctypes.c_int
+        for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps):
+            fn.restype = i64
+        lib.repro_sweep2d_warp_max_depth.argtypes = [i64]
+        lib.repro_sweep2d_warp_warps.argtypes = []
     elif name == "onestep":
         lib.repro_onestep_naive_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
         lib.repro_onestep_naive_f32.restype = ctypes.c_int

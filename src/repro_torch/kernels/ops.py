@@ -25,40 +25,53 @@ from repro_torch.core.stencils import StencilSpec
 from repro_torch.kernels import stencil_kernels as sk
 
 DEFAULT_VL = 32                  # one warp of lanes: a 128-byte f32 row
-M_CHOICES = (8, 4, 2, 1)         # vectors per set, largest first
+MAX_AUTO_M = 8                   # largest vectors per set an auto pick takes
 DEFAULT_T0 = {2: 32, 3: 16}      # axis-0 rows of a sweep kernel's tile
+
+
+def _fit_m(n_minor: int, vl: int, r: int, m: int) -> int | None:
+    """The largest ``m' <= m`` with ``m' >= r`` and ``vl·m'`` dividing
+    ``n_minor``, or None."""
+    while m >= max(r, 1):
+        if n_minor % (vl * m) == 0:
+            return m
+        m -= 1
+    return None
 
 
 def pick_tile(spec: StencilSpec, shape, vl: int | None = None,
               m: int | None = None, t0: int | None = None):
-    """GPU tile: ``vl=32`` and the largest ``m`` in (8, 4, 2, 1) with
-    ``m >= r`` and ``vl·m`` dividing the minor extent; for n-D grids the
-    largest axis-0 tile ``t0 <= DEFAULT_T0`` dividing ``shape[0]`` with
-    ``t0 >= r``.  An explicit ``vl``, ``m`` or ``t0`` is honored (and
-    checked); a ValueError names the shape where no tile is legal."""
+    """GPU tile ``(vl, m, t0)``.  ``vl``: 32, halved (16, 8, …, down to
+    ``r``) until some ``m`` fits; an explicit ``vl`` is kept.  ``m``: the
+    largest integer ``m <= MAX_AUTO_M`` (an explicit ``m`` is the bound
+    instead) with ``m >= r`` and ``vl·m`` dividing the minor extent.
+    ``t0`` (n-D grids): ``DEFAULT_T0`` or the explicit value, lowered until
+    it divides ``shape[0]``; it must stay ``>= r``.  A ValueError names the
+    shape where no tile is legal."""
     n_minor, r = shape[-1], spec.r
-    vl_req, m_req = vl, m
-    vl = vl or DEFAULT_VL
-    cands = (m,) if m else M_CHOICES
-    fit = [c for c in cands if c >= r and n_minor % (vl * c) == 0]
-    if not fit:
+    m_cap = m or MAX_AUTO_M
+    cands = (vl,) if vl else [DEFAULT_VL >> i for i in range(6)
+                              if DEFAULT_VL >> i >= max(r, 1)]
+    for cand in cands:
+        fit = _fit_m(n_minor, cand, r, m_cap)
+        if fit is not None:
+            vl, m = cand, fit
+            break
+    else:
         raise ValueError(
             f"no legal GPU tile for stencil {spec.name!r} on shape {tuple(shape)}: "
-            f"need m >= r={r} with vl*m dividing n_minor={n_minor}"
-            + (f" at vl={vl}" if vl_req else f" (vl={vl})")
-            + (f", m={m_req}" if m_req else ""))
-    m = fit[0]
+            f"need m >= r={r}, m <= {m_cap}, with vl*m dividing n_minor={n_minor} "
+            + (f"at vl={vl}" if vl else f"for any vl in {tuple(cands)}"))
     if len(shape) == 1:
         return vl, m, None
     n0 = shape[0]
-    if t0 is None:
-        t0 = min(DEFAULT_T0[len(shape)], n0)
-        while n0 % t0:
-            t0 -= 1
-    if t0 < r or n0 % t0:
+    t0 = min(t0 or DEFAULT_T0[len(shape)], n0)
+    while n0 % t0:
+        t0 -= 1
+    if t0 < r:
         raise ValueError(
             f"no legal axis-0 tile for stencil {spec.name!r} on shape "
-            f"{tuple(shape)}: need t0 >= r={r} dividing n0={n0} (t0={t0})")
+            f"{tuple(shape)}: need t0 >= r={r} dividing n0={n0}")
     return vl, m, t0
 
 

@@ -5,11 +5,12 @@
     (reference: ``stencil_kernels.py::_kernel_transpose``).
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
     periodic depth-``ttile·k`` advance of the layout-resident grid in one
-    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 takes one of
-    two kernels, chosen by shape before the launch (:func:`sweep1d_route`):
-    the warp-register kernel ``csrc/sweep1d_warp.cu`` at ``vl = 32``, or
-    the shared-memory kernel ``csrc/stencil_sweep.cu``, which K3 always
-    takes.
+    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and the 2-D
+    K3 each take one of two kernels, chosen by shape before the launch:
+    a warp-register kernel at ``vl = 32`` (:func:`sweep1d_route`:
+    ``csrc/sweep1d_warp.cu``; :func:`sweep2d_route`: ``csrc/sweep2d_warp.cu``,
+    streamed along axis 0), or the shared-memory kernel
+    ``csrc/stencil_sweep.cu``, which the 3-D K3 always takes.
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernel with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -23,12 +24,14 @@ A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
 kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` (K1's
 two routes count under ``sweep_1d``, the warp kernel, and
-``sweep_1d_smem``); the plain versions count nothing.  Outputs are
+``sweep_1d_smem``; K3's under ``sweep_2d``, the 2-D warp kernel, and
+``sweep_nd``); the plain versions count nothing.  Outputs are
 allocated here (or passed in as ``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,7 +41,7 @@ from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0, "sweep_nd": 0,
+LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0, "sweep_2d": 0, "sweep_nd": 0,
             "multistep_1d": 0, "multistep_nd": 0, "onestep_naive": 0,
             "onestep_transpose": 0}
 
@@ -48,6 +51,12 @@ _TILE_MID = 16                       # default output tile, 3-D mid axis
 # blocks per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_VL, WARP_MAX_R = 32, 4
+# csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
+# instance by m, its reach, and the shortest axis-0 segment a CTA walks
+WARP2D_WARPS = 10
+WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
+WARP2D_MAX_R = 1
+WARP2D_SEG_MIN = 32
 
 
 def reset_launches() -> None:
@@ -77,9 +86,16 @@ def _out(out: torch.Tensor | None, shape, like: torch.Tensor, what: str) -> torc
     return out
 
 
-def _into(out: torch.Tensor | None, value: torch.Tensor, what: str) -> torch.Tensor:
-    """The plain version's result, copied into ``out`` when one is given."""
+def _into(out: torch.Tensor | None, value: torch.Tensor, what: str,
+          src: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version's result, copied into ``out`` when one is given.
+    Without ``out`` a result that is a view of ``src`` (a layout change that
+    moves no data, as at ``m = 1``) is copied: like the kernel's, it never
+    shares the input's storage."""
     if out is None:
+        if src is not None and \
+                value.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+            return value.clone()
         return value
     return _out(out, value.shape, value, what).copy_(value)
 
@@ -132,7 +148,7 @@ def block_transpose(x: torch.Tensor, vl: int, m: int,
         raise ValueError(f"minor extent {n} is not a multiple of vl*m={vl * m}")
     shape = tuple(x.shape[:-1]) + (n // (vl * m), m, vl)
     if x.device.type == "cpu":
-        return _into(out, block_transpose_ref(x, vl, m), "block_transpose")
+        return _into(out, block_transpose_ref(x, vl, m), "block_transpose", x)
     _check_cuda(x, "block_transpose")
     dst = _out(out, shape, x, "block_transpose")
     _transpose_launch(x, dst, vl, m)
@@ -147,7 +163,7 @@ def block_untranspose(t: torch.Tensor, vl: int, m: int,
         raise ValueError(f"layout shape {tuple(t.shape)} does not end in (m={m}, vl={vl})")
     shape = tuple(t.shape[:-3]) + (t.shape[-3] * vl * m,)
     if t.device.type == "cpu":
-        return _into(out, block_untranspose_ref(t, vl, m), "block_untranspose")
+        return _into(out, block_untranspose_ref(t, vl, m), "block_untranspose", t)
     _check_cuda(t, "block_untranspose")
     dst = _out(out, shape, t, "block_untranspose")
     _transpose_launch(t, dst, m, vl)
@@ -312,13 +328,61 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     return dst
 
 
+def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
+    """The kernel a CUDA :func:`stencil_nd_sweep_ttile` launches for a 2-D
+    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``) when a block row is one
+    warp (``vl = 32``), ``m`` and ``depth`` have an instance
+    (``WARP2D_DEPTH``), the reach is the kernel's and the ``depth·r``
+    elements a sweep corrupts at each end of a CTA's span fit in its halo
+    warps (``depth·r <= vl·m``); ``"smem"`` (``csrc/stencil_sweep.cu``)
+    otherwise."""
+    if vl == WARP_VL and m in WARP2D_DEPTH and 1 <= r <= WARP2D_MAX_R \
+            and 1 <= depth <= WARP2D_DEPTH[m] and depth * r <= vl * m:
+        return "warp"
+    return "smem"
+
+
+def sweep2d_segment(n0: int, nb: int, ctas: int) -> int:
+    """Axis-0 rows per CTA of the 2-D warp kernel: about ``ctas`` CTAs over
+    the grid (``WARP2D_WARPS - 2`` blocks of a row each), and no segment
+    shorter than ``WARP2D_SEG_MIN`` rows, whose 2·depth·r warm-up rows are
+    read twice."""
+    ncol = -(-nb // (WARP2D_WARPS - 2))
+    nseg = max(1, min(-(-ctas // ncol), -(-n0 // WARP2D_SEG_MIN)))
+    return -(-n0 // nseg)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
+                   seg_rows: int | None = None) -> None:
+    """The 2-D warp kernel, ``seg_rows`` axis-0 rows per CTA (by default
+    one CTA per SM, a single wave: at 8192², m=8 this beat two waves and
+    the shorter segments' extra warm-up rows, ``tools/sweep2d_segments.py``)."""
+    _kernel_io(t, out, "the 2-D warp sweep kernel")
+    n0, nb, m, vl = t.shape
+    if seg_rows is None:
+        seg_rows = sweep2d_segment(n0, nb, _sm_count(t.device))
+    lib = build.load("sweep2d_warp")
+    ntaps, offs, coeffs = _taps(spec, 2)
+    build.check(lib.repro_sweep2d_warp_f32(
+        t.data_ptr(), out.data_ptr(), n0, nb, m, vl, spec.r, depth, seg_rows, ntaps,
+        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
+        f"{spec.name} 2-D warp sweep kernel")
+
+
 def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                            ttile: int, t0: int, out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps of the layout-resident
     (n0, *mid, nb, m, vl) array in one launch; ``t0`` is the axis-0 rows of
-    the kernel's output tile (it must divide n0 and reach the radius, as
-    the reference's pipeline tile must)."""
+    the shared-memory kernel's output tile (it must divide n0 and reach the
+    radius, as the reference's pipeline tile must).  A 2-D sweep that
+    :func:`sweep2d_route` sends to the warp kernel picks its own segment
+    length: results never depend on the tile."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -331,8 +395,14 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                      "stencil_nd_sweep_ttile")
     _check_cuda(t, "stencil_nd_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil_nd_sweep_ttile")
-    _sweep_launch(spec, t, dst, sweep_depth(k, ttile), t0)
-    LAUNCHES["sweep_nd"] += 1
+    depth = sweep_depth(k, ttile)
+    nb, m, vl = t.shape[-3:]
+    if spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
+        _warp2d_launch(spec, t, dst, depth)
+        LAUNCHES["sweep_2d"] += 1
+    else:
+        _sweep_launch(spec, t, dst, depth, t0)
+        LAUNCHES["sweep_nd"] += 1
     return dst
 
 

@@ -147,6 +147,127 @@ def test_sweep1d_routes_count_and_raise(cuda):
     assert {m: lib.repro_sweep1d_warp_blocks(m) for m in sk.WARP_BLOCKS} == sk.WARP_BLOCKS
 
 
+def _warp2d_grids():
+    """The CPU transcription's (n0, nb) grid (tests/test_torch_sweep2d_warp.py),
+    at its segment of 4 rows."""
+    nb = sk.WARP2D_WARPS - 2
+    return ((1, 1), (2, nb - 1), (3, nb), (4, nb + 1), (5, 2 * nb + 1), (14, nb))
+
+
+@pytest.mark.parametrize("m", sorted(sk.WARP2D_DEPTH))
+@pytest.mark.parametrize("name", ["2d5p", "2d9p", "heat2d"])
+def test_sweep2d_warp_kernel_bitwise(cuda, name, m):
+    """Every depth of the route on the transcription's grid (at its segment
+    of 4 rows and at the wrapper's own) and at 2048², bit for bit the plain
+    version; the wrapper launches the warp kernel alone."""
+    spec = stencils.make(name)
+    for n0, nb in _warp2d_grids() + ((2048, 2048 // (32 * m)),):
+        t = layouts.to_transpose_layout(_x((n0, nb * 32 * m), n0 + nb + m, cuda), 32, m)
+        out = torch.empty_like(t)
+        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+            want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+            sk.reset_launches()
+            got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_2d": 1}
+            assert torch.equal(got, want), (n0, nb, depth, (got - want).abs().max().item())
+            if n0 < 2048:
+                sk._warp2d_launch(spec, t, out, depth, seg_rows=4)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (n0, nb, depth, "seg 4")
+
+
+@pytest.mark.parametrize("taps", [
+    (((0, 1), 0.125), ((0, -1), 0.125), ((1, 0), 0.125), ((-1, 0), 0.125), ((0, 0), 0.5)),
+    (((0, 0), 0.375), ((-1, 1), 0.25), ((1, -1), 0.25), ((0, 0), 0.125)),     # (0,0) twice
+    tuple(((oy, ox), (2 + oy + 3 * ox) / 40) for ox in (-1, 0, 1) for oy in (-1, 0, 1)),
+])
+def test_sweep2d_warp_kernel_runtime_taps(cuda, taps):
+    """Tap lists in no order the 2-D warp kernel knows at compile time."""
+    spec = stencils.StencilSpec("custom2d", 2, 1, "box", taps)
+    t = layouts.to_transpose_layout(_x((37, 11 * 32 * 4), 9, cuda), 32, 4)
+    for depth in (1, 5, 8):
+        sk.reset_launches()
+        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_2d": 1}
+        assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1))
+
+
+def test_sweep2d_routes_count_and_raise(cuda):
+    spec = stencils.make("2d5p")
+    x = _x((64, 4096), 3, cuda)
+    for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_nd"),
+                              (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_nd"),
+                              (16, 4, 2, "sweep_nd")):
+        t = layouts.to_transpose_layout(x, vl, m)
+        sk.reset_launches()
+        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 32))
+        with pytest.raises(ValueError, match="in place"):
+            sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32, out=t)
+    with pytest.raises(NotImplementedError, match="D1"):
+        sk.stencil_nd_sweep_ttile(spec, layouts.to_transpose_layout(x, 32, 8).double(), 2, 2, 32)
+    lib = build.load("sweep2d_warp")
+    assert lib.repro_sweep2d_warp_warps() == sk.WARP2D_WARPS
+    assert {m: lib.repro_sweep2d_warp_max_depth(m) for m in sk.WARP2D_DEPTH} == sk.WARP2D_DEPTH
+
+
+# the tiles the reference takes and the GPU picker used to refuse: vl 8 and
+# 16, odd m, an explicit m of 25 and a t0 lowered to a divisor of n0
+C1_TILES = [
+    ("1d3p", (1000,), None, None, None),         # (8, 5)
+    ("1d3p", (1000,), 8, 25, None),
+    ("1d5p", (96,), None, None, None),           # (32, 3)
+    ("2d5p", (64, 48), None, None, None),        # (16, 3, 32)
+    ("2d5p", (60, 48), None, None, 7),           # t0 7 -> 6
+    ("3d7p", (16, 8, 16), None, None, None),     # (16, 1, 16)
+    ("3d7p", (12, 8, 80), 16, None, 5),          # (16, 5, 4)
+]
+
+
+@pytest.mark.parametrize("name,shape,vl,m,t0", C1_TILES)
+def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
+    """K2, the shared-memory sweep and K4 at the repaired picker's tiles,
+    each bit for bit its plain version."""
+    spec = stencils.make(name)
+    vl, m, t0 = ops.pick_tile(spec, shape, vl, m, t0)
+    x = _x(shape, 10, cuda)
+    t = sk.block_transpose(x, vl, m)
+    assert torch.equal(t, sk.block_transpose_ref(x, vl, m))
+    assert torch.equal(sk.block_untranspose(t, vl, m), x)
+    for depth in (1, 2, 4):
+        sk.reset_launches()
+        if spec.ndim == 1:
+            got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
+            want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
+            keys = {"sweep_1d_smem": 1}
+        else:
+            got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+            want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+            keys = {"sweep_nd": 1}
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | keys
+        assert torch.equal(got, want), (depth, (got - want).abs().max().item())
+        for edge_mask in (True, False):
+            if spec.ndim == 1:
+                got = sk.stencil1d_multistep(spec, t, depth, edge_mask)
+                want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask)
+            else:
+                got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
+                want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (depth, edge_mask)
+    for sweep in ("resident", "roundtrip"):
+        plan = StencilPlan(backend="pallas", sweep=sweep, k=2, vl=vl, m=m, t0=t0,
+                           ttile=2 if sweep == "resident" else 1)
+        got = StencilProblem(name, shape).run(x, 7, plan)
+        want = stencils.apply_steps(spec, x, 7)
+        assert torch.equal(got, want), (sweep, (got - want).abs().max().item())
+
+
 @pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d_smem")])
 def test_main_path_1d_route_counts(cuda, vl, m, key):
     prob = StencilProblem("1d3p", (1 << 15,))
@@ -171,9 +292,9 @@ def test_main_path_matches_plain(cuda, name, shape, remainder):
     sk.reset_launches()
     got = prob.run(x, 7, plan)
     chunks, _ = sweep_schedule(2, 7, remainder, 2)
+    key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_nd"}[prob.spec.ndim]
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
-        "transpose": 2, "sweep_1d" if prob.spec.ndim == 1 else "sweep_nd":
-        sum(n for _, n in chunks)}
+        "transpose": 2, key: sum(n for _, n in chunks)}
     want = stencils.apply_steps(prob.spec, x, 7)
     assert torch.equal(got, want), (got - want).abs().max().item()
     donated = ops.stencil_sweep_periodic(prob.spec, x.clone(), 7, k=2, ttile=2,

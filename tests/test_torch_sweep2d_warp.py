@@ -1,0 +1,229 @@
+"""K3's 2-D warp-register kernel (``csrc/sweep2d_warp.cu``), transcribed into
+numpy line for line and held bit for bit against the plain version
+``stencil_nd_sweep_ttile_ref``, and the route that picks it.
+
+The CPU has no CUDA compiler, so this transcription checks the kernel's
+schedule: CTAs of ``kWarps`` warps on consecutive blocks (block indices
+wrapped mod nb) with the two end warps as halo, lanes as an array axis, a
+shuffle as a gather along that axis with the lane-0 / lane-31 select after
+it, the edge exchange between warps through the edge slots, the segment's
+warm-up rows with wrapped row indices, the per-level skew of r + 1 rows
+with the levels run from the deepest down, the ring of input rows filled
+``kStages`` steps ahead, and the store guard (each (row, block) written
+exactly once).  Two claims the kernel leans on are checked as it runs: no
+edge slot is read and written in the same step (there is one barrier per
+step), and no value made before a level's first needed row reaches a
+stored one (windows, edge slots and unfilled ring slots start as NaN here;
+the kernel zeroes its registers and edge slots).  A copy lands at once
+here, the earliest the hardware could land it, so a ring slot reused too
+early would show.  It runs in float32 with the float32-rounded
+coefficients summed in the spec's order, as the kernel does under
+``-fmad=false``.  CTAs run together as an array axis; the kernel's loop
+over a shorter last segment ends early, which the store guard's
+``i < steps`` stands for.  One case is also held against the JAX
+package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
+contract a multiply-add into an FMA).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import stencils as jst
+from repro.kernels import stencil_kernels as jsk
+from repro_torch.core import layouts as tlay
+from repro_torch.core import stencils as tst
+from repro_torch.core.stencils import coeff
+from repro_torch.kernels import stencil_kernels as sk
+
+K_STAGES = 6     # csrc/sweep2d_warp.cu's kStages
+VL = 32
+
+
+def _needs_x(taps, r):
+    """csrc/sweep2d_warp.cu's tap_order and needs_x: in the star order
+    only the centre row takes the lanes' x halo."""
+    star = [(0, 0)] + [(s * g, 0) for s in range(1, r + 1) for g in (-1, 1)] + \
+        [(0, s * g) for s in range(1, r + 1) for g in (-1, 1)]
+    if [(oy, ox) for oy, ox, _ in taps] == star:
+        return lambda oy: oy == 0
+    return lambda oy: True
+
+
+def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
+    """The kernel's output and how often each (row, block) was stored."""
+    n0, nb, m, vl = t.shape
+    assert vl == VL and sk.sweep2d_route(vl, m, depth, spec.r) == "warp"
+    W, R, D = sk.WARP2D_WARPS, spec.r, depth
+    NW, E, P = 2 * R + 1, 2 * R + 2, K_STAGES
+    NS = P + 1
+    taps = [(off[0], off[1], np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
+    needs_x = _needs_x(taps, R)
+    ncol, nseg = -(-nb // (W - 2)), -(-n0 // seg)
+    # CTA c = (column c % ncol, segment c // ncol), an array axis
+    cta = np.arange(ncol * nseg)
+    col, y0 = cta % ncol, cta // ncol * seg
+    rows = np.minimum(seg, n0 - y0)
+    steps, nload = rows + D * NW, rows + 2 * D * R
+    base = y0 - D * R
+    w = np.arange(W)
+    bu = col[:, None] * (W - 2) + w[None, :] - 1            # (ctas, W)
+    b = bu % nb
+    stores_w = (w >= 1) & (w <= W - 2) & (bu < nb)
+    wl, wr = np.maximum(w - 1, 0), np.minimum(w + 1, W - 1)
+    lane = np.arange(VL)
+    left, right = (lane + VL - 1) % VL, (lane + 1) % VL
+    nan = np.float32(np.nan)
+    ring = np.full((NS, len(cta), W, m, VL), nan, np.float32)
+    edges = np.full((D, E, len(cta), W, 2, R), nan, np.float32)
+    win = np.full((D, NW, len(cta), W, m, VL), nan, np.float32)
+    out = np.full_like(t, np.nan)
+    stored = np.zeros((n0, nb), dtype=np.int64)
+
+    def issue(p):
+        go = p < nload
+        row = (base + p) % n0
+        ring[p % NS][go] = t[row[:, None], b][go]
+
+    def shfl(x, src):
+        return x[..., src]
+
+    def publish(l, i, q, v, written):
+        win[l, q] = v
+        edges[l, i % E, :, :, 0, :] = v[:, :, :R, 0]
+        edges[l, i % E, :, :, 1, :] = v[:, :, m - 1 - np.arange(R), VL - 1]
+        written.add((l, i % E))
+
+    for p in range(P):
+        issue(p)
+    for i in range(int(steps.max())):
+        ph = i % NW
+        cur = ring[i % NS].copy()
+        read, written = set(), set()
+        for lv in range(D, 0, -1):
+            ext = []
+            for k in range(NW):
+                v = win[lv - 1, (ph + k) % NW]
+                e = np.full(v.shape[:2] + (m + 2 * R, VL), nan, np.float32)
+                e[:, :, R:R + m] = v
+                if needs_x(k - R):
+                    es = (i + 1 + k) % E
+                    read.add((lv - 1, es))
+                    for h in range(R):
+                        from_left = shfl(v[:, :, m - 1 - h], left)
+                        from_right = shfl(v[:, :, h], right)
+                        e[:, :, R - 1 - h] = np.where(
+                            lane == 0, edges[lv - 1, es][:, wl, 1, h][..., None], from_left)
+                        e[:, :, R + m + h] = np.where(
+                            lane == VL - 1, edges[lv - 1, es][:, wr, 0, h][..., None],
+                            from_right)
+                ext.append(e)
+            acc = None
+            for oy, ox, cf in taps:
+                term = ext[R + oy][:, :, R + ox:R + ox + m] * cf
+                acc = term if acc is None else acc + term
+            if lv == D:
+                ok = stores_w & ((i >= D * NW) & (i < steps))[:, None]
+                c_idx, w_idx = np.nonzero(ok)
+                y = y0[c_idx] + i - D * NW
+                np.add.at(stored, (y, bu[c_idx, w_idx]), 1)
+                out[y, bu[c_idx, w_idx]] = acc[c_idx, w_idx]
+            else:
+                publish(lv, i, ph, acc, written)
+        publish(0, i, ph, cur, written)
+        issue(i + P)
+        assert not read & written, (i, read & written)   # one barrier per step
+    return out, stored
+
+
+def _t(n0, nb, m, seed):
+    x = np.random.default_rng(seed).standard_normal((n0, nb * VL * m)).astype(np.float32)
+    return tlay.to_transpose_layout(torch.from_numpy(x), VL, m).numpy()
+
+
+L = 4              # rows per segment in the transcription's cases
+NB = sk.WARP2D_WARPS - 2
+# (n0, nb) pairs: every n0 in {1, 2, L-1, L, L+1, 3L+2} and nb around the
+# stored blocks of a CTA, several columns included
+GRIDS = ((1, 1), (2, NB - 1), (L - 1, NB), (L, NB + 1), (L + 1, 2 * NB + 1), (3 * L + 2, NB))
+CASES = [(name, m, depth) for name in ("2d5p", "2d9p", "heat2d") for m in (1, 2, 4, 8)
+         for depth in range(1, sk.WARP2D_DEPTH[m] + 1)]
+
+
+@pytest.mark.parametrize("name,m,depth", CASES)
+def test_warp2d_kernel_schedule_bitwise(name, m, depth):
+    spec = tst.make(name)
+    for n0, nb in GRIDS:
+        t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m)
+        got, stored = warp2d_kernel_np(spec, t, depth, L)
+        np.testing.assert_array_equal(stored, np.ones((n0, nb), dtype=np.int64))
+        want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"n0={n0} nb={nb}")
+
+
+# tap lists in no order the kernel knows at compile time: it reads them at
+# run time (the registry's 2-D stencils all take a compile-time order)
+RUNTIME_TAPS = (
+    (((0, 1), 0.125), ((0, -1), 0.125), ((1, 0), 0.125), ((-1, 0), 0.125), ((0, 0), 0.5)),
+    (((0, 0), 0.375), ((-1, 1), 0.25), ((1, -1), 0.25), ((0, 0), 0.125)),     # (0,0) twice
+    tuple(((oy, ox), (2 + oy + 3 * ox) / 40) for ox in (-1, 0, 1) for oy in (-1, 0, 1)),
+)
+
+
+@pytest.mark.parametrize("depth", [1, 3, 5])
+@pytest.mark.parametrize("taps", RUNTIME_TAPS)
+def test_warp2d_kernel_schedule_runtime_taps(taps, depth):
+    spec = tst.StencilSpec("custom2d", 2, 1, "box", taps)
+    t = _t(2 * L + 1, NB + 3, 4, seed=9)
+    got, _ = warp2d_kernel_np(spec, t, depth, L)
+    want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_warp2d_kernel_schedule_matches_pallas():
+    t = _t(8, 3, 2, seed=7)
+    want = np.asarray(jsk.stencil_nd_sweep_ttile(jst.make("2d5p"), jnp.asarray(t), 2, 2, 4,
+                                                 interpret=True))
+    got, _ = warp2d_kernel_np(tst.make("2d5p"), t, 4, 3)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("vl,m,depth,r,route", [
+    (32, 8, 4, 1, "warp"),        # the main path: 2d5p at 8192², k=2, ttile=2
+    (32, 8, 1, 1, "warp"),
+    (32, 8, 5, 1, "smem"),        # past the deepest m=8 instance, d=4
+    (32, 4, 8, 1, "warp"),
+    (32, 4, 9, 1, "smem"),
+    (32, 1, 8, 1, "warp"),
+    (32, 2, 0, 1, "smem"),        # depth 0: no instance
+    (128, 8, 4, 1, "smem"),       # a plan carried over from the JAX package
+    (16, 4, 2, 1, "smem"),
+    (8, 8, 4, 1, "smem"),
+    (32, 3, 2, 1, "smem"),        # no instance for m = 3
+    (32, 16, 2, 1, "smem"),
+    (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+])
+def test_sweep2d_route(vl, m, depth, r, route):
+    assert sk.sweep2d_route(vl, m, depth, r) == route
+
+
+@pytest.mark.parametrize("n0,nb,ctas,seg", [
+    (8192, 32, 132, 249),         # 2d5p at 8192², m=8 on 132 SMs: 4 × 33 CTAs
+    (8192, 32, 264, 125),
+    (8192, 32, 8, 4096),
+    (64, 32, 264, 32),            # no segment below WARP2D_SEG_MIN rows
+    (1, 1, 264, 1),
+    (100, 9, 264, 25),
+])
+def test_sweep2d_segment(n0, nb, ctas, seg):
+    assert sk.sweep2d_segment(n0, nb, ctas) == seg
+
+
+def test_cpu_wrapper_counts_no_route():
+    spec = tst.make("2d5p")
+    t = torch.from_numpy(_t(8, 4, 8, 1))
+    sk.reset_launches()
+    got = sk.stencil_nd_sweep_ttile(spec, t, 2, 2, 4)
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
+    assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, 4))
+    assert {"sweep_2d", "sweep_nd"} <= set(sk.LAUNCHES)
