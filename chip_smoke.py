@@ -12,8 +12,10 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
 
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, started together) and reports the time,
-             and the warp kernels' registers, spills and stack per instance
-             (K1's ``sweep1d_warp_f32``, K3's 2-D ``sweep2d_warp_f32``);
+             and the registers, spills and stack per instance of K2's
+             register kernel ``transpose_reg`` and of the warp kernels
+             (K1's and K4a's ``sweep1d_warp_f32``, K3's 2-D
+             ``sweep2d_warp_f32``);
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
              per sweep; the result equals the port's plain path bit for bit;
@@ -26,8 +28,12 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
+             the counted run's seconds, and the median of five more;
+             1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
+             tiles ``multistep_1d_smem``);
   dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
-             Dirichlet ring, K2 per sweep), bit for bit its plain path;
+             Dirichlet ring, K2 per sweep) after one uncounted 2-step run,
+             bit for bit its plain path; seconds as for roundtrip;
   onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
              (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, bit
              for bit the periodic oracle;
@@ -35,7 +41,12 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
              after warm-up); K1-smem and K3-smem time the shared-memory
-             route at vl=128;
+             route at vl=128; K2 in both directions at the case's tile and
+             (1d3p, 2d5p) at vl=128, on its register route (``transpose``),
+             and for 1d3p at m=16 on its shared-memory route
+             (``transpose_smem``), and bit for bit at 2- and 8-byte
+             elements; each K2 and K4a row names its route, and a K2 row
+             counts the launches of the case's runs at its own tile;
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
              1d5p 96, 2d5p 64x48, 3d7p 16x8x16) at the tile the GPU picker
              chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
@@ -94,6 +105,8 @@ TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, the shared-memory route
+K2_SMEM_TILE = (32, 16)  # (vl, m): a 1d3p tile on K2's shared-memory route
+MANGLED_BYTES = {"t": 2, "j": 4, "y": 8}   # unsigned short / int / long long
 TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
@@ -142,7 +155,7 @@ def gpu_line() -> str:
 def ptxas_kernels(report: str, kernel: str) -> list:
     """Registers, spills and stack of each instance of ``kernel`` from
     nvcc's ``-Xptxas -v`` report (template arguments as in the mangled
-    name)."""
+    name; an element type as its bytes)."""
     rows, cur = [], None
     for line in report.splitlines():
         found = re.search(r"Function properties for (\S+)", line)
@@ -150,7 +163,9 @@ def ptxas_kernels(report: str, kernel: str) -> list:
             name = found.group(1)
             cur = None
             if kernel in name:
-                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                rest = name.split(kernel, 1)[1]
+                args = [f"{MANGLED_BYTES[rest[1]]}B"] if rest[1:2] in MANGLED_BYTES else []
+                args += re.findall(r"L[ib](\d+)E", rest)
                 cur = {"instance": "<" + ", ".join(args) + ">"}
                 rows.append(cur)
             continue
@@ -453,8 +468,10 @@ def main() -> int:
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
                     for n, r in reports.items()},
-          "sweep1d_warp_f32 <M, R, B, order>": ptxas_kernels(build.report("sweep1d_warp"),
-                                                             "sweep1d_warp_f32"),
+          "transpose_reg <T, M, vec, to_layout>": ptxas_kernels(
+              build.report("transpose"), "transpose_reg"),
+          "sweep1d_warp_f32 <M, R, B, order, edge>": ptxas_kernels(
+              build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 <M, R, D, order>": ptxas_kernels(build.report("sweep2d_warp"),
                                                              "sweep2d_warp_f32")})
 
@@ -522,9 +539,29 @@ def main() -> int:
                     t = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
         return sk.block_untranspose_ref(t, vl, m)
 
+    def k2_key(vl, m):
+        """K2's counter on the route a float32 (vl, m) tile takes."""
+        return "transpose" if sk.transpose_route(vl, m, 4) == "reg" else "transpose_smem"
+
+    def multi_key(spec, vl, m, depth):
+        """K4's counter on the route a depth-``depth`` launch takes."""
+        if spec.ndim > 1:
+            return "multistep_nd"
+        return "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
+            else "multistep_1d_smem"
+
+    def k4_counts(spec, chunks, vl, m):
+        """The launches of roundtrip or Dirichlet sweeps, ``chunks`` of
+        (depth, sweeps): K2 twice and K4 once per sweep, by route."""
+        owned = {}
+        for depth, n in chunks:
+            for key, count in ((k2_key(vl, m), 2 * n), (multi_key(spec, vl, m, depth), n)):
+                owned[key] = owned.get(key, 0) + count
+        return owned
+
     def resident_counts(spec, steps, remainder, vl, m):
         """The launches a resident run makes, by the route of each chunk."""
-        owned = {"transpose": 2}
+        owned = {k2_key(vl, m): 2}
         for depth, n in sweep_schedule(K, steps, remainder, TTILE)[0]:
             if spec.ndim == 1:
                 key = "sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
@@ -575,6 +612,25 @@ def main() -> int:
         })
         emit({"phase": "kernels", **entries[-1]})
 
+    def k2_rows(name, dims, x, vl, m, launches, grid_bytes):
+        """K2's rows in both directions at the (vl, m) tile; ``launches``: the
+        case's counted runs at that tile, both directions."""
+        route = sk.transpose_route(vl, m, x.element_size())
+        t = sk.block_transpose(x, vl, m)
+        err = max(same(f"{name} transpose vl={vl} m={m}", t, sk.block_transpose_ref(x, vl, m)),
+                  same(f"{name} untranspose vl={vl} m={m}", sk.block_untranspose(t, vl, m), x))
+        buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
+        nb_total = x.numel() // (vl * m)
+        label = f"{name} {dims} vl={vl} m={m}; route {route}"
+        row("K2", "block_transpose", label, "transpose", launches, err,
+            lambda: sk.block_transpose(x, vl, m, out=buf_t),
+            lambda: sk.block_transpose_ref(x, vl, m), bound(grid_bytes, 0),
+            lambda: ms(lambda: x.view(nb_total, vl, m).transpose(-1, -2).contiguous()))
+        row("K2", "block_untranspose", label, "transpose", launches, err,
+            lambda: sk.block_untranspose(t, vl, m, out=buf_x),
+            lambda: sk.block_untranspose_ref(t, vl, m), bound(grid_bytes, 0),
+            lambda: ms(lambda: t.view(nb_total, m, vl).transpose(-1, -2).contiguous()))
+
     for name, shape in CASES:
         prob = StencilProblem(name, shape)
         spec = prob.spec
@@ -585,7 +641,6 @@ def main() -> int:
         dims = "x".join(map(str, shape))
         sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_nd"}[spec.ndim]
         smem_key = "sweep_1d_smem" if spec.ndim == 1 else "sweep_nd"
-        multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
         def plan_of(sweep, remainder, ttile=1, tile=(None, None)):
@@ -600,7 +655,7 @@ def main() -> int:
                 f"{name} resident {remainder}",
                 lambda: prob.run(x, steps, plan_of("resident", remainder, TTILE)),
                 resident_counts(spec, steps, remainder, vl, m))
-            counts[("resident", remainder)] = got
+            counts[((vl, m), "resident", remainder)] = got
             err = same(f"{name} resident {remainder} vs plain", y,
                        resident_plain(spec, x, steps, remainder, vl, m, t0))
             resident[remainder] = (y, seconds)
@@ -622,8 +677,8 @@ def main() -> int:
             launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
             y, seconds, got = counted(f"{name} resident {remainder} vl={vl2}",
                                       lambda: prob.run(x, steps, plan),
-                                      {"transpose": 2, smem_key: launches})
-            counts[("resident smem", remainder)] = got
+                                      {k2_key(vl2, m2): 2, smem_key: launches})
+            counts[(SMEM_TILE, "resident", remainder)] = got
             err = same(f"{name} resident {remainder} vl={vl2} vs plain", y,
                        resident_plain(spec, x, steps, remainder, vl2, m2, t02))
             same(f"{name} resident {remainder} vl={vl2} vs vl={vl}", y, resident[remainder][0])
@@ -640,12 +695,13 @@ def main() -> int:
         # -- roundtrip: the same runs, one pad/transpose/K4/transpose per sweep
         prob.run(x, 2, plan_of("roundtrip", "fused"))
         for remainder, steps in PLANS:
-            sweeps = sum(n for _, n in sweep_schedule(K, steps, remainder, 1)[0])
+            chunks = sweep_schedule(K, steps, remainder, 1)[0]
+            sweeps = sum(n for _, n in chunks)
             y, seconds, got = counted(
                 f"{name} roundtrip {remainder}",
                 lambda: prob.run(x, steps, plan_of("roundtrip", remainder)),
-                {"transpose": 2 * sweeps, multi_key: sweeps})
-            counts[("roundtrip", remainder)] = got
+                k4_counts(spec, chunks, vl, m))
+            counts[((vl, m), "roundtrip", remainder)] = got
             res2, res2_s = resident[remainder]
             same(f"{name} roundtrip {remainder} vs resident ttile={TTILE}", y, res2)
             torch.cuda.synchronize()
@@ -658,6 +714,8 @@ def main() -> int:
                   "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
                   "steps": steps, "sweeps": sweeps, "launches": got,
                   "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
+                  "seconds_median_of_5": host_median(
+                      lambda: prob.run(x, steps, plan_of("roundtrip", remainder))),
                   "resident_seconds": {"ttile=1": res1_s, f"ttile={TTILE}": res2_s},
                   "resident_gpoint_updates_per_s": {
                       "ttile=1": numel * steps / res1_s,
@@ -667,36 +725,44 @@ def main() -> int:
             del y, res1
         del resident
 
-        # -- dirichlet: ops.stencil_run, the Dirichlet ring along axis 0 ------
+        # -- dirichlet: ops.stencil_run, the Dirichlet ring along axis 0 (one
+        # short uncounted run loads the ring-mode kernels) -------------------
+        ops.stencil_run(spec, x, K, k=K)
         sweeps = DIRICHLET_STEPS // K
         y, seconds, got = counted(
             f"{name} dirichlet",
             lambda: ops.stencil_run(spec, x, DIRICHLET_STEPS, k=K),
-            {"transpose": 2 * sweeps, multi_key: sweeps})
-        counts["dirichlet"] = got
+            k4_counts(spec, [(K, sweeps)], vl, m))
+        counts[((vl, m), "dirichlet")] = got
         err = same(f"{name} dirichlet vs plain", y,
                    dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, t0))
         emit({"phase": "dirichlet", "case": name, "shape": list(shape), "k": K,
               "steps": DIRICHLET_STEPS, "launches": got, "seconds": seconds,
+              "seconds_median_of_5": host_median(
+                  lambda: ops.stencil_run(spec, x, DIRICHLET_STEPS, k=K)),
               "gpoint_updates_per_s": numel * DIRICHLET_STEPS / seconds,
               "max_abs_err_vs_plain": err, "bitwise": True})
         del y
         launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
 
-        # -- K2: transpose in and out --------------------------------------
+        # -- K2: transpose in and out, at the case's tile and the vl=128
+        # run's, and (1d3p) one tile on the shared-memory route ------------
+        k2_tiles = [(vl, m)] + [SMEM_TILE] * (spec.ndim <= 2) + [K2_SMEM_TILE] * (spec.ndim == 1)
+        for tile in k2_tiles:
+            at_tile = sum(c[k2_key(*tile)] for (t, *_), c in counts.items() if t == tile)
+            k2_rows(name, dims, x, *tile, at_tile, grid_bytes)
+        for dtype in (torch.float16, torch.float64):
+            xd = x.to(dtype)
+            td = sk.block_transpose(xd, vl, m)
+            err = max(same(f"{name} transpose {dtype}", td, sk.block_transpose_ref(xd, vl, m)),
+                      same(f"{name} untranspose {dtype}", sk.block_untranspose(td, vl, m), xd))
+            emit({"phase": "kernels", "case": name, "check": "K2 both directions",
+                  "dtype": str(dtype), "tile": {"vl": vl, "m": m},
+                  "route": sk.transpose_route(vl, m, xd.element_size()),
+                  "max_abs_err": err, "bitwise": True})
+            del xd, td
         t = sk.block_transpose(x, vl, m)
-        back = sk.block_untranspose(t, vl, m)
-        err = max(same(f"{name} transpose", t, sk.block_transpose_ref(x, vl, m)),
-                  same(f"{name} untranspose", back, x))
-        del back
         buf = torch.empty_like(t)
-        nb_total = numel // (vl * m)
-        row("K2", "block_transpose", f"{name} {dims} vl={vl} m={m}", "transpose",
-            launched["transpose"], err,
-            lambda: sk.block_transpose(x, vl, m, out=buf),
-            lambda: sk.block_transpose_ref(x, vl, m),
-            bound(grid_bytes, 0),
-            lambda: ms(lambda: x.view(nb_total, vl, m).transpose(-1, -2).contiguous()))
 
         # -- K1 / K3: the resident sweep at every depth the main path launches
         kid = "K1" if spec.ndim == 1 else "K3"
@@ -774,10 +840,13 @@ def main() -> int:
                     def plain():
                         return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
                 edge = "ring" if edge_mask else "open"
+                key = multi_key(spec, vl, m, depth)
+                route = "warp" if key == "multistep_1d" else "smem"
                 err = same(f"{name} {kid} {edge} depth {depth}", kern(), plain())
                 row(kid, fname,
-                    f"{name} {pdims} {edge} depth={depth}; library: zero pad on axis 0, "
-                    "no ring restore", "sweep", launched[multi_key], err, kern, plain,
+                    f"{name} {pdims} {edge} depth={depth}; route {route}; library: zero pad "
+                    "on axis 0, no ring restore", "sweep1d_warp" if route == "warp" else "sweep",
+                    launched[key], err, kern, plain,
                     bound(2 * xp.numel() * itemsize,
                           depth * spec.flops_per_point * xp.numel()),
                     lambda: ms(conv_steps, spec, xp, depth, weight, True))
@@ -797,7 +866,7 @@ def main() -> int:
                                           {"onestep_naive": 1})
         trans, s_trans, c_trans = counted(f"{name} onestep transpose",
                                           lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
-                                          {"onestep_transpose": 1, "transpose": 2})
+                                          {"onestep_transpose": 1, k2_key(vl, m): 2})
         err_naive = same(f"{name} onestep naive", naive, want)
         err_trans = same(f"{name} onestep transpose", trans, want)
         emit({"phase": "onestep", "case": name, "shape": [n], "vl": vl, "m": m,
@@ -829,19 +898,17 @@ def main() -> int:
         x = prob.init(SEED)
         x_cpu = x.cpu()
         vl, m, t0 = ops.pick_tile(spec, shape)
-        multi_key = "multistep_1d" if spec.ndim == 1 else "multistep_nd"
         runs = []
         for sweep, ttile in (("resident", TTILE), ("roundtrip", 1)):
             for remainder, steps in PLANS:
                 plan = StencilPlan(backend="pallas", sweep=sweep, k=K, ttile=ttile,
                                    remainder=remainder)
-                sweeps = sum(n for _, n in sweep_schedule(K, steps, remainder, 1)[0])
                 owned = resident_counts(spec, steps, remainder, vl, m) if sweep == "resident" \
-                    else {"transpose": 2 * sweeps, multi_key: sweeps}
+                    else k4_counts(spec, sweep_schedule(K, steps, remainder, 1)[0], vl, m)
                 runs.append((f"{sweep} {remainder} {steps}", owned,
                              lambda p, v, n=steps, plan=plan: p.run(v, n, plan)))
-        sweeps = DIRICHLET_STEPS // K
-        runs.append((f"stencil_run {DIRICHLET_STEPS}", {"transpose": 2 * sweeps, multi_key: sweeps},
+        runs.append((f"stencil_run {DIRICHLET_STEPS}",
+                     k4_counts(spec, [(K, DIRICHLET_STEPS // K)], vl, m),
                      lambda p, v: ops.stencil_run(spec, v, DIRICHLET_STEPS, k=K)))
         for label, owned, run in runs:
             y, seconds, got = counted(f"tiles {name} {label}", lambda: run(prob, x), owned)

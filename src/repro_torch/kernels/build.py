@@ -106,6 +106,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "transpose":
         lib.repro_transpose.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
         lib.repro_transpose.restype = ctypes.c_int
+        lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 5 + [ptr]
+        lib.repro_transpose_reg.restype = ctypes.c_int
         lib.repro_transpose_smem_bytes.argtypes = [i64, i64, i64]
         lib.repro_transpose_smem_bytes.restype = i64
     elif name == "stencil_sweep":
@@ -114,7 +116,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_stencil_max_taps.argtypes = []
         lib.repro_stencil_max_taps.restype = i64
     elif name == "sweep1d_warp":
-        lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 7 + [ptr, ptr, ptr]
+        lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
         lib.repro_sweep1d_warp_f32.restype = ctypes.c_int
         lib.repro_sweep1d_warp_blocks.argtypes = [i64]
         lib.repro_sweep1d_warp_blocks.restype = i64

@@ -1,12 +1,13 @@
-// Depth-`depth` fully periodic advance of a 1-D grid held in the paper's
-// local transpose layout (nb, m, vl = 32), one launch per sweep chunk: K1's
+// Depth-`depth` advance of a 1-D grid held in the paper's local transpose
+// layout (nb, m, vl = 32), one launch per sweep chunk: K1's and K4a's
 // warp-register kernel.
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d as launched by
-// stencil1d_sweep_ttile (K1), for vl = 32, m in {1, 2, 4, 8} and
-// depth * r <= 32 * m (stencil_kernels.sweep1d_route picks it before the
-// launch).  Every other shape, and K4a's ring and open modes, take the
-// shared-memory kernel of csrc/stencil_sweep.cu.
+// stencil1d_sweep_ttile (K1, fully periodic) and by stencil1d_multistep /
+// stencil1d_sweep_halo (K4a, with `edge_mask`: a Dirichlet ring, or open
+// ends), for vl = 32, m in {1, 2, 4, 8} and depth * r <= 32 * m
+// (stencil_kernels.sweep1d_route picks it before the launch).  Every other
+// shape takes the shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
 // A block row of the layout is 32 floats, one per lane, so lane j of a warp
@@ -37,6 +38,18 @@
 // barrier, no division per element.  Idle warps of the last CTA compute
 // the last run again and store nothing, so every lane runs every shuffle.
 //
+// The ends of the grid (kEdge, warp-uniform, a template parameter):
+// - periodic: as above.
+// - open: cells beyond either end read as 0 at every step.  A slot whose
+//   unwrapped block index b0 - 1 + i lies outside [0, nb) is loaded as zeros
+//   and never written, so it is the exact neighbour of the end block.
+// - ring: the r cells nearest each end keep their value (lane 0 of block 0,
+//   rows < r; lane 31 of block nb - 1, rows >= m - r).  The periodic update
+//   runs unchanged, and those two lanes put back the values they loaded as
+//   each slot is written.  A cell at least r from an end never reads beyond
+//   it, so what a wrapped slot holds reaches only ring cells, which are
+//   restored: bit for bit the plain version's where(ring, old, step).
+//
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to float; built with -fmad=false this is
 // bit for bit the plain PyTorch version.  The two orders the registry's 1-D
@@ -60,6 +73,9 @@ constexpr int kWarps = 4;     // warps per CTA
 constexpr int kMaxTaps = 16;
 constexpr int kMaxR = 4;
 constexpr unsigned kFull = 0xffffffffu;
+
+// the ends of the grid, numbered as csrc/stencil_sweep.cu's Edge
+enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
 // Blocks per warp run, by m (stencil_kernels.WARP_BLOCKS holds the same).
 // m = 1 stops at 32: nvcc leaves a loop of 66 slots rolled, which puts them
@@ -148,7 +164,7 @@ __device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&ext)[M
   }
 }
 
-template <int M, int R, int B, int kOrder>
+template <int M, int R, int B, int kOrder, int kEdge>
 __global__ void __launch_bounds__(kVl * kWarps, 1)
 sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t nb,
                  int64_t nruns, int depth, Taps1 taps) {
@@ -157,13 +173,39 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = w < nruns;
   const int64_t b0 = (live ? w : nruns - 1) * B;   // the run's first block
+  // the grid's ends in slot terms: slot 1 holds block 0 in the first run
+  // (slot 0 lies before it), slot `last` holds block nb - 1 where last < S
+  // (the slots after it lie beyond it)
+  const bool first_run = b0 == 0;
+  const int last = (int)(nb - b0 < S ? nb - b0 : S);
   // v[i][s]: row s of this lane's column in slot i (block b0 - 1 + i)
   float v[S][M];
+  float ring_lo[R], ring_hi[R];   // ring mode: the loaded ring rows
 #pragma unroll
   for (int i = 0; i < S; ++i) {
+    const bool beyond = (i == 0 && first_run) || i > last;
+    if (kEdge == kOpen && beyond) {
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[i][s] = 0.0f;
+      continue;
+    }
     const float* src = in + wrap(b0 - 1 + i, nb) * (M * kVl) + lane;
 #pragma unroll
     for (int s = 0; s < M; ++s) v[i][s] = src[s * kVl];
+  }
+  if (kEdge == kRing) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      ring_lo[q] = v[1][q];
+      ring_hi[q] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 1; i < S; ++i) {
+      if (i == last) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) ring_hi[q] = v[i][M - R + q];
+      }
+    }
   }
   const int left = (lane + kVl - 1) & (kVl - 1);
   const int right = (lane + 1) & (kVl - 1);
@@ -192,8 +234,21 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
       for (int q = 0; q < R; ++q) tail[q] = v[i][M - 1 - q];
       float acc[M] = {};
       apply_taps<M, R, kOrder>(acc, ext, taps);
+      if (kEdge == kRing) {
+        if (i == 1 && first_run && lane == 0) {
 #pragma unroll
-      for (int s = 0; s < M; ++s) v[i][s] = acc[s];
+          for (int q = 0; q < R; ++q) acc[q] = ring_lo[q];
+        }
+        if (i == last && lane == kVl - 1) {
+#pragma unroll
+          for (int q = 0; q < R; ++q) acc[M - R + q] = ring_hi[q];
+        }
+      }
+      const bool hold = kEdge == kOpen && ((i == 0 && first_run) || i > last);
+      if (!hold) {
+#pragma unroll
+        for (int s = 0; s < M; ++s) v[i][s] = acc[s];
+      }
     }
   }
   if (live) {
@@ -209,7 +264,7 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   }
 }
 
-template <int M, int R>
+template <int M, int R, int kEdge>
 int launch(const float* in, float* out, int64_t nb, int depth, const Taps1& taps,
            int order, cudaStream_t stream) {
   constexpr int B = run_blocks(M);
@@ -220,34 +275,48 @@ int launch(const float* in, float* out, int64_t nb, int depth, const Taps1& taps
   constexpr int kThreads = kVl * kWarps;
   switch (order) {
     case kCenterFirst:
-      sweep1d_warp_f32<M, R, B, kCenterFirst><<<grid, kThreads, 0, stream>>>(
+      sweep1d_warp_f32<M, R, B, kCenterFirst, kEdge><<<grid, kThreads, 0, stream>>>(
           in, out, nb, nruns, depth, taps);
       break;
     case kAscending:
-      sweep1d_warp_f32<M, R, B, kAscending><<<grid, kThreads, 0, stream>>>(
+      sweep1d_warp_f32<M, R, B, kAscending, kEdge><<<grid, kThreads, 0, stream>>>(
           in, out, nb, nruns, depth, taps);
       break;
     default:
-      sweep1d_warp_f32<M, R, B, kRuntime><<<grid, kThreads, 0, stream>>>(
+      sweep1d_warp_f32<M, R, B, kRuntime, kEdge><<<grid, kThreads, 0, stream>>>(
           in, out, nb, nruns, depth, taps);
   }
   return (int)cudaGetLastError();
 }
 
+template <int M, int R>
+int launch_edge(const float* in, float* out, int64_t nb, int depth, const Taps1& taps,
+                int order, int edge, cudaStream_t stream) {
+  switch (edge) {
+    case kPeriodic: return launch<M, R, kPeriodic>(in, out, nb, depth, taps, order, stream);
+    case kRing: return launch<M, R, kRing>(in, out, nb, depth, taps, order, stream);
+    case kOpen: return launch<M, R, kOpen>(in, out, nb, depth, taps, order, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // r <= m: the instances that exist
 template <int M>
 int launch_m(const float* in, float* out, int64_t nb, int r, int depth, const Taps1& taps,
-             int order, cudaStream_t stream) {
+             int order, int edge, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch<M, 1>(in, out, nb, depth, taps, order, stream);
+    case 1: return launch_edge<M, 1>(in, out, nb, depth, taps, order, edge, stream);
     case 2:
-      if constexpr (M >= 2) return launch<M, 2>(in, out, nb, depth, taps, order, stream);
+      if constexpr (M >= 2)
+        return launch_edge<M, 2>(in, out, nb, depth, taps, order, edge, stream);
       break;
     case 3:
-      if constexpr (M >= 4) return launch<M, 3>(in, out, nb, depth, taps, order, stream);
+      if constexpr (M >= 4)
+        return launch_edge<M, 3>(in, out, nb, depth, taps, order, edge, stream);
       break;
     case 4:
-      if constexpr (M >= 4) return launch<M, 4>(in, out, nb, depth, taps, order, stream);
+      if constexpr (M >= 4)
+        return launch_edge<M, 4>(in, out, nb, depth, taps, order, edge, stream);
       break;
     default: break;
   }
@@ -269,13 +338,14 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
 
 extern "C" int64_t repro_sweep1d_warp_blocks(int64_t m) { return run_blocks((int)m); }
 
-// `depth` fully periodic steps of the (nb, m, vl) layout array `in` into
-// `out` (another buffer), for a stencil of reach r.  `blocks` must be the
-// run length this build uses for m; `offsets` / `coeffs`: ntaps tap offsets
-// and float coefficients in host memory.  Returns the CUDA error code.
+// `depth` steps of the (nb, m, vl) layout array `in` into `out` (another
+// buffer), for a stencil of reach r, with the grid's ends `edge` (0
+// periodic, 1 ring, 2 open).  `blocks` must be the run length this build
+// uses for m; `offsets` / `coeffs`: ntaps tap offsets and float coefficients
+// in host memory.  Returns the CUDA error code.
 extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int64_t m,
                                       int64_t vl, int64_t r, int64_t blocks, int64_t depth,
-                                      int64_t ntaps, const int32_t* offsets,
+                                      int64_t edge, int64_t ntaps, const int32_t* offsets,
                                       const float* coeffs, void* stream) {
   if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || blocks != run_blocks((int)m) ||
       nb < 1 || r < 1 || r > m || r > kMaxR || depth < 0 || depth * r > kVl * m ||
@@ -292,10 +362,11 @@ extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int
   float* dst = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rr = (int)r, d = (int)depth, order = tap_order(offsets, ntaps, r);
+  const int e = (int)edge;
   switch (m) {
-    case 1: return launch_m<1>(src, dst, nb, rr, d, taps, order, st);
-    case 2: return launch_m<2>(src, dst, nb, rr, d, taps, order, st);
-    case 4: return launch_m<4>(src, dst, nb, rr, d, taps, order, st);
-    default: return launch_m<8>(src, dst, nb, rr, d, taps, order, st);
+    case 1: return launch_m<1>(src, dst, nb, rr, d, taps, order, e, st);
+    case 2: return launch_m<2>(src, dst, nb, rr, d, taps, order, e, st);
+    case 4: return launch_m<4>(src, dst, nb, rr, d, taps, order, e, st);
+    default: return launch_m<8>(src, dst, nb, rr, d, taps, order, e, st);
   }
 }

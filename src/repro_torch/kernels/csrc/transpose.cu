@@ -1,27 +1,189 @@
 // Batched small-matrix transpose: the move into and out of the paper's local
-// transpose layout.
+// transpose layout (K2).
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_transpose, launched
 // by block_transpose (N,) -> (nb, m, vl) and block_untranspose (nb, m, vl) ->
-// (N,).  Here one kernel serves the 1-D and the n-D drivers: the layout of
+// (N,).  Here one library serves the 1-D and the n-D paths: the layout of
 // (..., N) is the per-block transpose of the flattened array, so both are a
-// (B, rows, cols) -> (B, cols, rows) transpose with B = prod(lead) * nb.
+// (B, vl, m) <-> (B, m, vl) transpose with B = prod(lead) * nb.
 //
 // Bound on H100: bytes.  It reads each element once and writes it once and
 // does no arithmetic, so its least time is 2 * numel * itemsize over the
 // card's memory rate.
 //
-// Design: each CTA owns a contiguous run of whole matrices (about 4096
-// elements).  It reads the run in input order (neighbouring threads on
-// neighbouring addresses), parks it in shared memory with each row padded
-// to an odd pitch (so the column-wise reads of the second phase hit 32
-// distinct banks), and writes the run in output order, again contiguous.
-// Every element crosses device memory once each way.  The kernel is generic
-// in the element size (2, 4 or 8 bytes): a transpose moves bits.
+// Two routes, chosen by stencil_kernels.transpose_route before the launch:
+//
+// * register route (repro_transpose_reg): vl a power of two from 4 to 128,
+//   m from 1 to 8, elements of 2, 4 or 8 bytes.  One thread per column of a
+//   block, holding the column's m elements in registers: lane j of block
+//   row s is natural element j*m + s of its block, so thread g (column g of
+//   the flattened (B*vl, m) view) owns the m consecutive natural elements
+//   from g*m, and row s of its block holds them at ((g / vl) * m + s) * vl +
+//   g % vl.  The natural side is read (or written) as whole 16-, 8- or
+//   4-byte chunks where m * itemsize and the pointer allow; the layout side
+//   moves one element per row, and for each row the threads of consecutive
+//   columns touch consecutive addresses, so a warp moves whole 128-byte
+//   lines at vl >= 32 (whole 32-byte sectors below).  m is a template
+//   parameter and vl a shift, so there is no division, no shared memory and
+//   no barrier: a few instructions per element where the shared-memory
+//   kernel spent about a hundred (two run-time divisions per element and
+//   phase).  One column per thread and plain loads and stores: 2 or 4
+//   columns per thread and the streaming cache hints were no faster on the
+//   H100 (PERF.md, section 6).
+// * shared-memory route (repro_transpose): every other shape (m > 8, vl not
+//   a power of two or outside 4..128).  Each CTA owns a contiguous run of
+//   whole matrices (about 4096 elements), reads it in input order, parks it
+//   in shared memory with each row padded to an odd pitch (so the
+//   column-wise reads of the second phase hit 32 distinct banks), and
+//   writes it in output order, again contiguous.
+//
+// Both are generic in the element size (2, 4 or 8 bytes): a transpose moves
+// bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// register route
+// ---------------------------------------------------------------------------
+
+constexpr int kRegThreads = 256;
+constexpr int kRegMaxM = 8;
+
+using u16 = unsigned short;
+using u32 = unsigned int;
+using u64 = unsigned long long;
+
+template <int BYTES> struct Chunk;
+template <> struct Chunk<2> { using type = u16; };
+template <> struct Chunk<4> { using type = u32; };
+template <> struct Chunk<8> { using type = uint2; };
+template <> struct Chunk<16> { using type = uint4; };
+
+// Elements per chunk of a column's natural run: the largest power of two
+// dividing m whose bytes fit in 16 (m * itemsize is then a whole number of
+// chunks, and chunk c of column g starts at a multiple of its own size).
+template <typename T, int M>
+constexpr int chunk_elems() {
+  int v = 1;
+  while (M % (2 * v) == 0 && 2 * v * (int)sizeof(T) <= 16) v *= 2;
+  return v;
+}
+
+// The m consecutive natural elements at p, in kVec-element chunks.
+template <int kVec, typename T, int M>
+__device__ __forceinline__ void load_run(const T* p, T (&v)[M]) {
+  using C = typename Chunk<kVec * sizeof(T)>::type;
+  union U { C c; T e[kVec]; };
+#pragma unroll
+  for (int c = 0; c < M / kVec; ++c) {
+    U u;
+    u.c = reinterpret_cast<const C*>(p)[c];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[c * kVec + e] = u.e[e];
+  }
+}
+
+template <int kVec, typename T, int M>
+__device__ __forceinline__ void store_run(T* p, const T (&v)[M]) {
+  using C = typename Chunk<kVec * sizeof(T)>::type;
+  union U { C c; T e[kVec]; };
+#pragma unroll
+  for (int c = 0; c < M / kVec; ++c) {
+    U u;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) u.e[e] = v[c * kVec + e];
+    reinterpret_cast<C*>(p)[c] = u.c;
+  }
+}
+
+// kToLayout: (B*vl, m) natural -> (B, m, vl) layout; else the inverse.
+// Column g = blockIdx.x * kRegThreads + threadIdx.x.  The guard is tested
+// twice, around the loads and around the stores, with an empty asm between
+// them so that the compiler keeps the two apart: merged into one early exit
+// ahead of the loads, the from-layout direction ran 13% slower on the H100
+// (0.208 against 0.185 ms at 2^26 f32, vl=32, m=8; tools/kernel_ab.py).
+template <typename T, int M, int kVec, bool kToLayout>
+__global__ void __launch_bounds__(kRegThreads)
+transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t ncols, int lv) {
+  const int64_t g = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
+  const int64_t row0 = (((g >> lv) * M) << lv) + (g & (((int64_t)1 << lv) - 1));
+  T v[M];
+  if (g < ncols) {
+    if constexpr (kToLayout) {
+      load_run<kVec>(in + g * M, v);
+    } else {
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[s] = in[row0 + ((int64_t)s << lv)];
+    }
+  }
+  asm volatile("" ::: "memory");
+  if (g < ncols) {
+    if constexpr (kToLayout) {
+#pragma unroll
+      for (int s = 0; s < M; ++s) out[row0 + ((int64_t)s << lv)] = v[s];
+    } else {
+      store_run<kVec>(out + g * M, v);
+    }
+  }
+}
+
+template <typename T, int M, bool kToLayout>
+int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t stream) {
+  constexpr int kVec = chunk_elems<T, M>();
+  const int64_t ctas = (ncols + kRegThreads - 1) / kRegThreads;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // the natural side moves whole chunks only where its pointer is aligned
+  const void* natural = kToLayout ? in : out;
+  const bool aligned = reinterpret_cast<uintptr_t>(natural) % (kVec * sizeof(T)) == 0;
+  const T* src = static_cast<const T*>(in);
+  T* dst = static_cast<T*>(out);
+  if (kVec > 1 && aligned) {
+    transpose_reg<T, M, kVec, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+        src, dst, ncols, lv);
+  } else {
+    transpose_reg<T, M, 1, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+        src, dst, ncols, lv);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int M>
+int launch_dir(const void* in, void* out, int64_t ncols, int lv, bool to_layout,
+               cudaStream_t s) {
+  return to_layout ? launch_reg<T, M, true>(in, out, ncols, lv, s)
+                   : launch_reg<T, M, false>(in, out, ncols, lv, s);
+}
+
+template <typename T>
+int launch_m(const void* in, void* out, int64_t ncols, int lv, int m, bool to_layout,
+             cudaStream_t s) {
+  switch (m) {
+    case 1: return launch_dir<T, 1>(in, out, ncols, lv, to_layout, s);
+    case 2: return launch_dir<T, 2>(in, out, ncols, lv, to_layout, s);
+    case 3: return launch_dir<T, 3>(in, out, ncols, lv, to_layout, s);
+    case 4: return launch_dir<T, 4>(in, out, ncols, lv, to_layout, s);
+    case 5: return launch_dir<T, 5>(in, out, ncols, lv, to_layout, s);
+    case 6: return launch_dir<T, 6>(in, out, ncols, lv, to_layout, s);
+    case 7: return launch_dir<T, 7>(in, out, ncols, lv, to_layout, s);
+    case 8: return launch_dir<T, 8>(in, out, ncols, lv, to_layout, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// log2(vl) for a register-route vl (a power of two from 4 to 128 dividing
+// ncols), else -1
+int reg_shift(int64_t ncols, int64_t vl) {
+  if (vl < 4 || vl > 128 || (vl & (vl - 1)) || ncols < 0 || ncols % vl) return -1;
+  int lv = 0;
+  while ((int64_t)1 << lv < vl) ++lv;
+  return lv;
+}
+
+// ---------------------------------------------------------------------------
+// shared-memory route
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kTargetElems = 4096;   // elements parked per CTA
@@ -79,8 +241,29 @@ int launch(const void* in, void* out, int64_t batch, int64_t rows, int64_t cols,
 
 }  // namespace
 
-// Shared memory, in bytes, that one launch parks per CTA (the wrapper checks
-// it against the card's limit before launching).
+// The register route: (ncols * m) elements of `elem_size` bytes, as
+// (ncols / vl, vl, m) natural -> (ncols / vl, m, vl) layout (`to_layout`
+// != 0) or the inverse, both contiguous, on `stream`.  vl must be a power of
+// two from 4 to 128 dividing ncols, m from 1 to 8.  Returns the CUDA error
+// code of the launch.
+extern "C" int repro_transpose_reg(const void* in, void* out, int64_t ncols, int64_t vl,
+                                   int64_t m, int64_t elem_size, int64_t to_layout,
+                                   void* stream) {
+  const int lv = reg_shift(ncols, vl);
+  if (lv < 0 || m < 1 || m > kRegMaxM) return (int)cudaErrorInvalidValue;
+  if (ncols == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dir = to_layout != 0;
+  switch (elem_size) {
+    case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, s);
+    case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, s);
+    case 8: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Shared memory, in bytes, that one launch of the shared-memory route parks
+// per CTA (the wrapper checks it against the card's limit before launching).
 extern "C" int64_t repro_transpose_smem_bytes(int64_t rows, int64_t cols,
                                               int64_t elem_size) {
   const int64_t mat = rows * cols;
@@ -88,8 +271,8 @@ extern "C" int64_t repro_transpose_smem_bytes(int64_t rows, int64_t cols,
   return per_cta * rows * (cols | 1) * elem_size;
 }
 
-// (batch, rows, cols) -> (batch, cols, rows), both contiguous, on `stream`.
-// Returns the CUDA error code of the launch (0 on success).
+// The shared-memory route: (batch, rows, cols) -> (batch, cols, rows), both
+// contiguous, on `stream`.  Returns the CUDA error code of the launch.
 extern "C" int repro_transpose(const void* in, void* out, int64_t batch,
                                int64_t rows, int64_t cols, int64_t elem_size,
                                void* stream) {

@@ -2,7 +2,9 @@
 
   * K2 ``block_transpose`` / ``block_untranspose`` — ``csrc/transpose.cu``:
     (..., N) ↔ (..., nb, m, vl), the per-block (vl, m) ↔ (m, vl) transpose
-    (reference: ``stencil_kernels.py::_kernel_transpose``).
+    (reference: ``stencil_kernels.py::_kernel_transpose``), on one of two
+    kernels chosen by :func:`transpose_route` before the launch: a register
+    kernel (one thread per column of a block) or a shared-memory kernel.
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
     periodic depth-``ttile·k`` advance of the layout-resident grid in one
     launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and the 2-D
@@ -12,9 +14,10 @@
     streamed along axis 0), or the shared-memory kernel
     ``csrc/stencil_sweep.cu``, which the 3-D K3 always takes.
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
-    wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernel with a
+    wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
-    bodies with ``edge_mask``).
+    bodies with ``edge_mask``): 1-D on K1's two routes, n-D on the
+    shared-memory kernel.
   * K5 ``stencil1d_naive_onestep`` / ``stencil1d_transpose_onestep`` —
     ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
     the transpose layout, the paper's layout A/B (reference:
@@ -22,10 +25,12 @@
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` (K1's
-two routes count under ``sweep_1d``, the warp kernel, and
-``sweep_1d_smem``; K3's under ``sweep_2d``, the 2-D warp kernel, and
-``sweep_nd``); the plain versions count nothing.  Outputs are
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``, the
+routes apart: K2 under ``transpose`` (register kernel) and
+``transpose_smem``; K1 under ``sweep_1d`` (warp kernel) and
+``sweep_1d_smem``; K4a under ``multistep_1d`` (warp kernel) and
+``multistep_1d_smem``; K3 under ``sweep_2d`` (2-D warp kernel) and
+``sweep_nd``.  The plain versions count nothing.  Outputs are
 allocated here (or passed in as ``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
@@ -41,13 +46,15 @@ from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0, "sweep_2d": 0, "sweep_nd": 0,
-            "multistep_1d": 0, "multistep_nd": 0, "onestep_naive": 0,
-            "onestep_transpose": 0}
+LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
+            "sweep_2d": 0, "sweep_nd": 0, "multistep_1d": 0, "multistep_1d_smem": 0,
+            "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
+# the tiles csrc/transpose.cu's register kernel takes
+TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL, TRANSPOSE_MAX_M = 4, 128, 8
 # blocks per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_VL, WARP_MAX_R = 32, 4
@@ -123,21 +130,40 @@ def block_untranspose_ref(t: torch.Tensor, vl: int, m: int) -> torch.Tensor:
     return layouts.from_transpose_layout(t, vl, m)
 
 
-def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, rows: int, cols: int) -> None:
+def transpose_route(vl: int, m: int, itemsize: int) -> str:
+    """The kernel a CUDA :func:`block_transpose` / :func:`block_untranspose`
+    launches: ``"reg"`` (``csrc/transpose.cu``'s register kernel, one
+    thread per column of a block) when ``vl`` is a power of two from 4 to
+    128, ``1 <= m <= 8`` and the elements are 2, 4 or 8 bytes; ``"smem"``
+    (its shared-memory kernel) otherwise."""
+    if TRANSPOSE_MIN_VL <= vl <= TRANSPOSE_MAX_VL and vl & (vl - 1) == 0 \
+            and 1 <= m <= TRANSPOSE_MAX_M and itemsize in (2, 4, 8):
+        return "reg"
+    return "smem"
+
+
+def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
+                      to_layout: bool) -> None:
     lib = build.load("transpose")
     size = src.element_size()
     if size not in (2, 4, 8):
         raise ValueError(f"transpose kernel: no {src.dtype} support ({size}-byte elements)")
+    if src.numel() == 0:
+        return
+    if transpose_route(vl, m, size) == "reg":
+        build.check(lib.repro_transpose_reg(src.data_ptr(), dst.data_ptr(), src.numel() // m,
+                                            vl, m, size, int(to_layout), _stream()),
+                    "transpose kernel")
+        LAUNCHES["transpose"] += 1
+        return
+    rows, cols = (vl, m) if to_layout else (m, vl)
     smem = lib.repro_transpose_smem_bytes(rows, cols, size)
     if smem > SMEM_MAX:
         raise ValueError(f"transpose kernel: a ({rows}, {cols}) block needs {smem} bytes "
                          f"of shared memory, over the {SMEM_MAX} a CTA may use")
-    batch = src.numel() // (rows * cols)
-    if batch == 0:
-        return
-    build.check(lib.repro_transpose(src.data_ptr(), dst.data_ptr(), batch, rows, cols,
-                                    size, _stream()), "transpose kernel")
-    LAUNCHES["transpose"] += 1
+    build.check(lib.repro_transpose(src.data_ptr(), dst.data_ptr(), src.numel() // (rows * cols),
+                                    rows, cols, size, _stream()), "transpose kernel")
+    LAUNCHES["transpose_smem"] += 1
 
 
 def block_transpose(x: torch.Tensor, vl: int, m: int,
@@ -151,7 +177,7 @@ def block_transpose(x: torch.Tensor, vl: int, m: int,
         return _into(out, block_transpose_ref(x, vl, m), "block_transpose", x)
     _check_cuda(x, "block_transpose")
     dst = _out(out, shape, x, "block_transpose")
-    _transpose_launch(x, dst, vl, m)
+    _transpose_launch(x, dst, vl, m, True)
     return dst
 
 
@@ -166,7 +192,7 @@ def block_untranspose(t: torch.Tensor, vl: int, m: int,
         return _into(out, block_untranspose_ref(t, vl, m), "block_untranspose", t)
     _check_cuda(t, "block_untranspose")
     dst = _out(out, shape, t, "block_untranspose")
-    _transpose_launch(t, dst, m, vl)
+    _transpose_launch(t, dst, vl, m, False)
     return dst
 
 
@@ -240,7 +266,7 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
 
 
-_EDGES = {"periodic": 0, "ring": 1, "open": 2}   # csrc/stencil_sweep.cu's Edge
+_EDGES = {"periodic": 0, "ring": 1, "open": 2}   # the Edge of stencil_sweep.cu, sweep1d_warp.cu
 
 
 def _taps(spec: StencilSpec, width: int):
@@ -283,7 +309,8 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
 
 
 def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
-    """The kernel a CUDA :func:`stencil1d_sweep_ttile` launches: ``"warp"``
+    """The kernel a CUDA :func:`stencil1d_sweep_ttile` or
+    :func:`stencil1d_multistep` (``depth = k``) launches: ``"warp"``
     (``csrc/sweep1d_warp.cu``) when a block row is one warp (``vl = 32``),
     ``m`` has an instance and the ``depth·r`` elements a sweep corrupts at
     each end of a warp's span fit in its halo block (``depth·r <= vl·m``);
@@ -293,13 +320,15 @@ def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
     return "smem"
 
 
-def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int) -> None:
+def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
+                 edge: str = "periodic") -> None:
     _kernel_io(t, out, "the warp sweep kernel")
     nb, m, vl = t.shape
     lib = build.load("sweep1d_warp")
     ntaps, offs, coeffs = _taps(spec, 1)
     build.check(lib.repro_sweep1d_warp_f32(
-        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[m], depth, ntaps,
+        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[m], depth, _EDGES[edge],
+        ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} warp sweep kernel")
 
@@ -486,7 +515,8 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
     nearest each end of the array keep their value.  ``edge_mask=False``:
     no ring; cells beyond either end hold 0 at every step (read as zeros,
     never updated).  The reference's Pallas kernel leaves unspecified
-    values within k·r of the ends in that mode, which its callers crop."""
+    values within k·r of the ends in that mode, which its callers crop.
+    The kernel is the one :func:`sweep1d_route` names for depth k."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -494,8 +524,14 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_multistep_ref(spec, t, k, edge_mask), "stencil1d_multistep")
     _check_cuda(t, "stencil1d_multistep")
     dst = _out(out, t.shape, t, "stencil1d_multistep")
-    _sweep_launch(spec, t, dst, k, None, "ring" if edge_mask else "open")
-    LAUNCHES["multistep_1d"] += 1
+    edge = "ring" if edge_mask else "open"
+    nb, m, vl = t.shape
+    if sweep1d_route(vl, m, k, spec.r) == "warp":
+        _warp_launch(spec, t, dst, k, edge)
+        LAUNCHES["multistep_1d"] += 1
+    else:
+        _sweep_launch(spec, t, dst, k, None, edge)
+        LAUNCHES["multistep_1d_smem"] += 1
     return dst
 
 

@@ -46,6 +46,72 @@ def test_transpose_kernel_bitwise(cuda, shape, vl, m, dtype):
     assert torch.equal(back, x)
 
 
+_INT_OF = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _bits(shape, dtype, seed, device):
+    """Random bits (NaN patterns included) as ``dtype``: a move is held bit
+    for bit through an integer view."""
+    info = np.iinfo({torch.int16: np.int16, torch.int32: np.int32,
+                     torch.int64: np.int64}[_INT_OF[dtype]])
+    raw = np.random.default_rng(seed).integers(info.min, info.max, shape, dtype=info.dtype)
+    return torch.from_numpy(raw).to(device).view(dtype)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(_INT_OF[a.dtype]), b.view(_INT_OF[b.dtype]))
+
+
+# the register route's tiles (vl a power of two from 4 to 128, m <= 8) and
+# three of the shared-memory route's
+TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8)] + [
+    (8, 25), (32, 16), (3, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("vl,m", TRANSPOSE_TILES)
+def test_transpose_routes_bitwise(cuda, vl, m, dtype):
+    x = _bits((2, 3, 37 * vl * m), dtype, vl + m, cuda)    # 37 blocks: a partial last CTA
+    route = sk.transpose_route(vl, m, x.element_size())
+    assert route == ("reg" if m <= 8 and vl in (4, 8, 16, 32, 128) else "smem")
+    sk.reset_launches()
+    t = sk.block_transpose(x, vl, m)
+    back = sk.block_untranspose(t, vl, m)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
+        "transpose" if route == "reg" else "transpose_smem": 2}
+    assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
+    assert _same_bits(back, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
+def test_transpose_unaligned_pointers(cuda, dtype):
+    """A contiguous view one element into its storage: the natural side
+    moves element by element, bit for bit the same."""
+    x = _bits((1 + 9 * 32 * 8,), dtype, 11, cuda)[1:]
+    t = sk.block_transpose(x, 32, 8)
+    assert _same_bits(t, sk.block_transpose_ref(x, 32, 8))
+    out = torch.empty(1 + x.numel(), dtype=dtype, device=cuda)[1:]
+    sk.reset_launches()
+    back = sk.block_untranspose(t, 32, 8, out=out)
+    torch.cuda.synchronize()
+    assert back.data_ptr() == out.data_ptr() and _same_bits(back, x)
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 1}
+
+
+def test_transpose_reg_refuses_off_route(cuda):
+    """The register kernel's entry point refuses a vl or an m off its
+    route."""
+    import ctypes
+    lib = build.load("transpose")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    x = _bits((41 * 32 * 8,), torch.float32, 12, cuda)
+    t = torch.empty_like(x)
+    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), x.numel() // 8, 24, 8, 4, 1,
+                                   stream) != 0
+    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 9, 4, 1, stream) != 0
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("name,shape,vl,m,t0", [
     ("1d3p", (1 << 16,), 32, 8, None),
@@ -322,7 +388,8 @@ def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask
     if spec.ndim == 1:
         got = sk.stencil1d_multistep(spec, t, depth, edge_mask)
         want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask)
-        key = "multistep_1d"
+        key = "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
+            else "multistep_1d_smem"
     else:
         got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
         want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
@@ -330,6 +397,44 @@ def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask
     torch.cuda.synchronize()
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
     assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("depth", [1, 2, 5])
+@pytest.mark.parametrize("name,m", [("1d3p", 8), ("1d3p", 1), ("1d5p", 4), ("heat1d", 2)])
+def test_multistep_1d_warp_route_bitwise(cuda, name, m, depth, edge_mask):
+    """K4a on K1's warp kernel: one block (both ends in one slot), a
+    partial last run, whole runs; the ring and open ends."""
+    spec = stencils.make(name)
+    B = sk.WARP_BLOCKS[m]
+    for nb in (1, 2, B + 1, 3 * B + 2, 4 * sk.WARP_BLOCKS[m] * 9):
+        t = layouts.to_transpose_layout(_x((nb * 32 * m,), nb + depth, cuda), 32, m)
+        sk.reset_launches()
+        got = sk.stencil1d_multistep(spec, t, depth, edge_mask)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"multistep_1d": 1}
+        want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask)
+        assert torch.equal(got, want), (nb, (got - want).abs().max().item())
+
+
+def test_multistep_1d_routes_count(cuda):
+    """The counters tell K4a's two routes apart, and the halo wrapper
+    follows the route of its depth."""
+    spec = stencils.make("1d3p")
+    for vl, m, k, key in ((32, 8, 2, "multistep_1d"), (32, 1, 33, "multistep_1d_smem"),
+                          (8, 4, 2, "multistep_1d_smem"), (32, 3, 2, "multistep_1d_smem")):
+        assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
+        t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
+        for edge_mask in (True, False):
+            sk.reset_launches()
+            got = sk.stencil1d_multistep(spec, t, k, edge_mask)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+            assert torch.equal(got, sk.stencil1d_multistep_ref(spec, t, k, edge_mask))
+        sk.reset_launches()
+        halo = sk.stencil1d_sweep_halo(spec, t, k, k * spec.r)
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert torch.equal(halo, sk.stencil1d_multistep_ref(spec, t, k, False))
 
 
 @pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])

@@ -1,17 +1,24 @@
-"""K1's warp-register kernel (``csrc/sweep1d_warp.cu``), transcribed into
-numpy line for line and held bit for bit against the plain version
-``stencil1d_sweep_ttile_ref``, and the route that picks it.
+"""K1's and K4a's warp-register kernel (``csrc/sweep1d_warp.cu``),
+transcribed into numpy line for line and held bit for bit against the plain
+versions ``stencil1d_sweep_ttile_ref`` (periodic) and
+``stencil1d_multistep_ref`` (the ring and open ends), and the route that
+picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: warps of ``kWarps`` per CTA with the idle ones recomputing the
 last run, lanes as an array axis, a shuffle as a gather along that axis
 with the lane-0 / lane-31 select before it, the halo slots' wrapped block
 indices, the in-place slot order with its r-row carry, and the store
-guard (each block written exactly once).  It runs in float32 with the
+guard (each block written exactly once); in the ring and open modes, the
+slots before block 0 and after block nb - 1, the zeros an open end loads
+and holds, and the ring rows two lanes put back.  In ring mode the slots
+beyond the ends are filled with NaN instead of their wrapped blocks: no NaN
+may reach a stored value.  It runs in float32 with the
 float32-rounded coefficients summed in the spec's order, as the kernel
 does under ``-fmad=false``.  One case is also held against the JAX
 package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
-contract a multiply-add into an FMA).
+contract a multiply-add into an FMA); in open mode only at k·r or more from
+the ends, where the reference's values are specified.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +37,8 @@ K_WARPS = 4      # csrc/sweep1d_warp.cu's kWarps
 VL = 32
 
 
-def warp_kernel_np(spec, t: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]:
+def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
+                   ) -> tuple[np.ndarray, np.ndarray]:
     """The kernel's output and how often each block was stored."""
     nb, m, vl = t.shape
     assert vl == VL and sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
@@ -43,8 +51,23 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndar
     lane = np.arange(VL)[None, :]                           # (1, lanes)
     live = w < nruns
     b0 = np.where(live, w, nruns - 1) * B
-    # v[i][s]: (warps, lanes) registers, row s of slot i (block b0 - 1 + i)
+    first_run = b0 == 0                                     # (warps, 1)
+    last = np.minimum(nb - b0, S)                           # slot of block nb - 1
+
+    def beyond(i):
+        return (i == 0) & first_run | (i > last)
+
+    # v[i][s]: (warps, lanes) registers, row s of slot i (block b0 - 1 + i);
+    # open: zeros beyond the ends; ring: NaN there, which must not matter
+    fill = {"periodic": None, "open": np.float32(0), "ring": np.float32(np.nan)}[edge]
     v = [[t[(b0[:, 0] - 1 + i) % nb, s, :] for s in range(m)] for i in range(S)]
+    if fill is not None:
+        v = [[np.where(beyond(i), fill, row) for row in v[i]] for i in range(S)]
+    if edge == "ring":
+        ring_lo = [v[1][q] for q in range(R)]
+        ring_hi = [np.zeros_like(v[0][0]) for _ in range(R)]
+        for i in range(1, S):
+            ring_hi = [np.where(i == last, v[i][m - R + q], ring_hi[q]) for q in range(R)]
     left, right = (lane + VL - 1) % VL, (lane + 1) % VL
 
     def shfl(x, src):
@@ -69,6 +92,15 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndar
                 for s in range(m):
                     term = ext[R + s + o] * cf
                     acc[s] = term if n == 0 else acc[s] + term
+            if edge == "ring":
+                lo = (i == 1) & first_run & (lane == 0)
+                hi = (i == last) & (lane == VL - 1)
+                for q in range(R):
+                    acc[q] = np.where(lo, ring_lo[q], acc[q])
+                    acc[m - R + q] = np.where(hi, ring_hi[q], acc[m - R + q])
+            if edge == "open":
+                hold = beyond(i)
+                acc = [np.where(hold, v[i][s], acc[s]) for s in range(m)]
             v[i] = acc
     out = np.full_like(t, np.nan)
     stores = np.zeros(nb, dtype=np.int64)
@@ -161,6 +193,57 @@ def test_cpu_wrapper_counts_no_route():
     t = torch.from_numpy(_t(4, 8, 1))
     sk.reset_launches()
     got = sk.stencil1d_sweep_ttile(spec, t, 2, 2)
+    multi = sk.stencil1d_multistep(spec, t, 2, True)
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
     assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, 2, 2))
-    assert {"sweep_1d", "sweep_1d_smem"} <= set(sk.LAUNCHES)
+    assert torch.equal(multi, sk.stencil1d_multistep_ref(spec, t, 2, True))
+    assert {"sweep_1d", "sweep_1d_smem", "multistep_1d", "multistep_1d_smem"} <= set(sk.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# K4a: the ring and open ends
+# ---------------------------------------------------------------------------
+
+def _edge_check(name, m, nb, depth, edge, seed):
+    spec = tst.make(name)
+    t = _t(nb, m, seed)
+    got, stores = warp_kernel_np(spec, t, depth, edge)
+    np.testing.assert_array_equal(stores, np.ones(nb, dtype=np.int64))
+    assert np.isfinite(got).all()                # no NaN from beyond the ends
+    want = sk.stencil1d_multistep_ref(spec, torch.from_numpy(t), depth, edge == "ring").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("edge", ["ring", "open"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 5, 8, 12])
+@pytest.mark.parametrize("name,m,nb", CASES)
+def test_warp_kernel_edges_bitwise(name, m, nb, depth, edge):
+    _edge_check(name, m, nb, depth, edge, seed=nb * 16 + m + depth)
+
+
+@pytest.mark.parametrize("edge", ["ring", "open"])
+@pytest.mark.parametrize("name,m,nb", [("1d3p", 1, 3), ("1d3p", 2, 1), ("1d5p", 2, 33),
+                                       ("heat1d", 4, 17), ("1d5p", 8, 9), ("1d3p", 8, 2)])
+def test_warp_kernel_edges_deepest(name, m, nb, edge):
+    """At the route's deepest launch (depth·r = vl·m) the corruption from a
+    run's ends fills its halo slots."""
+    depth = VL * m // tst.make(name).r
+    assert sk.sweep1d_route(VL, m, depth, tst.make(name).r) == "warp"
+    assert sk.sweep1d_route(VL, m, depth + 1, tst.make(name).r) == "smem"
+    _edge_check(name, m, nb, depth, edge, seed=m + nb)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("name,m,nb,k", [("1d3p", 8, 11, 2), ("1d5p", 4, 3, 3)])
+def test_warp_kernel_edges_match_pallas(name, m, nb, k, edge_mask):
+    """Against the JAX package's Pallas kernel: the whole array with the
+    ring, and at k·r or more from the ends with open ends."""
+    t = _t(nb, m, seed=5)
+    want = np.asarray(jlay.from_transpose_layout(
+        jsk.stencil1d_multistep(jst.make(name), jnp.asarray(t), k, interpret=True,
+                                edge_mask=edge_mask), VL, m))
+    got, _ = warp_kernel_np(tst.make(name), t, k, "ring" if edge_mask else "open")
+    got = tlay.from_transpose_layout(torch.from_numpy(got), VL, m).numpy()
+    width = 0 if edge_mask else k * tst.make(name).r
+    np.testing.assert_allclose(got[width:got.size - width], want[width:want.size - width],
+                               rtol=2e-6, atol=2e-6)

@@ -1,0 +1,156 @@
+"""K2's register kernel (``csrc/transpose.cu``, ``transpose_reg``)
+transcribed into numpy and held bit for bit against the plain versions
+``block_transpose_ref`` / ``block_untranspose_ref``, and the route that
+picks it.
+
+The CPU has no CUDA compiler, so this transcription checks the kernel's
+address map: CTAs of ``kRegThreads`` threads, one column per thread,
+the guard on the last CTA, the natural side moved in chunks of ``chunk_elems`` elements (each chunk aligned to its own size),
+and the layout side's row addresses ``((g >> lv) * m + s) << lv | g & mask``.
+Every instance of the register route (vl a power of two from 4 to 128,
+m = 1..8, elements of 2, 4 and 8 bytes, both directions, leading axes)
+must read each element once and write each once, to the position the plain
+version gives.  Inputs are random integer bits, so "equal" is bit for bit.
+One case is also held against the JAX package's Pallas kernel in
+interpret mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import stencil_kernels as jsk
+from repro_torch.kernels import stencil_kernels as sk
+
+REG_THREADS = 256            # csrc/transpose.cu's kRegThreads
+INTS = {2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def chunk_elems(itemsize: int, m: int) -> int:
+    """csrc/transpose.cu's chunk_elems<T, M>."""
+    v = 1
+    while m % (2 * v) == 0 and 2 * v * itemsize <= 16:
+        v *= 2
+    return v
+
+
+def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bool = True):
+    """The kernel on the flat array ``src``: its output and how often each
+    element was read and written."""
+    assert sk.transpose_route(vl, m, src.itemsize) == "reg"
+    ncols = src.size // m
+    lv = vl.bit_length() - 1
+    assert 1 << lv == vl and ncols % vl == 0
+    mask = vl - 1
+    kvec = chunk_elems(src.itemsize, m) if aligned else 1
+    ctas = -(-ncols // REG_THREADS)
+    g = np.arange(ctas * REG_THREADS)           # one thread per column
+    g = g[g < ncols]                            # the guard
+    natural = g * m
+    row0 = (((g >> lv) * m) << lv) + (g & mask)
+    out = np.zeros_like(src)
+    reads = np.zeros(src.size, np.int64)
+    writes = np.zeros(src.size, np.int64)
+    v = []
+    if to_layout:
+        for c in range(m // kvec):
+            at = natural + c * kvec
+            assert (at % kvec == 0).all()       # a whole, aligned chunk
+            for e in range(kvec):
+                np.add.at(reads, at + e, 1)
+                v.append(src[at + e])
+        for s in range(m):
+            np.add.at(writes, row0 + (s << lv), 1)
+            out[row0 + (s << lv)] = v[s]
+    else:
+        for s in range(m):
+            np.add.at(reads, row0 + (s << lv), 1)
+            v.append(src[row0 + (s << lv)])
+        for c in range(m // kvec):
+            at = natural + c * kvec
+            assert (at % kvec == 0).all()
+            for e in range(kvec):
+                np.add.at(writes, at + e, 1)
+                out[at + e] = v[c * kvec + e]
+    return out, reads, writes
+
+
+def _bits(shape, itemsize, seed):
+    info = np.iinfo(INTS[itemsize])
+    return np.random.default_rng(seed).integers(info.min, info.max, shape, dtype=INTS[itemsize],
+                                                endpoint=True)
+
+
+def _check(x: np.ndarray, vl: int, m: int, **kw):
+    """Both directions of the transcription on ``x`` (lead..., N)."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    want = sk.block_transpose_ref(torch.from_numpy(x), vl, m).contiguous().numpy()
+    assert want.shape == lead + (n // (vl * m), m, vl)
+    got, reads, writes = reg_kernel_np(x.ravel(), vl, m, True, **kw)
+    np.testing.assert_array_equal(reads, 1)
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    back, reads, writes = reg_kernel_np(want.ravel(), vl, m, False, **kw)
+    np.testing.assert_array_equal(reads, 1)
+    np.testing.assert_array_equal(writes, 1)
+    plain = sk.block_untranspose_ref(torch.from_numpy(want), vl, m).contiguous().numpy()
+    np.testing.assert_array_equal(back.reshape(x.shape), plain)
+    np.testing.assert_array_equal(plain, x)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("vl", [4, 8, 16, 32, 64, 128])
+def test_reg_kernel_address_map(vl, m, itemsize):
+    # two leading axes; 15 blocks of vl·m: the last CTA is partial
+    x = _bits((3, 1, 5 * vl * m), itemsize, seed=vl * 64 + m * 8 + itemsize)
+    _check(x, vl, m)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("vl", [4, 8, 16, 32, 64, 128])
+def test_reg_kernel_unaligned_pointer(vl, itemsize):
+    """The element-wise instance a natural-side pointer off its chunk's
+    alignment takes (m = 8), over more than one CTA."""
+    x = _bits((2, 37 * vl * 8), itemsize, seed=itemsize)
+    _check(x, vl, 8, aligned=False)
+
+
+@pytest.mark.parametrize("vl,m,nb", [(32, 8, 3), (8, 5, 7), (128, 8, 2)])
+def test_reg_kernel_matches_pallas(vl, m, nb):
+    x = np.random.default_rng(nb).standard_normal(nb * vl * m).astype(np.float32)
+    want = np.asarray(jsk.block_transpose(jnp.asarray(x), vl, m, interpret=True))
+    got, _, _ = reg_kernel_np(x, vl, m, True)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    back = np.asarray(jsk.block_untranspose(jnp.asarray(want), vl, m, interpret=True))
+    got_back, _, _ = reg_kernel_np(want.ravel(), vl, m, False)
+    np.testing.assert_array_equal(got_back, back)
+
+
+@pytest.mark.parametrize("vl,m,itemsize,route", [
+    (32, 8, 4, "reg"),          # the main path: 1d3p / 2d5p / 3d7p at the GPU tile
+    (128, 8, 4, "reg"),         # the JAX package's tile
+    (4, 1, 2, "reg"),
+    (8, 5, 8, "reg"),           # the picker's odd-m tiles off vl = 32
+    (16, 3, 4, "reg"),
+    (64, 7, 2, "reg"),
+    (8, 25, 4, "smem"),         # m > 8
+    (32, 16, 4, "smem"),
+    (3, 5, 4, "smem"),          # vl not a power of two
+    (2, 4, 4, "smem"),          # vl below 4
+    (256, 2, 4, "smem"),        # vl above 128
+    (32, 8, 1, "smem"),         # no 1-byte instance
+    (32, 0, 4, "smem"),
+])
+def test_transpose_route(vl, m, itemsize, route):
+    assert sk.transpose_route(vl, m, itemsize) == route
+
+
+def test_cpu_wrapper_counts_no_route():
+    x = torch.from_numpy(_bits((2, 4 * 32 * 8), 4, seed=3))
+    sk.reset_launches()
+    t = sk.block_transpose(x, 32, 8)
+    back = sk.block_untranspose(t, 32, 8)
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
+    assert torch.equal(back, x)
+    assert {"transpose", "transpose_smem"} <= set(sk.LAUNCHES)

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the 1-D path's kernels of one source tree of the port, to hold two
+trees against each other on one CUDA card.
+
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME]
+
+``--src`` is the ``src`` directory of the tree to time (by default this
+checkout's); its kernels are built from that tree's ``csrc``.  Run it once
+per tree and in turns (A, B, B, A) within one call: two calls may land on
+two cards.  At 1d3p, float32, vl=32, m=8 it times K1
+(``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements, K2
+(``block_transpose`` / ``block_untranspose``) on the same grid, and K4a
+(``stencil1d_multistep``, open and ring, depths 2 and 1) on 2**26 + 512,
+the roundtrip's padded shape: CUDA events, median of repeats after
+warm-up, each result first held bit for bit against the plain version.
+Then the 1-D Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` on 2**26
+elements (K2, K4a in ring mode, K2 per sweep), held bit for bit against
+its plain composition, by the median host time of 5 runs after that
+check's run.  Prints one JSON line per row, then the card's name and
+power limit.
+
+``chip_smoke.py`` times the same kernels, but only on the tree it belongs
+to: it asserts this tree's route functions and counter keys
+(``transpose_route``, ``transpose_smem``, ``multistep_1d_smem``), which
+an older tree lacks.  This script calls nothing but the entry points both
+trees share, so it can time a parent tree beside its child.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--src", default=os.path.join(ROOT, "src"))
+    parser.add_argument("--label", default="this tree")
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core import stencils
+    from repro_torch.core.timing import bench
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_kernels as sk
+
+    dev = torch.device("cuda")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    spec = stencils.make("1d3p")
+    vl, m = 32, 8
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def row(kernel, fn, plain):
+        if not torch.equal(fn(), plain()):
+            raise AssertionError(f"{args.label} {kernel}: differs from the plain version")
+        ms = bench(fn, device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
+        print(json.dumps({"tree": args.label, "kernel": kernel, "ms": ms}), flush=True)
+
+    x = torch.randn(1 << 26, generator=gen, device=dev)
+    t = sk.block_transpose_ref(x, vl, m)
+    buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
+    row("K2 block_transpose", lambda: sk.block_transpose(x, vl, m, out=buf_t),
+        lambda: sk.block_transpose_ref(x, vl, m))
+    row("K2 block_untranspose", lambda: sk.block_untranspose(t, vl, m, out=buf_x),
+        lambda: sk.block_untranspose_ref(t, vl, m))
+    for depth in (4, 2, 1):
+        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+        row(f"K1 depth={depth}", lambda: sk.stencil1d_sweep_ttile(spec, t, k, tt, out=buf_t),
+            lambda: sk.stencil1d_sweep_ttile_ref(spec, t, k, tt))
+    del x, t, buf_t, buf_x
+    tp = sk.block_transpose_ref(torch.randn((1 << 26) + 512, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(tp)
+    for edge_mask in (False, True):
+        for depth in (2, 1):
+            row(f"K4a {'ring' if edge_mask else 'open'} depth={depth}",
+                lambda: sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=buf),
+                lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
+    del tp, buf
+
+    def dirichlet_plain(x, steps):
+        for _ in range(steps // 2):
+            t = sk.stencil1d_multistep_ref(spec, sk.block_transpose_ref(x, vl, m), 2)
+            x = sk.block_untranspose_ref(t, vl, m)
+        return x
+
+    x = torch.randn(1 << 26, generator=gen, device=dev)
+    if not torch.equal(ops.stencil_run(spec, x, 16, k=2), dirichlet_plain(x, 16)):
+        raise AssertionError(f"{args.label} Dirichlet run: differs from the plain version")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.stencil_run(spec, x, 16, k=2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    print(json.dumps({"tree": args.label, "run": "1d3p Dirichlet 16 steps",
+                      "seconds_median_of_5": statistics.median(times)}), flush=True)
+    print(gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
