@@ -14,8 +14,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              (one nvcc per source, started together) and reports the time,
              and the registers, spills and stack per instance of K2's
              register kernel ``transpose_reg`` and of the warp kernels
-             (K1's and K4a's ``sweep1d_warp_f32``, K3's 2-D
-             ``sweep2d_warp_f32``);
+             (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
+             ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
+             1 K4b's ring and open ones), with the instance count;
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
              per sweep; the result equals the port's plain path bit for bit;
@@ -30,7 +31,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              result equals the resident run at ttile 1 and 2 bit for bit;
              the counted run's seconds, and the median of five more;
              1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
-             tiles ``multistep_1d_smem``);
+             tiles ``multistep_1d_smem``), 2d5p K4b on the 2-D warp kernel
+             (``multistep_2d``; other tiles and 3-D ``multistep_nd``);
   dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
              Dirichlet ring, K2 per sweep) after one uncounted 2-step run,
              bit for bit its plain path; seconds as for roundtrip;
@@ -45,8 +47,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              (1d3p, 2d5p) at vl=128, on its register route (``transpose``),
              and for 1d3p at m=16 on its shared-memory route
              (``transpose_smem``), and bit for bit at 2- and 8-byte
-             elements; each K2 and K4a row names its route, and a K2 row
-             counts the launches of the case's runs at its own tile;
+             elements; each K2 and K4 row names its route and source, and
+             a K2 row counts the launches of the case's runs at its own
+             tile;
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
              1d5p 96, 2d5p 64x48, 3d7p 16x8x16) at the tile the GPU picker
              chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
@@ -464,6 +467,7 @@ def main() -> int:
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     reports = build.build_all()
+    warp2d = ptxas_kernels(build.report("sweep2d_warp"), "sweep2d_warp_f32")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "gpu": gpu,
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
@@ -472,8 +476,8 @@ def main() -> int:
               build.report("transpose"), "transpose_reg"),
           "sweep1d_warp_f32 <M, R, B, order, edge>": ptxas_kernels(
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
-          "sweep2d_warp_f32 <M, R, D, order>": ptxas_kernels(build.report("sweep2d_warp"),
-                                                             "sweep2d_warp_f32")})
+          "sweep2d_warp_f32 instances": len(warp2d),
+          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d})
 
     def ms(fn, *args):
         return bench(fn, *args, device=dev, warmup=1, iters=5, min_time_s=0.1) * 1e3
@@ -545,10 +549,12 @@ def main() -> int:
 
     def multi_key(spec, vl, m, depth):
         """K4's counter on the route a depth-``depth`` launch takes."""
-        if spec.ndim > 1:
-            return "multistep_nd"
-        return "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
-            else "multistep_1d_smem"
+        if spec.ndim == 1:
+            return "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
+                else "multistep_1d_smem"
+        if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
+            return "multistep_2d"
+        return "multistep_nd"
 
     def k4_counts(spec, chunks, vl, m):
         """The launches of roundtrip or Dirichlet sweeps, ``chunks`` of
@@ -841,11 +847,13 @@ def main() -> int:
                         return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
                 edge = "ring" if edge_mask else "open"
                 key = multi_key(spec, vl, m, depth)
-                route = "warp" if key == "multistep_1d" else "smem"
+                source = {"multistep_1d": "sweep1d_warp",
+                          "multistep_2d": "sweep2d_warp"}.get(key, "sweep")
+                route = "smem" if source == "sweep" else "warp"
                 err = same(f"{name} {kid} {edge} depth {depth}", kern(), plain())
                 row(kid, fname,
-                    f"{name} {pdims} {edge} depth={depth}; route {route}; library: zero pad "
-                    "on axis 0, no ring restore", "sweep1d_warp" if route == "warp" else "sweep",
+                    f"{name} {pdims} {edge} depth={depth}; route {route} ({key}); library: "
+                    "zero pad on axis 0, no ring restore", source,
                     launched[key], err, kern, plain,
                     bound(2 * xp.numel() * itemsize,
                           depth * spec.flops_per_point * xp.numel()),

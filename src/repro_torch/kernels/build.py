@@ -121,7 +121,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sweep1d_warp_blocks.argtypes = [i64]
         lib.repro_sweep1d_warp_blocks.restype = i64
     elif name == "sweep2d_warp":
-        lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
+        lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
         lib.repro_sweep2d_warp_f32.restype = ctypes.c_int
         for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps):
             fn.restype = i64

@@ -1,13 +1,15 @@
-// Depth-`depth` fully periodic advance of a 2-D grid held in the paper's
-// local transpose layout (n0, nb, m, vl = 32) on its minor axis, one launch
-// per sweep chunk: K3's warp-register kernel for 2-D stencils.
+// Depth-`depth` advance of a 2-D grid held in the paper's local transpose
+// layout (n0, nb, m, vl = 32) on its minor axis, one launch per sweep chunk:
+// K3's and K4b's warp-register kernel for 2-D stencils.
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
-// stencil_nd_sweep_ttile (K3) for 2-D stencils of reach r = 1, vl = 32,
-// m in {1, 2, 4, 8} and depth up to repro_sweep2d_warp_max_depth(m)
-// (stencil_kernels.sweep2d_route picks it before the launch).  3-D grids,
-// every other 2-D shape and K4b's ring and open modes take the
-// shared-memory kernel of csrc/stencil_sweep.cu.
+// stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
+// stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
+// ends of axis 0), for 2-D stencils of reach r = 1, vl = 32, m in
+// {1, 2, 4, 8} and depth up to repro_sweep2d_warp_max_depth(m)
+// (stencil_kernels.sweep2d_route picks it before the launch).  3-D grids
+// and every other 2-D shape take the shared-memory kernel of
+// csrc/stencil_sweep.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
 // axis 0.  Lane j of a warp holds natural column j of one layout block: its
@@ -24,7 +26,8 @@
 // Only the middle warps store, and only blocks below nb: each block once.
 //
 // Along axis 0 a CTA walks a segment of rows [y0, y1), starting depth * r
-// rows early and ending depth * r rows late, row indices wrapped mod n0.
+// rows early and ending depth * r rows late, row indices wrapped mod n0 (in
+// the periodic mode; see the ends below).
 // Level l (l = 1..depth, level 0 the input) keeps its last 2r + 1 rows in
 // registers: depth * (2r + 1) * m values a lane.  At step i the input row
 // y0 - depth*r + i arrives and level l computes row y0 - depth*r + i -
@@ -40,6 +43,28 @@
 // Input rows reach shared memory ahead of use: each lane copies its own m
 // elements of row i + kStages with cp.async while step i computes (kStages
 // rows of every warp in flight, a ring of kStages + 1 slots).
+//
+// The ends of axis 0 (the minor axis stays periodic).  Every thread of a
+// CTA makes the same row of a level at a step, so whether that row lies at
+// an end is one CTA-uniform test per level and step.  The periodic mode
+// has instances of its own (kEnds false), free of those tests: in the same
+// instances as ring and open they cost K3 10% at depth 4 on an H100.  Ring
+// and open share instances (kEnds true) and tell each other apart by the
+// run-time `edge`.  Outside the periodic mode row indices are not wrapped,
+// and input rows outside [0, n0) are not loaded.
+// - open: rows beyond either end hold 0 at every step.  A level row (the
+//   input included) outside [0, n0) is published as zeros, into the window
+//   and the edge slots; at level D it is never stored (the store guard keeps
+//   to the segment's rows).
+// - ring: the r first and last rows keep their value.  A level row y with
+//   y < r or y >= n0 - r takes the previous level's row y (ext[R], already
+//   in registers) in place of the tap sum, and is published and stored like
+//   any other.  A row r or more from an end reads only rows inside the
+//   grid, so what rows beyond the ends hold (never loaded) reaches only
+//   rows beyond the ends: bit for bit the plain version's where(ring, old,
+//   step).
+// The selects come before `publish`, so no edge slot is read and written
+// in one step, as in the periodic mode.
 //
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to float; built with -fmad=false this is
@@ -67,6 +92,9 @@ constexpr int kSlots = kStages + 1;      // the ring of input rows
 constexpr int kMaxTaps = 64;
 constexpr int kR = 1;                    // the reach the instances take
 constexpr unsigned kFull = 0xffffffffu;
+
+// the ends of axis 0, numbered as csrc/stencil_sweep.cu's Edge
+enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
 // Deepest instance by m (stencil_kernels.WARP2D_DEPTH holds the same): the
 // register windows grow as depth * 3 * m, and ptxas caps a thread of a
@@ -191,12 +219,13 @@ constexpr size_t smem_floats() {
 
 // The input row of step p into ring slot p % kSlots: each lane copies the
 // m elements it reads.  One commit group per step, empty past the rows the
-// segment needs.
-template <int M>
+// segment needs and, unless the mode is periodic, for rows beyond the ends.
+template <int M, bool kEnds>
 __device__ __forceinline__ void issue(const float* __restrict__ in, float* ring, int p, int nload,
                                       int64_t base, int64_t n0, int64_t nb, int64_t b) {
-  if (p < nload) {
-    const float* src = in + (wrap(base + p, n0) * nb + b) * (M * kVl);
+  const int64_t y = base + p;
+  if (p < nload && (!kEnds || (y >= 0 && y < n0))) {
+    const float* src = in + (wrap(y, n0) * nb + b) * (M * kVl);
     float* dst = ring + (p % kSlots) * (kWarps * M * kVl);
 #pragma unroll
     for (int s = 0; s < M; ++s) cp_async4(dst + s * kVl, src + s * kVl);
@@ -222,10 +251,10 @@ __device__ __forceinline__ void publish(float (&win)[D][2 * R + 1][M], float* ed
   }
 }
 
-template <int M, int R, int D, int kOrder>
+template <int M, int R, int D, int kOrder, bool kEnds>
 __global__ void __launch_bounds__(kThreads, 1)
 sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, int64_t nb,
-                 int64_t ncol, int64_t seg, Taps2 taps) {
+                 int64_t ncol, int64_t seg, int edge, Taps2 taps) {
   constexpr int NW = 2 * R + 1;    // window rows per level
   constexpr int E = 2 * R + 2;     // edge slots per level
   constexpr int X = M + 2 * R;     // a column with its x halo
@@ -240,6 +269,9 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   const int steps = rows + D * NW;
   const int nload = rows + 2 * D * R;
   const int64_t base = y0 - D * R;                   // the input row of step 0
+  // level rows outside [lo, hi) are the ends' (ring: kept; open: zeros)
+  const int64_t lo = edge == kRing ? R : 0;
+  const int64_t hi = edge == kRing ? n0 - R : n0;
   const int64_t bu = col * (kWarps - 2) + w - 1;     // this warp's block, unwrapped
   const int64_t b = wrap(bu, nb);
   const bool stores = w >= 1 && w <= kWarps - 2 && bu < nb;
@@ -253,7 +285,7 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   for (int e = threadIdx.x; e < D * E * kWarps * 2 * R; e += kThreads) edges[e] = 0.0f;
 
 #pragma unroll
-  for (int p = 0; p < kStages; ++p) issue<M>(lane_in, ring, p, nload, base, n0, nb, b);
+  for (int p = 0; p < kStages; ++p) issue<M, kEnds>(lane_in, ring, p, nload, base, n0, nb, b);
   cp_async_wait<kStages - 1>();
   __syncthreads();
 
@@ -276,6 +308,10 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
       const float* src = ring + (i % kSlots) * kRow;
 #pragma unroll
       for (int s = 0; s < M; ++s) cur[s] = src[s * kVl];
+      if (kEnds && edge == kOpen && (base + i < 0 || base + i >= n0)) {
+#pragma unroll
+        for (int s = 0; s < M; ++s) cur[s] = 0.0f;
+      }
 #pragma unroll
       for (int l = D; l >= 1; --l) {
         // rows y + k - R of level l - 1, made at steps i - 1 - 2R + k:
@@ -299,6 +335,13 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
         }
         float acc[M];
         apply_taps<M, R, kOrder>(acc, ext, taps);
+        if (kEnds) {
+          const int64_t y = base + i - l * (R + 1);   // the row this level makes
+          if (y < lo || y >= hi) {
+#pragma unroll
+            for (int s = 0; s < M; ++s) acc[s] = edge == kRing ? ext[R][R + s] : 0.0f;
+          }
+        }
         if (l == D) {
           if (stores && i >= D * NW) {
             float* dst = out + ((y0 + i - D * NW) * nb + bu) * (M * kVl) + lane;
@@ -310,7 +353,7 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
         }
       }
       publish<M, R, D>(win, edges, 0, ph, i % E, w, lane, cur);
-      issue<M>(lane_in, ring, i + kStages, nload, base, n0, nb, b);
+      issue<M, kEnds>(lane_in, ring, i + kStages, nload, base, n0, nb, b);
       cp_async_wait<kStages - 1>();   // this lane's copy of row i + 1 has landed
       __syncthreads();                // every lane's, and this step's edges
     }
@@ -319,30 +362,32 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
 }
 
 template <int M, int R, int D, int kOrder>
-int go(const float* in, float* out, int64_t n0, int64_t nb, int64_t ncol, int64_t seg,
+int go(const float* in, float* out, int64_t n0, int64_t nb, int64_t ncol, int64_t seg, int edge,
        unsigned ctas, const Taps2& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
+  const auto kernel = edge == kPeriodic ? sweep2d_warp_f32<M, R, D, kOrder, false>
+                                        : sweep2d_warp_f32<M, R, D, kOrder, true>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep2d_warp_f32<M, R, D, kOrder>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  sweep2d_warp_f32<M, R, D, kOrder><<<ctas, kThreads, smem, stream>>>(in, out, n0, nb, ncol, seg,
-                                                                      taps);
+  kernel<<<ctas, kThreads, smem, stream>>>(in, out, n0, nb, ncol, seg, edge, taps);
   return (int)cudaGetLastError();
 }
 
 template <int M, int R, int D>
 int launch_depth(int depth, const float* in, float* out, int64_t n0, int64_t nb, int64_t ncol,
-                 int64_t seg, unsigned ctas, const Taps2& taps, int order, cudaStream_t stream) {
+                 int64_t seg, int edge, unsigned ctas, const Taps2& taps, int order,
+                 cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<M, R, D - 1>(depth, in, out, n0, nb, ncol, seg, ctas, taps, order,
+      return launch_depth<M, R, D - 1>(depth, in, out, n0, nb, ncol, seg, edge, ctas, taps, order,
                                        stream);
     switch (order) {
-      case kStar: return go<M, R, D, kStar>(in, out, n0, nb, ncol, seg, ctas, taps, stream);
-      case kBox: return go<M, R, D, kBox>(in, out, n0, nb, ncol, seg, ctas, taps, stream);
-      default: return go<M, R, D, kRuntime>(in, out, n0, nb, ncol, seg, ctas, taps, stream);
+      case kStar: return go<M, R, D, kStar>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
+      case kBox: return go<M, R, D, kBox>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
+      default: return go<M, R, D, kRuntime>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -365,18 +410,20 @@ int tap_order(const int32_t* offsets, int64_t ntaps) {
 extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m) { return max_depth((int)m); }
 extern "C" int64_t repro_sweep2d_warp_warps() { return kWarps; }
 
-// `depth` fully periodic steps of the (n0, nb, m, vl) layout array `in` into
-// `out` (another buffer), for a 2-D stencil of reach r = 1, in segments of
+// `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
+// buffer), for a 2-D stencil of reach r = 1, with the ends of axis 0 `edge`
+// (0 periodic, 1 ring, 2 open; the minor axis is periodic), in segments of
 // `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs and `coeffs`
 // ntaps float coefficients, both in host memory.  Returns the CUDA error
 // code.
 extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int64_t nb,
                                       int64_t m, int64_t vl, int64_t r, int64_t depth,
-                                      int64_t seg, int64_t ntaps, const int32_t* offsets,
-                                      const float* coeffs, void* stream) {
+                                      int64_t edge, int64_t seg, int64_t ntaps,
+                                      const int32_t* offsets, const float* coeffs,
+                                      void* stream) {
   if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
-      depth > max_depth((int)m) || n0 < 1 || nb < 1 || seg < 1 || seg > (1 << 24) ||
-      ntaps < 1 || ntaps > kMaxTaps)
+      depth > max_depth((int)m) || edge < kPeriodic || edge > kOpen || n0 < 1 || nb < 1 ||
+      seg < 1 || seg > (1 << 24) || ntaps < 1 || ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2 taps;
   taps.n = (int)ntaps;
@@ -393,12 +440,12 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
   const float* src = static_cast<const float*>(in);
   float* dst = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = (int)depth, order = tap_order(offsets, ntaps);
+  const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
   const unsigned grid = (unsigned)ctas;
   switch (m) {
-    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, nb, ncol, seg, grid, taps, order, st);
-    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, nb, ncol, seg, grid, taps, order, st);
-    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, nb, ncol, seg, grid, taps, order, st);
-    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, nb, ncol, seg, grid, taps, order, st);
+    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
+    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
+    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
+    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
   }
 }

@@ -16,8 +16,8 @@
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
-    bodies with ``edge_mask``): 1-D on K1's two routes, n-D on the
-    shared-memory kernel.
+    bodies with ``edge_mask``): 1-D on K1's two routes, 2-D on the 2-D
+    K3's two routes, 3-D on the shared-memory kernel.
   * K5 ``stencil1d_naive_onestep`` / ``stencil1d_transpose_onestep`` —
     ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
     the transpose layout, the paper's layout A/B (reference:
@@ -30,7 +30,8 @@ routes apart: K2 under ``transpose`` (register kernel) and
 ``transpose_smem``; K1 under ``sweep_1d`` (warp kernel) and
 ``sweep_1d_smem``; K4a under ``multistep_1d`` (warp kernel) and
 ``multistep_1d_smem``; K3 under ``sweep_2d`` (2-D warp kernel) and
-``sweep_nd``.  The plain versions count nothing.  Outputs are
+``sweep_nd``; K4b under ``multistep_2d`` (2-D warp kernel) and
+``multistep_nd``.  The plain versions count nothing.  Outputs are
 allocated here (or passed in as ``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
@@ -48,7 +49,7 @@ from repro_torch.kernels import build
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
             "sweep_2d": 0, "sweep_nd": 0, "multistep_1d": 0, "multistep_1d_smem": 0,
-            "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
+            "multistep_2d": 0, "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
@@ -266,7 +267,8 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
 
 
-_EDGES = {"periodic": 0, "ring": 1, "open": 2}   # the Edge of stencil_sweep.cu, sweep1d_warp.cu
+# the Edge of stencil_sweep.cu, sweep1d_warp.cu and sweep2d_warp.cu
+_EDGES = {"periodic": 0, "ring": 1, "open": 2}
 
 
 def _taps(spec: StencilSpec, width: int):
@@ -358,7 +360,8 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
 
 
 def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
-    """The kernel a CUDA :func:`stencil_nd_sweep_ttile` launches for a 2-D
+    """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
+    :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
     stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``) when a block row is one
     warp (``vl = 32``), ``m`` and ``depth`` have an instance
     (``WARP2D_DEPTH``), the reach is the kernel's and the ``depth·r``
@@ -387,10 +390,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
-                   seg_rows: int | None = None) -> None:
-    """The 2-D warp kernel, ``seg_rows`` axis-0 rows per CTA (by default
-    one CTA per SM, a single wave: at 8192², m=8 this beat two waves and
-    the shorter segments' extra warm-up rows, ``tools/sweep2d_segments.py``)."""
+                   edge: str = "periodic", seg_rows: int | None = None) -> None:
+    """The 2-D warp kernel with the ends ``edge`` on axis 0, ``seg_rows``
+    axis-0 rows per CTA (by default one CTA per SM, a single wave: at
+    8192², m=8 this beat two waves and the shorter segments' extra warm-up
+    rows, ``tools/sweep2d_segments.py``)."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
     if seg_rows is None:
@@ -398,7 +402,7 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     lib = build.load("sweep2d_warp")
     ntaps, offs, coeffs = _taps(spec, 2)
     build.check(lib.repro_sweep2d_warp_f32(
-        t.data_ptr(), out.data_ptr(), n0, nb, m, vl, spec.r, depth, seg_rows, ntaps,
+        t.data_ptr(), out.data_ptr(), n0, nb, m, vl, spec.r, depth, _EDGES[edge], seg_rows, ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} 2-D warp sweep kernel")
 
@@ -542,8 +546,10 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
     axis 0 has the Dirichlet ring (``edge_mask=True``, its r first and last
     rows keep their value) or open edges (``edge_mask=False``, rows beyond
     either end hold 0), every other axis is periodic.  ``t0`` is the axis-0
-    rows of the kernel's tile; it must divide n0 and reach the radius, as
-    the reference's pipeline tile must."""
+    rows of the shared-memory kernel's tile; it must divide n0 and reach the
+    radius, as the reference's pipeline tile must.  A 2-D sweep that
+    :func:`sweep2d_route` sends to the warp kernel (depth k) picks its own
+    segment length and ignores ``t0``: results never depend on the tile."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -556,8 +562,14 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
                      "stencil_nd_multistep")
     _check_cuda(t, "stencil_nd_multistep")
     dst = _out(out, t.shape, t, "stencil_nd_multistep")
-    _sweep_launch(spec, t, dst, k, t0, "ring" if edge_mask else "open")
-    LAUNCHES["multistep_nd"] += 1
+    edge = "ring" if edge_mask else "open"
+    nb, m, vl = t.shape[-3:]
+    if spec.ndim == 2 and sweep2d_route(vl, m, k, spec.r) == "warp":
+        _warp2d_launch(spec, t, dst, k, edge)
+        LAUNCHES["multistep_2d"] += 1
+    else:
+        _sweep_launch(spec, t, dst, k, t0, edge)
+        LAUNCHES["multistep_nd"] += 1
     return dst
 
 

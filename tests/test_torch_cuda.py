@@ -393,7 +393,8 @@ def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask
     else:
         got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
         want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
-        key = "multistep_nd"
+        key = "multistep_2d" if spec.ndim == 2 and \
+            sk.sweep2d_route(vl, m, depth, spec.r) == "warp" else "multistep_nd"
     torch.cuda.synchronize()
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
     assert torch.equal(got, want), (got - want).abs().max().item()
@@ -437,6 +438,95 @@ def test_multistep_1d_routes_count(cuda):
         assert torch.equal(halo, sk.stencil1d_multistep_ref(spec, t, k, False))
 
 
+def _edge2d_grids(m):
+    """The CPU transcription's (n0, nb) grids with their ends
+    (tests/test_torch_sweep2d_warp.py), at every depth of the route, and a
+    grid at real size: the roundtrip's padded 2048² (n0 + 64 rows)."""
+    nb = sk.WARP2D_WARPS - 2
+    grids = set(_warp2d_grids()) | {(5, 3)}
+    for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+        grids |= {(8 + depth, nb + 2), (2 * depth, 2), (2 * depth + 1, nb)}
+    return sorted(grids) + [(2048 + 64, 2048 // (32 * m))]
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("m", sorted(sk.WARP2D_DEPTH))
+@pytest.mark.parametrize("name", ["2d5p", "2d9p", "heat2d"])
+def test_multistep_2d_warp_route_bitwise(cuda, name, m, edge_mask):
+    """K4b on the 2-D warp kernel: every depth of the route on grids whose
+    segments start or end near the ends of axis 0 (at the transcription's
+    segment of 4 rows and at the wrapper's own), and at real size; the
+    ring and open ends.  The wrapper launches the warp kernel alone."""
+    spec = stencils.make(name)
+    edge = "ring" if edge_mask else "open"
+    for n0, nb in _edge2d_grids(m):
+        t = layouts.to_transpose_layout(_x((n0, nb * 32 * m), n0 + nb + m, cuda), 32, m)
+        out = torch.empty_like(t)
+        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+            want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge_mask)
+            sk.reset_launches()
+            got = sk.stencil_nd_multistep(spec, t, depth, 1, edge_mask, out=out)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"multistep_2d": 1}
+            assert torch.equal(got, want), (n0, nb, depth, (got - want).abs().max().item())
+            if n0 < 2048:
+                sk._warp2d_launch(spec, t, out, depth, edge, seg_rows=4)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (n0, nb, depth, "seg 4")
+
+
+@pytest.mark.parametrize("taps", [
+    (((0, 1), 0.125), ((0, -1), 0.125), ((1, 0), 0.125), ((-1, 0), 0.125), ((0, 0), 0.5)),
+    (((0, 0), 0.375), ((-1, 1), 0.25), ((1, -1), 0.25), ((0, 0), 0.125)),     # (0,0) twice
+    tuple(((oy, ox), (2 + oy + 3 * ox) / 40) for ox in (-1, 0, 1) for oy in (-1, 0, 1)),
+])
+def test_multistep_2d_warp_runtime_taps(cuda, taps):
+    """Tap lists in no order the 2-D warp kernel knows at compile time,
+    with the ring and open ends."""
+    spec = stencils.StencilSpec("custom2d", 2, 1, "box", taps)
+    t = layouts.to_transpose_layout(_x((37, 11 * 32 * 4), 10, cuda), 32, 4)
+    for depth in (1, 5, 8):
+        for edge_mask in (True, False):
+            sk.reset_launches()
+            got = sk.stencil_nd_multistep(spec, t, depth, 1, edge_mask)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"multistep_2d": 1}
+            assert torch.equal(got, sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge_mask))
+
+
+def test_multistep_2d_routes_count(cuda):
+    """The counters tell K4b's two routes apart at 2-D, 3-D always takes
+    the shared-memory kernel, and the halo wrapper follows the route of
+    its depth."""
+    r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
+    cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
+             (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
+             (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_nd"),
+             (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_nd"))
+    for spec, shape, vl, m, k, key in cases:
+        if spec.ndim == 2:
+            assert sk.sweep2d_route(vl, m, k, spec.r) == \
+                ("warp" if key == "multistep_2d" else "smem")
+        t = layouts.to_transpose_layout(_x(shape, 13, cuda), vl, m)
+        for edge_mask in (True, False):
+            sk.reset_launches()
+            got = sk.stencil_nd_multistep(spec, t, k, 16, edge_mask)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}, (spec.name, vl, m, k)
+            assert torch.equal(got, sk.stencil_nd_multistep_ref(spec, t, k, 16, edge_mask))
+        sk.reset_launches()
+        halo = sk.stencil_nd_sweep_halo(spec, t, k, 16, 16)
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, k, 16, False))
+    t = layouts.to_transpose_layout(_x((64, 4096), 14, cuda), 32, 8)
+    with pytest.raises(ValueError, match="in place"):
+        sk.stencil_nd_multistep(stencils.make("2d5p"), t, 2, 16, out=t)
+    with pytest.raises(NotImplementedError, match="D1"):
+        sk.stencil_nd_multistep(stencils.make("2d5p"), t.double(), 2, 16)
+
+
 @pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
 @pytest.mark.parametrize("n,vl", [(1 << 20, 32), (96, 8), (40, 8), (16384 + 64, 32)])
 def test_onestep_naive_kernel_bitwise(cuda, name, n, vl):
@@ -476,9 +566,18 @@ def test_roundtrip_equals_resident(cuda, name, shape, remainder):
     sk.reset_launches()
     got = prob.run(x, steps, StencilPlan(backend="pallas", sweep="roundtrip", k=2,
                                          remainder=remainder))
-    sweeps = sum(n for _, n in sweep_schedule(2, steps, remainder, 1)[0])
-    key = "multistep_1d" if prob.spec.ndim == 1 else "multistep_nd"
-    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: sweeps, "transpose": 2 * sweeps}
+    chunks = sweep_schedule(2, steps, remainder, 1)[0]
+    vl, m, _ = ops.pick_tile(prob.spec, shape)
+    want = {"transpose": 2 * sum(n for _, n in chunks)}
+    for depth, n in chunks:
+        if prob.spec.ndim == 1:
+            key = "multistep_1d"
+        elif prob.spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, prob.spec.r) == "warp":
+            key = "multistep_2d"
+        else:
+            key = "multistep_nd"
+        want[key] = want.get(key, 0) + n
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | want
     for ttile in (1, 2):
         res = prob.run(x, steps, StencilPlan(backend="pallas", sweep="resident", k=2,
                                              remainder=remainder, ttile=ttile))

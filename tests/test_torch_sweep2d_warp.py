@@ -1,6 +1,8 @@
-"""K3's 2-D warp-register kernel (``csrc/sweep2d_warp.cu``), transcribed into
-numpy line for line and held bit for bit against the plain version
-``stencil_nd_sweep_ttile_ref``, and the route that picks it.
+"""K3's and K4b's 2-D warp-register kernel (``csrc/sweep2d_warp.cu``),
+transcribed into numpy line for line and held bit for bit against the plain
+versions ``stencil_nd_sweep_ttile_ref`` (periodic) and
+``stencil_nd_multistep_ref`` (the ring and open ends of axis 0), and the
+route that picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs of ``kWarps`` warps on consecutive blocks (block indices
@@ -10,19 +12,25 @@ it, the edge exchange between warps through the edge slots, the segment's
 warm-up rows with wrapped row indices, the per-level skew of r + 1 rows
 with the levels run from the deepest down, the ring of input rows filled
 ``kStages`` steps ahead, and the store guard (each (row, block) written
-exactly once).  Two claims the kernel leans on are checked as it runs: no
-edge slot is read and written in the same step (there is one barrier per
-step), and no value made before a level's first needed row reaches a
-stored one (windows, edge slots and unfilled ring slots start as NaN here;
-the kernel zeroes its registers and edge slots).  A copy lands at once
+exactly once); in the ring and open modes, the unwrapped row indices,
+the input rows beyond the ends left unloaded (their ring slots hold NaN
+here), and the CTA-uniform selects per level and step (open: zeros beyond
+the ends, the input included; ring: the previous level's row on the r
+first and last rows).  Two claims the kernel leans on are checked as it
+runs: no edge slot is read and written in the same step (there is one
+barrier per step), and no value made before a level's first needed row,
+nor any row beyond the ends in ring mode, reaches a stored one (windows,
+edge slots and unfilled ring slots start as NaN here; the kernel zeroes
+its registers and edge slots).  A copy lands at once
 here, the earliest the hardware could land it, so a ring slot reused too
 early would show.  It runs in float32 with the float32-rounded
 coefficients summed in the spec's order, as the kernel does under
 ``-fmad=false``.  CTAs run together as an array axis; the kernel's loop
 over a shorter last segment ends early, which the store guard's
-``i < steps`` stands for.  One case is also held against the JAX
-package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
-contract a multiply-add into an FMA).
+``i < steps`` stands for.  A case per mode is also held against the
+JAX package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
+contract a multiply-add into an FMA); with open ends only at k·r or more
+rows from them, where the reference's values are specified.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +58,7 @@ def _needs_x(taps, r):
     return lambda oy: True
 
 
-def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
+def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """The kernel's output and how often each (row, block) was stored."""
     n0, nb, m, vl = t.shape
     assert vl == VL and sk.sweep2d_route(vl, m, depth, spec.r) == "warp"
@@ -66,6 +74,8 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
     rows = np.minimum(seg, n0 - y0)
     steps, nload = rows + D * NW, rows + 2 * D * R
     base = y0 - D * R
+    # level rows outside [lo, hi) are the ends' (ring: kept; open: zeros)
+    lo, hi = (R, n0 - R) if edge == "ring" else (0, n0)
     w = np.arange(W)
     bu = col[:, None] * (W - 2) + w[None, :] - 1            # (ctas, W)
     b = bu % nb
@@ -81,9 +91,15 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
     stored = np.zeros((n0, nb), dtype=np.int64)
 
     def issue(p):
+        y = base + p
         go = p < nload
-        row = (base + p) % n0
-        ring[p % NS][go] = t[row[:, None], b][go]
+        if edge != "periodic":
+            ring[p % NS][go & ((y < 0) | (y >= n0))] = nan     # beyond the ends: not loaded
+            go = go & (y >= 0) & (y < n0)
+        ring[p % NS][go] = t[(y % n0)[:, None], b][go]
+
+    def beyond(y, lo, hi):       # a CTA's row outside [lo, hi), over (W, m, VL)
+        return ((y < lo) | (y >= hi))[:, None, None, None]
 
     def shfl(x, src):
         return x[..., src]
@@ -99,6 +115,8 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
     for i in range(int(steps.max())):
         ph = i % NW
         cur = ring[i % NS].copy()
+        if edge == "open":
+            cur = np.where(beyond(base + i, 0, n0), np.float32(0), cur)
         read, written = set(), set()
         for lv in range(D, 0, -1):
             ext = []
@@ -122,6 +140,9 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int):
             for oy, ox, cf in taps:
                 term = ext[R + oy][:, :, R + ox:R + ox + m] * cf
                 acc = term if acc is None else acc + term
+            if edge != "periodic":
+                keep = ext[R][:, :, R:R + m] if edge == "ring" else np.float32(0)
+                acc = np.where(beyond(base + i - lv * (R + 1), lo, hi), keep, acc)
             if lv == D:
                 ok = stores_w & ((i >= D * NW) & (i < steps))[:, None]
                 c_idx, w_idx = np.nonzero(ok)
@@ -224,6 +245,62 @@ def test_cpu_wrapper_counts_no_route():
     t = torch.from_numpy(_t(8, 4, 8, 1))
     sk.reset_launches()
     got = sk.stencil_nd_sweep_ttile(spec, t, 2, 2, 4)
+    multi = sk.stencil_nd_multistep(spec, t, 2, 4, True)
+    halo = sk.stencil_nd_sweep_halo(spec, t, 2, 4, 4)
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
     assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, 4))
-    assert {"sweep_2d", "sweep_nd"} <= set(sk.LAUNCHES)
+    assert torch.equal(multi, sk.stencil_nd_multistep_ref(spec, t, 2, 4, True))
+    assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, 2, 4, False))
+    assert {"sweep_2d", "sweep_nd", "multistep_2d", "multistep_nd"} <= set(sk.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# K4b: the ring and open ends of axis 0
+# ---------------------------------------------------------------------------
+
+def _edge_grids(depth):
+    """GRIDS, and n0 where a segment of L rows starts or ends within
+    depth·r rows of an end (r = 1) or the whole grid is no more than
+    2·depth·r rows: n0 = L + 1 (a one-row last segment), 2L + depth, and
+    2·depth (and 2·depth + 1)."""
+    extra = {(L + 1, 3), (2 * L + depth, NB + 2), (2 * depth, 2), (2 * depth + 1, NB)}
+    return sorted(set(GRIDS) | extra)
+
+
+def _edge_check(spec, t, depth, edge, seg=L):
+    got, stored = warp2d_kernel_np(spec, t, depth, seg, edge)
+    np.testing.assert_array_equal(stored, np.ones(t.shape[:2], dtype=np.int64))
+    assert np.isfinite(got).all()            # nothing from beyond the ends (NaN there)
+    want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1,
+                                       edge == "ring").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("edge", ["ring", "open"])
+@pytest.mark.parametrize("name,m,depth", CASES)
+def test_warp2d_kernel_edges_bitwise(name, m, depth, edge):
+    spec = tst.make(name)
+    for n0, nb in _edge_grids(depth):
+        _edge_check(spec, _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m + depth), depth, edge)
+
+
+@pytest.mark.parametrize("edge", ["ring", "open"])
+@pytest.mark.parametrize("depth", [1, 3, 5])
+@pytest.mark.parametrize("taps", RUNTIME_TAPS)
+def test_warp2d_kernel_edges_runtime_taps(taps, depth, edge):
+    spec = tst.StencilSpec("custom2d", 2, 1, "box", taps)
+    _edge_check(spec, _t(2 * L + 1, NB + 3, 4, seed=9), depth, edge)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+def test_warp2d_kernel_edges_match_pallas(edge_mask):
+    """Against the JAX package's Pallas kernel (k=2, t0=4): the whole
+    array with the ring, and at k·r or more rows from the ends with open
+    ends."""
+    k, t = 2, _t(12, 3, 2, seed=5)
+    want = np.asarray(jsk.stencil_nd_multistep(jst.make("2d5p"), jnp.asarray(t), k, 4,
+                                               interpret=True, edge_mask=edge_mask))
+    got, _ = warp2d_kernel_np(tst.make("2d5p"), t, k, 3, "ring" if edge_mask else "open")
+    width = 0 if edge_mask else k * tst.make("2d5p").r
+    np.testing.assert_allclose(got[width:t.shape[0] - width], want[width:t.shape[0] - width],
+                               rtol=2e-6, atol=2e-6)

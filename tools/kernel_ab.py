@@ -1,28 +1,35 @@
 #!/usr/bin/env python3
-"""Time the 1-D path's kernels of one source tree of the port, to hold two
-trees against each other on one CUDA card.
+"""Time the 1-D and 2-D paths' kernels of one source tree of the port, to
+hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
 per tree and in turns (A, B, B, A) within one call: two calls may land on
-two cards.  At 1d3p, float32, vl=32, m=8 it times K1
-(``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements, K2
-(``block_transpose`` / ``block_untranspose``) on the same grid, and K4a
-(``stencil1d_multistep``, open and ring, depths 2 and 1) on 2**26 + 512,
-the roundtrip's padded shape: CUDA events, median of repeats after
-warm-up, each result first held bit for bit against the plain version.
-Then the 1-D Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` on 2**26
-elements (K2, K4a in ring mode, K2 per sweep), held bit for bit against
-its plain composition, by the median host time of 5 runs after that
-check's run.  Prints one JSON line per row, then the card's name and
-power limit.
+two cards.  Float32 at vl=32, m=8, each kernel timed with CUDA events
+(median of repeats after warm-up), each result first held bit for bit
+against the plain version:
+
+- 1d3p: K1 (``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements,
+  K2 (``block_transpose`` / ``block_untranspose``) on the same grid, and
+  K4a (``stencil1d_multistep``, open and ring, depths 2 and 1) on
+  2**26 + 512, the roundtrip's padded shape;
+- 2d5p: K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1) on 8192², and
+  K4b (``stencil_nd_multistep``, open and ring, depths 2 and 1) on
+  8256 × 8192, the roundtrip's padded shape, both at the axis-0 tile
+  t0 = 32.
+
+Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
+2**26 elements and of 2d5p on 8192² (K2, K4 in ring mode, K2 per sweep),
+each held bit for bit against its plain composition, by the median host
+time of 5 runs after that check's run.  Prints one JSON line per row,
+then the card's name and power limit.
 
 ``chip_smoke.py`` times the same kernels, but only on the tree it belongs
 to: it asserts this tree's route functions and counter keys
-(``transpose_route``, ``transpose_smem``, ``multistep_1d_smem``), which
-an older tree lacks.  This script calls nothing but the entry points both
+(``transpose_route``, ``multistep_1d_smem``, ``multistep_2d``), which an
+older tree lacks.  This script calls nothing but the entry points both
 trees share, so it can time a parent tree beside its child.
 """
 from __future__ import annotations
@@ -57,7 +64,7 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     spec = stencils.make("1d3p")
-    vl, m = 32, 8
+    vl, m, t0 = 32, 8, 32
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def row(kernel, fn, plain):
@@ -87,24 +94,48 @@ def main() -> int:
                 lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
     del tp, buf
 
-    def dirichlet_plain(x, steps):
+    spec2 = stencils.make("2d5p")
+    t = sk.block_transpose_ref(torch.randn(8192, 8192, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(t)
+    for depth in (4, 2, 1):
+        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+        row(f"K3 2d5p depth={depth}",
+            lambda: sk.stencil_nd_sweep_ttile(spec2, t, k, tt, t0, out=buf),
+            lambda: sk.stencil_nd_sweep_ttile_ref(spec2, t, k, tt, t0))
+    del t, buf
+    tp = sk.block_transpose_ref(torch.randn(8192 + 64, 8192, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(tp)
+    for edge_mask in (False, True):
+        for depth in (2, 1):
+            row(f"K4b 2d5p {'ring' if edge_mask else 'open'} depth={depth}",
+                lambda: sk.stencil_nd_multistep(spec2, tp, depth, t0, edge_mask, out=buf),
+                lambda: sk.stencil_nd_multistep_ref(spec2, tp, depth, t0, edge_mask))
+    del tp, buf
+
+    def dirichlet_plain(spec, x, steps):
+        tile = ops.pick_tile(spec, tuple(x.shape))
         for _ in range(steps // 2):
-            t = sk.stencil1d_multistep_ref(spec, sk.block_transpose_ref(x, vl, m), 2)
-            x = sk.block_untranspose_ref(t, vl, m)
+            t = sk.block_transpose_ref(x, *tile[:2])
+            t = sk.stencil1d_multistep_ref(spec, t, 2) if spec.ndim == 1 else \
+                sk.stencil_nd_multistep_ref(spec, t, 2, tile[2])
+            x = sk.block_untranspose_ref(t, *tile[:2])
         return x
 
-    x = torch.randn(1 << 26, generator=gen, device=dev)
-    if not torch.equal(ops.stencil_run(spec, x, 16, k=2), dirichlet_plain(x, 16)):
-        raise AssertionError(f"{args.label} Dirichlet run: differs from the plain version")
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        ops.stencil_run(spec, x, 16, k=2)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - start)
-    print(json.dumps({"tree": args.label, "run": "1d3p Dirichlet 16 steps",
-                      "seconds_median_of_5": statistics.median(times)}), flush=True)
+    for spec, shape in ((spec, (1 << 26,)), (spec2, (8192, 8192))):
+        x = torch.randn(shape, generator=gen, device=dev)
+        if not torch.equal(ops.stencil_run(spec, x, 16, k=2), dirichlet_plain(spec, x, 16)):
+            raise AssertionError(f"{args.label} {spec.name} Dirichlet run: differs from the "
+                                 "plain version")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ops.stencil_run(spec, x, 16, k=2)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        print(json.dumps({"tree": args.label, "run": f"{spec.name} Dirichlet 16 steps",
+                          "seconds_median_of_5": statistics.median(times)}), flush=True)
+        del x
     print(gpu)
     return 0
 

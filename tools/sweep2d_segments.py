@@ -52,10 +52,10 @@ def main() -> int:
     bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     for seg in sorted({int(s) for s in args.segs.split(",")} | {default}):
         for depth in (4, 2, 1):
-            sk._warp2d_launch(spec, t, out, depth, seg)
+            sk._warp2d_launch(spec, t, out, depth, seg_rows=seg)
             if not torch.equal(out, sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)):
                 raise AssertionError(f"seg={seg} depth={depth}: differs from the plain version")
-            ms = bench(lambda: sk._warp2d_launch(spec, t, out, depth, seg), device=dev,
+            ms = bench(lambda: sk._warp2d_launch(spec, t, out, depth, seg_rows=seg), device=dev,
                        warmup=2, iters=10, min_time_s=0.1) * 1e3
             print(json.dumps({"seg": seg, "default": seg == default, "depth": depth,
                               "ctas": ncol * -(-n0 // seg), "ms": ms, "bound_ms": bound_ms}),
