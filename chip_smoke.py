@@ -16,7 +16,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              register kernel ``transpose_reg`` and of the warp kernels
              (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
              ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
-             1 K4b's ring and open ones), with the instance count;
+             1 K4b's ring and open ones), with the instance count, and of
+             K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with their
+             dynamic shared memory (a K6 instance that spills fails);
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
              per sweep; the result equals the port's plain path bit for bit;
@@ -61,17 +63,26 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
   ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
              (H=80, P=64, N=128, B and C shared by the heads through a
              stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
-             Q=125, 251 at Q=1, and B and C per head; each against its plain
-             version on the card (TF32 off) at the reference's tolerances
-             (2e-4 f32, 5e-2 bf16), y and the final state; small shapes
-             against the token-recurrence oracle;
+             Q=125, 251 at Q=1 (a prime length) in bf16 and f32, 4096 at
+             Q=128, and B and C per head; each against its plain version on
+             the card (TF32 off) at the reference's tolerances (2e-4 f32,
+             5e-2 bf16), y and the final state (2e-4 in both dtypes); its
+             two kernels each alone against their own plain versions
+             (``ssd_state``'s h_in at 2e-4, ``ssd_out``'s y at the dtype's
+             tolerance), two calls equal bit for bit; the whole call and
+             each kernel timed, bounds at the TF32 tensor-core rate (and,
+             ``bound_ms_fp32``, at the float32 rate of earlier rows); the
+             kernels' integer TF32 rounding equal to ``cvt.rna.tf32.f32``
+             on every non-NaN float32; small shapes against the
+             token-recurrence oracle;
   mamba2_serve  mamba2-2.7b at full width (64 layers, random weights from
              the seed, bf16 copy of the weights) served by
              ``ContinuousBatcher(n_slots=4, max_seq=4096)``, greedy: six
              prompts of 2048, 1024, 512, 1000, 2048 and 256 tokens, 16 new
-             tokens each.  K6 launches exactly 64 times per prefill and
-             never in decode; every logit is finite; two requests give the
-             same tokens from fresh 1-slot engines; prefill and decode
+             tokens each.  Each K6 kernel (``ssd_state``, ``ssd_out``)
+             launches exactly 64 times per prefill and never in decode;
+             every logit is finite; two requests give the same tokens
+             from fresh 1-slot engines; prefill and decode
              logits of one request match ``forward`` — the float32 model
              (``act_dtype=torch.float32``) within rtol = atol = 1e-3, the
              served bf16 model within fixed limits on the mean and the
@@ -100,6 +111,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense (K6's products)
 SEED = 0
 CASES = (("1d3p", (1 << 26,)), ("2d5p", (8192, 8192)), ("3d7p", (512, 512, 512)))
 PLANS = (("fused", 16), ("native", 7))     # (remainder, steps), k=2
@@ -109,7 +121,8 @@ DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, the shared-memory route
 K2_SMEM_TILE = (32, 16)  # (vl, m): a 1d3p tile on K2's shared-memory route
-MANGLED_BYTES = {"t": 2, "j": 4, "y": 8}   # unsigned short / int / long long
+# template type arguments in mangled names: unsigned short / int / long long, float, bf16
+MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
 TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
@@ -158,7 +171,7 @@ def gpu_line() -> str:
 def ptxas_kernels(report: str, kernel: str) -> list:
     """Registers, spills and stack of each instance of ``kernel`` from
     nvcc's ``-Xptxas -v`` report (template arguments as in the mangled
-    name; an element type as its bytes)."""
+    name; an element type as its bytes, or f32 / bf16)."""
     rows, cur = [], None
     for line in report.splitlines():
         found = re.search(r"Function properties for (\S+)", line)
@@ -167,7 +180,8 @@ def ptxas_kernels(report: str, kernel: str) -> list:
             cur = None
             if kernel in name:
                 rest = name.split(kernel, 1)[1]
-                args = [f"{MANGLED_BYTES[rest[1]]}B"] if rest[1:2] in MANGLED_BYTES else []
+                typ = re.match(r"I(13__nv_bfloat16|[tjyf])", rest)
+                args = [MANGLED_TYPES[typ.group(1)]] if typ else []
                 args += re.findall(r"L[ib](\d+)E", rest)
                 cur = {"instance": "<" + ", ".join(args) + ">"}
                 rows.append(cur)
@@ -186,15 +200,17 @@ def ptxas_kernels(report: str, kernel: str) -> list:
     return rows
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least ms for ``nbytes`` moved and ``flops`` done at ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ssd_phase(dev, ms, close, bound) -> list:
-    """K6 against its plain version (and, small, the oracle); returns its
-    rows for the kernels line, launches to be filled from the serve run."""
+    """K6 against its plain version (and, small, the oracle), the whole call
+    and each of its two kernels alone; returns the rows for the kernels
+    line, launches to be filled from the serve run."""
     import torch
     import torch.nn.functional as F
 
@@ -203,6 +219,12 @@ def ssd_phase(dev, ms, close, bound) -> list:
 
     cfg = get_arch("mamba2-2.7b")
     h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    mismatches = ssd.tf32_rounding_mismatches(dev)
+    emit({"phase": "ssd_kernel", "check": "TF32 rounding vs cvt.rna.tf32.f32, all 2^32 "
+          "float32 bit patterns but NaN", "mismatches": mismatches})
+    if mismatches:
+        raise AssertionError(f"K6 TF32 rounding differs from cvt.rna.tf32.f32 on {mismatches} "
+                             "float32 values")
 
     def inputs(nc, b, q, h, p, n, dtype, shared, seed=SEED):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -221,37 +243,79 @@ def ssd_phase(dev, ms, close, bound) -> list:
              ("2048 tokens Q=128", 16, 128, torch.float32, True),
              ("1000 tokens Q=125", 8, 125, torch.bfloat16, True),
              ("251 tokens Q=1", 251, 1, torch.bfloat16, True),
-             ("2048 tokens Q=128, B and C per head", 16, 128, torch.bfloat16, False))
+             ("2048 tokens Q=128, B and C per head", 16, 128, torch.bfloat16, False),
+             ("251 tokens Q=1 (a prime length)", 251, 1, torch.float32, True),
+             ("4096 tokens Q=128 (max_seq)", 32, 128, torch.bfloat16, True))
     for label, nc, q, dtype, shared in cases:
         args = inputs(nc, 1, q, h, p, n, dtype, shared)
+        xh, bm, cm, dt, a_neg = args
         y, state = ssd.ssd_chunk_scan(*args, return_state=True)
         torch.cuda.synchronize()
         y_ref, state_ref = ssd.ssd_chunk_scan_ref(*args, return_state=True)
-        rtol, atol = SSD_TOL[str(dtype).split(".")[-1]]
+        dname = str(dtype).split(".")[-1]
+        rtol, atol = SSD_TOL[dname]
         err = close(f"K6 {label} {dtype}", y, y_ref, rtol, atol)
         err_state = close(f"K6 {label} {dtype} state", state, state_ref, *SSD_TOL["float32"])
-        xh, bm = args[0], args[1]
-        bc_bytes = 2 * nc * q * n * 4 * (1 if shared else h)
-        nbytes = 2 * xh.numel() * xh.element_size() + bc_bytes + args[3].numel() * 4 \
-            + h * 4 + state.numel() * 4
-        # the causal Q×Q products need the lower triangle only: Q(Q+1)/2 dots
+
+        # each kernel alone, against its own plain version
+        h_in, st_buf, y_buf = ssd.state_scratch(xh, n), torch.empty_like(state), torch.empty_like(y)
+        ssd.ssd_state(xh, bm, dt, a_neg, h_in=h_in, state=st_buf)
+        ssd.ssd_out(xh, bm, cm, dt, a_neg, h_in, out=y_buf)
+        torch.cuda.synchronize()
+        h_ref, _ = ssd.ssd_state_ref(xh, bm, dt, a_neg)
+        err_h = close(f"K6 ssd_state {label} {dtype} h_in", h_in[..., :n], h_ref,
+                      *SSD_TOL["float32"])
+        err_out = close(f"K6 ssd_out {label} {dtype}", y_buf,
+                        ssd.ssd_out_ref(xh, bm, cm, dt, a_neg, h_in), rtol, atol)
+        y2, state2 = ssd.ssd_chunk_scan(*args, return_state=True)
+        if not (torch.equal(y2, y) and torch.equal(state2, state)):
+            raise AssertionError(f"K6 {label} {dtype}: two calls differ")
+        del h_ref, y2, state2
+
+        # bytes each input read once and each output written once; operations
+        # (K6's function at the caller's Q: the causal Q×Q products over the
+        # lower triangle only; each kernel: its own products over its chunks)
+        tokens, nk = nc * q, ssd.n_chunks(xh)
+        x_bytes = xh.numel() * xh.element_size()
+        b_bytes = nc * q * n * 4 * (1 if shared else h)
+        io_bytes = dt.numel() * 4 + h * 4
+        nbytes = 2 * x_bytes + 2 * b_bytes + io_bytes + state.numel() * 4
         flops = (q * (q + 1) * (n + p) + 4 * q * n * p) * h * nc
-        b = bound(nbytes, flops)
-        dims = f"nc={nc} B=1 Q={q} H={h} P={p} N={n} {str(dtype).split('.')[-1]}"
-        emit({"phase": "ssd_kernel", "case": label, "shape": list(xh.shape),
-              "dtype": str(dtype), "head_stride_bc": bm.stride(3),
-              "max_abs_err": err, "max_abs_err_state": err_state, "rtol": rtol, "atol": atol,
-              "bytes": nbytes, "flops": flops})
-        entry = {
-            "name": f"K6 ssd_chunk_scan [{label}: {dims}, return_state; "
-                    f"{'head stride 0' if shared else 'B, C per head'}]",
-            "route": "cuda", "source": SOURCES["ssd"], "replaces": REPLACES["K6"],
-            "launches": None, "max_abs_err": err,
-            "ms": ms(lambda: ssd.ssd_chunk_scan(*args, return_state=True)),
-            "plain_ms": ms(lambda: ssd.ssd_chunk_scan_ref(*args, return_state=True)),
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
-        rows.append(entry)
-        del args, y, state, y_ref, state_ref
+        lens = [min(ssd.CHUNK, tokens - ssd.CHUNK * k) for k in range(nk)]
+        state_bytes = x_bytes + b_bytes + io_bytes + h_in.numel() * 4 + state.numel() * 4
+        state_flops = 2 * tokens * n * p * h
+        out_bytes = 2 * x_bytes + 2 * b_bytes + io_bytes + h_in.numel() * 4
+        out_flops = sum(t * (t + 1) * (n + p) + 2 * t * n * p for t in lens) * h
+        timed = {
+            "ssd_chunk_scan": (lambda: ssd.ssd_chunk_scan(*args, return_state=True),
+                               lambda: ssd.ssd_chunk_scan_ref(*args, return_state=True),
+                               nbytes, flops, err),
+            "ssd_state": (lambda: ssd.ssd_state(xh, bm, dt, a_neg, h_in=h_in, state=st_buf),
+                          lambda: ssd.ssd_state_ref(xh, bm, dt, a_neg),
+                          state_bytes, state_flops, err_h),
+            "ssd_out": (lambda: ssd.ssd_out(xh, bm, cm, dt, a_neg, h_in, out=y_buf),
+                        lambda: ssd.ssd_out_ref(xh, bm, cm, dt, a_neg, h_in),
+                        out_bytes, out_flops, err_out)}
+        dims = f"nc={nc} B=1 Q={q} H={h} P={p} N={n} {dname}"
+        line = {"phase": "ssd_kernel", "case": label, "shape": list(xh.shape),
+                "dtype": str(dtype), "head_stride_bc": bm.stride(3), "internal_chunks": nk,
+                "max_abs_err": err, "max_abs_err_state": err_state,
+                "max_abs_err_h_in": err_h, "max_abs_err_out": err_out,
+                "rtol": rtol, "atol": atol, "two_calls_bitwise": True}
+        for fname, (kern, plain, nb, fl, e) in timed.items():
+            b = bound(nb, fl, TF32_FLOPS_PER_S)
+            entry = {
+                "name": f"K6 {fname} [{label}: {dims}, return_state; "
+                        f"{'head stride 0' if shared else 'B, C per head'}]",
+                "route": "cuda", "source": SOURCES["ssd"], "replaces": REPLACES["K6"],
+                "launches": None, "max_abs_err": e, "ms": ms(kern), "plain_ms": ms(plain),
+                "bound_ms": b[0], "bound_by": b[1],
+                "bound_ms_fp32": bound(nb, fl)[0], "library_ms": None, "kernel": fname}
+            rows.append(entry)
+            line[fname] = {"ms": entry["ms"], "plain_ms": entry["plain_ms"], "bytes": nb,
+                           "flops": fl, "bound_ms": b[0], "bound_by": b[1]}
+        emit(line)
+        del args, xh, bm, cm, dt, y, state, y_ref, state_ref, h_in, st_buf, y_buf, timed
 
     # small shapes against the token recurrence, f32
     for shape in ((4, 2, 8, 2, 8, 4), (12, 1, 1, 3, 16, 8), (3, 2, 7, 8, 24, 16)):
@@ -314,7 +378,7 @@ def mamba2_serve(dev, counted, close) -> dict:
         eng.submit(Request(rid=rid, prompt=prompt, max_new=SERVE_NEW))
     done, seconds, got = counted(
         "mamba2 serve", lambda: eng.run(max_steps=4 * SERVE_NEW),
-        {"ssd_scan": cfg.n_layers * len(prompts)})
+        {"ssd_state": cfg.n_layers * len(prompts), "ssd_out": cfg.n_layers * len(prompts)})
     peak = torch.cuda.max_memory_allocated()
     done = sorted(done, key=lambda r: r.rid)
     if [r.rid for r in done] != list(range(len(prompts))) or \
@@ -468,6 +532,13 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build_all()
     warp2d = ptxas_kernels(build.report("sweep2d_warp"), "sweep2d_warp_f32")
+    ssd_lib = build.load("ssd_scan")
+    k6_ptxas = {f"{kern} <T{', PT' if kern == 'ssd_out' else ''}>":
+                ptxas_kernels(build.report("ssd_scan"), kern) for kern in ("ssd_state", "ssd_out")}
+    spilled = [row for rows in k6_ptxas.values() for row in rows
+               if row.get("spill_stores", 1) or row.get("spill_loads", 1)]
+    if spilled or not all(k6_ptxas.values()):
+        raise AssertionError(f"K6 build: spills or missing instances {k6_ptxas}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "gpu": gpu,
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
@@ -477,7 +548,10 @@ def main() -> int:
           "sweep1d_warp_f32 <M, R, B, order, edge>": ptxas_kernels(
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 instances": len(warp2d),
-          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d})
+          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d, **k6_ptxas,
+          "ssd dynamic shared memory bytes at P=64, N=128": {
+              f"{kern} {dtype}": ssd_lib.repro_ssd_smem_bytes(i, dtype == "bf16", 64, 128)
+              for i, kern in enumerate(("ssd_state", "ssd_out")) for dtype in ("f32", "bf16")}})
 
     def ms(fn, *args):
         return bench(fn, *args, device=dev, warmup=1, iters=5, min_time_s=0.1) * 1e3
@@ -957,8 +1031,12 @@ def main() -> int:
     k6_rows = ssd_phase(dev, ms, close, bound)
     serve = mamba2_serve(dev, counted, close)
     for entry in k6_rows:
-        entry["launches"] = serve["launches"]["ssd_scan"]
-        entry["launches_per_prefill"] = serve["launches"]["ssd_scan"] / serve["prefills"]
+        kernel = entry.pop("kernel")
+        # a call of the whole scan launches each kernel once
+        launched = serve["launches"][kernel] if kernel in ssd.LAUNCHES else \
+            min(serve["launches"][k] for k in ssd.LAUNCHES)
+        entry["launches"] = launched
+        entry["launches_per_prefill"] = launched / serve["prefills"]
         entries.append(entry)
         emit({"phase": "kernels", **entry})
 

@@ -136,11 +136,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             fn.argtypes = []
             fn.restype = i64
     elif name == "ssd_scan":
-        lib.repro_ssd_scan.argtypes = [ptr] * 7 + [i64] * 7 + [ptr, ptr]
-        lib.repro_ssd_scan.restype = ctypes.c_int
-        for fn in (lib.repro_ssd_max_chunk, lib.repro_ssd_max_state):
+        lib.repro_ssd_state.argtypes = [ptr] * 6 + [i64] * 7 + [ptr, i64, ptr]
+        lib.repro_ssd_out.argtypes = [ptr] * 7 + [i64] * 7 + [ptr, i64, ptr]
+        for fn in (lib.repro_ssd_state, lib.repro_ssd_out):
+            fn.restype = ctypes.c_int
+        for fn in (lib.repro_ssd_max_chunk, lib.repro_ssd_max_state, lib.repro_ssd_chunk):
             fn.argtypes = []
             fn.restype = i64
+        lib.repro_ssd_smem_bytes.argtypes = [i64] * 4
+        lib.repro_ssd_smem_bytes.restype = i64
+        lib.repro_ssd_tf32_check_threads.argtypes = []
+        lib.repro_ssd_tf32_check_threads.restype = i64
+        lib.repro_ssd_tf32_mismatches.argtypes = [ptr, ptr]
+        lib.repro_ssd_tf32_mismatches.restype = ctypes.c_int
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

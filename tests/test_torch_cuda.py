@@ -629,13 +629,19 @@ SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=
     ((4, 2, 8, 2, 8, 4), False),            # the reference test's shapes
     ((2, 1, 16, 4, 20, 8), False),          # P not a multiple of the 16-column tile
     ((3, 2, 33, 8, 16, 16), True),
+    ((251, 1, 1, 8, 64, 128), True),        # a prime length past one internal chunk, Q = 1
+    ((3, 2, 125, 4, 64, 128), False),       # Q = 125 across internal chunks, B = 2
+    ((4, 2, 100, 8, 64, 128), True),        # B = 2 with a head axis of stride 0
+    ((3, 1, 50, 2, 24, 4), False),          # P and N off the 16-column and 8-row tiles
+    ((5, 1, 30, 2, 20, 6), True),           # rows of 80 / 24 bytes: element loads
+    ((2, 1, 128, 2, 96, 16), False),        # P past one 64-column tile
 ])
 def test_ssd_kernel_matches_plain(cuda, shape, shared_bc, dtype):
     args = _ssd_inputs(*shape, cuda, dtype, shared_bc)
     ssd.reset_launches()
     y, state = ssd.ssd_chunk_scan(*args, return_state=True)
     torch.cuda.synchronize()
-    assert ssd.LAUNCHES == {"ssd_scan": 1}
+    assert ssd.LAUNCHES == {"ssd_state": 1, "ssd_out": 1}
     y_ref, state_ref = ssd.ssd_chunk_scan_ref(*args, return_state=True)
     assert y.dtype == dtype and y.shape == args[0].shape
     torch.testing.assert_close(y.float(), y_ref.float(), **SSD_TOL[dtype])
@@ -658,6 +664,63 @@ def test_ssd_kernel_writes_strided_out(cuda):
                        out=buf.transpose(0, 1))
     torch.testing.assert_close(buf.transpose(0, 1), ssd.ssd_chunk_scan_ref(xh, bm, cm, dt, a),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_writes_strided_out_across_chunks(cuda, dtype):
+    xh, bm, cm, dt, a = _ssd_inputs(3, 2, 100, 4, 64, 128, cuda, dtype, shared_bc=True, seed=3)
+    buf = torch.full((2, 3, 100, 4, 64), float("nan"), device=cuda, dtype=dtype)
+    y, state = ssd.ssd_chunk_scan(xh, bm, cm, dt, a, out=buf.transpose(0, 1), return_state=True)
+    assert y.data_ptr() == buf.data_ptr()
+    y_ref, state_ref = ssd.ssd_chunk_scan_ref(xh, bm, cm, dt, a, return_state=True)
+    torch.testing.assert_close(buf.transpose(0, 1).float(), y_ref.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, state_ref, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_two_calls_equal_bitwise(cuda, dtype):
+    """No atomics: the same inputs give the same bits."""
+    args = _ssd_inputs(16, 1, 128, 80, 64, 128, cuda, dtype, shared_bc=True, seed=4)
+    y1, s1 = ssd.ssd_chunk_scan(*args, return_state=True)
+    y2, s2 = ssd.ssd_chunk_scan(*args, return_state=True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_kernel_bf16_state(cuda):
+    """The final state of a bfloat16 layer is held at the float32 tolerance
+    (the state product is split in three TF32 products in both dtypes)."""
+    args = _ssd_inputs(32, 1, 128, 80, 64, 128, cuda, torch.bfloat16, shared_bc=True, seed=5)
+    _, state = ssd.ssd_chunk_scan(*args, return_state=True)
+    _, state_ref = ssd.ssd_chunk_scan_ref(*args, return_state=True)
+    torch.testing.assert_close(state, state_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,shared_bc", [((16, 1, 128, 80, 64, 128), True),
+                                             ((251, 2, 1, 4, 24, 6), False)])
+def test_ssd_kernels_each_match_their_plain_version(cuda, shape, shared_bc, dtype):
+    """``ssd_state``'s h_in and final state against ``ssd_state_ref``, and
+    ``ssd_out`` from that h_in against ``ssd_out_ref``."""
+    xh, bm, cm, dt, a = _ssd_inputs(*shape, cuda, dtype, shared_bc, seed=6)
+    n = shape[-1]
+    state = torch.empty(shape[1], shape[3], shape[4], n, device=cuda)
+    ssd.reset_launches()
+    h_in = ssd.ssd_state(xh, bm, dt, a, state=state)
+    y = ssd.ssd_out(xh, bm, cm, dt, a, h_in)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_state": 1, "ssd_out": 1}
+    h_ref, state_ref = ssd.ssd_state_ref(xh, bm, dt, a)
+    assert not h_in[..., n:].any()
+    torch.testing.assert_close(h_in[..., :n], h_ref, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(state, state_ref, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(y.float(), ssd.ssd_out_ref(xh, bm, cm, dt, a, h_in).float(),
+                               **SSD_TOL[dtype])
+
+
+def test_ssd_tf32_rounding_is_cvt_rna(cuda):
+    """The kernels round TF32 operands on the integer pipe; over every
+    non-NaN float32 bit pattern the bits equal ``cvt.rna.tf32.f32``'s."""
+    assert ssd.tf32_rounding_mismatches(cuda) == 0
 
 
 def test_ssd_kernel_raises(cuda):
@@ -691,7 +754,8 @@ def test_ssd_counter_per_prefill(cuda):
     ssd.reset_launches()
     done = eng.run(max_steps=64)
     assert len(done) == 3
-    assert ssd.LAUNCHES == {"ssd_scan": 3 * cfg.n_layers}     # decode launches no K6
+    # one of each kernel per layer and prefill; decode launches no K6
+    assert ssd.LAUNCHES == {"ssd_state": 3 * cfg.n_layers, "ssd_out": 3 * cfg.n_layers}
     full, _ = model.forward(params, {"tokens": torch.tensor(done[0].prompt[None], device=cuda)})
     assert torch.isfinite(full).all()
 
@@ -712,7 +776,7 @@ def test_ssd_full_on_card_matches_cpu(cuda, seq, chunk):
     ssd.reset_launches()
     got, st_got = ssm.ssd_full(transformer.tree_map(lambda a: a.to(cuda), p), x.to(cuda), cfg,
                                return_state=True)
-    assert ssd.LAUNCHES == {"ssd_scan": 1}
+    assert ssd.LAUNCHES == {"ssd_state": 1, "ssd_out": 1}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st_got.h.cpu(), st_want.h, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st_got.conv.cpu(), st_want.conv, rtol=1e-4, atol=1e-4)

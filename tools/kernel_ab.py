@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the 1-D and 2-D paths' kernels of one source tree of the port, to
-hold two trees against each other on one CUDA card.
+"""Time the 1-D and 2-D paths' kernels and K6 of one source tree of the
+port, to hold two trees against each other on one CUDA card.
 
-    python3 tools/kernel_ab.py [--src DIR] [--label NAME]
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|k6]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
@@ -23,8 +23,17 @@ against the plain version:
 Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
 2**26 elements and of 2d5p on 8192² (K2, K4 in ring mode, K2 per sweep),
 each held bit for bit against its plain composition, by the median host
-time of 5 runs after that check's run.  Prints one JSON line per row,
-then the card's name and power limit.
+time of 5 runs after that check's run.
+
+K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
+(H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
+the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
+Q=128 bf16 and f32, 1000 at Q=125, 251 at Q=1, 2048 with B and C per
+head), each first held against the plain version (rtol = atol = 2e-4
+f32, 5e-2 bf16; the state at 2e-4), timed with CUDA events; then one
+2048-token ``model.prefill`` of mamba2-2.7b (random bf16 weights from seed
+0), CUDA events, median of 3.  ``--only`` picks one of the two groups.
+Prints one JSON line per row, then the card's name and power limit.
 
 ``chip_smoke.py`` times the same kernels, but only on the tree it belongs
 to: it asserts this tree's route functions and counter keys
@@ -49,29 +58,41 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
+    parser.add_argument("--only", choices=("stencils", "k6"), default=None)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
+    dev = torch.device("cuda")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    if args.only != "k6":
+        stencil_rows(args.label, dev)
+    if args.only != "stencils":
+        k6_rows(args.label, dev)
+    print(gpu)
+    return 0
+
+
+def stencil_rows(label: str, dev) -> None:
+    import torch
+
     from repro_torch.core import stencils
     from repro_torch.core.timing import bench
     from repro_torch.kernels import ops
     from repro_torch.kernels import stencil_kernels as sk
 
-    dev = torch.device("cuda")
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
     spec = stencils.make("1d3p")
     vl, m, t0 = 32, 8, 32
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def row(kernel, fn, plain):
         if not torch.equal(fn(), plain()):
-            raise AssertionError(f"{args.label} {kernel}: differs from the plain version")
+            raise AssertionError(f"{label} {kernel}: differs from the plain version")
         ms = bench(fn, device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
-        print(json.dumps({"tree": args.label, "kernel": kernel, "ms": ms}), flush=True)
+        print(json.dumps({"tree": label, "kernel": kernel, "ms": ms}), flush=True)
 
     x = torch.randn(1 << 26, generator=gen, device=dev)
     t = sk.block_transpose_ref(x, vl, m)
@@ -124,7 +145,7 @@ def main() -> int:
     for spec, shape in ((spec, (1 << 26,)), (spec2, (8192, 8192))):
         x = torch.randn(shape, generator=gen, device=dev)
         if not torch.equal(ops.stencil_run(spec, x, 16, k=2), dirichlet_plain(spec, x, 16)):
-            raise AssertionError(f"{args.label} {spec.name} Dirichlet run: differs from the "
+            raise AssertionError(f"{label} {spec.name} Dirichlet run: differs from the "
                                  "plain version")
         times = []
         for _ in range(5):
@@ -133,11 +154,59 @@ def main() -> int:
             ops.stencil_run(spec, x, 16, k=2)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - start)
-        print(json.dumps({"tree": args.label, "run": f"{spec.name} Dirichlet 16 steps",
+        print(json.dumps({"tree": label, "run": f"{spec.name} Dirichlet 16 steps",
                           "seconds_median_of_5": statistics.median(times)}), flush=True)
         del x
-    print(gpu)
-    return 0
+
+
+def k6_rows(label: str, dev) -> None:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.timing import bench
+    from repro_torch.kernels import ssd_kernel as ssd
+    from repro_torch.models import transformer, zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("mamba2-2.7b")
+    h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    for case, nc, q, dtype, shared in (("2048 tokens Q=128", 16, 128, torch.bfloat16, True),
+                                       ("2048 tokens Q=128", 16, 128, torch.float32, True),
+                                       ("1000 tokens Q=125", 8, 125, torch.bfloat16, True),
+                                       ("251 tokens Q=1", 251, 1, torch.bfloat16, True),
+                                       ("2048 tokens Q=128, B and C per head", 16, 128,
+                                        torch.bfloat16, False)):
+        g = torch.Generator(device=dev).manual_seed(0)
+        hb = 1 if shared else h
+        xh = (0.5 * torch.randn(nc, 1, q, h, p, generator=g, device=dev)).to(dtype)
+        bm = 0.5 * torch.randn(nc, 1, q, hb, n, generator=g, device=dev)
+        cm = 0.5 * torch.randn(nc, 1, q, hb, n, generator=g, device=dev)
+        dt = F.softplus(torch.randn(nc, 1, q, h, generator=g, device=dev) - 2.0)
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        if shared:
+            bm, cm = bm.expand(nc, 1, q, h, n), cm.expand(nc, 1, q, h, n)
+        y, state = ssd.ssd_chunk_scan(xh, bm, cm, dt, a, return_state=True)
+        y_ref, state_ref = ssd.ssd_chunk_scan_ref(xh, bm, cm, dt, a, return_state=True)
+        for got, want, t in ((y, y_ref, tol[dtype]), (state, state_ref, 2e-4)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+        ms = bench(lambda: ssd.ssd_chunk_scan(xh, bm, cm, dt, a, return_state=True),
+                   device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
+        print(json.dumps({"tree": label, "kernel": f"K6 {case} {str(dtype)[6:]}",
+                          "ms": ms}), flush=True)
+        del xh, bm, cm, dt, y, state, y_ref, state_ref
+    model = zoo.build(cfg)
+    params = transformer.cast_params(model.init(torch.Generator(device=dev).manual_seed(0)))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, 2048),
+                             device=dev)[None]
+    ms = bench(lambda: model.prefill(params, {"tokens": tokens}), device=dev, warmup=1,
+               iters=3, min_time_s=0.0) * 1e3
+    print(json.dumps({"tree": label, "run": "mamba2-2.7b prefill 2048 tokens",
+                      "ms_median_of_3": ms}), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
