@@ -16,25 +16,31 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              register kernel ``transpose_reg`` and of the warp kernels
              (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
              ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
-             1 K4b's ring and open ones), with the instance count, and of
-             K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with their
-             dynamic shared memory (a K6 instance that spills fails);
+             1 K4b's ring and open ones; the 3-D K3's and K4b's
+             ``sweep3d_f32 <M, D, order, ends>`` with each instance's
+             threads and dynamic shared memory), with the instance counts,
+             and of K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with
+             their dynamic shared memory (a K6 or ``sweep3d_f32`` instance
+             that spills fails);
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
              per sweep; the result equals the port's plain path bit for bit;
              the counted run's seconds, and the median of five more runs;
-             1d3p runs K1 on its warp kernel and 2d5p K3 on its 2-D warp
-             kernel (vl=32; counted as ``sweep_1d`` / ``sweep_2d``); a third
-             run, fused 16 at the JAX package's vl=128, m=8, takes the
-             shared-memory route (``sweep_1d_smem`` / ``sweep_nd``) and
-             equals the vl=32 run;
+             1d3p runs K1 on its warp kernel, 2d5p K3 on its 2-D warp
+             kernel and 3d7p K3 on the 3-D streaming kernel (vl=32; counted
+             as ``sweep_1d`` / ``sweep_2d`` / ``sweep_3d``); a third run
+             (1d3p, 2d5p), fused 16 at the JAX package's vl=128, m=8, takes
+             the shared-memory route (``sweep_1d_smem`` / ``sweep_nd``) and
+             equals the vl=32 run; then 3d27p at 256**3 (the box order on
+             the 3-D kernel), fused 16;
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
              the counted run's seconds, and the median of five more;
              1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
              tiles ``multistep_1d_smem``), 2d5p K4b on the 2-D warp kernel
-             (``multistep_2d``; other tiles and 3-D ``multistep_nd``);
+             (``multistep_2d``) and 3d7p on the 3-D streaming kernel
+             (``multistep_3d``; other tiles ``multistep_nd``);
   dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
              Dirichlet ring, K2 per sweep) after one uncounted 2-step run,
              bit for bit its plain path; seconds as for roundtrip;
@@ -45,7 +51,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
              after warm-up); K1-smem and K3-smem time the shared-memory
-             route at vl=128; K2 in both directions at the case's tile and
+             route at vl=128 (3d7p: m=4); the 3d27p K3 at depth 4 (depths
+             2, 1 and K4b's ring and open bit for bit, untimed); K2 in both
+             directions at the case's tile and
              (1d3p, 2d5p) at vl=128, on its register route (``transpose``),
              and for 1d3p at m=16 on its shared-memory route
              (``transpose_smem``), and bit for bit at 2- and 8-byte
@@ -57,9 +65,10 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
              (fused 16, native 7) and roundtrip, and ``ops.stencil_run``,
              each bit for bit the same call on the CPU (the plain versions);
-  small      3d7p at (16, 16, 256) resident, and 2d5p at (64, 256) through
-             ``ops.stencil_run``, on the card and on the CPU against the
-             float64 numpy oracle;
+  small      3d7p at (16, 16, 256) resident (nb = 1 on the 3-D streaming
+             kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
+             each counted, on the card and on the CPU against the float64
+             numpy oracle;
   ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
              (H=80, P=64, N=128, B and C shared by the heads through a
              stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
@@ -120,6 +129,8 @@ TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, the shared-memory route
+SMEM_TILE_3D = (128, 4)  # (vl, m): the same at 512**3 (vl·m must divide 512)
+BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming kernel
 K2_SMEM_TILE = (32, 16)  # (vl, m): a 1d3p tile on K2's shared-memory route
 # template type arguments in mangled names: unsigned short / int / long long, float, bf16
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
@@ -129,6 +140,7 @@ SOURCES = {
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
     "sweep1d_warp": "src/repro_torch/kernels/csrc/sweep1d_warp.cu",
     "sweep2d_warp": "src/repro_torch/kernels/csrc/sweep2d_warp.cu",
+    "sweep3d": "src/repro_torch/kernels/csrc/sweep3d.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
@@ -532,6 +544,16 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build_all()
     warp2d = ptxas_kernels(build.report("sweep2d_warp"), "sweep2d_warp_f32")
+    sweep3d = ptxas_kernels(build.report("sweep3d"), "sweep3d_f32")
+    lib3d = build.load("sweep3d")
+    for entry in sweep3d:
+        m3, d3, order3, _ = map(int, entry["instance"][1:-1].split(", "))
+        entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 3)
+        entry["threads"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 2)
+    want3d = len(sk.SWEEP3D_M) * sk.SWEEP3D_DEPTH * 3 * 2
+    if len(sweep3d) != want3d or any(row.get("spill_stores", 1) or row.get("spill_loads", 1)
+                                     or row.get("stack_bytes", 1) for row in sweep3d):
+        raise AssertionError(f"sweep3d build: spills, stack or not {want3d} instances {sweep3d}")
     ssd_lib = build.load("ssd_scan")
     k6_ptxas = {f"{kern} <T{', PT' if kern == 'ssd_out' else ''}>":
                 ptxas_kernels(build.report("ssd_scan"), kern) for kern in ("ssd_state", "ssd_out")}
@@ -548,7 +570,10 @@ def main() -> int:
           "sweep1d_warp_f32 <M, R, B, order, edge>": ptxas_kernels(
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 instances": len(warp2d),
-          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d, **k6_ptxas,
+          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d,
+          "sweep3d_f32 instances": len(sweep3d),
+          "sweep3d_f32 <M, D, order, ends> (order 0 run time, 1 star, 2 box)": sweep3d,
+          **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
               f"{kern} {dtype}": ssd_lib.repro_ssd_smem_bytes(i, dtype == "bf16", 64, 128)
               for i, kern in enumerate(("ssd_state", "ssd_out")) for dtype in ("f32", "bf16")}})
@@ -628,6 +653,8 @@ def main() -> int:
                 else "multistep_1d_smem"
         if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
             return "multistep_2d"
+        if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
+            return "multistep_3d"
         return "multistep_nd"
 
     def k4_counts(spec, chunks, vl, m):
@@ -650,7 +677,8 @@ def main() -> int:
                 key = "sweep_2d" if sk.sweep2d_route(vl, m, depth, spec.r) == "warp" \
                     else "sweep_nd"
             else:
-                key = "sweep_nd"
+                key = "sweep_3d" if sk.sweep3d_route(vl, m, depth, spec.r) == "stream" \
+                    else "sweep_nd"
             owned[key] = owned.get(key, 0) + n
         return owned
 
@@ -719,7 +747,7 @@ def main() -> int:
         numel, itemsize = x.numel(), x.element_size()
         grid_bytes = 2 * numel * itemsize
         dims = "x".join(map(str, shape))
-        sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_nd"}[spec.ndim]
+        sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_3d"}[spec.ndim]
         smem_key = "sweep_1d_smem" if spec.ndim == 1 else "sweep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
@@ -847,7 +875,7 @@ def main() -> int:
         # -- K1 / K3: the resident sweep at every depth the main path launches
         kid = "K1" if spec.ndim == 1 else "K3"
         fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
-        src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep"}[spec.ndim]
+        src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep3d"}[spec.ndim]
         for depth in (4, 2, 1):
             kk, tt = (K, depth // K) if depth > K else (depth, 1)
             if spec.ndim == 1:
@@ -868,32 +896,32 @@ def main() -> int:
                 bound(grid_bytes, depth * spec.flops_per_point * numel),
                 lambda: ms(conv_steps, spec, x, depth, weight))
         del t, buf
-        if spec.ndim <= 2:
-            # the shared-memory route, at the vl=128 run's depth 4
-            vl2, m2 = SMEM_TILE
-            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
-            t2 = sk.block_transpose(x, vl2, m2)
-            buf2 = torch.empty_like(t2)
-            depth = K * TTILE
-            route = sk.sweep1d_route if spec.ndim == 1 else sk.sweep2d_route
-            if route(vl2, m2, depth, spec.r) != "smem":
-                raise AssertionError(f"vl={vl2}, m={m2} does not take the smem route")
+        # the shared-memory route, at the vl=128 run's depth 4 (3-D: a
+        # tile no main path run takes)
+        vl2, m2 = SMEM_TILE if spec.ndim <= 2 else SMEM_TILE_3D
+        t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+        t2 = sk.block_transpose(x, vl2, m2)
+        buf2 = torch.empty_like(t2)
+        depth = K * TTILE
+        route = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
+        if route(vl2, m2, depth, spec.r) != "smem":
+            raise AssertionError(f"vl={vl2}, m={m2} does not take the smem route")
 
-            def kern():
-                if spec.ndim == 1:
-                    return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
-                return sk.stencil_nd_sweep_ttile(spec, t2, K, TTILE, t02, out=buf2)
+        def kern():
+            if spec.ndim == 1:
+                return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
+            return sk.stencil_nd_sweep_ttile(spec, t2, K, TTILE, t02, out=buf2)
 
-            def plain():
-                if spec.ndim == 1:
-                    return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
-                return sk.stencil_nd_sweep_ttile_ref(spec, t2, K, TTILE, t02)
-            err = same(f"{name} {kid}-smem depth {depth}", kern(), plain())
-            row(f"{kid}-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
-                launched[smem_key], err, kern, plain,
-                bound(grid_bytes, depth * spec.flops_per_point * numel),
-                lambda: ms(conv_steps, spec, x, depth, weight))
-            del t2, buf2
+        def plain():
+            if spec.ndim == 1:
+                return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
+            return sk.stencil_nd_sweep_ttile_ref(spec, t2, K, TTILE, t02)
+        err = same(f"{name} {kid}-smem depth {depth}", kern(), plain())
+        row(f"{kid}-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
+            launched[smem_key], err, kern, plain,
+            bound(grid_bytes, depth * spec.flops_per_point * numel),
+            lambda: ms(conv_steps, spec, x, depth, weight))
+        del t2, buf2
 
         # -- K4: the multistep sweep at the roundtrip's padded shape ---------
         kid = "K4a" if spec.ndim == 1 else "K4b"
@@ -921,9 +949,10 @@ def main() -> int:
                         return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
                 edge = "ring" if edge_mask else "open"
                 key = multi_key(spec, vl, m, depth)
-                source = {"multistep_1d": "sweep1d_warp",
-                          "multistep_2d": "sweep2d_warp"}.get(key, "sweep")
-                route = "smem" if source == "sweep" else "warp"
+                source = {"multistep_1d": "sweep1d_warp", "multistep_2d": "sweep2d_warp",
+                          "multistep_3d": "sweep3d"}.get(key, "sweep")
+                route = "smem" if source == "sweep" else \
+                    "stream" if source == "sweep3d" else "warp"
                 err = same(f"{name} {kid} {edge} depth {depth}", kern(), plain())
                 row(kid, fname,
                     f"{name} {pdims} {edge} depth={depth}; route {route} ({key}); library: "
@@ -934,6 +963,50 @@ def main() -> int:
                     lambda: ms(conv_steps, spec, xp, depth, weight, True))
         del x, xp, tp, bufp, weight
         torch.cuda.empty_cache()
+
+    # -- 3d27p: the box order on the 3-D streaming kernel, a resident fused
+    # run counted, then K3 at depth 4 timed and depths 2, 1 and K4b's ring
+    # and open held bit for bit -------------------------------------------
+    name, shape = BOX_CASE
+    prob = StencilProblem(name, shape)
+    spec = prob.spec
+    x = prob.init(SEED)
+    vl, m, t0 = ops.pick_tile(spec, shape)
+    remainder, steps = PLANS[0]
+    plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                       remainder=remainder)
+    prob.run(x, 2, plan)
+    y, seconds, got = counted(f"{name} resident {remainder}", lambda: prob.run(x, steps, plan),
+                              resident_counts(spec, steps, remainder, vl, m))
+    err = same(f"{name} resident {remainder} vs plain", y,
+               resident_plain(spec, x, steps, remainder, vl, m, t0))
+    emit({"phase": "main_path", "case": name, "shape": list(shape),
+          "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+          "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
+          "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+          "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+          "max_abs_err_vs_plain": err, "bitwise": True})
+    t = sk.block_transpose(x, vl, m)
+    buf = torch.empty_like(t)
+    for depth in (2, 1):
+        same(f"{name} K3 depth {depth}", sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0),
+             sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0))
+        for edge_mask in (True, False):
+            same(f"{name} K4b edge_mask={edge_mask} depth {depth}",
+                 sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask),
+                 sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask))
+    weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+    err = same(f"{name} K3 depth {K * TTILE}", sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0),
+               sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0))
+    row("K3", "stencil_nd_sweep_ttile",
+        f"{name} {'x'.join(map(str, shape))} vl={vl} m={m} depth={K * TTILE}; "
+        "box order; depths 2, 1 and K4b ring/open bitwise, untimed", "sweep3d",
+        got["sweep_3d"], err, lambda: sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0, out=buf),
+        lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0),
+        bound(2 * x.numel() * 4, K * TTILE * spec.flops_per_point * x.numel()),
+        lambda: ms(conv_steps, spec, x, K * TTILE, weight))
+    del x, y, t, buf, weight
+    torch.cuda.empty_cache()
 
     # -- onestep: the layout A/B, and its K5 rows --------------------------
     vl, m = 32, 8
@@ -1001,8 +1074,8 @@ def main() -> int:
         del x, x_cpu
 
     # -- small cases on the card and on the CPU against the f64 oracle -------
-    def small(case, spec, x, run, steps, bc):
-        y_gpu = run(x).cpu()
+    def small(case, spec, x, run, steps, bc, owned):
+        y_gpu = counted(f"small {case}", lambda: run(x), owned)[0].cpu()
         y_cpu = run(x.cpu())
         oracle = x.cpu().double().numpy()
         for _ in range(steps):
@@ -1019,13 +1092,16 @@ def main() -> int:
     plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE)
     shape = (16, 16, 256)
     x = StencilProblem("3d7p", shape).init(SEED)
-    small("3d7p", stencils.make("3d7p"), x,
+    spec = stencils.make("3d7p")
+    vl, m, _ = ops.pick_tile(spec, shape)       # nb = 1: a tile wraps onto its own block
+    small("3d7p", spec, x,
           lambda v: StencilProblem("3d7p", shape, device=v.device).run(v, steps, plan),
-          steps, "periodic")
+          steps, "periodic", resident_counts(spec, steps, "fused", vl, m))
     spec = stencils.make("2d5p")
     x = StencilProblem("2d5p", (64, 256)).init(SEED)
+    vl, m, _ = ops.pick_tile(spec, (64, 256))
     small("2d5p dirichlet", spec, x, lambda v: ops.stencil_run(spec, v, steps, k=K),
-          steps, kref.kernel_bc(2))
+          steps, kref.kernel_bc(2), k4_counts(spec, [(K, steps // K)], vl, m))
     del x
 
     k6_rows = ssd_phase(dev, ms, close, bound)

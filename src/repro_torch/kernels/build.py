@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep2d_warp", "onestep", "ssd_scan")
+SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep2d_warp", "sweep3d", "onestep",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -127,6 +128,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = i64
         lib.repro_sweep2d_warp_max_depth.argtypes = [i64]
         lib.repro_sweep2d_warp_warps.argtypes = []
+    elif name == "sweep3d":
+        lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
+        lib.repro_sweep3d_f32.restype = ctypes.c_int
+        lib.repro_sweep3d_max_depth.argtypes = []
+        lib.repro_sweep3d_max_depth.restype = i64
+        lib.repro_sweep3d_tile.argtypes = [i64] * 4
+        lib.repro_sweep3d_tile.restype = i64
     elif name == "onestep":
         lib.repro_onestep_naive_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
         lib.repro_onestep_naive_f32.restype = ctypes.c_int

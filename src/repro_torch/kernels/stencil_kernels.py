@@ -7,17 +7,17 @@
     kernel (one thread per column of a block) or a shared-memory kernel.
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
     periodic depth-``ttile·k`` advance of the layout-resident grid in one
-    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and the 2-D
-    K3 each take one of two kernels, chosen by shape before the launch:
-    a warp-register kernel at ``vl = 32`` (:func:`sweep1d_route`:
-    ``csrc/sweep1d_warp.cu``; :func:`sweep2d_route`: ``csrc/sweep2d_warp.cu``,
-    streamed along axis 0), or the shared-memory kernel
-    ``csrc/stencil_sweep.cu``, which the 3-D K3 always takes.
+    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and K3 each
+    take one of two kernels, chosen by shape before the launch:
+    a register kernel at ``vl = 32`` streamed along axis 0 where one applies
+    (:func:`sweep1d_route`: ``csrc/sweep1d_warp.cu``; :func:`sweep2d_route`:
+    ``csrc/sweep2d_warp.cu``; :func:`sweep3d_route`: ``csrc/sweep3d.cu``),
+    or the shared-memory kernel ``csrc/stencil_sweep.cu``.
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
-    bodies with ``edge_mask``): 1-D on K1's two routes, 2-D on the 2-D
-    K3's two routes, 3-D on the shared-memory kernel.
+    bodies with ``edge_mask``): on the routes of K1, and of K3 in 2-D and
+    3-D.
   * K5 ``stencil1d_naive_onestep`` / ``stencil1d_transpose_onestep`` —
     ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
     the transpose layout, the paper's layout A/B (reference:
@@ -29,10 +29,11 @@ kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``, the
 routes apart: K2 under ``transpose`` (register kernel) and
 ``transpose_smem``; K1 under ``sweep_1d`` (warp kernel) and
 ``sweep_1d_smem``; K4a under ``multistep_1d`` (warp kernel) and
-``multistep_1d_smem``; K3 under ``sweep_2d`` (2-D warp kernel) and
-``sweep_nd``; K4b under ``multistep_2d`` (2-D warp kernel) and
-``multistep_nd``.  The plain versions count nothing.  Outputs are
-allocated here (or passed in as ``out``); the kernels allocate nothing.
+``multistep_1d_smem``; K3 under ``sweep_2d`` (2-D warp kernel), ``sweep_3d``
+(3-D streaming kernel) and ``sweep_nd``; K4b under ``multistep_2d``,
+``multistep_3d`` (the same kernels) and ``multistep_nd``.  The plain
+versions count nothing.  Outputs are allocated here (or passed in as
+``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
-            "sweep_2d": 0, "sweep_nd": 0, "multistep_1d": 0, "multistep_1d_smem": 0,
-            "multistep_2d": 0, "multistep_nd": 0, "onestep_naive": 0, "onestep_transpose": 0}
+            "sweep_2d": 0, "sweep_3d": 0, "sweep_nd": 0, "multistep_1d": 0,
+            "multistep_1d_smem": 0, "multistep_2d": 0, "multistep_3d": 0, "multistep_nd": 0,
+            "onestep_naive": 0, "onestep_transpose": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
@@ -65,6 +67,21 @@ WARP2D_WARPS = 10
 WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
 WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
+# csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
+# input planes in flight (and at depth 1), the shared memory a CTA may use,
+# the m it takes, its deepest instance, its reach, and the shortest z
+# segment a CTA walks
+SWEEP3D_LANES = 16
+SWEEP3D_THREADS = 512
+SWEEP3D_STAGES, SWEEP3D_STAGES_D1 = 2, 3
+SWEEP3D_SMEM = 232448
+SWEEP3D_M = (1, 2, 4, 8)
+SWEEP3D_DEPTH = 4
+SWEEP3D_MAX_R = 1
+SWEEP3D_SEG_MIN = 8
+# the tap orders csrc/sweep3d.cu knows at compile time (its Order)
+_STAR3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+_BOX3 = tuple((oz, oy, ox) for oz in (-1, 0, 1) for oy in (-1, 0, 1) for ox in (-1, 0, 1))
 
 
 def reset_launches() -> None:
@@ -407,15 +424,90 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
         f"{spec.name} 2-D warp sweep kernel")
 
 
+def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
+    """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
+    :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
+    stencil: ``"stream"`` (``csrc/sweep3d.cu``) when a block row is 32
+    columns (``vl = 32``), ``m`` and ``depth`` have an instance and the
+    reach is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``)
+    otherwise."""
+    if vl == WARP_VL and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
+            and 1 <= depth <= SWEEP3D_DEPTH:
+        return "stream"
+    return "smem"
+
+
+def sweep3d_order(spec: StencilSpec) -> str:
+    """The tap order ``csrc/sweep3d.cu`` compiles in for ``spec``:
+    ``"star"`` (3d7p's), ``"box"`` (3d27p's), else ``"runtime"``."""
+    offs = tuple(tuple(off) for off, _ in spec.taps)
+    return "star" if offs == _STAR3 else "box" if offs == _BOX3 else "runtime"
+
+
+def sweep3d_slots(depth: int) -> int:
+    """Input planes in the ring of a depth-``depth`` instance of
+    ``csrc/sweep3d.cu``: those in flight, the landed one, and the 2r + 1
+    the first level reads."""
+    return (SWEEP3D_STAGES_D1 if depth == 1 else SWEEP3D_STAGES) + 4
+
+
+def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
+    """The tile of a ``csrc/sweep3d.cu`` instance (its ``Tile``): rows
+    ``ty`` and columns ``cx`` a CTA computes, and its halo columns ``hx``
+    and rows ``hy`` per side.  The star's levels publish into 2 plane slots,
+    the others' into 4; ``ty`` is as many rows as ``SWEEP3D_THREADS``
+    threads and the shared memory allow."""
+    hx, hy = -(-depth // m), depth
+    cx = SWEEP3D_LANES + 2 * hx
+    planes = sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
+    ty = min(SWEEP3D_THREADS // cx, (SWEEP3D_SMEM // 4 // (planes * m) - 2 * (cx + 1)) // cx)
+    return ty, cx, hx, hy
+
+
+def sweep3d_segment(n0: int, n1: int, nb: int, m: int, depth: int, order: str,
+                    ctas: int) -> int:
+    """Axis-0 planes per CTA of the 3-D kernel: the segment length whose
+    waves of ``ctas`` CTAs (one per SM) times the steps of a segment
+    (its planes and 3·depth warm-up steps) are fewest; no segment shorter
+    than ``SWEEP3D_SEG_MIN`` planes unless the grid is."""
+    ty, _, _, hy = sweep3d_tile(m, depth, order)
+    tiles = -(-nb * WARP_VL // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
+    best = None
+    for nseg in range(1, -(-n0 // SWEEP3D_SEG_MIN) + 1):
+        seg = -(-n0 // nseg)
+        cost = -(-tiles * -(-n0 // seg) // ctas) * (seg + 3 * depth)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+    return best[1]
+
+
+def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
+                    edge: str = "periodic", seg: int | None = None) -> None:
+    """The 3-D streaming kernel with the ends ``edge`` on axis 0, ``seg``
+    axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
+    card's SMs)."""
+    _kernel_io(t, out, "the 3-D streaming sweep kernel")
+    n0, n1, nb, m, vl = t.shape
+    if seg is None:
+        seg = sweep3d_segment(n0, n1, nb, m, depth, sweep3d_order(spec), _sm_count(t.device))
+    lib = build.load("sweep3d")
+    ntaps, offs, coeffs = _taps(spec, 3)
+    build.check(lib.repro_sweep3d_f32(
+        t.data_ptr(), out.data_ptr(), n0, n1, nb, m, vl, spec.r, depth, _EDGES[edge], seg,
+        ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
+        _stream()), f"{spec.name} 3-D streaming sweep kernel")
+
+
 def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                            ttile: int, t0: int, out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps of the layout-resident
     (n0, *mid, nb, m, vl) array in one launch; ``t0`` is the axis-0 rows of
     the shared-memory kernel's output tile (it must divide n0 and reach the
-    radius, as the reference's pipeline tile must).  A 2-D sweep that
-    :func:`sweep2d_route` sends to the warp kernel picks its own segment
-    length: results never depend on the tile."""
+    radius, as the reference's pipeline tile must).  A sweep that
+    :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
+    kernel picks its own segment length: results never depend on the
+    tile."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -433,6 +525,9 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     if spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
         _warp2d_launch(spec, t, dst, depth)
         LAUNCHES["sweep_2d"] += 1
+    elif spec.ndim == 3 and sweep3d_route(vl, m, depth, spec.r) == "stream":
+        _sweep3d_launch(spec, t, dst, depth)
+        LAUNCHES["sweep_3d"] += 1
     else:
         _sweep_launch(spec, t, dst, depth, t0)
         LAUNCHES["sweep_nd"] += 1
@@ -547,9 +642,10 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
     rows keep their value) or open edges (``edge_mask=False``, rows beyond
     either end hold 0), every other axis is periodic.  ``t0`` is the axis-0
     rows of the shared-memory kernel's tile; it must divide n0 and reach the
-    radius, as the reference's pipeline tile must.  A 2-D sweep that
-    :func:`sweep2d_route` sends to the warp kernel (depth k) picks its own
-    segment length and ignores ``t0``: results never depend on the tile."""
+    radius, as the reference's pipeline tile must.  A sweep that
+    :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
+    kernel (depth k) picks its own segment length and ignores ``t0``:
+    results never depend on the tile."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -567,6 +663,9 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
     if spec.ndim == 2 and sweep2d_route(vl, m, k, spec.r) == "warp":
         _warp2d_launch(spec, t, dst, k, edge)
         LAUNCHES["multistep_2d"] += 1
+    elif spec.ndim == 3 and sweep3d_route(vl, m, k, spec.r) == "stream":
+        _sweep3d_launch(spec, t, dst, k, edge)
+        LAUNCHES["multistep_3d"] += 1
     else:
         _sweep_launch(spec, t, dst, k, t0, edge)
         LAUNCHES["multistep_nd"] += 1

@@ -141,7 +141,7 @@ def test_sweep_kernel_counts_and_raises(cuda):
     t = layouts.to_transpose_layout(_x((8, 8, 256), 2, cuda), 32, 8)
     sk.reset_launches()
     sk.stencil_nd_sweep_ttile(spec, t, 2, 1, 8)
-    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_nd": 1}
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_3d": 1}
     with pytest.raises(NotImplementedError, match="D1"):
         sk.stencil_nd_sweep_ttile(spec, t.double(), 2, 1, 8)
     with pytest.raises(ValueError, match="D2"):
@@ -358,7 +358,7 @@ def test_main_path_matches_plain(cuda, name, shape, remainder):
     sk.reset_launches()
     got = prob.run(x, 7, plan)
     chunks, _ = sweep_schedule(2, 7, remainder, 2)
-    key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_nd"}[prob.spec.ndim]
+    key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_3d"}[prob.spec.ndim]
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
         "transpose": 2, key: sum(n for _, n in chunks)}
     want = stencils.apply_steps(prob.spec, x, 7)
@@ -394,7 +394,9 @@ def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask
         got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
         want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
         key = "multistep_2d" if spec.ndim == 2 and \
-            sk.sweep2d_route(vl, m, depth, spec.r) == "warp" else "multistep_nd"
+            sk.sweep2d_route(vl, m, depth, spec.r) == "warp" else \
+            "multistep_3d" if spec.ndim == 3 and \
+            sk.sweep3d_route(vl, m, depth, spec.r) == "stream" else "multistep_nd"
     torch.cuda.synchronize()
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
     assert torch.equal(got, want), (got - want).abs().max().item()
@@ -495,20 +497,24 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 
 
 def test_multistep_2d_routes_count(cuda):
-    """The counters tell K4b's two routes apart at 2-D, 3-D always takes
-    the shared-memory kernel, and the halo wrapper follows the route of
-    its depth."""
+    """The counters tell K4b's routes apart at 2-D and 3-D, and the halo
+    wrapper follows the route of its depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_nd"),
              (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
-             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_nd"))
+             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 5, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 2, "multistep_nd"))
     for spec, shape, vl, m, k, key in cases:
         if spec.ndim == 2:
             assert sk.sweep2d_route(vl, m, k, spec.r) == \
                 ("warp" if key == "multistep_2d" else "smem")
+        else:
+            assert sk.sweep3d_route(vl, m, k, spec.r) == \
+                ("stream" if key == "multistep_3d" else "smem")
         t = layouts.to_transpose_layout(_x(shape, 13, cuda), vl, m)
         for edge_mask in (True, False):
             sk.reset_launches()
@@ -525,6 +531,82 @@ def test_multistep_2d_routes_count(cuda):
         sk.stencil_nd_multistep(stencils.make("2d5p"), t, 2, 16, out=t)
     with pytest.raises(NotImplementedError, match="D1"):
         sk.stencil_nd_multistep(stencils.make("2d5p"), t.double(), 2, 16)
+
+
+# tap lists in no order the 3-D streaming kernel knows at compile time
+RUNTIME_TAPS3 = (
+    (((0, 0, 1), 0.125), ((0, 0, -1), 0.125), ((1, 0, 0), 0.125), ((-1, 0, 0), 0.125),
+     ((0, 1, 0), 0.125), ((0, -1, 0), 0.125), ((0, 0, 0), 0.25)),
+    tuple(((oz, oy, ox), (3 + oz + 2 * oy + 5 * ox) / 80)
+          for ox in (-1, 0, 1) for oz in (-1, 0, 1) for oy in (-1, 0, 1)),
+)
+# (n0, n1, nb): the CPU transcription's grids (tests/test_torch_sweep3d.py),
+# the card tests' 3-D shapes, and a grid of several row and column tiles
+GRIDS3 = ((1, 1, 1), (2, 5, 2), (3, 3, 1), (4, 13, 3), (10, 2, 1), (4, 6, 1), (16, 12, 1),
+          (37, 45, 2))
+
+
+@pytest.mark.parametrize("m", sk.SWEEP3D_M)
+@pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0", "runtime1"])
+def test_sweep3d_route_bitwise(cuda, name, m):
+    """K3 and K4b on the 3-D streaming kernel: every depth of the route,
+    periodic, ring and open, on grids with nb = 1, n1 below a tile and n0
+    below the warm-up, at the wrapper's segment and at 3 planes per CTA.
+    The wrappers launch the streaming kernel alone."""
+    spec = stencils.make(name) if name.startswith("3d") else \
+        stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
+    for n0, n1, nb in GRIDS3:
+        t = layouts.to_transpose_layout(_x((n0, n1, nb * 32 * m), n0 + n1 + nb + m, cuda), 32, m)
+        out = torch.empty_like(t)
+        for depth in range(1, sk.SWEEP3D_DEPTH + 1):
+            for edge in ("periodic", "ring", "open"):
+                sk.reset_launches()
+                if edge == "periodic":
+                    want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+                    got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+                    key = "sweep_3d"
+                else:
+                    want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+                    got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+                    key = "multistep_3d"
+                torch.cuda.synchronize()
+                assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+                assert torch.equal(got, want), (n0, n1, nb, depth, edge,
+                                                (got - want).abs().max().item())
+                sk._sweep3d_launch(spec, t, out, depth, edge, seg=3)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (n0, n1, nb, depth, edge, "seg 3")
+
+
+def test_sweep3d_tile_matches_library(cuda):
+    """The library's tiles are the ones ``sweep3d_tile`` computes (the
+    segment choice and the CPU transcription use the Python copy)."""
+    lib = build.load("sweep3d")
+    assert lib.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
+    for m in sk.SWEEP3D_M:
+        for depth in range(1, sk.SWEEP3D_DEPTH + 1):
+            for order, code in (("runtime", 0), ("star", 1), ("box", 2)):
+                ty, cx, _, _ = sk.sweep3d_tile(m, depth, order)
+                got = [lib.repro_sweep3d_tile(m, depth, code, w) for w in range(4)]
+                assert got[:3] == [ty, cx, ty * cx], (m, depth, order)
+                assert got[3] <= sk.SWEEP3D_SMEM
+
+
+def test_sweep3d_main_path_shape(cuda):
+    """3d7p at 128 x 96 x 512 (nb = 2, several row tiles), m = 8: the
+    resident sweep at depths 4, 2, 1 and the ring and open sweeps at 2
+    and 1, bit for bit."""
+    spec = stencils.make("3d7p")
+    t = layouts.to_transpose_layout(_x((128, 96, 512), 21, cuda), 32, 8)
+    for depth in (4, 2, 1):
+        kk, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+        got = sk.stencil_nd_sweep_ttile(spec, t, kk, tt, 16)
+        assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, 16)), depth
+    for depth in (2, 1):
+        for edge_mask in (True, False):
+            got = sk.stencil_nd_multistep(spec, t, depth, 16, edge_mask)
+            want = sk.stencil_nd_multistep_ref(spec, t, depth, 16, edge_mask)
+            assert torch.equal(got, want), (depth, edge_mask)
 
 
 @pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
@@ -574,6 +656,8 @@ def test_roundtrip_equals_resident(cuda, name, shape, remainder):
             key = "multistep_1d"
         elif prob.spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, prob.spec.r) == "warp":
             key = "multistep_2d"
+        elif prob.spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, prob.spec.r) == "stream":
+            key = "multistep_3d"
         else:
             key = "multistep_nd"
         want[key] = want.get(key, 0) + n

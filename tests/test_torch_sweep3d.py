@@ -1,0 +1,340 @@
+"""K3's and K4b's 3-D streaming kernel (``csrc/sweep3d.cu``), transcribed
+into numpy line for line and held bit for bit against the plain versions
+``stencil_nd_sweep_ttile_ref`` (periodic) and ``stencil_nd_multistep_ref``
+(the ring and open ends of axis 0), and the route that picks it.
+
+The CPU has no CUDA compiler, so this transcription checks the kernel's
+schedule: CTAs over (column tile, row tile, z segment) with ``Hx`` halo
+columns and ``Hy`` halo rows per side (columns wrapped mod 32·nb, rows mod
+n1), the threads of a CTA as an array axis (thread t owns column t % Cx of
+row t // Cx), the shared-memory planes stored [element][thread] with Cx + 1
+unwritten words on each side, the input ring filled ``kStages`` planes
+ahead, the segment's warm-up planes with wrapped plane indices, the
+per-level skew of r + 1 planes with the levels run from the deepest down,
+each level's own column of its last 3 planes in registers, its published
+planes (the star one step late into 2 slots, the others at once into 4),
+a warp skipping a level whose rows it makes no stored row needs (its
+registers and published rows of that level keep what they held), and the
+store guard (each (plane, row, column) written exactly once); in
+the ring and open modes, the unwrapped plane indices, the input planes
+beyond the ends left unloaded (ring: their slots hold NaN here) or written
+as zeros (open), and the CTA-uniform selects per level and step (open:
+zeros beyond the ends; ring: the previous level's plane on the r first and
+last planes).  The claims the kernel leans on are checked as it runs: every
+slot a step reads holds the plane the schedule says (a copy lands at once
+here, the earliest the hardware could land it, so a slot reused too early
+would show), no slot is read and written in one step (there is one barrier
+per step), and nothing unwritten reaches a stored value (shared memory,
+pads and registers start as NaN here; the kernel zeroes them).  It runs in
+float32 with the float32-rounded coefficients summed in the spec's order,
+as the kernel does under ``-fmad=false``.  CTAs run together as an array
+axis; the kernel's loop over a shorter last segment ends early, which the
+store guard's ``i < steps`` stands for.  A case per mode is also held
+against the JAX package's Pallas kernel in interpret mode (2e-6: XLA's CPU
+backend may contract a multiply-add into an FMA); with open ends only at
+k·r or more planes from them, where the reference's values are specified.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import stencils as jst
+from repro.kernels import stencil_kernels as jsk
+from repro_torch.core import layouts as tlay
+from repro_torch.core import stencils as tst
+from repro_torch.core.stencils import coeff
+from repro_torch.kernels import stencil_kernels as sk
+
+VL = 32
+
+
+def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
+    """The kernel's output and how often each (plane, row, column) was
+    stored."""
+    n0, n1, nb, m, vl = t.shape
+    assert vl == VL and sk.sweep3d_route(vl, m, depth, spec.r) == "stream"
+    order = sk.sweep3d_order(spec)
+    Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
+    R, D, NW, L, NS = spec.r, depth, 2 * spec.r + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth)
+    STAGES = NS - 2 * R - 2      # input planes in flight beyond the landed one
+    star_pub = order == "star"                   # publish one step late, 2 slots
+    E = 2 if star_pub else 2 * R + 2
+    A, P = Ty * Cx, Cx + 1                       # threads; unwritten words per side
+    taps = [(off, np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
+    ncol = nb * VL
+    ntx, nty, nseg = -(-ncol // L), -(-n1 // (Ty - 2 * Hy)), -(-n0 // seg)
+    cta = np.arange(ntx * nty * nseg)
+    xt, yt, z0 = cta % ntx, cta // ntx % nty, cta // ntx // nty * seg
+    rows = np.minimum(seg, n0 - z0)
+    steps, nload = rows + D * NW, rows + 2 * D * R
+    base = z0 - D * R
+    lo, hi = (R, n0 - R) if edge == "ring" else (0, n0)
+    th = np.arange(A)
+    ty, cx = th // Cx, th % Cx
+    wrow0, wrow1 = (th & ~31) // Cx, np.minimum(th | 31, A - 1) // Cx   # a warp's rows
+    gu = xt[:, None] * L - Hx + cx[None, :]                  # (ctas, A)
+    yu = yt[:, None] * (Ty - 2 * Hy) - Hy + ty[None, :]
+    g, y = gu % ncol, yu % n1
+    stores = (cx >= Hx) & (cx < Cx - Hx) & (gu < ncol) & (ty >= Hy) & (ty < Ty - Hy) & (yu < n1)
+    cols = t.transpose(0, 1, 2, 4, 3).reshape(n0, n1, ncol, m)   # column g, element s
+    nan = np.float32(np.nan)
+    # shared memory: [slot][cta][element][P + thread], and the slots' tags
+    ring = np.full((NS, len(cta), m, A + 2 * P), nan, np.float32)
+    ring_tag = np.full((NS, len(cta)), -10**9)
+    levels = np.full((max(D - 1, 1), E, len(cta), m, A + 2 * P), nan, np.float32)
+    level_tag = np.full((max(D - 1, 1), E, len(cta)), -10**9)
+    win = np.full((max(D - 1, 1), NW, len(cta), A, m), nan, np.float32)
+    out = np.full_like(t, np.nan)
+    stored = np.zeros((n0, n1, ncol), dtype=np.int64)
+
+    def issue(p):
+        z = base + p
+        slot = ring[p % NS]
+        slot[:] = nan                                    # not loaded: unknown
+        go = p < nload
+        if edge != "periodic":
+            beyond = go & ((z < 0) | (z >= n0))
+            if edge == "open":
+                slot[beyond, :, P:P + A] = 0             # written as zeros
+            go = go & ~beyond
+        slot[go, :, P:P + A] = np.moveaxis(cols[(z % n0)[:, None], y, g][go], -1, 1)
+        ring_tag[p % NS] = p
+
+    def beyond(zz, lo, hi):      # a CTA's plane outside [lo, hi), over (A, m)
+        return ((zz < lo) | (zz >= hi))[:, None, None]
+
+    def column(src, e, dc):      # element e of column t + dc of a plane, every thread
+        return src[:, e, P + dc:P + dc + A]
+
+    reach = {}                   # (k, oy): the taps' least and largest ox
+    for (oz, oy, ox), _ in taps:
+        lo_hi = reach.get((oz + R, oy), (ox, ox))
+        reach[oz + R, oy] = (min(lo_hi[0], ox), max(lo_hi[1], ox))
+    for p in range(STAGES):
+        issue(p)
+    for i in range(int(steps.max())):
+        ph = i % NW
+        read, written = set(), set()
+        ring_slot = [(i - 1 - 2 * R + k) % NS for k in range(NW)]
+        pub = [(i + 1) % E if star_pub else (i - 1 - 2 * R + k) % E for k in range(NW)]
+        for lv in range(D, 0, -1):
+            # the warps with rows of [lv r, Ty - lv r) make level lv; the
+            # others skip it (their rows of level lv stay as they were)
+            live = ~((wrow1 < lv * R) | (wrow0 >= Ty - lv * R))
+            # ext[(k, oy)][..., x + 1]: element x = -1..m of the column at
+            # row offset oy of the source level's plane k (made at step
+            # i - 1 - 2r + k): registers for its own column, shared memory
+            # for the rest
+            def ext(k, oy, lv=lv):
+                made = i - 1 - 2 * R + k
+                if lv == 1:
+                    src = ring[ring_slot[k]]
+                    read.add(("ring", ring_slot[k]))
+                    assert (ring_tag[ring_slot[k]] == made).all() or made < 0, (i, k)
+                    own = None
+                else:
+                    own = win[lv - 2, (ph + k) % NW]
+                    src = levels[lv - 2, pub[k]]
+                e = np.full((len(cta), A, m + 2), nan, np.float32)
+                for x in range(reach[k, oy][0], m + reach[k, oy][1]):   # what the taps read
+                    if own is not None and oy == 0 and 0 <= x < m:
+                        e[..., x + 1] = own[..., x]
+                        continue
+                    if lv > 1:
+                        read.add((lv - 2, pub[k]))
+                        assert not star_pub or k == R, "the star reads neighbours on the centre"
+                        want = i - 2 * R - 1 + k if not star_pub else i - 1 - R
+                        assert (level_tag[lv - 2, pub[k]] == want).all() or want < 0, (i, lv, k)
+                    e[..., x + 1] = column(src, x % m, oy * Cx + (x // m))
+                return e
+
+            cache = {}
+            acc = None
+            for (oz, oy, ox), cf in taps:
+                key = (oz + R, oy)
+                if key not in cache:
+                    cache[key] = ext(*key)
+                term = cache[key][..., 1 + ox:1 + ox + m] * cf
+                acc = term if acc is None else acc + term
+            if edge != "periodic":
+                if edge == "ring":     # the source's own column of the centre plane
+                    if (R, 0) not in reach:
+                        reach[R, 0] = (0, 0)
+                    keep = (cache[R, 0] if (R, 0) in cache else ext(R, 0))[..., 1:1 + m]
+                else:
+                    keep = np.float32(0)
+                acc = np.where(beyond(base + i - lv * (R + 1), lo, hi), keep, acc)
+            if lv == D:
+                ok = stores & live & ((i >= D * NW) & (i < steps))[:, None]
+                c_idx, t_idx = np.nonzero(ok)
+                zz = z0[c_idx] + i - D * NW
+                np.add.at(stored, (zz, y[c_idx, t_idx], g[c_idx, t_idx]), 1)
+                gg = g[c_idx, t_idx]
+                out[zz, y[c_idx, t_idx], gg // VL, :, gg % VL] = acc[c_idx, t_idx]
+            else:
+                slot = i % E
+                written.add((lv - 1, slot))
+                pubv = win[lv - 1, (ph + 2) % NW] if star_pub else acc
+                levels[lv - 1, slot][:, :, P + th[live]] = np.moveaxis(pubv[:, live], -1, 1)
+                level_tag[lv - 1, slot] = i - 1 if star_pub else i
+                win[lv - 1, ph][:, live] = acc[:, live]
+        written.add(("ring", (i + STAGES) % NS))
+        issue(i + STAGES)
+        assert not read & written, (i, read & written)   # one barrier per step
+    return out, stored
+
+
+def _t(n0, n1, nb, m, seed):
+    x = np.random.default_rng(seed).standard_normal((n0, n1, nb * VL * m)).astype(np.float32)
+    return tlay.to_transpose_layout(torch.from_numpy(x), VL, m).numpy()
+
+
+S = 3              # planes per segment in the transcription's cases
+# (n0, n1, nb): every n0 in {1, 2, S, S+1, 3S+1}, n1 below, at and above a
+# tile's stored rows (the tile's rows exceed 2·depth + 12 at every instance
+# but one), nb 1 (the tile wraps onto its own block) and 2, 3 (several
+# column tiles)
+GRIDS = ((1, 1, 1), (2, 5, 2), (S, 3, 1), (S + 1, 13, 3), (3 * S + 1, 2, 1))
+CASES = [(name, m, depth) for name in ("3d7p", "3d27p") for m in sk.SWEEP3D_M
+         for depth in range(1, sk.SWEEP3D_DEPTH + 1)]
+
+
+def _check(spec, t, depth, edge, seg=S):
+    got, stored = sweep3d_kernel_np(spec, t, depth, seg, edge)
+    n0, n1, nb = t.shape[:3]
+    np.testing.assert_array_equal(stored, np.ones((n0, n1, nb * VL), dtype=np.int64))
+    assert np.isfinite(got).all()            # nothing unwritten (NaN here) stored
+    tt = torch.from_numpy(t)
+    want = sk.stencil_nd_sweep_ttile_ref(spec, tt, depth, 1, 1) if edge == "periodic" else \
+        sk.stencil_nd_multistep_ref(spec, tt, depth, 1, edge == "ring")
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("name,m,depth", CASES)
+def test_sweep3d_kernel_bitwise(name, m, depth, edge):
+    spec = tst.make(name)
+    for n0, n1, nb in GRIDS:
+        _check(spec, _t(n0, n1, nb, m, seed=n0 * 64 + n1 * 4 + nb + m), depth, edge)
+
+
+def test_sweep3d_kernel_tall_tile():
+    """n1 above two of a tile's stored rows and n0 beyond several segments,
+    3d7p at m = 8 (the main path's tile) at depth 4."""
+    spec = tst.make("3d7p")
+    ty, _, _, hy = sk.sweep3d_tile(8, 4, "star")
+    for edge in ("periodic", "ring", "open"):
+        _check(spec, _t(7, 2 * (ty - 2 * hy) + 3, 1, 8, seed=3), 4, edge, seg=2)
+
+
+# tap lists in no order the kernel knows at compile time: it reads them at
+# run time (the registry's 3-D stencils all take a compile-time order)
+RUNTIME_TAPS = (
+    (((0, 0, 1), 0.125), ((0, 0, -1), 0.125), ((1, 0, 0), 0.125), ((-1, 0, 0), 0.125),
+     ((0, 1, 0), 0.125), ((0, -1, 0), 0.125), ((0, 0, 0), 0.25)),
+    (((0, 0, 0), 0.375), ((-1, 1, 1), 0.25), ((1, -1, -1), 0.25), ((0, 0, 0), 0.125)),
+    tuple(((oz, oy, ox), (3 + oz + 2 * oy + 5 * ox) / 80)
+          for ox in (-1, 0, 1) for oz in (-1, 0, 1) for oy in (-1, 0, 1)),
+)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("depth", [1, 4])
+@pytest.mark.parametrize("taps", RUNTIME_TAPS)
+def test_sweep3d_kernel_runtime_taps(taps, depth, edge):
+    spec = tst.StencilSpec("custom3d", 3, 1, "box", taps)
+    assert sk.sweep3d_order(spec) == "runtime"
+    _check(spec, _t(2 * S + 1, 4, 2, 4, seed=9), depth, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+def test_sweep3d_kernel_matches_pallas(edge):
+    """Against the JAX package's Pallas kernel (k=2, t0=4; periodic at
+    ttile 2, depth 4): the whole array, and with open ends at k·r or more
+    planes from the ends."""
+    spec_t, spec_j = tst.make("3d7p"), jst.make("3d7p")
+    t = _t(8, 5, 1, 4, seed=5)
+    if edge == "periodic":
+        want = jsk.stencil_nd_sweep_ttile(spec_j, jnp.asarray(t), 2, 2, 4, interpret=True)
+        got, _ = sweep3d_kernel_np(spec_t, t, 4, S)
+        width = 0
+    else:
+        want = jsk.stencil_nd_multistep(spec_j, jnp.asarray(t), 2, 4, interpret=True,
+                                        edge_mask=edge == "ring")
+        got, _ = sweep3d_kernel_np(spec_t, t, 2, S, edge)
+        width = 2 * spec_t.r if edge == "open" else 0
+    want = np.asarray(want)
+    n0 = t.shape[0]
+    np.testing.assert_allclose(got[width:n0 - width], want[width:n0 - width],
+                               rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("vl,m,depth,r,route", [
+    (32, 8, 4, 1, "stream"),      # the main path: 3d7p at 512³, k=2, ttile=2
+    (32, 8, 2, 1, "stream"),
+    (32, 8, 1, 1, "stream"),
+    (32, 8, 5, 1, "smem"),        # past the deepest instance
+    (32, 8, 8, 1, "smem"),
+    (32, 4, 4, 1, "stream"),
+    (32, 2, 3, 1, "stream"),
+    (32, 1, 4, 1, "stream"),
+    (32, 2, 0, 1, "smem"),        # depth 0: no instance
+    (128, 4, 4, 1, "smem"),       # the K3-smem row's tile
+    (16, 8, 2, 1, "smem"),
+    (8, 2, 1, 1, "smem"),
+    (32, 3, 2, 1, "smem"),        # no instance for m = 3
+    (32, 16, 2, 1, "smem"),
+    (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+])
+def test_sweep3d_route(vl, m, depth, r, route):
+    assert sk.sweep3d_route(vl, m, depth, r) == route
+
+
+@pytest.mark.parametrize("m,depth,order,tile", [
+    (8, 4, "star", (28, 18, 1, 4)),     # 512³: 504 threads, 208128 bytes
+    (8, 4, "box", (20, 18, 1, 4)),      # the shared memory caps the rows
+    (8, 3, "box", (26, 18, 1, 3)),
+    (8, 1, "runtime", (28, 18, 1, 1)),  # 3 planes in flight at depth 1
+    (4, 4, "star", (28, 18, 1, 4)),
+    (2, 4, "star", (25, 20, 2, 4)),     # depth·r beyond m: two halo columns
+    (1, 4, "box", (21, 24, 4, 4)),
+])
+def test_sweep3d_tile(m, depth, order, tile):
+    assert sk.sweep3d_tile(m, depth, order) == tile
+    ty, cx, _, _ = tile
+    planes = sk.sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
+    assert ty * cx <= sk.SWEEP3D_THREADS
+    assert planes * m * (ty * cx + 2 * (cx + 1)) * 4 <= sk.SWEEP3D_SMEM
+
+
+@pytest.mark.parametrize("n0,n1,nb,m,depth,ctas,seg", [
+    (512, 512, 2, 8, 4, 132, 103),   # 3d7p at 512³: 104 tiles, 5 segments in 4 waves
+    (512, 512, 2, 8, 2, 132, 171),
+    (512, 512, 2, 8, 1, 132, 64),
+    (544, 512, 2, 8, 2, 132, 182),   # the roundtrip's padded 3d7p
+    (16, 16, 1, 8, 4, 132, 8),       # no segment below SWEEP3D_SEG_MIN planes
+    (1, 1, 1, 1, 1, 132, 1),
+])
+def test_sweep3d_segment(n0, n1, nb, m, depth, ctas, seg):
+    assert sk.sweep3d_segment(n0, n1, nb, m, depth, "star", ctas) == seg
+
+
+def test_sweep3d_order():
+    assert sk.sweep3d_order(tst.make("3d7p")) == "star"
+    assert sk.sweep3d_order(tst.make("3d27p")) == "box"
+    assert sk.sweep3d_order(tst.StencilSpec("c", 3, 1, "box", RUNTIME_TAPS[0])) == "runtime"
+
+
+def test_cpu_wrapper_counts_no_route():
+    spec = tst.make("3d7p")
+    t = torch.from_numpy(_t(8, 4, 1, 8, 1))
+    sk.reset_launches()
+    got = sk.stencil_nd_sweep_ttile(spec, t, 2, 2, 4)
+    multi = sk.stencil_nd_multistep(spec, t, 2, 4, True)
+    halo = sk.stencil_nd_sweep_halo(spec, t, 2, 4, 4)
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
+    assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, 4))
+    assert torch.equal(multi, sk.stencil_nd_multistep_ref(spec, t, 2, 4, True))
+    assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, 2, 4, False))
+    assert {"sweep_3d", "sweep_nd", "multistep_3d", "multistep_nd"} <= set(sk.LAUNCHES)

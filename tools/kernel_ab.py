@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the 1-D and 2-D paths' kernels and K6 of one source tree of the
-port, to hold two trees against each other on one CUDA card.
+"""Time the 1-D, 2-D and 3-D paths' kernels and K6 of one source tree of
+the port, to hold two trees against each other on one CUDA card.
 
-    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|k6]
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k6]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
@@ -25,6 +25,11 @@ Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
 each held bit for bit against its plain composition, by the median host
 time of 5 runs after that check's run.
 
+3-D (3d7p, vl=32, m=8): K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1,
+t0 = 16) on 512³, K4b (``stencil_nd_multistep``, open and ring, depths 2
+and 1) on 544 × 512², the roundtrip's padded shape, and the Dirichlet run
+``ops.stencil_run`` of 512³, 16 steps, as above.
+
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
 the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
@@ -32,7 +37,7 @@ Q=128 bf16 and f32, 1000 at Q=125, 251 at Q=1, 2048 with B and C per
 head), each first held against the plain version (rtol = atol = 2e-4
 f32, 5e-2 bf16; the state at 2e-4), timed with CUDA events; then one
 2048-token ``model.prefill`` of mamba2-2.7b (random bf16 weights from seed
-0), CUDA events, median of 3.  ``--only`` picks one of the two groups.
+0), CUDA events, median of 3.  ``--only`` picks one of the three groups.
 Prints one JSON line per row, then the card's name and power limit.
 
 ``chip_smoke.py`` times the same kernels, but only on the tree it belongs
@@ -58,7 +63,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
-    parser.add_argument("--only", choices=("stencils", "k6"), default=None)
+    parser.add_argument("--only", choices=("stencils", "3d", "k6"), default=None)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -68,9 +73,11 @@ def main() -> int:
     dev = torch.device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if args.only != "k6":
+    if args.only in (None, "stencils"):
         stencil_rows(args.label, dev)
-    if args.only != "stencils":
+    if args.only in (None, "3d"):
+        stencil3d_rows(args.label, dev)
+    if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
     return 0
@@ -80,8 +87,6 @@ def stencil_rows(label: str, dev) -> None:
     import torch
 
     from repro_torch.core import stencils
-    from repro_torch.core.timing import bench
-    from repro_torch.kernels import ops
     from repro_torch.kernels import stencil_kernels as sk
 
     spec = stencils.make("1d3p")
@@ -89,10 +94,7 @@ def stencil_rows(label: str, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def row(kernel, fn, plain):
-        if not torch.equal(fn(), plain()):
-            raise AssertionError(f"{label} {kernel}: differs from the plain version")
-        ms = bench(fn, device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
-        print(json.dumps({"tree": label, "kernel": kernel, "ms": ms}), flush=True)
+        _row(label, dev, kernel, fn, plain)
 
     x = torch.randn(1 << 26, generator=gen, device=dev)
     t = sk.block_transpose_ref(x, vl, m)
@@ -133,30 +135,79 @@ def stencil_rows(label: str, dev) -> None:
                 lambda: sk.stencil_nd_multistep_ref(spec2, tp, depth, t0, edge_mask))
     del tp, buf
 
-    def dirichlet_plain(spec, x, steps):
-        tile = ops.pick_tile(spec, tuple(x.shape))
-        for _ in range(steps // 2):
-            t = sk.block_transpose_ref(x, *tile[:2])
-            t = sk.stencil1d_multistep_ref(spec, t, 2) if spec.ndim == 1 else \
-                sk.stencil_nd_multistep_ref(spec, t, 2, tile[2])
-            x = sk.block_untranspose_ref(t, *tile[:2])
-        return x
-
     for spec, shape in ((spec, (1 << 26,)), (spec2, (8192, 8192))):
-        x = torch.randn(shape, generator=gen, device=dev)
-        if not torch.equal(ops.stencil_run(spec, x, 16, k=2), dirichlet_plain(spec, x, 16)):
-            raise AssertionError(f"{label} {spec.name} Dirichlet run: differs from the "
-                                 "plain version")
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            ops.stencil_run(spec, x, 16, k=2)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - start)
-        print(json.dumps({"tree": label, "run": f"{spec.name} Dirichlet 16 steps",
-                          "seconds_median_of_5": statistics.median(times)}), flush=True)
-        del x
+        dirichlet_row(label, spec, torch.randn(shape, generator=gen, device=dev))
+
+
+def _row(label, dev, kernel, fn, plain):
+    """One kernel's time (CUDA events), after holding it bit for bit
+    against its plain version."""
+    import torch
+
+    from repro_torch.core.timing import bench
+    if not torch.equal(fn(), plain()):
+        raise AssertionError(f"{label} {kernel}: differs from the plain version")
+    ms = bench(fn, device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
+    print(json.dumps({"tree": label, "kernel": kernel, "ms": ms}), flush=True)
+
+
+def dirichlet_row(label, spec, x) -> None:
+    """``ops.stencil_run(spec, x, 16, k=2)``, held against its plain
+    composition, then the median host time of 5 runs."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_kernels as sk
+
+    tile = ops.pick_tile(spec, tuple(x.shape))
+    want = x
+    for _ in range(8):
+        t = sk.block_transpose_ref(want, *tile[:2])
+        t = sk.stencil1d_multistep_ref(spec, t, 2) if spec.ndim == 1 else \
+            sk.stencil_nd_multistep_ref(spec, t, 2, tile[2])
+        want = sk.block_untranspose_ref(t, *tile[:2])
+    if not torch.equal(ops.stencil_run(spec, x, 16, k=2), want):
+        raise AssertionError(f"{label} {spec.name} Dirichlet run: differs from the "
+                             "plain version")
+    del want, t
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.stencil_run(spec, x, 16, k=2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    print(json.dumps({"tree": label, "run": f"{spec.name} Dirichlet 16 steps",
+                      "seconds_median_of_5": statistics.median(times)}), flush=True)
+
+
+def stencil3d_rows(label: str, dev) -> None:
+    import torch
+
+    from repro_torch.core import stencils
+    from repro_torch.kernels import stencil_kernels as sk
+
+    spec = stencils.make("3d7p")
+    vl, m, t0 = 32, 8, 16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = sk.block_transpose_ref(torch.randn(512, 512, 512, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(t)
+    for depth in (4, 2, 1):
+        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+        _row(label, dev, f"K3 3d7p 512^3 depth={depth}",
+             lambda: sk.stencil_nd_sweep_ttile(spec, t, k, tt, t0, out=buf),
+             lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, k, tt, t0))
+    del t, buf
+    tp = sk.block_transpose_ref(torch.randn(544, 512, 512, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(tp)
+    for edge_mask in (False, True):
+        for depth in (2, 1):
+            _row(label, dev, f"K4b 3d7p 544x512^2 {'ring' if edge_mask else 'open'} depth={depth}",
+                 lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=buf),
+                 lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask))
+    del tp, buf
+    dirichlet_row(label, spec, torch.randn(512, 512, 512, generator=gen, device=dev))
+    torch.cuda.empty_cache()
 
 
 def k6_rows(label: str, dev) -> None:
