@@ -16,7 +16,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              register kernel ``transpose_reg`` and of the warp kernels
              (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
              ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
-             1 K4b's ring and open ones; the 3-D K3's and K4b's
+             1 K4b's ring and open ones; ``vl`` 32 the instances of vl=32,
+             0 those of every other vl; the 3-D K3's and K4b's
              ``sweep3d_f32 <M, D, order, ends>`` with each instance's
              threads and dynamic shared memory), with the instance counts,
              and of K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with
@@ -28,11 +29,14 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              the counted run's seconds, and the median of five more runs;
              1d3p runs K1 on its warp kernel, 2d5p K3 on its 2-D warp
              kernel and 3d7p K3 on the 3-D streaming kernel (vl=32; counted
-             as ``sweep_1d`` / ``sweep_2d`` / ``sweep_3d``); a third run
-             (1d3p, 2d5p), fused 16 at the JAX package's vl=128, m=8, takes
-             the shared-memory route (``sweep_1d_smem`` / ``sweep_nd``) and
-             equals the vl=32 run; then 3d27p at 256**3 (the box order on
-             the 3-D kernel), fused 16;
+             as ``sweep_1d`` / ``sweep_2d`` / ``sweep_3d``); then fused 16
+             again at other tiles, each equal to the vl=32 run: 1d3p and
+             2d5p at the JAX package's vl=128, m=8 and at its tuner's vl=8,
+             m=8 (the warp kernels at any vl) and at the tuner pair vl=8,
+             m=16 (the shared-memory route, ``sweep_1d_smem`` /
+             ``sweep_nd``), 3d7p at vl=8, m=8 (the shared-memory route),
+             each run's route asserted before it; then 3d27p at 256**3
+             (the box order on the 3-D kernel), fused 16;
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
@@ -50,16 +54,19 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
   kernels    at those paths' shapes, each kernel against its plain PyTorch
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
-             after warm-up); K1-smem and K3-smem time the shared-memory
-             route at vl=128 (3d7p: m=4); the 3d27p K3 at depth 4 (depths
-             2, 1 and K4b's ring and open bit for bit, untimed); K2 in both
-             directions at the case's tile and
-             (1d3p, 2d5p) at vl=128, on its register route (``transpose``),
-             and for 1d3p at m=16 on its shared-memory route
-             (``transpose_smem``), and bit for bit at 2- and 8-byte
-             elements; each K2 and K4 row names its route and source, and
+             after warm-up); K1 and the 2-D K3 at depths 4, 2, 1 also at
+             vl 4, 8, 16 and 128 (the case's m), on the warp kernels;
+             K1-smem and K3-smem time the shared-memory route at depth 4
+             at a tile that keeps it (vl=8, m=16; 3d7p: vl=128, m=4), the
+             route asserted before each launch; the 3d27p K3 at depth 4
+             (depths 2, 1 and K4b's ring and open bit for bit, untimed);
+             K2 in both directions at the tile of every counted run, on
+             its register route (``transpose``) or, at m=16, its
+             shared-memory route (``transpose_smem``), and bit for bit at
+             2- and 8-byte elements; each row names its route and source;
              a K2 row counts the launches of the case's runs at its own
-             tile;
+             tile, a K1 or K3 row those of its route in the case's runs
+             (``launches``) and at its own tile (``launches_at_tile``);
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
              1d5p 96, 2d5p 64x48, 3d7p 16x8x16) at the tile the GPU picker
              chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
@@ -128,10 +135,16 @@ K = 2
 TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
-SMEM_TILE = (128, 8)     # (vl, m): the JAX package's tile, the shared-memory route
-SMEM_TILE_3D = (128, 4)  # (vl, m): the same at 512**3 (vl·m must divide 512)
+JAX_TILE = (128, 8)      # (vl, m): the JAX package's tile
+TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8, 16})
+SMEM_TILE = (8, 16)      # (vl, m): a tuner pair that keeps the shared-memory route
+SMEM_TILE_3D = (128, 4)  # (vl, m): the 3-D shared-memory row's tile (vl·m divides 512)
+# the fused resident run again at other tiles, with the route each takes
+OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
+               2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
+               3: ((TUNER_TILE, "smem"),)}
+ROW_VLS = (4, 8, 16, 128)  # K1 and the 2-D K3 rows off vl=32, at the case's m
 BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming kernel
-K2_SMEM_TILE = (32, 16)  # (vl, m): a 1d3p tile on K2's shared-memory route
 # template type arguments in mangled names: unsigned short / int / long long, float, bf16
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
 TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)))
@@ -567,10 +580,10 @@ def main() -> int:
                     for n, r in reports.items()},
           "transpose_reg <T, M, vec, to_layout>": ptxas_kernels(
               build.report("transpose"), "transpose_reg"),
-          "sweep1d_warp_f32 <M, R, B, order, edge>": ptxas_kernels(
+          "sweep1d_warp_f32 <M, R, B, order, edge, vl> (vl 0: any)": ptxas_kernels(
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 instances": len(warp2d),
-          "sweep2d_warp_f32 <M, R, D, order, ends>": warp2d,
+          "sweep2d_warp_f32 <M, R, D, order, ends, vl> (vl 0: any)": warp2d,
           "sweep3d_f32 instances": len(sweep3d),
           "sweep3d_f32 <M, D, order, ends> (order 0 run time, 1 star, 2 box)": sweep3d,
           **k6_ptxas,
@@ -711,12 +724,12 @@ def main() -> int:
 
     entries = []
 
-    def row(kid, fname, label, src, launches, err, kern, plain, b, library):
+    def row(kid, fname, label, src, launches, err, kern, plain, b, library, **extra):
         entries.append({
             "name": f"{kid} {fname} [{label}]", "route": "cuda", "source": SOURCES[src],
             "replaces": REPLACES[kid], "launches": launches, "max_abs_err": err,
             "ms": ms(kern), "plain_ms": ms(plain), "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": library() if library else None,
+            "library_ms": library() if library else None, **extra,
         })
         emit({"phase": "kernels", **entries[-1]})
 
@@ -775,25 +788,31 @@ def main() -> int:
                   "seconds_median_of_5": median,
                   "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
                   "max_abs_err_vs_plain": err, "bitwise": True})
-        if spec.ndim <= 2:
-            # the same fused run at the JAX package's tile: the smem route
-            remainder, steps = PLANS[0]
-            vl2, m2 = SMEM_TILE
+        # the same fused run at other tiles: the JAX package's vl=128 and
+        # its tuner's vl=8 (the register kernels at 1-D and 2-D), a tuner
+        # pair with m=16 and, at 3-D, vl=8 (the shared-memory route)
+        remainder, steps = PLANS[0]
+        for tile, route in OTHER_TILES[spec.ndim]:
+            vl2, m2 = tile
             t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
-            plan = plan_of("resident", remainder, TTILE, SMEM_TILE)
+            plan = plan_of("resident", remainder, TTILE, tile)
+            owned = resident_counts(spec, steps, remainder, vl2, m2)
+            want_key = sweep_key if route == "reg" else smem_key
+            if set(owned) - {k2_key(vl2, m2)} != {want_key}:
+                raise AssertionError(f"{name} at vl={vl2}, m={m2}: the schedule's launches "
+                                     f"{owned} are not on the {want_key} route")
             prob.run(x, 2, plan)
-            launches = sum(n for _, n in sweep_schedule(K, steps, remainder, TTILE)[0])
-            y, seconds, got = counted(f"{name} resident {remainder} vl={vl2}",
-                                      lambda: prob.run(x, steps, plan),
-                                      {k2_key(vl2, m2): 2, smem_key: launches})
-            counts[(SMEM_TILE, "resident", remainder)] = got
-            err = same(f"{name} resident {remainder} vl={vl2} vs plain", y,
+            y, seconds, got = counted(f"{name} resident {remainder} vl={vl2} m={m2}",
+                                      lambda: prob.run(x, steps, plan), owned)
+            counts[(tile, "resident", remainder)] = got
+            err = same(f"{name} resident {remainder} vl={vl2} m={m2} vs plain", y,
                        resident_plain(spec, x, steps, remainder, vl2, m2, t02))
-            same(f"{name} resident {remainder} vl={vl2} vs vl={vl}", y, resident[remainder][0])
+            same(f"{name} resident {remainder} vl={vl2} m={m2} vs vl={vl}", y,
+                 resident[remainder][0])
             emit({"phase": "main_path", "case": name, "shape": list(shape),
                   "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
                   "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
-                  "tile": {"vl": vl2, "m": m2, "t0": t02}, "route": smem_key,
+                  "tile": {"vl": vl2, "m": m2, "t0": t02}, "route": want_key,
                   "seconds": seconds,
                   "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
                   "gpoint_updates_per_s": numel * steps / seconds,
@@ -853,10 +872,9 @@ def main() -> int:
         del y
         launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
 
-        # -- K2: transpose in and out, at the case's tile and the vl=128
-        # run's, and (1d3p) one tile on the shared-memory route ------------
-        k2_tiles = [(vl, m)] + [SMEM_TILE] * (spec.ndim <= 2) + [K2_SMEM_TILE] * (spec.ndim == 1)
-        for tile in k2_tiles:
+        # -- K2: transpose in and out at the tile of every counted run (m=16:
+        # its shared-memory route) ------------------------------------------
+        for tile in sorted({t for (t, *_) in counts}, key=lambda t: (t != (vl, m), t)):
             at_tile = sum(c[k2_key(*tile)] for (t, *_), c in counts.items() if t == tile)
             k2_rows(name, dims, x, *tile, at_tile, grid_bytes)
         for dtype in (torch.float16, torch.float64):
@@ -869,59 +887,52 @@ def main() -> int:
                   "route": sk.transpose_route(vl, m, xd.element_size()),
                   "max_abs_err": err, "bitwise": True})
             del xd, td
-        t = sk.block_transpose(x, vl, m)
-        buf = torch.empty_like(t)
 
-        # -- K1 / K3: the resident sweep at every depth the main path launches
+        # -- K1 / K3: the resident sweep at every depth the main path launches,
+        # at the case's tile and (1-D, 2-D) at the other vl of ROW_VLS
         kid = "K1" if spec.ndim == 1 else "K3"
         fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
         src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep3d"}[spec.ndim]
-        for depth in (4, 2, 1):
-            kk, tt = (K, depth // K) if depth > K else (depth, 1)
-            if spec.ndim == 1:
+        route_of = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
+
+        def sweep_row(rkid, tile, depths, source, key, t02):
+            """K1 / K3 rows at the (vl, m) tile, each depth bit for bit the
+            plain version; ``key``: the route's counter."""
+            vl2, m2 = tile
+            t2 = sk.block_transpose(x, vl2, m2)
+            buf2 = torch.empty_like(t2)
+            at_tile = sum(c[key] for (t, *_), c in counts.items() if t == tile)
+            for depth in depths:
+                if (route_of(vl2, m2, depth, spec.r) == "smem") != (key == smem_key):
+                    raise AssertionError(f"{name} vl={vl2} m={m2} depth {depth} does not take "
+                                         f"the {key} route")
+                kk, tt = (K, depth // K) if depth > K else (depth, 1)
+
                 def kern():
-                    return sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf)
+                    if spec.ndim == 1:
+                        return sk.stencil1d_sweep_ttile(spec, t2, kk, tt, out=buf2)
+                    return sk.stencil_nd_sweep_ttile(spec, t2, kk, tt, t02, out=buf2)
 
                 def plain():
-                    return sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt)
-            else:
-                def kern():
-                    return sk.stencil_nd_sweep_ttile(spec, t, kk, tt, t0, out=buf)
+                    if spec.ndim == 1:
+                        return sk.stencil1d_sweep_ttile_ref(spec, t2, kk, tt)
+                    return sk.stencil_nd_sweep_ttile_ref(spec, t2, kk, tt, t02)
+                err = same(f"{name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
+                row(rkid, fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}; route {key}",
+                    source, launched[key], err, kern, plain,
+                    bound(grid_bytes, depth * spec.flops_per_point * numel),
+                    lambda: ms(conv_steps, spec, x, depth, weight), launches_at_tile=at_tile)
+            del t2, buf2
 
-                def plain():
-                    return sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t0)
-            err = same(f"{name} {kid} depth {depth}", kern(), plain())
-            row(kid, fname, f"{name} {dims} vl={vl} m={m} depth={depth}", src,
-                launched[sweep_key], err, kern, plain,
-                bound(grid_bytes, depth * spec.flops_per_point * numel),
-                lambda: ms(conv_steps, spec, x, depth, weight))
-        del t, buf
-        # the shared-memory route, at the vl=128 run's depth 4 (3-D: a
-        # tile no main path run takes)
-        vl2, m2 = SMEM_TILE if spec.ndim <= 2 else SMEM_TILE_3D
-        t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
-        t2 = sk.block_transpose(x, vl2, m2)
-        buf2 = torch.empty_like(t2)
-        depth = K * TTILE
-        route = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
-        if route(vl2, m2, depth, spec.r) != "smem":
-            raise AssertionError(f"vl={vl2}, m={m2} does not take the smem route")
-
-        def kern():
-            if spec.ndim == 1:
-                return sk.stencil1d_sweep_ttile(spec, t2, K, TTILE, out=buf2)
-            return sk.stencil_nd_sweep_ttile(spec, t2, K, TTILE, t02, out=buf2)
-
-        def plain():
-            if spec.ndim == 1:
-                return sk.stencil1d_sweep_ttile_ref(spec, t2, K, TTILE)
-            return sk.stencil_nd_sweep_ttile_ref(spec, t2, K, TTILE, t02)
-        err = same(f"{name} {kid}-smem depth {depth}", kern(), plain())
-        row(f"{kid}-smem", fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}", "sweep",
-            launched[smem_key], err, kern, plain,
-            bound(grid_bytes, depth * spec.flops_per_point * numel),
-            lambda: ms(conv_steps, spec, x, depth, weight))
-        del t2, buf2
+        sweep_row(kid, (vl, m), (4, 2, 1), src, sweep_key, t0)
+        if spec.ndim <= 2:
+            for vl2 in ROW_VLS:
+                sweep_row(kid, (vl2, m), (4, 2, 1), src, sweep_key,
+                          ops.pick_tile(spec, shape, vl2, m)[2])
+        # the shared-memory route at depth 4, at a tile that still takes it
+        tile = SMEM_TILE if spec.ndim <= 2 else SMEM_TILE_3D
+        sweep_row(f"{kid}-smem", tile, (K * TTILE,), "sweep", smem_key,
+                  ops.pick_tile(spec, shape, *tile)[2])
 
         # -- K4: the multistep sweep at the roundtrip's padded shape ---------
         kid = "K4a" if spec.ndim == 1 else "K4b"

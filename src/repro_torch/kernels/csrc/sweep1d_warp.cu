@@ -1,23 +1,32 @@
 // Depth-`depth` advance of a 1-D grid held in the paper's local transpose
-// layout (nb, m, vl = 32), one launch per sweep chunk: K1's and K4a's
+// layout (nb, m, vl), one launch per sweep chunk: K1's and K4a's
 // warp-register kernel.
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d as launched by
 // stencil1d_sweep_ttile (K1, fully periodic) and by stencil1d_multistep /
 // stencil1d_sweep_halo (K4a, with `edge_mask`: a Dirichlet ring, or open
-// ends), for vl = 32, m in {1, 2, 4, 8} and depth * r <= 32 * m
+// ends), for any vl, m in {1, 2, 4, 8} and depth * r <= 32 * m
 // (stencil_kernels.sweep1d_route picks it before the launch).  Every other
 // shape takes the shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
-// A block row of the layout is 32 floats, one per lane, so lane j of a warp
-// holds natural column j of a block: its m consecutive natural elements, in
-// m registers.  A warp owns a run of B consecutive blocks and loads it with
-// one halo block on each side: B + 2 slots of m registers per lane, each
-// row one coalesced 128-byte load.  The halo blocks' indices wrap mod nb,
-// so a grid of fewer blocks (down to nb = 1) loads the same block into
-// several slots.  The slots hold (B + 2) * 32 * m consecutive natural
-// elements of the periodic grid.
+// The layout's C = nb * vl columns each hold m consecutive natural
+// elements; column c's element s lives at ((c / vl) * m + s) * vl + c % vl.
+// A warp row is 32 consecutive columns, and lane j of warp row v holds
+// column (32 * v + j) mod C: its m elements, in m registers, whatever vl is.
+// At vl = 32 a warp row is a layout block.  A warp owns a run of B
+// consecutive warp rows and loads it with one halo warp row on each side:
+// B + 2 slots of m registers per lane.  Each lane computes its column's
+// offset once per slot (a shift and a mask when vl is a power of two, else
+// one division), and reads row s at offset + s * vl: a warp's load of a row
+// is 32 / vl runs of vl floats (vl <= 32) or one run of 32.  Columns are
+// taken mod C, so a grid of fewer than 32 columns wraps within a slot.  The
+// slots hold (B + 2) * 32 * m consecutive natural elements of the periodic
+// grid.  vl = 32 has instances of its own (kVl), with every stride a
+// constant and the ends tested per slot: a slot then lies inside the grid
+// or beyond it as a whole.  The instances of any other vl (kVl = 0) cost
+// the address arithmetic of a run-time vl, once per slot at the load and
+// the store.
 //
 // Each step runs in registers.  A tap shift inside a column is a register
 // index.  The r rows beyond each end of a column come from lane j - 1 and
@@ -33,22 +42,25 @@
 // The two ends of the loaded span have no loaded neighbour (the slot's own
 // rows stand in), so after `depth` steps the outer depth * r elements of
 // each end are wrong.  They lie inside the halo slots as long as
-// depth * r <= 32 * m, and only the middle B slots are stored, those whose
-// block index is below nb: never a wrapped duplicate.  No shared memory, no
-// barrier, no division per element.  Idle warps of the last CTA compute
-// the last run again and store nothing, so every lane runs every shuffle.
+// depth * r <= 32 * m, and a lane stores only in the middle B slots, and
+// only when its unwrapped column 32 * v + j lies in [0, C): each column
+// once, never a wrapped duplicate.  No shared memory, no barrier, no
+// division per element.  Idle warps of the last CTA compute the last run
+// again and store nothing, so every lane runs every shuffle.
 //
-// The ends of the grid (kEdge, warp-uniform, a template parameter):
+// The ends of the grid (kEdge, warp-uniform, a template parameter), decided
+// per lane by its unwrapped column u (at vl = 32 per slot):
 // - periodic: as above.
-// - open: cells beyond either end read as 0 at every step.  A slot whose
-//   unwrapped block index b0 - 1 + i lies outside [0, nb) is loaded as zeros
-//   and never written, so it is the exact neighbour of the end block.
-// - ring: the r cells nearest each end keep their value (lane 0 of block 0,
-//   rows < r; lane 31 of block nb - 1, rows >= m - r).  The periodic update
-//   runs unchanged, and those two lanes put back the values they loaded as
-//   each slot is written.  A cell at least r from an end never reads beyond
-//   it, so what a wrapped slot holds reaches only ring cells, which are
-//   restored: bit for bit the plain version's where(ring, old, step).
+// - open: cells beyond either end read as 0 at every step.  A lane whose u
+//   lies outside [0, C) loads zeros and never writes them, so it is the
+//   exact neighbour of the end column.
+// - ring: the r cells nearest each end keep their value (rows < r of the
+//   lane with u = 0, rows >= m - r of the lane with u = C - 1).  The
+//   periodic update runs unchanged, and those two lanes put back the values
+//   they loaded as each slot is written.  A cell at least r from an end
+//   never reads beyond it, so what a wrapped column holds reaches only ring
+//   cells, which are restored: bit for bit the plain version's where(ring,
+//   old, step).
 //
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to float; built with -fmad=false this is
@@ -59,16 +71,18 @@
 //
 // Bound on H100: bytes.  A launch must read the grid once and write it once
 // (2 * numel * 4 bytes); its arithmetic is depth * (2 * taps - 1) flops per
-// point, far below the FP32 rate.  Each block is read from device memory by
-// its own warp; the halo slots are the neighbouring warps' blocks, mostly
+// point, far below the FP32 rate.  Each warp row is read from device memory
+// by its own warp; the halo slots are the neighbouring warps' rows, mostly
 // L2 hits.  The cost of the design is the 2 / B halo recompute; B is chosen
-// per m so that a lane's (B + 2) * m values stay at 80 or below.
+// per m so that a lane's (B + 2) * m values stay at 80 or below.  At vl < 8
+// a row load uses half of each 32-byte sector; the other half is the next
+// row's, read from L1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kVl = 32;       // the layout's vl: one lane per column
+constexpr int kLanes = 32;    // a warp row: one column per lane
 constexpr int kWarps = 4;     // warps per CTA
 constexpr int kMaxTaps = 16;
 constexpr int kMaxR = 4;
@@ -77,7 +91,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // the ends of the grid, numbered as csrc/stencil_sweep.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
-// Blocks per warp run, by m (stencil_kernels.WARP_BLOCKS holds the same).
+// Warp rows per warp run, by m (stencil_kernels.WARP_BLOCKS holds the same).
 // m = 1 stops at 32: nvcc leaves a loop of 66 slots rolled, which puts them
 // in local memory.
 constexpr int run_blocks(int m) { return m == 1 ? 32 : m == 2 ? 32 : m == 4 ? 16 : 8; }
@@ -92,6 +106,27 @@ __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   if (i >= 0 && i < n) return i;
   const int64_t r = i % n;
   return r < 0 ? r + n : r;
+}
+
+// The layout's columns: C of them, vl to a block, m elements each.  shift
+// is log2(vl) when vl is a power of two, else -1.
+struct Cols {
+  int64_t n;
+  int vl, shift;
+};
+
+// Offset of element 0 of column c (0 <= c < C); element s is s * vl on.
+template <int M>
+__device__ __forceinline__ int64_t col_offset(int64_t c, const Cols& cols) {
+  int64_t q, rem;
+  if (cols.shift >= 0) {
+    q = c >> cols.shift;
+    rem = c & (cols.vl - 1);
+  } else {
+    q = c / cols.vl;
+    rem = c - q * cols.vl;
+  }
+  return q * (M * cols.vl) + rem;
 }
 
 // acc[s] (+)= ext[R + s + O] * cf for every row s: a register index.  ext
@@ -164,36 +199,72 @@ __device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&ext)[M
   }
 }
 
-template <int M, int R, int B, int kOrder, int kEdge>
-__global__ void __launch_bounds__(kVl * kWarps, 1)
-sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t nb,
+// The periodic and open instances are held to 168 registers, three CTAs an
+// SM: at m = 8 more registers leave two, and the sweep streams less well.
+// The ring instances need more.
+template <int M, int R, int B, int kOrder, int kEdge, int kVl>
+__global__ void __launch_bounds__(kLanes * kWarps, kEdge == kRing ? 1 : 3)
+sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols cols,
                  int64_t nruns, int depth, Taps1 taps) {
-  constexpr int S = B + 2;   // slots: the halo block, the run, the halo block
-  const int lane = threadIdx.x & (kVl - 1);
+  constexpr int S = B + 2;   // slots: the halo warp row, the run, the halo warp row
+  const int lane = threadIdx.x & (kLanes - 1);
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = w < nruns;
-  const int64_t b0 = (live ? w : nruns - 1) * B;   // the run's first block
-  // the grid's ends in slot terms: slot 1 holds block 0 in the first run
-  // (slot 0 lies before it), slot `last` holds block nb - 1 where last < S
-  // (the slots after it lie beyond it)
-  const bool first_run = b0 == 0;
-  const int last = (int)(nb - b0 < S ? nb - b0 : S);
-  // v[i][s]: row s of this lane's column in slot i (block b0 - 1 + i)
+  const int64_t C = cols.n;
+  const int vl = kVl > 0 ? kVl : cols.vl;
+  // lane 0's column in slot 0, unwrapped (only the first run's slot 0 lies
+  // before column 0), and this lane's: slot i holds u0 + 32 * i
+  const int64_t ub = ((live ? w : nruns - 1) * B - 1) * kLanes;
+  const int64_t u0 = ub + lane;
+  const bool first_run = ub < 0;
+  // Slot i's columns against the grid's ends.  At vl = 32 (C a multiple of
+  // 32) a slot lies inside the grid or beyond it as a whole, and slot `last`
+  // (if below S) holds column C - 1 in lane 31: tests per slot.  At any
+  // other vl each lane tests its own column.
+  const int64_t tail_slot = (C - ub) / kLanes - 1;
+  const int last = (int)(tail_slot < S ? tail_slot : S);
+  auto beyond = [&](int i) {
+    if constexpr (kVl == kLanes) {
+      return (i == 0 && first_run) || i > last;
+    } else {
+      const int64_t u = u0 + i * kLanes;
+      return u < 0 || u >= C;
+    }
+  };
+  auto holds_end = [&](int i) {   // column C - 1 is this lane's in slot i
+    if constexpr (kVl == kLanes) {
+      return i == last && lane == kLanes - 1;
+    } else {
+      return u0 + i * kLanes == C - 1;
+    }
+  };
+  // element 0 of this lane's column in slot i (at vl = 32 slot i is layout
+  // block ub / 32 + i), wrapped into the grid where it lies beyond it
+  auto offset = [&](int i, bool wrapped) {
+    if constexpr (kVl == kLanes) {
+      const int64_t b = ub / kLanes + i;
+      return (wrapped ? wrap(b, C / kLanes) : b) * (M * kLanes) + lane;
+    } else {
+      const int64_t u = u0 + i * kLanes;
+      return col_offset<M>(wrapped ? wrap(u, C) : u, cols);
+    }
+  };
+  // v[i][s]: row s of this lane's column in slot i
   float v[S][M];
   float ring_lo[R], ring_hi[R];   // ring mode: the loaded ring rows
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const bool beyond = (i == 0 && first_run) || i > last;
-    if (kEdge == kOpen && beyond) {
+    if (kEdge == kOpen && beyond(i)) {
 #pragma unroll
       for (int s = 0; s < M; ++s) v[i][s] = 0.0f;
       continue;
     }
-    const float* src = in + wrap(b0 - 1 + i, nb) * (M * kVl) + lane;
+    const float* src = in + offset(i, true);
 #pragma unroll
-    for (int s = 0; s < M; ++s) v[i][s] = src[s * kVl];
+    for (int s = 0; s < M; ++s) v[i][s] = src[s * vl];
   }
   if (kEdge == kRing) {
+    // column 0 is lane 0 of the first run's slot 1
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       ring_lo[q] = v[1][q];
@@ -201,14 +272,14 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
     }
 #pragma unroll
     for (int i = 1; i < S; ++i) {
-      if (i == last) {
+      if (holds_end(i)) {
 #pragma unroll
         for (int q = 0; q < R; ++q) ring_hi[q] = v[i][M - R + q];
       }
     }
   }
-  const int left = (lane + kVl - 1) & (kVl - 1);
-  const int right = (lane + 1) & (kVl - 1);
+  const int left = (lane + kLanes - 1) & (kLanes - 1);
+  const int right = (lane + 1) & (kLanes - 1);
 #pragma unroll 1
   for (int step = 0; step < depth; ++step) {
     // old rows M-1-q of the previous slot (slot 0 has none loaded: its own
@@ -223,7 +294,7 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
       float ext[M + 2 * R];
 #pragma unroll
       for (int q = 0; q < R; ++q) {
-        const float to_right = lane == kVl - 1 ? tail[q] : v[i][M - 1 - q];
+        const float to_right = lane == kLanes - 1 ? tail[q] : v[i][M - 1 - q];
         ext[R - 1 - q] = __shfl_sync(kFull, to_right, left);
         const float to_left = lane == 0 ? v[nxt][q] : v[i][q];
         ext[R + M + q] = __shfl_sync(kFull, to_left, right);
@@ -239,12 +310,12 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
 #pragma unroll
           for (int q = 0; q < R; ++q) acc[q] = ring_lo[q];
         }
-        if (i == last && lane == kVl - 1) {
+        if (holds_end(i)) {
 #pragma unroll
           for (int q = 0; q < R; ++q) acc[M - R + q] = ring_hi[q];
         }
       }
-      const bool hold = kEdge == kOpen && ((i == 0 && first_run) || i > last);
+      const bool hold = kEdge == kOpen && beyond(i);
       if (!hold) {
 #pragma unroll
         for (int s = 0; s < M; ++s) v[i][s] = acc[s];
@@ -254,69 +325,67 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   if (live) {
 #pragma unroll
     for (int i = 1; i <= B; ++i) {
-      const int64_t b = b0 - 1 + i;
-      if (b < nb) {
-        float* dst = out + b * (M * kVl) + lane;
+      if (!beyond(i)) {
+        float* dst = out + offset(i, false);
 #pragma unroll
-        for (int s = 0; s < M; ++s) dst[s * kVl] = v[i][s];
+        for (int s = 0; s < M; ++s) dst[s * vl] = v[i][s];
       }
     }
   }
 }
 
 template <int M, int R, int kEdge>
-int launch(const float* in, float* out, int64_t nb, int depth, const Taps1& taps,
+int launch(const float* in, float* out, const Cols& cols, int depth, const Taps1& taps,
            int order, cudaStream_t stream) {
   constexpr int B = run_blocks(M);
-  const int64_t nruns = (nb + B - 1) / B;
+  const int64_t wrows = (cols.n + kLanes - 1) / kLanes;   // warp rows
+  const int64_t nruns = (wrows + B - 1) / B;
   const int64_t ctas = (nruns + kWarps - 1) / kWarps;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)ctas;
-  constexpr int kThreads = kVl * kWarps;
-  switch (order) {
-    case kCenterFirst:
-      sweep1d_warp_f32<M, R, B, kCenterFirst, kEdge><<<grid, kThreads, 0, stream>>>(
-          in, out, nb, nruns, depth, taps);
-      break;
-    case kAscending:
-      sweep1d_warp_f32<M, R, B, kAscending, kEdge><<<grid, kThreads, 0, stream>>>(
-          in, out, nb, nruns, depth, taps);
-      break;
-    default:
-      sweep1d_warp_f32<M, R, B, kRuntime, kEdge><<<grid, kThreads, 0, stream>>>(
-          in, out, nb, nruns, depth, taps);
-  }
+  constexpr int kThreads = kLanes * kWarps;
+  // vl = 32 has instances of its own, every stride a constant
+  const bool v32 = cols.vl == kLanes;
+  const auto kernel =
+      order == kCenterFirst
+          ? (v32 ? sweep1d_warp_f32<M, R, B, kCenterFirst, kEdge, kLanes>
+                 : sweep1d_warp_f32<M, R, B, kCenterFirst, kEdge, 0>)
+      : order == kAscending ? (v32 ? sweep1d_warp_f32<M, R, B, kAscending, kEdge, kLanes>
+                                   : sweep1d_warp_f32<M, R, B, kAscending, kEdge, 0>)
+                            : (v32 ? sweep1d_warp_f32<M, R, B, kRuntime, kEdge, kLanes>
+                                   : sweep1d_warp_f32<M, R, B, kRuntime, kEdge, 0>);
+  kernel<<<grid, kThreads, 0, stream>>>(in, out, cols, nruns, depth, taps);
   return (int)cudaGetLastError();
 }
 
 template <int M, int R>
-int launch_edge(const float* in, float* out, int64_t nb, int depth, const Taps1& taps,
+int launch_edge(const float* in, float* out, const Cols& cols, int depth, const Taps1& taps,
                 int order, int edge, cudaStream_t stream) {
   switch (edge) {
-    case kPeriodic: return launch<M, R, kPeriodic>(in, out, nb, depth, taps, order, stream);
-    case kRing: return launch<M, R, kRing>(in, out, nb, depth, taps, order, stream);
-    case kOpen: return launch<M, R, kOpen>(in, out, nb, depth, taps, order, stream);
+    case kPeriodic: return launch<M, R, kPeriodic>(in, out, cols, depth, taps, order, stream);
+    case kRing: return launch<M, R, kRing>(in, out, cols, depth, taps, order, stream);
+    case kOpen: return launch<M, R, kOpen>(in, out, cols, depth, taps, order, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // r <= m: the instances that exist
 template <int M>
-int launch_m(const float* in, float* out, int64_t nb, int r, int depth, const Taps1& taps,
-             int order, int edge, cudaStream_t stream) {
+int launch_m(const float* in, float* out, const Cols& cols, int r, int depth,
+             const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_edge<M, 1>(in, out, nb, depth, taps, order, edge, stream);
+    case 1: return launch_edge<M, 1>(in, out, cols, depth, taps, order, edge, stream);
     case 2:
       if constexpr (M >= 2)
-        return launch_edge<M, 2>(in, out, nb, depth, taps, order, edge, stream);
+        return launch_edge<M, 2>(in, out, cols, depth, taps, order, edge, stream);
       break;
     case 3:
       if constexpr (M >= 4)
-        return launch_edge<M, 3>(in, out, nb, depth, taps, order, edge, stream);
+        return launch_edge<M, 3>(in, out, cols, depth, taps, order, edge, stream);
       break;
     case 4:
       if constexpr (M >= 4)
-        return launch_edge<M, 4>(in, out, nb, depth, taps, order, edge, stream);
+        return launch_edge<M, 4>(in, out, cols, depth, taps, order, edge, stream);
       break;
     default: break;
   }
@@ -340,15 +409,15 @@ extern "C" int64_t repro_sweep1d_warp_blocks(int64_t m) { return run_blocks((int
 
 // `depth` steps of the (nb, m, vl) layout array `in` into `out` (another
 // buffer), for a stencil of reach r, with the grid's ends `edge` (0
-// periodic, 1 ring, 2 open).  `blocks` must be the run length this build
-// uses for m; `offsets` / `coeffs`: ntaps tap offsets and float coefficients
-// in host memory.  Returns the CUDA error code.
+// periodic, 1 ring, 2 open), at any vl.  `blocks` must be the run length
+// this build uses for m; `offsets` / `coeffs`: ntaps tap offsets and float
+// coefficients in host memory.  Returns the CUDA error code.
 extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int64_t m,
                                       int64_t vl, int64_t r, int64_t blocks, int64_t depth,
                                       int64_t edge, int64_t ntaps, const int32_t* offsets,
                                       const float* coeffs, void* stream) {
-  if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || blocks != run_blocks((int)m) ||
-      nb < 1 || r < 1 || r > m || r > kMaxR || depth < 0 || depth * r > kVl * m ||
+  if ((m != 1 && m != 2 && m != 4 && m != 8) || blocks != run_blocks((int)m) || nb < 1 ||
+      vl < 1 || vl > (1 << 30) || r < 1 || r > m || r > kMaxR || depth < 0 || depth * r > kLanes * m ||
       ntaps < 1 || ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps1 taps;
@@ -363,10 +432,12 @@ extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rr = (int)r, d = (int)depth, order = tap_order(offsets, ntaps, r);
   const int e = (int)edge;
+  const int shift = (vl & (vl - 1)) == 0 ? __builtin_ctzll((unsigned long long)vl) : -1;
+  const Cols cols{nb * vl, (int)vl, shift};
   switch (m) {
-    case 1: return launch_m<1>(src, dst, nb, rr, d, taps, order, e, st);
-    case 2: return launch_m<2>(src, dst, nb, rr, d, taps, order, e, st);
-    case 4: return launch_m<4>(src, dst, nb, rr, d, taps, order, e, st);
-    default: return launch_m<8>(src, dst, nb, rr, d, taps, order, e, st);
+    case 1: return launch_m<1>(src, dst, cols, rr, d, taps, order, e, st);
+    case 2: return launch_m<2>(src, dst, cols, rr, d, taps, order, e, st);
+    case 4: return launch_m<4>(src, dst, cols, rr, d, taps, order, e, st);
+    default: return launch_m<8>(src, dst, cols, rr, d, taps, order, e, st);
   }
 }

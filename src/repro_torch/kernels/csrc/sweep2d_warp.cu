@@ -1,29 +1,39 @@
 // Depth-`depth` advance of a 2-D grid held in the paper's local transpose
-// layout (n0, nb, m, vl = 32) on its minor axis, one launch per sweep chunk:
+// layout (n0, nb, m, vl) on its minor axis, one launch per sweep chunk:
 // K3's and K4b's warp-register kernel for 2-D stencils.
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
 // stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
-// ends of axis 0), for 2-D stencils of reach r = 1, vl = 32, m in
+// ends of axis 0), for 2-D stencils of reach r = 1, any vl, m in
 // {1, 2, 4, 8} and depth up to repro_sweep2d_warp_max_depth(m)
 // (stencil_kernels.sweep2d_route picks it before the launch).  3-D grids
 // and every other 2-D shape take the shared-memory kernel of
 // csrc/stencil_sweep.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
-// axis 0.  Lane j of a warp holds natural column j of one layout block: its
-// m consecutive elements of a row, in m registers, so a tap shift along x
-// inside a column is a register index; the r elements beyond a column's
-// ends come from lanes j - 1 and j + 1 by shuffle, and lane 0 (31) takes
-// the previous (next) block's edge elements instead, a select after the
-// shuffle.  A CTA holds kWarps warps on kWarps consecutive blocks of a row,
-// block indices wrapped mod nb (so nb = 1 works); a block's neighbour is
-// another warp, so each warp publishes the r edge elements of its lanes 0
-// and 31 in shared memory.  The two end warps are halo: their outer
-// neighbours are missing (their own edges stand in), the error this makes
-// moves r elements per step, and depth * r <= 32 * m keeps it inside them.
-// Only the middle warps store, and only blocks below nb: each block once.
+// axis 0.  A row's C = nb * vl columns each hold m consecutive elements;
+// column c's element s lies at ((c / vl) * m + s) * vl + c % vl of the row.
+// A warp row is 32 consecutive columns, and lane j of warp row v holds
+// column (32 * v + j) mod C, whatever vl is: its m elements of a row, in m
+// registers, so a tap shift along x inside a column is a register index;
+// the r elements beyond a column's ends come from lanes j - 1 and j + 1 by
+// shuffle, and lane 0 (31) takes the previous (next) warp row's edge
+// elements instead, a select after the shuffle.  A CTA holds kWarps warps
+// on kWarps consecutive warp rows, their columns unwrapped and taken mod C
+// lane by lane (so C < 32 and a partial last warp row work); a warp row's
+// neighbour is another warp, so each warp publishes the r edge elements of
+// its lanes 0 and 31 in shared memory.  The two end warps are halo: their
+// outer neighbours are missing (their own edges stand in), the error this
+// makes moves r elements per step, and depth * r <= 32 * m keeps it inside
+// them.  Only the middle warps store, and a lane only when its unwrapped
+// column lies in [0, C): each column once, by a predicated store, so that
+// no lane's test splits its warp ahead of the next step's shuffles (a
+// branch there makes nvcc wrap each shuffle in code for a split warp).  Each lane computes its column's offset once per CTA
+// (a shift and a mask when vl is a power of two, else one division).
+// vl = 32 has instances of its own (kVl), with every stride a constant:
+// a run-time stride costs the copies and stores an address computation
+// per element.
 //
 // Along axis 0 a CTA walks a segment of rows [y0, y1), starting depth * r
 // rows early and ending depth * r rows late, row indices wrapped mod n0 (in
@@ -42,7 +52,11 @@
 //
 // Input rows reach shared memory ahead of use: each lane copies its own m
 // elements of row i + kStages with cp.async while step i computes (kStages
-// rows of every warp in flight, a ring of kStages + 1 slots).
+// rows of every warp in flight, a ring of kStages + 1 slots, 32 columns a
+// warp).  A warp's copy of an element row is 32 / vl runs of vl floats
+// (vl <= 32) or one run of 32; at vl < 8 each run is half a 32-byte sector,
+// whose other half the copy of the next element row reads from L1 (the
+// copies are the L1-caching .ca form).
 //
 // The ends of axis 0 (the minor axis stays periodic).  Every thread of a
 // CTA makes the same row of a level at a step, so whether that row lies at
@@ -84,9 +98,9 @@
 
 namespace {
 
-constexpr int kVl = 32;                  // the layout's vl: one lane per column
+constexpr int kLanes = 32;               // a warp row: one column per lane
 constexpr int kWarps = 10;               // warps per CTA: 8 stored blocks + 2 halo
-constexpr int kThreads = kVl * kWarps;
+constexpr int kThreads = kLanes * kWarps;
 constexpr int kStages = 6;               // input rows in flight per warp
 constexpr int kSlots = kStages + 1;      // the ring of input rows
 constexpr int kMaxTaps = 64;
@@ -115,6 +129,41 @@ __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   return r < 0 ? r + n : r;
 }
 
+// The layout's columns: C of them a row, vl to a block, m elements each.
+// shift is log2(vl) when vl is a power of two, else -1.
+struct Cols {
+  int64_t n;
+  int vl, shift;
+};
+
+// Offset of element 0 of column u mod C (u unwrapped) in its row; element s
+// is s * vl on.  kVl: vl when the instance fixes it, else 0, and then C <
+// 2^30: 32-bit arithmetic, which nvcc inlines (its 64-bit division is a
+// call, and a call ahead of the shuffles makes it wrap each shuffle in code
+// for a split warp).
+template <int M, int kVl>
+__device__ __forceinline__ int64_t col_offset(int64_t u, const Cols& cols) {
+  if constexpr (kVl > 0) {
+    const int64_t c = wrap(u, cols.n);
+    return c / kVl * (M * kVl) + c % kVl;
+  } else {
+    int c = (int)u;                       // -32 <= u < C + 32 * kWarps
+    if (c < 0 || c >= (int)cols.n) {
+      c %= (int)cols.n;
+      if (c < 0) c += (int)cols.n;
+    }
+    unsigned q, rem;
+    if (cols.shift >= 0) {
+      q = (unsigned)c >> cols.shift;
+      rem = (unsigned)c & (cols.vl - 1);
+    } else {
+      q = (unsigned)c / (unsigned)cols.vl;
+      rem = (unsigned)c - q * cols.vl;
+    }
+    return (int64_t)q * (M * cols.vl) + rem;
+  }
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
@@ -122,6 +171,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// *dst = v where ok, with no branch: a lane's test never splits its warp
+// before the shuffles that follow
+__device__ __forceinline__ void store_if(float* dst, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p st.global.f32 [%0], %1;\n}\n" ::"l"(dst),
+      "f"(v), "r"((int)ok));
 }
 
 template <int N>
@@ -214,21 +271,22 @@ __device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&ext)[2
 
 template <int M, int R, int D>
 constexpr size_t smem_floats() {
-  return (size_t)kSlots * kWarps * M * kVl + (size_t)D * (2 * R + 2) * kWarps * 2 * R;
+  return (size_t)kSlots * kWarps * M * kLanes + (size_t)D * (2 * R + 2) * kWarps * 2 * R;
 }
 
 // The input row of step p into ring slot p % kSlots: each lane copies the
-// m elements it reads.  One commit group per step, empty past the rows the
+// m elements of its column (`col`: element 0 of it in row 0; a row is
+// `row` floats).  One commit group per step, empty past the rows the
 // segment needs and, unless the mode is periodic, for rows beyond the ends.
 template <int M, bool kEnds>
-__device__ __forceinline__ void issue(const float* __restrict__ in, float* ring, int p, int nload,
-                                      int64_t base, int64_t n0, int64_t nb, int64_t b) {
+__device__ __forceinline__ void issue(const float* __restrict__ col, float* ring, int p, int nload,
+                                      int64_t base, int64_t n0, int64_t row, int vl) {
   const int64_t y = base + p;
   if (p < nload && (!kEnds || (y >= 0 && y < n0))) {
-    const float* src = in + (wrap(y, n0) * nb + b) * (M * kVl);
-    float* dst = ring + (p % kSlots) * (kWarps * M * kVl);
+    const float* src = col + wrap(y, n0) * row;
+    float* dst = ring + (p % kSlots) * (kWarps * M * kLanes);
 #pragma unroll
-    for (int s = 0; s < M; ++s) cp_async4(dst + s * kVl, src + s * kVl);
+    for (int s = 0; s < M; ++s) cp_async4(dst + s * kLanes, src + s * vl);
   }
   cp_async_commit();
 }
@@ -245,23 +303,23 @@ __device__ __forceinline__ void publish(float (&win)[D][2 * R + 1][M], float* ed
 #pragma unroll
     for (int h = 0; h < R; ++h) eg[h] = v[h];
   }
-  if (lane == kVl - 1) {
+  if (lane == kLanes - 1) {
 #pragma unroll
     for (int h = 0; h < R; ++h) eg[R + h] = v[M - 1 - h];
   }
 }
 
-template <int M, int R, int D, int kOrder, bool kEnds>
+template <int M, int R, int D, int kOrder, bool kEnds, int kVl>
 __global__ void __launch_bounds__(kThreads, 1)
-sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, int64_t nb,
+sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, Cols cols,
                  int64_t ncol, int64_t seg, int edge, Taps2 taps) {
   constexpr int NW = 2 * R + 1;    // window rows per level
   constexpr int E = 2 * R + 2;     // edge slots per level
   constexpr int X = M + 2 * R;     // a column with its x halo
-  constexpr int kRow = kWarps * M * kVl;   // one ring slot: a row span of the CTA
+  constexpr int kRow = kWarps * M * kLanes;   // one ring slot: a row span of the CTA
   extern __shared__ float smem[];
   float* edges = smem + (size_t)kSlots * kRow;   // [D][E][kWarps][2][R]: lane 0's, lane 31's
-  const int lane = threadIdx.x & (kVl - 1);
+  const int lane = threadIdx.x & (kLanes - 1);
   const int w = threadIdx.x >> 5;
   const int64_t col = blockIdx.x % ncol;
   const int64_t y0 = blockIdx.x / ncol * seg;
@@ -272,20 +330,29 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   // level rows outside [lo, hi) are the ends' (ring: kept; open: zeros)
   const int64_t lo = edge == kRing ? R : 0;
   const int64_t hi = edge == kRing ? n0 - R : n0;
-  const int64_t bu = col * (kWarps - 2) + w - 1;     // this warp's block, unwrapped
-  const int64_t b = wrap(bu, nb);
-  const bool stores = w >= 1 && w <= kWarps - 2 && bu < nb;
+  // lane 0's column and this lane's, unwrapped (warp w holds warp row
+  // col * (kWarps - 2) + w - 1), and the offset of its element 0 in a row
+  const int64_t ub = (col * (kWarps - 2) + w - 1) * kLanes;
+  const int64_t u = ub + lane;
+  const int64_t lane_col = col_offset<M, kVl>(u, cols);
+  const int64_t row = cols.n * M;                    // floats a row
+  const int vl = kVl > 0 ? kVl : cols.vl;
+  // the middle warps store, those whose warp row starts inside the row, and
+  // in them the lanes whose column does (at vl = 32, every lane)
+  const bool stores = w >= 1 && w <= kWarps - 2 && ub < cols.n;
+  const bool lane_stores = kVl == kLanes || u < cols.n;
   const int wl = w > 0 ? w - 1 : 0;                  // the end warps see themselves
   const int wr = w < kWarps - 1 ? w + 1 : kWarps - 1;
-  const int left = (lane + kVl - 1) & (kVl - 1);
-  const int right = (lane + 1) & (kVl - 1);
-  float* ring = smem + w * (M * kVl) + lane;         // this lane's elements of slot 0
-  const float* lane_in = in + lane;
+  const int left = (lane + kLanes - 1) & (kLanes - 1);
+  const int right = (lane + 1) & (kLanes - 1);
+  float* ring = smem + w * (M * kLanes) + lane;      // this lane's elements of slot 0
+  const float* lane_in = in + lane_col;
 
   for (int e = threadIdx.x; e < D * E * kWarps * 2 * R; e += kThreads) edges[e] = 0.0f;
 
 #pragma unroll
-  for (int p = 0; p < kStages; ++p) issue<M, kEnds>(lane_in, ring, p, nload, base, n0, nb, b);
+  for (int p = 0; p < kStages; ++p)
+    issue<M, kEnds>(lane_in, ring, p, nload, base, n0, row, vl);
   cp_async_wait<kStages - 1>();
   __syncthreads();
 
@@ -307,7 +374,7 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
       float cur[M];
       const float* src = ring + (i % kSlots) * kRow;
 #pragma unroll
-      for (int s = 0; s < M; ++s) cur[s] = src[s * kVl];
+      for (int s = 0; s < M; ++s) cur[s] = src[s * kLanes];
       if (kEnds && edge == kOpen && (base + i < 0 || base + i >= n0)) {
 #pragma unroll
         for (int s = 0; s < M; ++s) cur[s] = 0.0f;
@@ -329,7 +396,7 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
               const float from_left = __shfl_sync(kFull, v[M - 1 - h], left);
               const float from_right = __shfl_sync(kFull, v[h], right);
               ext[k][R - 1 - h] = lane == 0 ? eg[(wl * 2 + 1) * R + h] : from_left;
-              ext[k][R + M + h] = lane == kVl - 1 ? eg[(wr * 2) * R + h] : from_right;
+              ext[k][R + M + h] = lane == kLanes - 1 ? eg[(wr * 2) * R + h] : from_right;
             }
           }
         }
@@ -344,16 +411,21 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
         }
         if (l == D) {
           if (stores && i >= D * NW) {
-            float* dst = out + ((y0 + i - D * NW) * nb + bu) * (M * kVl) + lane;
+            float* dst = out + (y0 + i - D * NW) * row + lane_col;
+            if (kVl == kLanes) {
 #pragma unroll
-            for (int s = 0; s < M; ++s) dst[s * kVl] = acc[s];
+              for (int s = 0; s < M; ++s) dst[s * vl] = acc[s];
+            } else {
+#pragma unroll
+              for (int s = 0; s < M; ++s) store_if(dst + s * vl, acc[s], lane_stores);
+            }
           }
         } else {
           publish<M, R, D>(win, edges, l, ph, i % E, w, lane, acc);
         }
       }
       publish<M, R, D>(win, edges, 0, ph, i % E, w, lane, cur);
-      issue<M, kEnds>(lane_in, ring, i + kStages, nload, base, n0, nb, b);
+      issue<M, kEnds>(lane_in, ring, i + kStages, nload, base, n0, row, vl);
       cp_async_wait<kStages - 1>();   // this lane's copy of row i + 1 has landed
       __syncthreads();                // every lane's, and this step's edges
     }
@@ -362,32 +434,40 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
 }
 
 template <int M, int R, int D, int kOrder>
-int go(const float* in, float* out, int64_t n0, int64_t nb, int64_t ncol, int64_t seg, int edge,
-       unsigned ctas, const Taps2& taps, cudaStream_t stream) {
+int go(const float* in, float* out, int64_t n0, const Cols& cols, int64_t ncol, int64_t seg,
+       int edge, unsigned ctas, const Taps2& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
-  const auto kernel = edge == kPeriodic ? sweep2d_warp_f32<M, R, D, kOrder, false>
-                                        : sweep2d_warp_f32<M, R, D, kOrder, true>;
+  // vl = 32 has instances of its own, every stride a constant
+  const bool v32 = cols.vl == kLanes;
+  const auto kernel = edge == kPeriodic
+                          ? (v32 ? sweep2d_warp_f32<M, R, D, kOrder, false, kLanes>
+                                 : sweep2d_warp_f32<M, R, D, kOrder, false, 0>)
+                          : (v32 ? sweep2d_warp_f32<M, R, D, kOrder, true, kLanes>
+                                 : sweep2d_warp_f32<M, R, D, kOrder, true, 0>);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<ctas, kThreads, smem, stream>>>(in, out, n0, nb, ncol, seg, edge, taps);
+  kernel<<<ctas, kThreads, smem, stream>>>(in, out, n0, cols, ncol, seg, edge, taps);
   return (int)cudaGetLastError();
 }
 
 template <int M, int R, int D>
-int launch_depth(int depth, const float* in, float* out, int64_t n0, int64_t nb, int64_t ncol,
-                 int64_t seg, int edge, unsigned ctas, const Taps2& taps, int order,
+int launch_depth(int depth, const float* in, float* out, int64_t n0, const Cols& cols,
+                 int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2& taps, int order,
                  cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<M, R, D - 1>(depth, in, out, n0, nb, ncol, seg, edge, ctas, taps, order,
-                                       stream);
+      return launch_depth<M, R, D - 1>(depth, in, out, n0, cols, ncol, seg, edge, ctas, taps,
+                                       order, stream);
     switch (order) {
-      case kStar: return go<M, R, D, kStar>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
-      case kBox: return go<M, R, D, kBox>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
-      default: return go<M, R, D, kRuntime>(in, out, n0, nb, ncol, seg, edge, ctas, taps, stream);
+      case kStar:
+        return go<M, R, D, kStar>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
+      case kBox:
+        return go<M, R, D, kBox>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
+      default:
+        return go<M, R, D, kRuntime>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -411,19 +491,20 @@ extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m) { return max_depth((i
 extern "C" int64_t repro_sweep2d_warp_warps() { return kWarps; }
 
 // `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
-// buffer), for a 2-D stencil of reach r = 1, with the ends of axis 0 `edge`
-// (0 periodic, 1 ring, 2 open; the minor axis is periodic), in segments of
-// `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs and `coeffs`
-// ntaps float coefficients, both in host memory.  Returns the CUDA error
-// code.
+// buffer), at any vl, for a 2-D stencil of reach r = 1, with the ends of
+// axis 0 `edge` (0 periodic, 1 ring, 2 open; the minor axis is periodic),
+// in segments of `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs
+// and `coeffs` ntaps float coefficients, both in host memory.  Returns the
+// CUDA error code.
 extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int64_t nb,
                                       int64_t m, int64_t vl, int64_t r, int64_t depth,
                                       int64_t edge, int64_t seg, int64_t ntaps,
                                       const int32_t* offsets, const float* coeffs,
                                       void* stream) {
-  if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
-      depth > max_depth((int)m) || edge < kPeriodic || edge > kOpen || n0 < 1 || nb < 1 ||
-      seg < 1 || seg > (1 << 24) || ntaps < 1 || ntaps > kMaxTaps)
+  if ((m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
+      depth > max_depth((int)m) || depth * r > kLanes * m || edge < kPeriodic || edge > kOpen ||
+      n0 < 1 || nb < 1 || vl < 1 || (vl != kLanes && nb * vl >= (1 << 30)) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
+      ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2 taps;
   taps.n = (int)ntaps;
@@ -434,7 +515,10 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
     if (taps.oy[t] < -r || taps.oy[t] > r || taps.ox[t] < -r || taps.ox[t] > r)
       return (int)cudaErrorInvalidValue;
   }
-  const int64_t ncol = (nb + kWarps - 3) / (kWarps - 2);
+  const int shift = (vl & (vl - 1)) == 0 ? __builtin_ctzll((unsigned long long)vl) : -1;
+  const Cols cols{nb * vl, (int)vl, shift};
+  const int64_t wrows = (cols.n + kLanes - 1) / kLanes;   // warp rows of a row
+  const int64_t ncol = (wrows + kWarps - 3) / (kWarps - 2);
   const int64_t ctas = ncol * ((n0 + seg - 1) / seg);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const float* src = static_cast<const float*>(in);
@@ -443,9 +527,9 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
   const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
   const unsigned grid = (unsigned)ctas;
   switch (m) {
-    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
-    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
-    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
-    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, nb, ncol, seg, e, grid, taps, order, st);
+    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
+    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
+    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
+    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
   }
 }

@@ -8,11 +8,14 @@
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
     periodic depth-``ttile·k`` advance of the layout-resident grid in one
     launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and K3 each
-    take one of two kernels, chosen by shape before the launch:
-    a register kernel at ``vl = 32`` streamed along axis 0 where one applies
-    (:func:`sweep1d_route`: ``csrc/sweep1d_warp.cu``; :func:`sweep2d_route`:
-    ``csrc/sweep2d_warp.cu``; :func:`sweep3d_route`: ``csrc/sweep3d.cu``),
-    or the shared-memory kernel ``csrc/stencil_sweep.cu``.
+    take one of two kernels, chosen by shape before the launch: a register
+    kernel where one applies (:func:`sweep1d_route`:
+    ``csrc/sweep1d_warp.cu`` and :func:`sweep2d_route`:
+    ``csrc/sweep2d_warp.cu``, at any ``vl``, a lane on each of 32
+    consecutive columns of the layout; :func:`sweep3d_route`:
+    ``csrc/sweep3d.cu`` at ``vl = 32``), or the shared-memory kernel
+    ``csrc/stencil_sweep.cu`` (other ``m``, deeper sweeps, 3-D at other
+    ``vl``).
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -58,15 +61,19 @@ _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
 # the tiles csrc/transpose.cu's register kernel takes
 TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL, TRANSPOSE_MAX_M = 4, 128, 8
-# blocks per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
+# a warp row of the register kernels: 32 columns of the layout, one a lane
+WARP_LANES = 32
+# warp rows per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
-WARP_VL, WARP_MAX_R = 32, 4
+WARP_MAX_R = 4
 # csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
-# instance by m, its reach, and the shortest axis-0 segment a CTA walks
+# instance by m, its reach, the shortest axis-0 segment a CTA walks, and
+# the columns a row may have off vl = 32
 WARP2D_WARPS = 10
 WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
 WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
+WARP2D_MAX_COLS = 1 << 30            # columns a row off vl = 32 (32-bit index math)
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
 # the m it takes, its deepest instance, its reach, and the shortest z
@@ -330,11 +337,13 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
 def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil1d_sweep_ttile` or
     :func:`stencil1d_multistep` (``depth = k``) launches: ``"warp"``
-    (``csrc/sweep1d_warp.cu``) when a block row is one warp (``vl = 32``),
-    ``m`` has an instance and the ``depth·r`` elements a sweep corrupts at
-    each end of a warp's span fit in its halo block (``depth·r <= vl·m``);
-    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise."""
-    if vl == WARP_VL and m in WARP_BLOCKS and r <= WARP_MAX_R and depth * r <= vl * m:
+    (``csrc/sweep1d_warp.cu``, at any ``vl``: a warp row is 32 columns of
+    the layout, one per lane) when ``m`` has an instance, the reach is the
+    kernel's and the ``depth·r`` elements a sweep corrupts at each end of
+    a warp's span fit in its halo warp row (``depth·r <= 32·m``);
+    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise.  The periodic, ring
+    and open ends take the same route at every column count."""
+    if m in WARP_BLOCKS and r <= WARP_MAX_R and depth * r <= WARP_LANES * m:
         return "warp"
     return "smem"
 
@@ -379,24 +388,30 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
 def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
-    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``) when a block row is one
-    warp (``vl = 32``), ``m`` and ``depth`` have an instance
-    (``WARP2D_DEPTH``), the reach is the kernel's and the ``depth·r``
-    elements a sweep corrupts at each end of a CTA's span fit in its halo
-    warps (``depth·r <= vl·m``); ``"smem"`` (``csrc/stencil_sweep.cu``)
-    otherwise."""
-    if vl == WARP_VL and m in WARP2D_DEPTH and 1 <= r <= WARP2D_MAX_R \
-            and 1 <= depth <= WARP2D_DEPTH[m] and depth * r <= vl * m:
+    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl``: a warp
+    covers 32 columns of a row, one per lane) when ``m`` and ``depth`` have
+    an instance (``WARP2D_DEPTH``), the reach is the kernel's and the
+    ``depth·r`` elements a sweep corrupts at each end of a CTA's span fit
+    in its halo warps (``depth·r <= 32·m``); ``"smem"``
+    (``csrc/stencil_sweep.cu``) otherwise."""
+    if m in WARP2D_DEPTH and 1 <= r <= WARP2D_MAX_R \
+            and 1 <= depth <= WARP2D_DEPTH[m] and depth * r <= WARP_LANES * m:
         return "warp"
     return "smem"
 
 
-def sweep2d_segment(n0: int, nb: int, ctas: int) -> int:
+def warp_rows(nb: int, vl: int) -> int:
+    """Warp rows of 32 columns over the ``nb·vl`` columns of a layout row
+    (the last one partial when 32 does not divide them)."""
+    return -(-nb * vl // WARP_LANES)
+
+
+def sweep2d_segment(n0: int, wrows: int, ctas: int) -> int:
     """Axis-0 rows per CTA of the 2-D warp kernel: about ``ctas`` CTAs over
-    the grid (``WARP2D_WARPS - 2`` blocks of a row each), and no segment
-    shorter than ``WARP2D_SEG_MIN`` rows, whose 2·depth·r warm-up rows are
-    read twice."""
-    ncol = -(-nb // (WARP2D_WARPS - 2))
+    the grid (``WARP2D_WARPS - 2`` of the ``wrows`` warp rows of a row
+    each), and no segment shorter than ``WARP2D_SEG_MIN`` rows, whose
+    2·depth·r warm-up rows are read twice."""
+    ncol = -(-wrows // (WARP2D_WARPS - 2))
     nseg = max(1, min(-(-ctas // ncol), -(-n0 // WARP2D_SEG_MIN)))
     return -(-n0 // nseg)
 
@@ -414,8 +429,11 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     rows, ``tools/sweep2d_segments.py``)."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
+    if vl != WARP_LANES and nb * vl >= WARP2D_MAX_COLS:
+        raise ValueError(f"{spec.name}: {nb * vl} columns a row at vl={vl}; the 2-D warp "
+                         f"kernel takes fewer than {WARP2D_MAX_COLS} off vl={WARP_LANES}")
     if seg_rows is None:
-        seg_rows = sweep2d_segment(n0, nb, _sm_count(t.device))
+        seg_rows = sweep2d_segment(n0, warp_rows(nb, vl), _sm_count(t.device))
     lib = build.load("sweep2d_warp")
     ntaps, offs, coeffs = _taps(spec, 2)
     build.check(lib.repro_sweep2d_warp_f32(
@@ -431,7 +449,7 @@ def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     columns (``vl = 32``), ``m`` and ``depth`` have an instance and the
     reach is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``)
     otherwise."""
-    if vl == WARP_VL and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
+    if vl == WARP_LANES and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
             and 1 <= depth <= SWEEP3D_DEPTH:
         return "stream"
     return "smem"
@@ -471,7 +489,7 @@ def sweep3d_segment(n0: int, n1: int, nb: int, m: int, depth: int, order: str,
     (its planes and 3·depth warm-up steps) are fewest; no segment shorter
     than ``SWEEP3D_SEG_MIN`` planes unless the grid is."""
     ty, _, _, hy = sweep3d_tile(m, depth, order)
-    tiles = -(-nb * WARP_VL // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
+    tiles = -(-nb * WARP_LANES // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
     best = None
     for nseg in range(1, -(-n0 // SWEEP3D_SEG_MIN) + 1):
         seg = -(-n0 // nseg)

@@ -197,8 +197,8 @@ def test_sweep1d_warp_kernel_runtime_taps(cuda, taps):
 def test_sweep1d_routes_count_and_raise(cuda):
     spec = stencils.make("1d3p")
     x = _x((1 << 15,), 3, cuda)
-    for vl, m, depth, key in ((32, 8, 4, "sweep_1d"), (128, 8, 4, "sweep_1d_smem"),
-                              (32, 1, 33, "sweep_1d_smem")):
+    for vl, m, depth, key in ((32, 8, 4, "sweep_1d"), (128, 8, 4, "sweep_1d"),
+                              (32, 1, 33, "sweep_1d_smem"), (8, 16, 4, "sweep_1d_smem")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
@@ -211,6 +211,73 @@ def test_sweep1d_routes_count_and_raise(cuda):
         sk.stencil1d_sweep_ttile(spec, layouts.to_transpose_layout(x, 32, 8).double(), 2, 2)
     lib = build.load("sweep1d_warp")
     assert {m: lib.repro_sweep1d_warp_blocks(m) for m in sk.WARP_BLOCKS} == sk.WARP_BLOCKS
+
+
+# vl off 32: a warp row is 32 columns, C = nb·vl columns (no multiple of
+# 32 below vl = 32), a partial last warp row, C below 32
+ANY_VL = (4, 8, 16, 64, 128)
+
+
+def _any_vl_nbs(vl, m):
+    return sorted({-(-c // vl) for c in (5, 20, 32 * sk.WARP_BLOCKS[m] + 40, 4680)} |
+                  {(1 << 18) // (vl * m) + 1})
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", ANY_VL)
+@pytest.mark.parametrize("name,m", [("1d3p", 8), ("1d5p", 2), ("heat1d", 4), ("1d3p", 1)])
+def test_sweep1d_warp_any_vl_bitwise(cuda, name, m, vl, edge):
+    """K1 and K4a on the warp kernel off vl = 32, bit for bit the plain
+    versions, at depths up to the route's deepest."""
+    spec = stencils.make(name)
+    for nb in _any_vl_nbs(vl, m):
+        t = layouts.to_transpose_layout(_x((nb * vl * m,), nb + vl, cuda), vl, m)
+        out = torch.empty_like(t)
+        for depth in (1, 2, 5, 32 * m // spec.r):
+            sk.reset_launches()
+            if edge == "periodic":
+                got = sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=out)
+                want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
+                key = "sweep_1d"
+            else:
+                got = sk.stencil1d_multistep(spec, t, depth, edge == "ring", out=out)
+                want = sk.stencil1d_multistep_ref(spec, t, depth, edge == "ring")
+                key = "multistep_1d"
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+            assert torch.equal(got, want), (nb, depth, (got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", ANY_VL)
+@pytest.mark.parametrize("name,m", [("2d5p", 8), ("2d9p", 2), ("heat2d", 4), ("2d5p", 1)])
+def test_sweep2d_warp_any_vl_bitwise(cuda, name, m, vl, edge):
+    """K3 and K4b on the 2-D warp kernel off vl = 32, bit for bit the
+    plain versions, at every depth of the route, at the wrapper's segment
+    and at 4 rows."""
+    spec = stencils.make(name)
+    grids = [(3, -(-5 // vl)), (9, -(-20 // vl)), (14, -(-(32 * 8 + 40) // vl)),
+             (2048 + 64, 2048 // (vl * m) + 1)]
+    for n0, nb in grids:
+        t = layouts.to_transpose_layout(_x((n0, nb * vl * m), n0 + nb + vl, cuda), vl, m)
+        out = torch.empty_like(t)
+        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+            sk.reset_launches()
+            if edge == "periodic":
+                got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+                want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+                key = "sweep_2d"
+            else:
+                got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+                want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+                key = "multistep_2d"
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+            assert torch.equal(got, want), (n0, nb, depth, (got - want).abs().max().item())
+            if n0 < 2048:
+                sk._warp2d_launch(spec, t, out, depth, edge, seg_rows=4)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (n0, nb, depth, "seg 4")
 
 
 def _warp2d_grids():
@@ -263,9 +330,9 @@ def test_sweep2d_warp_kernel_runtime_taps(cuda, taps):
 def test_sweep2d_routes_count_and_raise(cuda):
     spec = stencils.make("2d5p")
     x = _x((64, 4096), 3, cuda)
-    for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_nd"),
+    for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_2d"),
                               (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_nd"),
-                              (16, 4, 2, "sweep_nd")):
+                              (16, 4, 2, "sweep_2d"), (8, 16, 2, "sweep_nd")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32)
@@ -334,14 +401,32 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
         assert torch.equal(got, want), (sweep, (got - want).abs().max().item())
 
 
-@pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d_smem")])
+def _k2_key(vl, m):
+    return "transpose" if sk.transpose_route(vl, m, 4) == "reg" else "transpose_smem"
+
+
+@pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d"),
+                                      (8, 8, "sweep_1d"), (8, 16, "sweep_1d_smem")])
 def test_main_path_1d_route_counts(cuda, vl, m, key):
     prob = StencilProblem("1d3p", (1 << 15,))
     x = prob.init(0)
     sk.reset_launches()
     got = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
                                       vl=vl, m=m))
-    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2, key: 4}
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {_k2_key(vl, m): 2, key: 4}
+    want = stencils.apply_steps(prob.spec, x, 16)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_2d"), (128, 8, "sweep_2d"),
+                                      (8, 8, "sweep_2d"), (8, 16, "sweep_nd")])
+def test_main_path_2d_route_counts(cuda, vl, m, key):
+    prob = StencilProblem("2d5p", (64, 2048))
+    x = prob.init(0)
+    sk.reset_launches()
+    got = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+                                      vl=vl, m=m))
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {_k2_key(vl, m): 2, key: 4}
     want = stencils.apply_steps(prob.spec, x, 16)
     assert torch.equal(got, want), (got - want).abs().max().item()
 
@@ -425,7 +510,8 @@ def test_multistep_1d_routes_count(cuda):
     follows the route of its depth."""
     spec = stencils.make("1d3p")
     for vl, m, k, key in ((32, 8, 2, "multistep_1d"), (32, 1, 33, "multistep_1d_smem"),
-                          (8, 4, 2, "multistep_1d_smem"), (32, 3, 2, "multistep_1d_smem")):
+                          (8, 4, 2, "multistep_1d"), (32, 3, 2, "multistep_1d_smem"),
+                          (8, 16, 2, "multistep_1d_smem")):
         assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
         t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
         for edge_mask in (True, False):
@@ -502,7 +588,8 @@ def test_multistep_2d_routes_count(cuda):
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
-             (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_2d"),
+             (stencils.make("2d5p"), (64, 4096), 8, 16, 2, "multistep_nd"),
              (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),

@@ -6,19 +6,23 @@ picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: warps of ``kWarps`` per CTA with the idle ones recomputing the
-last run, lanes as an array axis, a shuffle as a gather along that axis
-with the lane-0 / lane-31 select before it, the halo slots' wrapped block
-indices, the in-place slot order with its r-row carry, and the store
-guard (each block written exactly once); in the ring and open modes, the
-slots before block 0 and after block nb - 1, the zeros an open end loads
-and holds, and the ring rows two lanes put back.  In ring mode the slots
-beyond the ends are filled with NaN instead of their wrapped blocks: no NaN
-may reach a stored value.  It runs in float32 with the
-float32-rounded coefficients summed in the spec's order, as the kernel
-does under ``-fmad=false``.  One case is also held against the JAX
-package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
-contract a multiply-add into an FMA); in open mode only at k·r or more from
-the ends, where the reference's values are specified.
+last run, lanes as an array axis, each lane's column in a slot (warp row
+v, lane j: column 32·v + j mod C of the layout's C = nb·vl columns) and
+its offset in the (nb, m, vl) layout, a shuffle as a gather along the lane
+axis with the lane-0 / lane-31 select before it, the in-place slot order
+with its r-row carry, and the store rule (a lane stores in the middle
+slots when its unwrapped column lies in [0, C): each column written
+exactly once, also when C is below 32 or no multiple of it); in the ring
+and open modes, the lanes whose unwrapped column lies beyond the ends, the
+zeros an open end loads and holds, and the ring rows the lanes holding
+columns 0 and C - 1 put back.  In ring mode the lanes beyond the ends are
+filled with NaN instead of their wrapped columns: no NaN may reach a stored
+value.  It runs in float32 with the float32-rounded coefficients summed in
+the spec's order, as the kernel does under ``-fmad=false``.  A few cases
+are also held against the JAX package's Pallas kernel in interpret mode at
+the same (vl, m) (2e-6: XLA's CPU backend may contract a multiply-add into
+an FMA); in open mode only at k·r or more from the ends, where the
+reference's values are specified.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,41 +38,49 @@ from repro_torch.core.stencils import coeff
 from repro_torch.kernels import stencil_kernels as sk
 
 K_WARPS = 4      # csrc/sweep1d_warp.cu's kWarps
+LANES = 32       # a warp row: one column per lane
 VL = 32
+VLS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
                    ) -> tuple[np.ndarray, np.ndarray]:
-    """The kernel's output and how often each block was stored."""
+    """The kernel's output and how often each column was stored."""
     nb, m, vl = t.shape
-    assert vl == VL and sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
+    assert sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
     B, R = sk.WARP_BLOCKS[m], spec.r
     S = B + 2
+    C = nb * vl
     taps = [(off[0], np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
-    nruns = -(-nb // B)
+    nruns = -(-(-(-C // LANES)) // B)
     ctas = -(-nruns // K_WARPS)
     w = np.arange(ctas * K_WARPS)[:, None]                  # (warps, 1)
-    lane = np.arange(VL)[None, :]                           # (1, lanes)
+    lane = np.arange(LANES)[None, :]                        # (1, lanes)
     live = w < nruns
-    b0 = np.where(live, w, nruns - 1) * B
-    first_run = b0 == 0                                     # (warps, 1)
-    last = np.minimum(nb - b0, S)                           # slot of block nb - 1
+    u0 = (np.where(live, w, nruns - 1) * B - 1) * LANES + lane   # slot 0's columns
+    flat = t.reshape(-1)
+
+    def col_offset(c):           # element 0 of column c; element s is s·vl on
+        return c // vl * (m * vl) + c % vl
+
+    def u(i):                    # the lanes' unwrapped columns in slot i
+        return u0 + i * LANES
 
     def beyond(i):
-        return (i == 0) & first_run | (i > last)
+        return (u(i) < 0) | (u(i) >= C)
 
-    # v[i][s]: (warps, lanes) registers, row s of slot i (block b0 - 1 + i);
-    # open: zeros beyond the ends; ring: NaN there, which must not matter
+    # v[i][s]: (warps, lanes) registers, row s of slot i; open: zeros beyond
+    # the ends; ring: NaN there, which must not matter
     fill = {"periodic": None, "open": np.float32(0), "ring": np.float32(np.nan)}[edge]
-    v = [[t[(b0[:, 0] - 1 + i) % nb, s, :] for s in range(m)] for i in range(S)]
+    v = [[flat[col_offset(u(i) % C) + s * vl] for s in range(m)] for i in range(S)]
     if fill is not None:
         v = [[np.where(beyond(i), fill, row) for row in v[i]] for i in range(S)]
     if edge == "ring":
         ring_lo = [v[1][q] for q in range(R)]
         ring_hi = [np.zeros_like(v[0][0]) for _ in range(R)]
         for i in range(1, S):
-            ring_hi = [np.where(i == last, v[i][m - R + q], ring_hi[q]) for q in range(R)]
-    left, right = (lane + VL - 1) % VL, (lane + 1) % VL
+            ring_hi = [np.where(u(i) == C - 1, v[i][m - R + q], ring_hi[q]) for q in range(R)]
+    left, right = (lane + LANES - 1) % LANES, (lane + 1) % LANES
 
     def shfl(x, src):
         return np.take_along_axis(x, np.broadcast_to(src, x.shape), axis=1)
@@ -79,7 +91,7 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
             nxt = i + 1 if i < S - 1 else S - 1
             ext = [None] * (m + 2 * R)
             for q in range(R):
-                to_right = np.where(lane == VL - 1, tail[q], v[i][m - 1 - q])
+                to_right = np.where(lane == LANES - 1, tail[q], v[i][m - 1 - q])
                 ext[R - 1 - q] = shfl(to_right, left)
                 to_left = np.where(lane == 0, v[nxt][q], v[i][q])
                 ext[R + m + q] = shfl(to_left, right)
@@ -93,8 +105,8 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
                     term = ext[R + s + o] * cf
                     acc[s] = term if n == 0 else acc[s] + term
             if edge == "ring":
-                lo = (i == 1) & first_run & (lane == 0)
-                hi = (i == last) & (lane == VL - 1)
+                lo = (i == 1) & (u(i) == 0)
+                hi = u(i) == C - 1
                 for q in range(R):
                     acc[q] = np.where(lo, ring_lo[q], acc[q])
                     acc[m - R + q] = np.where(hi, ring_hi[q], acc[m - R + q])
@@ -102,20 +114,20 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
                 hold = beyond(i)
                 acc = [np.where(hold, v[i][s], acc[s]) for s in range(m)]
             v[i] = acc
-    out = np.full_like(t, np.nan)
-    stores = np.zeros(nb, dtype=np.int64)
+    out = np.full_like(flat, np.nan)
+    stores = np.zeros(C, dtype=np.int64)
     for i in range(1, B + 1):
-        b = b0[:, 0] - 1 + i
-        ok = live[:, 0] & (b < nb)
-        np.add.at(stores, b[ok], 1)
+        ok = live & (u(i) < C)
+        cols = u(i)[ok]
+        np.add.at(stores, cols, 1)
         for s in range(m):
-            out[b[ok], s, :] = v[i][s][ok]
-    return out, stores
+            out[col_offset(cols) + s * vl] = v[i][s][ok]
+    return out.reshape(t.shape), stores
 
 
-def _t(nb, m, seed):
-    x = np.random.default_rng(seed).standard_normal(nb * VL * m).astype(np.float32)
-    return tlay.to_transpose_layout(torch.from_numpy(x), VL, m).numpy()
+def _t(nb, m, seed, vl=VL):
+    x = np.random.default_rng(seed).standard_normal(nb * vl * m).astype(np.float32)
+    return tlay.to_transpose_layout(torch.from_numpy(x), vl, m).numpy()
 
 
 def _nbs(m):
@@ -133,7 +145,7 @@ def test_warp_kernel_schedule_bitwise(name, m, nb, depth):
     spec = tst.make(name)
     t = _t(nb, m, seed=nb * 16 + m)
     got, stores = warp_kernel_np(spec, t, depth)
-    np.testing.assert_array_equal(stores, np.ones(nb, dtype=np.int64))
+    np.testing.assert_array_equal(stores, np.ones(nb * VL, dtype=np.int64))
     want = sk.stencil1d_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -172,17 +184,25 @@ def test_warp_kernel_schedule_matches_pallas(name, m, nb, depth):
 @pytest.mark.parametrize("vl,m,depth,r,route", [
     (32, 8, 4, 1, "warp"),        # the main path: 1d3p at 2^26, k=2, ttile=2
     (32, 8, 1, 1, "warp"),
-    (32, 8, 256, 1, "warp"),      # depth·r = vl·m: the halo block just holds it
-    (32, 8, 257, 1, "smem"),      # depth·r > vl·m at vl = 32
+    (32, 8, 256, 1, "warp"),      # depth·r = 32·m: the halo warp row just holds it
+    (32, 8, 257, 1, "smem"),      # depth·r > 32·m
     (32, 2, 16, 2, "warp"),
     (32, 2, 33, 2, "smem"),
     (32, 1, 32, 1, "warp"),
     (32, 1, 33, 1, "smem"),
-    (128, 8, 4, 1, "smem"),       # a plan carried over from the JAX package
-    (8, 8, 4, 1, "smem"),
+    (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
+    (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
     (32, 3, 2, 1, "smem"),        # no instance for m = 3
     (32, 16, 2, 1, "smem"),
     (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
+    (4, 1, 32, 1, "warp"),
+    (16, 2, 16, 2, "warp"),
+    (64, 4, 128, 1, "warp"),
+    (128, 8, 256, 1, "warp"),     # the limit is 32·m whatever vl is
+    (128, 8, 257, 1, "smem"),
+    (4, 2, 65, 1, "smem"),
+    (8, 16, 4, 1, "smem"),        # a reference tuner pair: m = 16 has no instance
+    (128, 5, 2, 1, "smem"),
 ])
 def test_sweep1d_route(vl, m, depth, r, route):
     assert sk.sweep1d_route(vl, m, depth, r) == route
@@ -204,11 +224,11 @@ def test_cpu_wrapper_counts_no_route():
 # K4a: the ring and open ends
 # ---------------------------------------------------------------------------
 
-def _edge_check(name, m, nb, depth, edge, seed):
+def _edge_check(name, m, nb, depth, edge, seed, vl=VL):
     spec = tst.make(name)
-    t = _t(nb, m, seed)
+    t = _t(nb, m, seed, vl)
     got, stores = warp_kernel_np(spec, t, depth, edge)
-    np.testing.assert_array_equal(stores, np.ones(nb, dtype=np.int64))
+    np.testing.assert_array_equal(stores, np.ones(nb * vl, dtype=np.int64))
     assert np.isfinite(got).all()                # no NaN from beyond the ends
     want = sk.stencil1d_multistep_ref(spec, torch.from_numpy(t), depth, edge == "ring").numpy()
     np.testing.assert_array_equal(got, want)
@@ -244,6 +264,84 @@ def test_warp_kernel_edges_match_pallas(name, m, nb, k, edge_mask):
                                 edge_mask=edge_mask), VL, m))
     got, _ = warp_kernel_np(tst.make(name), t, k, "ring" if edge_mask else "open")
     got = tlay.from_transpose_layout(torch.from_numpy(got), VL, m).numpy()
+    width = 0 if edge_mask else k * tst.make(name).r
+    np.testing.assert_allclose(got[width:got.size - width], want[width:want.size - width],
+                               rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# any vl: a warp row is 32 columns of the layout
+# ---------------------------------------------------------------------------
+
+def _vl_nbs(vl, m):
+    """nb for a vl case: C = nb·vl near 5 and 20 columns (below a warp row
+    where vl allows), near 32·B + 40 (several warp rows, the last one
+    partial unless vl is 64 or more) and over several CTAs."""
+    B = sk.WARP_BLOCKS[m]
+    return sorted({-(-c // vl) for c in (5, 20, 32 * B + 40, 32 * B * K_WARPS + 72)})
+
+
+VL_CASES = [("1d3p", 1), ("1d5p", 2), ("heat1d", 4), ("1d3p", 8)]
+
+
+def _vl_check(name, m, nb, vl, depth, edge, seed):
+    spec = tst.make(name)
+    t = _t(nb, m, seed, vl)
+    got, stores = warp_kernel_np(spec, t, depth, edge)
+    np.testing.assert_array_equal(stores, np.ones(nb * vl, dtype=np.int64))
+    assert np.isfinite(got).all()                # no NaN from beyond the ends
+    if edge == "periodic":
+        want = sk.stencil1d_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1)
+    else:
+        want = sk.stencil1d_multistep_ref(spec, torch.from_numpy(t), depth, edge == "ring")
+    np.testing.assert_array_equal(got, want.numpy(), err_msg=f"vl={vl} nb={nb} depth={depth}")
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", VLS)
+@pytest.mark.parametrize("name,m", VL_CASES)
+def test_warp_kernel_any_vl_bitwise(name, m, vl, edge):
+    """Every vl, at C below 32, no multiple of 32 and over several CTAs."""
+    for nb in _vl_nbs(vl, m):
+        for depth in (1, 3):
+            _vl_check(name, m, nb, vl, depth, edge, seed=nb * 8 + vl + depth)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", VLS)
+def test_warp_kernel_any_vl_deepest(vl, edge):
+    """The route's deepest launch (depth·r = 32·m) at every vl."""
+    name, m = "1d5p", 2
+    depth = LANES * m // tst.make(name).r
+    assert sk.sweep1d_route(vl, m, depth, tst.make(name).r) == "warp"
+    assert sk.sweep1d_route(vl, m, depth + 1, tst.make(name).r) == "smem"
+    for nb in _vl_nbs(vl, m)[:3]:
+        _vl_check(name, m, nb, vl, depth, edge, seed=nb + vl)
+
+
+@pytest.mark.parametrize("name,m,nb,vl,depth", [
+    ("1d3p", 8, 5, 8, 4), ("1d5p", 4, 3, 16, 3), ("1d3p", 2, 2, 128, 2), ("heat1d", 1, 7, 4, 2),
+])
+def test_warp_kernel_any_vl_matches_pallas(name, m, nb, vl, depth):
+    t = _t(nb, m, seed=11, vl=vl)
+    want = np.asarray(jsk.stencil1d_sweep_ttile(jst.make(name), jnp.asarray(t), depth, 1,
+                                                interpret=True))
+    got, _ = warp_kernel_np(tst.make(name), t, depth)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("name,m,nb,vl,k", [("1d3p", 8, 11, 8, 2), ("1d5p", 2, 3, 16, 3)])
+def test_warp_kernel_any_vl_edges_match_pallas(name, m, nb, vl, k, edge_mask):
+    """Against the JAX package's Pallas kernel at the same (vl, m): the
+    whole array with the ring, and at k·r or more from the ends with open
+    ends."""
+    t = _t(nb, m, seed=6, vl=vl)
+    want = np.asarray(jlay.from_transpose_layout(
+        jsk.stencil1d_multistep(jst.make(name), jnp.asarray(t), k, interpret=True,
+                                edge_mask=edge_mask), vl, m))
+    got, _ = warp_kernel_np(tst.make(name), t, k, "ring" if edge_mask else "open")
+    got = tlay.from_transpose_layout(torch.from_numpy(got), vl, m).numpy()
     width = 0 if edge_mask else k * tst.make(name).r
     np.testing.assert_allclose(got[width:got.size - width], want[width:want.size - width],
                                rtol=2e-6, atol=2e-6)

@@ -5,32 +5,35 @@ versions ``stencil_nd_sweep_ttile_ref`` (periodic) and
 route that picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
-schedule: CTAs of ``kWarps`` warps on consecutive blocks (block indices
-wrapped mod nb) with the two end warps as halo, lanes as an array axis, a
-shuffle as a gather along that axis with the lane-0 / lane-31 select after
-it, the edge exchange between warps through the edge slots, the segment's
-warm-up rows with wrapped row indices, the per-level skew of r + 1 rows
-with the levels run from the deepest down, the ring of input rows filled
-``kStages`` steps ahead, and the store guard (each (row, block) written
-exactly once); in the ring and open modes, the unwrapped row indices,
-the input rows beyond the ends left unloaded (their ring slots hold NaN
-here), and the CTA-uniform selects per level and step (open: zeros beyond
-the ends, the input included; ring: the previous level's row on the r
-first and last rows).  Two claims the kernel leans on are checked as it
-runs: no edge slot is read and written in the same step (there is one
-barrier per step), and no value made before a level's first needed row,
-nor any row beyond the ends in ring mode, reaches a stored one (windows,
-edge slots and unfilled ring slots start as NaN here; the kernel zeroes
-its registers and edge slots).  A copy lands at once
-here, the earliest the hardware could land it, so a ring slot reused too
-early would show.  It runs in float32 with the float32-rounded
-coefficients summed in the spec's order, as the kernel does under
-``-fmad=false``.  CTAs run together as an array axis; the kernel's loop
-over a shorter last segment ends early, which the store guard's
-``i < steps`` stands for.  A case per mode is also held against the
-JAX package's Pallas kernel in interpret mode (2e-6: XLA's CPU backend may
-contract a multiply-add into an FMA); with open ends only at k·r or more
-rows from them, where the reference's values are specified.
+schedule: CTAs of ``kWarps`` warps on consecutive warp rows with the two
+end warps as halo, lanes as an array axis, each lane's column (warp row v,
+lane j: column 32·v + j mod C of a row's C = nb·vl columns) and its offset
+in the (n0, nb, m, vl) layout, a shuffle as a gather along the lane axis
+with the lane-0 / lane-31 select after it, the edge exchange between warps
+through the edge slots, the segment's warm-up rows with wrapped row
+indices, the per-level skew of r + 1 rows with the levels run from the
+deepest down, the ring of input rows filled ``kStages`` steps ahead, and
+the store rule (a lane of a middle warp stores when its unwrapped column
+lies in [0, C): each (row, column) written exactly once, also when C is
+below 32 or no multiple of it); in the ring and open modes, the unwrapped
+row indices, the input rows beyond the ends left unloaded (their ring
+slots hold NaN here), and the CTA-uniform selects per level and step
+(open: zeros beyond the ends, the input included; ring: the previous
+level's row on the r first and last rows).  Two claims the kernel leans on
+are checked as it runs: no edge slot is read and written in the same step
+(there is one barrier per step), and no value made before a level's first
+needed row, nor any row beyond the ends in ring mode, reaches a stored one
+(windows, edge slots and unfilled ring slots start as NaN here; the kernel
+zeroes its registers and edge slots).  A copy lands at once here, the
+earliest the hardware could land it, so a ring slot reused too early would
+show.  It runs in float32 with the float32-rounded coefficients summed in
+the spec's order, as the kernel does under ``-fmad=false``.  CTAs run
+together as an array axis; the kernel's loop over a shorter last segment
+ends early, which the store guard's ``i < steps`` stands for.  A few cases
+are also held against the JAX package's Pallas kernel in interpret mode at
+the same (vl, m) (2e-6: XLA's CPU backend may contract a multiply-add into
+an FMA); with open ends only at k·r or more rows from them, where the
+reference's values are specified.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +48,9 @@ from repro_torch.core.stencils import coeff
 from repro_torch.kernels import stencil_kernels as sk
 
 K_STAGES = 6     # csrc/sweep2d_warp.cu's kStages
+LANES = 32       # a warp row: one column per lane
 VL = 32
+VLS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def _needs_x(taps, r):
@@ -59,15 +64,16 @@ def _needs_x(taps, r):
 
 
 def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
-    """The kernel's output and how often each (row, block) was stored."""
+    """The kernel's output and how often each (row, column) was stored."""
     n0, nb, m, vl = t.shape
-    assert vl == VL and sk.sweep2d_route(vl, m, depth, spec.r) == "warp"
+    assert sk.sweep2d_route(vl, m, depth, spec.r) == "warp"
     W, R, D = sk.WARP2D_WARPS, spec.r, depth
     NW, E, P = 2 * R + 1, 2 * R + 2, K_STAGES
     NS = P + 1
     taps = [(off[0], off[1], np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
     needs_x = _needs_x(taps, R)
-    ncol, nseg = -(-nb // (W - 2)), -(-n0 // seg)
+    C = nb * vl
+    ncol, nseg = -(-sk.warp_rows(nb, vl) // (W - 2)), -(-n0 // seg)
     # CTA c = (column c % ncol, segment c // ncol), an array axis
     cta = np.arange(ncol * nseg)
     col, y0 = cta % ncol, cta // ncol * seg
@@ -77,18 +83,22 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     # level rows outside [lo, hi) are the ends' (ring: kept; open: zeros)
     lo, hi = (R, n0 - R) if edge == "ring" else (0, n0)
     w = np.arange(W)
-    bu = col[:, None] * (W - 2) + w[None, :] - 1            # (ctas, W)
-    b = bu % nb
-    stores_w = (w >= 1) & (w <= W - 2) & (bu < nb)
+    lane = np.arange(LANES)
+    # each lane's column, unwrapped, and the offset of its element 0 in a row
+    u = (col[:, None, None] * (W - 2) + w[None, :, None] - 1) * LANES + lane   # (ctas, W, lanes)
+    c = u % C
+    lane_col = c // vl * (m * vl) + c % vl
+    elems = lane_col[:, :, None, :] + np.arange(m)[:, None] * vl             # (ctas, W, m, lanes)
+    stores = ((w >= 1) & (w <= W - 2))[None, :, None] & (u < C)
     wl, wr = np.maximum(w - 1, 0), np.minimum(w + 1, W - 1)
-    lane = np.arange(VL)
-    left, right = (lane + VL - 1) % VL, (lane + 1) % VL
+    left, right = (lane + LANES - 1) % LANES, (lane + 1) % LANES
     nan = np.float32(np.nan)
-    ring = np.full((NS, len(cta), W, m, VL), nan, np.float32)
+    rows_in = t.reshape(n0, -1)
+    ring = np.full((NS, len(cta), W, m, LANES), nan, np.float32)
     edges = np.full((D, E, len(cta), W, 2, R), nan, np.float32)
-    win = np.full((D, NW, len(cta), W, m, VL), nan, np.float32)
-    out = np.full_like(t, np.nan)
-    stored = np.zeros((n0, nb), dtype=np.int64)
+    win = np.full((D, NW, len(cta), W, m, LANES), nan, np.float32)
+    out = np.full_like(rows_in, np.nan)
+    stored = np.zeros((n0, C), dtype=np.int64)
 
     def issue(p):
         y = base + p
@@ -96,9 +106,9 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
         if edge != "periodic":
             ring[p % NS][go & ((y < 0) | (y >= n0))] = nan     # beyond the ends: not loaded
             go = go & (y >= 0) & (y < n0)
-        ring[p % NS][go] = t[(y % n0)[:, None], b][go]
+        ring[p % NS][go] = rows_in[(y % n0)[:, None, None, None], elems][go]
 
-    def beyond(y, lo, hi):       # a CTA's row outside [lo, hi), over (W, m, VL)
+    def beyond(y, lo, hi):       # a CTA's row outside [lo, hi), over (W, m, lanes)
         return ((y < lo) | (y >= hi))[:, None, None, None]
 
     def shfl(x, src):
@@ -107,7 +117,7 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     def publish(l, i, q, v, written):
         win[l, q] = v
         edges[l, i % E, :, :, 0, :] = v[:, :, :R, 0]
-        edges[l, i % E, :, :, 1, :] = v[:, :, m - 1 - np.arange(R), VL - 1]
+        edges[l, i % E, :, :, 1, :] = v[:, :, m - 1 - np.arange(R), LANES - 1]
         written.add((l, i % E))
 
     for p in range(P):
@@ -122,7 +132,7 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
             ext = []
             for k in range(NW):
                 v = win[lv - 1, (ph + k) % NW]
-                e = np.full(v.shape[:2] + (m + 2 * R, VL), nan, np.float32)
+                e = np.full(v.shape[:2] + (m + 2 * R, LANES), nan, np.float32)
                 e[:, :, R:R + m] = v
                 if needs_x(k - R):
                     es = (i + 1 + k) % E
@@ -133,7 +143,7 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
                         e[:, :, R - 1 - h] = np.where(
                             lane == 0, edges[lv - 1, es][:, wl, 1, h][..., None], from_left)
                         e[:, :, R + m + h] = np.where(
-                            lane == VL - 1, edges[lv - 1, es][:, wr, 0, h][..., None],
+                            lane == LANES - 1, edges[lv - 1, es][:, wr, 0, h][..., None],
                             from_right)
                 ext.append(e)
             acc = None
@@ -144,22 +154,23 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
                 keep = ext[R][:, :, R:R + m] if edge == "ring" else np.float32(0)
                 acc = np.where(beyond(base + i - lv * (R + 1), lo, hi), keep, acc)
             if lv == D:
-                ok = stores_w & ((i >= D * NW) & (i < steps))[:, None]
-                c_idx, w_idx = np.nonzero(ok)
+                ok = stores & ((i >= D * NW) & (i < steps))[:, None, None]
+                c_idx, w_idx, l_idx = np.nonzero(ok)
                 y = y0[c_idx] + i - D * NW
-                np.add.at(stored, (y, bu[c_idx, w_idx]), 1)
-                out[y, bu[c_idx, w_idx]] = acc[c_idx, w_idx]
+                np.add.at(stored, (y, u[c_idx, w_idx, l_idx]), 1)
+                for s_ in range(m):
+                    out[y, lane_col[c_idx, w_idx, l_idx] + s_ * vl] = acc[c_idx, w_idx, s_, l_idx]
             else:
                 publish(lv, i, ph, acc, written)
         publish(0, i, ph, cur, written)
         issue(i + P)
         assert not read & written, (i, read & written)   # one barrier per step
-    return out, stored
+    return out.reshape(t.shape), stored
 
 
-def _t(n0, nb, m, seed):
-    x = np.random.default_rng(seed).standard_normal((n0, nb * VL * m)).astype(np.float32)
-    return tlay.to_transpose_layout(torch.from_numpy(x), VL, m).numpy()
+def _t(n0, nb, m, seed, vl=VL):
+    x = np.random.default_rng(seed).standard_normal((n0, nb * vl * m)).astype(np.float32)
+    return tlay.to_transpose_layout(torch.from_numpy(x), vl, m).numpy()
 
 
 L = 4              # rows per segment in the transcription's cases
@@ -177,7 +188,7 @@ def test_warp2d_kernel_schedule_bitwise(name, m, depth):
     for n0, nb in GRIDS:
         t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m)
         got, stored = warp2d_kernel_np(spec, t, depth, L)
-        np.testing.assert_array_equal(stored, np.ones((n0, nb), dtype=np.int64))
+        np.testing.assert_array_equal(stored, np.ones((n0, nb * VL), dtype=np.int64))
         want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1).numpy()
         np.testing.assert_array_equal(got, want, err_msg=f"n0={n0} nb={nb}")
 
@@ -217,18 +228,23 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (32, 4, 9, 1, "smem"),
     (32, 1, 8, 1, "warp"),
     (32, 2, 0, 1, "smem"),        # depth 0: no instance
-    (128, 8, 4, 1, "smem"),       # a plan carried over from the JAX package
-    (16, 4, 2, 1, "smem"),
-    (8, 8, 4, 1, "smem"),
+    (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
+    (16, 4, 2, 1, "warp"),
+    (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
     (32, 3, 2, 1, "smem"),        # no instance for m = 3
     (32, 16, 2, 1, "smem"),
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+    (4, 1, 8, 1, "warp"),
+    (64, 2, 8, 1, "warp"),
+    (128, 8, 5, 1, "smem"),       # past the deepest m=8 instance at any vl
+    (8, 16, 4, 1, "smem"),        # a reference tuner pair: m = 16 has no instance
+    (16, 3, 2, 1, "smem"),        # the picker's 2d5p 64x48 tile
 ])
 def test_sweep2d_route(vl, m, depth, r, route):
     assert sk.sweep2d_route(vl, m, depth, r) == route
 
 
-@pytest.mark.parametrize("n0,nb,ctas,seg", [
+@pytest.mark.parametrize("n0,wrows,ctas,seg", [
     (8192, 32, 132, 249),         # 2d5p at 8192², m=8 on 132 SMs: 4 × 33 CTAs
     (8192, 32, 264, 125),
     (8192, 32, 8, 4096),
@@ -236,8 +252,8 @@ def test_sweep2d_route(vl, m, depth, r, route):
     (1, 1, 264, 1),
     (100, 9, 264, 25),
 ])
-def test_sweep2d_segment(n0, nb, ctas, seg):
-    assert sk.sweep2d_segment(n0, nb, ctas) == seg
+def test_sweep2d_segment(n0, wrows, ctas, seg):
+    assert sk.sweep2d_segment(n0, wrows, ctas) == seg
 
 
 def test_cpu_wrapper_counts_no_route():
@@ -269,7 +285,8 @@ def _edge_grids(depth):
 
 def _edge_check(spec, t, depth, edge, seg=L):
     got, stored = warp2d_kernel_np(spec, t, depth, seg, edge)
-    np.testing.assert_array_equal(stored, np.ones(t.shape[:2], dtype=np.int64))
+    np.testing.assert_array_equal(stored, np.ones((t.shape[0], t.shape[1] * t.shape[3]),
+                                                  dtype=np.int64))
     assert np.isfinite(got).all()            # nothing from beyond the ends (NaN there)
     want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1,
                                        edge == "ring").numpy()
@@ -298,6 +315,65 @@ def test_warp2d_kernel_edges_match_pallas(edge_mask):
     array with the ring, and at k·r or more rows from the ends with open
     ends."""
     k, t = 2, _t(12, 3, 2, seed=5)
+    want = np.asarray(jsk.stencil_nd_multistep(jst.make("2d5p"), jnp.asarray(t), k, 4,
+                                               interpret=True, edge_mask=edge_mask))
+    got, _ = warp2d_kernel_np(tst.make("2d5p"), t, k, 3, "ring" if edge_mask else "open")
+    width = 0 if edge_mask else k * tst.make("2d5p").r
+    np.testing.assert_allclose(got[width:t.shape[0] - width], want[width:t.shape[0] - width],
+                               rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# any vl: a warp covers 32 columns of a row
+# ---------------------------------------------------------------------------
+
+def _vl_grids(vl):
+    """(n0, nb) for a vl case: C = nb·vl near 5 and 20 columns (below a
+    warp row where vl allows) and near 32·(kWarps - 2) + 40 (two CTA
+    columns, the last warp row partial unless vl is 64 or more)."""
+    return [(n0, -(-c // vl)) for n0, c in ((3, 5), (L + 1, 20), (2 * L + 3, 32 * NB + 40))]
+
+
+VL_CASES = [("2d5p", 1), ("2d9p", 2), ("heat2d", 4), ("2d5p", 8)]
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", VLS)
+@pytest.mark.parametrize("name,m", VL_CASES)
+def test_warp2d_kernel_any_vl_bitwise(name, m, vl, edge):
+    """Every vl, at C below 32, no multiple of 32 and over two CTA
+    columns; depth 1 and the deepest instance."""
+    spec = tst.make(name)
+    for n0, nb in _vl_grids(vl):
+        for depth in (1, sk.WARP2D_DEPTH[m]):
+            t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + vl + depth, vl=vl)
+            if edge == "periodic":
+                got, stored = warp2d_kernel_np(spec, t, depth, L)
+                np.testing.assert_array_equal(stored, np.ones((n0, nb * vl), dtype=np.int64))
+                want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+                np.testing.assert_array_equal(got, want.numpy(),
+                                              err_msg=f"vl={vl} n0={n0} nb={nb} d={depth}")
+            else:
+                _edge_check(spec, t, depth, edge)
+
+
+@pytest.mark.parametrize("vl,m,k,ttile", [(8, 2, 2, 2), (16, 4, 3, 1), (128, 1, 2, 2),
+                                          (4, 8, 2, 1)])
+def test_warp2d_kernel_any_vl_matches_pallas(vl, m, k, ttile):
+    t = _t(8, 3, m, seed=7, vl=vl)
+    want = np.asarray(jsk.stencil_nd_sweep_ttile(jst.make("2d5p"), jnp.asarray(t), k, ttile, 4,
+                                                 interpret=True))
+    got, _ = warp2d_kernel_np(tst.make("2d5p"), t, k * ttile, 3)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("vl,m", [(8, 4), (128, 1)])
+def test_warp2d_kernel_any_vl_edges_match_pallas(vl, m, edge_mask):
+    """Against the JAX package's Pallas kernel at the same (vl, m) (k=2,
+    t0=4): the whole array with the ring, and at k·r or more rows from the
+    ends with open ends."""
+    k, t = 2, _t(12, 3, m, seed=5, vl=vl)
     want = np.asarray(jsk.stencil_nd_multistep(jst.make("2d5p"), jnp.asarray(t), k, 4,
                                                interpret=True, edge_mask=edge_mask))
     got, _ = warp2d_kernel_np(tst.make("2d5p"), t, k, 3, "ring" if edge_mask else "open")

@@ -3,27 +3,31 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k6]
+                               [--vl 32[,8,...]] [--m 8]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
 per tree and in turns (A, B, B, A) within one call: two calls may land on
-two cards.  Float32 at vl=32, m=8, each kernel timed with CUDA events
-(median of repeats after warm-up), each result first held bit for bit
-against the plain version:
+two cards.  Float32, each kernel timed with CUDA events (median of
+repeats after warm-up), each result first held bit for bit against the
+plain version.  The 1-D and 2-D rows run at every layout tile (vl, m) of
+``--vl`` (a comma-separated list, 32 by default) and ``--m`` (8 by
+default); each row names its tile:
 
 - 1d3p: K1 (``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements,
   K2 (``block_transpose`` / ``block_untranspose``) on the same grid, and
-  K4a (``stencil1d_multistep``, open and ring, depths 2 and 1) on
-  2**26 + 512, the roundtrip's padded shape;
+  K4a (``stencil1d_multistep``, open and ring, depths 2 and 1) on the
+  the roundtrip's padded shape (whole blocks of vl·m elements covering
+  k·r = 2 on each side: 2**26 + 512 at vl·m = 256);
 - 2d5p: K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1) on 8192², and
   K4b (``stencil_nd_multistep``, open and ring, depths 2 and 1) on
   8256 × 8192, the roundtrip's padded shape, both at the axis-0 tile
   t0 = 32.
 
 Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
-2**26 elements and of 2d5p on 8192² (K2, K4 in ring mode, K2 per sweep),
-each held bit for bit against its plain composition, by the median host
-time of 5 runs after that check's run.
+2**26 elements and of 2d5p on 8192² at the picker's tile (K2, K4 in ring
+mode, K2 per sweep), each held bit for bit against its plain
+composition, by the median host time of 5 runs after that check's run.
 
 3-D (3d7p, vl=32, m=8): K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1,
 t0 = 16) on 512³, K4b (``stencil_nd_multistep``, open and ring, depths 2
@@ -57,6 +61,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N1, N2 = 1 << 26, 8192    # the 1-D extent and the 2-D side
 
 
 def main() -> int:
@@ -64,6 +69,9 @@ def main() -> int:
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--only", choices=("stencils", "3d", "k6"), default=None)
+    parser.add_argument("--vl", default="32",
+                        help="comma-separated vl of the 1-D and 2-D rows' tiles")
+    parser.add_argument("--m", type=int, default=8, help="m of the 1-D and 2-D rows' tiles")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -74,7 +82,7 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     if args.only in (None, "stencils"):
-        stencil_rows(args.label, dev)
+        stencil_rows(args.label, dev, [int(v) for v in args.vl.split(",")], args.m)
     if args.only in (None, "3d"):
         stencil3d_rows(args.label, dev)
     if args.only in (None, "k6"):
@@ -83,59 +91,63 @@ def main() -> int:
     return 0
 
 
-def stencil_rows(label: str, dev) -> None:
+def stencil_rows(label: str, dev, vls, m) -> None:
     import torch
 
     from repro_torch.core import stencils
     from repro_torch.kernels import stencil_kernels as sk
 
-    spec = stencils.make("1d3p")
-    vl, m, t0 = 32, 8, 32
+    spec, spec2, t0 = stencils.make("1d3p"), stencils.make("2d5p"), 32
     gen = torch.Generator(device=dev).manual_seed(0)
+    for vl in vls:
+        tile = f"vl={vl} m={m}"
 
-    def row(kernel, fn, plain):
-        _row(label, dev, kernel, fn, plain)
+        def row(kernel, fn, plain):
+            _row(label, dev, f"{kernel} {tile}", fn, plain)
 
-    x = torch.randn(1 << 26, generator=gen, device=dev)
-    t = sk.block_transpose_ref(x, vl, m)
-    buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
-    row("K2 block_transpose", lambda: sk.block_transpose(x, vl, m, out=buf_t),
-        lambda: sk.block_transpose_ref(x, vl, m))
-    row("K2 block_untranspose", lambda: sk.block_untranspose(t, vl, m, out=buf_x),
-        lambda: sk.block_untranspose_ref(t, vl, m))
-    for depth in (4, 2, 1):
-        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
-        row(f"K1 depth={depth}", lambda: sk.stencil1d_sweep_ttile(spec, t, k, tt, out=buf_t),
-            lambda: sk.stencil1d_sweep_ttile_ref(spec, t, k, tt))
-    del x, t, buf_t, buf_x
-    tp = sk.block_transpose_ref(torch.randn((1 << 26) + 512, generator=gen, device=dev), vl, m)
-    buf = torch.empty_like(tp)
-    for edge_mask in (False, True):
-        for depth in (2, 1):
-            row(f"K4a {'ring' if edge_mask else 'open'} depth={depth}",
-                lambda: sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=buf),
-                lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
-    del tp, buf
+        x = torch.randn(N1, generator=gen, device=dev)
+        t = sk.block_transpose_ref(x, vl, m)
+        buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
+        row("K2 block_transpose", lambda: sk.block_transpose(x, vl, m, out=buf_t),
+            lambda: sk.block_transpose_ref(x, vl, m))
+        row("K2 block_untranspose", lambda: sk.block_untranspose(t, vl, m, out=buf_x),
+            lambda: sk.block_untranspose_ref(t, vl, m))
+        for depth in (4, 2, 1):
+            k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+            row(f"K1 depth={depth}", lambda: sk.stencil1d_sweep_ttile(spec, t, k, tt, out=buf_t),
+                lambda: sk.stencil1d_sweep_ttile_ref(spec, t, k, tt))
+        del x, t, buf_t, buf_x
+        pad = sk.sweep_halo_blocks(spec.r, 2, vl * m) * vl * m
+        tp = sk.block_transpose_ref(
+            torch.randn(N1 + 2 * pad, generator=gen, device=dev), vl, m)
+        buf = torch.empty_like(tp)
+        for edge_mask in (False, True):
+            for depth in (2, 1):
+                row(f"K4a {'ring' if edge_mask else 'open'} depth={depth}",
+                    lambda: sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=buf),
+                    lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
+        del tp, buf
 
-    spec2 = stencils.make("2d5p")
-    t = sk.block_transpose_ref(torch.randn(8192, 8192, generator=gen, device=dev), vl, m)
-    buf = torch.empty_like(t)
-    for depth in (4, 2, 1):
-        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
-        row(f"K3 2d5p depth={depth}",
-            lambda: sk.stencil_nd_sweep_ttile(spec2, t, k, tt, t0, out=buf),
-            lambda: sk.stencil_nd_sweep_ttile_ref(spec2, t, k, tt, t0))
-    del t, buf
-    tp = sk.block_transpose_ref(torch.randn(8192 + 64, 8192, generator=gen, device=dev), vl, m)
-    buf = torch.empty_like(tp)
-    for edge_mask in (False, True):
-        for depth in (2, 1):
-            row(f"K4b 2d5p {'ring' if edge_mask else 'open'} depth={depth}",
-                lambda: sk.stencil_nd_multistep(spec2, tp, depth, t0, edge_mask, out=buf),
-                lambda: sk.stencil_nd_multistep_ref(spec2, tp, depth, t0, edge_mask))
-    del tp, buf
+        t = sk.block_transpose_ref(torch.randn(N2, N2, generator=gen, device=dev), vl, m)
+        buf = torch.empty_like(t)
+        for depth in (4, 2, 1):
+            k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+            row(f"K3 2d5p depth={depth}",
+                lambda: sk.stencil_nd_sweep_ttile(spec2, t, k, tt, t0, out=buf),
+                lambda: sk.stencil_nd_sweep_ttile_ref(spec2, t, k, tt, t0))
+        del t, buf
+        tp = sk.block_transpose_ref(torch.randn(N2 + 2 * t0, N2, generator=gen, device=dev),
+                                    vl, m)
+        buf = torch.empty_like(tp)
+        for edge_mask in (False, True):
+            for depth in (2, 1):
+                row(f"K4b 2d5p {'ring' if edge_mask else 'open'} depth={depth}",
+                    lambda: sk.stencil_nd_multistep(spec2, tp, depth, t0, edge_mask, out=buf),
+                    lambda: sk.stencil_nd_multistep_ref(spec2, tp, depth, t0, edge_mask))
+        del tp, buf
+        torch.cuda.empty_cache()
 
-    for spec, shape in ((spec, (1 << 26,)), (spec2, (8192, 8192))):
+    for spec, shape in ((spec, (N1,)), (spec2, (N2, N2))):
         dirichlet_row(label, spec, torch.randn(shape, generator=gen, device=dev))
 
 

@@ -46,9 +46,9 @@ def main() -> int:
                     device=dev)
     t = layouts.to_transpose_layout(x, 32, 8)
     out = torch.empty_like(t)
-    n0, nb = t.shape[:2]
-    ncol = -(-nb // (sk.WARP2D_WARPS - 2))
-    default = sk.sweep2d_segment(n0, nb, sk._sm_count(dev))
+    n0, wrows = t.shape[0], sk.warp_rows(*t.shape[1::2])
+    ncol = -(-wrows // (sk.WARP2D_WARPS - 2))
+    default = sk.sweep2d_segment(n0, wrows, sk._sm_count(dev))
     bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     for seg in sorted({int(s) for s in args.segs.split(",")} | {default}):
         for depth in (4, 2, 1):
