@@ -18,8 +18,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
              1 K4b's ring and open ones; ``vl`` 32 the instances of vl=32,
              0 those of every other vl; the 3-D K3's and K4b's
-             ``sweep3d_f32 <M, D, order, ends>`` with each instance's
-             threads and dynamic shared memory), with the instance counts,
+             ``sweep3d_f32 <M, D, order, ends, vl>`` with each instance's
+             threads and dynamic shared memory), with the instance counts
+             (``sweep3d_f32`` by vl) and each nvcc's seconds,
              and of K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with
              their dynamic shared memory (a K6 or ``sweep3d_f32`` instance
              that spills fails);
@@ -34,9 +35,13 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              2d5p at the JAX package's vl=128, m=8 and at its tuner's vl=8,
              m=8 (the warp kernels at any vl) and at the tuner pair vl=8,
              m=16 (the shared-memory route, ``sweep_1d_smem`` /
-             ``sweep_nd``), 3d7p at vl=8, m=8 (the shared-memory route),
-             each run's route asserted before it; then 3d27p at 256**3
-             (the box order on the 3-D kernel), fused 16;
+             ``sweep_nd``), 3d7p at the tuner's vl=8, m=8 and the JAX
+             package's vl=128, m=4 (the streaming kernel at any vl) and at
+             vl=8, m=16 (the shared-memory route), each run's route
+             asserted before it; then 3d27p at 256**3 (the box order on the
+             3-D kernel), fused 16 at vl=32, m=8 and at the tuner's vl=8,
+             m=8 (the any-vl instances), each on ``sweep_3d``, asserted,
+             the second equal to the first;
   roundtrip  the same two runs under ``sweep="roundtrip"`` (wrap-pad, K2,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
@@ -44,21 +49,26 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
              tiles ``multistep_1d_smem``), 2d5p K4b on the 2-D warp kernel
              (``multistep_2d``) and 3d7p on the 3-D streaming kernel
-             (``multistep_3d``; other tiles ``multistep_nd``);
+             (``multistep_3d``), the fused run also at vl=8, m=8 and
+             vl=128, m=4, each equal to the resident run;
   dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
              Dirichlet ring, K2 per sweep) after one uncounted 2-step run,
-             bit for bit its plain path; seconds as for roundtrip;
+             bit for bit its plain path; seconds as for roundtrip; 3d7p
+             also at vl=8, m=8 and vl=128, m=4 (``multistep_3d``), each
+             equal to the run at the case's tile;
   onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
              (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, bit
              for bit the periodic oracle;
   kernels    at those paths' shapes, each kernel against its plain PyTorch
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
-             after warm-up); K1 and the 2-D K3 at depths 4, 2, 1 also at
-             vl 4, 8, 16 and 128 (the case's m), on the warp kernels;
+             after warm-up); K1 and K3 at depths 4, 2, 1 also at vl 4, 8,
+             16 and 128 (the case's m), on the warp kernels and the 3-D
+             streaming kernel (3d7p also at vl=128 and vl=32, m=4);
              K1-smem and K3-smem time the shared-memory route at depth 4
-             at a tile that keeps it (vl=8, m=16; 3d7p: vl=128, m=4), the
-             route asserted before each launch; the 3d27p K3 at depth 4
+             at a tile that keeps it (vl=8, m=16), the route asserted
+             before each launch; K4 at the case's tile (3d7p also at
+             vl=8, m=8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
              K2 in both directions at the tile of every counted run, on
              its register route (``transpose``) or, at m=16, its
@@ -72,6 +82,7 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
              (fused 16, native 7) and roundtrip, and ``ops.stencil_run``,
              each bit for bit the same call on the CPU (the plain versions);
+             3d7p's tile (vl=16, m=1) on the 3-D streaming kernel, asserted;
   small      3d7p at (16, 16, 256) resident (nb = 1 on the 3-D streaming
              kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
              each counted, on the card and on the CPU against the float64
@@ -136,14 +147,15 @@ TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
 ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 JAX_TILE = (128, 8)      # (vl, m): the JAX package's tile
+JAX_TILE_3D = (128, 4)   # (vl, m): the JAX package's 3-D tile (vl·m divides 512)
 TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8, 16})
 SMEM_TILE = (8, 16)      # (vl, m): a tuner pair that keeps the shared-memory route
-SMEM_TILE_3D = (128, 4)  # (vl, m): the 3-D shared-memory row's tile (vl·m divides 512)
 # the fused resident run again at other tiles, with the route each takes
+# (3-D: also the roundtrip and Dirichlet runs at the first two)
 OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
                2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
-               3: ((TUNER_TILE, "smem"),)}
-ROW_VLS = (4, 8, 16, 128)  # K1 and the 2-D K3 rows off vl=32, at the case's m
+               3: ((TUNER_TILE, "reg"), (JAX_TILE_3D, "reg"), (SMEM_TILE, "smem"))}
+ROW_VLS = (4, 8, 16, 128)  # K1 and K3 rows off vl=32, at the case's m
 BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming kernel
 # template type arguments in mangled names: unsigned short / int / long long, float, bf16
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
@@ -560,10 +572,11 @@ def main() -> int:
     sweep3d = ptxas_kernels(build.report("sweep3d"), "sweep3d_f32")
     lib3d = build.load("sweep3d")
     for entry in sweep3d:
-        m3, d3, order3, _ = map(int, entry["instance"][1:-1].split(", "))
+        m3, d3, order3, _, _ = map(int, entry["instance"][1:-1].split(", "))
         entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 3)
         entry["threads"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 2)
-    want3d = len(sk.SWEEP3D_M) * sk.SWEEP3D_DEPTH * 3 * 2
+    # m x depth x order x ends x (vl = 32's instances, any vl's)
+    want3d = len(sk.SWEEP3D_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 2
     if len(sweep3d) != want3d or any(row.get("spill_stores", 1) or row.get("spill_loads", 1)
                                      or row.get("stack_bytes", 1) for row in sweep3d):
         raise AssertionError(f"sweep3d build: spills, stack or not {want3d} instances {sweep3d}")
@@ -575,6 +588,7 @@ def main() -> int:
     if spilled or not all(k6_ptxas.values()):
         raise AssertionError(f"K6 build: spills or missing instances {k6_ptxas}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "gpu": gpu,
+          "nvcc_seconds": build.SECONDS,
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
                     for n, r in reports.items()},
@@ -584,8 +598,10 @@ def main() -> int:
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 instances": len(warp2d),
           "sweep2d_warp_f32 <M, R, D, order, ends, vl> (vl 0: any)": warp2d,
-          "sweep3d_f32 instances": len(sweep3d),
-          "sweep3d_f32 <M, D, order, ends> (order 0 run time, 1 star, 2 box)": sweep3d,
+          "sweep3d_f32 instances": {f"vl {v}": sum(row["instance"].endswith(f", {v}>")
+                                                   for row in sweep3d) for v in (32, 0)},
+          "sweep3d_f32 <M, D, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
+              sweep3d,
           **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
               f"{kern} {dtype}": ssd_lib.repro_ssd_smem_bytes(i, dtype == "bf16", 64, 128)
@@ -819,57 +835,84 @@ def main() -> int:
                   "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
             del y
 
-        # -- roundtrip: the same runs, one pad/transpose/K4/transpose per sweep
-        prob.run(x, 2, plan_of("roundtrip", "fused"))
-        for remainder, steps in PLANS:
-            chunks = sweep_schedule(K, steps, remainder, 1)[0]
-            sweeps = sum(n for _, n in chunks)
-            y, seconds, got = counted(
-                f"{name} roundtrip {remainder}",
-                lambda: prob.run(x, steps, plan_of("roundtrip", remainder)),
-                k4_counts(spec, chunks, vl, m))
-            counts[((vl, m), "roundtrip", remainder)] = got
-            res2, res2_s = resident[remainder]
-            same(f"{name} roundtrip {remainder} vs resident ttile={TTILE}", y, res2)
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            res1 = prob.run(x, steps, plan_of("resident", remainder, 1))
-            torch.cuda.synchronize()
-            res1_s = time.perf_counter() - start
-            err = same(f"{name} roundtrip {remainder} vs resident ttile=1", y, res1)
-            emit({"phase": "roundtrip", "case": name, "shape": list(shape),
-                  "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
-                  "steps": steps, "sweeps": sweeps, "launches": got,
-                  "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
-                  "seconds_median_of_5": host_median(
-                      lambda: prob.run(x, steps, plan_of("roundtrip", remainder))),
-                  "resident_seconds": {"ttile=1": res1_s, f"ttile={TTILE}": res2_s},
-                  "resident_gpoint_updates_per_s": {
-                      "ttile=1": numel * steps / res1_s,
-                      f"ttile={TTILE}": numel * steps / res2_s},
-                  "roundtrip_over_resident_ttile2": seconds / res2_s,
-                  "max_abs_err_vs_resident": err, "bitwise_ttile1_and_2": True})
-            del y, res1
+        # -- roundtrip: the same runs, one pad/transpose/K4/transpose per
+        # sweep, each equal to the resident run; 3-D also fused at the plans'
+        # other tiles on the streaming kernel (``tiles``: (the plan's tile,
+        # the tile it reaches, the plans run there)) -------------------------
+        others = [tile for tile, route in OTHER_TILES[3] if route == "reg"] \
+            if spec.ndim == 3 else []
+        tiles = [((None, None), (vl, m), PLANS)] + [(t, t, PLANS[:1]) for t in others]
+        for plan_tile, tile, plans in tiles:
+            at = "" if plan_tile[0] is None else f" vl={tile[0]} m={tile[1]}"
+            prob.run(x, 2, plan_of("roundtrip", "fused", 1, plan_tile))
+            for remainder, steps in plans:
+                chunks = sweep_schedule(K, steps, remainder, 1)[0]
+                plan = plan_of("roundtrip", remainder, 1, plan_tile)
+                owned = k4_counts(spec, chunks, *tile)
+                if spec.ndim == 3 and set(owned) - {k2_key(*tile)} != {"multistep_3d"}:
+                    raise AssertionError(f"{name} roundtrip{at}: the schedule's launches "
+                                         f"{owned} are not on multistep_3d")
+                y, seconds, got = counted(f"{name} roundtrip {remainder}{at}",
+                                          lambda: prob.run(x, steps, plan), owned)
+                counts[(tile, "roundtrip", remainder)] = got
+                res2, res2_s = resident[remainder]
+                err = same(f"{name} roundtrip {remainder}{at} vs resident ttile={TTILE} "
+                           f"vl={vl}", y, res2)
+                extra = {}
+                if plan_tile[0] is None:      # the case's tile: also resident at ttile 1
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    res1 = prob.run(x, steps, plan_of("resident", remainder, 1))
+                    torch.cuda.synchronize()
+                    res1_s = time.perf_counter() - start
+                    same(f"{name} roundtrip {remainder} vs resident ttile=1", y, res1)
+                    del res1
+                    extra = {"resident_seconds": {"ttile=1": res1_s, f"ttile={TTILE}": res2_s},
+                             "resident_gpoint_updates_per_s": {
+                                 "ttile=1": numel * steps / res1_s,
+                                 f"ttile={TTILE}": numel * steps / res2_s},
+                             "roundtrip_over_resident_ttile2": seconds / res2_s}
+                emit({"phase": "roundtrip", "case": name, "shape": list(shape),
+                      "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
+                      "tile": {"vl": tile[0], "m": tile[1]}, "steps": steps,
+                      "sweeps": sum(n for _, n in chunks), "launches": got,
+                      "seconds": seconds, "gpoint_updates_per_s": numel * steps / seconds,
+                      "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+                      **extra, "max_abs_err_vs_resident": err, "bitwise": True})
+                del y
         del resident
 
         # -- dirichlet: ops.stencil_run, the Dirichlet ring along axis 0 (one
-        # short uncounted run loads the ring-mode kernels) -------------------
-        ops.stencil_run(spec, x, K, k=K)
+        # short uncounted run loads the ring-mode kernels), at the same tiles:
+        # the case's against the plain version, the others against it -------
         sweeps = DIRICHLET_STEPS // K
-        y, seconds, got = counted(
-            f"{name} dirichlet",
-            lambda: ops.stencil_run(spec, x, DIRICHLET_STEPS, k=K),
-            k4_counts(spec, [(K, sweeps)], vl, m))
-        counts[((vl, m), "dirichlet")] = got
-        err = same(f"{name} dirichlet vs plain", y,
-                   dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, t0))
-        emit({"phase": "dirichlet", "case": name, "shape": list(shape), "k": K,
-              "steps": DIRICHLET_STEPS, "launches": got, "seconds": seconds,
-              "seconds_median_of_5": host_median(
-                  lambda: ops.stencil_run(spec, x, DIRICHLET_STEPS, k=K)),
-              "gpoint_updates_per_s": numel * DIRICHLET_STEPS / seconds,
-              "max_abs_err_vs_plain": err, "bitwise": True})
-        del y
+        first = None
+        for plan_tile, tile, _ in tiles:
+            at = "" if plan_tile[0] is None else f" vl={tile[0]} m={tile[1]}"
+
+            def run_at(steps=DIRICHLET_STEPS):
+                return ops.stencil_run(spec, x, steps, k=K, vl=plan_tile[0], m=plan_tile[1])
+            owned = k4_counts(spec, [(K, sweeps)], *tile)
+            if spec.ndim == 3 and set(owned) - {k2_key(*tile)} != {"multistep_3d"}:
+                raise AssertionError(f"{name} dirichlet{at}: the schedule's launches "
+                                     f"{owned} are not on multistep_3d")
+            run_at(K)
+            y, seconds, got = counted(f"{name} dirichlet{at}", run_at, owned)
+            counts[(tile, "dirichlet")] = got
+            if first is None:
+                first = y
+                err = same(f"{name} dirichlet vs plain", y,
+                           dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, t0))
+            else:
+                err = same(f"{name} dirichlet{at} vs vl={vl}", y, first)
+            emit({"phase": "dirichlet", "case": name, "shape": list(shape), "k": K,
+                  "steps": DIRICHLET_STEPS, "tile": {"vl": tile[0], "m": tile[1]},
+                  "launches": got, "seconds": seconds,
+                  "seconds_median_of_5": host_median(run_at),
+                  "gpoint_updates_per_s": numel * DIRICHLET_STEPS / seconds,
+                  "max_abs_err": err, "bitwise": True})
+            del y
+        del first
         launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
 
         # -- K2: transpose in and out at the tile of every counted run (m=16:
@@ -924,99 +967,124 @@ def main() -> int:
                     lambda: ms(conv_steps, spec, x, depth, weight), launches_at_tile=at_tile)
             del t2, buf2
 
+        # where vl·m divides the minor extent (3-D: also the JAX package's
+        # tile, and vl=32 at its m)
+        row_tiles = [(vl2, m) for vl2 in ROW_VLS if shape[-1] % (vl2 * m) == 0]
+        if spec.ndim == 3:
+            row_tiles += [JAX_TILE_3D, (vl, JAX_TILE_3D[1])]
         sweep_row(kid, (vl, m), (4, 2, 1), src, sweep_key, t0)
-        if spec.ndim <= 2:
-            for vl2 in ROW_VLS:
-                sweep_row(kid, (vl2, m), (4, 2, 1), src, sweep_key,
-                          ops.pick_tile(spec, shape, vl2, m)[2])
+        for tile in row_tiles:
+            sweep_row(kid, tile, (4, 2, 1), src, sweep_key, ops.pick_tile(spec, shape, *tile)[2])
         # the shared-memory route at depth 4, at a tile that still takes it
-        tile = SMEM_TILE if spec.ndim <= 2 else SMEM_TILE_3D
-        sweep_row(f"{kid}-smem", tile, (K * TTILE,), "sweep", smem_key,
-                  ops.pick_tile(spec, shape, *tile)[2])
+        sweep_row(f"{kid}-smem", SMEM_TILE, (K * TTILE,), "sweep", smem_key,
+                  ops.pick_tile(spec, shape, *SMEM_TILE)[2])
 
-        # -- K4: the multistep sweep at the roundtrip's padded shape ---------
+        # -- K4: the multistep sweep at the roundtrip's padded shape (3-D:
+        # also at the tuner's tile) ------------------------------------------
         kid = "K4a" if spec.ndim == 1 else "K4b"
         fname = "stencil1d_multistep" if spec.ndim == 1 else "stencil_nd_multistep"
         block = vl * m if spec.ndim == 1 else t0
         pad = sk.sweep_halo_blocks(spec.r, K, block) * block
         xp = ops.wrap_pad(x, pad)
-        tp = sk.block_transpose(xp, vl, m)
-        bufp = torch.empty_like(tp)
         pdims = "x".join(map(str, xp.shape))
-        for edge_mask in (False, True):
-            for depth in (K, 1):
-                if spec.ndim == 1:
-                    def kern():
-                        return sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=bufp)
+        for vl2, m2 in [(vl, m)] + ([TUNER_TILE] if spec.ndim == 3 else []):
+            tp = sk.block_transpose(xp, vl2, m2)
+            bufp = torch.empty_like(tp)
+            for edge_mask in (False, True):
+                for depth in (K, 1):
+                    if spec.ndim == 1:
+                        def kern():
+                            return sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=bufp)
 
-                    def plain():
-                        return sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask)
-                else:
-                    def kern():
-                        return sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask,
-                                                       out=bufp)
+                        def plain():
+                            return sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask)
+                    else:
+                        def kern():
+                            return sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask,
+                                                           out=bufp)
 
-                    def plain():
-                        return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
-                edge = "ring" if edge_mask else "open"
-                key = multi_key(spec, vl, m, depth)
-                source = {"multistep_1d": "sweep1d_warp", "multistep_2d": "sweep2d_warp",
-                          "multistep_3d": "sweep3d"}.get(key, "sweep")
-                route = "smem" if source == "sweep" else \
-                    "stream" if source == "sweep3d" else "warp"
-                err = same(f"{name} {kid} {edge} depth {depth}", kern(), plain())
-                row(kid, fname,
-                    f"{name} {pdims} {edge} depth={depth}; route {route} ({key}); library: "
-                    "zero pad on axis 0, no ring restore", source,
-                    launched[key], err, kern, plain,
-                    bound(2 * xp.numel() * itemsize,
-                          depth * spec.flops_per_point * xp.numel()),
-                    lambda: ms(conv_steps, spec, xp, depth, weight, True))
-        del x, xp, tp, bufp, weight
+                        def plain():
+                            return sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)
+                    edge = "ring" if edge_mask else "open"
+                    key = multi_key(spec, vl2, m2, depth)
+                    source = {"multistep_1d": "sweep1d_warp", "multistep_2d": "sweep2d_warp",
+                              "multistep_3d": "sweep3d"}.get(key, "sweep")
+                    route = "smem" if source == "sweep" else \
+                        "stream" if source == "sweep3d" else "warp"
+                    err = same(f"{name} {kid} vl={vl2} m={m2} {edge} depth {depth}", kern(),
+                               plain())
+                    row(kid, fname,
+                        f"{name} {pdims} vl={vl2} m={m2} {edge} depth={depth}; route {route} "
+                        f"({key}); library: zero pad on axis 0, no ring restore", source,
+                        launched[key], err, kern, plain,
+                        bound(2 * xp.numel() * itemsize,
+                              depth * spec.flops_per_point * xp.numel()),
+                        lambda: ms(conv_steps, spec, xp, depth, weight, True))
+            del tp, bufp
+        del x, xp, weight
         torch.cuda.empty_cache()
 
     # -- 3d27p: the box order on the 3-D streaming kernel, a resident fused
-    # run counted, then K3 at depth 4 timed and depths 2, 1 and K4b's ring
-    # and open held bit for bit -------------------------------------------
+    # run counted at the picker's tile and at the tuner's (the any-vl
+    # instances, equal to the first), then at each tile K3 at depth 4 timed
+    # and depths 2, 1 and K4b's ring and open held bit for bit -------------
     name, shape = BOX_CASE
+    dims = "x".join(map(str, shape))
     prob = StencilProblem(name, shape)
     spec = prob.spec
     x = prob.init(SEED)
-    vl, m, t0 = ops.pick_tile(spec, shape)
-    remainder, steps = PLANS[0]
-    plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
-                       remainder=remainder)
-    prob.run(x, 2, plan)
-    y, seconds, got = counted(f"{name} resident {remainder}", lambda: prob.run(x, steps, plan),
-                              resident_counts(spec, steps, remainder, vl, m))
-    err = same(f"{name} resident {remainder} vs plain", y,
-               resident_plain(spec, x, steps, remainder, vl, m, t0))
-    emit({"phase": "main_path", "case": name, "shape": list(shape),
-          "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
-          "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
-          "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
-          "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
-          "max_abs_err_vs_plain": err, "bitwise": True})
-    t = sk.block_transpose(x, vl, m)
-    buf = torch.empty_like(t)
-    for depth in (2, 1):
-        same(f"{name} K3 depth {depth}", sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0),
-             sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0))
-        for edge_mask in (True, False):
-            same(f"{name} K4b edge_mask={edge_mask} depth {depth}",
-                 sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask),
-                 sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask))
     weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
-    err = same(f"{name} K3 depth {K * TTILE}", sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0),
-               sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0))
-    row("K3", "stencil_nd_sweep_ttile",
-        f"{name} {'x'.join(map(str, shape))} vl={vl} m={m} depth={K * TTILE}; "
-        "box order; depths 2, 1 and K4b ring/open bitwise, untimed", "sweep3d",
-        got["sweep_3d"], err, lambda: sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0, out=buf),
-        lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0),
-        bound(2 * x.numel() * 4, K * TTILE * spec.flops_per_point * x.numel()),
-        lambda: ms(conv_steps, spec, x, K * TTILE, weight))
-    del x, y, t, buf, weight
+    remainder, steps = PLANS[0]
+    box_runs, first = {}, None
+    for plan_tile in ((None, None), TUNER_TILE):
+        vl, m, t0 = ops.pick_tile(spec, shape, *plan_tile)
+        plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                           remainder=remainder, vl=plan_tile[0] or 8, m=plan_tile[1])
+        owned = resident_counts(spec, steps, remainder, vl, m)
+        if set(owned) - {k2_key(vl, m)} != {"sweep_3d"}:
+            raise AssertionError(f"{name} at vl={vl}, m={m}: the schedule's launches {owned} "
+                                 "are not on sweep_3d")
+        prob.run(x, 2, plan)
+        y, seconds, got = counted(f"{name} resident {remainder} vl={vl} m={m}",
+                                  lambda: prob.run(x, steps, plan), owned)
+        err = same(f"{name} resident {remainder} vl={vl} m={m} vs plain", y,
+                   resident_plain(spec, x, steps, remainder, vl, m, t0))
+        if first is None:
+            first = (y, vl)
+        else:
+            same(f"{name} resident {remainder} vl={vl} m={m} vs vl={first[1]}", y, first[0])
+        box_runs[(vl, m, t0)] = got["sweep_3d"]
+        emit({"phase": "main_path", "case": name, "shape": list(shape),
+              "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+              "tile": {"vl": vl, "m": m, "t0": t0}, "route": "sweep_3d", "seconds": seconds,
+              "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+              "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+              "max_abs_err_vs_plain": err, "bitwise": True})
+        del y
+    del first
+    for (vl, m, t0), at_tile in box_runs.items():
+        t = sk.block_transpose(x, vl, m)
+        buf = torch.empty_like(t)
+        for depth in (2, 1):
+            same(f"{name} K3 vl={vl} m={m} depth {depth}",
+                 sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0),
+                 sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0))
+            for edge_mask in (True, False):
+                same(f"{name} K4b vl={vl} m={m} edge_mask={edge_mask} depth {depth}",
+                     sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask),
+                     sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask))
+        err = same(f"{name} K3 vl={vl} m={m} depth {K * TTILE}",
+                   sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0),
+                   sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0))
+        row("K3", "stencil_nd_sweep_ttile",
+            f"{name} {dims} vl={vl} m={m} depth={K * TTILE}; box order; depths 2, 1 and K4b "
+            "ring/open bitwise, untimed", "sweep3d", sum(box_runs.values()), err,
+            lambda: sk.stencil_nd_sweep_ttile(spec, t, K, TTILE, t0, out=buf),
+            lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, K, TTILE, t0),
+            bound(2 * x.numel() * 4, K * TTILE * spec.flops_per_point * x.numel()),
+            lambda: ms(conv_steps, spec, x, K * TTILE, weight), launches_at_tile=at_tile)
+        del t, buf
+    del x, weight
     torch.cuda.empty_cache()
 
     # -- onestep: the layout A/B, and its K5 rows --------------------------
@@ -1077,6 +1145,9 @@ def main() -> int:
                      k4_counts(spec, [(K, DIRICHLET_STEPS // K)], vl, m),
                      lambda p, v: ops.stencil_run(spec, v, DIRICHLET_STEPS, k=K)))
         for label, owned, run in runs:
+            if spec.ndim == 3 and set(owned) - {k2_key(vl, m), "sweep_3d", "multistep_3d"}:
+                raise AssertionError(f"tiles {name} {label} at vl={vl}, m={m}: the schedule's "
+                                     f"launches {owned} leave the 3-D streaming kernel")
             y, seconds, got = counted(f"tiles {name} {label}", lambda: run(prob, x), owned)
             same(f"tiles {name} {label} vs the CPU", y.cpu(), run(prob_cpu, x_cpu))
             emit({"phase": "tiles", "case": name, "shape": list(shape), "run": label,

@@ -1,14 +1,16 @@
 """Build the CUDA sources of ``kernels/csrc`` with ``nvcc`` at first use.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<hash>/<name>.so`` under
-the checkout root, where ``<hash>`` covers every source and the compiler
-flags, so an edited source builds anew and an unchanged one is reused.  The
-libraries have a plain C interface and are loaded with ``ctypes``; no
-PyTorch header is compiled, which keeps a build to seconds.  A build writes
+the checkout root, where ``<hash>`` covers every source, the headers they
+include (``csrc/*.cuh``) and the compiler flags, so an edited source builds
+anew and an unchanged one is reused.  The libraries have a plain C
+interface and are loaded with ``ctypes``; no PyTorch header is compiled,
+which keeps a build to seconds.  A build writes
 to a temporary name and moves the result into place, so a build cut short
 never leaves a library behind.  A failed build raises with nvcc's stderr;
 a build that succeeds keeps nvcc's report (``-Xptxas -v``: registers,
-spills, stack per kernel) beside its library as ``<name>.ptxas.txt``.
+spills, stack per kernel) beside its library as ``<name>.ptxas.txt``, and
+``SECONDS`` holds each nvcc's wall time in the last build.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -28,14 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+SECONDS: dict[str, float] = {}     # wall seconds of each nvcc of the last build_all
 
 
 def build_dir() -> Path:
     """``build/repro_torch/<hash of sources and flags>`` under the checkout."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     root = Path(__file__).resolve().parents[3]
     return root / "build" / "repro_torch" / h.hexdigest()[:16]
 
@@ -65,10 +69,22 @@ def build_all(names=SOURCES) -> dict[str, str]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not (out_dir / f"{n}.so").exists()]
+    SECONDS.clear()
+    start = time.perf_counter()
     jobs = {n: _start(n, out_dir) for n in todo}
+    done = {}
+
+    def wait(name, proc):      # one thread a job: each nvcc's time is its own
+        done[name] = proc.communicate()
+        SECONDS[name] = time.perf_counter() - start
+    waiters = [threading.Thread(target=wait, args=(n, job[0])) for n, job in jobs.items()]
+    for th in waiters:
+        th.start()
+    for th in waiters:
+        th.join()
     reports, failures = {}, []
     for name, (proc, tmp, final) in jobs.items():
-        out, err = proc.communicate()
+        out, err = done[name]
         if proc.returncode != 0:
             failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{err}{out}")
             tmp.unlink(missing_ok=True)

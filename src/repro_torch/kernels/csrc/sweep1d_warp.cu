@@ -80,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cols.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;    // a warp row: one column per lane
@@ -100,19 +102,6 @@ struct Taps1 {
   int n;
   int o[kMaxTaps];
   float c[kMaxTaps];
-};
-
-__device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
-  if (i >= 0 && i < n) return i;
-  const int64_t r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// The layout's columns: C of them, vl to a block, m elements each.  shift
-// is log2(vl) when vl is a power of two, else -1.
-struct Cols {
-  int64_t n;
-  int vl, shift;
 };
 
 // Offset of element 0 of column c (0 <= c < C); element s is s * vl on.
@@ -432,8 +421,7 @@ extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rr = (int)r, d = (int)depth, order = tap_order(offsets, ntaps, r);
   const int e = (int)edge;
-  const int shift = (vl & (vl - 1)) == 0 ? __builtin_ctzll((unsigned long long)vl) : -1;
-  const Cols cols{nb * vl, (int)vl, shift};
+  const Cols cols = make_cols(nb, vl);
   switch (m) {
     case 1: return launch_m<1>(src, dst, cols, rr, d, taps, order, e, st);
     case 2: return launch_m<2>(src, dst, cols, rr, d, taps, order, e, st);

@@ -96,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cols.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;               // a warp row: one column per lane
@@ -123,43 +125,17 @@ struct Taps2 {
   float c[kMaxTaps];
 };
 
-__device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
-  if (i >= 0 && i < n) return i;
-  const int64_t r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// The layout's columns: C of them a row, vl to a block, m elements each.
-// shift is log2(vl) when vl is a power of two, else -1.
-struct Cols {
-  int64_t n;
-  int vl, shift;
-};
-
 // Offset of element 0 of column u mod C (u unwrapped) in its row; element s
-// is s * vl on.  kVl: vl when the instance fixes it, else 0, and then C <
-// 2^30: 32-bit arithmetic, which nvcc inlines (its 64-bit division is a
-// call, and a call ahead of the shuffles makes it wrap each shuffle in code
-// for a split warp).
+// is s * vl on.  kVl: vl when the instance fixes it, else 0, and then the
+// 32-bit split of cols.cuh.
 template <int M, int kVl>
 __device__ __forceinline__ int64_t col_offset(int64_t u, const Cols& cols) {
   if constexpr (kVl > 0) {
     const int64_t c = wrap(u, cols.n);
     return c / kVl * (M * kVl) + c % kVl;
   } else {
-    int c = (int)u;                       // -32 <= u < C + 32 * kWarps
-    if (c < 0 || c >= (int)cols.n) {
-      c %= (int)cols.n;
-      if (c < 0) c += (int)cols.n;
-    }
     unsigned q, rem;
-    if (cols.shift >= 0) {
-      q = (unsigned)c >> cols.shift;
-      rem = (unsigned)c & (cols.vl - 1);
-    } else {
-      q = (unsigned)c / (unsigned)cols.vl;
-      rem = (unsigned)c - q * cols.vl;
-    }
+    split_col((int)u, cols, q, rem);      // -32 <= u < C + 32 * kWarps
     return (int64_t)q * (M * cols.vl) + rem;
   }
 }
@@ -503,7 +479,7 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
                                       void* stream) {
   if ((m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
       depth > max_depth((int)m) || depth * r > kLanes * m || edge < kPeriodic || edge > kOpen ||
-      n0 < 1 || nb < 1 || vl < 1 || (vl != kLanes && nb * vl >= (1 << 30)) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
+      n0 < 1 || nb < 1 || vl < 1 || (vl != kLanes && nb * vl >= kMaxCols) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
       ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2 taps;
@@ -515,8 +491,7 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
     if (taps.oy[t] < -r || taps.oy[t] > r || taps.ox[t] < -r || taps.ox[t] > r)
       return (int)cudaErrorInvalidValue;
   }
-  const int shift = (vl & (vl - 1)) == 0 ? __builtin_ctzll((unsigned long long)vl) : -1;
-  const Cols cols{nb * vl, (int)vl, shift};
+  const Cols cols = make_cols(nb, vl);
   const int64_t wrows = (cols.n + kLanes - 1) / kLanes;   // warp rows of a row
   const int64_t ncol = (wrows + kWarps - 3) / (kWarps - 2);
   const int64_t ctas = ncol * ((n0 + seg - 1) / seg);

@@ -1,31 +1,36 @@
 // Depth-`depth` advance of a 3-D grid held in the paper's local transpose
-// layout (n0, n1, nb, m, vl = 32) on its minor axis, one launch per sweep
-// chunk: K3's and K4b's streaming kernel for 3-D stencils.
+// layout (n0, n1, nb, m, vl) on its minor axis, one launch per sweep chunk:
+// K3's and K4b's streaming kernel for 3-D stencils.
 //
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
 // stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
-// ends of axis 0), for 3-D stencils of reach r = 1, vl = 32, m in
+// ends of axis 0), for 3-D stencils of reach r = 1 at any vl, m in
 // {1, 2, 4, 8} and depth 1..kMaxDepth (stencil_kernels.sweep3d_route picks
 // it before the launch).  Every other 3-D shape takes the shared-memory
 // kernel of csrc/stencil_sweep.cu.
 //
 // Design: 2.5-D blocking, streamed along axis 0 (z) as csrc/sweep2d_warp.cu
 // streams along y.
-// - Columns.  Layout block b holds natural x = (32 b + j) m + s at [s][j],
-//   so global column g = 32 b + j is m consecutive elements of a row.
-//   Thread t of a CTA owns column cx = t % Cx of tile row ty = t / Cx and
-//   keeps its m elements in registers: an x shift inside a column is a
-//   register index.
+// - Columns.  A row's C = nb * vl columns each hold m consecutive natural
+//   elements: column c's element s lies at ((c / vl) * m + s) * vl + c % vl
+//   of the row.  Thread t of a CTA owns column cx = t % Cx of tile row
+//   ty = t / Cx and keeps its m elements in registers: an x shift inside a
+//   column is a register index, and a column's neighbours are the threads
+//   beside it, whatever vl is.  vl only places a column in device memory:
+//   its offset is worked out once per thread (a shift and a mask when vl is
+//   a power of two, else one 32-bit division; C < 2^30), and its elements
+//   lie vl floats apart.  vl = 32 has instances of its own (kVl), with
+//   every stride a constant.
 // - The tile.  A CTA stores kLanes consecutive columns of Ty - 2 Hy
 //   consecutive rows of every plane of its z segment, and computes Ty x Cx
 //   columns: Hx = ceil(depth r / m) columns and Hy = depth r rows of halo on
-//   each side, rows wrapped mod n1 and columns mod 32 nb (so nb = 1 and n1
-//   below a tile work).  A halo's outer neighbours are missing (the tile's
-//   edge threads read zeros or the next row's column), the error this makes
-//   moves r elements or rows per step, and the halo holds it.  Only the
-//   inner threads store, and only rows below n1 and columns below 32 nb:
-//   each (plane, row, block) once.
+//   each side, rows wrapped mod n1 and columns mod C (so C below kLanes and
+//   n1 below a tile work).  A halo's outer neighbours are missing (the
+//   tile's edge threads read zeros or the next row's column), the error
+//   this makes moves r elements or rows per step, and the halo holds it.
+//   Only the inner threads store, and only rows below n1 and columns below
+//   C: each (plane, row, column) once.
 // - Along z a CTA walks a segment of planes [z0, z1), starting depth * r
 //   planes early and ending depth * r planes late, plane indices wrapped
 //   mod n0 in the periodic mode.  At step i the input plane z0 - depth*r + i
@@ -85,9 +90,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cols.cuh"
+
 namespace {
 
-constexpr int kVl = 32;                  // the layout's vl
+constexpr int kVl32 = 32;                // the vl with instances of its own
 constexpr int kR = 1;                    // the reach the instances take
 constexpr int kNW = 2 * kR + 1;          // window planes per level
 constexpr int kLanes = 16;               // columns a CTA stores per row
@@ -135,10 +142,20 @@ struct Taps3 {
   float c[kMaxTaps];
 };
 
-__device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
-  if (i >= 0 && i < n) return i;
-  const int64_t r = i % n;
-  return r < 0 ? r + n : r;
+// Offset of element 0 of column u mod C (u unwrapped) of row y in plane 0;
+// element s is s * vl on.  kVl: vl when the instance fixes it (its C is
+// nb * kVl), else 0, and then the 32-bit split of cols.cuh.
+template <int M, int kVl>
+__device__ __forceinline__ int64_t col_offset(int64_t y, int64_t u, int64_t nb,
+                                              const Cols& cols) {
+  if constexpr (kVl > 0) {
+    const int64_t g = wrap(u, nb * kVl);
+    return (y * nb + g / kVl) * (kVl * M) + g % kVl;
+  } else {
+    unsigned q, rem;
+    split_col((int)u, cols, q, rem);      // -Hx <= u < C + kLanes + Hx
+    return (y * nb + q) * (M * cols.vl) + rem;
+  }
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -248,20 +265,20 @@ __device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&w0)[M]
 }
 
 // The input plane of step p into ring slot p % Slots: each thread copies
-// its column's m elements.  One commit group per step, empty past the planes
-// the segment needs and, outside the periodic mode, for planes beyond the
-// ends (open mode writes those as zeros).
+// its column's m elements, vl floats apart.  One commit group per step,
+// empty past the planes the segment needs and, outside the periodic mode,
+// for planes beyond the ends (open mode writes those as zeros).
 template <typename T, int M, bool kEnds>
 __device__ __forceinline__ void issue(const float* __restrict__ in, float* mine, int p, int nload,
                                       int64_t base, int64_t n0, int64_t plane, int64_t col,
-                                      int edge) {
+                                      int vl, int edge) {
   const int64_t z = base + p;
   float* dst = mine + (p % T::Slots) * T::Plane;
   if (p < nload) {
     if (!kEnds || (z >= 0 && z < n0)) {
       const float* src = in + wrap(z, n0) * plane + col;
 #pragma unroll
-      for (int s = 0; s < M; ++s) cp_async4(dst + s * T::Stride, src + s * kVl);
+      for (int s = 0; s < M; ++s) cp_async4(dst + s * T::Stride, src + s * vl);
     } else if (edge == kOpen) {
 #pragma unroll
       for (int s = 0; s < M; ++s) dst[s * T::Stride] = 0.0f;
@@ -270,10 +287,11 @@ __device__ __forceinline__ void issue(const float* __restrict__ in, float* mine,
   cp_async_commit();
 }
 
-template <int M, int D, int kOrder, bool kEnds>
+template <int M, int D, int kOrder, bool kEnds, int kVl>
 __global__ void __launch_bounds__(Tile<M, D, kOrder>::Threads, 1)
 sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, int64_t n1,
-            int64_t nb, int64_t ntx, int64_t nty, int64_t seg, int edge, Taps3 taps) {
+            int64_t nb, int64_t ntx, int64_t nty, int64_t seg, int edge, Taps3 taps,
+            Cols cols) {
   using T = Tile<M, D, kOrder>;
   constexpr bool kStarPub = kOrder == kStar;   // publish one step late, 2 slots
   extern __shared__ float smem[];
@@ -282,7 +300,8 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
   // the first and last tile row of this thread's warp
   const int wrow0 = (t & ~31) / T::Cx;
   const int wrow1 = ((t | 31) < T::Threads ? (t | 31) : T::Threads - 1) / T::Cx;
-  const int64_t ncol = nb * kVl;
+  const int vl = kVl > 0 ? kVl : cols.vl;
+  const int64_t ncol = nb * vl;
   const int64_t xt = blockIdx.x % ntx;
   const int64_t yt = blockIdx.x / ntx % nty;
   const int64_t z0 = blockIdx.x / ntx / nty * seg;
@@ -295,11 +314,11 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
   const int64_t hi = edge == kRing ? n0 - kR : n0;
   const int64_t gu = xt * kLanes - T::Hx + cx;                     // column, unwrapped
   const int64_t yu = yt * (T::Ty - 2 * T::Hy) - T::Hy + ty;        // row, unwrapped
-  const int64_t g = wrap(gu, ncol), y = wrap(yu, n1);
+  const int64_t y = wrap(yu, n1);
   const bool stores = cx >= T::Hx && cx < T::Cx - T::Hx && gu < ncol && ty >= T::Hy &&
                       ty < T::Ty - T::Hy && yu < n1;
-  const int64_t plane = n1 * nb * (kVl * M);
-  const int64_t col = (y * nb + g / kVl) * (kVl * M) + g % kVl;   // element 0 in plane 0
+  const int64_t plane = n1 * nb * (vl * M);
+  const int64_t col = col_offset<M, kVl>(y, gu, nb, cols);   // element 0 in plane 0
   float* const mine = smem + T::Pad + t;             // element 0 of this column, ring slot 0
   float* const levels = mine + T::Slots * T::Plane;  // the published levels' slots
 
@@ -307,7 +326,7 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
   __syncthreads();
 #pragma unroll
   for (int p = 0; p < T::Stages; ++p)
-    issue<T, M, kEnds>(in, mine, p, nload, base, n0, plane, col, edge);
+    issue<T, M, kEnds>(in, mine, p, nload, base, n0, plane, col, vl, edge);
 
   // win[l - 1][q]: this column of the level-l plane made at a step = q mod kNW
   // (levels 1..D-1; win[D - 1] is never used)
@@ -364,7 +383,7 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
           if (stores && i >= D * kNW) {
             float* dst = out + (z0 + i - D * kNW) * plane + col;
 #pragma unroll
-            for (int s = 0; s < M; ++s) dst[s * kVl] = acc[s];
+            for (int s = 0; s < M; ++s) dst[s * vl] = acc[s];
           }
         } else {
           float* slot = levels + (l - 1) * T::E * T::Plane + wslot;
@@ -375,7 +394,7 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
           for (int s = 0; s < M; ++s) win[l - 1][ph][s] = acc[s];
         }
       }
-      issue<T, M, kEnds>(in, mine, i + T::Stages, nload, base, n0, plane, col, edge);
+      issue<T, M, kEnds>(in, mine, i + T::Stages, nload, base, n0, plane, col, vl, edge);
       cp_async_wait<T::Stages>();   // this thread's copy of plane i has landed
       __syncthreads();              // every thread's, and this step's published planes
     }
@@ -384,35 +403,42 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
 }
 
 template <int M, int D, int kOrder>
-int go(const float* in, float* out, int64_t n0, int64_t n1, int64_t nb, int64_t seg, int edge,
-       const Taps3& taps, cudaStream_t stream) {
+int go(const float* in, float* out, int64_t n0, int64_t n1, int64_t nb, const Cols& cols,
+       int64_t seg, int edge, const Taps3& taps, cudaStream_t stream) {
   using T = Tile<M, D, kOrder>;
-  const auto kernel = edge == kPeriodic ? sweep3d_f32<M, D, kOrder, false>
-                                        : sweep3d_f32<M, D, kOrder, true>;
+  // vl = 32 has instances of its own, every stride a constant
+  const bool v32 = cols.vl == kVl32;
+  const auto kernel = edge == kPeriodic
+                          ? (v32 ? sweep3d_f32<M, D, kOrder, false, kVl32>
+                                 : sweep3d_f32<M, D, kOrder, false, 0>)
+                          : (v32 ? sweep3d_f32<M, D, kOrder, true, kVl32>
+                                 : sweep3d_f32<M, D, kOrder, true, 0>);
   if (T::Bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::Bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const int64_t ntx = (nb * kVl + kLanes - 1) / kLanes;
+  const int64_t ntx = (cols.n + kLanes - 1) / kLanes;
   const int64_t nty = (n1 + T::Ty - 2 * T::Hy - 1) / (T::Ty - 2 * T::Hy);
   const int64_t ctas = ntx * nty * ((n0 + seg - 1) / seg);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)ctas, T::Threads, T::Bytes, stream>>>(in, out, n0, n1, nb, ntx, nty, seg,
-                                                            edge, taps);
+                                                            edge, taps, cols);
   return (int)cudaGetLastError();
 }
 
 template <int M, int D>
 int launch_depth(int depth, int order, const float* in, float* out, int64_t n0, int64_t n1,
-                 int64_t nb, int64_t seg, int edge, const Taps3& taps, cudaStream_t stream) {
+                 int64_t nb, const Cols& cols, int64_t seg, int edge, const Taps3& taps,
+                 cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<M, D - 1>(depth, order, in, out, n0, n1, nb, seg, edge, taps, stream);
+      return launch_depth<M, D - 1>(depth, order, in, out, n0, n1, nb, cols, seg, edge, taps,
+                                    stream);
     switch (order) {
-      case kStar: return go<M, D, kStar>(in, out, n0, n1, nb, seg, edge, taps, stream);
-      case kBox: return go<M, D, kBox>(in, out, n0, n1, nb, seg, edge, taps, stream);
-      default: return go<M, D, kRuntime>(in, out, n0, n1, nb, seg, edge, taps, stream);
+      case kStar: return go<M, D, kStar>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
+      case kBox: return go<M, D, kBox>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
+      default: return go<M, D, kRuntime>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -463,7 +489,8 @@ extern "C" int64_t repro_sweep3d_tile(int64_t m, int64_t depth, int64_t order, i
 }
 
 // `depth` steps of the (n0, n1, nb, m, vl) layout array `in` into `out`
-// (another buffer), for a 3-D stencil of reach r = 1, with the ends of axis
+// (another buffer), at any vl (nb * vl < 2^30 off vl = 32), for a 3-D
+// stencil of reach r = 1, with the ends of axis
 // 0 `edge` (0 periodic, 1 ring, 2 open; axes 1 and 2 are periodic), in
 // segments of `seg` planes per CTA.  `offsets` holds ntaps (oz, oy, ox)
 // triples and `coeffs` ntaps float coefficients, both in host memory.
@@ -472,9 +499,10 @@ extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t n0, int64_t 
                                  int64_t m, int64_t vl, int64_t r, int64_t depth, int64_t edge,
                                  int64_t seg, int64_t ntaps, const int32_t* offsets,
                                  const float* coeffs, void* stream) {
-  if (vl != kVl || (m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
-      depth > kMaxDepth || edge < kPeriodic || edge > kOpen || n0 < 1 || n1 < 1 || nb < 1 ||
-      seg < 1 || seg > (1 << 24) || ntaps < 1 || ntaps > kMaxTaps)
+  if ((m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 || depth > kMaxDepth ||
+      edge < kPeriodic || edge > kOpen || n0 < 1 || n1 < 1 || nb < 1 || vl < 1 ||
+      (vl != kVl32 && nb * vl >= kMaxCols) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
+      ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps3 taps;
   taps.n = (int)ntaps;
@@ -490,10 +518,15 @@ extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t n0, int64_t 
   float* dst = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
+  const Cols cols = make_cols(nb, vl);
   switch (m) {
-    case 1: return launch_depth<1, kMaxDepth>(d, order, src, dst, n0, n1, nb, seg, e, taps, st);
-    case 2: return launch_depth<2, kMaxDepth>(d, order, src, dst, n0, n1, nb, seg, e, taps, st);
-    case 4: return launch_depth<4, kMaxDepth>(d, order, src, dst, n0, n1, nb, seg, e, taps, st);
-    default: return launch_depth<8, kMaxDepth>(d, order, src, dst, n0, n1, nb, seg, e, taps, st);
+    case 1: return launch_depth<1, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
+                                               st);
+    case 2: return launch_depth<2, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
+                                               st);
+    case 4: return launch_depth<4, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
+                                               st);
+    default: return launch_depth<8, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
+                                               st);
   }
 }

@@ -13,9 +13,9 @@
     ``csrc/sweep1d_warp.cu`` and :func:`sweep2d_route`:
     ``csrc/sweep2d_warp.cu``, at any ``vl``, a lane on each of 32
     consecutive columns of the layout; :func:`sweep3d_route`:
-    ``csrc/sweep3d.cu`` at ``vl = 32``), or the shared-memory kernel
-    ``csrc/stencil_sweep.cu`` (other ``m``, deeper sweeps, 3-D at other
-    ``vl``).
+    ``csrc/sweep3d.cu``, at any ``vl``, a thread on each column), or the
+    shared-memory kernel ``csrc/stencil_sweep.cu`` (other ``m``, deeper
+    sweeps, reach beyond the kernels').
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -63,20 +63,21 @@ _TILE_MID = 16                       # default output tile, 3-D mid axis
 TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL, TRANSPOSE_MAX_M = 4, 128, 8
 # a warp row of the register kernels: 32 columns of the layout, one a lane
 WARP_LANES = 32
+# columns a row may have off vl = 32 in the 2-D and 3-D register kernels
+# (csrc/cols.cuh's kMaxCols: 32-bit column math)
+MAX_COLS = 1 << 30
 # warp rows per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_MAX_R = 4
 # csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
-# instance by m, its reach, the shortest axis-0 segment a CTA walks, and
-# the columns a row may have off vl = 32
+# instance by m, its reach and the shortest axis-0 segment a CTA walks
 WARP2D_WARPS = 10
 WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
 WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
-WARP2D_MAX_COLS = 1 << 30            # columns a row off vl = 32 (32-bit index math)
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
-# the m it takes, its deepest instance, its reach, and the shortest z
+# the m it takes, its deepest instance, its reach and the shortest z
 # segment a CTA walks
 SWEEP3D_LANES = 16
 SWEEP3D_THREADS = 512
@@ -429,9 +430,9 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     rows, ``tools/sweep2d_segments.py``)."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
-    if vl != WARP_LANES and nb * vl >= WARP2D_MAX_COLS:
+    if vl != WARP_LANES and nb * vl >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl} columns a row at vl={vl}; the 2-D warp "
-                         f"kernel takes fewer than {WARP2D_MAX_COLS} off vl={WARP_LANES}")
+                         f"kernel takes fewer than {MAX_COLS} off vl={WARP_LANES}")
     if seg_rows is None:
         seg_rows = sweep2d_segment(n0, warp_rows(nb, vl), _sm_count(t.device))
     lib = build.load("sweep2d_warp")
@@ -445,11 +446,13 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
 def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
-    stencil: ``"stream"`` (``csrc/sweep3d.cu``) when a block row is 32
-    columns (``vl = 32``), ``m`` and ``depth`` have an instance and the
-    reach is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``)
-    otherwise."""
-    if vl == WARP_LANES and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
+    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl``: a thread
+    owns a column of the layout) when ``m`` and ``depth`` have an instance
+    (``SWEEP3D_M``, depth 1 to ``SWEEP3D_DEPTH``) and the reach is the
+    kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise: m outside
+    {1, 2, 4, 8} (m = 16, the picker's odd m), depth beyond 4, r > 1.  The
+    periodic, ring and open ends take the same route."""
+    if vl >= 1 and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
             and 1 <= depth <= SWEEP3D_DEPTH:
         return "stream"
     return "smem"
@@ -482,14 +485,15 @@ def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
     return ty, cx, hx, hy
 
 
-def sweep3d_segment(n0: int, n1: int, nb: int, m: int, depth: int, order: str,
+def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
                     ctas: int) -> int:
-    """Axis-0 planes per CTA of the 3-D kernel: the segment length whose
-    waves of ``ctas`` CTAs (one per SM) times the steps of a segment
-    (its planes and 3·depth warm-up steps) are fewest; no segment shorter
-    than ``SWEEP3D_SEG_MIN`` planes unless the grid is."""
+    """Axis-0 planes per CTA of the 3-D kernel on rows of ``cols = nb·vl``
+    columns: the segment length whose waves of ``ctas`` CTAs (one per SM)
+    times the steps of a segment (its planes and 3·depth warm-up steps) are
+    fewest; no segment shorter than ``SWEEP3D_SEG_MIN`` planes unless the
+    grid is."""
     ty, _, _, hy = sweep3d_tile(m, depth, order)
-    tiles = -(-nb * WARP_LANES // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
+    tiles = -(-cols // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
     best = None
     for nseg in range(1, -(-n0 // SWEEP3D_SEG_MIN) + 1):
         seg = -(-n0 // nseg)
@@ -504,10 +508,14 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
     """The 3-D streaming kernel with the ends ``edge`` on axis 0, ``seg``
     axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
     card's SMs)."""
-    _kernel_io(t, out, "the 3-D streaming sweep kernel")
     n0, n1, nb, m, vl = t.shape
+    if vl != WARP_LANES and nb * vl >= MAX_COLS:
+        raise ValueError(f"{spec.name}: {nb * vl} columns a row at vl={vl}; the 3-D streaming "
+                         f"kernel takes fewer than {MAX_COLS} off vl={WARP_LANES}")
+    _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
-        seg = sweep3d_segment(n0, n1, nb, m, depth, sweep3d_order(spec), _sm_count(t.device))
+        seg = sweep3d_segment(n0, n1, nb * vl, m, depth, sweep3d_order(spec),
+                              _sm_count(t.device))
     lib = build.load("sweep3d")
     ntaps, offs, coeffs = _taps(spec, 3)
     build.check(lib.repro_sweep3d_f32(

@@ -380,7 +380,9 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
         else:
             got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
             want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
-            keys = {"sweep_nd": 1}
+            # 3d7p 16x8x16 picks (16, 1): the 3-D streaming kernel's tile;
+            # the odd m of the other rows keep the shared-memory kernel
+            keys = {"sweep_3d" if (name, shape) == ("3d7p", (16, 8, 16)) else "sweep_nd": 1}
         torch.cuda.synchronize()
         assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | keys
         assert torch.equal(got, want), (depth, (got - want).abs().max().item())
@@ -583,8 +585,9 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 
 
 def test_multistep_2d_routes_count(cuda):
-    """The counters tell K4b's routes apart at 2-D and 3-D, and the halo
-    wrapper follows the route of its depth."""
+    """The counters tell K4b's routes apart at 2-D and 3-D (the 3-D
+    streaming kernel at any vl, the shared-memory kernel at m = 16 and
+    depth 5), and the halo wrapper follows the route of its depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
@@ -594,7 +597,13 @@ def test_multistep_2d_routes_count(cuda):
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 5, "multistep_nd"),
-             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 2, "multistep_nd"))
+             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 2, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 2, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 256), 64, 4, 1, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 256), 16, 8, 2, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 64), 8, 8, 2, "multistep_3d"),     # 8 columns
+             (stencils.make("3d7p"), (16, 8, 40), 4, 2, 2, "multistep_3d"),     # 20 columns
+             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 5, "multistep_nd"))
     for spec, shape, vl, m, k, key in cases:
         if spec.ndim == 2:
             assert sk.sweep2d_route(vl, m, k, spec.r) == \
@@ -631,19 +640,29 @@ RUNTIME_TAPS3 = (
 # the card tests' 3-D shapes, and a grid of several row and column tiles
 GRIDS3 = ((1, 1, 1), (2, 5, 2), (3, 3, 1), (4, 13, 3), (10, 2, 1), (4, 6, 1), (16, 12, 1),
           (37, 45, 2))
+# off vl = 32 the same (n0, n1) with C = nb·vl columns a row: below a tile's
+# 16 stored columns, no multiple of 16, and over several column tiles
+COLS3 = (5, 20, 8, 40, 24, 100, 12, 70)
 
 
+def _grids3(vl):
+    if vl == 32:
+        return GRIDS3
+    return tuple((n0, n1, -(-c // vl)) for (n0, n1, _), c in zip(GRIDS3, COLS3))
+
+
+@pytest.mark.parametrize("vl", (32,) + ANY_VL)
 @pytest.mark.parametrize("m", sk.SWEEP3D_M)
 @pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0", "runtime1"])
-def test_sweep3d_route_bitwise(cuda, name, m):
-    """K3 and K4b on the 3-D streaming kernel: every depth of the route,
-    periodic, ring and open, on grids with nb = 1, n1 below a tile and n0
-    below the warm-up, at the wrapper's segment and at 3 planes per CTA.
-    The wrappers launch the streaming kernel alone."""
+def test_sweep3d_route_bitwise(cuda, name, m, vl):
+    """K3 and K4b on the 3-D streaming kernel at every vl: every depth of
+    the route, periodic, ring and open, on grids with one block a row, n1
+    below a tile and n0 below the warm-up, at the wrapper's segment and at
+    3 planes per CTA.  The wrappers launch the streaming kernel alone."""
     spec = stencils.make(name) if name.startswith("3d") else \
         stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
-    for n0, n1, nb in GRIDS3:
-        t = layouts.to_transpose_layout(_x((n0, n1, nb * 32 * m), n0 + n1 + nb + m, cuda), 32, m)
+    for n0, n1, nb in _grids3(vl):
+        t = layouts.to_transpose_layout(_x((n0, n1, nb * vl * m), n0 + n1 + nb + m, cuda), vl, m)
         out = torch.empty_like(t)
         for depth in range(1, sk.SWEEP3D_DEPTH + 1):
             for edge in ("periodic", "ring", "open"):
@@ -663,6 +682,31 @@ def test_sweep3d_route_bitwise(cuda, name, m):
                 sk._sweep3d_launch(spec, t, out, depth, edge, seg=3)
                 torch.cuda.synchronize()
                 assert torch.equal(out, want), (n0, n1, nb, depth, edge, "seg 3")
+
+
+@pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_3d"), (128, 4, "sweep_3d"),
+                                      (8, 8, "sweep_3d"), (4, 2, "sweep_3d"),
+                                      (8, 16, "sweep_nd")])
+def test_main_path_3d_route_counts(cuda, vl, m, key):
+    """The resident run of 3d7p at the plans' tiles: the 3-D streaming
+    kernel at any vl, the shared-memory kernel at m = 16."""
+    prob = StencilProblem("3d7p", (16, 24, 1024))
+    x = prob.init(0)
+    sk.reset_launches()
+    got = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+                                      vl=vl, m=m))
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {_k2_key(vl, m): 2, key: 4}
+    want = stencils.apply_steps(prob.spec, x, 16)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_sweep3d_raises_beyond_its_columns(cuda):
+    """Off vl = 32 the column math is 32-bit: a row of 2^30 columns or more
+    raises before the launch (checked on a zero-size stand-in)."""
+    spec = stencils.make("3d7p")
+    t = torch.empty((1, 0, sk.MAX_COLS // 8, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="columns a row"):
+        sk._sweep3d_launch(spec, t, torch.empty_like(t), 1)
 
 
 def test_sweep3d_tile_matches_library(cuda):
@@ -929,6 +973,35 @@ def test_ssd_counter_per_prefill(cuda):
     assert ssd.LAUNCHES == {"ssd_state": 3 * cfg.n_layers, "ssd_out": 3 * cfg.n_layers}
     full, _ = model.forward(params, {"tokens": torch.tensor(done[0].prompt[None], device=cuda)})
     assert torch.isfinite(full).all()
+
+
+def test_batcher_past_eight_slots_matches_single_slot_engines(cuda):
+    """ROADMAP C2: an engine of 9 slots decodes at 16 lanes, a request alone
+    at 8.  Eleven requests through 9 slots (two wait for a free slot) give
+    the greedy tokens of fresh 1-slot engines on the card."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serve.engine import ContinuousBatcher, Request, decode_lanes
+    cfg = get_arch("mamba2-2.7b").smoke()
+    model = zoo.build(cfg)
+    params = transformer.cast_params(model.init(torch.Generator(device=cuda).manual_seed(0)))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (4, 11, 6, 9, 3, 14, 7, 5, 12, 8, 10)]
+    max_new = 8
+
+    def alone(prompt):
+        eng = ContinuousBatcher(model, params, n_slots=1, max_seq=64)
+        eng.submit(Request(rid=0, prompt=prompt, max_new=max_new))
+        return eng.run(max_steps=64)[0].out
+    expected = [alone(p) for p in prompts]
+    eng = ContinuousBatcher(model, params, n_slots=9, max_seq=64)
+    assert eng.lanes == decode_lanes(9) == 16
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+    done = sorted(eng.run(max_steps=64), key=lambda r: r.rid)
+    assert [r.rid for r in done] == list(range(len(prompts)))
+    for req, want in zip(done, expected):
+        assert req.out == want, (req.rid, req.out, want)
 
 
 @pytest.mark.parametrize("seq,chunk", [(24, 8), (20, 8), (13, 8)])    # Q = 8, 5, 1

@@ -5,9 +5,12 @@ into numpy line for line and held bit for bit against the plain versions
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs over (column tile, row tile, z segment) with ``Hx`` halo
-columns and ``Hy`` halo rows per side (columns wrapped mod 32·nb, rows mod
-n1), the threads of a CTA as an array axis (thread t owns column t % Cx of
-row t // Cx), the shared-memory planes stored [element][thread] with Cx + 1
+columns and ``Hy`` halo rows per side (columns wrapped mod C = nb·vl, rows
+mod n1), the threads of a CTA as an array axis (thread t owns column t % Cx
+of row t // Cx), each thread's device-memory offsets at any vl (column c's
+element s at ((c // vl)·m + s)·vl + c % vl of its row: loads and stores
+through those flat offsets), the shared-memory planes stored
+[element][thread] with Cx + 1
 unwritten words on each side, the input ring filled ``kStages`` planes
 ahead, the segment's warm-up planes with wrapped plane indices, the
 per-level skew of r + 1 planes with the levels run from the deepest down,
@@ -15,7 +18,8 @@ each level's own column of its last 3 planes in registers, its published
 planes (the star one step late into 2 slots, the others at once into 4),
 a warp skipping a level whose rows it makes no stored row needs (its
 registers and published rows of that level keep what they held), and the
-store guard (each (plane, row, column) written exactly once); in
+store guard (each element written exactly once, also when C is below
+the 16 stored columns of a tile or no multiple of them); in
 the ring and open modes, the unwrapped plane indices, the input planes
 beyond the ends left unloaded (ring: their slots hold NaN here) or written
 as zeros (open), and the CTA-uniform selects per level and step (open:
@@ -47,13 +51,13 @@ from repro_torch.core.stencils import coeff
 from repro_torch.kernels import stencil_kernels as sk
 
 VL = 32
+VLS = (1, 4, 8, 16, 64, 128)     # the any-vl cases' vl (vl = 32: the cases above them)
 
 
 def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
-    """The kernel's output and how often each (plane, row, column) was
-    stored."""
+    """The kernel's output and how often each of its elements was stored."""
     n0, n1, nb, m, vl = t.shape
-    assert vl == VL and sk.sweep3d_route(vl, m, depth, spec.r) == "stream"
+    assert sk.sweep3d_route(vl, m, depth, spec.r) == "stream"
     order = sk.sweep3d_order(spec)
     Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
     R, D, NW, L, NS = spec.r, depth, 2 * spec.r + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth)
@@ -62,7 +66,7 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     E = 2 if star_pub else 2 * R + 2
     A, P = Ty * Cx, Cx + 1                       # threads; unwritten words per side
     taps = [(off, np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
-    ncol = nb * VL
+    ncol = nb * vl
     ntx, nty, nseg = -(-ncol // L), -(-n1 // (Ty - 2 * Hy)), -(-n0 // seg)
     cta = np.arange(ntx * nty * nseg)
     xt, yt, z0 = cta % ntx, cta // ntx % nty, cta // ntx // nty * seg
@@ -77,7 +81,10 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     yu = yt[:, None] * (Ty - 2 * Hy) - Hy + ty[None, :]
     g, y = gu % ncol, yu % n1
     stores = (cx >= Hx) & (cx < Cx - Hx) & (gu < ncol) & (ty >= Hy) & (ty < Ty - Hy) & (yu < n1)
-    cols = t.transpose(0, 1, 2, 4, 3).reshape(n0, n1, ncol, m)   # column g, element s
+    plane = n1 * ncol * m
+    col = y * (ncol * m) + g // vl * (vl * m) + g % vl       # element 0 in plane 0
+    elems = col[:, None, :] + np.arange(m)[:, None] * vl     # (ctas, m, A): s·vl on
+    flat_in = t.reshape(-1)
     nan = np.float32(np.nan)
     # shared memory: [slot][cta][element][P + thread], and the slots' tags
     ring = np.full((NS, len(cta), m, A + 2 * P), nan, np.float32)
@@ -85,8 +92,8 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     levels = np.full((max(D - 1, 1), E, len(cta), m, A + 2 * P), nan, np.float32)
     level_tag = np.full((max(D - 1, 1), E, len(cta)), -10**9)
     win = np.full((max(D - 1, 1), NW, len(cta), A, m), nan, np.float32)
-    out = np.full_like(t, np.nan)
-    stored = np.zeros((n0, n1, ncol), dtype=np.int64)
+    out = np.full(t.size, np.nan, np.float32)
+    stored = np.zeros(t.size, dtype=np.int64)
 
     def issue(p):
         z = base + p
@@ -98,7 +105,7 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
             if edge == "open":
                 slot[beyond, :, P:P + A] = 0             # written as zeros
             go = go & ~beyond
-        slot[go, :, P:P + A] = np.moveaxis(cols[(z % n0)[:, None], y, g][go], -1, 1)
+        slot[go, :, P:P + A] = flat_in[(z % n0)[:, None, None] * plane + elems][go]
         ring_tag[p % NS] = p
 
     def beyond(zz, lo, hi):      # a CTA's plane outside [lo, hi), over (A, m)
@@ -169,9 +176,10 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
                 ok = stores & live & ((i >= D * NW) & (i < steps))[:, None]
                 c_idx, t_idx = np.nonzero(ok)
                 zz = z0[c_idx] + i - D * NW
-                np.add.at(stored, (zz, y[c_idx, t_idx], g[c_idx, t_idx]), 1)
-                gg = g[c_idx, t_idx]
-                out[zz, y[c_idx, t_idx], gg // VL, :, gg % VL] = acc[c_idx, t_idx]
+                for s_ in range(m):
+                    dst = zz * plane + col[c_idx, t_idx] + s_ * vl
+                    np.add.at(stored, dst, 1)
+                    out[dst] = acc[c_idx, t_idx, s_]
             else:
                 slot = i % E
                 written.add((lv - 1, slot))
@@ -182,12 +190,12 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
         written.add(("ring", (i + STAGES) % NS))
         issue(i + STAGES)
         assert not read & written, (i, read & written)   # one barrier per step
-    return out, stored
+    return out.reshape(t.shape), stored.reshape(t.shape)
 
 
-def _t(n0, n1, nb, m, seed):
-    x = np.random.default_rng(seed).standard_normal((n0, n1, nb * VL * m)).astype(np.float32)
-    return tlay.to_transpose_layout(torch.from_numpy(x), VL, m).numpy()
+def _t(n0, n1, nb, m, seed, vl=VL):
+    x = np.random.default_rng(seed).standard_normal((n0, n1, nb * vl * m)).astype(np.float32)
+    return tlay.to_transpose_layout(torch.from_numpy(x), vl, m).numpy()
 
 
 S = 3              # planes per segment in the transcription's cases
@@ -202,8 +210,7 @@ CASES = [(name, m, depth) for name in ("3d7p", "3d27p") for m in sk.SWEEP3D_M
 
 def _check(spec, t, depth, edge, seg=S):
     got, stored = sweep3d_kernel_np(spec, t, depth, seg, edge)
-    n0, n1, nb = t.shape[:3]
-    np.testing.assert_array_equal(stored, np.ones((n0, n1, nb * VL), dtype=np.int64))
+    np.testing.assert_array_equal(stored, np.ones(t.shape, dtype=np.int64))
     assert np.isfinite(got).all()            # nothing unwritten (NaN here) stored
     tt = torch.from_numpy(t)
     want = sk.stencil_nd_sweep_ttile_ref(spec, tt, depth, 1, 1) if edge == "periodic" else \
@@ -226,6 +233,26 @@ def test_sweep3d_kernel_tall_tile():
     ty, _, _, hy = sk.sweep3d_tile(8, 4, "star")
     for edge in ("periodic", "ring", "open"):
         _check(spec, _t(7, 2 * (ty - 2 * hy) + 3, 1, 8, seed=3), 4, edge, seg=2)
+
+
+# the any-vl cases: (n0, n1) grids, each with its own C = nb·vl columns a
+# row, one below a tile's 16 stored columns (5 or one block), one no multiple
+# of 16 (20), one over several column tiles (40; vl = 64, 128: one block)
+ANY_VL_GRIDS = ((1, 1, 5), (S + 1, 5, 20), (3 * S + 1, 13, 40))
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("vl", VLS)
+def test_sweep3d_kernel_any_vl_bitwise(vl, m, edge):
+    """Off vl = 32: 3d7p at every depth (each on one of the grids) and
+    3d27p at depth 4 on the widest, bit for bit the plain versions, every
+    element stored once."""
+    cases = [("3d7p", depth, ANY_VL_GRIDS[depth % 3]) for depth in range(1, 5)]
+    for name, depth, (n0, n1, c) in cases + [("3d27p", 4, ANY_VL_GRIDS[2])]:
+        nb = -(-c // vl)
+        _check(tst.make(name), _t(n0, n1, nb, m, seed=n0 + n1 + nb + vl + m, vl=vl), depth,
+               edge)
 
 
 # tap lists in no order the kernel knows at compile time: it reads them at
@@ -270,6 +297,29 @@ def test_sweep3d_kernel_matches_pallas(edge):
                                rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl,m,nb", [(8, 8, 1), (128, 4, 1), (8, 2, 3)])
+def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
+    """Off vl = 32 against the JAX package's Pallas kernel, as above: the
+    tuner's tile (8 columns a row, below a tile's 16), the JAX package's
+    3-D tile, and 24 columns."""
+    spec_t, spec_j = tst.make("3d7p"), jst.make("3d7p")
+    t = _t(8, 5, nb, m, seed=vl + m, vl=vl)
+    if edge == "periodic":
+        want = jsk.stencil_nd_sweep_ttile(spec_j, jnp.asarray(t), 2, 2, 4, interpret=True)
+        got, _ = sweep3d_kernel_np(spec_t, t, 4, S)
+        width = 0
+    else:
+        want = jsk.stencil_nd_multistep(spec_j, jnp.asarray(t), 2, 4, interpret=True,
+                                        edge_mask=edge == "ring")
+        got, _ = sweep3d_kernel_np(spec_t, t, 2, S, edge)
+        width = 2 * spec_t.r if edge == "open" else 0
+    want = np.asarray(want)
+    n0 = t.shape[0]
+    np.testing.assert_allclose(got[width:n0 - width], want[width:n0 - width],
+                               rtol=2e-6, atol=2e-6)
+
+
 @pytest.mark.parametrize("vl,m,depth,r,route", [
     (32, 8, 4, 1, "stream"),      # the main path: 3d7p at 512³, k=2, ttile=2
     (32, 8, 2, 1, "stream"),
@@ -280,9 +330,21 @@ def test_sweep3d_kernel_matches_pallas(edge):
     (32, 2, 3, 1, "stream"),
     (32, 1, 4, 1, "stream"),
     (32, 2, 0, 1, "smem"),        # depth 0: no instance
-    (128, 4, 4, 1, "smem"),       # the K3-smem row's tile
-    (16, 8, 2, 1, "smem"),
-    (8, 2, 1, 1, "smem"),
+    (128, 4, 4, 1, "stream"),     # the JAX package's 3-D tile: any vl streams
+    (16, 8, 2, 1, "stream"),
+    (8, 2, 1, 1, "stream"),
+    (8, 8, 4, 1, "stream"),       # the tuner's tile, the StencilPlan default vl
+    (4, 8, 4, 1, "stream"),
+    (1, 1, 3, 1, "stream"),
+    (64, 4, 2, 1, "stream"),
+    (12, 2, 1, 1, "stream"),      # vl no power of two
+    (8, 16, 4, 1, "smem"),        # m = 16: no instance (the K3-smem 3-D row's tile)
+    (128, 16, 2, 1, "smem"),
+    (8, 5, 2, 1, "smem"),         # odd m
+    (8, 8, 5, 1, "smem"),         # past the deepest instance
+    (128, 4, 5, 1, "smem"),
+    (8, 8, 2, 2, "smem"),         # beyond the kernel's reach
+    (128, 4, 1, 2, "smem"),
     (32, 3, 2, 1, "smem"),        # no instance for m = 3
     (32, 16, 2, 1, "smem"),
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
@@ -317,7 +379,18 @@ def test_sweep3d_tile(m, depth, order, tile):
     (1, 1, 1, 1, 1, 132, 1),
 ])
 def test_sweep3d_segment(n0, n1, nb, m, depth, ctas, seg):
-    assert sk.sweep3d_segment(n0, n1, nb, m, depth, "star", ctas) == seg
+    assert sk.sweep3d_segment(n0, n1, nb * VL, m, depth, "star", ctas) == seg
+
+
+@pytest.mark.parametrize("n0,n1,nb,vl,m,depth,seg", [
+    (512, 512, 8, 8, 8, 4, 103),     # the tuner's tile: 64 columns a row, as at vl = 32
+    (512, 512, 1, 128, 4, 4, 171),   # the JAX package's: 128 columns, 8 column tiles
+    (512, 512, 16, 4, 8, 1, 64),
+    (16, 16, 2, 1, 8, 2, 8),         # 2 columns: one column tile
+])
+def test_sweep3d_segment_any_vl(n0, n1, nb, vl, m, depth, seg):
+    """Column tiles are ceil(nb·vl / 16) whatever vl is."""
+    assert sk.sweep3d_segment(n0, n1, nb * vl, m, depth, "star", 132) == seg
 
 
 def test_sweep3d_order():

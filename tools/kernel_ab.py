@@ -10,7 +10,7 @@ checkout's); its kernels are built from that tree's ``csrc``.  Run it once
 per tree and in turns (A, B, B, A) within one call: two calls may land on
 two cards.  Float32, each kernel timed with CUDA events (median of
 repeats after warm-up), each result first held bit for bit against the
-plain version.  The 1-D and 2-D rows run at every layout tile (vl, m) of
+plain version.  The stencil rows run at every layout tile (vl, m) of
 ``--vl`` (a comma-separated list, 32 by default) and ``--m`` (8 by
 default); each row names its tile:
 
@@ -29,10 +29,13 @@ Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
 mode, K2 per sweep), each held bit for bit against its plain
 composition, by the median host time of 5 runs after that check's run.
 
-3-D (3d7p, vl=32, m=8): K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1,
-t0 = 16) on 512³, K4b (``stencil_nd_multistep``, open and ring, depths 2
-and 1) on 544 × 512², the roundtrip's padded shape, and the Dirichlet run
-``ops.stencil_run`` of 512³, 16 steps, as above.
+3-D (3d7p): K3 (``stencil_nd_sweep_ttile``, depths 4, 2, 1, t0 = 16) on
+512³, K4b (``stencil_nd_multistep``, open and ring, depths 2 and 1) on
+544 × 512², the roundtrip's padded shape, and the resident run
+``StencilProblem.run`` of 512³, 16 steps (k=2, ttile=2, fused), held
+against the plain versions and timed by the median host time of 5 runs,
+at each tile; then the Dirichlet run ``ops.stencil_run`` of 512³, 16
+steps, at the picker's tile, as above.
 
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
@@ -70,8 +73,8 @@ def main() -> int:
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--only", choices=("stencils", "3d", "k6"), default=None)
     parser.add_argument("--vl", default="32",
-                        help="comma-separated vl of the 1-D and 2-D rows' tiles")
-    parser.add_argument("--m", type=int, default=8, help="m of the 1-D and 2-D rows' tiles")
+                        help="comma-separated vl of the stencil rows' tiles")
+    parser.add_argument("--m", type=int, default=8, help="m of the stencil rows' tiles")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -84,7 +87,7 @@ def main() -> int:
     if args.only in (None, "stencils"):
         stencil_rows(args.label, dev, [int(v) for v in args.vl.split(",")], args.m)
     if args.only in (None, "3d"):
-        stencil3d_rows(args.label, dev)
+        stencil3d_rows(args.label, dev, [int(v) for v in args.vl.split(",")], args.m)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -193,32 +196,62 @@ def dirichlet_row(label, spec, x) -> None:
                       "seconds_median_of_5": statistics.median(times)}), flush=True)
 
 
-def stencil3d_rows(label: str, dev) -> None:
+def stencil3d_rows(label: str, dev, vls, m) -> None:
     import torch
 
     from repro_torch.core import stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem
     from repro_torch.kernels import stencil_kernels as sk
 
-    spec = stencils.make("3d7p")
-    vl, m, t0 = 32, 8, 16
+    spec, t0, shape = stencils.make("3d7p"), 16, (512, 512, 512)
     gen = torch.Generator(device=dev).manual_seed(0)
-    t = sk.block_transpose_ref(torch.randn(512, 512, 512, generator=gen, device=dev), vl, m)
-    buf = torch.empty_like(t)
-    for depth in (4, 2, 1):
-        k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
-        _row(label, dev, f"K3 3d7p 512^3 depth={depth}",
-             lambda: sk.stencil_nd_sweep_ttile(spec, t, k, tt, t0, out=buf),
-             lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, k, tt, t0))
-    del t, buf
-    tp = sk.block_transpose_ref(torch.randn(544, 512, 512, generator=gen, device=dev), vl, m)
-    buf = torch.empty_like(tp)
-    for edge_mask in (False, True):
-        for depth in (2, 1):
-            _row(label, dev, f"K4b 3d7p 544x512^2 {'ring' if edge_mask else 'open'} depth={depth}",
-                 lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=buf),
-                 lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask))
-    del tp, buf
-    dirichlet_row(label, spec, torch.randn(512, 512, 512, generator=gen, device=dev))
+    x = torch.randn(shape, generator=gen, device=dev)
+    xp = torch.randn(544, 512, 512, generator=gen, device=dev)
+    for vl in vls:
+        tile = f"vl={vl} m={m}"
+        if shape[-1] % (vl * m):
+            print(json.dumps({"tree": label, "skipped": f"3d7p 512^3 {tile}: vl·m does not "
+                              "divide 512"}), flush=True)
+            continue
+        t = sk.block_transpose_ref(x, vl, m)
+        buf = torch.empty_like(t)
+        for depth in (4, 2, 1):
+            k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+            _row(label, dev, f"K3 3d7p 512^3 depth={depth} {tile}",
+                 lambda: sk.stencil_nd_sweep_ttile(spec, t, k, tt, t0, out=buf),
+                 lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, k, tt, t0))
+        del t, buf
+        tp = sk.block_transpose_ref(xp, vl, m)
+        buf = torch.empty_like(tp)
+        for edge_mask in (False, True):
+            for depth in (2, 1):
+                _row(label, dev, f"K4b 3d7p 544x512^2 {'ring' if edge_mask else 'open'} "
+                     f"depth={depth} {tile}",
+                     lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=buf),
+                     lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask))
+        del tp, buf
+        prob = StencilProblem("3d7p", shape)
+        plan = StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2, remainder="fused",
+                           vl=vl, m=m)
+        want = sk.block_transpose_ref(x, vl, m)
+        for _ in range(16):
+            want = sk.stencil_nd_sweep_ttile_ref(spec, want, 1, 1, t0)
+        if not torch.equal(prob.run(x, 16, plan), sk.block_untranspose_ref(want, vl, m)):
+            raise AssertionError(f"{label} 3d7p resident fused 16 {tile}: differs from the "
+                                 "plain version")
+        del want
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            prob.run(x, 16, plan)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        print(json.dumps({"tree": label, "run": f"3d7p 512^3 resident fused 16 {tile}",
+                          "seconds_median_of_5": statistics.median(times)}), flush=True)
+        torch.cuda.empty_cache()
+    del xp
+    dirichlet_row(label, spec, x)
     torch.cuda.empty_cache()
 
 

@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Count the SASS instructions of each ``sweep3d_f32`` instance of a built
+``csrc/sweep3d.cu`` library (or of another register kernel's), in all and
+by opcode (loads, stores, the FP32 multiplies and adds, integer and address
+arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
+``nvcc``.
+
+    python3 tools/sweep3d_sass.py [--source NAME] [--lib PATH] [--label NAME]
+
+``--source`` is ``sweep3d`` (the default), ``sweep2d_warp`` or
+``sweep1d_warp``; its kernel is ``<source>_f32``.  ``--lib`` is a built
+library of that source (by default this checkout's, built if missing).  An
+instance is named by its template arguments, for ``sweep3d`` <M, D, order,
+ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older than the
+``vl`` argument has four).  Prints one JSON line per instance.  The loop of
+a 3-D step is unrolled over its three phases, so a count is about three
+steps' instructions plus the set-up.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "src"))
+
+OPCODES = ("LDGSTS", "STG", "LDS", "STS", "FMUL", "FADD", "IMAD", "IADD3", "LEA", "ISETP",
+           "SEL", "MOV", "BRA", "BAR", "CALL")
+
+
+def main() -> int:
+    from repro_torch.kernels import build
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--source", default="sweep3d",
+                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp"))
+    parser.add_argument("--lib", default=None)
+    parser.add_argument("--label", default="this tree")
+    args = parser.parse_args()
+    lib = args.lib
+    kernel = f"{args.source}_f32"
+    if lib is None:
+        build.load(args.source)
+        lib = str(build.build_dir() / f"{args.source}.so")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fun = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            fun = None
+            if kernel in name:
+                fun = "<" + ", ".join(re.findall(r"L[ib](\d+)E",
+                                                 name.split(kernel, 1)[1])) + ">"
+                counts[fun] = collections.Counter()
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fun is not None and ins:
+            counts[fun]["total"] += 1
+            counts[fun][ins.group(1).split(".")[0]] += 1
+    for fun in sorted(counts):
+        print(json.dumps({"tree": args.label, "kernel": kernel, "instance": fun,
+                          "total": counts[fun]["total"],
+                          **{op: counts[fun][op] for op in OPCODES if counts[fun][op]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,11 @@ A variant is ``name:const=value,...`` over the constants of
 ``csrc/sweep3d.cu`` that shape its schedule: ``kStages`` and ``kStagesD1``
 (input planes in flight, and at depth 1), ``kLanes`` (columns a CTA stores
 per row) and ``kMaxThreads`` (the cap on a CTA's threads), e.g.
-``s4:kStages=4,kStagesD1=4``.  ``base`` (the source as it is) always runs.  Each variant is the source with those constants replaced,
-built with the port's nvcc flags into ``build/sweep3d_tune/`` (all started
-together); its ptxas report gives registers and spills per instance.  Then,
+``s4:kStages=4,kStagesD1=4``.  ``base`` (the source as it is) always
+runs.  Each variant is the source with those constants replaced, built
+with the port's nvcc flags (and ``csrc/`` for its headers) into
+``build/sweep3d_tune/`` (all started together); its ptxas report gives
+registers and spills per instance.  Then,
 for each variant in turn, 3d7p at vl=32, m=8: K3 (periodic) on 512³ at
 depths 4, 2, 1 and K4b (ring) on 544 × 512² at depths 2, 1, each first
 held bit for bit against the plain version and then timed with CUDA
@@ -69,7 +71,8 @@ def main() -> int:
         with open(cu, "w") as f:
             f.write(text)
         so = os.path.join(out_dir, f"{name}.so")
-        jobs[name] = (subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+        jobs[name] = (subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                                        "-o", so, cu],
                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True), so)
     libs = {}
@@ -112,7 +115,8 @@ def main() -> int:
         for label, n0, depth, edge in cases:
             t = grids[n0]
             buf = torch.empty_like(t)
-            seg = sk.sweep3d_segment(*t.shape[:3], 8, depth, "star", sk._sm_count(dev))
+            seg = sk.sweep3d_segment(n0, t.shape[1], t.shape[2] * t.shape[4], 8, depth, "star",
+                                     sk._sm_count(dev))
 
             def launch():
                 build.check(libs[name].repro_sweep3d_f32(
