@@ -35,10 +35,11 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              2d5p at the JAX package's vl=128, m=8 and at its tuner's vl=8,
              m=8 (the warp kernels at any vl) and at the tuner pair vl=8,
              m=16 (the shared-memory route, ``sweep_1d_smem`` /
-             ``sweep_nd``), 3d7p at the tuner's vl=8, m=8 and the JAX
-             package's vl=128, m=4 (the streaming kernel at any vl) and at
-             vl=8, m=16 (the shared-memory route), each run's route
-             asserted before it; then 3d27p at 256**3 (the box order on the
+             ``sweep_nd``), 3d7p at the tuner's vl=8, m=8, the JAX
+             package's vl=128, m=4 and the tuner pair vl=8, m=16 (the
+             streaming kernel at any vl and m, ``sweep_3d``), each run's
+             route asserted before it, K2 on its register kernel
+             (``transpose``) at every tile; then 3d27p at 256**3 (the box order on the
              3-D kernel), fused 16 at vl=32, m=8 and at the tuner's vl=8,
              m=8 (the any-vl instances), each on ``sweep_3d``, asserted,
              the second equal to the first;
@@ -49,13 +50,13 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
              tiles ``multistep_1d_smem``), 2d5p K4b on the 2-D warp kernel
              (``multistep_2d``) and 3d7p on the 3-D streaming kernel
-             (``multistep_3d``), the fused run also at vl=8, m=8 and
-             vl=128, m=4, each equal to the resident run;
+             (``multistep_3d``), the fused run also at vl=8, m=8, vl=128,
+             m=4 and vl=8, m=16, each equal to the resident run;
   dirichlet  ``ops.stencil_run(spec, x, 16, k=2)`` (K2, K4 with the
              Dirichlet ring, K2 per sweep) after one uncounted 2-step run,
              bit for bit its plain path; seconds as for roundtrip; 3d7p
-             also at vl=8, m=8 and vl=128, m=4 (``multistep_3d``), each
-             equal to the run at the case's tile;
+             also at vl=8, m=8, vl=128, m=4 and vl=8, m=16
+             (``multistep_3d``), each equal to the run at the case's tile;
   onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
              (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, bit
              for bit the periodic oracle;
@@ -64,25 +65,29 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              a library call's and its bound (CUDA events, median of repeats,
              after warm-up); K1 and K3 at depths 4, 2, 1 also at vl 4, 8,
              16 and 128 (the case's m), on the warp kernels and the 3-D
-             streaming kernel (3d7p also at vl=128 and vl=32, m=4);
-             K1-smem and K3-smem time the shared-memory route at depth 4
-             at a tile that keeps it (vl=8, m=16), the route asserted
-             before each launch; K4 at the case's tile (3d7p also at
-             vl=8, m=8); the 3d27p K3 at depth 4 at both its tiles
+             streaming kernel (3d7p also at vl=128 and vl=32, m=4, at the
+             tuner pair vl=8, m=16 and, depth 4 only, vl=16, m=32:
+             sub-columns of 8); K1-smem and K3-smem time the shared-memory
+             route at a tile that keeps it (1-D, 2-D: vl=8, m=16 at depth
+             4; 3-D: vl=8, m=8 at depth 8), the route asserted before each
+             launch; K4 at the case's tile (3d7p also at vl=8, m=8 and
+             vl=8, m=16); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
-             K2 in both directions at the tile of every counted run, on
-             its register route (``transpose``) or, at m=16, its
-             shared-memory route (``transpose_smem``), and bit for bit at
-             2- and 8-byte elements; each row names its route and source;
+             K2 in both directions at the tile of every counted run, each
+             on its register route (``transpose``, asserted), and bit for
+             bit at 2- and 8-byte elements; K2-smem (its shared-memory
+             route) at 1d3p vl=256, m=8, a tile no counted run reaches;
+             each row names its route and source;
              a K2 row counts the launches of the case's runs at its own
              tile, a K1 or K3 row those of its route in the case's runs
              (``launches``) and at its own tile (``launches_at_tile``);
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
-             1d5p 96, 2d5p 64x48, 3d7p 16x8x16) at the tile the GPU picker
-             chooses (vl 8 or 16, odd m): ``StencilProblem.run`` resident
-             (fused 16, native 7) and roundtrip, and ``ops.stencil_run``,
-             each bit for bit the same call on the CPU (the plain versions);
-             3d7p's tile (vl=16, m=1) on the 3-D streaming kernel, asserted;
+             1d5p 96, 2d5p 64x48, 3d7p 16x8x16 and 12x8x80) at the tile the
+             GPU picker chooses (vl 8 or 16, odd m): ``StencilProblem.run``
+             resident (fused 16, native 7) and roundtrip, and
+             ``ops.stencil_run``, each bit for bit the same call on the CPU
+             (the plain versions); 3d7p's tiles (vl=16, m=1 and m=5) on the
+             3-D streaming kernel, asserted;
   small      3d7p at (16, 16, 256) resident (nb = 1 on the 3-D streaming
              kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
              each counted, on the card and on the CPU against the float64
@@ -149,17 +154,22 @@ ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 JAX_TILE = (128, 8)      # (vl, m): the JAX package's tile
 JAX_TILE_3D = (128, 4)   # (vl, m): the JAX package's 3-D tile (vl·m divides 512)
 TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8, 16})
-SMEM_TILE = (8, 16)      # (vl, m): a tuner pair that keeps the shared-memory route
+# (vl, m): the tuner's pairs (vl, 2·vl); 1-D and 2-D keep the shared-memory
+# route at m=16, 3-D runs both on the streaming kernel's sub-columns of 8
+PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
+SMEM_TILE_3D, SMEM_DEPTH_3D = (8, 8), 8   # a 3-D tile and depth the shared-memory route keeps
+K2_SMEM_TILE = (256, 8)   # (vl, m): vl above 128, K2's shared-memory route (1d3p only)
 # the fused resident run again at other tiles, with the route each takes
-# (3-D: also the roundtrip and Dirichlet runs at the first two)
-OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
-               2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (SMEM_TILE, "smem")),
-               3: ((TUNER_TILE, "reg"), (JAX_TILE_3D, "reg"), (SMEM_TILE, "smem"))}
+# (3-D: also the roundtrip and Dirichlet runs at these)
+OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "smem")),
+               2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "smem")),
+               3: ((TUNER_TILE, "reg"), (JAX_TILE_3D, "reg"), (PAIR_TILE, "reg"))}
 ROW_VLS = (4, 8, 16, 128)  # K1 and K3 rows off vl=32, at the case's m
 BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming kernel
 # template type arguments in mangled names: unsigned short / int / long long, float, bf16
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
-TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)))
+TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)),
+              ("3d7p", (12, 8, 80)))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
@@ -174,6 +184,7 @@ REPLACES = {
     "K1": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K1-smem": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
+    "K2-smem": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
     "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K3-smem": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
@@ -750,20 +761,22 @@ def main() -> int:
         emit({"phase": "kernels", **entries[-1]})
 
     def k2_rows(name, dims, x, vl, m, launches, grid_bytes):
-        """K2's rows in both directions at the (vl, m) tile; ``launches``: the
-        case's counted runs at that tile, both directions."""
+        """K2's rows in both directions at the (vl, m) tile (K2-smem off the
+        register route); ``launches``: the case's counted runs at that tile,
+        both directions."""
         route = sk.transpose_route(vl, m, x.element_size())
+        kid = "K2" if route == "reg" else "K2-smem"
         t = sk.block_transpose(x, vl, m)
         err = max(same(f"{name} transpose vl={vl} m={m}", t, sk.block_transpose_ref(x, vl, m)),
                   same(f"{name} untranspose vl={vl} m={m}", sk.block_untranspose(t, vl, m), x))
         buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
         nb_total = x.numel() // (vl * m)
         label = f"{name} {dims} vl={vl} m={m}; route {route}"
-        row("K2", "block_transpose", label, "transpose", launches, err,
+        row(kid, "block_transpose", label, "transpose", launches, err,
             lambda: sk.block_transpose(x, vl, m, out=buf_t),
             lambda: sk.block_transpose_ref(x, vl, m), bound(grid_bytes, 0),
             lambda: ms(lambda: x.view(nb_total, vl, m).transpose(-1, -2).contiguous()))
-        row("K2", "block_untranspose", label, "transpose", launches, err,
+        row(kid, "block_untranspose", label, "transpose", launches, err,
             lambda: sk.block_untranspose(t, vl, m, out=buf_x),
             lambda: sk.block_untranspose_ref(t, vl, m), bound(grid_bytes, 0),
             lambda: ms(lambda: t.view(nb_total, m, vl).transpose(-1, -2).contiguous()))
@@ -777,6 +790,12 @@ def main() -> int:
         grid_bytes = 2 * numel * itemsize
         dims = "x".join(map(str, shape))
         sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_3d"}[spec.ndim]
+        lib_ms = {}      # a library call's time, once per function of the case's grid
+
+        def library_once(key, fn):
+            if key not in lib_ms:
+                lib_ms[key] = fn()
+            return lib_ms[key]
         smem_key = "sweep_1d_smem" if spec.ndim == 1 else "sweep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
@@ -805,8 +824,9 @@ def main() -> int:
                   "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
                   "max_abs_err_vs_plain": err, "bitwise": True})
         # the same fused run at other tiles: the JAX package's vl=128 and
-        # its tuner's vl=8 (the register kernels at 1-D and 2-D), a tuner
-        # pair with m=16 and, at 3-D, vl=8 (the shared-memory route)
+        # its tuner's vl=8 (the register kernels), and its tuner's pair
+        # vl=8, m=16 (1-D, 2-D: the shared-memory route; 3-D: the streaming
+        # kernel's sub-columns)
         remainder, steps = PLANS[0]
         for tile, route in OTHER_TILES[spec.ndim]:
             vl2, m2 = tile
@@ -915,11 +935,18 @@ def main() -> int:
         del first
         launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
 
-        # -- K2: transpose in and out at the tile of every counted run (m=16:
-        # its shared-memory route) ------------------------------------------
+        # -- K2: transpose in and out at the tile of every counted run, each
+        # on its register route; 1-D also K2-smem at a tile no run reaches --
         for tile in sorted({t for (t, *_) in counts}, key=lambda t: (t != (vl, m), t)):
-            at_tile = sum(c[k2_key(*tile)] for (t, *_), c in counts.items() if t == tile)
+            if k2_key(*tile) != "transpose":
+                raise AssertionError(f"{name}: K2 at the counted tile {tile} is not on its "
+                                     "register route")
+            at_tile = sum(c["transpose"] for (t, *_), c in counts.items() if t == tile)
             k2_rows(name, dims, x, *tile, at_tile, grid_bytes)
+        if spec.ndim == 1:
+            if k2_key(*K2_SMEM_TILE) != "transpose_smem":
+                raise AssertionError(f"K2 at {K2_SMEM_TILE} is not on its shared-memory route")
+            k2_rows(name, dims, x, *K2_SMEM_TILE, launched["transpose_smem"], grid_bytes)
         for dtype in (torch.float16, torch.float64):
             xd = x.to(dtype)
             td = sk.block_transpose(xd, vl, m)
@@ -964,30 +991,37 @@ def main() -> int:
                 row(rkid, fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}; route {key}",
                     source, launched[key], err, kern, plain,
                     bound(grid_bytes, depth * spec.flops_per_point * numel),
-                    lambda: ms(conv_steps, spec, x, depth, weight), launches_at_tile=at_tile)
+                    lambda: library_once(("sweep", depth),
+                                         lambda: ms(conv_steps, spec, x, depth, weight)),
+                    launches_at_tile=at_tile)
             del t2, buf2
 
         # where vl·m divides the minor extent (3-D: also the JAX package's
-        # tile, and vl=32 at its m)
+        # tile, vl=32 at its m, and the tuner's pairs on sub-columns)
         row_tiles = [(vl2, m) for vl2 in ROW_VLS if shape[-1] % (vl2 * m) == 0]
         if spec.ndim == 3:
-            row_tiles += [JAX_TILE_3D, (vl, JAX_TILE_3D[1])]
+            row_tiles += [JAX_TILE_3D, (vl, JAX_TILE_3D[1]), PAIR_TILE]
         sweep_row(kid, (vl, m), (4, 2, 1), src, sweep_key, t0)
         for tile in row_tiles:
             sweep_row(kid, tile, (4, 2, 1), src, sweep_key, ops.pick_tile(spec, shape, *tile)[2])
-        # the shared-memory route at depth 4, at a tile that still takes it
-        sweep_row(f"{kid}-smem", SMEM_TILE, (K * TTILE,), "sweep", smem_key,
-                  ops.pick_tile(spec, shape, *SMEM_TILE)[2])
+        if spec.ndim == 3:
+            sweep_row(kid, PAIR_TILE_32, (K * TTILE,), src, sweep_key,
+                      ops.pick_tile(spec, shape, *PAIR_TILE_32)[2])
+        # the shared-memory route at a tile and depth that still take it
+        smem_tile, smem_depth = (SMEM_TILE_3D, SMEM_DEPTH_3D) if spec.ndim == 3 else \
+            (PAIR_TILE, K * TTILE)
+        sweep_row(f"{kid}-smem", smem_tile, (smem_depth,), "sweep", smem_key,
+                  ops.pick_tile(spec, shape, *smem_tile)[2])
 
         # -- K4: the multistep sweep at the roundtrip's padded shape (3-D:
-        # also at the tuner's tile) ------------------------------------------
+        # also at the tuner's tile and its pair vl=8, m=16) ------------------
         kid = "K4a" if spec.ndim == 1 else "K4b"
         fname = "stencil1d_multistep" if spec.ndim == 1 else "stencil_nd_multistep"
         block = vl * m if spec.ndim == 1 else t0
         pad = sk.sweep_halo_blocks(spec.r, K, block) * block
         xp = ops.wrap_pad(x, pad)
         pdims = "x".join(map(str, xp.shape))
-        for vl2, m2 in [(vl, m)] + ([TUNER_TILE] if spec.ndim == 3 else []):
+        for vl2, m2 in [(vl, m)] + ([TUNER_TILE, PAIR_TILE] if spec.ndim == 3 else []):
             tp = sk.block_transpose(xp, vl2, m2)
             bufp = torch.empty_like(tp)
             for edge_mask in (False, True):
@@ -1019,7 +1053,9 @@ def main() -> int:
                         launched[key], err, kern, plain,
                         bound(2 * xp.numel() * itemsize,
                               depth * spec.flops_per_point * xp.numel()),
-                        lambda: ms(conv_steps, spec, xp, depth, weight, True))
+                        lambda: library_once(("edge", depth),
+                                             lambda: ms(conv_steps, spec, xp, depth, weight,
+                                                        True)))
             del tp, bufp
         del x, xp, weight
         torch.cuda.empty_cache()

@@ -5,10 +5,10 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
 // stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
-// ends of axis 0), for 3-D stencils of reach r = 1 at any vl, m in
-// {1, 2, 4, 8} and depth 1..kMaxDepth (stencil_kernels.sweep3d_route picks
-// it before the launch).  Every other 3-D shape takes the shared-memory
-// kernel of csrc/stencil_sweep.cu.
+// ends of axis 0), for 3-D stencils of reach r = 1 at any vl, any m and
+// depth 1..kMaxDepth (stencil_kernels.sweep3d_route picks it before the
+// launch).  Every other 3-D shape (depth > kMaxDepth, r > 1) takes the
+// shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: 2.5-D blocking, streamed along axis 0 (z) as csrc/sweep2d_warp.cu
 // streams along y.
@@ -22,9 +22,21 @@
 //   a power of two, else one 32-bit division; C < 2^30), and its elements
 //   lie vl floats apart.  vl = 32 has instances of its own (kVl), with
 //   every stride a constant.
+// - Sub-columns.  The instances hold M in {1, 2, 4, 8} elements a column.
+//   Column c holds m consecutive natural points, so at m = g * M (M the
+//   largest of 8, 4, 2, 1 dividing m) it is g sub-columns of M points, and
+//   sub-column u = g * c + h (0 <= h < g) has its element s at
+//   ((c / vl) * m + h * M + s) * vl + c % vl of its row.  The element
+//   stride stays vl and x-neighbours stay the threads beside each other;
+//   a row's C' = g * C sub-columns wrap mod C', which is the natural wrap.
+//   So the any-vl instances run every m with only a thread's offset
+//   changed (worked out once per thread: c = u / g a shift when g is a
+//   power of two, else one 32-bit division), and below everything said of
+//   columns holds for sub-columns of M elements.  vl = 32's own instances
+//   take g = 1 only.
 // - The tile.  A CTA stores kLanes consecutive columns of Ty - 2 Hy
 //   consecutive rows of every plane of its z segment, and computes Ty x Cx
-//   columns: Hx = ceil(depth r / m) columns and Hy = depth r rows of halo on
+//   columns: Hx = ceil(depth r / M) columns and Hy = depth r rows of halo on
 //   each side, rows wrapped mod n1 and columns mod C (so C below kLanes and
 //   n1 below a tile work).  A halo's outer neighbours are missing (the
 //   tile's edge threads read zeros or the next row's column), the error
@@ -142,19 +154,29 @@ struct Taps3 {
   float c[kMaxTaps];
 };
 
-// Offset of element 0 of column u mod C (u unwrapped) of row y in plane 0;
-// element s is s * vl on.  kVl: vl when the instance fixes it (its C is
-// nb * kVl), else 0, and then the 32-bit split of cols.cuh.
+// Offset of element 0 of sub-column u mod C' (u unwrapped) of row y in
+// plane 0; element s is s * vl on.  kVl: vl when the instance fixes it (its
+// C' is nb * kVl, g = 1), else 0, and then the 32-bit splits of cols.cuh:
+// u into column c and sub-column h (`sub`: C' sub-columns, g to a column),
+// c into block q and lane rem (`cols`: C columns, vl to a block).
 template <int M, int kVl>
 __device__ __forceinline__ int64_t col_offset(int64_t y, int64_t u, int64_t nb,
-                                              const Cols& cols) {
+                                              const Cols& cols, const Cols& sub) {
   if constexpr (kVl > 0) {
     const int64_t g = wrap(u, nb * kVl);
     return (y * nb + g / kVl) * (kVl * M) + g % kVl;
   } else {
-    unsigned q, rem;
-    split_col((int)u, cols, q, rem);      // -Hx <= u < C + kLanes + Hx
-    return (y * nb + q) * (M * cols.vl) + rem;
+    unsigned c, h, q, rem;
+    // g = 1 keeps the one-column form: with the general form alone the box
+    // order's K3 at vl=8, m=8, d=4 ran 5% slower again (PERF.md, section 6)
+    if (sub.vl == 1) {
+      split_col((int)u, cols, q, rem);
+      return (y * nb + q) * (M * cols.vl) + rem;
+    }
+    split_col((int)u, sub, c, h);         // -Hx <= u < C' + kLanes + Hx
+    split_col((int)c, cols, q, rem);      // 0 <= c < C
+    const int run = M * cols.vl;   // floats of a block's rows of one sub-column
+    return (y * nb + q) * (run * sub.vl) + (h * run + rem);
   }
 }
 
@@ -291,7 +313,7 @@ template <int M, int D, int kOrder, bool kEnds, int kVl>
 __global__ void __launch_bounds__(Tile<M, D, kOrder>::Threads, 1)
 sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, int64_t n1,
             int64_t nb, int64_t ntx, int64_t nty, int64_t seg, int edge, Taps3 taps,
-            Cols cols) {
+            Cols cols, Cols sub) {
   using T = Tile<M, D, kOrder>;
   constexpr bool kStarPub = kOrder == kStar;   // publish one step late, 2 slots
   extern __shared__ float smem[];
@@ -301,7 +323,8 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
   const int wrow0 = (t & ~31) / T::Cx;
   const int wrow1 = ((t | 31) < T::Threads ? (t | 31) : T::Threads - 1) / T::Cx;
   const int vl = kVl > 0 ? kVl : cols.vl;
-  const int64_t ncol = nb * vl;
+  const int gs = kVl > 0 ? 1 : sub.vl;               // sub-columns a column
+  const int64_t ncol = nb * vl * gs;                 // C'
   const int64_t xt = blockIdx.x % ntx;
   const int64_t yt = blockIdx.x / ntx % nty;
   const int64_t z0 = blockIdx.x / ntx / nty * seg;
@@ -317,8 +340,8 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
   const int64_t y = wrap(yu, n1);
   const bool stores = cx >= T::Hx && cx < T::Cx - T::Hx && gu < ncol && ty >= T::Hy &&
                       ty < T::Ty - T::Hy && yu < n1;
-  const int64_t plane = n1 * nb * (vl * M);
-  const int64_t col = col_offset<M, kVl>(y, gu, nb, cols);   // element 0 in plane 0
+  const int64_t plane = n1 * nb * (vl * M * gs);     // vl * m < 2^31
+  const int64_t col = col_offset<M, kVl>(y, gu, nb, cols, sub);   // element 0 in plane 0
   float* const mine = smem + T::Pad + t;             // element 0 of this column, ring slot 0
   float* const levels = mine + T::Slots * T::Plane;  // the published levels' slots
 
@@ -404,10 +427,10 @@ sweep3d_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, i
 
 template <int M, int D, int kOrder>
 int go(const float* in, float* out, int64_t n0, int64_t n1, int64_t nb, const Cols& cols,
-       int64_t seg, int edge, const Taps3& taps, cudaStream_t stream) {
+       const Cols& sub, int64_t seg, int edge, const Taps3& taps, cudaStream_t stream) {
   using T = Tile<M, D, kOrder>;
-  // vl = 32 has instances of its own, every stride a constant
-  const bool v32 = cols.vl == kVl32;
+  // vl = 32 has instances of its own at g = 1, every stride a constant
+  const bool v32 = cols.vl == kVl32 && sub.vl == 1;
   const auto kernel = edge == kPeriodic
                           ? (v32 ? sweep3d_f32<M, D, kOrder, false, kVl32>
                                  : sweep3d_f32<M, D, kOrder, false, 0>)
@@ -418,27 +441,30 @@ int go(const float* in, float* out, int64_t n0, int64_t n1, int64_t nb, const Co
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::Bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const int64_t ntx = (cols.n + kLanes - 1) / kLanes;
+  const int64_t ntx = (sub.n + kLanes - 1) / kLanes;
   const int64_t nty = (n1 + T::Ty - 2 * T::Hy - 1) / (T::Ty - 2 * T::Hy);
   const int64_t ctas = ntx * nty * ((n0 + seg - 1) / seg);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)ctas, T::Threads, T::Bytes, stream>>>(in, out, n0, n1, nb, ntx, nty, seg,
-                                                            edge, taps, cols);
+                                                            edge, taps, cols, sub);
   return (int)cudaGetLastError();
 }
 
 template <int M, int D>
 int launch_depth(int depth, int order, const float* in, float* out, int64_t n0, int64_t n1,
-                 int64_t nb, const Cols& cols, int64_t seg, int edge, const Taps3& taps,
-                 cudaStream_t stream) {
+                 int64_t nb, const Cols& cols, const Cols& sub, int64_t seg, int edge,
+                 const Taps3& taps, cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<M, D - 1>(depth, order, in, out, n0, n1, nb, cols, seg, edge, taps,
-                                    stream);
+      return launch_depth<M, D - 1>(depth, order, in, out, n0, n1, nb, cols, sub, seg, edge,
+                                    taps, stream);
     switch (order) {
-      case kStar: return go<M, D, kStar>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
-      case kBox: return go<M, D, kBox>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
-      default: return go<M, D, kRuntime>(in, out, n0, n1, nb, cols, seg, edge, taps, stream);
+      case kStar:
+        return go<M, D, kStar>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+      case kBox:
+        return go<M, D, kBox>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+      default:
+        return go<M, D, kRuntime>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -476,8 +502,9 @@ int64_t tile_of(int64_t depth, int64_t order, int64_t what) {
 
 extern "C" int64_t repro_sweep3d_max_depth() { return kMaxDepth; }
 
-// An instance's tile: `what` 0 its rows Ty, 1 its columns Cx, 2 its threads,
-// 3 its dynamic shared memory in bytes (-1 for no instance).
+// An instance's tile (m its M: 1, 2, 4 or 8): `what` 0 its rows Ty, 1 its
+// columns Cx, 2 its threads, 3 its dynamic shared memory in bytes (-1 for
+// no instance).
 extern "C" int64_t repro_sweep3d_tile(int64_t m, int64_t depth, int64_t order, int64_t what) {
   switch (m) {
     case 1: return tile_of<1, kMaxDepth>(depth, order, what);
@@ -489,21 +516,25 @@ extern "C" int64_t repro_sweep3d_tile(int64_t m, int64_t depth, int64_t order, i
 }
 
 // `depth` steps of the (n0, n1, nb, m, vl) layout array `in` into `out`
-// (another buffer), at any vl (nb * vl < 2^30 off vl = 32), for a 3-D
-// stencil of reach r = 1, with the ends of axis
-// 0 `edge` (0 periodic, 1 ring, 2 open; axes 1 and 2 are periodic), in
-// segments of `seg` planes per CTA.  `offsets` holds ntaps (oz, oy, ox)
-// triples and `coeffs` ntaps float coefficients, both in host memory.
-// Returns the CUDA error code.
+// (another buffer), at any vl and m (on the instance M, the largest of 8,
+// 4, 2, 1 dividing m, with C' = nb * vl * m / M sub-columns a row;
+// C' < 2^30 unless vl = 32 and m = M), for a 3-D stencil of reach r = 1,
+// with the ends of axis 0 `edge` (0 periodic, 1 ring, 2 open; axes 1 and 2
+// are periodic), in segments of `seg` planes per CTA.  `offsets` holds
+// ntaps (oz, oy, ox) triples and `coeffs` ntaps float coefficients, both in
+// host memory.  Returns the CUDA error code.
 extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t n0, int64_t n1, int64_t nb,
                                  int64_t m, int64_t vl, int64_t r, int64_t depth, int64_t edge,
                                  int64_t seg, int64_t ntaps, const int32_t* offsets,
                                  const float* coeffs, void* stream) {
-  if ((m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 || depth > kMaxDepth ||
-      edge < kPeriodic || edge > kOpen || n0 < 1 || n1 < 1 || nb < 1 || vl < 1 ||
-      (vl != kVl32 && nb * vl >= kMaxCols) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
+  if (m < 1 || r != kR || depth < 1 || depth > kMaxDepth || edge < kPeriodic || edge > kOpen ||
+      n0 < 1 || n1 < 1 || nb < 1 || vl < 1 || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
       ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
+  const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
+  const int64_t g = m / mi;                                  // sub-columns a column
+  if ((vl != kVl32 || g != 1) && nb * vl * g >= kMaxCols) return (int)cudaErrorInvalidValue;
+  if (m * vl >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
   Taps3 taps;
   taps.n = (int)ntaps;
   for (int t = 0; t < ntaps; ++t) {
@@ -519,14 +550,15 @@ extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t n0, int64_t 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
   const Cols cols = make_cols(nb, vl);
-  switch (m) {
-    case 1: return launch_depth<1, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
-                                               st);
-    case 2: return launch_depth<2, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
-                                               st);
-    case 4: return launch_depth<4, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
-                                               st);
-    default: return launch_depth<8, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, seg, e, taps,
-                                               st);
+  const Cols sub = make_cols(nb * vl, g);   // C' sub-columns, g to a column
+  switch (mi) {
+    case 1: return launch_depth<1, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, sub, seg, e,
+                                               taps, st);
+    case 2: return launch_depth<2, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, sub, seg, e,
+                                               taps, st);
+    case 4: return launch_depth<4, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, sub, seg, e,
+                                               taps, st);
+    default: return launch_depth<8, kMaxDepth>(d, order, src, dst, n0, n1, nb, cols, sub, seg, e,
+                                                taps, st);
   }
 }

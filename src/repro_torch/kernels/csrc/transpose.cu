@@ -14,28 +14,37 @@
 // Two routes, chosen by stencil_kernels.transpose_route before the launch:
 //
 // * register route (repro_transpose_reg): vl a power of two from 4 to 128,
-//   m from 1 to 8, elements of 2, 4 or 8 bytes.  One thread per column of a
-//   block, holding the column's m elements in registers: lane j of block
-//   row s is natural element j*m + s of its block, so thread g (column g of
-//   the flattened (B*vl, m) view) owns the m consecutive natural elements
-//   from g*m, and row s of its block holds them at ((g / vl) * m + s) * vl +
-//   g % vl.  The natural side is read (or written) as whole 16-, 8- or
-//   4-byte chunks where m * itemsize and the pointer allow; the layout side
-//   moves one element per row, and for each row the threads of consecutive
-//   columns touch consecutive addresses, so a warp moves whole 128-byte
-//   lines at vl >= 32 (whole 32-byte sectors below).  m is a template
-//   parameter and vl a shift, so there is no division, no shared memory and
-//   no barrier: a few instructions per element where the shared-memory
-//   kernel spent about a hundred (two run-time divisions per element and
-//   phase).  One column per thread and plain loads and stores: 2 or 4
-//   columns per thread and the streaming cache hints were no faster on the
-//   H100 (PERF.md, section 6).
-// * shared-memory route (repro_transpose): every other shape (m > 8, vl not
-//   a power of two or outside 4..128).  Each CTA owns a contiguous run of
-//   whole matrices (about 4096 elements), reads it in input order, parks it
-//   in shared memory with each row padded to an odd pitch (so the
-//   column-wise reads of the second phase hit 32 distinct banks), and
-//   writes it in output order, again contiguous.
+//   m from 1 to 8, 16 or 32, elements of 2, 4 or 8 bytes.  One thread per
+//   column of a block, holding the column's m elements in registers: lane j
+//   of block row s is natural element j*m + s of its block, so thread g
+//   (column g of the flattened (B*vl, m) view) owns the m consecutive
+//   natural elements from g*m, and row s of its block holds them at
+//   ((g / vl) * m + s) * vl + g % vl.  The natural side is read (or
+//   written) as whole 16-, 8- or 4-byte chunks where m * itemsize and the
+//   pointer allow; the layout side moves one element per row, and for each
+//   row the threads of consecutive columns touch consecutive addresses, so
+//   a warp moves whole 128-byte lines at vl >= 32 (whole 32-byte sectors
+//   below).  m is a template parameter and vl a shift, so there is no
+//   division, no shared memory and no barrier: a few instructions per
+//   element where the shared-memory kernel spent about a hundred (two
+//   run-time divisions per element and phase).  One column per thread and
+//   plain loads and stores: 2 or 4 columns per thread and the streaming
+//   cache hints were no faster on the H100 (PERF.md, section 6).  At m = 16
+//   and 32 (the reference tuner's pairs (8, 16) and (16, 32)) a column of
+//   m = G * 8 consecutive natural elements is G = 2 or 4 sub-columns of 8,
+//   one a thread: sub-column u = G * g + h (0 <= h < G) of column g holds
+//   natural elements u * 8 .. u * 8 + 7 and its element s lies in block row
+//   h * 8 + s.  So the natural side moves exactly as at m = 8, and the
+//   layout side's rows as at m = 8 too.  A thread holding all 16 or 32
+//   elements of a column moved the same bytes but made each warp store of
+//   the natural side span 16 or 32 lines instead of 8 (0.2445 against
+//   0.1875 ms from the layout at 2^26 f32, vl=8, m=16; PERF.md, section 6).
+// * shared-memory route (repro_transpose): every other shape (m above 8
+//   and not 16 or 32, vl not a power of two or outside 4..128).  Each CTA
+//   owns a contiguous run of whole matrices (about 4096 elements), reads it
+//   in input order, parks it in shared memory with each row padded to an
+//   odd pitch (so the column-wise reads of the second phase hit 32 distinct
+//   banks), and writes it in output order, again contiguous.
 //
 // Both are generic in the element size (2, 4 or 8 bytes): a transpose moves
 // bits.
@@ -49,7 +58,9 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int kRegThreads = 256;
-constexpr int kRegMaxM = 8;
+
+// The m the register route has instances for (stencil_kernels.TRANSPOSE_M).
+constexpr bool reg_m(int64_t m) { return (m >= 1 && m <= 8) || m == 16 || m == 32; }
 
 using u16 = unsigned short;
 using u32 = unsigned int;
@@ -98,41 +109,46 @@ __device__ __forceinline__ void store_run(T* p, const T (&v)[M]) {
   }
 }
 
-// kToLayout: (B*vl, m) natural -> (B, m, vl) layout; else the inverse.
-// Column g = blockIdx.x * kRegThreads + threadIdx.x.  The guard is tested
+// kToLayout: (B*vl, m) natural -> (B, m, vl) layout (m = G * M); else the
+// inverse.  Sub-column u = blockIdx.x * kRegThreads + threadIdx.x of the
+// ncols * G: M elements of column g = u / G.  The guard is tested
 // twice, around the loads and around the stores, with an empty asm between
 // them so that the compiler keeps the two apart: merged into one early exit
 // ahead of the loads, the from-layout direction ran 13% slower on the H100
 // (0.208 against 0.185 ms at 2^26 f32, vl=32, m=8; tools/kernel_ab.py).
-template <typename T, int M, int kVec, bool kToLayout>
+template <typename T, int M, int G, int kVec, bool kToLayout>
 __global__ void __launch_bounds__(kRegThreads)
-transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t ncols, int lv) {
-  const int64_t g = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
-  const int64_t row0 = (((g >> lv) * M) << lv) + (g & (((int64_t)1 << lv) - 1));
+transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int lv) {
+  static_assert(G == 1 || G == 2 || G == 4, "sub-columns a column");
+  constexpr int kLg = G == 4 ? 2 : G == 2 ? 1 : 0;
+  const int64_t u = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
+  const int64_t g = u >> kLg, h = u & (G - 1);
+  const int64_t row0 = ((((g >> lv) * G + h) * M) << lv) + (g & (((int64_t)1 << lv) - 1));
   T v[M];
-  if (g < ncols) {
+  if (u < nsub) {
     if constexpr (kToLayout) {
-      load_run<kVec>(in + g * M, v);
+      load_run<kVec>(in + u * M, v);
     } else {
 #pragma unroll
       for (int s = 0; s < M; ++s) v[s] = in[row0 + ((int64_t)s << lv)];
     }
   }
   asm volatile("" ::: "memory");
-  if (g < ncols) {
+  if (u < nsub) {
     if constexpr (kToLayout) {
 #pragma unroll
       for (int s = 0; s < M; ++s) out[row0 + ((int64_t)s << lv)] = v[s];
     } else {
-      store_run<kVec>(out + g * M, v);
+      store_run<kVec>(out + u * M, v);
     }
   }
 }
 
-template <typename T, int M, bool kToLayout>
+template <typename T, int M, int G, bool kToLayout>
 int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t stream) {
   constexpr int kVec = chunk_elems<T, M>();
-  const int64_t ctas = (ncols + kRegThreads - 1) / kRegThreads;
+  const int64_t nsub = ncols * G;
+  const int64_t ctas = (nsub + kRegThreads - 1) / kRegThreads;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   // the natural side moves whole chunks only where its pointer is aligned
   const void* natural = kToLayout ? in : out;
@@ -140,20 +156,21 @@ int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t st
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   if (kVec > 1 && aligned) {
-    transpose_reg<T, M, kVec, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
-        src, dst, ncols, lv);
+    transpose_reg<T, M, G, kVec, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+        src, dst, nsub, lv);
   } else {
-    transpose_reg<T, M, 1, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
-        src, dst, ncols, lv);
+    transpose_reg<T, M, G, 1, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+        src, dst, nsub, lv);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M>
+// M elements a thread, G sub-columns a column: m = G * M
+template <typename T, int M, int G = 1>
 int launch_dir(const void* in, void* out, int64_t ncols, int lv, bool to_layout,
                cudaStream_t s) {
-  return to_layout ? launch_reg<T, M, true>(in, out, ncols, lv, s)
-                   : launch_reg<T, M, false>(in, out, ncols, lv, s);
+  return to_layout ? launch_reg<T, M, G, true>(in, out, ncols, lv, s)
+                   : launch_reg<T, M, G, false>(in, out, ncols, lv, s);
 }
 
 template <typename T>
@@ -168,6 +185,8 @@ int launch_m(const void* in, void* out, int64_t ncols, int lv, int m, bool to_la
     case 6: return launch_dir<T, 6>(in, out, ncols, lv, to_layout, s);
     case 7: return launch_dir<T, 7>(in, out, ncols, lv, to_layout, s);
     case 8: return launch_dir<T, 8>(in, out, ncols, lv, to_layout, s);
+    case 16: return launch_dir<T, 8, 2>(in, out, ncols, lv, to_layout, s);
+    case 32: return launch_dir<T, 8, 4>(in, out, ncols, lv, to_layout, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -244,13 +263,13 @@ int launch(const void* in, void* out, int64_t batch, int64_t rows, int64_t cols,
 // The register route: (ncols * m) elements of `elem_size` bytes, as
 // (ncols / vl, vl, m) natural -> (ncols / vl, m, vl) layout (`to_layout`
 // != 0) or the inverse, both contiguous, on `stream`.  vl must be a power of
-// two from 4 to 128 dividing ncols, m from 1 to 8.  Returns the CUDA error
-// code of the launch.
+// two from 4 to 128 dividing ncols, m from 1 to 8, 16 or 32.  Returns the
+// CUDA error code of the launch.
 extern "C" int repro_transpose_reg(const void* in, void* out, int64_t ncols, int64_t vl,
                                    int64_t m, int64_t elem_size, int64_t to_layout,
                                    void* stream) {
   const int lv = reg_shift(ncols, vl);
-  if (lv < 0 || m < 1 || m > kRegMaxM) return (int)cudaErrorInvalidValue;
+  if (lv < 0 || !reg_m(m)) return (int)cudaErrorInvalidValue;
   if (ncols == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = to_layout != 0;

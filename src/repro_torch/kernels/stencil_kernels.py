@@ -14,8 +14,8 @@
     ``csrc/sweep2d_warp.cu``, at any ``vl``, a lane on each of 32
     consecutive columns of the layout; :func:`sweep3d_route`:
     ``csrc/sweep3d.cu``, at any ``vl``, a thread on each column), or the
-    shared-memory kernel ``csrc/stencil_sweep.cu`` (other ``m``, deeper
-    sweeps, reach beyond the kernels').
+    shared-memory kernel ``csrc/stencil_sweep.cu`` (1-D and 2-D at other
+    ``m``, deeper sweeps, reach beyond the kernels').
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -59,8 +59,9 @@ LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem":
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
-# the tiles csrc/transpose.cu's register kernel takes
-TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL, TRANSPOSE_MAX_M = 4, 128, 8
+# the tiles csrc/transpose.cu's register kernel takes (its reg_m)
+TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL = 4, 128
+TRANSPOSE_M = frozenset(range(1, 9)) | {16, 32}
 # a warp row of the register kernels: 32 columns of the layout, one a lane
 WARP_LANES = 32
 # columns a row may have off vl = 32 in the 2-D and 3-D register kernels
@@ -77,8 +78,8 @@ WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
-# the m it takes, its deepest instance, its reach and the shortest z
-# segment a CTA walks
+# the elements a (sub-)column of its instances holds, its deepest instance,
+# its reach and the shortest z segment a CTA walks
 SWEEP3D_LANES = 16
 SWEEP3D_THREADS = 512
 SWEEP3D_STAGES, SWEEP3D_STAGES_D1 = 2, 3
@@ -160,10 +161,10 @@ def transpose_route(vl: int, m: int, itemsize: int) -> str:
     """The kernel a CUDA :func:`block_transpose` / :func:`block_untranspose`
     launches: ``"reg"`` (``csrc/transpose.cu``'s register kernel, one
     thread per column of a block) when ``vl`` is a power of two from 4 to
-    128, ``1 <= m <= 8`` and the elements are 2, 4 or 8 bytes; ``"smem"``
-    (its shared-memory kernel) otherwise."""
+    128, ``m`` is in ``TRANSPOSE_M`` (1 to 8, 16, 32) and the elements are
+    2, 4 or 8 bytes; ``"smem"`` (its shared-memory kernel) otherwise."""
     if TRANSPOSE_MIN_VL <= vl <= TRANSPOSE_MAX_VL and vl & (vl - 1) == 0 \
-            and 1 <= m <= TRANSPOSE_MAX_M and itemsize in (2, 4, 8):
+            and m in TRANSPOSE_M and itemsize in (2, 4, 8):
         return "reg"
     return "smem"
 
@@ -446,16 +447,25 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
 def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
-    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl``: a thread
-    owns a column of the layout) when ``m`` and ``depth`` have an instance
-    (``SWEEP3D_M``, depth 1 to ``SWEEP3D_DEPTH``) and the reach is the
-    kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise: m outside
-    {1, 2, 4, 8} (m = 16, the picker's odd m), depth beyond 4, r > 1.  The
-    periodic, ring and open ends take the same route."""
-    if vl >= 1 and m in SWEEP3D_M and 1 <= r <= SWEEP3D_MAX_R \
-            and 1 <= depth <= SWEEP3D_DEPTH:
+    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl`` and any
+    ``m``: a thread owns a sub-column of the layout, :func:`sweep3d_split`)
+    when ``depth`` has an instance (1 to ``SWEEP3D_DEPTH``) and the reach
+    is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise:
+    depth beyond 4, r > 1.  The periodic, ring and open ends take the same
+    route."""
+    if vl >= 1 and m >= 1 and 1 <= r <= SWEEP3D_MAX_R and 1 <= depth <= SWEEP3D_DEPTH:
         return "stream"
     return "smem"
+
+
+def sweep3d_split(m: int) -> tuple[int, int]:
+    """``(M, g)``: the ``csrc/sweep3d.cu`` instance a layout of ``m``
+    elements a column runs on (``M`` the largest of ``SWEEP3D_M`` dividing
+    ``m``) and the ``g = m / M`` sub-columns of ``M`` consecutive natural
+    points each column is cut into; a row of ``C = nb·vl`` columns is
+    ``C' = g·C`` sub-columns."""
+    big = max(mm for mm in SWEEP3D_M if m % mm == 0)
+    return big, m // big
 
 
 def sweep3d_order(spec: StencilSpec) -> str:
@@ -473,11 +483,12 @@ def sweep3d_slots(depth: int) -> int:
 
 
 def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
-    """The tile of a ``csrc/sweep3d.cu`` instance (its ``Tile``): rows
-    ``ty`` and columns ``cx`` a CTA computes, and its halo columns ``hx``
-    and rows ``hy`` per side.  The star's levels publish into 2 plane slots,
-    the others' into 4; ``ty`` is as many rows as ``SWEEP3D_THREADS``
-    threads and the shared memory allow."""
+    """The tile of the ``csrc/sweep3d.cu`` instance ``M = m`` (its
+    ``Tile``; ``m`` in ``SWEEP3D_M``): rows ``ty`` and (sub-)columns ``cx``
+    a CTA computes, and its halo (sub-)columns ``hx`` and rows ``hy`` per
+    side.  The star's levels publish into 2 plane slots, the others' into
+    4; ``ty`` is as many rows as ``SWEEP3D_THREADS`` threads and the
+    shared memory allow."""
     hx, hy = -(-depth // m), depth
     cx = SWEEP3D_LANES + 2 * hx
     planes = sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
@@ -487,11 +498,11 @@ def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
 
 def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
                     ctas: int) -> int:
-    """Axis-0 planes per CTA of the 3-D kernel on rows of ``cols = nb·vl``
-    columns: the segment length whose waves of ``ctas`` CTAs (one per SM)
-    times the steps of a segment (its planes and 3·depth warm-up steps) are
-    fewest; no segment shorter than ``SWEEP3D_SEG_MIN`` planes unless the
-    grid is."""
+    """Axis-0 planes per CTA of the 3-D kernel's instance ``M = m`` on rows
+    of ``cols`` (sub-)columns (``C' = g·nb·vl``): the segment length whose
+    waves of ``ctas`` CTAs (one per SM) times the steps of a segment (its
+    planes and 3·depth warm-up steps) are fewest; no segment shorter than
+    ``SWEEP3D_SEG_MIN`` planes unless the grid is."""
     ty, _, _, hy = sweep3d_tile(m, depth, order)
     tiles = -(-cols // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
     best = None
@@ -507,14 +518,16 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
                     edge: str = "periodic", seg: int | None = None) -> None:
     """The 3-D streaming kernel with the ends ``edge`` on axis 0, ``seg``
     axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
-    card's SMs)."""
+    card's SMs), on the instance :func:`sweep3d_split` names for ``m``."""
     n0, n1, nb, m, vl = t.shape
-    if vl != WARP_LANES and nb * vl >= MAX_COLS:
-        raise ValueError(f"{spec.name}: {nb * vl} columns a row at vl={vl}; the 3-D streaming "
-                         f"kernel takes fewer than {MAX_COLS} off vl={WARP_LANES}")
+    big, g = sweep3d_split(m)
+    if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
+        raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
+                         f"(sub-columns of {big}); the 3-D streaming kernel takes fewer than "
+                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SWEEP3D_M}")
     _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
-        seg = sweep3d_segment(n0, n1, nb * vl, m, depth, sweep3d_order(spec),
+        seg = sweep3d_segment(n0, n1, nb * vl * g, big, depth, sweep3d_order(spec),
                               _sm_count(t.device))
     lib = build.load("sweep3d")
     ntaps, offs, coeffs = _taps(spec, 3)

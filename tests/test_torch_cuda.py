@@ -62,10 +62,11 @@ def _same_bits(a, b):
     return a.shape == b.shape and torch.equal(a.view(_INT_OF[a.dtype]), b.view(_INT_OF[b.dtype]))
 
 
-# the register route's tiles (vl a power of two from 4 to 128, m <= 8) and
-# three of the shared-memory route's
-TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8)] + [
-    (8, 25), (32, 16), (3, 5)]
+# the register route's tiles (vl a power of two from 4 to 128, m 1 to 8,
+# 16 and 32: the tuner's pairs (8, 16), (16, 32) and the picker's odd m) and
+# four of the shared-memory route's
+TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8, 16, 32)] + [
+    (8, 5), (16, 6), (32, 7), (8, 25), (3, 5), (8, 12), (256, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
@@ -73,7 +74,8 @@ TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8)] + [
 def test_transpose_routes_bitwise(cuda, vl, m, dtype):
     x = _bits((2, 3, 37 * vl * m), dtype, vl + m, cuda)    # 37 blocks: a partial last CTA
     route = sk.transpose_route(vl, m, x.element_size())
-    assert route == ("reg" if m <= 8 and vl in (4, 8, 16, 32, 128) else "smem")
+    assert route == ("reg" if m in (1, 3, 5, 6, 7, 8, 16, 32) and vl in (4, 8, 16, 32, 128)
+                     else "smem")
     sk.reset_launches()
     t = sk.block_transpose(x, vl, m)
     back = sk.block_untranspose(t, vl, m)
@@ -85,15 +87,16 @@ def test_transpose_routes_bitwise(cuda, vl, m, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
-def test_transpose_unaligned_pointers(cuda, dtype):
+@pytest.mark.parametrize("vl,m", [(32, 8), (8, 16), (16, 32), (8, 6)])
+def test_transpose_unaligned_pointers(cuda, vl, m, dtype):
     """A contiguous view one element into its storage: the natural side
     moves element by element, bit for bit the same."""
-    x = _bits((1 + 9 * 32 * 8,), dtype, 11, cuda)[1:]
-    t = sk.block_transpose(x, 32, 8)
-    assert _same_bits(t, sk.block_transpose_ref(x, 32, 8))
+    x = _bits((1 + 9 * vl * m,), dtype, 11, cuda)[1:]
+    t = sk.block_transpose(x, vl, m)
+    assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
     out = torch.empty(1 + x.numel(), dtype=dtype, device=cuda)[1:]
     sk.reset_launches()
-    back = sk.block_untranspose(t, 32, 8, out=out)
+    back = sk.block_untranspose(t, vl, m, out=out)
     torch.cuda.synchronize()
     assert back.data_ptr() == out.data_ptr() and _same_bits(back, x)
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 1}
@@ -110,6 +113,7 @@ def test_transpose_reg_refuses_off_route(cuda):
     assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), x.numel() // 8, 24, 8, 4, 1,
                                    stream) != 0
     assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 9, 4, 1, stream) != 0
+    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 64, 4, 1, stream) != 0
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
@@ -380,9 +384,9 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
         else:
             got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
             want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
-            # 3d7p 16x8x16 picks (16, 1): the 3-D streaming kernel's tile;
-            # the odd m of the other rows keep the shared-memory kernel
-            keys = {"sweep_3d" if (name, shape) == ("3d7p", (16, 8, 16)) else "sweep_nd": 1}
+            # 3-D: the streaming kernel at every m (12x8x80's odd m = 5 on
+            # sub-columns of 1); the 2-D odd m keep the shared-memory kernel
+            keys = {"sweep_3d" if spec.ndim == 3 else "sweep_nd": 1}
         torch.cuda.synchronize()
         assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | keys
         assert torch.equal(got, want), (depth, (got - want).abs().max().item())
@@ -586,8 +590,8 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 
 def test_multistep_2d_routes_count(cuda):
     """The counters tell K4b's routes apart at 2-D and 3-D (the 3-D
-    streaming kernel at any vl, the shared-memory kernel at m = 16 and
-    depth 5), and the halo wrapper follows the route of its depth."""
+    streaming kernel at any vl and m, the shared-memory kernel at 2-D m = 16
+    and 3-D depth 5), and the halo wrapper follows the route of its depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
@@ -597,7 +601,9 @@ def test_multistep_2d_routes_count(cuda):
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 5, "multistep_nd"),
-             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 2, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 2, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 5, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 192), 16, 3, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 128, 2, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 64, 4, 1, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 16, 8, 2, "multistep_3d"),
@@ -659,6 +665,21 @@ def test_sweep3d_route_bitwise(cuda, name, m, vl):
     the route, periodic, ring and open, on grids with one block a row, n1
     below a tile and n0 below the warm-up, at the wrapper's segment and at
     3 planes per CTA.  The wrappers launch the streaming kernel alone."""
+    _sweep3d_bitwise(cuda, name, m, vl)
+
+
+@pytest.mark.parametrize("vl", [4, 8, 32])
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0"])
+def test_sweep3d_sub_columns_bitwise(cuda, name, m, vl):
+    """The same at m off {1, 2, 4, 8}: the instance M = 1 (m = 3) or 8
+    (m = 16, 32) with g = m / M sub-columns a column, vl = 32 on the
+    any-vl instances."""
+    assert sk.sweep3d_split(m) == ((1, 3) if m == 3 else (8, m // 8))
+    _sweep3d_bitwise(cuda, name, m, vl)
+
+
+def _sweep3d_bitwise(cuda, name, m, vl):
     spec = stencils.make(name) if name.startswith("3d") else \
         stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
     for n0, n1, nb in _grids3(vl):
@@ -686,10 +707,13 @@ def test_sweep3d_route_bitwise(cuda, name, m, vl):
 
 @pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_3d"), (128, 4, "sweep_3d"),
                                       (8, 8, "sweep_3d"), (4, 2, "sweep_3d"),
-                                      (8, 16, "sweep_nd")])
+                                      (8, 16, "sweep_3d"), (16, 32, "sweep_3d"),
+                                      (32, 16, "sweep_3d")])
 def test_main_path_3d_route_counts(cuda, vl, m, key):
     """The resident run of 3d7p at the plans' tiles: the 3-D streaming
-    kernel at any vl, the shared-memory kernel at m = 16."""
+    kernel at any vl and m (m = 16, 32 on sub-columns of 8), K2 on its
+    register kernel."""
+    assert _k2_key(vl, m) == "transpose"
     prob = StencilProblem("3d7p", (16, 24, 1024))
     x = prob.init(0)
     sk.reset_launches()
@@ -707,6 +731,11 @@ def test_sweep3d_raises_beyond_its_columns(cuda):
     t = torch.empty((1, 0, sk.MAX_COLS // 8, 1, 8), device=cuda)
     with pytest.raises(ValueError, match="columns a row"):
         sk._sweep3d_launch(spec, t, torch.empty_like(t), 1)
+    # sub-columns count: 2^30 of them at m = 16 (g = 2), also at vl = 32
+    for vl in (8, 32):
+        t = torch.empty((1, 0, sk.MAX_COLS // (2 * vl), 16, vl), device=cuda)
+        with pytest.raises(ValueError, match="columns a row"):
+            sk._sweep3d_launch(spec, t, torch.empty_like(t), 1)
 
 
 def test_sweep3d_tile_matches_library(cuda):

@@ -5,12 +5,14 @@ into numpy line for line and held bit for bit against the plain versions
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs over (column tile, row tile, z segment) with ``Hx`` halo
-columns and ``Hy`` halo rows per side (columns wrapped mod C = nb·vl, rows
-mod n1), the threads of a CTA as an array axis (thread t owns column t % Cx
-of row t // Cx), each thread's device-memory offsets at any vl (column c's
-element s at ((c // vl)·m + s)·vl + c % vl of its row: loads and stores
-through those flat offsets), the shared-memory planes stored
-[element][thread] with Cx + 1
+columns and ``Hy`` halo rows per side (columns wrapped mod C' = g·nb·vl,
+rows mod n1), the threads of a CTA as an array axis (thread t owns column
+t % Cx of row t // Cx), each thread's device-memory offsets at any vl and
+m (the instance M = ``sweep3d_split(m)``: a layout column of m = g·M
+elements is g sub-columns of M, sub-column u = g·c + h's element s at
+((c // vl)·m + h·M + s)·vl + c % vl of its row: loads and stores through
+those flat offsets; "column" below means sub-column), the shared-memory
+planes stored [element][thread] with Cx + 1
 unwritten words on each side, the input ring filled ``kStages`` planes
 ahead, the segment's warm-up planes with wrapped plane indices, the
 per-level skew of r + 1 planes with the levels run from the deepest down,
@@ -56,9 +58,10 @@ VLS = (1, 4, 8, 16, 64, 128)     # the any-vl cases' vl (vl = 32: the cases abov
 
 def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """The kernel's output and how often each of its elements was stored."""
-    n0, n1, nb, m, vl = t.shape
-    assert sk.sweep3d_route(vl, m, depth, spec.r) == "stream"
+    n0, n1, nb, m_layout, vl = t.shape
+    assert sk.sweep3d_route(vl, m_layout, depth, spec.r) == "stream"
     order = sk.sweep3d_order(spec)
+    m, g = sk.sweep3d_split(m_layout)            # m: the instance's M from here on
     Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
     R, D, NW, L, NS = spec.r, depth, 2 * spec.r + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth)
     STAGES = NS - 2 * R - 2      # input planes in flight beyond the landed one
@@ -66,7 +69,7 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     E = 2 if star_pub else 2 * R + 2
     A, P = Ty * Cx, Cx + 1                       # threads; unwritten words per side
     taps = [(off, np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
-    ncol = nb * vl
+    ncol = nb * vl * g                           # C' sub-columns a row
     ntx, nty, nseg = -(-ncol // L), -(-n1 // (Ty - 2 * Hy)), -(-n0 // seg)
     cta = np.arange(ntx * nty * nseg)
     xt, yt, z0 = cta % ntx, cta // ntx % nty, cta // ntx // nty * seg
@@ -79,10 +82,12 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     wrow0, wrow1 = (th & ~31) // Cx, np.minimum(th | 31, A - 1) // Cx   # a warp's rows
     gu = xt[:, None] * L - Hx + cx[None, :]                  # (ctas, A)
     yu = yt[:, None] * (Ty - 2 * Hy) - Hy + ty[None, :]
-    g, y = gu % ncol, yu % n1
+    u, y = gu % ncol, yu % n1
+    c, h = u // g, u % g                                     # column, its sub-column
     stores = (cx >= Hx) & (cx < Cx - Hx) & (gu < ncol) & (ty >= Hy) & (ty < Ty - Hy) & (yu < n1)
-    plane = n1 * ncol * m
-    col = y * (ncol * m) + g // vl * (vl * m) + g % vl       # element 0 in plane 0
+    row = nb * vl * m_layout
+    plane = n1 * row
+    col = y * row + c // vl * (vl * m_layout) + h * m * vl + c % vl   # element 0 in plane 0
     elems = col[:, None, :] + np.arange(m)[:, None] * vl     # (ctas, m, A): s·vl on
     flat_in = t.reshape(-1)
     nan = np.float32(np.nan)
@@ -248,11 +253,28 @@ def test_sweep3d_kernel_any_vl_bitwise(vl, m, edge):
     """Off vl = 32: 3d7p at every depth (each on one of the grids) and
     3d27p at depth 4 on the widest, bit for bit the plain versions, every
     element stored once."""
+    _check_any_vl(vl, m, edge, ANY_VL_GRIDS[2])
+
+
+def _check_any_vl(vl, m, edge, box_grid):
     cases = [("3d7p", depth, ANY_VL_GRIDS[depth % 3]) for depth in range(1, 5)]
-    for name, depth, (n0, n1, c) in cases + [("3d27p", 4, ANY_VL_GRIDS[2])]:
+    for name, depth, (n0, n1, c) in cases + [("3d27p", 4, box_grid)]:
         nb = -(-c // vl)
         _check(tst.make(name), _t(n0, n1, nb, m, seed=n0 + n1 + nb + vl + m, vl=vl), depth,
                edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m", [3, 6, 16, 32])
+@pytest.mark.parametrize("vl", [1, 4, 8, 32])
+def test_sweep3d_kernel_sub_columns_bitwise(vl, m, edge):
+    """m off {1, 2, 4, 8}: the instance M with g = m / M sub-columns a
+    column (m = 3 on M = 1, 6 on 2, 16 and 32 on 8), vl = 32 too (the
+    any-vl instances); 3d7p at every depth on the any-vl grids (C' = g·C
+    sub-columns: below 16 at vl = 1 on the first, over several column
+    tiles on the last) and 3d27p at depth 4 on the second, bit for bit the
+    plain versions, every element stored once."""
+    _check_any_vl(vl, m, edge, ANY_VL_GRIDS[1])
 
 
 # tap lists in no order the kernel knows at compile time: it reads them at
@@ -298,11 +320,13 @@ def test_sweep3d_kernel_matches_pallas(edge):
 
 
 @pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
-@pytest.mark.parametrize("vl,m,nb", [(8, 8, 1), (128, 4, 1), (8, 2, 3)])
+@pytest.mark.parametrize("vl,m,nb", [(8, 8, 1), (128, 4, 1), (8, 2, 3), (8, 16, 1),
+                                     (16, 32, 1), (4, 3, 2)])
 def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     """Off vl = 32 against the JAX package's Pallas kernel, as above: the
     tuner's tile (8 columns a row, below a tile's 16), the JAX package's
-    3-D tile, and 24 columns."""
+    3-D tile, 24 columns, and sub-columns: the tuner's pairs (8, 16) and
+    (16, 32) (16 and 64 sub-columns of 8) and an odd m (24 of 1)."""
     spec_t, spec_j = tst.make("3d7p"), jst.make("3d7p")
     t = _t(8, 5, nb, m, seed=vl + m, vl=vl)
     if edge == "periodic":
@@ -338,16 +362,22 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (1, 1, 3, 1, "stream"),
     (64, 4, 2, 1, "stream"),
     (12, 2, 1, 1, "stream"),      # vl no power of two
-    (8, 16, 4, 1, "smem"),        # m = 16: no instance (the K3-smem 3-D row's tile)
-    (128, 16, 2, 1, "smem"),
-    (8, 5, 2, 1, "smem"),         # odd m
+    (8, 16, 4, 1, "stream"),      # m = 16: sub-columns of 8 (the tuner's pair (8, 16))
+    (128, 16, 2, 1, "stream"),
+    (8, 5, 2, 1, "stream"),       # odd m: sub-columns of 1
     (8, 8, 5, 1, "smem"),         # past the deepest instance
     (128, 4, 5, 1, "smem"),
     (8, 8, 2, 2, "smem"),         # beyond the kernel's reach
     (128, 4, 1, 2, "smem"),
-    (32, 3, 2, 1, "smem"),        # no instance for m = 3
-    (32, 16, 2, 1, "smem"),
+    (32, 3, 2, 1, "stream"),      # m = 3 on the instance M = 1
+    (32, 16, 2, 1, "stream"),
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+    (16, 32, 4, 1, "stream"),     # the tuner's pair (16, 32): sub-columns of 8
+    (8, 16, 5, 1, "smem"),        # m = 16 past the deepest instance
+    (16, 32, 8, 1, "smem"),       # the K3-smem 3-D row's depth
+    (8, 16, 2, 2, "smem"),        # m = 16 beyond the kernel's reach
+    (4, 6, 1, 2, "smem"),
+    (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep3d_route(vl, m, depth, r, route):
     assert sk.sweep3d_route(vl, m, depth, r) == route
@@ -391,6 +421,26 @@ def test_sweep3d_segment(n0, n1, nb, m, depth, ctas, seg):
 def test_sweep3d_segment_any_vl(n0, n1, nb, vl, m, depth, seg):
     """Column tiles are ceil(nb·vl / 16) whatever vl is."""
     assert sk.sweep3d_segment(n0, n1, nb * vl, m, depth, "star", 132) == seg
+
+
+@pytest.mark.parametrize("m,split", [
+    (1, (1, 1)), (2, (2, 1)), (4, (4, 1)), (8, (8, 1)),    # an instance of their own
+    (16, (8, 2)), (32, (8, 4)), (24, (8, 3)),               # the tuner's m: sub-columns of 8
+    (3, (1, 3)), (5, (1, 5)), (6, (2, 3)), (12, (4, 3)),    # the picker's C1 tiles
+])
+def test_sweep3d_split(m, split):
+    assert sk.sweep3d_split(m) == split
+
+
+@pytest.mark.parametrize("n0,n1,nb,vl,m,depth,seg", [
+    (512, 512, 4, 8, 16, 4, 103),    # the tuner's pair (8, 16): 64 sub-columns, as at m = 8
+    (512, 512, 1, 16, 32, 4, 103),   # (16, 32): 64 sub-columns of 8
+    (512, 512, 4, 8, 16, 1, 64),
+])
+def test_sweep3d_segment_sub_columns(n0, n1, nb, vl, m, depth, seg):
+    """The wrapper sizes segments on the instance M and C' = g·nb·vl."""
+    big, g = sk.sweep3d_split(m)
+    assert sk.sweep3d_segment(n0, n1, nb * vl * g, big, depth, "star", 132) == seg
 
 
 def test_sweep3d_order():

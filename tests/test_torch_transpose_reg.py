@@ -4,11 +4,15 @@ transcribed into numpy and held bit for bit against the plain versions
 picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
-address map: CTAs of ``kRegThreads`` threads, one column per thread,
-the guard on the last CTA, the natural side moved in chunks of ``chunk_elems`` elements (each chunk aligned to its own size),
-and the layout side's row addresses ``((g >> lv) * m + s) << lv | g & mask``.
+address map: CTAs of ``kRegThreads`` threads, one column per thread (at
+m = 16, 32: one sub-column of M = 8, G = m / 8 to a column), the guard on
+the last CTA, the natural side moved in chunks of ``chunk_elems`` elements
+(each chunk aligned to its own size), and the layout side's row addresses
+``(((g >> lv) * G + h) * M + s) << lv | g & mask`` (sub-column h of column
+g; G = 1, h = 0 at m <= 8).
 Every instance of the register route (vl a power of two from 4 to 128,
-m = 1..8, elements of 2, 4 and 8 bytes, both directions, leading axes)
+m = 1..8, 16 and 32, elements of 2, 4 and 8 bytes, both directions,
+leading axes)
 must read each element once and write each once, to the position the plain
 version gives.  Inputs are random integer bits, so "equal" is bit for bit.
 One case is also held against the JAX package's Pallas kernel in
@@ -42,12 +46,17 @@ def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bo
     lv = vl.bit_length() - 1
     assert 1 << lv == vl and ncols % vl == 0
     mask = vl - 1
-    kvec = chunk_elems(src.itemsize, m) if aligned else 1
-    ctas = -(-ncols // REG_THREADS)
-    g = np.arange(ctas * REG_THREADS)           # one thread per column
-    g = g[g < ncols]                            # the guard
-    natural = g * m
-    row0 = (((g >> lv) * m) << lv) + (g & mask)
+    big, sub = (8, m // 8) if m > 8 else (m, 1)     # the instance's M and G
+    lg = sub.bit_length() - 1
+    kvec = chunk_elems(src.itemsize, big) if aligned else 1
+    nsub = ncols * sub
+    ctas = -(-nsub // REG_THREADS)
+    u = np.arange(ctas * REG_THREADS)           # one thread per sub-column
+    u = u[u < nsub]                             # the guard
+    g, h = u >> lg, u & (sub - 1)
+    natural = u * big
+    row0 = ((((g >> lv) * sub + h) * big) << lv) + (g & mask)
+    m = big                                     # elements a thread moves
     out = np.zeros_like(src)
     reads = np.zeros(src.size, np.int64)
     writes = np.zeros(src.size, np.int64)
@@ -99,7 +108,7 @@ def _check(x: np.ndarray, vl: int, m: int, **kw):
 
 
 @pytest.mark.parametrize("itemsize", [2, 4, 8])
-@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("m", sorted(sk.TRANSPOSE_M))
 @pytest.mark.parametrize("vl", [4, 8, 16, 32, 64, 128])
 def test_reg_kernel_address_map(vl, m, itemsize):
     # two leading axes; 15 blocks of vl·m: the last CTA is partial
@@ -116,7 +125,17 @@ def test_reg_kernel_unaligned_pointer(vl, itemsize):
     _check(x, vl, 8, aligned=False)
 
 
-@pytest.mark.parametrize("vl,m,nb", [(32, 8, 3), (8, 5, 7), (128, 8, 2)])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("vl,m", [(8, 16), (16, 32), (4, 3), (32, 5), (8, 6), (128, 7)])
+def test_reg_kernel_unaligned_pointer_new_m(vl, m, itemsize):
+    """The element-wise instances of m = 16, 32 (the tuner's pairs) and
+    odd m, over more than one CTA."""
+    x = _bits((2, 19 * vl * m), itemsize, seed=itemsize + m)
+    _check(x, vl, m, aligned=False)
+
+
+@pytest.mark.parametrize("vl,m,nb", [(32, 8, 3), (8, 5, 7), (128, 8, 2), (8, 16, 3),
+                                     (16, 32, 2)])
 def test_reg_kernel_matches_pallas(vl, m, nb):
     x = np.random.default_rng(nb).standard_normal(nb * vl * m).astype(np.float32)
     want = np.asarray(jsk.block_transpose(jnp.asarray(x), vl, m, interpret=True))
@@ -134,8 +153,14 @@ def test_reg_kernel_matches_pallas(vl, m, nb):
     (8, 5, 8, "reg"),           # the picker's odd-m tiles off vl = 32
     (16, 3, 4, "reg"),
     (64, 7, 2, "reg"),
-    (8, 25, 4, "smem"),         # m > 8
-    (32, 16, 4, "smem"),
+    (8, 25, 4, "smem"),         # m > 8 and not 16 or 32
+    (32, 16, 4, "reg"),         # m = 16, 32: the tuner's pairs (8, 16), (16, 32)
+    (8, 16, 2, "reg"),
+    (16, 32, 8, "reg"),
+    (8, 12, 4, "smem"),
+    (16, 64, 4, "smem"),
+    (12, 16, 4, "smem"),        # vl not a power of two
+    (256, 8, 4, "smem"),        # the K2-smem row's tile (vl above 128)
     (3, 5, 4, "smem"),          # vl not a power of two
     (2, 4, 4, "smem"),          # vl below 4
     (256, 2, 4, "smem"),        # vl above 128

@@ -2,8 +2,8 @@
 """Time the 1-D, 2-D and 3-D paths' kernels and K6 of one source tree of
 the port, to hold two trees against each other on one CUDA card.
 
-    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k6]
-                               [--vl 32[,8,...]] [--m 8]
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k2|k6]
+                               [--vl 32[,8,...]] [--m 8[,16,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
@@ -11,8 +11,8 @@ per tree and in turns (A, B, B, A) within one call: two calls may land on
 two cards.  Float32, each kernel timed with CUDA events (median of
 repeats after warm-up), each result first held bit for bit against the
 plain version.  The stencil rows run at every layout tile (vl, m) of
-``--vl`` (a comma-separated list, 32 by default) and ``--m`` (8 by
-default); each row names its tile:
+``--vl`` and ``--m`` (comma-separated lists, 32 and 8 by default) whose
+vl·m divides the grid's minor extent; each row names its tile:
 
 - 1d3p: K1 (``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements,
   K2 (``block_transpose`` / ``block_untranspose``) on the same grid, and
@@ -34,8 +34,12 @@ composition, by the median host time of 5 runs after that check's run.
 544 × 512², the roundtrip's padded shape, and the resident run
 ``StencilProblem.run`` of 512³, 16 steps (k=2, ttile=2, fused), held
 against the plain versions and timed by the median host time of 5 runs,
-at each tile; then the Dirichlet run ``ops.stencil_run`` of 512³, 16
-steps, at the picker's tile, as above.
+at each tile; 3d27p (the box order): K3 at depths 4, 2, 1 on 256³ at
+each tile; then the Dirichlet run ``ops.stencil_run`` of 512³, 16 steps,
+at the picker's tile, as above.
+
+K2 alone (``--only k2``): ``block_transpose`` / ``block_untranspose`` on
+2**26 elements and on 512³ at every tile, as in the 1-D group.
 
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
@@ -44,7 +48,8 @@ Q=128 bf16 and f32, 1000 at Q=125, 251 at Q=1, 2048 with B and C per
 head), each first held against the plain version (rtol = atol = 2e-4
 f32, 5e-2 bf16; the state at 2e-4), timed with CUDA events; then one
 2048-token ``model.prefill`` of mamba2-2.7b (random bf16 weights from seed
-0), CUDA events, median of 3.  ``--only`` picks one of the three groups.
+0), CUDA events, median of 3.  ``--only`` picks one group; without it the
+stencil, 3-D and K6 groups run.
 Prints one JSON line per row, then the card's name and power limit.
 
 ``chip_smoke.py`` times the same kernels, but only on the tree it belongs
@@ -71,10 +76,10 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
-    parser.add_argument("--only", choices=("stencils", "3d", "k6"), default=None)
+    parser.add_argument("--only", choices=("stencils", "3d", "k2", "k6"), default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
-    parser.add_argument("--m", type=int, default=8, help="m of the stencil rows' tiles")
+    parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -84,17 +89,52 @@ def main() -> int:
     dev = torch.device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    tiles = [(int(v), int(m)) for v in args.vl.split(",") for m in args.m.split(",")]
     if args.only in (None, "stencils"):
-        stencil_rows(args.label, dev, [int(v) for v in args.vl.split(",")], args.m)
+        stencil_rows(args.label, dev, tiles)
     if args.only in (None, "3d"):
-        stencil3d_rows(args.label, dev, [int(v) for v in args.vl.split(",")], args.m)
+        stencil3d_rows(args.label, dev, tiles)
+    if args.only == "k2":
+        k2_rows(args.label, dev, tiles)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
     return 0
 
 
-def stencil_rows(label: str, dev, vls, m) -> None:
+def _skip(label, what, tile) -> None:
+    print(json.dumps({"tree": label, "skipped": f"{what} {tile}: vl·m does not divide the "
+                      "minor extent"}), flush=True)
+
+
+def k2_rows(label: str, dev, tiles) -> None:
+    """K2 both ways on 2**26 elements and on 512³ at each (vl, m)."""
+    import torch
+
+    from repro_torch.kernels import stencil_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape, what in (((N1,), "2^26"), ((512, 512, 512), "512^3")):
+        x = torch.randn(shape, generator=gen, device=dev)
+        for vl, m in tiles:
+            tile = f"vl={vl} m={m}"
+            if shape[-1] % (vl * m):
+                _skip(label, what, tile)
+                continue
+            t = sk.block_transpose_ref(x, vl, m)
+            buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
+            _row(label, dev, f"K2 block_transpose {what} {tile}",
+                 lambda: sk.block_transpose(x, vl, m, out=buf_t),
+                 lambda: sk.block_transpose_ref(x, vl, m))
+            _row(label, dev, f"K2 block_untranspose {what} {tile}",
+                 lambda: sk.block_untranspose(t, vl, m, out=buf_x),
+                 lambda: sk.block_untranspose_ref(t, vl, m))
+            del t, buf_t, buf_x
+        del x
+        torch.cuda.empty_cache()
+
+
+def stencil_rows(label: str, dev, tiles) -> None:
     import torch
 
     from repro_torch.core import stencils
@@ -102,8 +142,11 @@ def stencil_rows(label: str, dev, vls, m) -> None:
 
     spec, spec2, t0 = stencils.make("1d3p"), stencils.make("2d5p"), 32
     gen = torch.Generator(device=dev).manual_seed(0)
-    for vl in vls:
+    for vl, m in tiles:
         tile = f"vl={vl} m={m}"
+        if N2 % (vl * m):
+            _skip(label, "1d3p, 2d5p", tile)
+            continue
 
         def row(kernel, fn, plain):
             _row(label, dev, f"{kernel} {tile}", fn, plain)
@@ -196,7 +239,7 @@ def dirichlet_row(label, spec, x) -> None:
                       "seconds_median_of_5": statistics.median(times)}), flush=True)
 
 
-def stencil3d_rows(label: str, dev, vls, m) -> None:
+def stencil3d_rows(label: str, dev, tiles) -> None:
     import torch
 
     from repro_torch.core import stencils
@@ -204,14 +247,15 @@ def stencil3d_rows(label: str, dev, vls, m) -> None:
     from repro_torch.kernels import stencil_kernels as sk
 
     spec, t0, shape = stencils.make("3d7p"), 16, (512, 512, 512)
+    box = stencils.make("3d27p")
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(shape, generator=gen, device=dev)
     xp = torch.randn(544, 512, 512, generator=gen, device=dev)
-    for vl in vls:
+    xb = torch.randn(256, 256, 256, generator=gen, device=dev)
+    for vl, m in tiles:
         tile = f"vl={vl} m={m}"
         if shape[-1] % (vl * m):
-            print(json.dumps({"tree": label, "skipped": f"3d7p 512^3 {tile}: vl·m does not "
-                              "divide 512"}), flush=True)
+            _skip(label, "3d7p 512^3", tile)
             continue
         t = sk.block_transpose_ref(x, vl, m)
         buf = torch.empty_like(t)
@@ -249,8 +293,17 @@ def stencil3d_rows(label: str, dev, vls, m) -> None:
             times.append(time.perf_counter() - start)
         print(json.dumps({"tree": label, "run": f"3d7p 512^3 resident fused 16 {tile}",
                           "seconds_median_of_5": statistics.median(times)}), flush=True)
+        if xb.shape[-1] % (vl * m) == 0:
+            t = sk.block_transpose_ref(xb, vl, m)
+            buf = torch.empty_like(t)
+            for depth in (4, 2, 1):
+                k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+                _row(label, dev, f"K3 3d27p 256^3 depth={depth} {tile}",
+                     lambda: sk.stencil_nd_sweep_ttile(box, t, k, tt, t0, out=buf),
+                     lambda: sk.stencil_nd_sweep_ttile_ref(box, t, k, tt, t0))
+            del t, buf
         torch.cuda.empty_cache()
-    del xp
+    del xp, xb
     dirichlet_row(label, spec, x)
     torch.cuda.empty_cache()
 

@@ -6,6 +6,7 @@ arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
 ``nvcc``.
 
     python3 tools/sweep3d_sass.py [--source NAME] [--lib PATH] [--label NAME]
+                                  [--base PATH]
 
 ``--source`` is ``sweep3d`` (the default), ``sweep2d_warp`` or
 ``sweep1d_warp``; its kernel is ``<source>_f32``.  ``--lib`` is a built
@@ -14,7 +15,10 @@ instance is named by its template arguments, for ``sweep3d`` <M, D, order,
 ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older than the
 ``vl`` argument has four).  Prints one JSON line per instance.  The loop of
 a 3-D step is unrolled over its three phases, so a count is about three
-steps' instructions plus the set-up.
+steps' instructions plus the set-up.  ``--base`` is a second library of the
+same source (another tree's build): each line then also says whether the
+instance's counts by opcode equal the base's, and a last line lists the
+instances whose counts differ.
 """
 from __future__ import annotations
 
@@ -34,20 +38,11 @@ OPCODES = ("LDGSTS", "STG", "LDS", "STS", "FMUL", "FADD", "IMAD", "IADD3", "LEA"
            "SEL", "MOV", "BRA", "BAR", "CALL")
 
 
-def main() -> int:
+def sass_counts(lib: str, kernel: str) -> dict:
+    """SASS instructions per instance of ``kernel`` in ``lib``, in all and
+    by opcode."""
     from repro_torch.kernels import build
 
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--source", default="sweep3d",
-                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp"))
-    parser.add_argument("--lib", default=None)
-    parser.add_argument("--label", default="this tree")
-    args = parser.parse_args()
-    lib = args.lib
-    kernel = f"{args.source}_f32"
-    if lib is None:
-        build.load(args.source)
-        lib = str(build.build_dir() / f"{args.source}.so")
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
@@ -66,10 +61,38 @@ def main() -> int:
         if fun is not None and ins:
             counts[fun]["total"] += 1
             counts[fun][ins.group(1).split(".")[0]] += 1
+    return counts
+
+
+def main() -> int:
+    from repro_torch.kernels import build
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--source", default="sweep3d",
+                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp"))
+    parser.add_argument("--lib", default=None)
+    parser.add_argument("--label", default="this tree")
+    parser.add_argument("--base", default=None, help="a library to compare with")
+    args = parser.parse_args()
+    lib = args.lib
+    kernel = f"{args.source}_f32"
+    if lib is None:
+        build.load(args.source)
+        lib = str(build.build_dir() / f"{args.source}.so")
+    counts = sass_counts(lib, kernel)
+    base = sass_counts(args.base, kernel) if args.base else None
+    differ = []
     for fun in sorted(counts):
+        same = {} if base is None else {"same_as_base": counts[fun] == base.get(fun)}
+        if base is not None and not same["same_as_base"]:
+            differ.append(fun)
         print(json.dumps({"tree": args.label, "kernel": kernel, "instance": fun,
                           "total": counts[fun]["total"],
-                          **{op: counts[fun][op] for op in OPCODES if counts[fun][op]}}))
+                          **{op: counts[fun][op] for op in OPCODES if counts[fun][op]},
+                          **same}))
+    if base is not None:
+        print(json.dumps({"tree": args.label, "kernel": kernel, "instances": len(counts),
+                          "base_instances": len(base), "differ_from_base": differ}))
     return 0
 
 
