@@ -32,10 +32,12 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              kernel and 3d7p K3 on the 3-D streaming kernel (vl=32; counted
              as ``sweep_1d`` / ``sweep_2d`` / ``sweep_3d``); then fused 16
              again at other tiles, each equal to the vl=32 run: 1d3p and
-             2d5p at the JAX package's vl=128, m=8 and at its tuner's vl=8,
-             m=8 (the warp kernels at any vl) and at the tuner pair vl=8,
-             m=16 (the shared-memory route, ``sweep_1d_smem`` /
-             ``sweep_nd``), 3d7p at the tuner's vl=8, m=8, the JAX
+             2d5p at the JAX package's vl=128, m=8, at its tuner's vl=8,
+             m=8 (the warp kernels at any vl) and at the tuner pairs vl=8,
+             m=16 and vl=16, m=32 (the warp kernels on sub-columns of 8,
+             ``sweep_1d`` / ``sweep_2d``), then at an odd m at size (1d3p
+             3·2^24 at vl=8, m=3; 2d5p 8192x6144 at vl=16, m=3: sub-columns
+             of 1), against its plain path; 3d7p at the tuner's vl=8, m=8, the JAX
              package's vl=128, m=4 and the tuner pair vl=8, m=16 (the
              streaming kernel at any vl and m, ``sweep_3d``), each run's
              route asserted before it, K2 on its register kernel
@@ -65,13 +67,14 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              a library call's and its bound (CUDA events, median of repeats,
              after warm-up); K1 and K3 at depths 4, 2, 1 also at vl 4, 8,
              16 and 128 (the case's m), on the warp kernels and the 3-D
-             streaming kernel (3d7p also at vl=128 and vl=32, m=4, at the
-             tuner pair vl=8, m=16 and, depth 4 only, vl=16, m=32:
-             sub-columns of 8); K1-smem and K3-smem time the shared-memory
-             route at a tile that keeps it (1-D, 2-D: vl=8, m=16 at depth
-             4; 3-D: vl=8, m=8 at depth 8), the route asserted before each
-             launch; K4 at the case's tile (3d7p also at vl=8, m=8 and
-             vl=8, m=16); the 3d27p K3 at depth 4 at both its tiles
+             streaming kernel, and at the tuner pairs vl=8, m=16 and vl=16,
+             m=32 on sub-columns of 8 (3-D: m=32 at depth 4 only; 3d7p also
+             at vl=128 and vl=32, m=4); 1-D and 2-D also at the odd-m grids
+             above (sub-columns of 1); K1-smem and K3-smem time the
+             shared-memory route at a tile and depth that keep it (1-D:
+             vl=8, m=1 at depth 34 > 32·M; 2-D, 3-D: vl=8, m=8 at depth
+             8), the route asserted before each launch; K4 at the case's
+             tile, at vl=8, m=8 and at vl=8, m=16; the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
              K2 in both directions at the tile of every counted run, each
              on its register route (``transpose``, asserted), and bit for
@@ -86,8 +89,10 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              GPU picker chooses (vl 8 or 16, odd m): ``StencilProblem.run``
              resident (fused 16, native 7) and roundtrip, and
              ``ops.stencil_run``, each bit for bit the same call on the CPU
-             (the plain versions); 3d7p's tiles (vl=16, m=1 and m=5) on the
-             3-D streaming kernel, asserted;
+             (the plain versions), each run's route asserted: the register
+             kernels on sub-columns of 1 (1d3p's m=5, 2d5p's m=3, 3d7p's
+             m=1 and 5), the shared-memory kernel for 1d5p's m=3 (r = 2 >
+             M = 1);
   small      3d7p at (16, 16, 256) resident (nb = 1 on the 3-D streaming
              kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
              each counted, on the card and on the CPU against the float64
@@ -154,22 +159,31 @@ ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
 JAX_TILE = (128, 8)      # (vl, m): the JAX package's tile
 JAX_TILE_3D = (128, 4)   # (vl, m): the JAX package's 3-D tile (vl·m divides 512)
 TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8, 16})
-# (vl, m): the tuner's pairs (vl, 2·vl); 1-D and 2-D keep the shared-memory
-# route at m=16, 3-D runs both on the streaming kernel's sub-columns of 8
+# (vl, m): the tuner's pairs (vl, 2·vl), on the register kernels'
+# sub-columns of 8
 PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
-SMEM_TILE_3D, SMEM_DEPTH_3D = (8, 8), 8   # a 3-D tile and depth the shared-memory route keeps
+# ((vl, m), depth) by ndim: a tile and depth the shared-memory route keeps
+# (1-D: depth·r > 32·M; 2-D, 3-D: past the register kernels' deepest)
+SMEM_ROWS = {1: ((8, 1), 34), 2: ((8, 8), 8), 3: ((8, 8), 8)}
+# (shape, (vl, m)) by ndim: an odd m at size, the register kernels on
+# sub-columns of 1 (the picker's odd-m tiles at a grid of 2^26 points)
+ODD_CASES = {1: ((3 << 24,), (8, 3)), 2: ((8192, 6144), (16, 3))}
 K2_SMEM_TILE = (256, 8)   # (vl, m): vl above 128, K2's shared-memory route (1d3p only)
 # the fused resident run again at other tiles, with the route each takes
 # (3-D: also the roundtrip and Dirichlet runs at these)
-OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "smem")),
-               2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "smem")),
+OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "reg"),
+                   (PAIR_TILE_32, "reg")),
+               2: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "reg"),
+                   (PAIR_TILE_32, "reg")),
                3: ((TUNER_TILE, "reg"), (JAX_TILE_3D, "reg"), (PAIR_TILE, "reg"))}
 ROW_VLS = (4, 8, 16, 128)  # K1 and K3 rows off vl=32, at the case's m
 BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming kernel
 # template type arguments in mangled names: unsigned short / int / long long, float, bf16
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
-TILE_CASES = (("1d3p", (1000,)), ("1d5p", (96,)), ("2d5p", (64, 48)), ("3d7p", (16, 8, 16)),
-              ("3d7p", (12, 8, 80)))
+# (name, shape, the route of the picker's tile: the register kernels or the
+# shared-memory kernel)
+TILE_CASES = (("1d3p", (1000,), "reg"), ("1d5p", (96,), "smem"), ("2d5p", (64, 48), "reg"),
+              ("3d7p", (16, 8, 16), "reg"), ("3d7p", (12, 8, 80), "reg"))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
     "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
@@ -587,7 +601,7 @@ def main() -> int:
         entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 3)
         entry["threads"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 2)
     # m x depth x order x ends x (vl = 32's instances, any vl's)
-    want3d = len(sk.SWEEP3D_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 2
+    want3d = len(sk.SUB_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 2
     if len(sweep3d) != want3d or any(row.get("spill_stores", 1) or row.get("spill_loads", 1)
                                      or row.get("stack_bytes", 1) for row in sweep3d):
         raise AssertionError(f"sweep3d build: spills, stack or not {want3d} instances {sweep3d}")
@@ -824,9 +838,8 @@ def main() -> int:
                   "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
                   "max_abs_err_vs_plain": err, "bitwise": True})
         # the same fused run at other tiles: the JAX package's vl=128 and
-        # its tuner's vl=8 (the register kernels), and its tuner's pair
-        # vl=8, m=16 (1-D, 2-D: the shared-memory route; 3-D: the streaming
-        # kernel's sub-columns)
+        # its tuner's vl=8 and pairs vl=8, m=16 and (1-D, 2-D) vl=16, m=32,
+        # all on the register kernels (m=16, 32 on sub-columns of 8)
         remainder, steps = PLANS[0]
         for tile, route in OTHER_TILES[spec.ndim]:
             vl2, m2 = tile
@@ -852,6 +865,33 @@ def main() -> int:
                   "seconds": seconds,
                   "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
                   "gpoint_updates_per_s": numel * steps / seconds,
+                  "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
+            del y
+        # an odd m at size (1-D, 2-D), against its own plain path
+        odd_runs = {}
+        if spec.ndim in ODD_CASES:
+            oshape, otile = ODD_CASES[spec.ndim]
+            oprob = StencilProblem(name, oshape)
+            xo = oprob.init(SEED)
+            t0o = ops.pick_tile(spec, oshape, *otile)[2]
+            plan = plan_of("resident", remainder, TTILE, otile)
+            owned = resident_counts(spec, steps, remainder, *otile)
+            if set(owned) - {k2_key(*otile)} != {sweep_key}:
+                raise AssertionError(f"{name} {oshape} at vl={otile[0]}, m={otile[1]}: the "
+                                     f"schedule's launches {owned} are not on {sweep_key}")
+            oprob.run(xo, 2, plan)
+            y, seconds, got = counted(f"{name} {oshape} resident {remainder} at {otile}",
+                                      lambda: oprob.run(xo, steps, plan), owned)
+            odd_runs[otile] = (xo, t0o, got)
+            err = same(f"{name} {oshape} resident {remainder} at {otile} vs plain", y,
+                       resident_plain(spec, xo, steps, remainder, *otile, t0o))
+            emit({"phase": "main_path", "case": name, "shape": list(oshape),
+                  "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+                  "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
+                  "tile": {"vl": otile[0], "m": otile[1], "t0": t0o}, "route": sweep_key,
+                  "seconds": seconds,
+                  "seconds_median_of_5": host_median(lambda: oprob.run(xo, steps, plan)),
+                  "gpoint_updates_per_s": xo.numel() * steps / seconds,
                   "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
             del y
 
@@ -933,7 +973,8 @@ def main() -> int:
                   "max_abs_err": err, "bitwise": True})
             del y
         del first
-        launched = {key: sum(c[key] for c in counts.values()) for key in sk.LAUNCHES}
+        launched = {key: sum(c[key] for c in counts.values()) +
+                    sum(got[key] for _, _, got in odd_runs.values()) for key in sk.LAUNCHES}
 
         # -- K2: transpose in and out at the tile of every counted run, each
         # on its register route; 1-D also K2-smem at a tile no run reaches --
@@ -943,6 +984,9 @@ def main() -> int:
                                      "register route")
             at_tile = sum(c["transpose"] for (t, *_), c in counts.items() if t == tile)
             k2_rows(name, dims, x, *tile, at_tile, grid_bytes)
+        for otile, (xo, _, got) in odd_runs.items():
+            k2_rows(name, "x".join(map(str, xo.shape)), xo, *otile, got["transpose"],
+                    2 * xo.numel() * itemsize)
         if spec.ndim == 1:
             if k2_key(*K2_SMEM_TILE) != "transpose_smem":
                 raise AssertionError(f"K2 at {K2_SMEM_TILE} is not on its shared-memory route")
@@ -965,13 +1009,17 @@ def main() -> int:
         src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep3d"}[spec.ndim]
         route_of = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
 
-        def sweep_row(rkid, tile, depths, source, key, t02):
-            """K1 / K3 rows at the (vl, m) tile, each depth bit for bit the
-            plain version; ``key``: the route's counter."""
+        def sweep_row(rkid, tile, depths, source, key, t02, xx=x, at_tile=None):
+            """K1 / K3 rows at the (vl, m) tile on the grid ``xx`` (the
+            case's unless given), each depth bit for bit the plain version;
+            ``key``: the route's counter; ``at_tile``: the counted launches
+            at the tile (by default the case's runs')."""
             vl2, m2 = tile
-            t2 = sk.block_transpose(x, vl2, m2)
+            t2 = sk.block_transpose(xx, vl2, m2)
             buf2 = torch.empty_like(t2)
-            at_tile = sum(c[key] for (t, *_), c in counts.items() if t == tile)
+            xdims = "x".join(map(str, xx.shape))
+            if at_tile is None:
+                at_tile = sum(c[key] for (t, *_), c in counts.items() if t == tile)
             for depth in depths:
                 if (route_of(vl2, m2, depth, spec.r) == "smem") != (key == smem_key):
                     raise AssertionError(f"{name} vl={vl2} m={m2} depth {depth} does not take "
@@ -988,40 +1036,44 @@ def main() -> int:
                         return sk.stencil1d_sweep_ttile_ref(spec, t2, kk, tt)
                     return sk.stencil_nd_sweep_ttile_ref(spec, t2, kk, tt, t02)
                 err = same(f"{name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
-                row(rkid, fname, f"{name} {dims} vl={vl2} m={m2} depth={depth}; route {key}",
+                row(rkid, fname, f"{name} {xdims} vl={vl2} m={m2} depth={depth}; route {key}",
                     source, launched[key], err, kern, plain,
-                    bound(grid_bytes, depth * spec.flops_per_point * numel),
-                    lambda: library_once(("sweep", depth),
-                                         lambda: ms(conv_steps, spec, x, depth, weight)),
+                    bound(2 * xx.numel() * itemsize, depth * spec.flops_per_point * xx.numel()),
+                    lambda: library_once(("sweep", depth, xdims),
+                                         lambda: ms(conv_steps, spec, xx, depth, weight)),
                     launches_at_tile=at_tile)
             del t2, buf2
 
-        # where vl·m divides the minor extent (3-D: also the JAX package's
-        # tile, vl=32 at its m, and the tuner's pairs on sub-columns)
-        row_tiles = [(vl2, m) for vl2 in ROW_VLS if shape[-1] % (vl2 * m) == 0]
+        # where vl·m divides the minor extent, the tuner's pairs on
+        # sub-columns (3-D: also the JAX package's tile and vl=32 at its m)
+        row_tiles = [(vl2, m) for vl2 in ROW_VLS if shape[-1] % (vl2 * m) == 0] + [PAIR_TILE]
         if spec.ndim == 3:
-            row_tiles += [JAX_TILE_3D, (vl, JAX_TILE_3D[1]), PAIR_TILE]
+            row_tiles += [JAX_TILE_3D, (vl, JAX_TILE_3D[1])]
+        else:
+            row_tiles += [PAIR_TILE_32]
         sweep_row(kid, (vl, m), (4, 2, 1), src, sweep_key, t0)
         for tile in row_tiles:
             sweep_row(kid, tile, (4, 2, 1), src, sweep_key, ops.pick_tile(spec, shape, *tile)[2])
         if spec.ndim == 3:
             sweep_row(kid, PAIR_TILE_32, (K * TTILE,), src, sweep_key,
                       ops.pick_tile(spec, shape, *PAIR_TILE_32)[2])
+        for otile, (xo, t0o, got) in odd_runs.items():
+            sweep_row(kid, otile, (4, 2, 1), src, sweep_key, t0o, xx=xo, at_tile=got[sweep_key])
+        del odd_runs
         # the shared-memory route at a tile and depth that still take it
-        smem_tile, smem_depth = (SMEM_TILE_3D, SMEM_DEPTH_3D) if spec.ndim == 3 else \
-            (PAIR_TILE, K * TTILE)
+        smem_tile, smem_depth = SMEM_ROWS[spec.ndim]
         sweep_row(f"{kid}-smem", smem_tile, (smem_depth,), "sweep", smem_key,
                   ops.pick_tile(spec, shape, *smem_tile)[2])
 
-        # -- K4: the multistep sweep at the roundtrip's padded shape (3-D:
-        # also at the tuner's tile and its pair vl=8, m=16) ------------------
+        # -- K4: the multistep sweep at the roundtrip's padded shape, at the
+        # case's tile, the tuner's and its pair vl=8, m=16 ------------------
         kid = "K4a" if spec.ndim == 1 else "K4b"
         fname = "stencil1d_multistep" if spec.ndim == 1 else "stencil_nd_multistep"
         block = vl * m if spec.ndim == 1 else t0
         pad = sk.sweep_halo_blocks(spec.r, K, block) * block
         xp = ops.wrap_pad(x, pad)
         pdims = "x".join(map(str, xp.shape))
-        for vl2, m2 in [(vl, m)] + ([TUNER_TILE, PAIR_TILE] if spec.ndim == 3 else []):
+        for vl2, m2 in [(vl, m), TUNER_TILE, PAIR_TILE]:
             tp = sk.block_transpose(xp, vl2, m2)
             bufp = torch.empty_like(tp)
             for edge_mask in (False, True):
@@ -1162,7 +1214,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- tiles: the GPU picker's tiles off vl=32, each run vs the CPU's ------
-    for name, shape in TILE_CASES:
+    tile_keys = {"reg": {1: {"sweep_1d", "multistep_1d"}, 2: {"sweep_2d", "multistep_2d"},
+                         3: {"sweep_3d", "multistep_3d"}},
+                 "smem": {1: {"sweep_1d_smem", "multistep_1d_smem"},
+                          2: {"sweep_nd", "multistep_nd"}, 3: {"sweep_nd", "multistep_nd"}}}
+    for name, shape, tile_route in TILE_CASES:
         prob, prob_cpu = StencilProblem(name, shape), StencilProblem(name, shape, device="cpu")
         spec = prob.spec
         x = prob.init(SEED)
@@ -1181,9 +1237,9 @@ def main() -> int:
                      k4_counts(spec, [(K, DIRICHLET_STEPS // K)], vl, m),
                      lambda p, v: ops.stencil_run(spec, v, DIRICHLET_STEPS, k=K)))
         for label, owned, run in runs:
-            if spec.ndim == 3 and set(owned) - {k2_key(vl, m), "sweep_3d", "multistep_3d"}:
+            if set(owned) - {k2_key(vl, m)} - tile_keys[tile_route][spec.ndim]:
                 raise AssertionError(f"tiles {name} {label} at vl={vl}, m={m}: the schedule's "
-                                     f"launches {owned} leave the 3-D streaming kernel")
+                                     f"launches {owned} leave the {tile_route} route")
             y, seconds, got = counted(f"tiles {name} {label}", lambda: run(prob, x), owned)
             same(f"tiles {name} {label} vs the CPU", y.cpu(), run(prob_cpu, x_cpu))
             emit({"phase": "tiles", "case": name, "shape": list(shape), "run": label,

@@ -6,6 +6,17 @@
 // and its element s lies at ((c / vl) * m + s) * vl + c % vl.  Off the
 // kernels' own vl = 32 the split of c is done at run time, once per thread:
 // a shift and a mask when vl is a power of two, else one division.
+//
+// Sub-columns.  The kernels' instances hold M in {1, 2, 4, 8} elements a
+// column.  Column c holds m consecutive natural points, so at m = g * M (M
+// the largest of 8, 4, 2, 1 dividing m) it is g sub-columns of M points:
+// sub-column u = g * c + h (0 <= h < g) has its element s at
+// ((c / vl) * m + h * M + s) * vl + c % vl.  Its elements stay vl floats
+// apart, sub-column u holds natural points u * M .. u * M + M - 1, and a
+// row's C' = g * C sub-columns wrap mod C', which is the natural wrap; so a
+// kernel written for columns of M runs every m with only its offsets
+// changed (split_sub: c = u / g, a shift when g is a power of two, else
+// one division).  The kernels' instances of vl = 32 take g = 1 only.
 #pragma once
 #include <stdint.h>
 
@@ -50,6 +61,17 @@ __device__ __forceinline__ void split_col(int u, const Cols& cols, unsigned& q, 
     q = (unsigned)c / (unsigned)cols.vl;
     rem = (unsigned)c - q * cols.vl;
   }
+}
+
+// Sub-column u mod C' (u unwrapped) as block q and lane rem of its column
+// c = u / g and its place h = u % g in that column (`sub`: C' sub-columns,
+// g to a column; `cols`: C columns, vl to a block), in 32-bit arithmetic:
+// C' < kMaxCols.  Its element 0 lies at (q * g + h) * (M * vl) + rem.
+__device__ __forceinline__ void split_sub(int u, const Cols& cols, const Cols& sub, unsigned& q,
+                                          unsigned& h, unsigned& rem) {
+  unsigned c;
+  split_col(u, sub, c, h);
+  split_col((int)c, cols, q, rem);      // 0 <= c < C
 }
 
 }  // namespace

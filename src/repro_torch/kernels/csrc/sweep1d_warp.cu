@@ -5,9 +5,11 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d as launched by
 // stencil1d_sweep_ttile (K1, fully periodic) and by stencil1d_multistep /
 // stencil1d_sweep_halo (K4a, with `edge_mask`: a Dirichlet ring, or open
-// ends), for any vl, m in {1, 2, 4, 8} and depth * r <= 32 * m
+// ends), for any vl and any m on the instance M (the largest of 8, 4, 2, 1
+// dividing m), with r <= M and depth * r <= 32 * M
 // (stencil_kernels.sweep1d_route picks it before the launch).  Every other
-// shape takes the shared-memory kernel of csrc/stencil_sweep.cu.
+// shape (r > M, as 1d5p at odd m; depth * r > 32 * M) takes the
+// shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
 // The layout's C = nb * vl columns each hold m consecutive natural
@@ -27,6 +29,21 @@
 // or beyond it as a whole.  The instances of any other vl (kVl = 0) cost
 // the address arithmetic of a run-time vl, once per slot at the load and
 // the store.
+//
+// Sub-columns (csrc/cols.cuh).  The instances hold M in {1, 2, 4, 8}
+// registers a slot.  At m = g * M a column is g sub-columns of M
+// consecutive natural elements, sub-column u = g * c + h's element s at
+// ((c / vl) * m + h * M + s) * vl + c % vl, and the C' = g * C
+// sub-columns wrap mod C', the natural wrap.  Lane j of warp row v holds
+// sub-column (32 * v + j) mod C', its neighbours are the lanes beside it as
+// a column's are, and only a lane's offsets change: below, a column is a
+// sub-column of M, m is M and C is C'.  At g > 1 a lane splits its slot-0
+// sub-column once and steps its (block, lane, place) by the 32 sub-columns
+// of a warp row from slot to slot (SubWalk, 32-bit: C' < 2^30), with no
+// division per slot:
+// the split at every slot ran 1d3p at m = 3 3.2 times slower (PERF.md,
+// section 6).  g = 1 keeps the one-column form as a branch of its own (as
+// csrc/sweep3d.cu does); vl = 32's instances take g = 1 only.
 //
 // Each step runs in registers.  A tap shift inside a column is a register
 // index.  The r rows beyond each end of a column come from lane j - 1 and
@@ -118,6 +135,40 @@ __device__ __forceinline__ int64_t col_offset(int64_t c, const Cols& cols) {
   return q * (M * cols.vl) + rem;
 }
 
+// The offsets of element 0 of one lane's sub-columns u, u + 32, u + 64, ...
+// mod C' at g = sub.vl > 1 (C' < kMaxCols), one a slot: u is split once
+// (cols.cuh's split_sub) into block q, lane rem and place h, and each step
+// adds the 32 sub-columns of a warp row (32 / g columns, 32 % g places)
+// with carries, no division.  Sub-column (q, h, rem)'s element 0 lies at
+// (q * g + h) * (M * vl) + rem.
+template <int M>
+struct SubWalk {
+  unsigned q, h, rem, g, vl, nb, dq, dh, dr;
+  __device__ __forceinline__ SubWalk(int64_t u, const Cols& cols, const Cols& sub)
+      : g(sub.vl), vl(cols.vl) {
+    split_sub((int)u, cols, sub, q, h, rem);    // -32 <= u < C' + 32 * S
+    nb = cols.shift >= 0 ? (unsigned)cols.n >> cols.shift : (unsigned)cols.n / vl;
+    dh = kLanes % g;
+    dq = kLanes / g / vl;
+    dr = kLanes / g - dq * vl;
+  }
+  __device__ __forceinline__ int64_t offset() const {
+    return (int64_t)(q * g + h) * ((int64_t)M * vl) + rem;
+  }
+  __device__ __forceinline__ void step() {
+    h += dh;
+    const unsigned carry = h >= g;
+    if (carry) h -= g;
+    rem += dr + carry;
+    q += dq;
+    if (rem >= vl) {
+      rem -= vl;
+      ++q;
+    }
+    while (q >= nb) q -= nb;   // past sub-column C' - 1
+  }
+};
+
 // acc[s] (+)= ext[R + s + O] * cf for every row s: a register index.  ext
 // holds the column's rows with R Assembled rows on each side.
 template <int M, int R, int O>
@@ -194,12 +245,12 @@ __device__ __forceinline__ void apply_taps(float (&acc)[M], const float (&ext)[M
 template <int M, int R, int B, int kOrder, int kEdge, int kVl>
 __global__ void __launch_bounds__(kLanes * kWarps, kEdge == kRing ? 1 : 3)
 sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols cols,
-                 int64_t nruns, int depth, Taps1 taps) {
+                 int64_t nruns, int depth, Taps1 taps, Cols sub) {
   constexpr int S = B + 2;   // slots: the halo warp row, the run, the halo warp row
   const int lane = threadIdx.x & (kLanes - 1);
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = w < nruns;
-  const int64_t C = cols.n;
+  const int64_t C = kVl == kLanes ? cols.n : sub.n;   // C' (g = 1 at vl = 32)
   const int vl = kVl > 0 ? kVl : cols.vl;
   // lane 0's column in slot 0, unwrapped (only the first run's slot 0 lies
   // before column 0), and this lane's: slot i holds u0 + 32 * i
@@ -228,7 +279,9 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols col
     }
   };
   // element 0 of this lane's column in slot i (at vl = 32 slot i is layout
-  // block ub / 32 + i), wrapped into the grid where it lies beyond it
+  // block ub / 32 + i), wrapped into the grid where it lies beyond it; at
+  // g > 1 a SubWalk gives the slots' offsets in turn instead
+  const bool one_col = kVl == kLanes || sub.vl == 1;
   auto offset = [&](int i, bool wrapped) {
     if constexpr (kVl == kLanes) {
       const int64_t b = ub / kLanes + i;
@@ -241,16 +294,27 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols col
   // v[i][s]: row s of this lane's column in slot i
   float v[S][M];
   float ring_lo[R], ring_hi[R];   // ring mode: the loaded ring rows
+  if (one_col) {
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    if (kEdge == kOpen && beyond(i)) {
+    for (int i = 0; i < S; ++i) {
+      if (kEdge == kOpen && beyond(i)) {
 #pragma unroll
-      for (int s = 0; s < M; ++s) v[i][s] = 0.0f;
-      continue;
+        for (int s = 0; s < M; ++s) v[i][s] = 0.0f;
+        continue;
+      }
+      const float* src = in + offset(i, true);
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[i][s] = src[s * vl];
     }
-    const float* src = in + offset(i, true);
+  } else {
+    SubWalk<M> walk(u0, cols, sub);
 #pragma unroll
-    for (int s = 0; s < M; ++s) v[i][s] = src[s * vl];
+    for (int i = 0; i < S; ++i) {
+      const float* src = in + walk.offset();
+      walk.step();
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[i][s] = kEdge == kOpen && beyond(i) ? 0.0f : src[s * vl];
+    }
   }
   if (kEdge == kRing) {
     // column 0 is lane 0 of the first run's slot 1
@@ -311,7 +375,7 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols col
       }
     }
   }
-  if (live) {
+  if (live && one_col) {
 #pragma unroll
     for (int i = 1; i <= B; ++i) {
       if (!beyond(i)) {
@@ -320,21 +384,32 @@ sweep1d_warp_f32(const float* __restrict__ in, float* __restrict__ out, Cols col
         for (int s = 0; s < M; ++s) dst[s * vl] = v[i][s];
       }
     }
+  } else if (live) {
+    SubWalk<M> walk(u0 + kLanes, cols, sub);
+#pragma unroll
+    for (int i = 1; i <= B; ++i) {
+      float* dst = out + walk.offset();
+      walk.step();
+      if (!beyond(i)) {
+#pragma unroll
+        for (int s = 0; s < M; ++s) dst[s * vl] = v[i][s];
+      }
+    }
   }
 }
 
 template <int M, int R, int kEdge>
-int launch(const float* in, float* out, const Cols& cols, int depth, const Taps1& taps,
-           int order, cudaStream_t stream) {
+int launch(const float* in, float* out, const Cols& cols, const Cols& sub, int depth,
+           const Taps1& taps, int order, cudaStream_t stream) {
   constexpr int B = run_blocks(M);
-  const int64_t wrows = (cols.n + kLanes - 1) / kLanes;   // warp rows
+  const int64_t wrows = (sub.n + kLanes - 1) / kLanes;   // warp rows of C' sub-columns
   const int64_t nruns = (wrows + B - 1) / B;
   const int64_t ctas = (nruns + kWarps - 1) / kWarps;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)ctas;
   constexpr int kThreads = kLanes * kWarps;
-  // vl = 32 has instances of its own, every stride a constant
-  const bool v32 = cols.vl == kLanes;
+  // vl = 32 has instances of its own at g = 1, every stride a constant
+  const bool v32 = cols.vl == kLanes && sub.vl == 1;
   const auto kernel =
       order == kCenterFirst
           ? (v32 ? sweep1d_warp_f32<M, R, B, kCenterFirst, kEdge, kLanes>
@@ -343,38 +418,38 @@ int launch(const float* in, float* out, const Cols& cols, int depth, const Taps1
                                    : sweep1d_warp_f32<M, R, B, kAscending, kEdge, 0>)
                             : (v32 ? sweep1d_warp_f32<M, R, B, kRuntime, kEdge, kLanes>
                                    : sweep1d_warp_f32<M, R, B, kRuntime, kEdge, 0>);
-  kernel<<<grid, kThreads, 0, stream>>>(in, out, cols, nruns, depth, taps);
+  kernel<<<grid, kThreads, 0, stream>>>(in, out, cols, nruns, depth, taps, sub);
   return (int)cudaGetLastError();
 }
 
 template <int M, int R>
-int launch_edge(const float* in, float* out, const Cols& cols, int depth, const Taps1& taps,
-                int order, int edge, cudaStream_t stream) {
+int launch_edge(const float* in, float* out, const Cols& cols, const Cols& sub, int depth,
+                const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (edge) {
-    case kPeriodic: return launch<M, R, kPeriodic>(in, out, cols, depth, taps, order, stream);
-    case kRing: return launch<M, R, kRing>(in, out, cols, depth, taps, order, stream);
-    case kOpen: return launch<M, R, kOpen>(in, out, cols, depth, taps, order, stream);
+    case kPeriodic: return launch<M, R, kPeriodic>(in, out, cols, sub, depth, taps, order, stream);
+    case kRing: return launch<M, R, kRing>(in, out, cols, sub, depth, taps, order, stream);
+    case kOpen: return launch<M, R, kOpen>(in, out, cols, sub, depth, taps, order, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// r <= m: the instances that exist
+// r <= M: the instances that exist
 template <int M>
-int launch_m(const float* in, float* out, const Cols& cols, int r, int depth,
+int launch_m(const float* in, float* out, const Cols& cols, const Cols& sub, int r, int depth,
              const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_edge<M, 1>(in, out, cols, depth, taps, order, edge, stream);
+    case 1: return launch_edge<M, 1>(in, out, cols, sub, depth, taps, order, edge, stream);
     case 2:
       if constexpr (M >= 2)
-        return launch_edge<M, 2>(in, out, cols, depth, taps, order, edge, stream);
+        return launch_edge<M, 2>(in, out, cols, sub, depth, taps, order, edge, stream);
       break;
     case 3:
       if constexpr (M >= 4)
-        return launch_edge<M, 3>(in, out, cols, depth, taps, order, edge, stream);
+        return launch_edge<M, 3>(in, out, cols, sub, depth, taps, order, edge, stream);
       break;
     case 4:
       if constexpr (M >= 4)
-        return launch_edge<M, 4>(in, out, cols, depth, taps, order, edge, stream);
+        return launch_edge<M, 4>(in, out, cols, sub, depth, taps, order, edge, stream);
       break;
     default: break;
   }
@@ -398,16 +473,20 @@ extern "C" int64_t repro_sweep1d_warp_blocks(int64_t m) { return run_blocks((int
 
 // `depth` steps of the (nb, m, vl) layout array `in` into `out` (another
 // buffer), for a stencil of reach r, with the grid's ends `edge` (0
-// periodic, 1 ring, 2 open), at any vl.  `blocks` must be the run length
-// this build uses for m; `offsets` / `coeffs`: ntaps tap offsets and float
+// periodic, 1 ring, 2 open), at any vl and m: on the instance M, the
+// largest of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M sub-columns,
+// r <= M, depth * r <= 32 * M and, unless m = M, C' < 2^30.  `blocks` must be the run length this
+// build uses for M; `offsets` / `coeffs`: ntaps tap offsets and float
 // coefficients in host memory.  Returns the CUDA error code.
 extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int64_t m,
                                       int64_t vl, int64_t r, int64_t blocks, int64_t depth,
                                       int64_t edge, int64_t ntaps, const int32_t* offsets,
                                       const float* coeffs, void* stream) {
-  if ((m != 1 && m != 2 && m != 4 && m != 8) || blocks != run_blocks((int)m) || nb < 1 ||
-      vl < 1 || vl > (1 << 30) || r < 1 || r > m || r > kMaxR || depth < 0 || depth * r > kLanes * m ||
-      ntaps < 1 || ntaps > kMaxTaps)
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
+  if (blocks != run_blocks((int)mi) || nb < 1 || vl < 1 || vl > (1 << 30) || r < 1 || r > mi ||
+      r > kMaxR || depth < 0 || depth * r > kLanes * mi || ntaps < 1 || ntaps > kMaxTaps ||
+      (m != mi && nb * vl * (m / mi) >= kMaxCols))
     return (int)cudaErrorInvalidValue;
   Taps1 taps;
   taps.n = (int)ntaps;
@@ -422,10 +501,11 @@ extern "C" int repro_sweep1d_warp_f32(const void* in, void* out, int64_t nb, int
   const int rr = (int)r, d = (int)depth, order = tap_order(offsets, ntaps, r);
   const int e = (int)edge;
   const Cols cols = make_cols(nb, vl);
-  switch (m) {
-    case 1: return launch_m<1>(src, dst, cols, rr, d, taps, order, e, st);
-    case 2: return launch_m<2>(src, dst, cols, rr, d, taps, order, e, st);
-    case 4: return launch_m<4>(src, dst, cols, rr, d, taps, order, e, st);
-    default: return launch_m<8>(src, dst, cols, rr, d, taps, order, e, st);
+  const Cols sub = make_cols(nb * vl, m / mi);   // C' sub-columns, g = m / M to a column
+  switch (mi) {
+    case 1: return launch_m<1>(src, dst, cols, sub, rr, d, taps, order, e, st);
+    case 2: return launch_m<2>(src, dst, cols, sub, rr, d, taps, order, e, st);
+    case 4: return launch_m<4>(src, dst, cols, sub, rr, d, taps, order, e, st);
+    default: return launch_m<8>(src, dst, cols, sub, rr, d, taps, order, e, st);
   }
 }

@@ -5,11 +5,11 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
 // stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
-// ends of axis 0), for 2-D stencils of reach r = 1, any vl, m in
-// {1, 2, 4, 8} and depth up to repro_sweep2d_warp_max_depth(m)
-// (stencil_kernels.sweep2d_route picks it before the launch).  3-D grids
-// and every other 2-D shape take the shared-memory kernel of
-// csrc/stencil_sweep.cu.
+// ends of axis 0), for 2-D stencils of reach r = 1, any vl and any m on
+// the instance M (the largest of 8, 4, 2, 1 dividing m), with depth up to
+// repro_sweep2d_warp_max_depth(M) (stencil_kernels.sweep2d_route picks it
+// before the launch).  3-D grids and every other 2-D shape (r > 1, deeper
+// sweeps) take the shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
 // axis 0.  A row's C = nb * vl columns each hold m consecutive elements;
@@ -34,6 +34,17 @@
 // vl = 32 has instances of its own (kVl), with every stride a constant:
 // a run-time stride costs the copies and stores an address computation
 // per element.
+//
+// Sub-columns (csrc/cols.cuh).  The instances hold M in {1, 2, 4, 8}
+// elements a column.  At m = g * M a column is g sub-columns of M
+// consecutive elements of its row, sub-column u = g * c + h's element s
+// at ((c / vl) * m + h * M + s) * vl + c % vl, and a row's C' = g * C
+// sub-columns wrap mod C', the natural wrap.  Lane j of warp row v holds
+// sub-column (32 * v + j) mod C', its x-neighbours are the lanes beside it
+// as a column's are, and only a lane's offset changes: below, a column is
+// a sub-column of M, m is M and C is C'.  The instances of any vl keep the
+// one-column form for g = 1 as a branch of its own (as csrc/sweep3d.cu
+// does); vl = 32's instances take g = 1 only.
 //
 // Along axis 0 a CTA walks a segment of rows [y0, y1), starting depth * r
 // rows early and ending depth * r rows late, row indices wrapped mod n0 (in
@@ -125,18 +136,23 @@ struct Taps2 {
   float c[kMaxTaps];
 };
 
-// Offset of element 0 of column u mod C (u unwrapped) in its row; element s
-// is s * vl on.  kVl: vl when the instance fixes it, else 0, and then the
-// 32-bit split of cols.cuh.
+// Offset of element 0 of sub-column u mod C' (u unwrapped) in its row;
+// element s is s * vl on.  kVl: vl when the instance fixes it (g = 1),
+// else 0, and then the 32-bit splits of cols.cuh (`sub`: C' sub-columns,
+// g to a column), g = 1 in the one-column form.
 template <int M, int kVl>
-__device__ __forceinline__ int64_t col_offset(int64_t u, const Cols& cols) {
+__device__ __forceinline__ int64_t col_offset(int64_t u, const Cols& cols, const Cols& sub) {
   if constexpr (kVl > 0) {
     const int64_t c = wrap(u, cols.n);
     return c / kVl * (M * kVl) + c % kVl;
   } else {
-    unsigned q, rem;
-    split_col((int)u, cols, q, rem);      // -32 <= u < C + 32 * kWarps
-    return (int64_t)q * (M * cols.vl) + rem;
+    unsigned q, h, rem;
+    if (sub.vl == 1) {
+      split_col((int)u, cols, q, rem);    // -32 <= u < C + 32 * kWarps
+      return (int64_t)q * (M * cols.vl) + rem;
+    }
+    split_sub((int)u, cols, sub, q, h, rem);   // -32 <= u < C' + 32 * kWarps
+    return (int64_t)(q * sub.vl + h) * (M * cols.vl) + rem;
   }
 }
 
@@ -288,7 +304,7 @@ __device__ __forceinline__ void publish(float (&win)[D][2 * R + 1][M], float* ed
 template <int M, int R, int D, int kOrder, bool kEnds, int kVl>
 __global__ void __launch_bounds__(kThreads, 1)
 sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t n0, Cols cols,
-                 int64_t ncol, int64_t seg, int edge, Taps2 taps) {
+                 int64_t ncol, int64_t seg, int edge, Taps2 taps, Cols sub) {
   constexpr int NW = 2 * R + 1;    // window rows per level
   constexpr int E = 2 * R + 2;     // edge slots per level
   constexpr int X = M + 2 * R;     // a column with its x halo
@@ -308,15 +324,16 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
   const int64_t hi = edge == kRing ? n0 - R : n0;
   // lane 0's column and this lane's, unwrapped (warp w holds warp row
   // col * (kWarps - 2) + w - 1), and the offset of its element 0 in a row
+  const int64_t C = kVl > 0 ? cols.n : sub.n;        // C' (g = 1 at vl = 32)
   const int64_t ub = (col * (kWarps - 2) + w - 1) * kLanes;
   const int64_t u = ub + lane;
-  const int64_t lane_col = col_offset<M, kVl>(u, cols);
-  const int64_t row = cols.n * M;                    // floats a row
+  const int64_t lane_col = col_offset<M, kVl>(u, cols, sub);
+  const int64_t row = C * M;                         // floats a row
   const int vl = kVl > 0 ? kVl : cols.vl;
   // the middle warps store, those whose warp row starts inside the row, and
   // in them the lanes whose column does (at vl = 32, every lane)
-  const bool stores = w >= 1 && w <= kWarps - 2 && ub < cols.n;
-  const bool lane_stores = kVl == kLanes || u < cols.n;
+  const bool stores = w >= 1 && w <= kWarps - 2 && ub < C;
+  const bool lane_stores = kVl == kLanes || u < C;
   const int wl = w > 0 ? w - 1 : 0;                  // the end warps see themselves
   const int wr = w < kWarps - 1 ? w + 1 : kWarps - 1;
   const int left = (lane + kLanes - 1) & (kLanes - 1);
@@ -410,11 +427,11 @@ sweep2d_warp_f32(const float* __restrict__ in, float* __restrict__ out, int64_t 
 }
 
 template <int M, int R, int D, int kOrder>
-int go(const float* in, float* out, int64_t n0, const Cols& cols, int64_t ncol, int64_t seg,
-       int edge, unsigned ctas, const Taps2& taps, cudaStream_t stream) {
+int go(const float* in, float* out, int64_t n0, const Cols& cols, const Cols& sub, int64_t ncol,
+       int64_t seg, int edge, unsigned ctas, const Taps2& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
-  // vl = 32 has instances of its own, every stride a constant
-  const bool v32 = cols.vl == kLanes;
+  // vl = 32 has instances of its own at g = 1, every stride a constant
+  const bool v32 = cols.vl == kLanes && sub.vl == 1;
   const auto kernel = edge == kPeriodic
                           ? (v32 ? sweep2d_warp_f32<M, R, D, kOrder, false, kLanes>
                                  : sweep2d_warp_f32<M, R, D, kOrder, false, 0>)
@@ -425,25 +442,26 @@ int go(const float* in, float* out, int64_t n0, const Cols& cols, int64_t ncol, 
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<ctas, kThreads, smem, stream>>>(in, out, n0, cols, ncol, seg, edge, taps);
+  kernel<<<ctas, kThreads, smem, stream>>>(in, out, n0, cols, ncol, seg, edge, taps, sub);
   return (int)cudaGetLastError();
 }
 
 template <int M, int R, int D>
 int launch_depth(int depth, const float* in, float* out, int64_t n0, const Cols& cols,
-                 int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2& taps, int order,
-                 cudaStream_t stream) {
+                 const Cols& sub, int64_t ncol, int64_t seg, int edge, unsigned ctas,
+                 const Taps2& taps, int order, cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<M, R, D - 1>(depth, in, out, n0, cols, ncol, seg, edge, ctas, taps,
-                                       order, stream);
+      return launch_depth<M, R, D - 1>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas,
+                                       taps, order, stream);
     switch (order) {
       case kStar:
-        return go<M, R, D, kStar>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
+        return go<M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
       case kBox:
-        return go<M, R, D, kBox>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
+        return go<M, R, D, kBox>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
       default:
-        return go<M, R, D, kRuntime>(in, out, n0, cols, ncol, seg, edge, ctas, taps, stream);
+        return go<M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
+                                     stream);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -467,9 +485,11 @@ extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m) { return max_depth((i
 extern "C" int64_t repro_sweep2d_warp_warps() { return kWarps; }
 
 // `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
-// buffer), at any vl, for a 2-D stencil of reach r = 1, with the ends of
-// axis 0 `edge` (0 periodic, 1 ring, 2 open; the minor axis is periodic),
-// in segments of `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs
+// buffer), at any vl and m (on the instance M, the largest of 8, 4, 2, 1
+// dividing m, with C' = nb * vl * m / M sub-columns a row; C' < 2^30
+// unless vl = 32 and m = M), for a 2-D stencil of reach r = 1, with the
+// ends of axis 0 `edge` (0 periodic, 1 ring, 2 open; the minor axis is
+// periodic), in segments of `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs
 // and `coeffs` ntaps float coefficients, both in host memory.  Returns the
 // CUDA error code.
 extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int64_t nb,
@@ -477,10 +497,13 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
                                       int64_t edge, int64_t seg, int64_t ntaps,
                                       const int32_t* offsets, const float* coeffs,
                                       void* stream) {
-  if ((m != 1 && m != 2 && m != 4 && m != 8) || r != kR || depth < 1 ||
-      depth > max_depth((int)m) || depth * r > kLanes * m || edge < kPeriodic || edge > kOpen ||
-      n0 < 1 || nb < 1 || vl < 1 || (vl != kLanes && nb * vl >= kMaxCols) || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
-      ntaps > kMaxTaps)
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
+  const int64_t g = m / mi;                                  // sub-columns a column
+  if (r != kR || depth < 1 || depth > max_depth((int)mi) || depth * r > kLanes * mi ||
+      edge < kPeriodic || edge > kOpen || n0 < 1 || nb < 1 || vl < 1 ||
+      ((vl != kLanes || g != 1) && nb * vl * g >= kMaxCols) || seg < 1 || seg > (1 << 24) ||
+      ntaps < 1 || ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2 taps;
   taps.n = (int)ntaps;
@@ -492,7 +515,8 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
       return (int)cudaErrorInvalidValue;
   }
   const Cols cols = make_cols(nb, vl);
-  const int64_t wrows = (cols.n + kLanes - 1) / kLanes;   // warp rows of a row
+  const Cols sub = make_cols(nb * vl, g);   // C' sub-columns, g to a column
+  const int64_t wrows = (sub.n + kLanes - 1) / kLanes;   // warp rows of a row
   const int64_t ncol = (wrows + kWarps - 3) / (kWarps - 2);
   const int64_t ctas = ncol * ((n0 + seg - 1) / seg);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -501,10 +525,10 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
   const unsigned grid = (unsigned)ctas;
-  switch (m) {
-    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
-    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
-    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
-    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, cols, ncol, seg, e, grid, taps, order, st);
+  switch (mi) {
+    case 1: return launch_depth<1, kR, max_depth(1)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    case 2: return launch_depth<2, kR, max_depth(2)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    case 4: return launch_depth<4, kR, max_depth(4)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    default: return launch_depth<8, kR, max_depth(8)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
   }
 }

@@ -166,15 +166,14 @@ __device__ __forceinline__ int64_t col_offset(int64_t y, int64_t u, int64_t nb,
     const int64_t g = wrap(u, nb * kVl);
     return (y * nb + g / kVl) * (kVl * M) + g % kVl;
   } else {
-    unsigned c, h, q, rem;
+    unsigned h, q, rem;
     // g = 1 keeps the one-column form: with the general form alone the box
     // order's K3 at vl=8, m=8, d=4 ran 5% slower again (PERF.md, section 6)
     if (sub.vl == 1) {
       split_col((int)u, cols, q, rem);
       return (y * nb + q) * (M * cols.vl) + rem;
     }
-    split_col((int)u, sub, c, h);         // -Hx <= u < C' + kLanes + Hx
-    split_col((int)c, cols, q, rem);      // 0 <= c < C
+    split_sub((int)u, cols, sub, q, h, rem);   // -Hx <= u < C' + kLanes + Hx
     const int run = M * cols.vl;   // floats of a block's rows of one sub-column
     return (y * nb + q) * (run * sub.vl) + (h * run + rem);
   }

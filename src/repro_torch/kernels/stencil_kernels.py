@@ -11,11 +11,12 @@
     take one of two kernels, chosen by shape before the launch: a register
     kernel where one applies (:func:`sweep1d_route`:
     ``csrc/sweep1d_warp.cu`` and :func:`sweep2d_route`:
-    ``csrc/sweep2d_warp.cu``, at any ``vl``, a lane on each of 32
-    consecutive columns of the layout; :func:`sweep3d_route`:
-    ``csrc/sweep3d.cu``, at any ``vl``, a thread on each column), or the
-    shared-memory kernel ``csrc/stencil_sweep.cu`` (1-D and 2-D at other
-    ``m``, deeper sweeps, reach beyond the kernels').
+    ``csrc/sweep2d_warp.cu``, a lane on each of 32 consecutive
+    sub-columns of the layout; :func:`sweep3d_route`: ``csrc/sweep3d.cu``,
+    a thread on each sub-column; all three at any ``vl`` and ``m``, on
+    sub-columns of ``M`` points, :func:`sub_columns`), or the
+    shared-memory kernel ``csrc/stencil_sweep.cu`` (deeper sweeps, reach
+    beyond the kernels').
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -62,29 +63,32 @@ _TILE_MID = 16                       # default output tile, 3-D mid axis
 # the tiles csrc/transpose.cu's register kernel takes (its reg_m)
 TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL = 4, 128
 TRANSPOSE_M = frozenset(range(1, 9)) | {16, 32}
-# a warp row of the register kernels: 32 columns of the layout, one a lane
+# a warp row of the register kernels: 32 sub-columns of the layout, one a lane
 WARP_LANES = 32
-# columns a row may have off vl = 32 in the 2-D and 3-D register kernels
-# (csrc/cols.cuh's kMaxCols: 32-bit column math)
+# sub-columns a row may have off vl = 32 (or off m = M) in the 2-D and 3-D
+# register kernels, and off m = M in the 1-D one (csrc/cols.cuh's kMaxCols:
+# 32-bit column math)
 MAX_COLS = 1 << 30
-# warp rows per warp run of csrc/sweep1d_warp.cu, by m, and its largest reach
+# the points M a sub-column holds in the register kernels' instances
+# (sweep1d_warp.cu, sweep2d_warp.cu, sweep3d.cu): a layout column of m
+# points is m / M sub-columns, :func:`sub_columns`
+SUB_M = (1, 2, 4, 8)
+# warp rows per warp run of csrc/sweep1d_warp.cu, by M, and its largest reach
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_MAX_R = 4
 # csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
-# instance by m, its reach and the shortest axis-0 segment a CTA walks
+# instance by M, its reach and the shortest axis-0 segment a CTA walks
 WARP2D_WARPS = 10
 WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
 WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
-# the elements a (sub-)column of its instances holds, its deepest instance,
-# its reach and the shortest z segment a CTA walks
+# its deepest instance, its reach and the shortest z segment a CTA walks
 SWEEP3D_LANES = 16
 SWEEP3D_THREADS = 512
 SWEEP3D_STAGES, SWEEP3D_STAGES_D1 = 2, 3
 SWEEP3D_SMEM = 232448
-SWEEP3D_M = (1, 2, 4, 8)
 SWEEP3D_DEPTH = 4
 SWEEP3D_MAX_R = 1
 SWEEP3D_SEG_MIN = 8
@@ -336,16 +340,32 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
         smem, _stream()), f"{spec.name} sweep kernel")
 
 
+def sub_columns(m: int) -> tuple[int, int]:
+    """``(M, g)``: the instance a layout of ``m`` elements a column runs on
+    in the register kernels (``csrc/sweep1d_warp.cu``, ``sweep2d_warp.cu``,
+    ``sweep3d.cu``; ``M`` the largest of ``SUB_M`` dividing ``m``) and the
+    ``g = m / M`` sub-columns of ``M`` consecutive natural points each
+    column is cut into; a row of ``C = nb·vl`` columns is ``C' = g·C``
+    sub-columns (``csrc/cols.cuh``)."""
+    big = max(mm for mm in SUB_M if m % mm == 0)
+    return big, m // big
+
+
 def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil1d_sweep_ttile` or
     :func:`stencil1d_multistep` (``depth = k``) launches: ``"warp"``
-    (``csrc/sweep1d_warp.cu``, at any ``vl``: a warp row is 32 columns of
-    the layout, one per lane) when ``m`` has an instance, the reach is the
-    kernel's and the ``depth·r`` elements a sweep corrupts at each end of
-    a warp's span fit in its halo warp row (``depth·r <= 32·m``);
-    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise.  The periodic, ring
-    and open ends take the same route at every column count."""
-    if m in WARP_BLOCKS and r <= WARP_MAX_R and depth * r <= WARP_LANES * m:
+    (``csrc/sweep1d_warp.cu``, at any ``vl`` and ``m``: a warp row is 32
+    sub-columns of ``M`` points, one per lane, :func:`sub_columns`) when
+    a lane's ``M`` rows reach a neighbour's halo (``r <= M``), the reach is
+    the kernel's and the ``depth·r`` elements a sweep corrupts at each end
+    of a warp's span fit in its halo warp row (``depth·r <= 32·M``);
+    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise: ``r > M`` (1d5p at
+    odd ``m``) and ``depth·r > 32·M``.  The periodic, ring and open ends
+    take the same route at every column count."""
+    if vl < 1 or m < 1:
+        return "smem"
+    big, _ = sub_columns(m)
+    if r <= big and r <= WARP_MAX_R and depth * r <= WARP_LANES * big:
         return "warp"
     return "smem"
 
@@ -354,10 +374,15 @@ def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: i
                  edge: str = "periodic") -> None:
     _kernel_io(t, out, "the warp sweep kernel")
     nb, m, vl = t.shape
+    big, g = sub_columns(m)
+    if g != 1 and nb * vl * g >= MAX_COLS:
+        raise ValueError(f"{spec.name}: {nb * vl * g} columns at vl={vl}, m={m} (sub-columns "
+                         f"of {big}); the warp kernel takes fewer than {MAX_COLS} off m in "
+                         f"{SUB_M}")
     lib = build.load("sweep1d_warp")
     ntaps, offs, coeffs = _taps(spec, 1)
     build.check(lib.repro_sweep1d_warp_f32(
-        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[m], depth, _EDGES[edge],
+        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[big], depth, _EDGES[edge],
         ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} warp sweep kernel")
@@ -390,22 +415,28 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
 def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
-    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl``: a warp
-    covers 32 columns of a row, one per lane) when ``m`` and ``depth`` have
-    an instance (``WARP2D_DEPTH``), the reach is the kernel's and the
-    ``depth·r`` elements a sweep corrupts at each end of a CTA's span fit
-    in its halo warps (``depth·r <= 32·m``); ``"smem"``
-    (``csrc/stencil_sweep.cu``) otherwise."""
-    if m in WARP2D_DEPTH and 1 <= r <= WARP2D_MAX_R \
-            and 1 <= depth <= WARP2D_DEPTH[m] and depth * r <= WARP_LANES * m:
+    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl`` and
+    ``m``: a warp covers 32 sub-columns of ``M`` points of a row, one per
+    lane, :func:`sub_columns`) when the instance ``M`` has ``depth``
+    (``WARP2D_DEPTH``) and the reach is the kernel's (the ``depth·r``
+    elements a sweep corrupts at each end of a CTA's span then fit in its
+    halo warps, ``depth·r <= 32·M``); ``"smem"``
+    (``csrc/stencil_sweep.cu``) otherwise: ``depth > WARP2D_DEPTH[M]``
+    and ``r > 1``."""
+    if vl < 1 or m < 1:
+        return "smem"
+    big, _ = sub_columns(m)
+    if 1 <= r <= WARP2D_MAX_R and 1 <= depth <= WARP2D_DEPTH[big] \
+            and depth * r <= WARP_LANES * big:
         return "warp"
     return "smem"
 
 
-def warp_rows(nb: int, vl: int) -> int:
-    """Warp rows of 32 columns over the ``nb·vl`` columns of a layout row
-    (the last one partial when 32 does not divide them)."""
-    return -(-nb * vl // WARP_LANES)
+def warp_rows(cols: int) -> int:
+    """Warp rows of 32 over a layout row's ``cols`` sub-columns
+    (``C' = g·nb·vl``; the last one partial when 32 does not divide
+    them)."""
+    return -(-cols // WARP_LANES)
 
 
 def sweep2d_segment(n0: int, wrows: int, ctas: int) -> int:
@@ -431,11 +462,13 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     rows, ``tools/sweep2d_segments.py``)."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
-    if vl != WARP_LANES and nb * vl >= MAX_COLS:
-        raise ValueError(f"{spec.name}: {nb * vl} columns a row at vl={vl}; the 2-D warp "
-                         f"kernel takes fewer than {MAX_COLS} off vl={WARP_LANES}")
+    big, g = sub_columns(m)
+    if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
+        raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
+                         f"(sub-columns of {big}); the 2-D warp kernel takes fewer than "
+                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SUB_M}")
     if seg_rows is None:
-        seg_rows = sweep2d_segment(n0, warp_rows(nb, vl), _sm_count(t.device))
+        seg_rows = sweep2d_segment(n0, warp_rows(nb * vl * g), _sm_count(t.device))
     lib = build.load("sweep2d_warp")
     ntaps, offs, coeffs = _taps(spec, 2)
     build.check(lib.repro_sweep2d_warp_f32(
@@ -448,7 +481,7 @@ def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
     stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl`` and any
-    ``m``: a thread owns a sub-column of the layout, :func:`sweep3d_split`)
+    ``m``: a thread owns a sub-column of the layout, :func:`sub_columns`)
     when ``depth`` has an instance (1 to ``SWEEP3D_DEPTH``) and the reach
     is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise:
     depth beyond 4, r > 1.  The periodic, ring and open ends take the same
@@ -456,16 +489,6 @@ def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     if vl >= 1 and m >= 1 and 1 <= r <= SWEEP3D_MAX_R and 1 <= depth <= SWEEP3D_DEPTH:
         return "stream"
     return "smem"
-
-
-def sweep3d_split(m: int) -> tuple[int, int]:
-    """``(M, g)``: the ``csrc/sweep3d.cu`` instance a layout of ``m``
-    elements a column runs on (``M`` the largest of ``SWEEP3D_M`` dividing
-    ``m``) and the ``g = m / M`` sub-columns of ``M`` consecutive natural
-    points each column is cut into; a row of ``C = nb·vl`` columns is
-    ``C' = g·C`` sub-columns."""
-    big = max(mm for mm in SWEEP3D_M if m % mm == 0)
-    return big, m // big
 
 
 def sweep3d_order(spec: StencilSpec) -> str:
@@ -484,7 +507,7 @@ def sweep3d_slots(depth: int) -> int:
 
 def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
     """The tile of the ``csrc/sweep3d.cu`` instance ``M = m`` (its
-    ``Tile``; ``m`` in ``SWEEP3D_M``): rows ``ty`` and (sub-)columns ``cx``
+    ``Tile``; ``m`` in ``SUB_M``): rows ``ty`` and (sub-)columns ``cx``
     a CTA computes, and its halo (sub-)columns ``hx`` and rows ``hy`` per
     side.  The star's levels publish into 2 plane slots, the others' into
     4; ``ty`` is as many rows as ``SWEEP3D_THREADS`` threads and the
@@ -518,13 +541,13 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
                     edge: str = "periodic", seg: int | None = None) -> None:
     """The 3-D streaming kernel with the ends ``edge`` on axis 0, ``seg``
     axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
-    card's SMs), on the instance :func:`sweep3d_split` names for ``m``."""
+    card's SMs), on the instance :func:`sub_columns` names for ``m``."""
     n0, n1, nb, m, vl = t.shape
-    big, g = sweep3d_split(m)
+    big, g = sub_columns(m)
     if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 3-D streaming kernel takes fewer than "
-                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SWEEP3D_M}")
+                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SUB_M}")
     _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
         seg = sweep3d_segment(n0, n1, nb * vl * g, big, depth, sweep3d_order(spec),

@@ -202,7 +202,8 @@ def test_sweep1d_routes_count_and_raise(cuda):
     spec = stencils.make("1d3p")
     x = _x((1 << 15,), 3, cuda)
     for vl, m, depth, key in ((32, 8, 4, "sweep_1d"), (128, 8, 4, "sweep_1d"),
-                              (32, 1, 33, "sweep_1d_smem"), (8, 16, 4, "sweep_1d_smem")):
+                              (32, 1, 33, "sweep_1d_smem"), (8, 16, 4, "sweep_1d"),
+                              (8, 16, 257, "sweep_1d_smem")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
@@ -223,7 +224,10 @@ ANY_VL = (4, 8, 16, 64, 128)
 
 
 def _any_vl_nbs(vl, m):
-    return sorted({-(-c // vl) for c in (5, 20, 32 * sk.WARP_BLOCKS[m] + 40, 4680)} |
+    """C' = nb·vl·g sub-columns (g = 1 at m in {1, 2, 4, 8}) near 5, 20,
+    32·B + 40 and 4680, and a grid of 2^18 points."""
+    big, g = sk.sub_columns(m)
+    return sorted({-(-c // (vl * g)) for c in (5, 20, 32 * sk.WARP_BLOCKS[big] + 40, 4680)} |
                   {(1 << 18) // (vl * m) + 1})
 
 
@@ -233,11 +237,28 @@ def _any_vl_nbs(vl, m):
 def test_sweep1d_warp_any_vl_bitwise(cuda, name, m, vl, edge):
     """K1 and K4a on the warp kernel off vl = 32, bit for bit the plain
     versions, at depths up to the route's deepest."""
+    _sweep1d_bitwise(cuda, name, m, vl, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [4, 8, 32])
+@pytest.mark.parametrize("m", [3, 5, 6, 12, 16, 32])
+def test_sweep1d_warp_sub_columns_bitwise(cuda, m, vl, edge):
+    """The same at m off {1, 2, 4, 8}: the instance M = sub_columns(m)
+    with g = m / M sub-columns a column (vl = 32 on the any-vl instances);
+    1d3p, and 1d5p where r = 2 <= M."""
+    for name in ("1d3p", "1d5p"):
+        if stencils.make(name).r <= sk.sub_columns(m)[0]:
+            _sweep1d_bitwise(cuda, name, m, vl, edge)
+
+
+def _sweep1d_bitwise(cuda, name, m, vl, edge):
     spec = stencils.make(name)
+    big = sk.sub_columns(m)[0]
     for nb in _any_vl_nbs(vl, m):
         t = layouts.to_transpose_layout(_x((nb * vl * m,), nb + vl, cuda), vl, m)
         out = torch.empty_like(t)
-        for depth in (1, 2, 5, 32 * m // spec.r):
+        for depth in (1, 2, 5, 32 * big // spec.r):
             sk.reset_launches()
             if edge == "periodic":
                 got = sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=out)
@@ -259,13 +280,29 @@ def test_sweep2d_warp_any_vl_bitwise(cuda, name, m, vl, edge):
     """K3 and K4b on the 2-D warp kernel off vl = 32, bit for bit the
     plain versions, at every depth of the route, at the wrapper's segment
     and at 4 rows."""
+    _sweep2d_bitwise(cuda, name, m, vl, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [4, 8, 32])
+@pytest.mark.parametrize("m", [3, 5, 6, 12, 16, 32])
+def test_sweep2d_warp_sub_columns_bitwise(cuda, m, vl, edge):
+    """The same at m off {1, 2, 4, 8}: the instance M = sub_columns(m)
+    with g = m / M sub-columns a column (vl = 32 on the any-vl
+    instances); 2d5p and 2d9p."""
+    for name in ("2d5p", "2d9p"):
+        _sweep2d_bitwise(cuda, name, m, vl, edge)
+
+
+def _sweep2d_bitwise(cuda, name, m, vl, edge):
     spec = stencils.make(name)
-    grids = [(3, -(-5 // vl)), (9, -(-20 // vl)), (14, -(-(32 * 8 + 40) // vl)),
-             (2048 + 64, 2048 // (vl * m) + 1)]
+    big, g = sk.sub_columns(m)
+    grids = [(3, -(-5 // (vl * g))), (9, -(-20 // (vl * g))),
+             (14, -(-(32 * 8 + 40) // (vl * g))), (2048 + 64, 2048 // (vl * m) + 1)]
     for n0, nb in grids:
         t = layouts.to_transpose_layout(_x((n0, nb * vl * m), n0 + nb + vl, cuda), vl, m)
         out = torch.empty_like(t)
-        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+        for depth in range(1, sk.WARP2D_DEPTH[big] + 1):
             sk.reset_launches()
             if edge == "periodic":
                 got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
@@ -336,7 +373,8 @@ def test_sweep2d_routes_count_and_raise(cuda):
     x = _x((64, 4096), 3, cuda)
     for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_2d"),
                               (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_nd"),
-                              (16, 4, 2, "sweep_2d"), (8, 16, 2, "sweep_nd")):
+                              (16, 4, 2, "sweep_2d"), (8, 16, 2, "sweep_2d"),
+                              (8, 16, sk.WARP2D_DEPTH[8] + 1, "sweep_nd")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32)
@@ -367,8 +405,10 @@ C1_TILES = [
 
 @pytest.mark.parametrize("name,shape,vl,m,t0", C1_TILES)
 def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
-    """K2, the shared-memory sweep and K4 at the repaired picker's tiles,
-    each bit for bit its plain version."""
+    """K2, K1/K3 and K4 at the repaired picker's tiles, each bit for bit
+    its plain version: the register kernels at odd m on sub-columns of 1
+    (12x8x80's m = 5 at 3-D too), the shared-memory kernel where r > M
+    (1d5p 96's m = 3)."""
     spec = stencils.make(name)
     vl, m, t0 = ops.pick_tile(spec, shape, vl, m, t0)
     x = _x(shape, 10, cuda)
@@ -380,13 +420,12 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
         if spec.ndim == 1:
             got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
             want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
-            keys = {"sweep_1d_smem": 1}
+            keys = {"sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
+                    else "sweep_1d_smem": 1}
         else:
             got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
             want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
-            # 3-D: the streaming kernel at every m (12x8x80's odd m = 5 on
-            # sub-columns of 1); the 2-D odd m keep the shared-memory kernel
-            keys = {"sweep_3d" if spec.ndim == 3 else "sweep_nd": 1}
+            keys = {"sweep_3d" if spec.ndim == 3 else "sweep_2d": 1}
         torch.cuda.synchronize()
         assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | keys
         assert torch.equal(got, want), (depth, (got - want).abs().max().item())
@@ -412,7 +451,8 @@ def _k2_key(vl, m):
 
 
 @pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d"),
-                                      (8, 8, "sweep_1d"), (8, 16, "sweep_1d_smem")])
+                                      (8, 8, "sweep_1d"), (8, 16, "sweep_1d"),
+                                      (16, 32, "sweep_1d")])
 def test_main_path_1d_route_counts(cuda, vl, m, key):
     prob = StencilProblem("1d3p", (1 << 15,))
     x = prob.init(0)
@@ -425,7 +465,8 @@ def test_main_path_1d_route_counts(cuda, vl, m, key):
 
 
 @pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_2d"), (128, 8, "sweep_2d"),
-                                      (8, 8, "sweep_2d"), (8, 16, "sweep_nd")])
+                                      (8, 8, "sweep_2d"), (8, 16, "sweep_2d"),
+                                      (16, 32, "sweep_2d")])
 def test_main_path_2d_route_counts(cuda, vl, m, key):
     prob = StencilProblem("2d5p", (64, 2048))
     x = prob.init(0)
@@ -516,8 +557,8 @@ def test_multistep_1d_routes_count(cuda):
     follows the route of its depth."""
     spec = stencils.make("1d3p")
     for vl, m, k, key in ((32, 8, 2, "multistep_1d"), (32, 1, 33, "multistep_1d_smem"),
-                          (8, 4, 2, "multistep_1d"), (32, 3, 2, "multistep_1d_smem"),
-                          (8, 16, 2, "multistep_1d_smem")):
+                          (8, 4, 2, "multistep_1d"), (32, 3, 2, "multistep_1d"),
+                          (8, 16, 2, "multistep_1d"), (8, 16, 257, "multistep_1d_smem")):
         assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
         t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
         for edge_mask in (True, False):
@@ -589,14 +630,17 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 
 
 def test_multistep_2d_routes_count(cuda):
-    """The counters tell K4b's routes apart at 2-D and 3-D (the 3-D
-    streaming kernel at any vl and m, the shared-memory kernel at 2-D m = 16
-    and 3-D depth 5), and the halo wrapper follows the route of its depth."""
+    """The counters tell K4b's routes apart at 2-D and 3-D (the register
+    kernels at any vl and m, the shared-memory kernel at r = 2 and past the
+    deepest instance), and the halo wrapper follows the route of its
+    depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_2d"),
-             (stencils.make("2d5p"), (64, 4096), 8, 16, 2, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4096), 8, 16, 2, "multistep_2d"),
+             (stencils.make("2d5p"), (64, 4096), 8, 16, 5, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4080), 16, 3, 2, "multistep_2d"),
              (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
@@ -658,7 +702,7 @@ def _grids3(vl):
 
 
 @pytest.mark.parametrize("vl", (32,) + ANY_VL)
-@pytest.mark.parametrize("m", sk.SWEEP3D_M)
+@pytest.mark.parametrize("m", sk.SUB_M)
 @pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0", "runtime1"])
 def test_sweep3d_route_bitwise(cuda, name, m, vl):
     """K3 and K4b on the 3-D streaming kernel at every vl: every depth of
@@ -675,7 +719,7 @@ def test_sweep3d_sub_columns_bitwise(cuda, name, m, vl):
     """The same at m off {1, 2, 4, 8}: the instance M = 1 (m = 3) or 8
     (m = 16, 32) with g = m / M sub-columns a column, vl = 32 on the
     any-vl instances."""
-    assert sk.sweep3d_split(m) == ((1, 3) if m == 3 else (8, m // 8))
+    assert sk.sub_columns(m) == ((1, 3) if m == 3 else (8, m // 8))
     _sweep3d_bitwise(cuda, name, m, vl)
 
 
@@ -738,12 +782,28 @@ def test_sweep3d_raises_beyond_its_columns(cuda):
             sk._sweep3d_launch(spec, t, torch.empty_like(t), 1)
 
 
+def test_warp_kernels_raise_beyond_their_columns(cuda):
+    """Off m = M the 1-D and 2-D warp kernels' sub-column math is 32-bit
+    (and the 2-D kernel's off vl = 32 too): 2^30 sub-columns or more raise
+    before the launch (checked on stand-ins that hold no such array)."""
+    for vl in (8, 32):
+        nb = sk.MAX_COLS // (2 * vl)                # 2^30 sub-columns at m = 16 (g = 2)
+        t = torch.empty(1, device=cuda).expand(nb, 16, vl)
+        with pytest.raises(ValueError, match="columns at"):
+            sk._warp_launch(stencils.make("1d3p"), t, torch.empty(1, device=cuda).expand(
+                nb, 16, vl), 1)
+        t = torch.empty(1, device=cuda).expand(1, nb, 16, vl)
+        with pytest.raises(ValueError, match="columns a row"):
+            sk._warp2d_launch(stencils.make("2d5p"), t, torch.empty(1, device=cuda).expand(
+                1, nb, 16, vl), 1)
+
+
 def test_sweep3d_tile_matches_library(cuda):
     """The library's tiles are the ones ``sweep3d_tile`` computes (the
     segment choice and the CPU transcription use the Python copy)."""
     lib = build.load("sweep3d")
     assert lib.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
-    for m in sk.SWEEP3D_M:
+    for m in sk.SUB_M:
         for depth in range(1, sk.SWEEP3D_DEPTH + 1):
             for order, code in (("runtime", 0), ("star", 1), ("box", 2)):
                 ty, cx, _, _ = sk.sweep3d_tile(m, depth, order)

@@ -8,7 +8,13 @@ The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: warps of ``kWarps`` per CTA with the idle ones recomputing the
 last run, lanes as an array axis, each lane's column in a slot (warp row
 v, lane j: column 32·v + j mod C of the layout's C = nb·vl columns) and
-its offset in the (nb, m, vl) layout, a shuffle as a gather along the lane
+its offset in the (nb, m, vl) layout at any m (the instance M =
+``sub_columns(m)``: a layout column of m = g·M elements is g sub-columns
+of M, sub-column u = g·c + h's element s at ((c // vl)·m + h·M + s)·vl +
+c % vl, C' = g·C of them, the lane's offsets at g > 1 stepped slot by
+slot by ``SubWalk``, held against that map; "column" below means
+sub-column, m the instance's M and C the C'), a shuffle as a gather along
+the lane
 axis with the lane-0 / lane-31 select before it, the in-place slot order
 with its r-row carry, and the store rule (a lane stores in the middle
 slots when its unwrapped column lies in [0, C): each column written
@@ -43,14 +49,38 @@ VL = 32
 VLS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
+def sub_walk(u, nb, vl, g, m, nslots):
+    """csrc/sweep1d_warp.cu's SubWalk (g > 1): the offsets of element 0 of
+    sub-columns u, u + 32, ... mod C' (C' = nb·vl·g, M = m points each),
+    one a step, from one split of u and then carries, no division."""
+    u = u % (nb * vl * g)
+    c, h = u // g, u % g
+    q, rem = c // vl, c % vl
+    dh, dc = LANES % g, LANES // g
+    dq, dr = dc // vl, dc % vl
+    offs = []
+    for _ in range(nslots):
+        offs.append((q * g + h) * (m * vl) + rem)
+        h = h + dh
+        carry = h >= g
+        h = np.where(carry, h - g, h)
+        rem, q = rem + dr + carry, q + dq
+        over = rem >= vl
+        rem, q = np.where(over, rem - vl, rem), q + over
+        while (q >= nb).any():
+            q = np.where(q >= nb, q - nb, q)
+    return offs
+
+
 def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
                    ) -> tuple[np.ndarray, np.ndarray]:
-    """The kernel's output and how often each column was stored."""
-    nb, m, vl = t.shape
-    assert sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
+    """The kernel's output and how often each (sub-)column was stored."""
+    nb, m_layout, vl = t.shape
+    assert sk.sweep1d_route(vl, m_layout, depth, spec.r) == "warp"
+    m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     B, R = sk.WARP_BLOCKS[m], spec.r
     S = B + 2
-    C = nb * vl
+    C = nb * vl * g                              # C' sub-columns
     taps = [(off[0], np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
     nruns = -(-(-(-C // LANES)) // B)
     ctas = -(-nruns // K_WARPS)
@@ -60,8 +90,21 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
     u0 = (np.where(live, w, nruns - 1) * B - 1) * LANES + lane   # slot 0's columns
     flat = t.reshape(-1)
 
-    def col_offset(c):           # element 0 of column c; element s is s·vl on
-        return c // vl * (m * vl) + c % vl
+    def col_offset(u):           # element 0 of column u (g = 1); element s is s·vl on
+        return u // vl * (m * vl) + u % vl
+
+    # the lanes' offsets in slots 0 .. S-1 (loads) and 1 .. B (stores): at
+    # g = 1 col_offset of each, at g > 1 a SubWalk from slot 0 and from 1,
+    # held against the layout's map ((c // vl)·m + h·M)·vl + c % vl
+    if g == 1:
+        load_offs = [col_offset((u0 + i * LANES) % C) for i in range(S)]
+        store_offs = load_offs[1:B + 1]
+    else:
+        load_offs = sub_walk(u0, nb, vl, g, m, S)
+        store_offs = sub_walk(u0 + LANES, nb, vl, g, m, B)
+        for i, off in enumerate(load_offs):
+            c, h = (u0 + i * LANES) % C // g, (u0 + i * LANES) % C % g
+            np.testing.assert_array_equal(off, c // vl * (m_layout * vl) + h * m * vl + c % vl)
 
     def u(i):                    # the lanes' unwrapped columns in slot i
         return u0 + i * LANES
@@ -72,7 +115,7 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
     # v[i][s]: (warps, lanes) registers, row s of slot i; open: zeros beyond
     # the ends; ring: NaN there, which must not matter
     fill = {"periodic": None, "open": np.float32(0), "ring": np.float32(np.nan)}[edge]
-    v = [[flat[col_offset(u(i) % C) + s * vl] for s in range(m)] for i in range(S)]
+    v = [[flat[load_offs[i] + s * vl] for s in range(m)] for i in range(S)]
     if fill is not None:
         v = [[np.where(beyond(i), fill, row) for row in v[i]] for i in range(S)]
     if edge == "ring":
@@ -121,7 +164,7 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
         cols = u(i)[ok]
         np.add.at(stores, cols, 1)
         for s in range(m):
-            out[col_offset(cols) + s * vl] = v[i][s][ok]
+            out[store_offs[i - 1][ok] + s * vl] = v[i][s][ok]
     return out.reshape(t.shape), stores
 
 
@@ -192,8 +235,8 @@ def test_warp_kernel_schedule_matches_pallas(name, m, nb, depth):
     (32, 1, 33, 1, "smem"),
     (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
     (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
-    (32, 3, 2, 1, "smem"),        # no instance for m = 3
-    (32, 16, 2, 1, "smem"),
+    (32, 3, 2, 1, "warp"),        # m = 3: sub-columns of 1
+    (32, 16, 2, 1, "warp"),       # m = 16: sub-columns of 8
     (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
     (4, 1, 32, 1, "warp"),
     (16, 2, 16, 2, "warp"),
@@ -201,8 +244,18 @@ def test_warp_kernel_schedule_matches_pallas(name, m, nb, depth):
     (128, 8, 256, 1, "warp"),     # the limit is 32·m whatever vl is
     (128, 8, 257, 1, "smem"),
     (4, 2, 65, 1, "smem"),
-    (8, 16, 4, 1, "smem"),        # a reference tuner pair: m = 16 has no instance
-    (128, 5, 2, 1, "smem"),
+    (8, 16, 4, 1, "warp"),        # a reference tuner pair: sub-columns of 8
+    (128, 5, 2, 1, "warp"),
+    (32, 3, 2, 2, "smem"),        # 1d5p at m = 3: r = 2 > M = 1
+    (8, 5, 1, 2, "smem"),
+    (8, 6, 32, 2, "warp"),        # 1d5p at m = 6: M = 2, depth·r = 32·M
+    (8, 6, 33, 2, "smem"),
+    (8, 16, 256, 1, "warp"),      # depth·r = 32·M at m = 16
+    (8, 16, 257, 1, "smem"),
+    (16, 32, 257, 1, "smem"),
+    (32, 3, 32, 1, "warp"),       # depth·r = 32·M at M = 1
+    (32, 3, 33, 1, "smem"),
+    (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep1d_route(vl, m, depth, r, route):
     assert sk.sweep1d_route(vl, m, depth, r) == route
@@ -288,7 +341,7 @@ def _vl_check(name, m, nb, vl, depth, edge, seed):
     spec = tst.make(name)
     t = _t(nb, m, seed, vl)
     got, stores = warp_kernel_np(spec, t, depth, edge)
-    np.testing.assert_array_equal(stores, np.ones(nb * vl, dtype=np.int64))
+    np.testing.assert_array_equal(stores, np.ones(nb * vl * sk.sub_columns(m)[1], dtype=np.int64))
     assert np.isfinite(got).all()                # no NaN from beyond the ends
     if edge == "periodic":
         want = sk.stencil1d_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1)
@@ -345,3 +398,59 @@ def test_warp_kernel_any_vl_edges_match_pallas(name, m, nb, vl, k, edge_mask):
     width = 0 if edge_mask else k * tst.make(name).r
     np.testing.assert_allclose(got[width:got.size - width], want[width:want.size - width],
                                rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# any m: a column of m = g·M points is g sub-columns of M
+# ---------------------------------------------------------------------------
+
+SUB_MS = (3, 5, 6, 12, 16, 32)      # M = 1, 1, 2, 4, 8, 8
+
+
+def _sub_nbs(vl, m):
+    """nb for a sub-column case: C' = nb·vl·g near 5 and 20 sub-columns
+    (below a warp row where vl and g allow), near 32·B + 40 (several warp
+    rows, the last one partial) and over several CTAs."""
+    big, g = sk.sub_columns(m)
+    B = sk.WARP_BLOCKS[big]
+    return sorted({-(-c // (vl * g)) for c in (5, 20, 32 * B + 40, 32 * B * K_WARPS + 72)})
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [1, 4, 8, 32])
+@pytest.mark.parametrize("m", SUB_MS)
+def test_warp_kernel_sub_columns_bitwise(m, vl, edge):
+    """m off {1, 2, 4, 8} on the instance M with g = m / M sub-columns a
+    column (vl = 32 too: the any-vl instances): 1d3p at depths 1 and 3 on
+    every grid, 1d5p (where r = 2 <= M) at depth 2 and the route's deepest
+    launch (depth·r = 32·M) on the smallest two, bit for bit the plain
+    versions, every sub-column stored once."""
+    big, g = sk.sub_columns(m)
+    nbs = _sub_nbs(vl, m)
+    cases = [("1d3p", nb, depth) for nb in nbs for depth in (1, 3)]
+    if big >= 2:
+        cases += [("1d5p", nb, depth) for nb in nbs[:2] for depth in (2, LANES * big // 2)]
+    for name, nb, depth in cases:
+        _vl_check(name, m, nb, vl, depth, edge, seed=nb * 8 + vl + m + depth)
+
+
+@pytest.mark.parametrize("name,m,nb,vl,k", [("1d3p", 16, 3, 8, 2), ("1d3p", 5, 7, 8, 3),
+                                            ("1d5p", 6, 4, 4, 2)])
+def test_warp_kernel_sub_columns_match_pallas(name, m, nb, vl, k):
+    """Against the JAX package's Pallas kernel in interpret mode at the
+    same (vl, m) (rtol = atol = 2e-6, as above): the periodic sweep, the
+    ring over the whole array and open ends at k·r or more from them."""
+    spec, jspec = tst.make(name), jst.make(name)
+    t = _t(nb, m, seed=13, vl=vl)
+    want = np.asarray(jsk.stencil1d_sweep_ttile(jspec, jnp.asarray(t), k, 1, interpret=True))
+    got, _ = warp_kernel_np(spec, t, k)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+    for edge_mask in (True, False):
+        want = np.asarray(jlay.from_transpose_layout(
+            jsk.stencil1d_multistep(jspec, jnp.asarray(t), k, interpret=True,
+                                    edge_mask=edge_mask), vl, m))
+        got, _ = warp_kernel_np(spec, t, k, "ring" if edge_mask else "open")
+        got = tlay.from_transpose_layout(torch.from_numpy(got), vl, m).numpy()
+        width = 0 if edge_mask else k * spec.r
+        np.testing.assert_allclose(got[width:got.size - width], want[width:want.size - width],
+                                   rtol=2e-6, atol=2e-6)

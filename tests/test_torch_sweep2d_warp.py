@@ -8,7 +8,11 @@ The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs of ``kWarps`` warps on consecutive warp rows with the two
 end warps as halo, lanes as an array axis, each lane's column (warp row v,
 lane j: column 32·v + j mod C of a row's C = nb·vl columns) and its offset
-in the (n0, nb, m, vl) layout, a shuffle as a gather along the lane axis
+in the (n0, nb, m, vl) layout at any m (the instance M =
+``sub_columns(m)``: a layout column of m = g·M elements is g sub-columns
+of M, sub-column u = g·c + h's element s at ((c // vl)·m + h·M + s)·vl +
+c % vl of its row, C' = g·C of them; "column" below means sub-column, m
+the instance's M and C the C'), a shuffle as a gather along the lane axis
 with the lane-0 / lane-31 select after it, the edge exchange between warps
 through the edge slots, the segment's warm-up rows with wrapped row
 indices, the per-level skew of r + 1 rows with the levels run from the
@@ -65,15 +69,16 @@ def _needs_x(taps, r):
 
 def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """The kernel's output and how often each (row, column) was stored."""
-    n0, nb, m, vl = t.shape
-    assert sk.sweep2d_route(vl, m, depth, spec.r) == "warp"
+    n0, nb, m_layout, vl = t.shape
+    assert sk.sweep2d_route(vl, m_layout, depth, spec.r) == "warp"
+    m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     W, R, D = sk.WARP2D_WARPS, spec.r, depth
     NW, E, P = 2 * R + 1, 2 * R + 2, K_STAGES
     NS = P + 1
     taps = [(off[0], off[1], np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
     needs_x = _needs_x(taps, R)
-    C = nb * vl
-    ncol, nseg = -(-sk.warp_rows(nb, vl) // (W - 2)), -(-n0 // seg)
+    C = nb * vl * g                              # C' sub-columns a row
+    ncol, nseg = -(-sk.warp_rows(C) // (W - 2)), -(-n0 // seg)
     # CTA c = (column c % ncol, segment c // ncol), an array axis
     cta = np.arange(ncol * nseg)
     col, y0 = cta % ncol, cta // ncol * seg
@@ -86,8 +91,8 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     lane = np.arange(LANES)
     # each lane's column, unwrapped, and the offset of its element 0 in a row
     u = (col[:, None, None] * (W - 2) + w[None, :, None] - 1) * LANES + lane   # (ctas, W, lanes)
-    c = u % C
-    lane_col = c // vl * (m * vl) + c % vl
+    c, h = u % C // g, u % C % g                 # column, its sub-column
+    lane_col = c // vl * (m_layout * vl) + h * m * vl + c % vl
     elems = lane_col[:, :, None, :] + np.arange(m)[:, None] * vl             # (ctas, W, m, lanes)
     stores = ((w >= 1) & (w <= W - 2))[None, :, None] & (u < C)
     wl, wr = np.maximum(w - 1, 0), np.minimum(w + 1, W - 1)
@@ -231,14 +236,22 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
     (16, 4, 2, 1, "warp"),
     (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
-    (32, 3, 2, 1, "smem"),        # no instance for m = 3
-    (32, 16, 2, 1, "smem"),
+    (32, 3, 2, 1, "warp"),        # m = 3: sub-columns of 1
+    (32, 16, 2, 1, "warp"),       # m = 16: sub-columns of 8
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
     (4, 1, 8, 1, "warp"),
     (64, 2, 8, 1, "warp"),
     (128, 8, 5, 1, "smem"),       # past the deepest m=8 instance at any vl
-    (8, 16, 4, 1, "smem"),        # a reference tuner pair: m = 16 has no instance
-    (16, 3, 2, 1, "smem"),        # the picker's 2d5p 64x48 tile
+    (8, 16, 4, 1, "warp"),        # a reference tuner pair: sub-columns of 8
+    (16, 3, 2, 1, "warp"),        # the picker's 2d5p 64x48 tile: sub-columns of 1
+    (8, 16, 5, 1, "smem"),        # past the deepest M = 8 instance
+    (16, 32, 4, 1, "warp"),
+    (16, 3, 8, 1, "warp"),        # the deepest M = 1 instance
+    (16, 3, 9, 1, "smem"),
+    (8, 6, 8, 1, "warp"),
+    (8, 12, 9, 1, "smem"),
+    (8, 16, 2, 2, "smem"),        # beyond the kernel's reach at any m
+    (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep2d_route(vl, m, depth, r, route):
     assert sk.sweep2d_route(vl, m, depth, r) == route
@@ -285,7 +298,8 @@ def _edge_grids(depth):
 
 def _edge_check(spec, t, depth, edge, seg=L):
     got, stored = warp2d_kernel_np(spec, t, depth, seg, edge)
-    np.testing.assert_array_equal(stored, np.ones((t.shape[0], t.shape[1] * t.shape[3]),
+    n0, nb, m, vl = t.shape
+    np.testing.assert_array_equal(stored, np.ones((n0, nb * vl * sk.sub_columns(m)[1]),
                                                   dtype=np.int64))
     assert np.isfinite(got).all()            # nothing from beyond the ends (NaN there)
     want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1,
@@ -380,3 +394,54 @@ def test_warp2d_kernel_any_vl_edges_match_pallas(vl, m, edge_mask):
     width = 0 if edge_mask else k * tst.make("2d5p").r
     np.testing.assert_allclose(got[width:t.shape[0] - width], want[width:t.shape[0] - width],
                                rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# any m: a column of m = g·M points is g sub-columns of M
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [1, 4, 8, 32])
+@pytest.mark.parametrize("m", [3, 5, 6, 12, 16, 32])
+def test_warp2d_kernel_sub_columns_bitwise(m, vl, edge):
+    """m off {1, 2, 4, 8} on the instance M with g = m / M sub-columns a
+    column (vl = 32 too: the any-vl instances): 2d5p at depth 1 and the
+    deepest instance of M, 2d9p at depth 2, on grids of C' = nb·vl·g
+    sub-columns near 5 and 20 (below a warp row where vl and g allow) and
+    near 32·(kWarps - 2) + 40 (two CTA columns, the last warp row
+    partial), bit for bit the plain versions, every element stored once."""
+    big, g = sk.sub_columns(m)
+    cases = [("2d5p", 1), ("2d5p", sk.WARP2D_DEPTH[big]), ("2d9p", 2)]
+    for n0, c in ((3, 5), (L + 1, 20), (2 * L + 3, 32 * NB + 40)):
+        nb = -(-c // (vl * g))
+        for name, depth in cases:
+            spec = tst.make(name)
+            t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + vl + m + depth, vl=vl)
+            if edge == "periodic":
+                got, stored = warp2d_kernel_np(spec, t, depth, L)
+                np.testing.assert_array_equal(stored, np.ones((n0, nb * vl * g), dtype=np.int64))
+                want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+                np.testing.assert_array_equal(got, want.numpy(),
+                                              err_msg=f"{name} n0={n0} nb={nb} d={depth}")
+            else:
+                _edge_check(spec, t, depth, edge)
+
+
+@pytest.mark.parametrize("vl,m", [(8, 16), (16, 3)])
+def test_warp2d_kernel_sub_columns_match_pallas(vl, m):
+    """Against the JAX package's Pallas kernel in interpret mode at the
+    same (vl, m) (rtol = atol = 2e-6, as above; k=2, t0=4): the periodic
+    sweep at ttile 2, the ring over the whole array and open ends at k·r or
+    more rows from them."""
+    k, t = 2, _t(12, 3, m, seed=17, vl=vl)
+    spec, jspec = tst.make("2d5p"), jst.make("2d5p")
+    want = np.asarray(jsk.stencil_nd_sweep_ttile(jspec, jnp.asarray(t), k, 2, 4, interpret=True))
+    got, _ = warp2d_kernel_np(spec, t, 2 * k, 3)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+    for edge_mask in (True, False):
+        want = np.asarray(jsk.stencil_nd_multistep(jspec, jnp.asarray(t), k, 4, interpret=True,
+                                                   edge_mask=edge_mask))
+        got, _ = warp2d_kernel_np(spec, t, k, 3, "ring" if edge_mask else "open")
+        width = 0 if edge_mask else k * spec.r
+        np.testing.assert_allclose(got[width:t.shape[0] - width],
+                                   want[width:t.shape[0] - width], rtol=2e-6, atol=2e-6)

@@ -8,7 +8,7 @@ schedule: CTAs over (column tile, row tile, z segment) with ``Hx`` halo
 columns and ``Hy`` halo rows per side (columns wrapped mod C' = g·nb·vl,
 rows mod n1), the threads of a CTA as an array axis (thread t owns column
 t % Cx of row t // Cx), each thread's device-memory offsets at any vl and
-m (the instance M = ``sweep3d_split(m)``: a layout column of m = g·M
+m (the instance M = ``sub_columns(m)``: a layout column of m = g·M
 elements is g sub-columns of M, sub-column u = g·c + h's element s at
 ((c // vl)·m + h·M + s)·vl + c % vl of its row: loads and stores through
 those flat offsets; "column" below means sub-column), the shared-memory
@@ -61,7 +61,7 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     n0, n1, nb, m_layout, vl = t.shape
     assert sk.sweep3d_route(vl, m_layout, depth, spec.r) == "stream"
     order = sk.sweep3d_order(spec)
-    m, g = sk.sweep3d_split(m_layout)            # m: the instance's M from here on
+    m, g = sk.sub_columns(m_layout)            # m: the instance's M from here on
     Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
     R, D, NW, L, NS = spec.r, depth, 2 * spec.r + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth)
     STAGES = NS - 2 * R - 2      # input planes in flight beyond the landed one
@@ -209,7 +209,7 @@ S = 3              # planes per segment in the transcription's cases
 # but one), nb 1 (the tile wraps onto its own block) and 2, 3 (several
 # column tiles)
 GRIDS = ((1, 1, 1), (2, 5, 2), (S, 3, 1), (S + 1, 13, 3), (3 * S + 1, 2, 1))
-CASES = [(name, m, depth) for name in ("3d7p", "3d27p") for m in sk.SWEEP3D_M
+CASES = [(name, m, depth) for name in ("3d7p", "3d27p") for m in sk.SUB_M
          for depth in range(1, sk.SWEEP3D_DEPTH + 1)]
 
 
@@ -429,7 +429,7 @@ def test_sweep3d_segment_any_vl(n0, n1, nb, vl, m, depth, seg):
     (3, (1, 3)), (5, (1, 5)), (6, (2, 3)), (12, (4, 3)),    # the picker's C1 tiles
 ])
 def test_sweep3d_split(m, split):
-    assert sk.sweep3d_split(m) == split
+    assert sk.sub_columns(m) == split
 
 
 @pytest.mark.parametrize("n0,n1,nb,vl,m,depth,seg", [
@@ -439,7 +439,7 @@ def test_sweep3d_split(m, split):
 ])
 def test_sweep3d_segment_sub_columns(n0, n1, nb, vl, m, depth, seg):
     """The wrapper sizes segments on the instance M and C' = g·nb·vl."""
-    big, g = sk.sweep3d_split(m)
+    big, g = sk.sub_columns(m)
     assert sk.sweep3d_segment(n0, n1, nb * vl * g, big, depth, "star", 132) == seg
 
 

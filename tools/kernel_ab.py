@@ -3,7 +3,7 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k2|k6]
-                               [--vl 32[,8,...]] [--m 8[,16,...]]
+                               [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's); its kernels are built from that tree's ``csrc``.  Run it once
@@ -11,8 +11,9 @@ per tree and in turns (A, B, B, A) within one call: two calls may land on
 two cards.  Float32, each kernel timed with CUDA events (median of
 repeats after warm-up), each result first held bit for bit against the
 plain version.  The stencil rows run at every layout tile (vl, m) of
-``--vl`` and ``--m`` (comma-separated lists, 32 and 8 by default) whose
-vl·m divides the grid's minor extent; each row names its tile:
+``--vl`` and ``--m`` (comma-separated lists, 32 and 8 by default), or the
+(vl, m) pairs of ``--tiles`` (``vl:m``, comma-separated) in their place,
+whose vl·m divides the grid's minor extent; each row names its tile:
 
 - 1d3p: K1 (``stencil1d_sweep_ttile``, depths 4, 2, 1) on 2**26 elements,
   K2 (``block_transpose`` / ``block_untranspose``) on the same grid, and
@@ -23,6 +24,10 @@ vl·m divides the grid's minor extent; each row names its tile:
   K4b (``stencil_nd_multistep``, open and ring, depths 2 and 1) on
   8256 × 8192, the roundtrip's padded shape, both at the axis-0 tile
   t0 = 32.
+
+A tile whose vl·m does not divide 8192 but does divide 6144 (an odd m,
+such as the picker's m = 3) takes the odd-m grids instead: 1d3p on
+3·2**24 elements and 2d5p on 8192 × 6144 (``--vl 8,16 --m 3``).
 
 Then the Dirichlet run ``ops.stencil_run(spec, x, 16, k=2)`` of 1d3p on
 2**26 elements and of 2d5p on 8192² at the picker's tile (K2, K4 in ring
@@ -80,6 +85,8 @@ def main() -> int:
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
     parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
+    parser.add_argument("--tiles", default=None,
+                        help="comma-separated vl:m pairs, in place of --vl and --m")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -89,7 +96,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    tiles = [(int(v), int(m)) for v in args.vl.split(",") for m in args.m.split(",")]
+    tiles = [(int(v), int(m)) for v in args.vl.split(",") for m in args.m.split(",")] \
+        if args.tiles is None else [tuple(map(int, p.split(":"))) for p in args.tiles.split(",")]
     if args.only in (None, "stencils"):
         stencil_rows(args.label, dev, tiles)
     if args.only in (None, "3d"):
@@ -143,15 +151,18 @@ def stencil_rows(label: str, dev, tiles) -> None:
     spec, spec2, t0 = stencils.make("1d3p"), stencils.make("2d5p"), 32
     gen = torch.Generator(device=dev).manual_seed(0)
     for vl, m in tiles:
-        tile = f"vl={vl} m={m}"
-        if N2 % (vl * m):
+        # the 1-D extent and the 2-D minor extent: 2**26 and 8192, or the
+        # odd-m grids' 3·2**24 and 6144
+        n1, nx = (N1, N2) if N2 % (vl * m) == 0 else (N1 // 4 * 3, N2 // 4 * 3)
+        tile = f"vl={vl} m={m}" + ("" if n1 == N1 else f" (1-D {n1}, 2-D {N2}x{nx})")
+        if nx % (vl * m):
             _skip(label, "1d3p, 2d5p", tile)
             continue
 
         def row(kernel, fn, plain):
             _row(label, dev, f"{kernel} {tile}", fn, plain)
 
-        x = torch.randn(N1, generator=gen, device=dev)
+        x = torch.randn(n1, generator=gen, device=dev)
         t = sk.block_transpose_ref(x, vl, m)
         buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
         row("K2 block_transpose", lambda: sk.block_transpose(x, vl, m, out=buf_t),
@@ -165,7 +176,7 @@ def stencil_rows(label: str, dev, tiles) -> None:
         del x, t, buf_t, buf_x
         pad = sk.sweep_halo_blocks(spec.r, 2, vl * m) * vl * m
         tp = sk.block_transpose_ref(
-            torch.randn(N1 + 2 * pad, generator=gen, device=dev), vl, m)
+            torch.randn(n1 + 2 * pad, generator=gen, device=dev), vl, m)
         buf = torch.empty_like(tp)
         for edge_mask in (False, True):
             for depth in (2, 1):
@@ -174,7 +185,7 @@ def stencil_rows(label: str, dev, tiles) -> None:
                     lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
         del tp, buf
 
-        t = sk.block_transpose_ref(torch.randn(N2, N2, generator=gen, device=dev), vl, m)
+        t = sk.block_transpose_ref(torch.randn(N2, nx, generator=gen, device=dev), vl, m)
         buf = torch.empty_like(t)
         for depth in (4, 2, 1):
             k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
@@ -182,7 +193,7 @@ def stencil_rows(label: str, dev, tiles) -> None:
                 lambda: sk.stencil_nd_sweep_ttile(spec2, t, k, tt, t0, out=buf),
                 lambda: sk.stencil_nd_sweep_ttile_ref(spec2, t, k, tt, t0))
         del t, buf
-        tp = sk.block_transpose_ref(torch.randn(N2 + 2 * t0, N2, generator=gen, device=dev),
+        tp = sk.block_transpose_ref(torch.randn(N2 + 2 * t0, nx, generator=gen, device=dev),
                                     vl, m)
         buf = torch.empty_like(tp)
         for edge_mask in (False, True):

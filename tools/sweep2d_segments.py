@@ -46,7 +46,7 @@ def main() -> int:
                     device=dev)
     t = layouts.to_transpose_layout(x, 32, 8)
     out = torch.empty_like(t)
-    n0, wrows = t.shape[0], sk.warp_rows(*t.shape[1::2])
+    n0, wrows = t.shape[0], sk.warp_rows(t.shape[1] * t.shape[3])   # m = 8: g = 1
     ncol = -(-wrows // (sk.WARP2D_WARPS - 2))
     default = sk.sweep2d_segment(n0, wrows, sk._sm_count(dev))
     bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3

@@ -42,7 +42,7 @@ def main() -> int:
     parser.add_argument("--vl", default="4,8,16,32,64,128")
     args = parser.parse_args()
     m, n1 = args.m, args.n1
-    big, g = sk.sweep3d_split(m)
+    big, g = sk.sub_columns(m)
     ty, cx, hx, hy = sk.sweep3d_tile(big, args.depth, "star")
     threads = ty * cx
     t = np.arange(threads)
