@@ -13,7 +13,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, started together) and reports the time,
              and the registers, spills and stack per instance of K2's
-             register kernel ``transpose_reg`` and of the warp kernels
+             register kernel ``transpose_reg`` / ``transpose_any`` and of
+             the warp kernels
              (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
              ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
              1 K4b's ring and open ones; ``vl`` 32 the instances of vl=32,
@@ -41,7 +42,14 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              package's vl=128, m=4 and the tuner pair vl=8, m=16 (the
              streaming kernel at any vl and m, ``sweep_3d``), each run's
              route asserted before it, K2 on its register kernel
-             (``transpose``) at every tile; then 3d27p at 256**3 (the box order on the
+             (``transpose``) at every tile; 2d5p and 3d7p also at the
+             reference tuner's deep plans k=4, ttile=2 and 4 (depths 8 and
+             16) at vl=32, m=8 and vl=8, m=8, each counted on its register
+             kernel (2 or 4 consecutive depth-4 launches on the instance
+             M=8 a chunk), and 2d5p at vl=32, m=2 (one launch of M=2 at
+             depth 8 and of the deep M=2 instance at depth 16), bit for
+             bit the vl=32 depth-4 run; then 3d27p
+             at 256**3 (the box order on the
              3-D kernel), fused 16 at vl=32, m=8 and at the tuner's vl=8,
              m=8 (the any-vl instances), each on ``sweep_3d``, asserted,
              the second equal to the first;
@@ -70,16 +78,23 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              streaming kernel, and at the tuner pairs vl=8, m=16 and vl=16,
              m=32 on sub-columns of 8 (3-D: m=32 at depth 4 only; 3d7p also
              at vl=128 and vl=32, m=4); 1-D and 2-D also at the odd-m grids
-             above (sub-columns of 1); K1-smem and K3-smem time the
-             shared-memory route at a tile and depth that keep it (1-D:
-             vl=8, m=1 at depth 34 > 32·M; 2-D, 3-D: vl=8, m=8 at depth
-             8), the route asserted before each launch; K4 at the case's
-             tile, at vl=8, m=8 and at vl=8, m=16; the 3d27p K3 at depth 4 at both its tiles
+             above (sub-columns of 1); 2-D and 3-D K3 at depths 8 and 16
+             at vl=32, m=8 and vl=8, m=8 (2-D also at vl=32, m=2; each row
+             lists its launches' instances (M, g, D));
+             K1-smem and K3-smem time the shared-memory route at a tile
+             and depth that keep it (1-D: vl=8, m=1 at depth 34 > 32·M;
+             2-D, 3-D: the reach-2 star ``_star_taps(ndim, 2)`` at vl=8,
+             m=8, depth 4 and 2; uncounted: no counted run launches it),
+             the route asserted before each launch; K4 at the case's
+             tile, at vl=8, m=8 and at vl=8, m=16 (2-D, 3-D also at depth
+             8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
              K2 in both directions at the tile of every counted run, each
              on its register route (``transpose``, asserted), and bit for
-             bit at 2- and 8-byte elements; K2-smem (its shared-memory
-             route) at 1d3p vl=256, m=8, a tile no counted run reaches;
+             bit at 2- and 8-byte elements; 1d3p K2 also at tiles no
+             counted run reaches: vl=256, m=8 at 2**26 and vl=96, m=8,
+             vl=8, m=12 and 24 at 3·2**24 (the register route's run-time G
+             and vl), and K2-smem (its shared-memory route) at vl=2, m=8;
              each row names its route and source;
              a K2 row counts the launches of the case's runs at its own
              tile, a K1 or K3 row those of its route in the case's runs
@@ -163,12 +178,22 @@ TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8
 # sub-columns of 8
 PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
 # ((vl, m), depth) by ndim: a tile and depth the shared-memory route keeps
-# (1-D: depth·r > 32·M; 2-D, 3-D: past the register kernels' deepest)
-SMEM_ROWS = {1: ((8, 1), 34), 2: ((8, 8), 8), 3: ((8, 8), 8)}
+# (1-D: depth·r > 32·M; 2-D, 3-D: a star of reach 2, ``_star_taps(ndim,
+# 2)``, beyond the register kernels' reach at any depth)
+SMEM_ROWS = {1: ((8, 1), 34), 2: ((8, 8), 4), 3: ((8, 8), 2)}
+# the reference tuner's deep plans (k, ttile): depths 8 and 16 (2-D, 3-D),
+# fused 16 at the case's tile and at the tuner's vl=8, m=8 (2-D also at
+# vl=32, m=2: the deep instance M=2 at depth 16)
+DEEP_PLANS = ((4, 2), (4, 4))
+DEEP_TILES = {2: ((32, 8), (8, 8), (32, 2)), 3: ((32, 8), (8, 8))}
 # (shape, (vl, m)) by ndim: an odd m at size, the register kernels on
 # sub-columns of 1 (the picker's odd-m tiles at a grid of 2^26 points)
 ODD_CASES = {1: ((3 << 24,), (8, 3)), 2: ((8192, 6144), (16, 3))}
-K2_SMEM_TILE = (256, 8)   # (vl, m): vl above 128, K2's shared-memory route (1d3p only)
+# (grid, (vl, m)): 1d3p K2 at tiles no counted run reaches: vl=256 (a power
+# of two above 128), vl=96 and m = 12, 24 (run-time G and vl),
+# and K2-smem (its shared-memory route, vl below 4)
+K2_EXTRA = (((1 << 26,), (256, 8)), ((3 << 24,), (96, 8)), ((3 << 24,), (8, 12)),
+            ((3 << 24,), (8, 24)), ((1 << 26,), (2, 8)))
 # the fused resident run again at other tiles, with the route each takes
 # (3-D: also the roundtrip and Dirichlet runs at these)
 OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "reg"),
@@ -617,8 +642,10 @@ def main() -> int:
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
                     for n, r in reports.items()},
-          "transpose_reg <T, M, vec, to_layout>": ptxas_kernels(
+          "transpose_reg <T, M, G, vec, to_layout>": ptxas_kernels(
               build.report("transpose"), "transpose_reg"),
+          "transpose_any <T, M, vec, to_layout>": ptxas_kernels(
+              build.report("transpose"), "transpose_any"),
           "sweep1d_warp_f32 <M, R, B, order, edge, vl> (vl 0: any)": ptxas_kernels(
               build.report("sweep1d_warp"), "sweep1d_warp_f32"),
           "sweep2d_warp_f32 instances": len(warp2d),
@@ -700,40 +727,40 @@ def main() -> int:
         """K2's counter on the route a float32 (vl, m) tile takes."""
         return "transpose" if sk.transpose_route(vl, m, 4) == "reg" else "transpose_smem"
 
-    def multi_key(spec, vl, m, depth):
-        """K4's counter on the route a depth-``depth`` launch takes."""
+    def launches_of(spec, vl, m, depth, kind="sweep"):
+        """The counter and the launches of one depth-``depth`` call of K1/K3
+        (``kind`` sweep) or K4 (multistep) on its route: at 2-D and 3-D the
+        instances ``sweep2d_launches`` / ``sweep3d_launches`` name."""
         if spec.ndim == 1:
-            return "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
-                else "multistep_1d_smem"
+            warp = sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
+            return (f"{kind}_1d" if warp else f"{kind}_1d_smem"), 1
         if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
-            return "multistep_2d"
+            return f"{kind}_2d", len(sk.sweep2d_launches(m, depth))
         if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
-            return "multistep_3d"
-        return "multistep_nd"
+            return f"{kind}_3d", len(sk.sweep3d_launches(m, depth))
+        return f"{kind}_nd", 1
+
+    def multi_key(spec, vl, m, depth):
+        """K4's counter on the route a depth-``depth`` call takes."""
+        return launches_of(spec, vl, m, depth, "multistep")[0]
 
     def k4_counts(spec, chunks, vl, m):
         """The launches of roundtrip or Dirichlet sweeps, ``chunks`` of
-        (depth, sweeps): K2 twice and K4 once per sweep, by route."""
+        (depth, sweeps): K2 twice and K4's launches once per sweep, by
+        route."""
         owned = {}
         for depth, n in chunks:
-            for key, count in ((k2_key(vl, m), 2 * n), (multi_key(spec, vl, m, depth), n)):
+            key, per = launches_of(spec, vl, m, depth, "multistep")
+            for key, count in ((k2_key(vl, m), 2 * n), (key, per * n)):
                 owned[key] = owned.get(key, 0) + count
         return owned
 
-    def resident_counts(spec, steps, remainder, vl, m):
+    def resident_counts(spec, steps, remainder, vl, m, k=K, ttile=TTILE):
         """The launches a resident run makes, by the route of each chunk."""
         owned = {k2_key(vl, m): 2}
-        for depth, n in sweep_schedule(K, steps, remainder, TTILE)[0]:
-            if spec.ndim == 1:
-                key = "sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
-                    else "sweep_1d_smem"
-            elif spec.ndim == 2:
-                key = "sweep_2d" if sk.sweep2d_route(vl, m, depth, spec.r) == "warp" \
-                    else "sweep_nd"
-            else:
-                key = "sweep_3d" if sk.sweep3d_route(vl, m, depth, spec.r) == "stream" \
-                    else "sweep_nd"
-            owned[key] = owned.get(key, 0) + n
+        for depth, n in sweep_schedule(k, steps, remainder, ttile)[0]:
+            key, per = launches_of(spec, vl, m, depth)
+            owned[key] = owned.get(key, 0) + per * n
         return owned
 
     def dirichlet_plain(spec, x, steps, vl, m, t0):
@@ -867,6 +894,37 @@ def main() -> int:
                   "gpoint_updates_per_s": numel * steps / seconds,
                   "launches": got, "max_abs_err_vs_plain": err, "bitwise": True})
             del y
+        # the reference tuner's deep plans (2-D, 3-D): depths 8 and 16 on the
+        # register kernels (consecutive depth-4 launches), each bit for bit
+        # the vl=32 run
+        for kd, td in DEEP_PLANS if spec.ndim > 1 else ():
+            for tile in DEEP_TILES[spec.ndim]:
+                vl2, m2 = tile
+                t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+                plan = StencilPlan(backend="pallas", sweep="resident", k=kd, ttile=td,
+                                   remainder=remainder, vl=vl2, m=m2)
+                owned = resident_counts(spec, steps, remainder, vl2, m2, kd, td)
+                if set(owned) - {k2_key(vl2, m2)} != {sweep_key}:
+                    raise AssertionError(f"{name} at vl={vl2}, m={m2}, k={kd}, ttile={td}: the "
+                                         f"schedule's launches {owned} are not on {sweep_key}")
+                prob.run(x, kd * td, plan)
+                y, seconds, got = counted(f"{name} resident {remainder} vl={vl2} m={m2} "
+                                          f"k={kd} ttile={td}", lambda: prob.run(x, steps, plan),
+                                          owned)
+                counts[(tile, "resident", remainder, kd * td)] = got
+                err = same(f"{name} resident {remainder} vl={vl2} m={m2} depth {kd * td} vs "
+                           f"vl={vl} depth {K * TTILE}", y, resident[remainder][0])
+                launcher = sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches
+                emit({"phase": "main_path", "case": name, "shape": list(shape),
+                      "plan": {"k": kd, "ttile": td, "remainder": remainder}, "steps": steps,
+                      "schedule": sweep_schedule(kd, steps, remainder, td)[0],
+                      "instances": [list(p) for p in launcher(m2, kd * td)],
+                      "tile": {"vl": vl2, "m": m2, "t0": t02}, "route": sweep_key,
+                      "seconds": seconds,
+                      "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+                      "gpoint_updates_per_s": numel * steps / seconds, "launches": got,
+                      "max_abs_err_vs_depth4_run": err, "bitwise": True})
+                del y
         # an odd m at size (1-D, 2-D), against its own plain path
         odd_runs = {}
         if spec.ndim in ODD_CASES:
@@ -987,10 +1045,14 @@ def main() -> int:
         for otile, (xo, _, got) in odd_runs.items():
             k2_rows(name, "x".join(map(str, xo.shape)), xo, *otile, got["transpose"],
                     2 * xo.numel() * itemsize)
-        if spec.ndim == 1:
-            if k2_key(*K2_SMEM_TILE) != "transpose_smem":
-                raise AssertionError(f"K2 at {K2_SMEM_TILE} is not on its shared-memory route")
-            k2_rows(name, dims, x, *K2_SMEM_TILE, launched["transpose_smem"], grid_bytes)
+        for kshape, ktile in K2_EXTRA if spec.ndim == 1 else ():
+            if k2_key(*ktile) != ("transpose_smem" if ktile[0] < 4 else "transpose"):
+                raise AssertionError(f"K2 at {ktile} is not on the route its vl gives")
+            xk = x if kshape == shape else StencilProblem(name, kshape).init(SEED)
+            k2_rows(name, "x".join(map(str, kshape)), xk, *ktile,
+                    sum(c[k2_key(*ktile)] for (t, *_), c in counts.items() if t == ktile),
+                    2 * xk.numel() * itemsize)
+            del xk
         for dtype in (torch.float16, torch.float64):
             xd = x.to(dtype)
             td = sk.block_transpose(xd, vl, m)
@@ -1009,11 +1071,15 @@ def main() -> int:
         src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep3d"}[spec.ndim]
         route_of = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
 
-        def sweep_row(rkid, tile, depths, source, key, t02, xx=x, at_tile=None):
-            """K1 / K3 rows at the (vl, m) tile on the grid ``xx`` (the
-            case's unless given), each depth bit for bit the plain version;
-            ``key``: the route's counter; ``at_tile``: the counted launches
-            at the tile (by default the case's runs')."""
+        def sweep_row(rkid, tile, depths, source, key, t02, xx=x, at_tile=None, sp=spec):
+            """K1 / K3 rows of the stencil ``sp`` (the case's unless given)
+            at the (vl, m) tile on the grid ``xx`` (the case's unless
+            given), each depth bit for bit the plain version; ``key``: the
+            route's counter; ``at_tile``: the counted launches at the tile
+            (by default the case's runs')."""
+            spec = sp
+            wgt = weight if sp is prob.spec else \
+                torch.tensor(sp.coeff_array(), dtype=xx.dtype, device=dev)[None, None]
             vl2, m2 = tile
             t2 = sk.block_transpose(xx, vl2, m2)
             buf2 = torch.empty_like(t2)
@@ -1035,13 +1101,17 @@ def main() -> int:
                     if spec.ndim == 1:
                         return sk.stencil1d_sweep_ttile_ref(spec, t2, kk, tt)
                     return sk.stencil_nd_sweep_ttile_ref(spec, t2, kk, tt, t02)
-                err = same(f"{name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
-                row(rkid, fname, f"{name} {xdims} vl={vl2} m={m2} depth={depth}; route {key}",
+                err = same(f"{spec.name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
+                extra = {}
+                if spec.ndim > 1 and key != smem_key:
+                    launcher = sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches
+                    extra["instances"] = [list(p) for p in launcher(m2, depth)]
+                row(rkid, fname, f"{spec.name} {xdims} vl={vl2} m={m2} depth={depth}; route {key}",
                     source, launched[key], err, kern, plain,
                     bound(2 * xx.numel() * itemsize, depth * spec.flops_per_point * xx.numel()),
-                    lambda: library_once(("sweep", depth, xdims),
-                                         lambda: ms(conv_steps, spec, xx, depth, weight)),
-                    launches_at_tile=at_tile)
+                    lambda: library_once(("sweep", spec.name, depth, xdims),
+                                         lambda: ms(conv_steps, spec, xx, depth, wgt)),
+                    launches_at_tile=at_tile, **extra)
             del t2, buf2
 
         # where vl·m divides the minor extent, the tuner's pairs on
@@ -1060,10 +1130,17 @@ def main() -> int:
         for otile, (xo, t0o, got) in odd_runs.items():
             sweep_row(kid, otile, (4, 2, 1), src, sweep_key, t0o, xx=xo, at_tile=got[sweep_key])
         del odd_runs
+        # the reference tuner's depths 8 and 16 (2-D, 3-D) on the register
+        # kernels, at the deep runs' tiles
+        for tile in DEEP_TILES.get(spec.ndim, ()):
+            sweep_row(kid, tile, (8, 16), src, sweep_key, ops.pick_tile(spec, shape, *tile)[2])
         # the shared-memory route at a tile and depth that still take it
+        # (2-D, 3-D: the reach-2 star, whose launch no counted run makes)
         smem_tile, smem_depth = SMEM_ROWS[spec.ndim]
+        sp = spec if spec.ndim == 1 else stencils.StencilSpec(
+            f"{spec.ndim}d-star-r2", spec.ndim, 2, "star", stencils._star_taps(spec.ndim, 2))
         sweep_row(f"{kid}-smem", smem_tile, (smem_depth,), "sweep", smem_key,
-                  ops.pick_tile(spec, shape, *smem_tile)[2])
+                  ops.pick_tile(sp, shape, *smem_tile)[2], sp=sp)
 
         # -- K4: the multistep sweep at the roundtrip's padded shape, at the
         # case's tile, the tuner's and its pair vl=8, m=16 ------------------
@@ -1077,7 +1154,7 @@ def main() -> int:
             tp = sk.block_transpose(xp, vl2, m2)
             bufp = torch.empty_like(tp)
             for edge_mask in (False, True):
-                for depth in (K, 1):
+                for depth in (K, 1) if spec.ndim == 1 else (K, 1, 8):
                     if spec.ndim == 1:
                         def kern():
                             return sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=bufp)
@@ -1099,6 +1176,10 @@ def main() -> int:
                         "stream" if source == "sweep3d" else "warp"
                     err = same(f"{name} {kid} vl={vl2} m={m2} {edge} depth {depth}", kern(),
                                plain())
+                    extra = {}
+                    if source in ("sweep2d_warp", "sweep3d"):
+                        launcher = sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches
+                        extra["instances"] = [list(p) for p in launcher(m2, depth)]
                     row(kid, fname,
                         f"{name} {pdims} vl={vl2} m={m2} {edge} depth={depth}; route {route} "
                         f"({key}); library: zero pad on axis 0, no ring restore", source,
@@ -1107,7 +1188,7 @@ def main() -> int:
                               depth * spec.flops_per_point * xp.numel()),
                         lambda: library_once(("edge", depth),
                                              lambda: ms(conv_steps, spec, xp, depth, weight,
-                                                        True)))
+                                                        True)), **extra)
             del tp, bufp
         del x, xp, weight
         torch.cuda.empty_cache()

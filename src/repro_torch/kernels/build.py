@@ -123,7 +123,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "transpose":
         lib.repro_transpose.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
         lib.repro_transpose.restype = ctypes.c_int
-        lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 5 + [ptr]
+        lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 6 + [ptr]
         lib.repro_transpose_reg.restype = ctypes.c_int
         lib.repro_transpose_smem_bytes.argtypes = [i64, i64, i64]
         lib.repro_transpose_smem_bytes.restype = i64
@@ -140,9 +140,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "sweep2d_warp":
         lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
         lib.repro_sweep2d_warp_f32.restype = ctypes.c_int
-        for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps):
+        for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps,
+                   lib.repro_sweep2d_warp_has_depth):
             fn.restype = i64
         lib.repro_sweep2d_warp_max_depth.argtypes = [i64]
+        lib.repro_sweep2d_warp_has_depth.argtypes = [i64, i64]
         lib.repro_sweep2d_warp_warps.argtypes = []
     elif name == "sweep3d":
         lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]

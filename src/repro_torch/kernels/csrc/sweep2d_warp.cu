@@ -7,9 +7,10 @@
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
 // ends of axis 0), for 2-D stencils of reach r = 1, any vl and any m on
 // the instance M (the largest of 8, 4, 2, 1 dividing m), with depth up to
-// repro_sweep2d_warp_max_depth(M) (stencil_kernels.sweep2d_route picks it
-// before the launch).  3-D grids and every other 2-D shape (r > 1, deeper
-// sweeps) take the shared-memory kernel of csrc/stencil_sweep.cu.
+// repro_sweep2d_warp_max_depth(M) or the deep instance's below
+// (stencil_kernels.sweep2d_launches cuts a deeper sweep into consecutive
+// launches before the launch).  2-D stencils of reach r > 1 take the
+// shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
 // axis 0.  A row's C = nb * vl columns each hold m consecutive elements;
@@ -36,7 +37,8 @@
 // per element.
 //
 // Sub-columns (csrc/cols.cuh).  The instances hold M in {1, 2, 4, 8}
-// elements a column.  At m = g * M a column is g sub-columns of M
+// elements a column.  At m = g * M (M the largest of them dividing m) a
+// column is g sub-columns of M
 // consecutive elements of its row, sub-column u = g * c + h's element s
 // at ((c / vl) * m + h * M + s) * vl + c % vl, and a row's C' = g * C
 // sub-columns wrap mod C', the natural wrap.  Lane j of warp row v holds
@@ -129,6 +131,15 @@ enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 __host__ __device__ constexpr int max_depth(int m) {
   return m == 8 ? 4 : (m == 1 || m == 2 || m == 4) ? 8 : 0;
 }
+
+// The deep instance past max_depth (stencil_kernels.WARP2D_DEEP holds the
+// same): depth 16 at M = 2, 96 window values a lane, the reference tuner's
+// deepest plan (k = 4, ttile = 4) in one launch where M = 2 is the largest
+// instance dividing m (on an H100 4% faster than two of depth 8 at m = 2;
+// at m = 8 four depth-4 launches of M = 8 beat it 2×, PERF.md section 6:
+// a smaller M's deeper instance is issue-bound).  Built for the any-vl form
+// only.
+constexpr int kDeepM = 2, kDeepD = 16;
 
 struct Taps2 {
   int n;
@@ -430,12 +441,14 @@ template <int M, int R, int D, int kOrder>
 int go(const float* in, float* out, int64_t n0, const Cols& cols, const Cols& sub, int64_t ncol,
        int64_t seg, int edge, unsigned ctas, const Taps2& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
-  // vl = 32 has instances of its own at g = 1, every stride a constant
-  const bool v32 = cols.vl == kLanes && sub.vl == 1;
+  // vl = 32 has instances of its own at g = 1, every stride a constant (the
+  // deep instance has the any-vl form only)
+  constexpr bool kHas32 = D <= max_depth(M);
+  const bool v32 = kHas32 && cols.vl == kLanes && sub.vl == 1;
   const auto kernel = edge == kPeriodic
-                          ? (v32 ? sweep2d_warp_f32<M, R, D, kOrder, false, kLanes>
+                          ? (v32 ? sweep2d_warp_f32<M, R, D, kOrder, false, kHas32 ? kLanes : 0>
                                  : sweep2d_warp_f32<M, R, D, kOrder, false, 0>)
-                          : (v32 ? sweep2d_warp_f32<M, R, D, kOrder, true, kLanes>
+                          : (v32 ? sweep2d_warp_f32<M, R, D, kOrder, true, kHas32 ? kLanes : 0>
                                  : sweep2d_warp_f32<M, R, D, kOrder, true, 0>);
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -447,25 +460,42 @@ int go(const float* in, float* out, int64_t n0, const Cols& cols, const Cols& su
 }
 
 template <int M, int R, int D>
+int launch_order(const float* in, float* out, int64_t n0, const Cols& cols, const Cols& sub,
+                 int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2& taps,
+                 int order, cudaStream_t stream) {
+  switch (order) {
+    case kStar:
+      return go<M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+    case kBox:
+      return go<M, R, D, kBox>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+    default:
+      return go<M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+  }
+}
+
+template <int M, int R, int D>
 int launch_depth(int depth, const float* in, float* out, int64_t n0, const Cols& cols,
                  const Cols& sub, int64_t ncol, int64_t seg, int edge, unsigned ctas,
                  const Taps2& taps, int order, cudaStream_t stream) {
+  if constexpr (M == kDeepM) {
+    if (depth == kDeepD)
+      return launch_order<M, R, kDeepD>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
+                                        order, stream);
+  }
   if constexpr (D >= 1) {
     if (depth != D)
       return launch_depth<M, R, D - 1>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas,
                                        taps, order, stream);
-    switch (order) {
-      case kStar:
-        return go<M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
-      case kBox:
-        return go<M, R, D, kBox>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
-      default:
-        return go<M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
-                                     stream);
-    }
+    return launch_order<M, R, D>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order,
+                                 stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+}
+
+// Whether the instance M has depth `depth`.
+constexpr bool has_depth(int64_t m, int64_t depth) {
+  return (depth >= 1 && depth <= max_depth((int)m)) || (m == kDeepM && depth == kDeepD);
 }
 
 // Which Order the (oy, ox) offsets are in (r = 1).
@@ -482,16 +512,19 @@ int tap_order(const int32_t* offsets, int64_t ntaps) {
 }  // namespace
 
 extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m) { return max_depth((int)m); }
+extern "C" int64_t repro_sweep2d_warp_has_depth(int64_t m, int64_t depth) {
+  return has_depth(m, depth);
+}
 extern "C" int64_t repro_sweep2d_warp_warps() { return kWarps; }
 
 // `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
 // buffer), at any vl and m (on the instance M, the largest of 8, 4, 2, 1
 // dividing m, with C' = nb * vl * m / M sub-columns a row; C' < 2^30
-// unless vl = 32 and m = M), for a 2-D stencil of reach r = 1, with the
-// ends of axis 0 `edge` (0 periodic, 1 ring, 2 open; the minor axis is
-// periodic), in segments of `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs
-// and `coeffs` ntaps float coefficients, both in host memory.  Returns the
-// CUDA error code.
+// unless vl = 32 and m = M) that has `depth`, for a 2-D stencil of reach
+// r = 1, with the ends of axis 0 `edge` (0 periodic, 1 ring, 2 open; the
+// minor axis is periodic), in segments of `seg` rows per CTA.  `offsets`
+// holds ntaps (oy, ox) pairs and `coeffs` ntaps float coefficients, both in
+// host memory.  Returns the CUDA error code.
 extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int64_t nb,
                                       int64_t m, int64_t vl, int64_t r, int64_t depth,
                                       int64_t edge, int64_t seg, int64_t ntaps,
@@ -500,9 +533,11 @@ extern "C" int repro_sweep2d_warp_f32(const void* in, void* out, int64_t n0, int
   if (m < 1) return (int)cudaErrorInvalidValue;
   const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
   const int64_t g = m / mi;                                  // sub-columns a column
-  if (r != kR || depth < 1 || depth > max_depth((int)mi) || depth * r > kLanes * mi ||
+  // the any-vl form's 32-bit column math (the deep instance has no other)
+  const bool any_form = vl != kLanes || g != 1 || depth > max_depth((int)mi);
+  if (r != kR || !has_depth(mi, depth) || depth * r > kLanes * mi ||
       edge < kPeriodic || edge > kOpen || n0 < 1 || nb < 1 || vl < 1 ||
-      ((vl != kLanes || g != 1) && nb * vl * g >= kMaxCols) || seg < 1 || seg > (1 << 24) ||
+      (any_form && nb * vl * g >= kMaxCols) || seg < 1 || seg > (1 << 24) ||
       ntaps < 1 || ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2 taps;

@@ -13,34 +13,46 @@
 //
 // Two routes, chosen by stencil_kernels.transpose_route before the launch:
 //
-// * register route (repro_transpose_reg): vl a power of two from 4 to 128,
-//   m from 1 to 8, 16 or 32, elements of 2, 4 or 8 bytes.  One thread per
-//   column of a block, holding the column's m elements in registers: lane j
-//   of block row s is natural element j*m + s of its block, so thread g
-//   (column g of the flattened (B*vl, m) view) owns the m consecutive
-//   natural elements from g*m, and row s of its block holds them at
-//   ((g / vl) * m + s) * vl + g % vl.  The natural side is read (or
-//   written) as whole 16-, 8- or 4-byte chunks where m * itemsize and the
-//   pointer allow; the layout side moves one element per row, and for each
-//   row the threads of consecutive columns touch consecutive addresses, so
-//   a warp moves whole 128-byte lines at vl >= 32 (whole 32-byte sectors
-//   below).  m is a template parameter and vl a shift, so there is no
-//   division, no shared memory and no barrier: a few instructions per
-//   element where the shared-memory kernel spent about a hundred (two
-//   run-time divisions per element and phase).  One column per thread and
-//   plain loads and stores: 2 or 4 columns per thread and the streaming
-//   cache hints were no faster on the H100 (PERF.md, section 6).  At m = 16
-//   and 32 (the reference tuner's pairs (8, 16) and (16, 32)) a column of
-//   m = G * 8 consecutive natural elements is G = 2 or 4 sub-columns of 8,
-//   one a thread: sub-column u = G * g + h (0 <= h < G) of column g holds
-//   natural elements u * 8 .. u * 8 + 7 and its element s lies in block row
-//   h * 8 + s.  So the natural side moves exactly as at m = 8, and the
-//   layout side's rows as at m = 8 too.  A thread holding all 16 or 32
+// * register route (repro_transpose_reg): vl >= 4, any m, elements of 2, 4
+//   or 8 bytes.  One thread per column of a block, holding the column's m
+//   elements in registers: lane j of block row s is natural element j*m + s
+//   of its block, so thread g (column g of the flattened (B*vl, m) view)
+//   owns the m consecutive natural elements from g*m, and row s of its
+//   block holds them at ((g / vl) * m + s) * vl + g % vl.  The natural side
+//   is read (or written) as whole 16-, 8- or 4-byte chunks where
+//   m * itemsize and the pointer allow; the layout side moves one element
+//   per row, and for each row the threads of consecutive columns touch
+//   consecutive addresses, so a warp moves whole 128-byte lines at vl >= 32
+//   (whole 32-byte sectors below).  No shared memory and no barrier: a few
+//   instructions per element where the shared-memory kernel spent about a
+//   hundred (two run-time divisions per element and phase).  One column per
+//   thread and plain loads and stores: 2 or 4 columns per thread and the
+//   streaming cache hints were no faster on the H100 (PERF.md, section 6).
+//   Sub-columns: a column of m = G * M consecutive natural elements is G
+//   sub-columns of M, one a thread (the caller names M: stencil_kernels.
+//   transpose_sub takes the largest of 1..8 dividing m with G a power of
+//   two, else the largest dividing m, so a warp's 32 threads cover 32 / G
+//   whole columns and its layout-side rows fill whole sectors; m = 24 on
+//   M = 8, G = 3 moved the layout side 13% slower than on M = 6, G = 4,
+//   PERF.md section 6):
+//   sub-column u = G * g + h (0 <= h < G) of column g holds natural
+//   elements u * M .. u * M + M - 1 and its element s lies in block row
+//   h * M + s.  So the natural side moves exactly as at m = M, and the
+//   layout side's rows as at m = M too.  A thread holding all 16 or 32
 //   elements of a column moved the same bytes but made each warp store of
 //   the natural side span 16 or 32 lines instead of 8 (0.2445 against
 //   0.1875 ms from the layout at 2^26 f32, vl=8, m=16; PERF.md, section 6).
-// * shared-memory route (repro_transpose): every other shape (m above 8
-//   and not 16 or 32, vl not a power of two or outside 4..128).  Each CTA
+//   Two forms, both with M a template parameter:
+//   - vl a power of two, m in 1..8 (G = 1), 16 or 32 (M = 8, G = 2 or 4):
+//     G a template parameter and vl a shift, so no division at all
+//     (transpose_reg);
+//   - every other m and vl >= 4 (vl off the powers of two, m such as 12,
+//     24 or 25 that the reference's _fit_m gives): G and vl at run time,
+//     one 32-bit division by each per thread (transpose_any; fewer than
+//     2^31 sub-columns, beyond which the wrapper takes the shared-memory
+//     route).
+// * shared-memory route (repro_transpose): vl below 4, or more sub-columns
+//   than transpose_any's 32-bit index holds.  Each CTA
 //   owns a contiguous run of whole matrices (about 4096 elements), reads it
 //   in input order, parks it in shared memory with each row padded to an
 //   odd pitch (so the column-wise reads of the second phase hit 32 distinct
@@ -59,8 +71,12 @@ namespace {
 
 constexpr int kRegThreads = 256;
 
-// The m the register route has instances for (stencil_kernels.TRANSPOSE_M).
+// The m transpose_reg has instances for (stencil_kernels.TRANSPOSE_M).
 constexpr bool reg_m(int64_t m) { return (m >= 1 && m <= 8) || m == 16 || m == 32; }
+
+// Sub-columns transpose_any takes (a 32-bit index): stencil_kernels
+// TRANSPOSE_MAX_SUB holds the same.
+constexpr int64_t kMaxSub = int64_t(1) << 31;
 
 using u16 = unsigned short;
 using u32 = unsigned int;
@@ -144,6 +160,82 @@ transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int l
   }
 }
 
+// The same move with G and vl at run time (m = G * M, vl >= 4): sub-column
+// u = blockIdx.x * kRegThreads + threadIdx.x of the nsub < 2^31, column
+// g = u / G and its block g / vl, one 32-bit division each.
+template <typename T, int M, int kVec, bool kToLayout>
+__global__ void __launch_bounds__(kRegThreads)
+transpose_any(const T* __restrict__ in, T* __restrict__ out, unsigned nsub, unsigned G,
+              unsigned vl) {
+  const unsigned u = blockIdx.x * kRegThreads + threadIdx.x;
+  const unsigned g = u / G, h = u - g * G;
+  const unsigned q = g / vl, rem = g - q * vl;
+  const int64_t row0 = ((int64_t)q * G + h) * M * vl + rem;
+  T v[M];
+  if (u < nsub) {
+    if constexpr (kToLayout) {
+      load_run<kVec>(in + (int64_t)u * M, v);
+    } else {
+#pragma unroll
+      for (int s = 0; s < M; ++s) v[s] = in[row0 + (int64_t)s * vl];
+    }
+  }
+  asm volatile("" ::: "memory");
+  if (u < nsub) {
+    if constexpr (kToLayout) {
+#pragma unroll
+      for (int s = 0; s < M; ++s) out[row0 + (int64_t)s * vl] = v[s];
+    } else {
+      store_run<kVec>(out + (int64_t)u * M, v);
+    }
+  }
+}
+
+template <typename T, int M, bool kToLayout>
+int launch_any(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
+               cudaStream_t stream) {
+  constexpr int kVec = chunk_elems<T, M>();
+  const int64_t nsub = ncols * g;
+  if (nsub >= kMaxSub) return (int)cudaErrorInvalidValue;
+  const unsigned ctas = (unsigned)((nsub + kRegThreads - 1) / kRegThreads);
+  const void* natural = kToLayout ? in : out;
+  const bool aligned = reinterpret_cast<uintptr_t>(natural) % (kVec * sizeof(T)) == 0;
+  const T* src = static_cast<const T*>(in);
+  T* dst = static_cast<T*>(out);
+  if (kVec > 1 && aligned) {
+    transpose_any<T, M, kVec, kToLayout><<<ctas, kRegThreads, 0, stream>>>(
+        src, dst, (unsigned)nsub, (unsigned)g, (unsigned)vl);
+  } else {
+    transpose_any<T, M, 1, kToLayout><<<ctas, kRegThreads, 0, stream>>>(
+        src, dst, (unsigned)nsub, (unsigned)g, (unsigned)vl);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int M>
+int launch_any_dir(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
+                   bool to_layout, cudaStream_t s) {
+  return to_layout ? launch_any<T, M, true>(in, out, ncols, g, vl, s)
+                   : launch_any<T, M, false>(in, out, ncols, g, vl, s);
+}
+
+// m = G * M on the instance M the caller names (1..8 dividing m)
+template <typename T>
+int launch_any_m(const void* in, void* out, int64_t ncols, int64_t vl, int64_t m, int64_t mi,
+                 bool to_layout, cudaStream_t s) {
+  const int64_t g = m / mi;
+  switch (mi) {
+    case 1: return launch_any_dir<T, 1>(in, out, ncols, g, vl, to_layout, s);
+    case 2: return launch_any_dir<T, 2>(in, out, ncols, g, vl, to_layout, s);
+    case 3: return launch_any_dir<T, 3>(in, out, ncols, g, vl, to_layout, s);
+    case 4: return launch_any_dir<T, 4>(in, out, ncols, g, vl, to_layout, s);
+    case 5: return launch_any_dir<T, 5>(in, out, ncols, g, vl, to_layout, s);
+    case 6: return launch_any_dir<T, 6>(in, out, ncols, g, vl, to_layout, s);
+    case 7: return launch_any_dir<T, 7>(in, out, ncols, g, vl, to_layout, s);
+    default: return launch_any_dir<T, 8>(in, out, ncols, g, vl, to_layout, s);
+  }
+}
+
 template <typename T, int M, int G, bool kToLayout>
 int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t stream) {
   constexpr int kVec = chunk_elems<T, M>();
@@ -191,10 +283,11 @@ int launch_m(const void* in, void* out, int64_t ncols, int lv, int m, bool to_la
   }
 }
 
-// log2(vl) for a register-route vl (a power of two from 4 to 128 dividing
-// ncols), else -1
+// log2(vl) for a vl that transpose_reg takes (a power of two from 4 up,
+// dividing ncols), else -1
 int reg_shift(int64_t ncols, int64_t vl) {
-  if (vl < 4 || vl > 128 || (vl & (vl - 1)) || ncols < 0 || ncols % vl) return -1;
+  if (vl < 4 || vl > (int64_t(1) << 30) || (vl & (vl - 1)) || ncols < 0 || ncols % vl)
+    return -1;
   int lv = 0;
   while ((int64_t)1 << lv < vl) ++lv;
   return lv;
@@ -262,21 +355,34 @@ int launch(const void* in, void* out, int64_t batch, int64_t rows, int64_t cols,
 
 // The register route: (ncols * m) elements of `elem_size` bytes, as
 // (ncols / vl, vl, m) natural -> (ncols / vl, m, vl) layout (`to_layout`
-// != 0) or the inverse, both contiguous, on `stream`.  vl must be a power of
-// two from 4 to 128 dividing ncols, m from 1 to 8, 16 or 32.  Returns the
-// CUDA error code of the launch.
+// != 0) or the inverse, both contiguous, on `stream`, one thread a
+// sub-column of `mi` elements (1..8 dividing m).  vl must be at least 4 and
+// divide ncols; a power of two with m in 1..8 (mi = m), 16 or 32 (mi = 8)
+// takes transpose_reg, every other shape transpose_any, whose
+// ncols * m / mi sub-columns must be fewer than 2^31.  Returns the CUDA
+// error code of the launch.
 extern "C" int repro_transpose_reg(const void* in, void* out, int64_t ncols, int64_t vl,
-                                   int64_t m, int64_t elem_size, int64_t to_layout,
+                                   int64_t m, int64_t mi, int64_t elem_size, int64_t to_layout,
                                    void* stream) {
-  const int lv = reg_shift(ncols, vl);
-  if (lv < 0 || !reg_m(m)) return (int)cudaErrorInvalidValue;
+  if (vl < 4 || m < 1 || mi < 1 || mi > 8 || m % mi || ncols < 0 || ncols % vl)
+    return (int)cudaErrorInvalidValue;
   if (ncols == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = to_layout != 0;
+  const int lv = reg_shift(ncols, vl);
+  if (lv >= 0 && reg_m(m) && mi == (m <= 8 ? m : 8)) {
+    switch (elem_size) {
+      case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, s);
+      case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, s);
+      case 8: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (vl >= kMaxSub) return (int)cudaErrorInvalidValue;
   switch (elem_size) {
-    case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, s);
-    case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, s);
-    case 8: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
+    case 2: return launch_any_m<u16>(in, out, ncols, vl, m, mi, dir, s);
+    case 4: return launch_any_m<u32>(in, out, ncols, vl, m, mi, dir, s);
+    case 8: return launch_any_m<u64>(in, out, ncols, vl, m, mi, dir, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,8 +15,9 @@
     sub-columns of the layout; :func:`sweep3d_route`: ``csrc/sweep3d.cu``,
     a thread on each sub-column; all three at any ``vl`` and ``m``, on
     sub-columns of ``M`` points, :func:`sub_columns`), or the
-    shared-memory kernel ``csrc/stencil_sweep.cu`` (deeper sweeps, reach
-    beyond the kernels').
+    shared-memory kernel ``csrc/stencil_sweep.cu`` (reach beyond the
+    kernels', and at 1-D depth·r beyond ``32·M``; a 2-D or 3-D sweep deeper
+    than the register kernels' instances is consecutive launches of them).
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -29,13 +30,14 @@
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``, the
-routes apart: K2 under ``transpose`` (register kernel) and
-``transpose_smem``; K1 under ``sweep_1d`` (warp kernel) and
-``sweep_1d_smem``; K4a under ``multistep_1d`` (warp kernel) and
-``multistep_1d_smem``; K3 under ``sweep_2d`` (2-D warp kernel), ``sweep_3d``
-(3-D streaming kernel) and ``sweep_nd``; K4b under ``multistep_2d``,
-``multistep_3d`` (the same kernels) and ``multistep_nd``.  The plain
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` (a
+sweep cut into consecutive launches adds one per launch), the routes
+apart: K2 under ``transpose`` (register kernel) and ``transpose_smem``; K1
+under ``sweep_1d`` (warp kernel) and ``sweep_1d_smem``; K4a under
+``multistep_1d`` (warp kernel) and ``multistep_1d_smem``; K3 under
+``sweep_2d`` (2-D warp kernel), ``sweep_3d`` (3-D streaming kernel) and
+``sweep_nd``; K4b under ``multistep_2d``, ``multistep_3d`` (the same
+kernels) and ``multistep_nd``.  The plain
 versions count nothing.  Outputs are allocated here (or passed in as
 ``out``); the kernels allocate nothing.
 """
@@ -60,9 +62,13 @@ LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem":
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
-# the tiles csrc/transpose.cu's register kernel takes (its reg_m)
-TRANSPOSE_MIN_VL, TRANSPOSE_MAX_VL = 4, 128
+# csrc/transpose.cu's register route: vl from TRANSPOSE_MIN_VL, any m; its
+# instances with every stride fixed (transpose_reg: vl a power of two, m in
+# TRANSPOSE_M), the others with G and vl at run time (transpose_any: fewer
+# than TRANSPOSE_MAX_SUB sub-columns of M, transpose_sub)
+TRANSPOSE_MIN_VL = 4
 TRANSPOSE_M = frozenset(range(1, 9)) | {16, 32}
+TRANSPOSE_MAX_SUB = 1 << 31
 # a warp row of the register kernels: 32 sub-columns of the layout, one a lane
 WARP_LANES = 32
 # sub-columns a row may have off vl = 32 (or off m = M) in the 2-D and 3-D
@@ -77,14 +83,17 @@ SUB_M = (1, 2, 4, 8)
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_MAX_R = 4
 # csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
-# instance by M, its reach and the shortest axis-0 segment a CTA walks
+# instance by M (every depth up to it), its deep instances past that (the
+# any-vl form only), its reach and the shortest axis-0 segment a CTA walks
 WARP2D_WARPS = 10
 WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
+WARP2D_DEEP = {2: (16,)}
 WARP2D_MAX_R = 1
 WARP2D_SEG_MIN = 32
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
-# its deepest instance, its reach and the shortest z segment a CTA walks
+# its deepest instance (every M; a deeper sweep is consecutive launches),
+# its reach and the shortest z segment a CTA walks
 SWEEP3D_LANES = 16
 SWEEP3D_THREADS = 512
 SWEEP3D_STAGES, SWEEP3D_STAGES_D1 = 2, 3
@@ -161,16 +170,31 @@ def block_untranspose_ref(t: torch.Tensor, vl: int, m: int) -> torch.Tensor:
     return layouts.from_transpose_layout(t, vl, m)
 
 
-def transpose_route(vl: int, m: int, itemsize: int) -> str:
+def transpose_sub(m: int) -> tuple[int, int]:
+    """``(M, G)``: the elements ``M`` a thread of K2's register kernel moves
+    and the ``G = m / M`` sub-columns a column of the layout is cut into:
+    ``M`` the largest of 1..8 dividing ``m`` with ``G`` a power of two (a
+    warp then covers whole columns; 8 at m = 16 and 32, 6 at m = 24), else
+    the largest dividing ``m`` (5 at m = 25)."""
+    divisors = [mm for mm in range(1, 9) if m % mm == 0]
+    whole = [mm for mm in divisors if (m // mm) & (m // mm - 1) == 0]
+    big = max(whole or divisors)
+    return big, m // big
+
+
+def transpose_route(vl: int, m: int, itemsize: int, numel: int = 0) -> str:
     """The kernel a CUDA :func:`block_transpose` / :func:`block_untranspose`
-    launches: ``"reg"`` (``csrc/transpose.cu``'s register kernel, one
-    thread per column of a block) when ``vl`` is a power of two from 4 to
-    128, ``m`` is in ``TRANSPOSE_M`` (1 to 8, 16, 32) and the elements are
-    2, 4 or 8 bytes; ``"smem"`` (its shared-memory kernel) otherwise."""
-    if TRANSPOSE_MIN_VL <= vl <= TRANSPOSE_MAX_VL and vl & (vl - 1) == 0 \
-            and m in TRANSPOSE_M and itemsize in (2, 4, 8):
+    launches on ``numel`` elements: ``"reg"`` (``csrc/transpose.cu``'s
+    register kernel, one thread per sub-column of ``M`` elements,
+    :func:`transpose_sub`) when ``vl >= 4`` and the elements are 2, 4 or 8
+    bytes, with fewer than ``TRANSPOSE_MAX_SUB`` sub-columns unless ``vl``
+    is a power of two and ``m`` in ``TRANSPOSE_M``; ``"smem"`` (its
+    shared-memory kernel) otherwise: ``vl < 4``."""
+    if vl < TRANSPOSE_MIN_VL or m < 1 or itemsize not in (2, 4, 8):
+        return "smem"
+    if vl & (vl - 1) == 0 and m in TRANSPOSE_M:
         return "reg"
-    return "smem"
+    return "reg" if numel // transpose_sub(m)[0] < TRANSPOSE_MAX_SUB else "smem"
 
 
 def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
@@ -181,9 +205,10 @@ def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
         raise ValueError(f"transpose kernel: no {src.dtype} support ({size}-byte elements)")
     if src.numel() == 0:
         return
-    if transpose_route(vl, m, size) == "reg":
+    if transpose_route(vl, m, size, src.numel()) == "reg":
         build.check(lib.repro_transpose_reg(src.data_ptr(), dst.data_ptr(), src.numel() // m,
-                                            vl, m, size, int(to_layout), _stream()),
+                                            vl, m, transpose_sub(m)[0], size, int(to_layout),
+                                            _stream()),
                     "transpose kernel")
         LAUNCHES["transpose"] += 1
         return
@@ -267,7 +292,10 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     shared memory of one CTA of the sweep kernel for a depth-``depth``
     launch on the natural (nz, ny, nx) grid.  The axis-0 rows of an n-D
     tile are ``t0``; the minor (then mid) extent shrinks until the two
-    buffers fit.  Raises when no tile fits: a launch is never split."""
+    buffers fit.  Raises when no tile fits: this kernel never splits a
+    launch (the register kernels' routes split a deep sweep into
+    consecutive launches, :func:`sweep2d_launches`, and take every depth of
+    reach 1 at 2-D and 3-D)."""
     nz, ny, nx = nat
     nd, r = spec.ndim, spec.r
     rz, ry = (r if nd == 3 else 0), (r if nd >= 2 else 0)
@@ -293,7 +321,8 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
             raise ValueError(
                 f"{spec.name}: a depth-{depth} sweep needs a halo of {depth * r} "
                 f"per side that no CUDA tile fits in shared memory (axis-0 tile "
-                f"t0={t0}); deeper sweeps are ROADMAP D2")
+                f"t0={t0}); ROADMAP D2 is closed on the register kernels only (reach 1 "
+                "at 2-D and 3-D, consecutive launches past their deepest instance)")
     return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
 
 
@@ -349,6 +378,41 @@ def sub_columns(m: int) -> tuple[int, int]:
     sub-columns (``csrc/cols.cuh``)."""
     big = max(mm for mm in SUB_M if m % mm == 0)
     return big, m // big
+
+
+def _launch_plan(depths: dict[int, tuple[int, ...]], m: int, depth: int
+                 ) -> tuple[tuple[int, int, int], ...]:
+    """Consecutive launches ``(M, g, D)`` that advance a layout of ``m``
+    elements a column by ``depth`` steps on a register kernel: the
+    instance ``M`` of :func:`sub_columns` (the largest dividing ``m``, ``g
+    = m / M`` sub-columns a column), each launch the deepest of the depths
+    ``depths[M]`` that is left.  One launch when ``M`` has the whole depth.
+    On an H100 the largest ``M`` won at every depth (a smaller ``M``'s
+    deeper instance is issue-bound: 2d5p 8192², m=8, depth 8 on ``M = 4``
+    0.82 ms, two depth-4 launches on ``M = 8`` 0.41; at 3-D a depth-8
+    instance at ``M = 1`` or ``2`` lost to two depth-4 launches of the same
+    ``M``), and at one ``M`` its deepest instance did (PERF.md section 6).
+    Jacobi steps compose, and each launch defines the ends at every step,
+    so the result is bit for bit that of one deeper launch."""
+    big, g = sub_columns(m)
+    plan, left = [], depth
+    while left > 0:
+        d = max(dd for dd in depths[big] if dd <= left)
+        plan.append((big, g, d))
+        left -= d
+    return tuple(plan)
+
+
+def _chain(launch, t: torch.Tensor, dst: torch.Tensor, plan) -> None:
+    """``launch(src, out, D)`` for each ``(M, g, D)`` of ``plan`` in turn,
+    ``t`` → … → ``dst``, through one scratch buffer when there are two or
+    more (the last launch writes ``dst``; no launch writes its input)."""
+    tmp = torch.empty_like(dst) if len(plan) > 1 else None
+    src = t
+    for i, (_, _, d) in enumerate(plan):
+        target = dst if (len(plan) - 1 - i) % 2 == 0 else tmp
+        launch(src, target, d)
+        src = target
 
 
 def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
@@ -412,24 +476,36 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     return dst
 
 
+def sweep2d_depths() -> dict[int, tuple[int, ...]]:
+    """The depths of ``csrc/sweep2d_warp.cu``'s instances by ``M``, all of
+    them on the route."""
+    return {mm: tuple(range(1, WARP2D_DEPTH[mm] + 1)) + WARP2D_DEEP.get(mm, ()) for mm in SUB_M}
+
+
+# every instance's depth·r (r = 1) fits its halo warps: depth·r <= 32·M
+assert all(d * WARP2D_MAX_R <= WARP_LANES * mm for mm, ds in sweep2d_depths().items() for d in ds)
+
+
 def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
-    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl`` and
-    ``m``: a warp covers 32 sub-columns of ``M`` points of a row, one per
-    lane, :func:`sub_columns`) when the instance ``M`` has ``depth``
-    (``WARP2D_DEPTH``) and the reach is the kernel's (the ``depth·r``
-    elements a sweep corrupts at each end of a CTA's span then fit in its
-    halo warps, ``depth·r <= 32·M``); ``"smem"``
-    (``csrc/stencil_sweep.cu``) otherwise: ``depth > WARP2D_DEPTH[M]``
-    and ``r > 1``."""
-    if vl < 1 or m < 1:
-        return "smem"
-    big, _ = sub_columns(m)
-    if 1 <= r <= WARP2D_MAX_R and 1 <= depth <= WARP2D_DEPTH[big] \
-            and depth * r <= WARP_LANES * big:
+    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl``, ``m`` and
+    ``depth``: a warp covers 32 sub-columns of ``M`` points of a row, one
+    per lane, on the instances :func:`sweep2d_launches` names) when the
+    reach is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) for
+    ``r > 1``."""
+    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= WARP2D_MAX_R:
         return "warp"
     return "smem"
+
+
+@functools.lru_cache(maxsize=None)
+def sweep2d_launches(m: int, depth: int) -> tuple[tuple[int, int, int], ...]:
+    """The launches ``(M, g, D)`` of ``csrc/sweep2d_warp.cu`` for a
+    depth-``depth`` sweep at ``m`` (:func:`_launch_plan`): past the deepest
+    instance of ``M`` consecutive launches (m = 8: depth 8 two of depth 4,
+    16 four; m = 2: depth 16 one)."""
+    return _launch_plan(sweep2d_depths(), m, depth)
 
 
 def warp_rows(cols: int) -> int:
@@ -456,17 +532,19 @@ def _sm_count(device: torch.device) -> int:
 
 def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
                    edge: str = "periodic", seg_rows: int | None = None) -> None:
-    """The 2-D warp kernel with the ends ``edge`` on axis 0, ``seg_rows``
-    axis-0 rows per CTA (by default one CTA per SM, a single wave: at
-    8192², m=8 this beat two waves and the shorter segments' extra warm-up
-    rows, ``tools/sweep2d_segments.py``)."""
+    """One launch of the 2-D warp kernel with the ends ``edge`` on axis 0,
+    ``seg_rows`` axis-0 rows per CTA (by default one CTA per SM, a single
+    wave: at 8192², m=8 this beat two waves and the shorter segments' extra
+    warm-up rows, ``tools/sweep2d_segments.py``), on the instance
+    :func:`sub_columns` names for ``m``, which must have ``depth``."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
     big, g = sub_columns(m)
-    if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
+    if (vl != WARP_LANES or g != 1 or depth > WARP2D_DEPTH[big]) and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 2-D warp kernel takes fewer than "
-                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SUB_M}")
+                         f"{MAX_COLS} off vl={WARP_LANES}, m = M and past its depth "
+                         f"{WARP2D_DEPTH[big]}")
     if seg_rows is None:
         seg_rows = sweep2d_segment(n0, warp_rows(nb * vl * g), _sm_count(t.device))
     lib = build.load("sweep2d_warp")
@@ -480,15 +558,22 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
 def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
-    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl`` and any
-    ``m``: a thread owns a sub-column of the layout, :func:`sub_columns`)
-    when ``depth`` has an instance (1 to ``SWEEP3D_DEPTH``) and the reach
-    is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise:
-    depth beyond 4, r > 1.  The periodic, ring and open ends take the same
-    route."""
-    if vl >= 1 and m >= 1 and 1 <= r <= SWEEP3D_MAX_R and 1 <= depth <= SWEEP3D_DEPTH:
+    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl``, ``m`` and
+    ``depth``: a thread owns a sub-column of the layout, on the instances
+    :func:`sweep3d_launches` names) when the reach is the kernel's;
+    ``"smem"`` (``csrc/stencil_sweep.cu``) for ``r > 1``.  The periodic,
+    ring and open ends take the same route."""
+    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= SWEEP3D_MAX_R:
         return "stream"
     return "smem"
+
+
+@functools.lru_cache(maxsize=None)
+def sweep3d_launches(m: int, depth: int) -> tuple[tuple[int, int, int], ...]:
+    """The launches ``(M, g, D)`` of ``csrc/sweep3d.cu`` for a
+    depth-``depth`` sweep at ``m`` (:func:`_launch_plan` over the depths
+    1 to ``SWEEP3D_DEPTH``): past depth 4 consecutive launches."""
+    return _launch_plan({mm: tuple(range(1, SWEEP3D_DEPTH + 1)) for mm in SUB_M}, m, depth)
 
 
 def sweep3d_order(spec: StencilSpec) -> str:
@@ -539,9 +624,10 @@ def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
 
 def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
                     edge: str = "periodic", seg: int | None = None) -> None:
-    """The 3-D streaming kernel with the ends ``edge`` on axis 0, ``seg``
-    axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
-    card's SMs), on the instance :func:`sub_columns` names for ``m``."""
+    """One launch of the 3-D streaming kernel (depth 1 to ``SWEEP3D_DEPTH``)
+    with the ends ``edge`` on axis 0, ``seg`` axis-0 planes per CTA (by
+    default :func:`sweep3d_segment` over the card's SMs), on the instance
+    :func:`sub_columns` names for ``m``."""
     n0, n1, nb, m, vl = t.shape
     big, g = sub_columns(m)
     if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
@@ -564,12 +650,13 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                            ttile: int, t0: int, out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps of the layout-resident
-    (n0, *mid, nb, m, vl) array in one launch; ``t0`` is the axis-0 rows of
-    the shared-memory kernel's output tile (it must divide n0 and reach the
+    (n0, *mid, nb, m, vl) array; ``t0`` is the axis-0 rows of the
+    shared-memory kernel's output tile (it must divide n0 and reach the
     radius, as the reference's pipeline tile must).  A sweep that
     :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
-    kernel picks its own segment length: results never depend on the
-    tile."""
+    kernel runs as the launches :func:`sweep2d_launches` /
+    :func:`sweep3d_launches` name and picks its own segment length: results
+    never depend on the tile or the split."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -582,18 +669,34 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                      "stencil_nd_sweep_ttile")
     _check_cuda(t, "stencil_nd_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil_nd_sweep_ttile")
-    depth = sweep_depth(k, ttile)
+    _nd_launches(spec, t, dst, sweep_depth(k, ttile), t0, "periodic")
+    return dst
+
+
+def _nd_launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int, t0: int,
+                 edge: str) -> None:
+    """A depth-``depth`` n-D sweep with the ends ``edge`` (``periodic``:
+    K3; ``ring`` / ``open``: K4b) on the kernel the route names: the
+    register kernels' instances of :func:`sweep2d_launches` /
+    :func:`sweep3d_launches`, one after another, each counted; else one
+    launch of the shared-memory kernel."""
+    # checked before the chain: its launches read and write other buffers
+    _kernel_io(t, dst, "the n-D sweep kernels")
+    kind = "sweep" if edge == "periodic" else "multistep"
     nb, m, vl = t.shape[-3:]
     if spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
-        _warp2d_launch(spec, t, dst, depth)
-        LAUNCHES["sweep_2d"] += 1
+        def launch(src, out, d):
+            _warp2d_launch(spec, src, out, d, edge)
+            LAUNCHES[f"{kind}_2d"] += 1
+        _chain(launch, t, dst, sweep2d_launches(m, depth))
     elif spec.ndim == 3 and sweep3d_route(vl, m, depth, spec.r) == "stream":
-        _sweep3d_launch(spec, t, dst, depth)
-        LAUNCHES["sweep_3d"] += 1
+        def launch(src, out, d):
+            _sweep3d_launch(spec, src, out, d, edge)
+            LAUNCHES[f"{kind}_3d"] += 1
+        _chain(launch, t, dst, sweep3d_launches(m, depth))
     else:
-        _sweep_launch(spec, t, dst, depth, t0)
-        LAUNCHES["sweep_nd"] += 1
-    return dst
+        _sweep_launch(spec, t, dst, depth, t0, edge)
+        LAUNCHES[f"{kind}_nd"] += 1
 
 
 def stencil1d_sweep_periodic(spec: StencilSpec, t: torch.Tensor, k: int,
@@ -699,15 +802,16 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
 def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
                          edge_mask: bool = True, out: torch.Tensor | None = None
                          ) -> torch.Tensor:
-    """k steps of the (n0, *mid, nb, m, vl) layout array in one launch:
-    axis 0 has the Dirichlet ring (``edge_mask=True``, its r first and last
+    """k steps of the (n0, *mid, nb, m, vl) layout array: axis 0 has the
+    Dirichlet ring (``edge_mask=True``, its r first and last
     rows keep their value) or open edges (``edge_mask=False``, rows beyond
     either end hold 0), every other axis is periodic.  ``t0`` is the axis-0
     rows of the shared-memory kernel's tile; it must divide n0 and reach the
     radius, as the reference's pipeline tile must.  A sweep that
     :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
-    kernel (depth k) picks its own segment length and ignores ``t0``:
-    results never depend on the tile."""
+    kernel (depth k) runs as the launches of :func:`sweep2d_launches` /
+    :func:`sweep3d_launches`, picks its own segment length and ignores
+    ``t0``: results never depend on the tile or the split."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -720,17 +824,7 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
                      "stencil_nd_multistep")
     _check_cuda(t, "stencil_nd_multistep")
     dst = _out(out, t.shape, t, "stencil_nd_multistep")
-    edge = "ring" if edge_mask else "open"
-    nb, m, vl = t.shape[-3:]
-    if spec.ndim == 2 and sweep2d_route(vl, m, k, spec.r) == "warp":
-        _warp2d_launch(spec, t, dst, k, edge)
-        LAUNCHES["multistep_2d"] += 1
-    elif spec.ndim == 3 and sweep3d_route(vl, m, k, spec.r) == "stream":
-        _sweep3d_launch(spec, t, dst, k, edge)
-        LAUNCHES["multistep_3d"] += 1
-    else:
-        _sweep_launch(spec, t, dst, k, t0, edge)
-        LAUNCHES["multistep_nd"] += 1
+    _nd_launches(spec, t, dst, k, t0, "ring" if edge_mask else "open")
     return dst
 
 

@@ -62,20 +62,20 @@ def _same_bits(a, b):
     return a.shape == b.shape and torch.equal(a.view(_INT_OF[a.dtype]), b.view(_INT_OF[b.dtype]))
 
 
-# the register route's tiles (vl a power of two from 4 to 128, m 1 to 8,
-# 16 and 32: the tuner's pairs (8, 16), (16, 32) and the picker's odd m) and
-# four of the shared-memory route's
+# the register route's tiles with every stride fixed (vl a power of two, m
+# 1 to 8, 16 and 32: the tuner's pairs (8, 16), (16, 32) and the picker's odd
+# m), those with G and vl at run time (m 25 and 12, vl 256 and 96), and the
+# shared-memory route's (vl below 4)
 TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8, 16, 32)] + [
-    (8, 5), (16, 6), (32, 7), (8, 25), (3, 5), (8, 12), (256, 8)]
+    (8, 5), (16, 6), (32, 7), (8, 25), (3, 5), (8, 12), (256, 8), (96, 8), (2, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
 @pytest.mark.parametrize("vl,m", TRANSPOSE_TILES)
 def test_transpose_routes_bitwise(cuda, vl, m, dtype):
     x = _bits((2, 3, 37 * vl * m), dtype, vl + m, cuda)    # 37 blocks: a partial last CTA
-    route = sk.transpose_route(vl, m, x.element_size())
-    assert route == ("reg" if m in (1, 3, 5, 6, 7, 8, 16, 32) and vl in (4, 8, 16, 32, 128)
-                     else "smem")
+    route = sk.transpose_route(vl, m, x.element_size(), x.numel())
+    assert route == ("reg" if vl >= 4 else "smem")
     sk.reset_launches()
     t = sk.block_transpose(x, vl, m)
     back = sk.block_untranspose(t, vl, m)
@@ -103,17 +103,24 @@ def test_transpose_unaligned_pointers(cuda, vl, m, dtype):
 
 
 def test_transpose_reg_refuses_off_route(cuda):
-    """The register kernel's entry point refuses a vl or an m off its
-    route."""
+    """The register kernel's entry point refuses a vl, an m or an M off its
+    route (vl below 4, m below 1, M not dividing m or above 8, vl not
+    dividing the columns, 1-byte elements) and takes vl = 24 and m = 9 and
+    64 (transpose_any, on the M of ``transpose_sub``)."""
     import ctypes
     lib = build.load("transpose")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     x = _bits((41 * 32 * 8,), torch.float32, 12, cuda)
     t = torch.empty_like(x)
-    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), x.numel() // 8, 24, 8, 4, 1,
-                                   stream) != 0
-    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 9, 4, 1, stream) != 0
-    assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 64, 4, 1, stream) != 0
+    for ncols, vl, m, mi, size in ((32, 2, 8, 8, 4), (32, 32, 0, 1, 4), (32, 32, 8, 3, 4),
+                                   (32, 32, 16, 16, 4), (32, 32, 8, 0, 4), (40, 24, 8, 8, 4),
+                                   (32, 32, 8, 8, 1)):
+        assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m, mi, size, 1,
+                                       stream) != 0, (ncols, vl, m, mi, size)
+    for ncols, vl, m in ((x.numel() // 8 // 24 * 24, 24, 8), (32, 32, 9), (32, 32, 64)):
+        assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m,
+                                       sk.transpose_sub(m)[0], 4, 1, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
@@ -148,8 +155,13 @@ def test_sweep_kernel_counts_and_raises(cuda):
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_3d": 1}
     with pytest.raises(NotImplementedError, match="D1"):
         sk.stencil_nd_sweep_ttile(spec, t.double(), 2, 1, 8)
-    with pytest.raises(ValueError, match="D2"):
-        sk.stencil_nd_sweep_ttile(spec, t, 32, 1, 8)
+    # depth 32 (ROADMAP D2, which raised on the shared-memory kernel): eight
+    # consecutive depth-4 launches, bit for bit one plain 32-step sweep
+    sk.reset_launches()
+    got = sk.stencil_nd_sweep_ttile(spec, t, 32, 1, 8)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"sweep_3d": 8}
+    assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 32, 1, 8))
     with pytest.raises(ValueError, match="in place"):
         sk.stencil_nd_sweep_ttile(spec, t, 1, 1, 8, out=t)
 
@@ -372,14 +384,15 @@ def test_sweep2d_routes_count_and_raise(cuda):
     spec = stencils.make("2d5p")
     x = _x((64, 4096), 3, cuda)
     for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_2d"),
-                              (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_nd"),
+                              (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_2d"),    # 4, then 1
                               (16, 4, 2, "sweep_2d"), (8, 16, 2, "sweep_2d"),
-                              (8, 16, sk.WARP2D_DEPTH[8] + 1, "sweep_nd")):
+                              (8, 16, sk.WARP2D_DEPTH[8] + 1, "sweep_2d")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32)
         torch.cuda.synchronize()
-        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
+            key: len(sk.sweep2d_launches(m, depth))}
         assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 32))
         with pytest.raises(ValueError, match="in place"):
             sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32, out=t)
@@ -631,30 +644,35 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 
 def test_multistep_2d_routes_count(cuda):
     """The counters tell K4b's routes apart at 2-D and 3-D (the register
-    kernels at any vl and m, the shared-memory kernel at r = 2 and past the
-    deepest instance), and the halo wrapper follows the route of its
-    depth."""
+    kernels at any vl, m and depth, past the deepest instance in
+    consecutive launches, each counted; the shared-memory kernel at r = 2),
+    and the halo wrapper follows the route of its depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 8, 16, 2, "multistep_2d"),
-             (stencils.make("2d5p"), (64, 4096), 8, 16, 5, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4096), 8, 16, 5, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4080), 16, 3, 2, "multistep_2d"),
              (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
-             (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_nd"),
+             (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_2d"),
+             (stencils.make("2d5p"), (64, 4096), 8, 8, 16, "multistep_2d"),
+             (stencils.make("2d5p"), (64, 4096), 8, 8, 12, "multistep_2d"),   # 8 + 4
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
-             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 5, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 32, 8, 5, "multistep_3d"),  # 4 + 1
              (stencils.make("3d7p"), (16, 8, 256), 8, 16, 2, "multistep_3d"),
-             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 5, "multistep_nd"),
+             (stencils.make("3d7p"), (16, 8, 256), 8, 16, 5, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 192), 16, 3, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 128, 2, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 64, 4, 1, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 16, 8, 2, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 64), 8, 8, 2, "multistep_3d"),     # 8 columns
              (stencils.make("3d7p"), (16, 8, 40), 4, 2, 2, "multistep_3d"),     # 20 columns
-             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 5, "multistep_nd"))
+             (stencils.make("3d7p"), (16, 8, 256), 128, 2, 5, "multistep_3d"),
+             (stencils.make("3d7p"), (16, 8, 256), 8, 8, 16, "multistep_3d"))
     for spec, shape, vl, m, k, key in cases:
+        launches = 1 if key.endswith("_nd") else len(
+            (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, k))
         if spec.ndim == 2:
             assert sk.sweep2d_route(vl, m, k, spec.r) == \
                 ("warp" if key == "multistep_2d" else "smem")
@@ -666,11 +684,12 @@ def test_multistep_2d_routes_count(cuda):
             sk.reset_launches()
             got = sk.stencil_nd_multistep(spec, t, k, 16, edge_mask)
             torch.cuda.synchronize()
-            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}, (spec.name, vl, m, k)
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}, \
+                (spec.name, vl, m, k)
             assert torch.equal(got, sk.stencil_nd_multistep_ref(spec, t, k, 16, edge_mask))
         sk.reset_launches()
         halo = sk.stencil_nd_sweep_halo(spec, t, k, 16, 16)
-        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
         assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, k, 16, False))
     t = layouts.to_transpose_layout(_x((64, 4096), 14, cuda), 32, 8)
     with pytest.raises(ValueError, match="in place"):
@@ -1113,3 +1132,150 @@ def test_ssd_full_on_card_matches_cpu(cuda, seq, chunk):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st_got.h.cpu(), st_want.h, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st_got.conv.cpu(), st_want.conv, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K2 at every vl >= 4 and m (transpose_any), and K3/K4b past the register
+# kernels' deepest instances
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [3, 5, 9, 12, 24, 25, 64])
+@pytest.mark.parametrize("vl", [4, 5, 8, 96, 256])
+def test_transpose_any_bitwise(cuda, vl, m, dtype):
+    """The register route's run-time G and vl (and the fixed instances
+    where vl is a power of two and m = 3, 5): both directions bit for bit,
+    over a partial last CTA, each a launch of ``transpose``."""
+    x = _bits((2, 7 * vl * m), dtype, vl * 100 + m, cuda)
+    assert sk.transpose_route(vl, m, x.element_size(), x.numel()) == "reg"
+    sk.reset_launches()
+    t = sk.block_transpose(x, vl, m)
+    back = sk.block_untranspose(t, vl, m)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2}
+    assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
+    assert _same_bits(back, x)
+
+
+@pytest.mark.parametrize("vl,m", [(96, 8), (8, 12), (5, 24), (256, 25)])
+def test_transpose_any_unaligned_pointers(cuda, vl, m):
+    x = _bits((1 + 9 * vl * m,), torch.float32, 13, cuda)[1:]
+    t = sk.block_transpose(x, vl, m)
+    assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
+    out = torch.empty(1 + x.numel(), dtype=x.dtype, device=cuda)[1:]
+    assert _same_bits(sk.block_untranspose(t, vl, m, out=out), x)
+
+
+def test_instance_tables_match_kernels(cuda):
+    """The Python table of the 2-D kernel's instances is the library's own,
+    and the 3-D kernel's deepest instance is ``SWEEP3D_DEPTH``."""
+    lib2, lib3 = build.load("sweep2d_warp"), build.load("sweep3d")
+    for mm in sk.SUB_M:
+        for depth in range(0, 34):
+            assert bool(lib2.repro_sweep2d_warp_has_depth(mm, depth)) == \
+                (depth in sk.sweep2d_depths()[mm]), (mm, depth)
+    assert lib3.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
+
+
+def _deep_check(cuda, spec, shape, vl, m, depth, edge, launch=None):
+    """``depth`` steps with the ends ``edge`` through the wrapper (counted:
+    one launch per instance of the route's plan) and, given ``launch``,
+    through ``launch`` alone; bit for bit the plain version."""
+    t = layouts.to_transpose_layout(_x(shape, depth + m + vl, cuda), vl, m)
+    out = torch.empty_like(t)
+    kind = "sweep" if edge == "periodic" else "multistep"
+    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
+    if edge == "periodic":
+        want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+    else:
+        want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+    sk.reset_launches()
+    if edge == "periodic":
+        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+    else:
+        got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {f"{kind}_{spec.ndim}d": len(plan)}
+    assert torch.equal(got, want), (shape, vl, m, depth, edge, (got - want).abs().max().item())
+    if launch is not None:
+        out.zero_()
+        launch(spec, t, out, depth, edge)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (shape, vl, m, depth, edge, "one launch")
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", [(12, 5), (4, 8), (6, 16), (3, 8), (10, 16), (2, 16),
+                                     (4, 6)])
+@pytest.mark.parametrize("name", ["2d5p", "2d9p", "heat2d"])
+def test_sweep2d_deep_bitwise(cuda, name, m, depth, edge):
+    """The 2-D warp kernel past M = 8's depth: one launch of the instance
+    M < 8 of m (the deep M = 2 at depth 16 too), through the route and
+    alone at a 4-row segment, on grids near the CTA's columns and at 2048²
+    (vl 8 and 32)."""
+    spec = stencils.make(name)
+    assert len(sk.sweep2d_launches(m, depth)) == 1
+
+    def launch(spec, t, out, d, edge):
+        sk._warp2d_launch(spec, t, out, d, edge, seg_rows=4)
+    for n0, cols, vl in ((2 * depth + 1, 296, 8), (37, 40, 32), (2048, 2048, 8)):
+        nb = -(-cols // (vl * m))
+        _deep_check(cuda, spec, (n0, nb * vl * m), vl, m, depth, edge,
+                    launch if n0 < 2048 else None)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", [(8, 12), (8, 32), (1, 16), (3, 9), (16, 20)])
+def test_sweep2d_split_bitwise(cuda, m, depth, edge):
+    """Depths no instance has: consecutive launches, each counted."""
+    assert len(sk.sweep2d_launches(m, depth)) > 1
+    _deep_check(cuda, stencils.make("2d5p"), (2 * depth + 5, 64 * 8 * m), 8, m, depth, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m", [2, 1, 3, 6, 10, 16])
+@pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0"])
+def test_sweep3d_deep_sub_columns_bitwise(cuda, name, m, edge):
+    """Depth 8 as two depth-4 launches of the instance M of m (1, 2, or 8
+    on two sub-columns), on grids of several row and column tiles, bit for
+    bit the plain version."""
+    spec = stencils.make(name) if name.startswith("3d") else \
+        stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
+    big, g = sk.sub_columns(m)
+    assert sk.sweep3d_launches(m, 8) == ((big, g, 4),) * 2
+    for n0, n1, cols, vl in ((3, 5, 5, 8), (19, 45, 70, 8), (6, 12, 40, 32)):
+        nb = -(-cols // (vl * g))
+        _deep_check(cuda, spec, (n0, n1, nb * vl * m), vl, m, 8, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", [(8, 8), (8, 16), (8, 32), (3, 6), (16, 8)])
+def test_sweep3d_split_bitwise(cuda, m, depth, edge):
+    """Past depth 4: consecutive launches, each counted."""
+    _deep_check(cuda, stencils.make("3d7p"), (2 * depth + 3, 20, 32 * 8 * m), 8, m, depth,
+                edge)
+
+
+@pytest.mark.parametrize("k,ttile", [(4, 2), (4, 4)])
+@pytest.mark.parametrize("vl,m", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("name,shape", [("2d5p", (64, 2048)), ("3d7p", (16, 24, 1024))])
+def test_main_path_deep_plans(cuda, name, shape, vl, m, k, ttile):
+    """The resident run at the reference tuner's deep plans (depth 8 and
+    16): its launches by the route's plan, bit for bit the depth-4 run."""
+    prob = StencilProblem(name, shape)
+    x = prob.init(0)
+    spec = prob.spec
+    depth = k * ttile
+    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
+    chunks = sweep_schedule(k, 16, "fused", ttile)[0]
+    assert chunks == [(depth, 16 // depth)]
+    sk.reset_launches()
+    got = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=k, ttile=ttile,
+                                      vl=vl, m=m))
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
+        _k2_key(vl, m): 2, f"sweep_{spec.ndim}d": len(plan) * 16 // depth}
+    want = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
+                                       vl=32, m=8))
+    assert torch.equal(got, want), (got - want).abs().max().item()

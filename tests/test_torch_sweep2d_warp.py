@@ -68,9 +68,11 @@ def _needs_x(taps, r):
 
 
 def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
-    """The kernel's output and how often each (row, column) was stored."""
+    """One launch of the kernel (a depth its instance has): its output and
+    how often each (row, column) was stored."""
     n0, nb, m_layout, vl = t.shape
     assert sk.sweep2d_route(vl, m_layout, depth, spec.r) == "warp"
+    assert sk.sweep2d_launches(m_layout, depth) == (sk.sub_columns(m_layout) + (depth,),)
     m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     W, R, D = sk.WARP2D_WARPS, spec.r, depth
     NW, E, P = 2 * R + 1, 2 * R + 2, K_STAGES
@@ -228,9 +230,9 @@ def test_warp2d_kernel_schedule_matches_pallas():
 @pytest.mark.parametrize("vl,m,depth,r,route", [
     (32, 8, 4, 1, "warp"),        # the main path: 2d5p at 8192², k=2, ttile=2
     (32, 8, 1, 1, "warp"),
-    (32, 8, 5, 1, "smem"),        # past the deepest m=8 instance, d=4
+    (32, 8, 5, 1, "warp"),        # past the deepest m=8 instance: consecutive launches
     (32, 4, 8, 1, "warp"),
-    (32, 4, 9, 1, "smem"),
+    (32, 4, 9, 1, "warp"),        # consecutive launches
     (32, 1, 8, 1, "warp"),
     (32, 2, 0, 1, "smem"),        # depth 0: no instance
     (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
@@ -241,20 +243,49 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
     (4, 1, 8, 1, "warp"),
     (64, 2, 8, 1, "warp"),
-    (128, 8, 5, 1, "smem"),       # past the deepest m=8 instance at any vl
+    (128, 8, 5, 1, "warp"),       # past the deepest m=8 instance at any vl
     (8, 16, 4, 1, "warp"),        # a reference tuner pair: sub-columns of 8
     (16, 3, 2, 1, "warp"),        # the picker's 2d5p 64x48 tile: sub-columns of 1
-    (8, 16, 5, 1, "smem"),        # past the deepest M = 8 instance
+    (8, 16, 5, 1, "warp"),        # past the deepest M = 8 instance
     (16, 32, 4, 1, "warp"),
     (16, 3, 8, 1, "warp"),        # the deepest M = 1 instance
-    (16, 3, 9, 1, "smem"),
+    (16, 3, 9, 1, "warp"),
     (8, 6, 8, 1, "warp"),
-    (8, 12, 9, 1, "smem"),
+    (8, 12, 9, 1, "warp"),
+    (8, 8, 16, 1, "warp"),        # the reference tuner's deepest plan (k=4, ttile=4)
+    (8, 8, 32, 1, "warp"),
     (8, 16, 2, 2, "smem"),        # beyond the kernel's reach at any m
     (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep2d_route(vl, m, depth, r, route):
     assert sk.sweep2d_route(vl, m, depth, r) == route
+
+
+@pytest.mark.parametrize("m,depth,launches", [
+    (8, 4, ((8, 1, 4),)),                    # the main path's depth, on M = 8
+    (8, 5, ((8, 1, 4), (8, 1, 1))),          # past M = 8's depth 4: two launches
+    (8, 8, ((8, 1, 4),) * 2),                # the tuner's k=4, ttile=2
+    (8, 16, ((8, 1, 4),) * 4),               # the tuner's k=4, ttile=4
+    (8, 32, ((8, 1, 4),) * 8),
+    (4, 8, ((4, 1, 8),)),
+    (4, 16, ((4, 1, 8),) * 2),
+    (2, 16, ((2, 1, 16),)),                  # the deep M = 2 instance
+    (2, 32, ((2, 1, 16),) * 2),
+    (2, 20, ((2, 1, 16), (2, 1, 4))),
+    (1, 16, ((1, 1, 8),) * 2),
+    (3, 9, ((1, 3, 8), (1, 3, 1))),
+    (16, 8, ((8, 2, 4),) * 2),
+    (32, 4, ((8, 4, 4),)),
+    (6, 16, ((2, 3, 16),)),
+    (12, 5, ((4, 3, 5),)),
+    (12, 12, ((4, 3, 8), (4, 3, 4))),
+])
+def test_sweep2d_launches(m, depth, launches):
+    """The largest M dividing m, each of its depths one launch (every depth
+    up to WARP2D_DEPTH[M], and 16 at M = 2), deeper sweeps split."""
+    assert sk.sweep2d_launches(m, depth) == launches
+    assert sum(d for _, _, d in launches) == depth
+    assert all(big * g == m for big, g, _ in launches)
 
 
 @pytest.mark.parametrize("n0,wrows,ctas,seg", [
@@ -445,3 +476,109 @@ def test_warp2d_kernel_sub_columns_match_pallas(vl, m):
         width = 0 if edge_mask else k * spec.r
         np.testing.assert_allclose(got[width:t.shape[0] - width],
                                    want[width:t.shape[0] - width], rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# deep sweeps: the instances of M < 8 past M = 8's depth 4 (the deep M = 2
+# at depth 16 too), and the split into consecutive launches
+# ---------------------------------------------------------------------------
+
+# (m, depth): one launch of the instance M of m (the largest dividing it):
+# M = 4 at depths 5 and 8 (g = 3, 1), M = 2 at 16 and 6 (g = 3, 1, 5), M = 1
+# at 8 (g = 3)
+DEEP_CASES = [(12, 5), (4, 8), (6, 16), (6, 6), (3, 8), (2, 16), (10, 16)]
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", DEEP_CASES)
+def test_warp2d_kernel_deep_bitwise(m, depth, edge):
+    """One launch of the instance ``M`` at ``m = g·M``, bit for bit the
+    plain versions, every element stored once; grids whose segments start
+    or end within depth·r rows of an end, and of two CTA columns."""
+    spec = tst.make("2d5p")
+    _, g = sk.sub_columns(m)
+    for n0, c in ((3, 20), (2 * depth + 1, 32 * NB + 40), (2 * L + depth, 40)):
+        nb = -(-c // (8 * g))
+        t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m + depth, vl=8)
+        got, stored = warp2d_kernel_np(spec, t, depth, L, edge)
+        np.testing.assert_array_equal(stored, np.ones((n0, nb * 8 * g), dtype=np.int64))
+        if edge == "periodic":
+            want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+        else:
+            assert np.isfinite(got).all()
+            want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1,
+                                               edge == "ring")
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=f"n0={n0} nb={nb}")
+
+
+def warp2d_chain_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
+    """The launches ``sweep2d_launches`` names, one after another (the
+    wrapper's chain through a scratch buffer)."""
+    for _, _, d in sk.sweep2d_launches(t.shape[2], depth):
+        t, _ = warp2d_kernel_np(spec, t, d, seg, edge)
+    return t
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", [(8, 12), (8, 32), (1, 16), (3, 9), (2, 20)])
+def test_warp2d_kernel_split_bitwise(m, depth, edge):
+    """A depth no instance has: consecutive launches, bit for bit one
+    depth-``depth`` plain sweep."""
+    assert len(sk.sweep2d_launches(m, depth)) > 1
+    spec = tst.make("2d9p")
+    t = _t(2 * depth + 3, 5, m, seed=depth + m, vl=8)
+    got = warp2d_chain_np(spec, t, depth, L, edge)
+    if edge == "periodic":
+        want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+    else:
+        want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1, edge == "ring")
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+# the reference tuner's deep plans (k = 4, ttile = 2 and 4) on the JAX
+# package's Pallas kernel in interpret mode: 2d5p (64, 256) at vl=8, m=8,
+# t0 = 16 (rtol = atol = 2e-6, as above)
+@pytest.mark.parametrize("k,ttile", [(4, 2), (4, 4)])
+def test_deep_sweep_matches_pallas(k, ttile):
+    """Against the port's ``stencil_nd_sweep_ttile`` (its plain version on
+    the CPU) and the launches ``sweep2d_launches`` names, transcribed."""
+    spec, jspec = tst.make("2d5p"), jst.make("2d5p")
+    t = _t(64, 4, 8, seed=k * ttile, vl=8)
+    want = np.asarray(jsk.stencil_nd_sweep_ttile(jspec, jnp.asarray(t), k, ttile, 16,
+                                                 interpret=True))
+    port = sk.stencil_nd_sweep_ttile(spec, torch.from_numpy(t), k, ttile, 16).numpy()
+    np.testing.assert_allclose(port, want, rtol=2e-6, atol=2e-6)
+    np.testing.assert_array_equal(warp2d_chain_np(spec, t, k * ttile, 16), port)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("k", [8, 16])
+def test_deep_multistep_matches_pallas(k, edge_mask):
+    """K4b at k = 8 and 16: the ring over the whole array, open ends at k·r
+    or more rows from them (ROADMAP C)."""
+    spec, jspec = tst.make("2d5p"), jst.make("2d5p")
+    t = _t(64, 4, 8, seed=k + edge_mask, vl=8)
+    want = np.asarray(jsk.stencil_nd_multistep(jspec, jnp.asarray(t), k, 16, interpret=True,
+                                               edge_mask=edge_mask))
+    port = sk.stencil_nd_multistep(spec, torch.from_numpy(t), k, 16, edge_mask).numpy()
+    width = 0 if edge_mask else k * spec.r
+    np.testing.assert_allclose(port[width:64 - width], want[width:64 - width],
+                               rtol=2e-6, atol=2e-6)
+    got = warp2d_chain_np(spec, t, k, 16, "ring" if edge_mask else "open")
+    np.testing.assert_array_equal(got, port)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_chain_alternates_buffers(n):
+    """The wrappers' chain of n launches: each reads the last one's output,
+    none writes its own input, the last writes ``dst``."""
+    t, dst = torch.arange(3.0), torch.zeros(3)
+    outs = []
+
+    def launch(src, out, d):
+        assert src.data_ptr() != out.data_ptr()
+        out.copy_(src + d)
+        outs.append(out)
+    sk._chain(launch, t, dst, ((8, 1, 2),) * n)
+    assert len(outs) == n and outs[-1] is dst
+    assert torch.equal(dst, torch.arange(3.0) + 2 * n) and torch.equal(t, torch.arange(3.0))

@@ -57,9 +57,11 @@ VLS = (1, 4, 8, 16, 64, 128)     # the any-vl cases' vl (vl = 32: the cases abov
 
 
 def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
-    """The kernel's output and how often each of its elements was stored."""
+    """One launch of the kernel (a depth it has): its output and how often
+    each of its elements was stored."""
     n0, n1, nb, m_layout, vl = t.shape
     assert sk.sweep3d_route(vl, m_layout, depth, spec.r) == "stream"
+    assert sk.sweep3d_launches(m_layout, depth) == (sk.sub_columns(m_layout) + (depth,),)
     order = sk.sweep3d_order(spec)
     m, g = sk.sub_columns(m_layout)            # m: the instance's M from here on
     Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
@@ -348,8 +350,8 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (32, 8, 4, 1, "stream"),      # the main path: 3d7p at 512³, k=2, ttile=2
     (32, 8, 2, 1, "stream"),
     (32, 8, 1, 1, "stream"),
-    (32, 8, 5, 1, "smem"),        # past the deepest instance
-    (32, 8, 8, 1, "smem"),
+    (32, 8, 5, 1, "stream"),      # past the deepest instance: consecutive launches
+    (32, 8, 8, 1, "stream"),
     (32, 4, 4, 1, "stream"),
     (32, 2, 3, 1, "stream"),
     (32, 1, 4, 1, "stream"),
@@ -365,16 +367,18 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (8, 16, 4, 1, "stream"),      # m = 16: sub-columns of 8 (the tuner's pair (8, 16))
     (128, 16, 2, 1, "stream"),
     (8, 5, 2, 1, "stream"),       # odd m: sub-columns of 1
-    (8, 8, 5, 1, "smem"),         # past the deepest instance
-    (128, 4, 5, 1, "smem"),
+    (8, 8, 5, 1, "stream"),       # past the deepest instance: consecutive launches
+    (128, 4, 5, 1, "stream"),
     (8, 8, 2, 2, "smem"),         # beyond the kernel's reach
     (128, 4, 1, 2, "smem"),
     (32, 3, 2, 1, "stream"),      # m = 3 on the instance M = 1
     (32, 16, 2, 1, "stream"),
     (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
     (16, 32, 4, 1, "stream"),     # the tuner's pair (16, 32): sub-columns of 8
-    (8, 16, 5, 1, "smem"),        # m = 16 past the deepest instance
-    (16, 32, 8, 1, "smem"),       # the K3-smem 3-D row's depth
+    (8, 16, 5, 1, "stream"),      # m = 16 past the deepest instance
+    (16, 32, 8, 1, "stream"),     # the former K3-smem 3-D row's depth
+    (8, 8, 16, 1, "stream"),      # the reference tuner's deepest plan (k=4, ttile=4)
+    (8, 8, 32, 1, "stream"),      # ROADMAP D2's depth: eight launches
     (8, 16, 2, 2, "smem"),        # m = 16 beyond the kernel's reach
     (4, 6, 1, 2, "smem"),
     (8, 0, 2, 1, "smem"),         # no column
@@ -394,9 +398,10 @@ def test_sweep3d_route(vl, m, depth, r, route):
 ])
 def test_sweep3d_tile(m, depth, order, tile):
     assert sk.sweep3d_tile(m, depth, order) == tile
-    ty, cx, _, _ = tile
+    ty, cx, _, hy = tile
     planes = sk.sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
     assert ty * cx <= sk.SWEEP3D_THREADS
+    assert ty > 2 * hy
     assert planes * m * (ty * cx + 2 * (cx + 1)) * 4 <= sk.SWEEP3D_SMEM
 
 
@@ -443,6 +448,31 @@ def test_sweep3d_segment_sub_columns(n0, n1, nb, vl, m, depth, seg):
     assert sk.sweep3d_segment(n0, n1, nb * vl * g, big, depth, "star", 132) == seg
 
 
+@pytest.mark.parametrize("m,depth,launches", [
+    (8, 4, ((8, 1, 4),)),                     # the main path's depth
+    (8, 8, ((8, 1, 4), (8, 1, 4))),           # the tuner's k=4, ttile=2: two launches
+    (8, 16, ((8, 1, 4),) * 4),                # k=4, ttile=4
+    (8, 32, ((8, 1, 4),) * 8),                # ROADMAP D2's depth
+    (8, 6, ((8, 1, 4), (8, 1, 2))),
+    (16, 8, ((8, 2, 4), (8, 2, 4))),
+    (3, 5, ((1, 3, 4), (1, 3, 1))),
+    (2, 8, ((2, 1, 4), (2, 1, 4))),
+    (1, 3, ((1, 1, 3),)),
+    (1, 8, ((1, 1, 4), (1, 1, 4))),
+    (2, 16, ((2, 1, 4),) * 4),
+    (4, 7, ((4, 1, 4), (4, 1, 3))),
+    (6, 9, ((2, 3, 4), (2, 3, 4), (2, 3, 1))),
+    (32, 12, ((8, 4, 4),) * 3),
+    (5, 1, ((1, 5, 1),)),
+])
+def test_sweep3d_launches(m, depth, launches):
+    """Depths 1 to 4 on the largest M dividing m, deeper sweeps split (a
+    depth-8 instance at M = 1 or 2 lost to two depth-4 launches on an
+    H100)."""
+    assert sk.sweep3d_launches(m, depth) == launches
+    assert sum(d for _, _, d in launches) == depth
+
+
 def test_sweep3d_order():
     assert sk.sweep3d_order(tst.make("3d7p")) == "star"
     assert sk.sweep3d_order(tst.make("3d27p")) == "box"
@@ -461,3 +491,89 @@ def test_cpu_wrapper_counts_no_route():
     assert torch.equal(multi, sk.stencil_nd_multistep_ref(spec, t, 2, 4, True))
     assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, 2, 4, False))
     assert {"sweep_3d", "sweep_nd", "multistep_3d", "multistep_nd"} <= set(sk.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# deep sweeps: the split into consecutive launches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("name", ["3d7p", "3d27p"])
+@pytest.mark.parametrize("m", [8, 2, 3, 6])
+def test_sweep3d_kernel_deep_bitwise(m, name, edge):
+    """Depth 8 (the reference tuner's k=4, ttile=2) as two depth-4 launches
+    on the instance M of ``m`` (8, 2, 1, 2), on a grid of more rows than a
+    tile stores and several column tiles, bit for bit the plain versions,
+    every element stored once a launch."""
+    spec = tst.make(name)
+    big, g = sk.sub_columns(m)
+    assert sk.sweep3d_launches(m, 8) == ((big, g, 4),) * 2
+    ty, _, _, hy = sk.sweep3d_tile(big, 4, sk.sweep3d_order(spec))
+    for n0, n1, c in ((2, 3, 5), (2 * S + 3, ty - 2 * hy + 3, 40)):
+        nb = -(-c // (8 * g))
+        t = _t(n0, n1, nb, m, seed=n0 + n1 + nb + m + big, vl=8)
+        got = t
+        for _ in range(2):
+            got, stored = sweep3d_kernel_np(spec, got, 4, S, edge)
+            np.testing.assert_array_equal(stored, np.ones(t.shape, dtype=np.int64))
+        assert np.isfinite(got).all()
+        tt = torch.from_numpy(t)
+        want = sk.stencil_nd_sweep_ttile_ref(spec, tt, 8, 1, 1) if edge == "periodic" else \
+            sk.stencil_nd_multistep_ref(spec, tt, 8, 1, edge == "ring")
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{n0} {n1} {nb}")
+
+
+def sweep3d_chain_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
+    """The launches ``sweep3d_launches`` names, one after another (the
+    wrapper's chain through a scratch buffer)."""
+    for _, _, d in sk.sweep3d_launches(t.shape[3], depth):
+        t, _ = sweep3d_kernel_np(spec, t, d, seg, edge)
+    return t
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("m,depth", [(8, 8), (8, 16), (3, 6)])
+def test_sweep3d_kernel_split_bitwise(m, depth, edge):
+    """Past depth 4: consecutive launches, bit for bit one depth-``depth``
+    plain sweep (n0 below and above 2·depth)."""
+    spec = tst.make("3d7p")
+    for n0 in (2 * S, 2 * depth + 1):
+        t = _t(n0, 5, 2, m, seed=depth + m + n0, vl=8)
+        got = sweep3d_chain_np(spec, t, depth, S, edge)
+        tt = torch.from_numpy(t)
+        want = sk.stencil_nd_sweep_ttile_ref(spec, tt, depth, 1, 1) if edge == "periodic" else \
+            sk.stencil_nd_multistep_ref(spec, tt, depth, 1, edge == "ring")
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+# the reference tuner's deep plans (k = 4, ttile = 2 and 4) on the JAX
+# package's Pallas kernel in interpret mode: 3d7p (32, 16, 64) at vl=8,
+# m=8, t0 = 16 (rtol = atol = 2e-6, as above)
+@pytest.mark.parametrize("k,ttile", [(4, 2), (4, 4)])
+def test_deep_sweep_matches_pallas(k, ttile):
+    """Against the port's ``stencil_nd_sweep_ttile`` (its plain version on
+    the CPU) and the launches ``sweep3d_launches`` names, transcribed."""
+    spec, jspec = tst.make("3d7p"), jst.make("3d7p")
+    t = _t(32, 16, 1, 8, seed=k * ttile, vl=8)
+    want = np.asarray(jsk.stencil_nd_sweep_ttile(jspec, jnp.asarray(t), k, ttile, 16,
+                                                 interpret=True))
+    port = sk.stencil_nd_sweep_ttile(spec, torch.from_numpy(t), k, ttile, 16).numpy()
+    np.testing.assert_allclose(port, want, rtol=2e-6, atol=2e-6)
+    np.testing.assert_array_equal(sweep3d_chain_np(spec, t, k * ttile, 8), port)
+
+
+@pytest.mark.parametrize("edge_mask", [True, False])
+@pytest.mark.parametrize("k", [8, 16])
+def test_deep_multistep_matches_pallas(k, edge_mask):
+    """K4b at k = 8 and 16: the ring over the whole array, open ends at k·r
+    or more planes from them (ROADMAP C)."""
+    spec, jspec = tst.make("3d7p"), jst.make("3d7p")
+    t = _t(32, 16, 1, 8, seed=k + edge_mask, vl=8)
+    want = np.asarray(jsk.stencil_nd_multistep(jspec, jnp.asarray(t), k, 16, interpret=True,
+                                               edge_mask=edge_mask))
+    port = sk.stencil_nd_multistep(spec, torch.from_numpy(t), k, 16, edge_mask).numpy()
+    width = 0 if edge_mask else k * spec.r
+    np.testing.assert_allclose(port[width:32 - width], want[width:32 - width],
+                               rtol=2e-6, atol=2e-6)
+    edge = "ring" if edge_mask else "open"
+    np.testing.assert_array_equal(sweep3d_chain_np(spec, t, k, 8, edge), port)

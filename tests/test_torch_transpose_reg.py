@@ -1,20 +1,22 @@
-"""K2's register kernel (``csrc/transpose.cu``, ``transpose_reg``)
-transcribed into numpy and held bit for bit against the plain versions
-``block_transpose_ref`` / ``block_untranspose_ref``, and the route that
-picks it.
+"""K2's register kernel (``csrc/transpose.cu``: ``transpose_reg`` and
+``transpose_any``) transcribed into numpy and held bit for bit against the
+plain versions ``block_transpose_ref`` / ``block_untranspose_ref``, and the
+route that picks it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
-address map: CTAs of ``kRegThreads`` threads, one column per thread (at
-m = 16, 32: one sub-column of M = 8, G = m / 8 to a column), the guard on
-the last CTA, the natural side moved in chunks of ``chunk_elems`` elements
-(each chunk aligned to its own size), and the layout side's row addresses
-``(((g >> lv) * G + h) * M + s) << lv | g & mask`` (sub-column h of column
-g; G = 1, h = 0 at m <= 8).
-Every instance of the register route (vl a power of two from 4 to 128,
-m = 1..8, 16 and 32, elements of 2, 4 and 8 bytes, both directions,
-leading axes)
-must read each element once and write each once, to the position the plain
-version gives.  Inputs are random integer bits, so "equal" is bit for bit.
+address map: CTAs of ``kRegThreads`` threads, one sub-column of M
+elements per thread (M the largest of 1..8 dividing m, G = m / M
+sub-columns to a column: G = 1 at m <= 8), the guard on the last CTA, the
+natural side moved in chunks of ``chunk_elems`` elements (each chunk
+aligned to its own size), and the layout side's row addresses
+``((g / vl) * G + h) * M + s) * vl + g % vl`` (sub-column h of column g):
+in ``transpose_reg`` (vl a power of two, m in 1..8, 16, 32) by shifts and
+masks, ``(((g >> lv) * G + h) * M + s) << lv | g & mask``; in
+``transpose_any`` (every other vl >= 4 and m) by one division by G and one
+by vl.  Every instance of the register route (vl from 4, powers of two and
+not, m = 1..8, 16, 32 and off them, elements of 2, 4 and 8 bytes, both
+directions, leading axes) must read each element once and write each once,
+to the position the plain version gives.  Inputs are random integer bits, so "equal" is bit for bit.
 One case is also held against the JAX package's Pallas kernel in
 interpret mode.
 """
@@ -41,21 +43,29 @@ def chunk_elems(itemsize: int, m: int) -> int:
 def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bool = True):
     """The kernel on the flat array ``src``: its output and how often each
     element was read and written."""
-    assert sk.transpose_route(vl, m, src.itemsize) == "reg"
+    assert sk.transpose_route(vl, m, src.itemsize, src.size) == "reg"
     ncols = src.size // m
-    lv = vl.bit_length() - 1
-    assert 1 << lv == vl and ncols % vl == 0
-    mask = vl - 1
-    big, sub = (8, m // 8) if m > 8 else (m, 1)     # the instance's M and G
-    lg = sub.bit_length() - 1
+    assert ncols % vl == 0
+    big, sub = sk.transpose_sub(m)              # the instance's M and G
     kvec = chunk_elems(src.itemsize, big) if aligned else 1
     nsub = ncols * sub
     ctas = -(-nsub // REG_THREADS)
     u = np.arange(ctas * REG_THREADS)           # one thread per sub-column
     u = u[u < nsub]                             # the guard
-    g, h = u >> lg, u & (sub - 1)
     natural = u * big
-    row0 = ((((g >> lv) * sub + h) * big) << lv) + (g & mask)
+    if vl & (vl - 1) == 0 and m in sk.TRANSPOSE_M:      # transpose_reg: shifts
+        lv, lg = vl.bit_length() - 1, sub.bit_length() - 1
+        assert 1 << lg == sub
+        g, h = u >> lg, u & (sub - 1)
+        row0 = ((((g >> lv) * sub + h) * big) << lv) + (g & (vl - 1))
+    else:                                       # transpose_any: 32-bit divisions
+        assert nsub < sk.TRANSPOSE_MAX_SUB
+        u32 = u.astype(np.uint32)
+        g = u32 // np.uint32(sub)
+        h = u32 - g * np.uint32(sub)
+        q = g // np.uint32(vl)
+        rem = g - q * np.uint32(vl)
+        row0 = (q.astype(np.int64) * sub + h) * big * vl + rem
     m = big                                     # elements a thread moves
     out = np.zeros_like(src)
     reads = np.zeros(src.size, np.int64)
@@ -69,12 +79,12 @@ def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bo
                 np.add.at(reads, at + e, 1)
                 v.append(src[at + e])
         for s in range(m):
-            np.add.at(writes, row0 + (s << lv), 1)
-            out[row0 + (s << lv)] = v[s]
+            np.add.at(writes, row0 + s * vl, 1)
+            out[row0 + s * vl] = v[s]
     else:
         for s in range(m):
-            np.add.at(reads, row0 + (s << lv), 1)
-            v.append(src[row0 + (s << lv)])
+            np.add.at(reads, row0 + s * vl, 1)
+            v.append(src[row0 + s * vl])
         for c in range(m // kvec):
             at = natural + c * kvec
             assert (at % kvec == 0).all()
@@ -134,8 +144,35 @@ def test_reg_kernel_unaligned_pointer_new_m(vl, m, itemsize):
     _check(x, vl, m, aligned=False)
 
 
+# transpose_any: vl off the powers of two (and 256, a shift above 128) x
+# m off 1..8, 16, 32 (m = G * M: 3 and 5 at G = 1, 9 = 3 * 3, 12 = 2 * 6,
+# 24 = 4 * 6 and 25 = 5 * 5, the reference picker's _fit_m, 64 = 8 * 8)
+ANY_VLS = (4, 5, 8, 96, 256)
+ANY_MS = (3, 5, 9, 12, 24, 25, 64)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("m", ANY_MS)
+@pytest.mark.parametrize("vl", ANY_VLS)
+def test_reg_kernel_any_address_map(vl, m, itemsize):
+    """Every (vl, m) of the any-vl, any-m map, both directions: 3 blocks
+    and a leading axis of 2, the last CTA partial."""
+    x = _bits((2, 3 * vl * m), itemsize, seed=vl * 64 + m * 8 + itemsize)
+    _check(x, vl, m)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("vl,m", [(96, 8), (8, 12), (5, 24), (256, 25)])
+def test_reg_kernel_any_unaligned_pointer(vl, m, itemsize):
+    """The element-wise instances of transpose_any, over more than one
+    CTA."""
+    x = _bits((2, 7 * vl * m), itemsize, seed=itemsize + m)
+    _check(x, vl, m, aligned=False)
+
+
 @pytest.mark.parametrize("vl,m,nb", [(32, 8, 3), (8, 5, 7), (128, 8, 2), (8, 16, 3),
-                                     (16, 32, 2)])
+                                     (16, 32, 2), (96, 8, 2), (8, 12, 3), (8, 25, 5),
+                                     (256, 8, 1), (5, 24, 2)])
 def test_reg_kernel_matches_pallas(vl, m, nb):
     x = np.random.default_rng(nb).standard_normal(nb * vl * m).astype(np.float32)
     want = np.asarray(jsk.block_transpose(jnp.asarray(x), vl, m, interpret=True))
@@ -153,22 +190,43 @@ def test_reg_kernel_matches_pallas(vl, m, nb):
     (8, 5, 8, "reg"),           # the picker's odd-m tiles off vl = 32
     (16, 3, 4, "reg"),
     (64, 7, 2, "reg"),
-    (8, 25, 4, "smem"),         # m > 8 and not 16 or 32
+    (8, 25, 4, "reg"),          # m > 8 and not 16 or 32: sub-columns of 5
     (32, 16, 4, "reg"),         # m = 16, 32: the tuner's pairs (8, 16), (16, 32)
     (8, 16, 2, "reg"),
     (16, 32, 8, "reg"),
-    (8, 12, 4, "smem"),
-    (16, 64, 4, "smem"),
-    (12, 16, 4, "smem"),        # vl not a power of two
-    (256, 8, 4, "smem"),        # the K2-smem row's tile (vl above 128)
-    (3, 5, 4, "smem"),          # vl not a power of two
-    (2, 4, 4, "smem"),          # vl below 4
-    (256, 2, 4, "smem"),        # vl above 128
+    (8, 12, 4, "reg"),          # sub-columns of 6
+    (16, 64, 4, "reg"),         # sub-columns of 8
+    (12, 16, 4, "reg"),         # vl not a power of two
+    (96, 8, 4, "reg"),
+    (256, 8, 4, "reg"),         # the former K2-smem row's tile (vl above 128)
+    (3, 5, 4, "smem"),          # vl below 4
+    (2, 4, 4, "smem"),
+    (1, 8, 8, "smem"),
+    (256, 2, 4, "reg"),
     (32, 8, 1, "smem"),         # no 1-byte instance
     (32, 0, 4, "smem"),
 ])
 def test_transpose_route(vl, m, itemsize, route):
     assert sk.transpose_route(vl, m, itemsize) == route
+
+
+@pytest.mark.parametrize("vl,m,numel,route", [
+    (96, 8, (1 << 31) * 8 - 8 * 96, "reg"),    # just under 2^31 sub-columns of 8
+    (96, 8, (1 << 31) * 8, "smem"),            # transpose_any's 32-bit index
+    (8, 25, (1 << 31) * 5, "smem"),
+    (8, 8, 1 << 40, "reg"),                    # transpose_reg's 64-bit index
+    (8, 16, 1 << 40, "reg"),
+])
+def test_transpose_route_sub_column_limit(vl, m, numel, route):
+    assert sk.transpose_route(vl, m, 4, numel) == route
+
+
+@pytest.mark.parametrize("m,split", [(1, (1, 1)), (7, (7, 1)), (8, (8, 1)), (9, (3, 3)),
+                                     (12, (6, 2)), (16, (8, 2)), (24, (6, 4)), (25, (5, 5)),
+                                     (32, (8, 4)), (64, (8, 8)), (11, (1, 11)), (49, (7, 7)),
+                                     (40, (5, 8)), (20, (5, 4)), (48, (6, 8)), (18, (6, 3))])
+def test_transpose_sub(m, split):
+    assert sk.transpose_sub(m) == split
 
 
 def test_cpu_wrapper_counts_no_route():

@@ -2,7 +2,8 @@
 """Time the 1-D, 2-D and 3-D paths' kernels and K6 of one source tree of
 the port, to hold two trees against each other on one CUDA card.
 
-    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--only stencils|3d|k2|k6]
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME]
+                               [--only stencils|3d|deep|k2|k6]
                                [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
@@ -44,7 +45,18 @@ each tile; then the Dirichlet run ``ops.stencil_run`` of 512³, 16 steps,
 at the picker's tile, as above.
 
 K2 alone (``--only k2``): ``block_transpose`` / ``block_untranspose`` on
-2**26 elements and on 512³ at every tile, as in the 1-D group.
+2**26 elements (3·2**24 where vl·m does not divide 2**26: vl=96, m=12,
+24) and on 512³ at every tile, as in the 1-D group.
+
+The deep plans (``--only deep``), at each tile: K3 at depths 8 and 16 on
+2d5p 8192² and 3d7p 512³; on their padded shapes (8256 × 8192, 544 ×
+512²) K3 and K4b (open and ring) at depths 4 and 8, so that K4b is timed
+beside K3 on the same grid; and the resident run of 16 steps at the
+depth-4 plan (k=2, ttile=2) and the reference tuner's deep plans (k=4,
+ttile=2 and 4: one sweep chunk of depth 8 or 16), each held against the
+plain versions, then timed with CUDA events in turns (one run of each
+plan a turn, 9 turns; the median and every turn's time).  A tree whose
+route raises at a depth prints the error in place of a time.
 
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
@@ -81,7 +93,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
-    parser.add_argument("--only", choices=("stencils", "3d", "k2", "k6"), default=None)
+    parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6"),
+                        default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
     parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
@@ -104,6 +117,8 @@ def main() -> int:
         stencil3d_rows(args.label, dev, tiles)
     if args.only == "k2":
         k2_rows(args.label, dev, tiles)
+    if args.only == "deep":
+        deep_rows(args.label, dev, tiles)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -122,12 +137,13 @@ def k2_rows(label: str, dev, tiles) -> None:
     from repro_torch.kernels import stencil_kernels as sk
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    for shape, what in (((N1,), "2^26"), ((512, 512, 512), "512^3")):
+    for shape, what in (((N1,), "2^26"), ((N1 // 4 * 3,), "3*2^24"), ((512, 512, 512), "512^3")):
         x = torch.randn(shape, generator=gen, device=dev)
         for vl, m in tiles:
             tile = f"vl={vl} m={m}"
-            if shape[-1] % (vl * m):
-                _skip(label, what, tile)
+            if shape[-1] % (vl * m) or (what == "3*2^24" and N1 % (vl * m) == 0):
+                if what != "3*2^24":
+                    _skip(label, what, tile)
                 continue
             t = sk.block_transpose_ref(x, vl, m)
             buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
@@ -317,6 +333,109 @@ def stencil3d_rows(label: str, dev, tiles) -> None:
     del xp, xb
     dirichlet_row(label, spec, x)
     torch.cuda.empty_cache()
+
+
+def _or_raises(label, what, fn) -> None:
+    """``fn()``, or a row with the ValueError the tree raises there."""
+    try:
+        fn()
+    except ValueError as err:
+        print(json.dumps({"tree": label, "kernel": what, "raises": str(err)}), flush=True)
+
+
+def _event_turns(label, what, runs, want, turns=9) -> None:
+    """Each of ``runs`` (name → ``run()``) held bit for bit against
+    ``want``, then timed with CUDA events in turns: one run of each a turn,
+    ``turns`` turns; a row per run with the median and every turn's ms.  A
+    run whose route raises prints the error instead."""
+    import torch
+    ok = {}
+    for name, run in runs.items():
+        try:
+            got = run()
+        except ValueError as err:
+            print(json.dumps({"tree": label, "run": f"{what} {name}", "raises": str(err)}),
+                  flush=True)
+            continue
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label} {what} {name}: differs from the plain version")
+        ok[name] = run
+    times = {name: [] for name in ok}
+    for _ in range(turns):
+        for name, run in ok.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    for name, ms in times.items():
+        print(json.dumps({"tree": label, "run": f"{what} {name}",
+                          "ms_events_median": statistics.median(ms), "ms_turns": ms}),
+              flush=True)
+
+
+def deep_rows(label: str, dev, tiles) -> None:
+    """K3 at depths 8, 16 (2d5p 8192², 3d7p 512³), K3 and K4b at depths 4
+    and 8 on the padded shapes, and the resident runs at k=2, ttile=2 and
+    k=4, ttile=2 and 4 in turns."""
+    import torch
+
+    from repro_torch.core import stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem
+    from repro_torch.kernels import stencil_kernels as sk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, shape, t0 in (("2d5p", (N2, N2), 32), ("3d7p", (512, 512, 512), 16)):
+        spec = stencils.make(name)
+        what = "x".join(map(str, shape))
+        x = torch.randn(shape, generator=gen, device=dev)
+        xp = torch.randn((shape[0] + 2 * t0,) + shape[1:], generator=gen, device=dev)
+        for vl, m in tiles:
+            tile = f"vl={vl} m={m}"
+            if shape[-1] % (vl * m):
+                _skip(label, f"{name} {what}", tile)
+                continue
+            t = sk.block_transpose_ref(x, vl, m)
+            buf = torch.empty_like(t)
+            for depth in (8, 16):
+                _or_raises(label, f"K3 {name} {what} depth={depth} {tile}", lambda: _row(
+                    label, dev, f"K3 {name} {what} depth={depth} {tile}",
+                    lambda: sk.stencil_nd_sweep_ttile(spec, t, 4, depth // 4, t0, out=buf),
+                    lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, 4, depth // 4, t0)))
+            del t, buf
+            tp = sk.block_transpose_ref(xp, vl, m)
+            buf = torch.empty_like(tp)
+            for depth in (4, 8):
+                kname = f"K3 {name} padded periodic depth={depth} {tile}"
+                _or_raises(label, kname, lambda: _row(
+                    label, dev, kname,
+                    lambda: sk.stencil_nd_sweep_ttile(spec, tp, depth, 1, t0, out=buf),
+                    lambda: sk.stencil_nd_sweep_ttile_ref(spec, tp, depth, 1, t0)))
+                for edge_mask in (False, True):
+                    kname = (f"K4b {name} padded {'ring' if edge_mask else 'open'} "
+                             f"depth={depth} {tile}")
+                    _or_raises(label, kname, lambda: _row(
+                        label, dev, kname,
+                        lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=buf),
+                        lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask)))
+            del tp, buf
+            prob = StencilProblem(name, shape)
+            want = sk.block_transpose_ref(x, vl, m)
+            for _ in range(16):
+                want = sk.stencil_nd_sweep_ttile_ref(spec, want, 1, 1, t0)
+            want = sk.block_untranspose_ref(want, vl, m)
+            plans = {f"k={k} ttile={tt}": StencilPlan(backend="pallas", sweep="resident", k=k,
+                                                      ttile=tt, remainder="fused", vl=vl, m=m)
+                     for k, tt in ((2, 2), (4, 2), (4, 4))}
+            _event_turns(label, f"{name} {what} resident fused 16 {tile}",
+                         {key: (lambda plan=plan: prob.run(x, 16, plan))
+                          for key, plan in plans.items()}, want)
+            del want
+            torch.cuda.empty_cache()
+        del x, xp
+        torch.cuda.empty_cache()
 
 
 def k6_rows(label: str, dev) -> None:

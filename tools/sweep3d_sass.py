@@ -8,8 +8,10 @@ arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
     python3 tools/sweep3d_sass.py [--source NAME] [--lib PATH] [--label NAME]
                                   [--base PATH]
 
-``--source`` is ``sweep3d`` (the default), ``sweep2d_warp`` or
-``sweep1d_warp``; its kernel is ``<source>_f32``.  ``--lib`` is a built
+``--source`` is ``sweep3d`` (the default), ``sweep2d_warp``,
+``sweep1d_warp`` (kernel ``<source>_f32``) or ``transpose`` (K2's
+``transpose_reg``, its instances named <element bytes, M, G, vec,
+to_layout>).  ``--lib`` is a built
 library of that source (by default this checkout's, built if missing).  An
 instance is named by its template arguments, for ``sweep3d`` <M, D, order,
 ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older than the
@@ -53,8 +55,12 @@ def sass_counts(lib: str, kernel: str) -> dict:
             name = found.group(1)
             fun = None
             if kernel in name:
-                fun = "<" + ", ".join(re.findall(r"L[ib](\d+)E",
-                                                 name.split(kernel, 1)[1])) + ">"
+                rest = name.split(kernel, 1)[1]
+                args = re.findall(r"L[ib](\d+)E", rest)
+                typ = re.match(r"I([tjy])", rest)
+                if typ:
+                    args = [{"t": "2B", "j": "4B", "y": "8B"}[typ.group(1)]] + args
+                fun = "<" + ", ".join(args) + ">"
                 counts[fun] = collections.Counter()
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -69,13 +75,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--source", default="sweep3d",
-                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp"))
+                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp", "transpose"))
     parser.add_argument("--lib", default=None)
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--base", default=None, help="a library to compare with")
     args = parser.parse_args()
     lib = args.lib
-    kernel = f"{args.source}_f32"
+    kernel = "transpose_reg" if args.source == "transpose" else f"{args.source}_f32"
     if lib is None:
         build.load(args.source)
         lib = str(build.build_dir() / f"{args.source}.so")
