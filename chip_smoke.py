@@ -8,23 +8,25 @@ exit code.  Every path is driven with the launch counters set to 0 just
 before it and read just after; each path must launch exactly the kernels
 its schedule implies (every counter is compared, so a stray launch fails
 too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
-``init(seed)``, GPU default tile).
+``init(seed)``, GPU default tile), then the same in bfloat16.
 
   build      builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, started together) and reports the time,
-             and the registers, spills and stack per instance of K2's
-             register kernel ``transpose_reg`` / ``transpose_any`` and of
-             the warp kernels
-             (K1's and K4a's ``sweep1d_warp_f32``, the 2-D K3's and K4b's
-             ``sweep2d_warp_f32``: ``ends`` 0 the periodic K3's instances,
-             1 K4b's ring and open ones; ``vl`` 32 the instances of vl=32,
-             0 those of every other vl; the 3-D K3's and K4b's
-             ``sweep3d_f32 <M, D, order, ends, vl>`` with each instance's
-             threads and dynamic shared memory), with the instance counts
-             (``sweep3d_f32`` by vl) and each nvcc's seconds,
-             and of K6's ``ssd_state <T>`` and ``ssd_out <T, PT>`` with
-             their dynamic shared memory (a K6 or ``sweep3d_f32`` instance
-             that spills fails);
+             (one nvcc per source, started together: the register sweep
+             kernels' float and bfloat16 entry points are sources of their
+             own) and reports the time, and the registers, spills and stack
+             per instance of K2's register kernel ``transpose_reg`` /
+             ``transpose_any`` (``wide`` 1: past 2^31 sub-columns) /
+             ``transpose_small`` (vl < 4) and of the warp kernels
+             (K1's and K4a's ``sweep1d_warp <T, ...>``, the 2-D K3's and
+             K4b's ``sweep2d_warp <T, ...>``: ``ends`` 0 the periodic K3's
+             instances, 1 K4b's ring and open ones; ``vl`` 32 the instances
+             of vl=32 (float32 only), 0 those of every other vl; the 3-D
+             K3's and K4b's ``sweep3d <T, M, D, order, ends, vl>`` with each
+             instance's threads and dynamic shared memory), with the
+             instance counts by dtype (``sweep3d`` also by vl) and each
+             nvcc's seconds, and of K6's ``ssd_state <T>`` and ``ssd_out
+             <T, PT>`` with their dynamic shared memory (a K6 or ``sweep3d``
+             instance that spills fails);
   main_path  ``StencilProblem.run(x, steps, plan)`` under two resident plans
              (k=2, ttile=2: fused 16 steps, native 7): K2 in and out, K1/K3
              per sweep; the result equals the port's plain path bit for bit;
@@ -68,8 +70,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              also at vl=8, m=8, vl=128, m=4 and vl=8, m=16
              (``multistep_3d``), each equal to the run at the case's tile;
   onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
-             (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, bit
-             for bit the periodic oracle;
+             (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, in
+             float32 and bfloat16, bit for bit the periodic oracle;
   kernels    at those paths' shapes, each kernel against its plain PyTorch
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
@@ -90,15 +92,26 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
              K2 in both directions at the tile of every counted run, each
-             on its register route (``transpose``, asserted), and bit for
-             bit at 2- and 8-byte elements; 1d3p K2 also at tiles no
+             on its register route (``transpose``, its one route), and bit
+             for bit at 2- and 8-byte elements; 1d3p K2 also at tiles no
              counted run reaches: vl=256, m=8 at 2**26 and vl=96, m=8,
-             vl=8, m=12 and 24 at 3·2**24 (the register route's run-time G
-             and vl), and K2-smem (its shared-memory route) at vl=2, m=8;
-             each row names its route and source;
+             vl=8, m=12 and 24 at 3·2**24 (the register kernel's run-time
+             G and vl), and vl=2, m=8 (``transpose_small``); each row names
+             its route and source;
              a K2 row counts the launches of the case's runs at its own
              tile, a K1 or K3 row those of its route in the case's runs
              (``launches``) and at its own tile (``launches_at_tile``);
+  small_vl   2d5p at 8192x8190, whose picker tile is vl=2, m=7: the
+             resident fused run counted (K2 on ``transpose_small``, K3 on
+             the 2-D warp kernel at sub-columns of 1), bit for bit its plain
+             path, and its K2 rows in float32 and (uncounted) bfloat16;
+  bf16       each case in bfloat16: the resident fused run, a roundtrip
+             and a Dirichlet run, each counted and bit for bit the port's
+             plain path (the roundtrip the resident run); K1 / K3 rows at
+             depths 4, 2, 1 at the case's tile and at depth 4 at vl=64, m=8
+             (a 128-byte bfloat16 layout row), K4 at depth 2 open and ring,
+             each on the bfloat16 sources, bounds at 2-byte elements,
+             library calls in bfloat16;
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
              1d5p 96, 2d5p 64x48, 3d7p 16x8x16 and 12x8x80) at the tile the
              GPU picker chooses (vl 8 or 16, odd m): ``StencilProblem.run``
@@ -144,7 +157,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              step, peak memory, and (``torch.profiler``) kernels per decode
              step and the device's idle share.
 
-Then the ``kernels`` summary line, the card's name and power limit as
+Then the whole run's and the build's seconds (``total``), the ``kernels``
+summary line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
@@ -190,10 +204,16 @@ DEEP_TILES = {2: ((32, 8), (8, 8), (32, 2)), 3: ((32, 8), (8, 8))}
 # sub-columns of 1 (the picker's odd-m tiles at a grid of 2^26 points)
 ODD_CASES = {1: ((3 << 24,), (8, 3)), 2: ((8192, 6144), (16, 3))}
 # (grid, (vl, m)): 1d3p K2 at tiles no counted run reaches: vl=256 (a power
-# of two above 128), vl=96 and m = 12, 24 (run-time G and vl),
-# and K2-smem (its shared-memory route, vl below 4)
+# of two above 128), vl=96 and m = 12, 24 (run-time G and vl), and vl=2
+# (transpose_small, where the retired shared-memory kernel took 0.3030 ms)
 K2_EXTRA = (((1 << 26,), (256, 8)), ((3 << 24,), (96, 8)), ((3 << 24,), (8, 12)),
             ((3 << 24,), (8, 24)), ((1 << 26,), (2, 8)))
+# a grid on which the picker's tile has vl < 4 (vl=2, m=7): the resident
+# fused run counted in float32, with its K2 rows
+SMALL_VL_CASE = ("2d5p", (8192, 8190))
+# bfloat16: the cases' resident fused, roundtrip and Dirichlet runs, and
+# K1 / K3 rows at the case's tile and at vl=64 (a 128-byte bfloat16 row)
+BF16_ROW_TILES = ((64, 8),)
 # the fused resident run again at other tiles, with the route each takes
 # (3-D: also the roundtrip and Dirichlet runs at these)
 OTHER_TILES = {1: ((JAX_TILE, "reg"), (TUNER_TILE, "reg"), (PAIR_TILE, "reg"),
@@ -215,6 +235,9 @@ SOURCES = {
     "sweep1d_warp": "src/repro_torch/kernels/csrc/sweep1d_warp.cu",
     "sweep2d_warp": "src/repro_torch/kernels/csrc/sweep2d_warp.cu",
     "sweep3d": "src/repro_torch/kernels/csrc/sweep3d.cu",
+    "sweep1d_warp_bf16": "src/repro_torch/kernels/csrc/sweep1d_warp_bf16.cu",
+    "sweep2d_warp_bf16": "src/repro_torch/kernels/csrc/sweep2d_warp_bf16.cu",
+    "sweep3d_bf16": "src/repro_torch/kernels/csrc/sweep3d_bf16.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
@@ -223,7 +246,6 @@ REPLACES = {
     "K1": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K1-smem": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
-    "K2-smem": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
     "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K3-smem": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
     "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
@@ -265,9 +287,13 @@ def ptxas_kernels(report: str, kernel: str) -> list:
         if found:
             name = found.group(1)
             cur = None
-            if kernel in name:
-                rest = name.split(kernel, 1)[1]
-                typ = re.match(r"I(13__nv_bfloat16|[tjyf])", rest)
+            # the kernel's mangled identifier: its length, its name, its
+            # template arguments (the anonymous namespace's name holds the
+            # file's name too)
+            ident = f"{len(kernel)}{kernel}I"
+            if ident in name:
+                rest = name.split(ident, 1)[1]
+                typ = re.match(r"(13__nv_bfloat16|[tjyf])", rest)
                 args = [MANGLED_TYPES[typ.group(1)]] if typ else []
                 args += re.findall(r"L[ib](\d+)E", rest)
                 cur = {"instance": "<" + ", ".join(args) + ">"}
@@ -614,19 +640,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gpu = gpu_line()
+    run_start = time.perf_counter()
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     reports = build.build_all()
-    warp2d = ptxas_kernels(build.report("sweep2d_warp"), "sweep2d_warp_f32")
-    sweep3d = ptxas_kernels(build.report("sweep3d"), "sweep3d_f32")
+    build_s = time.perf_counter() - t0
+    warp1d = {dt: ptxas_kernels(build.report(f"sweep1d_warp{sfx}"), "sweep1d_warp")
+              for dt, sfx in (("f32", ""), ("bf16", "_bf16"))}
+    warp2d = {dt: ptxas_kernels(build.report(f"sweep2d_warp{sfx}"), "sweep2d_warp")
+              for dt, sfx in (("f32", ""), ("bf16", "_bf16"))}
+    sweep3d = ptxas_kernels(build.report("sweep3d"), "sweep3d") + \
+        ptxas_kernels(build.report("sweep3d_bf16"), "sweep3d")
     lib3d = build.load("sweep3d")
     for entry in sweep3d:
-        m3, d3, order3, _, _ = map(int, entry["instance"][1:-1].split(", "))
+        m3, d3, order3, _, _ = map(int, entry["instance"][1:-1].split(", ")[1:])
         entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 3)
         entry["threads"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 2)
-    # m x depth x order x ends x (vl = 32's instances, any vl's)
-    want3d = len(sk.SUB_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 2
+    # m x depth x order x ends x (f32: vl = 32's instances and any vl's;
+    # bf16: any vl's)
+    want3d = len(sk.SUB_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 3
     if len(sweep3d) != want3d or any(row.get("spill_stores", 1) or row.get("spill_loads", 1)
                                      or row.get("stack_bytes", 1) for row in sweep3d):
         raise AssertionError(f"sweep3d build: spills, stack or not {want3d} instances {sweep3d}")
@@ -637,22 +670,26 @@ def main() -> int:
                if row.get("spill_stores", 1) or row.get("spill_loads", 1)]
     if spilled or not all(k6_ptxas.values()):
         raise AssertionError(f"K6 build: spills or missing instances {k6_ptxas}")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "gpu": gpu,
+    emit({"phase": "build", "seconds": build_s, "gpu": gpu,
           "nvcc_seconds": build.SECONDS,
           "dir": str(build.build_dir().relative_to(ROOT)),
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "Used" in ln]
                     for n, r in reports.items()},
           "transpose_reg <T, M, G, vec, to_layout>": ptxas_kernels(
               build.report("transpose"), "transpose_reg"),
-          "transpose_any <T, M, vec, to_layout>": ptxas_kernels(
+          "transpose_any <T, M, vec, to_layout, wide>": ptxas_kernels(
               build.report("transpose"), "transpose_any"),
-          "sweep1d_warp_f32 <M, R, B, order, edge, vl> (vl 0: any)": ptxas_kernels(
-              build.report("sweep1d_warp"), "sweep1d_warp_f32"),
-          "sweep2d_warp_f32 instances": len(warp2d),
-          "sweep2d_warp_f32 <M, R, D, order, ends, vl> (vl 0: any)": warp2d,
-          "sweep3d_f32 instances": {f"vl {v}": sum(row["instance"].endswith(f", {v}>")
-                                                   for row in sweep3d) for v in (32, 0)},
-          "sweep3d_f32 <M, D, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
+          "transpose_small <T, vl, M, natural vec, layout vec, to_layout>": ptxas_kernels(
+              build.report("transpose"), "transpose_small"),
+          "sweep1d_warp instances": {dt: len(rows) for dt, rows in warp1d.items()},
+          "sweep1d_warp <T, M, R, B, order, edge, vl> (vl 0: any)": warp1d,
+          "sweep2d_warp instances": {dt: len(rows) for dt, rows in warp2d.items()},
+          "sweep2d_warp <T, M, R, D, order, ends, vl> (vl 0: any)": warp2d,
+          "sweep3d instances": {f"{dt} vl {v}": sum(row["instance"].startswith(f"<{dt}")
+                                                    and row["instance"].endswith(f", {v}>")
+                                                    for row in sweep3d)
+                                for dt in ("f32", "bf16") for v in (32, 0)},
+          "sweep3d <T, M, D, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
               sweep3d,
           **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
@@ -724,8 +761,10 @@ def main() -> int:
         return sk.block_untranspose_ref(t, vl, m)
 
     def k2_key(vl, m):
-        """K2's counter on the route a float32 (vl, m) tile takes."""
-        return "transpose" if sk.transpose_route(vl, m, 4) == "reg" else "transpose_smem"
+        """K2's counter: its one route, the register kernel, at every tile."""
+        if sk.transpose_route(vl, m, 4) != "reg":
+            raise AssertionError(f"K2 at vl={vl}, m={m} is off its register route")
+        return "transpose"
 
     def launches_of(spec, vl, m, depth, kind="sweep"):
         """The counter and the launches of one depth-``depth`` call of K1/K3
@@ -802,17 +841,18 @@ def main() -> int:
         emit({"phase": "kernels", **entries[-1]})
 
     def k2_rows(name, dims, x, vl, m, launches, grid_bytes):
-        """K2's rows in both directions at the (vl, m) tile (K2-smem off the
-        register route); ``launches``: the case's counted runs at that tile,
-        both directions."""
+        """K2's rows in both directions at the (vl, m) tile, on its register
+        kernel (at vl < 4 the form ``transpose_small``); ``launches``: the
+        case's counted runs at that tile, both directions."""
         route = sk.transpose_route(vl, m, x.element_size())
-        kid = "K2" if route == "reg" else "K2-smem"
+        kid = "K2"
         t = sk.block_transpose(x, vl, m)
         err = max(same(f"{name} transpose vl={vl} m={m}", t, sk.block_transpose_ref(x, vl, m)),
                   same(f"{name} untranspose vl={vl} m={m}", sk.block_untranspose(t, vl, m), x))
         buf_t, buf_x = torch.empty_like(t), torch.empty_like(x)
         nb_total = x.numel() // (vl * m)
-        label = f"{name} {dims} vl={vl} m={m}; route {route}"
+        form = "transpose_small" if vl < sk.TRANSPOSE_MIN_VL else "transpose_reg/any"
+        label = f"{name} {dims} {x.dtype} vl={vl} m={m}; route {route} ({form})"
         row(kid, "block_transpose", label, "transpose", launches, err,
             lambda: sk.block_transpose(x, vl, m, out=buf_t),
             lambda: sk.block_transpose_ref(x, vl, m), bound(grid_bytes, 0),
@@ -1035,7 +1075,7 @@ def main() -> int:
                     sum(got[key] for _, _, got in odd_runs.values()) for key in sk.LAUNCHES}
 
         # -- K2: transpose in and out at the tile of every counted run, each
-        # on its register route; 1-D also K2-smem at a tile no run reaches --
+        # on its register route; 1-D also at tiles no run reaches (vl=2) ----
         for tile in sorted({t for (t, *_) in counts}, key=lambda t: (t != (vl, m), t)):
             if k2_key(*tile) != "transpose":
                 raise AssertionError(f"{name}: K2 at the counted tile {tile} is not on its "
@@ -1046,8 +1086,6 @@ def main() -> int:
             k2_rows(name, "x".join(map(str, xo.shape)), xo, *otile, got["transpose"],
                     2 * xo.numel() * itemsize)
         for kshape, ktile in K2_EXTRA if spec.ndim == 1 else ():
-            if k2_key(*ktile) != ("transpose_smem" if ktile[0] < 4 else "transpose"):
-                raise AssertionError(f"K2 at {ktile} is not on the route its vl gives")
             xk = x if kshape == shape else StencilProblem(name, kshape).init(SEED)
             k2_rows(name, "x".join(map(str, kshape)), xk, *ktile,
                     sum(c[k2_key(*ktile)] for (t, *_), c in counts.items() if t == ktile),
@@ -1193,6 +1231,153 @@ def main() -> int:
         del x, xp, weight
         torch.cuda.empty_cache()
 
+    # -- a grid whose picker tile has vl < 4: 2d5p 8192x8190 at (2, 7), the
+    # resident fused run counted (K2 on transpose_small), then its K2 rows --
+    name, shape = SMALL_VL_CASE
+    prob = StencilProblem(name, shape)
+    spec = prob.spec
+    x = prob.init(SEED)
+    vl, m, t0 = ops.pick_tile(spec, shape)
+    if vl >= sk.TRANSPOSE_MIN_VL:
+        raise AssertionError(f"{name} {shape}: the picker's vl={vl} is not below 4")
+    remainder, steps = PLANS[0]
+    plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE, remainder=remainder)
+    prob.run(x, 2, plan)
+    y, seconds, got = counted(f"{name} {shape} resident {remainder}",
+                              lambda: prob.run(x, steps, plan),
+                              resident_counts(spec, steps, remainder, vl, m))
+    err = same(f"{name} {shape} resident {remainder} vs plain", y,
+               resident_plain(spec, x, steps, remainder, vl, m, t0))
+    emit({"phase": "small_vl", "case": name, "shape": list(shape),
+          "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+          "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
+          "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+          "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+          "max_abs_err_vs_plain": err, "bitwise": True})
+    k2_rows(name, "x".join(map(str, shape)), x, vl, m, got["transpose"],
+            2 * x.numel() * x.element_size())
+    xb = x.to(torch.bfloat16)     # K2 at the same tile in bfloat16 (no counted run)
+    k2_rows(name, "x".join(map(str, shape)), xb, vl, m, 0, 2 * xb.numel() * xb.element_size())
+    del x, xb, y
+    torch.cuda.empty_cache()
+
+    # -- bfloat16 (ROADMAP D1): each case's resident fused run, a roundtrip
+    # and a Dirichlet run, counted, each bit for bit the port's plain path;
+    # K1 / K3 at depths 4, 2, 1 at the case's tile and at depth 4 at vl=64,
+    # K4 at depth 2 (open, ring), bounds at 2-byte elements ----------------
+    bf16 = torch.bfloat16
+    for name, shape in CASES:
+        prob = StencilProblem(name, shape, dtype=bf16)
+        spec = prob.spec
+        x = prob.init(SEED)
+        vl, m, t0 = ops.pick_tile(spec, shape)
+        remainder, steps = PLANS[0]
+        dims = "x".join(map(str, shape))
+        sweep_key = {1: "sweep_1d", 2: "sweep_2d", 3: "sweep_3d"}[spec.ndim]
+        weight = torch.tensor(spec.coeff_array(), dtype=bf16, device=dev)[None, None]
+        plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                           remainder=remainder)
+        prob.run(x, 2, plan)
+        y, seconds, got = counted(f"{name} bf16 resident {remainder}",
+                                  lambda: prob.run(x, steps, plan),
+                                  resident_counts(spec, steps, remainder, vl, m))
+        err = same(f"{name} bf16 resident {remainder} vs plain", y,
+                   resident_plain(spec, x, steps, remainder, vl, m, t0))
+        emit({"phase": "bf16", "run": "resident", "case": name, "shape": list(shape),
+              "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+              "tile": {"vl": vl, "m": m, "t0": t0}, "seconds": seconds,
+              "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+              "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+              "max_abs_err_vs_plain": err, "bitwise": True})
+        runs = [got]
+        rplan = StencilPlan(backend="pallas", sweep="roundtrip", k=K, remainder=remainder)
+        chunks = sweep_schedule(K, steps, remainder, 1)[0]
+        prob.run(x, 2, rplan)
+        y2, seconds, got = counted(f"{name} bf16 roundtrip {remainder}",
+                                   lambda: prob.run(x, steps, rplan),
+                                   k4_counts(spec, chunks, vl, m))
+        err = same(f"{name} bf16 roundtrip {remainder} vs resident", y2, y)
+        emit({"phase": "bf16", "run": "roundtrip", "case": name, "shape": list(shape),
+              "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
+              "tile": {"vl": vl, "m": m}, "steps": steps, "launches": got,
+              "seconds": seconds,
+              "seconds_median_of_5": host_median(lambda: prob.run(x, steps, rplan)),
+              "max_abs_err_vs_resident": err, "bitwise": True})
+        runs.append(got)
+        del y, y2
+
+        def run_dirichlet(n=DIRICHLET_STEPS):
+            return ops.stencil_run(spec, x, n, k=K)
+        run_dirichlet(K)
+        y, seconds, got = counted(f"{name} bf16 dirichlet", run_dirichlet,
+                                  k4_counts(spec, [(K, DIRICHLET_STEPS // K)], vl, m))
+        err = same(f"{name} bf16 dirichlet vs plain", y,
+                   dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, t0))
+        emit({"phase": "bf16", "run": "dirichlet", "case": name, "shape": list(shape),
+              "k": K, "steps": DIRICHLET_STEPS, "tile": {"vl": vl, "m": m}, "launches": got,
+              "seconds": seconds, "seconds_median_of_5": host_median(run_dirichlet),
+              "max_abs_err": err, "bitwise": True})
+        runs.append(got)
+        del y
+        launched = {key: sum(c[key] for c in runs) for key in sk.LAUNCHES}
+
+        kid = "K1" if spec.ndim == 1 else "K3"
+        fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
+        src = {1: "sweep1d_warp_bf16", 2: "sweep2d_warp_bf16", 3: "sweep3d_bf16"}[spec.ndim]
+        for tile, depths in [((vl, m), (4, 2, 1))] + [(tt, (4,)) for tt in BF16_ROW_TILES]:
+            vl2, m2 = tile
+            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+            t = sk.block_transpose(x, vl2, m2)
+            buf = torch.empty_like(t)
+            for depth in depths:
+                key, per = launches_of(spec, vl2, m2, depth)
+                if key != sweep_key:
+                    raise AssertionError(f"{name} bf16 vl={vl2} m={m2} depth {depth}: {key}")
+                kk, tt = (K, depth // K) if depth > K else (depth, 1)
+
+                def kern():
+                    if spec.ndim == 1:
+                        return sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf)
+                    return sk.stencil_nd_sweep_ttile(spec, t, kk, tt, t02, out=buf)
+
+                def plain():
+                    if spec.ndim == 1:
+                        return sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt)
+                    return sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t02)
+                err = same(f"{name} bf16 {kid} vl={vl2} m={m2} depth {depth}", kern(), plain())
+                row(kid, fname, f"{name} {dims} bf16 vl={vl2} m={m2} depth={depth}; route "
+                    f"{key}", src, launched[key], err, kern, plain,
+                    bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel()),
+                    lambda: ms(conv_steps, spec, x, depth, weight),
+                    launches_at_tile=launched[key] if tile == (vl, m) else 0)
+            del t, buf
+        kid = "K4a" if spec.ndim == 1 else "K4b"
+        fname = "stencil1d_multistep" if spec.ndim == 1 else "stencil_nd_multistep"
+        block = vl * m if spec.ndim == 1 else t0
+        xp = ops.wrap_pad(x, sk.sweep_halo_blocks(spec.r, K, block) * block)
+        tp = sk.block_transpose(xp, vl, m)
+        bufp = torch.empty_like(tp)
+        for edge_mask in (False, True):
+            def kern():
+                if spec.ndim == 1:
+                    return sk.stencil1d_multistep(spec, tp, K, edge_mask, out=bufp)
+                return sk.stencil_nd_multistep(spec, tp, K, t0, edge_mask, out=bufp)
+
+            def plain():
+                if spec.ndim == 1:
+                    return sk.stencil1d_multistep_ref(spec, tp, K, edge_mask)
+                return sk.stencil_nd_multistep_ref(spec, tp, K, t0, edge_mask)
+            key = multi_key(spec, vl, m, K)
+            edge = "ring" if edge_mask else "open"
+            err = same(f"{name} bf16 {kid} {edge} depth {K}", kern(), plain())
+            row(kid, fname, f"{name} {'x'.join(map(str, xp.shape))} bf16 vl={vl} m={m} {edge} "
+                f"depth={K}; route {key}; library: zero pad on axis 0, no ring restore",
+                src, launched[key], err, kern, plain,
+                bound(2 * xp.numel() * 2, K * spec.flops_per_point * xp.numel()),
+                lambda: ms(conv_steps, spec, xp, K, weight, True))
+        del x, xp, tp, bufp, weight
+        torch.cuda.empty_cache()
+
     # -- 3d27p: the box order on the 3-D streaming kernel, a resident fused
     # run counted at the picker's tile and at the tuner's (the any-vl
     # instances, equal to the first), then at each tile K3 at depth 4 timed
@@ -1256,37 +1441,39 @@ def main() -> int:
     del x, weight
     torch.cuda.empty_cache()
 
-    # -- onestep: the layout A/B, and its K5 rows --------------------------
+    # -- onestep: the layout A/B, and its K5 rows (float32 and bfloat16) ----
     vl, m = 32, 8
-    for name, n in ONESTEP:
+    for (name, n), dtype in [(case, dt) for dt in (torch.float32, torch.bfloat16)
+                             for case in ONESTEP]:
         spec = stencils.make(name)
-        x = StencilProblem(name, (n,)).init(SEED)
+        x = StencilProblem(name, (n,), dtype=dtype).init(SEED)
+        dname = str(dtype).split(".")[-1]
         want = kref.onestep_periodic_ref(spec, x)
         ops.stencil_onestep_naive(spec, x, vl)            # uncounted: loads the kernels
         ops.stencil_onestep_transpose(spec, x, vl, m)
-        naive, s_naive, c_naive = counted(f"{name} onestep naive",
+        naive, s_naive, c_naive = counted(f"{name} {dname} onestep naive",
                                           lambda: ops.stencil_onestep_naive(spec, x, vl),
                                           {"onestep_naive": 1})
-        trans, s_trans, c_trans = counted(f"{name} onestep transpose",
+        trans, s_trans, c_trans = counted(f"{name} {dname} onestep transpose",
                                           lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
                                           {"onestep_transpose": 1, k2_key(vl, m): 2})
-        err_naive = same(f"{name} onestep naive", naive, want)
-        err_trans = same(f"{name} onestep transpose", trans, want)
-        emit({"phase": "onestep", "case": name, "shape": [n], "vl": vl, "m": m,
-              "naive": {"seconds": s_naive, "launches": c_naive},
+        err_naive = same(f"{name} {dname} onestep naive", naive, want)
+        err_trans = same(f"{name} {dname} onestep transpose", trans, want)
+        emit({"phase": "onestep", "case": name, "shape": [n], "dtype": str(dtype), "vl": vl,
+              "m": m, "naive": {"seconds": s_naive, "launches": c_naive},
               "transpose": {"seconds": s_trans, "launches": c_trans},
               "bitwise": True})
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
-        b = bound(2 * n * 4, spec.flops_per_point * n)
+        b = bound(2 * n * x.element_size(), spec.flops_per_point * n)
         out = torch.empty_like(x)
-        row("K5a", "stencil1d_naive_onestep", f"{name} {n} vl={vl}", "onestep",
+        row("K5a", "stencil1d_naive_onestep", f"{name} {n} {dname} vl={vl}", "onestep",
             c_naive["onestep_naive"], err_naive,
             lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
             lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
             lambda: ms(conv_steps, spec, x, 1, weight))
         t = sk.block_transpose(x, vl, m)
         tout = torch.empty_like(t)
-        row("K5b", "stencil1d_transpose_onestep", f"{name} {n} vl={vl} m={m}", "onestep",
+        row("K5b", "stencil1d_transpose_onestep", f"{name} {n} {dname} vl={vl} m={m}", "onestep",
             c_trans["onestep_transpose"], err_trans,
             lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
             lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
@@ -1371,6 +1558,7 @@ def main() -> int:
         entries.append(entry)
         emit({"phase": "kernels", **entry})
 
+    emit({"phase": "total", "seconds": time.perf_counter() - run_start, "build_seconds": build_s})
     emit({"kernels": entries})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<hash>/<name>.so`` under
 the checkout root, where ``<hash>`` covers every source, the headers they
-include (``csrc/*.cuh``) and the compiler flags, so an edited source builds
+include (``csrc/*.cuh``: the register sweep kernels' templates live there,
+so that their float and bfloat16 entry points are two sources built in
+parallel) and the compiler flags, so an edited source builds
 anew and an unchanged one is reused.  The libraries have a plain C
 interface and are loaded with ``ctypes``; no PyTorch header is compiled,
 which keeps a build to seconds.  A build writes
@@ -24,8 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep2d_warp", "sweep3d", "onestep",
-           "ssd_scan")
+SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep1d_warp_bf16", "sweep2d_warp",
+           "sweep2d_warp_bf16", "sweep3d", "sweep3d_bf16", "onestep", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,22 +123,25 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     if name == "transpose":
-        lib.repro_transpose.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
-        lib.repro_transpose.restype = ctypes.c_int
         lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 6 + [ptr]
         lib.repro_transpose_reg.restype = ctypes.c_int
-        lib.repro_transpose_smem_bytes.argtypes = [i64, i64, i64]
-        lib.repro_transpose_smem_bytes.restype = i64
     elif name == "stencil_sweep":
-        lib.repro_stencil_sweep_f32.argtypes = [ptr, ptr] + [i64] * 18 + [ptr, ptr, i64, ptr]
-        lib.repro_stencil_sweep_f32.restype = ctypes.c_int
+        for fn in (lib.repro_stencil_sweep_f32, lib.repro_stencil_sweep_bf16):
+            fn.argtypes = [ptr, ptr] + [i64] * 18 + [ptr, ptr, i64, ptr]
+            fn.restype = ctypes.c_int
         lib.repro_stencil_max_taps.argtypes = []
         lib.repro_stencil_max_taps.restype = i64
+    elif name == "sweep1d_warp_bf16":
+        lib.repro_sweep1d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
+        lib.repro_sweep1d_warp_bf16.restype = ctypes.c_int
     elif name == "sweep1d_warp":
         lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
         lib.repro_sweep1d_warp_f32.restype = ctypes.c_int
         lib.repro_sweep1d_warp_blocks.argtypes = [i64]
         lib.repro_sweep1d_warp_blocks.restype = i64
+    elif name == "sweep2d_warp_bf16":
+        lib.repro_sweep2d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
+        lib.repro_sweep2d_warp_bf16.restype = ctypes.c_int
     elif name == "sweep2d_warp":
         lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
         lib.repro_sweep2d_warp_f32.restype = ctypes.c_int
@@ -146,6 +151,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sweep2d_warp_max_depth.argtypes = [i64]
         lib.repro_sweep2d_warp_has_depth.argtypes = [i64, i64]
         lib.repro_sweep2d_warp_warps.argtypes = []
+    elif name == "sweep3d_bf16":
+        lib.repro_sweep3d_bf16.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
+        lib.repro_sweep3d_bf16.restype = ctypes.c_int
     elif name == "sweep3d":
         lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
         lib.repro_sweep3d_f32.restype = ctypes.c_int
@@ -154,10 +162,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sweep3d_tile.argtypes = [i64] * 4
         lib.repro_sweep3d_tile.restype = i64
     elif name == "onestep":
-        lib.repro_onestep_naive_f32.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
-        lib.repro_onestep_naive_f32.restype = ctypes.c_int
-        lib.repro_onestep_transpose_f32.argtypes = [ptr, ptr] + [i64] * 5 + [ptr, ptr, ptr]
-        lib.repro_onestep_transpose_f32.restype = ctypes.c_int
+        for suffix in ("f32", "bf16"):
+            naive = getattr(lib, f"repro_onestep_naive_{suffix}")
+            naive.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
+            naive.restype = ctypes.c_int
+            trans = getattr(lib, f"repro_onestep_transpose_{suffix}")
+            trans.argtypes = [ptr, ptr] + [i64] * 5 + [ptr, ptr, ptr]
+            trans.restype = ctypes.c_int
         for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_max_taps):
             fn.argtypes = []
             fn.restype = i64

@@ -23,16 +23,23 @@
 // reads every tap from memory.
 //
 // Taps are summed in the spec's order, one multiply and one add each, with
-// the coefficients already rounded to float; built with -fmad=false both
-// kernels are bit for bit their plain PyTorch versions.
+// the coefficients already rounded to the element type and each product and
+// sum rounded to it (elem.cuh's rnd); built with -fmad=false both kernels
+// are bit for bit their plain PyTorch versions.  Elements are float or
+// bfloat16 in device memory (the _f32 and _bf16 entry points), float in
+// registers: a step does a few operations an element, and in bfloat16 this
+// form took 0.174-0.261 ms at 2^26 against 0.275-0.277 for bfloat16
+// registers and arithmetic (PERF.md section 6).
 //
 // Bound on H100: bytes.  A step must read the array once and write it once
-// (2 * N * 4 bytes); its arithmetic is 2*taps - 1 flops per point.  Both
+// (2 * N * sizeof(element) bytes); its arithmetic is 2*taps - 1 flops per point.  Both
 // designs read each element from device memory once per warp (K5a also
 // reads its two neighbouring vectors, K5b the neighbour columns of the two
 // edge lanes, mostly from L1/L2).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -58,16 +65,16 @@ __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
 // K5a: natural layout
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-onestep_naive_f32(const float* __restrict__ x, float* __restrict__ y, int64_t n,
-                  Taps1 taps) {
+onestep_naive(const T* __restrict__ x, T* __restrict__ y, int64_t n, Taps1 taps) {
   const int lane = threadIdx.x & 31;
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int64_t base = warp * (32 * kVec) + lane;
   // v[i + 1] is vector i of the run; v[0] and v[kVec + 1] its neighbours
   float v[kVec + 2];
 #pragma unroll
-  for (int i = 0; i < kVec + 2; ++i) v[i] = x[wrap(base + (int64_t)(i - 1) * 32, n)];
+  for (int i = 0; i < kVec + 2; ++i) v[i] = to_f(x[wrap(base + (int64_t)(i - 1) * 32, n)]);
   float acc[kVec];
   for (int t = 0; t < taps.n; ++t) {
     const int o = taps.o[t];
@@ -78,14 +85,14 @@ onestep_naive_f32(const float* __restrict__ x, float* __restrict__ y, int64_t n,
     for (int i = 0; i < kVec; ++i) {
       const float here = __shfl_sync(kFull, v[i + 1], src);
       const float next = __shfl_sync(kFull, o > 0 ? v[i + 2] : v[i], src);
-      const float term = (cross ? next : here) * cf;
-      acc[i] = t == 0 ? term : acc[i] + term;
+      const float term = rnd<T>((cross ? next : here) * cf);
+      acc[i] = t == 0 ? term : rnd<T>(acc[i] + term);
     }
   }
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const int64_t e = base + (int64_t)i * 32;
-    if (e < n) y[e] = acc[i];
+    if (e < n) y[e] = from_f<T>(acc[i]);
   }
 }
 
@@ -99,21 +106,22 @@ __device__ __forceinline__ int64_t col_addr(int64_t c, int s, int vl, int m) {
   return (b * m + s) * vl + (c - b * vl);
 }
 
-// acc[s] (+)= ext[kMaxR + s + O] * cf for every row s: a register index
-template <int M, int O>
+// acc[s] (+)= ext[kMaxR + s + O] * cf for every row s: a register index,
+// each product and sum rounded to T
+template <typename T, int M, int O>
 __device__ __forceinline__ void add_tap(float (&acc)[M], const float (&ext)[M + 2 * kMaxR],
                                         float cf, bool first) {
 #pragma unroll
   for (int s = 0; s < M; ++s) {
-    const float term = ext[kMaxR + s + O] * cf;
-    acc[s] = first ? term : acc[s] + term;
+    const float term = rnd<T>(ext[kMaxR + s + O] * cf);
+    acc[s] = first ? term : rnd<T>(acc[s] + term);
   }
 }
 
-template <int M>
+template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
-onestep_transpose_f32(const float* __restrict__ in, float* __restrict__ out,
-                      int64_t ncols, int vl, int r, Taps1 taps) {
+onestep_transpose(const T* __restrict__ in, T* __restrict__ out, int64_t ncols, int vl, int r,
+                  Taps1 taps) {
   const int lane = threadIdx.x & 31;
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = c < ncols;
@@ -122,14 +130,15 @@ onestep_transpose_f32(const float* __restrict__ in, float* __restrict__ out,
   // are the Assembled rows of the neighbouring columns
   float ext[M + 2 * kMaxR] = {};
 #pragma unroll
-  for (int s = 0; s < M; ++s) ext[kMaxR + s] = in[col_addr(cc, s, vl, M)];
+  for (int s = 0; s < M; ++s) ext[kMaxR + s] = to_f(in[col_addr(cc, s, vl, M)]);
 #pragma unroll
   for (int q = 0; q < (M < kMaxR ? M : kMaxR); ++q) {
     if (q < r) {
       float left = __shfl_up_sync(kFull, ext[kMaxR + M - 1 - q], 1);
       float right = __shfl_down_sync(kFull, ext[kMaxR + q], 1);
-      if (lane == 0) left = in[col_addr(wrap(cc - 1, ncols), M - 1 - q, vl, M)];
-      if (lane == 31 || c + 1 >= ncols) right = in[col_addr(wrap(cc + 1, ncols), q, vl, M)];
+      if (lane == 0) left = to_f(in[col_addr(wrap(cc - 1, ncols), M - 1 - q, vl, M)]);
+      if (lane == 31 || c + 1 >= ncols)
+        right = to_f(in[col_addr(wrap(cc + 1, ncols), q, vl, M)]);
       ext[kMaxR - 1 - q] = left;
       ext[kMaxR + M + q] = right;
     }
@@ -139,28 +148,29 @@ onestep_transpose_f32(const float* __restrict__ in, float* __restrict__ out,
     const float cf = taps.c[t];
     const bool first = t == 0;
     switch (taps.o[t]) {   // the same case on every thread: no divergence
-      case -4: add_tap<M, -4>(acc, ext, cf, first); break;
-      case -3: add_tap<M, -3>(acc, ext, cf, first); break;
-      case -2: add_tap<M, -2>(acc, ext, cf, first); break;
-      case -1: add_tap<M, -1>(acc, ext, cf, first); break;
-      case 0: add_tap<M, 0>(acc, ext, cf, first); break;
-      case 1: add_tap<M, 1>(acc, ext, cf, first); break;
-      case 2: add_tap<M, 2>(acc, ext, cf, first); break;
-      case 3: add_tap<M, 3>(acc, ext, cf, first); break;
-      case 4: add_tap<M, 4>(acc, ext, cf, first); break;
+      case -4: add_tap<T, M, -4>(acc, ext, cf, first); break;
+      case -3: add_tap<T, M, -3>(acc, ext, cf, first); break;
+      case -2: add_tap<T, M, -2>(acc, ext, cf, first); break;
+      case -1: add_tap<T, M, -1>(acc, ext, cf, first); break;
+      case 0: add_tap<T, M, 0>(acc, ext, cf, first); break;
+      case 1: add_tap<T, M, 1>(acc, ext, cf, first); break;
+      case 2: add_tap<T, M, 2>(acc, ext, cf, first); break;
+      case 3: add_tap<T, M, 3>(acc, ext, cf, first); break;
+      case 4: add_tap<T, M, 4>(acc, ext, cf, first); break;
       default: break;   // the wrapper checks |o| <= r <= kMaxR
     }
   }
   if (live) {
 #pragma unroll
-    for (int s = 0; s < M; ++s) out[col_addr(c, s, vl, M)] = acc[s];
+    for (int s = 0; s < M; ++s) out[col_addr(c, s, vl, M)] = from_f<T>(acc[s]);
   }
 }
 
 // Any m: one thread per element, every tap read from memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-onestep_transpose_any_f32(const float* __restrict__ in, float* __restrict__ out,
-                          int64_t n, int vl, int m, Taps1 taps) {
+onestep_transpose_any(const T* __restrict__ in, T* __restrict__ out, int64_t n, int vl, int m,
+                      Taps1 taps) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   const int64_t row = e / vl;                    // b * m + s
@@ -170,18 +180,18 @@ onestep_transpose_any_f32(const float* __restrict__ in, float* __restrict__ out,
   float acc = 0.0f;
   for (int t = 0; t < taps.n; ++t) {
     const int64_t h = wrap(g + taps.o[t], n);
-    const float term = in[col_addr(h / m, (int)(h % m), vl, m)] * taps.c[t];
-    acc = t == 0 ? term : acc + term;
+    const float term = rnd<T>(to_f(in[col_addr(h / m, (int)(h % m), vl, m)]) * taps.c[t]);
+    acc = t == 0 ? term : rnd<T>(acc + term);
   }
-  out[e] = acc;
+  out[e] = from_f<T>(acc);
 }
 
-template <int M>
-int launch_transpose(const float* in, float* out, int64_t ncols, int vl, int r,
-                     const Taps1& taps, cudaStream_t stream) {
+template <typename T, int M>
+int launch_transpose(const T* in, T* out, int64_t ncols, int vl, int r, const Taps1& taps,
+                     cudaStream_t stream) {
   const int64_t blocks = (ncols + kThreads - 1) / kThreads;
-  onestep_transpose_f32<M><<<(unsigned)blocks, kThreads, 0, stream>>>(in, out, ncols, vl,
-                                                                        r, taps);
+  onestep_transpose<T, M><<<(unsigned)blocks, kThreads, 0, stream>>>(in, out, ncols, vl, r,
+                                                                      taps);
   return (int)cudaGetLastError();
 }
 
@@ -196,62 +206,88 @@ bool fill_taps(Taps1& taps, int64_t ntaps, const int32_t* offsets, const float* 
   return true;
 }
 
-}  // namespace
-
-extern "C" int64_t repro_onestep_max_reach() { return kMaxR; }
-extern "C" int64_t repro_onestep_max_taps() { return kMaxTaps; }
-
-// One periodic step of the natural-layout array `x` (n floats) into `y`.
-// `offsets` / `coeffs`: ntaps tap offsets and float coefficients in host
-// memory.  Returns the CUDA error code.
-extern "C" int repro_onestep_naive_f32(const void* x, void* y, int64_t n, int64_t ntaps,
-                                       const int32_t* offsets, const float* coeffs,
-                                       void* stream) {
+// One periodic step of the natural-layout array `x` (n elements) into `y`.
+// `offsets` / `coeffs`: ntaps tap offsets and coefficients (rounded to T,
+// as floats) in host memory.  Returns the CUDA error code.
+template <typename T>
+int naive(const void* x, void* y, int64_t n, int64_t ntaps, const int32_t* offsets,
+          const float* coeffs, void* stream) {
   Taps1 taps;
   if (n < 1 || !fill_taps(taps, ntaps, offsets, coeffs)) return (int)cudaErrorInvalidValue;
   const int64_t per_block = (int64_t)kThreads * kVec;   // elements per CTA
   const int64_t blocks = (n + per_block - 1) / per_block;
-  onestep_naive_f32<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, taps);
+  onestep_naive<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n, taps);
   return (int)cudaGetLastError();
 }
 
 // One periodic step of the (nb, m, vl) layout array `in` into `out`, for a
 // stencil of reach r <= m.  Returns the CUDA error code.
-extern "C" int repro_onestep_transpose_f32(const void* in, void* out, int64_t nb,
-                                           int64_t m, int64_t vl, int64_t r, int64_t ntaps,
-                                           const int32_t* offsets, const float* coeffs,
-                                           void* stream) {
+template <typename T>
+int transpose(const void* in, void* out, int64_t nb, int64_t m, int64_t vl, int64_t r,
+              int64_t ntaps, const int32_t* offsets, const float* coeffs, void* stream) {
   Taps1 taps;
   if (nb < 1 || m < r || r > kMaxR || !fill_taps(taps, ntaps, offsets, coeffs))
     return (int)cudaErrorInvalidValue;
-  const float* src = static_cast<const float*>(in);
-  float* dst = static_cast<float*>(out);
+  const T* src = static_cast<const T*>(in);
+  T* dst = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t ncols = nb * vl;
   const int v = (int)vl, rr = (int)r;
   switch (m) {
-    case 1: return launch_transpose<1>(src, dst, ncols, v, rr, taps, st);
-    case 2: return launch_transpose<2>(src, dst, ncols, v, rr, taps, st);
-    case 3: return launch_transpose<3>(src, dst, ncols, v, rr, taps, st);
-    case 4: return launch_transpose<4>(src, dst, ncols, v, rr, taps, st);
-    case 5: return launch_transpose<5>(src, dst, ncols, v, rr, taps, st);
-    case 6: return launch_transpose<6>(src, dst, ncols, v, rr, taps, st);
-    case 7: return launch_transpose<7>(src, dst, ncols, v, rr, taps, st);
-    case 8: return launch_transpose<8>(src, dst, ncols, v, rr, taps, st);
-    case 9: return launch_transpose<9>(src, dst, ncols, v, rr, taps, st);
-    case 10: return launch_transpose<10>(src, dst, ncols, v, rr, taps, st);
-    case 11: return launch_transpose<11>(src, dst, ncols, v, rr, taps, st);
-    case 12: return launch_transpose<12>(src, dst, ncols, v, rr, taps, st);
-    case 13: return launch_transpose<13>(src, dst, ncols, v, rr, taps, st);
-    case 14: return launch_transpose<14>(src, dst, ncols, v, rr, taps, st);
-    case 15: return launch_transpose<15>(src, dst, ncols, v, rr, taps, st);
-    case 16: return launch_transpose<16>(src, dst, ncols, v, rr, taps, st);
+    case 1: return launch_transpose<T, 1>(src, dst, ncols, v, rr, taps, st);
+    case 2: return launch_transpose<T, 2>(src, dst, ncols, v, rr, taps, st);
+    case 3: return launch_transpose<T, 3>(src, dst, ncols, v, rr, taps, st);
+    case 4: return launch_transpose<T, 4>(src, dst, ncols, v, rr, taps, st);
+    case 5: return launch_transpose<T, 5>(src, dst, ncols, v, rr, taps, st);
+    case 6: return launch_transpose<T, 6>(src, dst, ncols, v, rr, taps, st);
+    case 7: return launch_transpose<T, 7>(src, dst, ncols, v, rr, taps, st);
+    case 8: return launch_transpose<T, 8>(src, dst, ncols, v, rr, taps, st);
+    case 9: return launch_transpose<T, 9>(src, dst, ncols, v, rr, taps, st);
+    case 10: return launch_transpose<T, 10>(src, dst, ncols, v, rr, taps, st);
+    case 11: return launch_transpose<T, 11>(src, dst, ncols, v, rr, taps, st);
+    case 12: return launch_transpose<T, 12>(src, dst, ncols, v, rr, taps, st);
+    case 13: return launch_transpose<T, 13>(src, dst, ncols, v, rr, taps, st);
+    case 14: return launch_transpose<T, 14>(src, dst, ncols, v, rr, taps, st);
+    case 15: return launch_transpose<T, 15>(src, dst, ncols, v, rr, taps, st);
+    case 16: return launch_transpose<T, 16>(src, dst, ncols, v, rr, taps, st);
     default: {
       const int64_t n = ncols * m;
-      onestep_transpose_any_f32<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                                  st>>>(src, dst, n, v, (int)m, taps);
+      onestep_transpose_any<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                                 st>>>(src, dst, n, v, (int)m, taps);
       return (int)cudaGetLastError();
     }
   }
+}
+
+}  // namespace
+
+extern "C" int64_t repro_onestep_max_reach() { return kMaxR; }
+extern "C" int64_t repro_onestep_max_taps() { return kMaxTaps; }
+
+// naive / transpose (above) on float and on bfloat16 elements.
+extern "C" int repro_onestep_naive_f32(const void* x, void* y, int64_t n, int64_t ntaps,
+                                       const int32_t* offsets, const float* coeffs,
+                                       void* stream) {
+  return naive<float>(x, y, n, ntaps, offsets, coeffs, stream);
+}
+
+extern "C" int repro_onestep_naive_bf16(const void* x, void* y, int64_t n, int64_t ntaps,
+                                        const int32_t* offsets, const float* coeffs,
+                                        void* stream) {
+  return naive<__nv_bfloat16>(x, y, n, ntaps, offsets, coeffs, stream);
+}
+
+extern "C" int repro_onestep_transpose_f32(const void* in, void* out, int64_t nb,
+                                           int64_t m, int64_t vl, int64_t r, int64_t ntaps,
+                                           const int32_t* offsets, const float* coeffs,
+                                           void* stream) {
+  return transpose<float>(in, out, nb, m, vl, r, ntaps, offsets, coeffs, stream);
+}
+
+extern "C" int repro_onestep_transpose_bf16(const void* in, void* out, int64_t nb,
+                                            int64_t m, int64_t vl, int64_t r, int64_t ntaps,
+                                            const int32_t* offsets, const float* coeffs,
+                                            void* stream) {
+  return transpose<__nv_bfloat16>(in, out, nb, m, vl, r, ntaps, offsets, coeffs, stream);
 }

@@ -38,17 +38,21 @@
 // elements so that loads and stores walk the layout in address order.
 //
 // Taps are summed in the spec's order with each coefficient already rounded
-// to float, one multiply and one add per tap; built with -fmad=false this is
-// bit for bit what the plain PyTorch version computes.
+// to the element type, one multiply and one add per tap, each rounded to
+// it (elem.cuh); built with -fmad=false this is bit for bit what the plain
+// PyTorch version computes.  Elements are float or bfloat16 in device
+// memory (repro_stencil_sweep_f32 / _bf16), float in shared memory.
 //
 // Bound on H100: bytes, in every mode.  A launch must read the grid once and
-// write it once (2 * numel * 4 bytes); its arithmetic is depth * (2*taps - 1)
+// write it once (2 * numel * sizeof(element) bytes); its arithmetic is depth * (2*taps - 1)
 // flops per point, far below the FP32 rate for the depths the engines use.
 // The design keeps device-memory traffic near that bound (halo reads mostly
 // hit L2); its cost is the halo recompute and the shared-memory tap reads,
 // which the register-resident warp kernels remove where they apply.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -107,10 +111,9 @@ __device__ __forceinline__ bool on_ring(int eaxis, int64_t z, int64_t y, int64_t
   return a < r || a >= n - r;
 }
 
-template <int kEdge>
+template <typename T, int kEdge>
 __global__ void __launch_bounds__(kThreads)
-stencil_sweep_f32(const float* __restrict__ in, float* __restrict__ out,
-                  Geom g, Taps taps, int eaxis) {
+stencil_sweep(const T* __restrict__ in, T* __restrict__ out, Geom g, Taps taps, int eaxis) {
   extern __shared__ float smem[];
   __shared__ int dlin[kMaxTaps];
   __shared__ float coef[kMaxTaps];
@@ -157,7 +160,7 @@ stencil_sweep_f32(const float* __restrict__ in, float* __restrict__ out,
       const int64_t gz = wrap(z, g.nz);
       const int64_t gy = wrap(y, g.ny);
       const int c = (int)wrap(col, ncols);
-      v = in[(gz * g.ny + gy) * g.nx + layout_offset(c, s, g.vl, g.m)];
+      v = to_f(in[(gz * g.ny + gy) * g.nx + layout_offset(c, s, g.vl, g.m)]);
     }
     cur[row * sx + jj * g.m + s] = v;
   }
@@ -174,8 +177,8 @@ stencil_sweep_f32(const float* __restrict__ in, float* __restrict__ out,
       const int lz = row / ny_;
       const int ly = row - lz * ny_ + ay;
       const int base = ((lz + az) * sy + ly) * sx + lx;
-      float acc = cur[base + dlin[0]] * coef[0];
-      for (int t = 1; t < taps.n; ++t) acc = acc + cur[base + dlin[t]] * coef[t];
+      float acc = rnd<T>(cur[base + dlin[0]] * coef[0]);
+      for (int t = 1; t < taps.n; ++t) acc = rnd<T>(acc + rnd<T>(cur[base + dlin[t]] * coef[t]));
       if (kEdge != kPeriodic && edge_tile) {
         const int64_t z = z0 - g.hz + lz + az, y = y0 - g.hy + ly, x = x0 - g.hx + lx;
         if (!in_domain(eaxis, z, y, x, g)) {
@@ -206,44 +209,38 @@ stencil_sweep_f32(const float* __restrict__ in, float* __restrict__ out,
     const int64_t gz = z0 + lz, gy = y0 + ly, c = tcol0 + jj;
     if (gz < g.nz && gy < g.ny && c * g.m < g.nx) {
       out[(gz * g.ny + gy) * g.nx + layout_offset((int)c, s, g.vl, g.m)] =
-          cur[((lz + g.hz) * sy + ly + g.hy) * sx + jj * g.m + s + g.hx];
+          from_f<T>(cur[((lz + g.hz) * sy + ly + g.hy) * sx + jj * g.m + s + g.hx]);
     }
   }
 }
 
-template <int kEdge>
-int launch(const float* in, float* out, const Geom& g, const Taps& taps, int eaxis,
-           int64_t smem_bytes, cudaStream_t stream) {
+template <typename T, int kEdge>
+int launch(const T* in, T* out, const Geom& g, const Taps& taps, int eaxis, int64_t smem_bytes,
+           cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stencil_sweep_f32<kEdge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
+        stencil_sweep<T, kEdge>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((unsigned)((g.nx + g.tx - 1) / g.tx), (unsigned)((g.ny + g.ty - 1) / g.ty),
             (unsigned)((g.nz + g.tz - 1) / g.tz));
-  stencil_sweep_f32<kEdge><<<grid, kThreads, (size_t)smem_bytes, stream>>>(
-      in, out, g, taps, eaxis);
+  stencil_sweep<T, kEdge><<<grid, kThreads, (size_t)smem_bytes, stream>>>(in, out, g, taps,
+                                                                          eaxis);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int64_t repro_stencil_max_taps() { return kMaxTaps; }
-
 // Advance `in` by `depth` steps into `out` (both contiguous (nz, ny, nx) in
-// layout, distinct buffers) on `stream`.  `edge` is the boundary mode of
-// axis `eaxis` (0 periodic, 1 ring, 2 open; eaxis 0 = z, 1 = y, 2 = x).
-// `offsets` holds ntaps (oz, oy, ox) triples and `coeffs` ntaps float
-// coefficients, both in host memory.  `smem_bytes` is the dynamic shared
-// memory of one CTA: 2 * (tz+2hz) * (ty+2hy) * (tx+2hx) * 4.  Returns the
-// CUDA error code.
-extern "C" int repro_stencil_sweep_f32(
-    const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,
-    int64_t vl, int64_t m, int64_t tz, int64_t ty, int64_t tx,
-    int64_t hz, int64_t hy, int64_t hx, int64_t rz, int64_t ry, int64_t rx,
-    int64_t depth, int64_t edge, int64_t eaxis, int64_t ntaps, const int32_t* offsets,
-    const float* coeffs, int64_t smem_bytes, void* stream) {
+// layout, of T elements, distinct buffers) on `stream`.  `edge` is the
+// boundary mode of axis `eaxis` (0 periodic, 1 ring, 2 open; eaxis 0 = z,
+// 1 = y, 2 = x).  `offsets` holds ntaps (oz, oy, ox) triples and `coeffs`
+// ntaps coefficients (rounded to T, as floats), both in host memory.
+// `smem_bytes` is the dynamic shared memory of one CTA: 2 * (tz+2hz) *
+// (ty+2hy) * (tx+2hx) * 4.  Returns the CUDA error code.
+template <typename T>
+int sweep(const void* in, void* out, int64_t nz, int64_t ny, int64_t nx, int64_t vl, int64_t m,
+          int64_t tz, int64_t ty, int64_t tx, int64_t hz, int64_t hy, int64_t hx, int64_t rz,
+          int64_t ry, int64_t rx, int64_t depth, int64_t edge, int64_t eaxis, int64_t ntaps,
+          const int32_t* offsets, const float* coeffs, int64_t smem_bytes, void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps || eaxis < 0 || eaxis > 2)
     return (int)cudaErrorInvalidValue;
   Taps taps;
@@ -256,13 +253,39 @@ extern "C" int repro_stencil_sweep_f32(
   }
   Geom g{nz, ny, nx, (int)vl, (int)m, (int)tz, (int)ty, (int)tx,
          (int)hz, (int)hy, (int)hx, (int)rz, (int)ry, (int)rx, (int)depth};
-  const float* src = static_cast<const float*>(in);
-  float* dst = static_cast<float*>(out);
+  const T* src = static_cast<const T*>(in);
+  T* dst = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (edge) {
-    case kPeriodic: return launch<kPeriodic>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
-    case kRing: return launch<kRing>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
-    case kOpen: return launch<kOpen>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
+    case kPeriodic: return launch<T, kPeriodic>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
+    case kRing: return launch<T, kRing>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
+    case kOpen: return launch<T, kOpen>(src, dst, g, taps, (int)eaxis, smem_bytes, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int64_t repro_stencil_max_taps() { return kMaxTaps; }
+
+// sweep (above) on float elements.
+extern "C" int repro_stencil_sweep_f32(
+    const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,
+    int64_t vl, int64_t m, int64_t tz, int64_t ty, int64_t tx,
+    int64_t hz, int64_t hy, int64_t hx, int64_t rz, int64_t ry, int64_t rx,
+    int64_t depth, int64_t edge, int64_t eaxis, int64_t ntaps, const int32_t* offsets,
+    const float* coeffs, int64_t smem_bytes, void* stream) {
+  return sweep<float>(in, out, nz, ny, nx, vl, m, tz, ty, tx, hz, hy, hx, rz, ry, rx, depth,
+                      edge, eaxis, ntaps, offsets, coeffs, smem_bytes, stream);
+}
+
+// sweep (above) on bfloat16 elements.
+extern "C" int repro_stencil_sweep_bf16(
+    const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,
+    int64_t vl, int64_t m, int64_t tz, int64_t ty, int64_t tx,
+    int64_t hz, int64_t hy, int64_t hx, int64_t rz, int64_t ry, int64_t rx,
+    int64_t depth, int64_t edge, int64_t eaxis, int64_t ntaps, const int32_t* offsets,
+    const float* coeffs, int64_t smem_bytes, void* stream) {
+  return sweep<__nv_bfloat16>(in, out, nz, ny, nx, vl, m, tz, ty, tx, hz, hy, hx, rz, ry, rx,
+                              depth, edge, eaxis, ntaps, offsets, coeffs, smem_bytes, stream);
 }

@@ -11,23 +11,24 @@
 // does no arithmetic, so its least time is 2 * numel * itemsize over the
 // card's memory rate.
 //
-// Two routes, chosen by stencil_kernels.transpose_route before the launch:
+// One route, a register kernel (repro_transpose_reg), at every vl and m and
+// for elements of 2, 4 or 8 bytes: a transpose moves bits.  Three forms:
 //
-// * register route (repro_transpose_reg): vl >= 4, any m, elements of 2, 4
-//   or 8 bytes.  One thread per column of a block, holding the column's m
-//   elements in registers: lane j of block row s is natural element j*m + s
-//   of its block, so thread g (column g of the flattened (B*vl, m) view)
-//   owns the m consecutive natural elements from g*m, and row s of its
-//   block holds them at ((g / vl) * m + s) * vl + g % vl.  The natural side
-//   is read (or written) as whole 16-, 8- or 4-byte chunks where
-//   m * itemsize and the pointer allow; the layout side moves one element
-//   per row, and for each row the threads of consecutive columns touch
-//   consecutive addresses, so a warp moves whole 128-byte lines at vl >= 32
-//   (whole 32-byte sectors below).  No shared memory and no barrier: a few
-//   instructions per element where the shared-memory kernel spent about a
-//   hundred (two run-time divisions per element and phase).  One column per
-//   thread and plain loads and stores: 2 or 4 columns per thread and the
-//   streaming cache hints were no faster on the H100 (PERF.md, section 6).
+// * vl >= 4 (transpose_reg, transpose_any).  One thread per column of a
+//   block, holding the column's m elements in registers: lane j of block
+//   row s is natural element j*m + s of its block, so thread g (column g of
+//   the flattened (B*vl, m) view) owns the m consecutive natural elements
+//   from g*m, and row s of its block holds them at ((g / vl) * m + s) * vl +
+//   g % vl.  The natural side is read (or written) as whole 16-, 8- or
+//   4-byte chunks where m * itemsize and the pointer allow; the layout side
+//   moves one element per row, and for each row the threads of consecutive
+//   columns touch consecutive addresses, so a warp moves whole 128-byte
+//   lines at vl >= 32 (whole 32-byte sectors below).  No shared memory and
+//   no barrier: a few instructions per element where the shared-memory
+//   kernel this replaced spent about a hundred (two run-time divisions per
+//   element and phase).  One column per thread and plain loads and stores:
+//   2 or 4 columns per thread and the streaming cache hints were no faster
+//   on the H100 (PERF.md, section 6).
 //   Sub-columns: a column of m = G * M consecutive natural elements is G
 //   sub-columns of M, one a thread (the caller names M: stencil_kernels.
 //   transpose_sub takes the largest of 1..8 dividing m with G a power of
@@ -48,34 +49,41 @@
 //     (transpose_reg);
 //   - every other m and vl >= 4 (vl off the powers of two, m such as 12,
 //     24 or 25 that the reference's _fit_m gives): G and vl at run time,
-//     one 32-bit division by each per thread (transpose_any; fewer than
-//     2^31 sub-columns, beyond which the wrapper takes the shared-memory
-//     route).
-// * shared-memory route (repro_transpose): vl below 4, or more sub-columns
-//   than transpose_any's 32-bit index holds.  Each CTA
-//   owns a contiguous run of whole matrices (about 4096 elements), reads it
-//   in input order, parks it in shared memory with each row padded to an
-//   odd pitch (so the column-wise reads of the second phase hit 32 distinct
-//   banks), and writes it in output order, again contiguous.
-//
-// Both are generic in the element size (2, 4 or 8 bytes): a transpose moves
-// bits.
+//     one 32-bit division by each per thread (transpose_any).  Past 2^31
+//     sub-columns its wide instance (kWide) splits the grid into
+//     super-chunks of whole blocks along blockIdx.y, each fewer than 2^31
+//     sub-columns, so the divisions stay 32-bit; below, the instances
+//     without it run as they did.
+// * vl in {1, 2, 3} (transpose_small).  A layout row is then only vl
+//   elements, so a thread a column (or a sub-block of rows: a first form,
+//   0.2346 / 0.2352 ms at 2^26 f32, vl=2, m=8, above the library's 0.2222,
+//   and 0.8421 ms from the layout at m=7, where each thread stored single
+//   elements 28 bytes apart; PERF.md section 6) spreads every warp access
+//   over 32 places.  Instead a warp owns a span of whole blocks (about
+//   kSmallK * 32 elements), and lane l moves output elements l, l + 32,
+//   l + 64, ... of it: every store is 32 consecutive elements.  Output
+//   element (block b, place i) comes from input element b * vl * m +
+//   perm(i) of the same span (layout place s * vl + j <-> natural place
+//   j * m + s), so a warp's load gathers within the blocks its store
+//   covers: one or two lines, served from L1.  A lane steps (b, i) by 32
+//   elements with a carry, so the only division is its first place.  It
+//   replaced a shared-memory kernel (batched_transpose) that served vl < 4
+//   at 1.37x the time of torch's transpose().contiguous() (PERF.md,
+//   section 6).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// register route
-// ---------------------------------------------------------------------------
-
 constexpr int kRegThreads = 256;
+constexpr int kSmallK = 16;   // transpose_small: elements a lane moves a round
 
 // The m transpose_reg has instances for (stencil_kernels.TRANSPOSE_M).
 constexpr bool reg_m(int64_t m) { return (m >= 1 && m <= 8) || m == 16 || m == 32; }
 
-// Sub-columns transpose_any takes (a 32-bit index): stencil_kernels
-// TRANSPOSE_MAX_SUB holds the same.
+// Threads (sub-columns, or sub-blocks at vl < 4) a grid of transpose_any
+// or a super-chunk along blockIdx.y holds: below it, 32-bit indices.
 constexpr int64_t kMaxSub = int64_t(1) << 31;
 
 using u16 = unsigned short;
@@ -88,9 +96,10 @@ template <> struct Chunk<4> { using type = u32; };
 template <> struct Chunk<8> { using type = uint2; };
 template <> struct Chunk<16> { using type = uint4; };
 
-// Elements per chunk of a column's natural run: the largest power of two
-// dividing m whose bytes fit in 16 (m * itemsize is then a whole number of
-// chunks, and chunk c of column g starts at a multiple of its own size).
+// Elements per chunk of a run of M elements (a column's natural run, or at
+// vl < 4 a sub-block's layout run of vl * M): the largest power of two
+// dividing M whose bytes fit in 16 (the run is then a whole number of
+// chunks, and each run starts at a multiple of the chunk's size).
 template <typename T, int M>
 constexpr int chunk_elems() {
   int v = 1;
@@ -98,7 +107,7 @@ constexpr int chunk_elems() {
   return v;
 }
 
-// The m consecutive natural elements at p, in kVec-element chunks.
+// The M consecutive elements at p, in kVec-element chunks.
 template <int kVec, typename T, int M>
 __device__ __forceinline__ void load_run(const T* p, T (&v)[M]) {
   using C = typename Chunk<kVec * sizeof(T)>::type;
@@ -162,11 +171,22 @@ transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int l
 
 // The same move with G and vl at run time (m = G * M, vl >= 4): sub-column
 // u = blockIdx.x * kRegThreads + threadIdx.x of the nsub < 2^31, column
-// g = u / G and its block g / vl, one 32-bit division each.
-template <typename T, int M, int kVec, bool kToLayout>
+// g = u / G and its block g / vl, one 32-bit division each.  kWide: the
+// grid's super-chunk blockIdx.y holds `chunk` whole blocks of the
+// `nblocks` (chunk * vl * G < 2^31 sub-columns), its own nsub and its own
+// offset into both arrays.
+template <typename T, int M, int kVec, bool kToLayout, bool kWide>
 __global__ void __launch_bounds__(kRegThreads)
 transpose_any(const T* __restrict__ in, T* __restrict__ out, unsigned nsub, unsigned G,
-              unsigned vl) {
+              unsigned vl, int64_t nblocks, unsigned chunk) {
+  if constexpr (kWide) {
+    const int64_t q0 = (int64_t)blockIdx.y * chunk;
+    const int64_t left = nblocks - q0;
+    nsub = (unsigned)((left < chunk ? left : chunk) * vl * G);
+    const int64_t first = q0 * vl * G * M;   // elements before the super-chunk
+    in += first;
+    out += first;
+  }
   const unsigned u = blockIdx.x * kRegThreads + threadIdx.x;
   const unsigned g = u / G, h = u - g * G;
   const unsigned q = g / vl, rem = g - q * vl;
@@ -191,24 +211,86 @@ transpose_any(const T* __restrict__ in, T* __restrict__ out, unsigned nsub, unsi
   }
 }
 
+// vl in {1, 2, 3} (VL), m elements a column, bs = VL * m a block: warp w
+// owns blocks [w * per_warp, (w + 1) * per_warp) of the nblocks, and in
+// rounds of kSmallK * 32 elements lane l moves output elements l + 32 k of
+// the span, each from input element b * bs + perm(i) of its block b.  (db,
+// di) = (32 / bs, 32 % bs): the step of (b, i) from one of a lane's
+// elements to the next.
+template <typename T, int VL, bool kToLayout>
+__global__ void __launch_bounds__(kRegThreads)
+transpose_small(const T* __restrict__ in, T* __restrict__ out, int64_t nblocks, unsigned m,
+                unsigned per_warp, unsigned db, unsigned di) {
+  const unsigned bs = VL * m;
+  const unsigned lane = threadIdx.x & 31;
+  const int64_t q0 = (((int64_t)blockIdx.x * kRegThreads + threadIdx.x) >> 5) * per_warp;
+  if (q0 >= nblocks) return;                         // the same on the whole warp
+  const int64_t left = nblocks - q0;
+  const unsigned span = (unsigned)(left < per_warp ? left : per_warp) * bs;
+  in += q0 * bs;
+  out += q0 * bs;
+  unsigned b = lane / bs, i = lane - b * bs;         // this lane's first element
+#pragma unroll 1
+  for (unsigned o0 = 0; o0 < span; o0 += kSmallK * 32) {
+    T v[kSmallK];
+#pragma unroll
+    for (int k = 0; k < kSmallK; ++k) {
+      if (o0 + k * 32 + lane < span) {
+        unsigned src;
+        if constexpr (kToLayout) {        // layout place i = s * VL + j <- natural j * m + s
+          const unsigned s = i / VL, j = i - s * VL;
+          src = b * bs + j * m + s;
+        } else {                          // natural place i = j * m + s <- layout s * VL + j
+          const unsigned j = VL == 1 ? 0 : (i >= m) + (VL == 3 && i >= 2 * m);
+          src = b * bs + (i - j * m) * VL + j;
+        }
+        v[k] = in[src];
+      }
+      b += db;
+      i += di;
+      if (i >= bs) {
+        i -= bs;
+        ++b;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSmallK; ++k) {
+      const unsigned o = o0 + k * 32 + lane;
+      if (o < span) out[o] = v[k];
+    }
+  }
+}
+
 template <typename T, int M, bool kToLayout>
 int launch_any(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
                cudaStream_t stream) {
   constexpr int kVec = chunk_elems<T, M>();
   const int64_t nsub = ncols * g;
-  if (nsub >= kMaxSub) return (int)cudaErrorInvalidValue;
-  const unsigned ctas = (unsigned)((nsub + kRegThreads - 1) / kRegThreads);
   const void* natural = kToLayout ? in : out;
   const bool aligned = reinterpret_cast<uintptr_t>(natural) % (kVec * sizeof(T)) == 0;
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
-  if (kVec > 1 && aligned) {
-    transpose_any<T, M, kVec, kToLayout><<<ctas, kRegThreads, 0, stream>>>(
-        src, dst, (unsigned)nsub, (unsigned)g, (unsigned)vl);
-  } else {
-    transpose_any<T, M, 1, kToLayout><<<ctas, kRegThreads, 0, stream>>>(
-        src, dst, (unsigned)nsub, (unsigned)g, (unsigned)vl);
+  const bool vec = kVec > 1 && aligned;
+  if (nsub < kMaxSub) {
+    const unsigned ctas = (unsigned)((nsub + kRegThreads - 1) / kRegThreads);
+    const auto kernel = vec ? transpose_any<T, M, kVec, kToLayout, false>
+                            : transpose_any<T, M, 1, kToLayout, false>;
+    kernel<<<ctas, kRegThreads, 0, stream>>>(src, dst, (unsigned)nsub, (unsigned)g,
+                                             (unsigned)vl, 0, 0);
+    return (int)cudaGetLastError();
   }
+  // super-chunks of whole blocks, each fewer than 2^31 sub-columns
+  const int64_t per_block = vl * g, nblocks = ncols / vl;
+  if (per_block >= kMaxSub) return (int)cudaErrorInvalidValue;
+  const int64_t chunk = (kMaxSub - 1) / per_block;
+  const int64_t ys = (nblocks + chunk - 1) / chunk;
+  if (ys > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((chunk * per_block + kRegThreads - 1) / kRegThreads),
+                  (unsigned)ys);
+  const auto kernel = vec ? transpose_any<T, M, kVec, kToLayout, true>
+                          : transpose_any<T, M, 1, kToLayout, true>;
+  kernel<<<grid, kRegThreads, 0, stream>>>(src, dst, 0, (unsigned)g, (unsigned)vl, nblocks,
+                                           (unsigned)chunk);
   return (int)cudaGetLastError();
 }
 
@@ -293,119 +375,78 @@ int reg_shift(int64_t ncols, int64_t vl) {
   return lv;
 }
 
-// ---------------------------------------------------------------------------
-// shared-memory route
-// ---------------------------------------------------------------------------
+// vl in {1, 2, 3}: transpose_small, about kSmallK * 32 elements a warp in
+// whole blocks
+template <typename T, int VL, bool kToLayout>
+int launch_small(const void* in, void* out, int64_t nblocks, int64_t m, cudaStream_t stream) {
+  const int64_t bs = VL * m;
+  if (bs >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  const int64_t per_warp = bs >= kSmallK * 32 ? 1 : kSmallK * 32 / bs;
+  const int64_t ctas = ((nblocks + per_warp - 1) / per_warp + kRegThreads / 32 - 1) /
+                       (kRegThreads / 32);
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  transpose_small<T, VL, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), nblocks, (unsigned)m,
+      (unsigned)per_warp, (unsigned)(32 / bs), (unsigned)(32 % bs));
+  return (int)cudaGetLastError();
+}
 
-constexpr int kThreads = 256;
-constexpr int kTargetElems = 4096;   // elements parked per CTA
-
-template <typename T>
-__global__ void batched_transpose(const T* __restrict__ in, T* __restrict__ out,
-                                  int64_t batch, int rows, int cols,
-                                  int per_cta, int pitch) {
-  extern __shared__ unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);
-  const int mat = rows * cols;
-  const int64_t first = (int64_t)blockIdx.x * per_cta;
-  const int64_t left = batch - first;
-  const int nmat = left < per_cta ? (int)left : per_cta;
-  const int n = nmat * mat;
-  const T* src = in + first * mat;
-  T* dst = out + first * mat;
-  // phase 1: input order, element (b, i, j) of (B, rows, cols)
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int b = e / mat;
-    const int w = e - b * mat;
-    const int i = w / cols;
-    const int j = w - i * cols;
-    tile[(b * rows + i) * pitch + j] = src[e];
-  }
-  __syncthreads();
-  // phase 2: output order, element (b, j, i) of (B, cols, rows)
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int b = e / mat;
-    const int w = e - b * mat;
-    const int j = w / rows;
-    const int i = w - j * rows;
-    dst[e] = tile[(b * rows + i) * pitch + j];
-  }
+template <typename T, int VL>
+int launch_small_dir(const void* in, void* out, int64_t nblocks, int64_t m, bool to_layout,
+                     cudaStream_t s) {
+  return to_layout ? launch_small<T, VL, true>(in, out, nblocks, m, s)
+                   : launch_small<T, VL, false>(in, out, nblocks, m, s);
 }
 
 template <typename T>
-int launch(const void* in, void* out, int64_t batch, int64_t rows, int64_t cols,
-           cudaStream_t stream) {
-  const int mat = (int)(rows * cols);
-  const int per_cta = mat >= kTargetElems ? 1 : kTargetElems / mat;
-  const int pitch = (int)(cols | 1);
-  const size_t smem = (size_t)per_cta * rows * pitch * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        batched_transpose<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+int launch_small_vl(const void* in, void* out, int64_t ncols, int64_t vl, int64_t m,
+                    bool to_layout, cudaStream_t s) {
+  const int64_t nblocks = ncols / vl;
+  switch (vl) {
+    case 1: return launch_small_dir<T, 1>(in, out, nblocks, m, to_layout, s);
+    case 2: return launch_small_dir<T, 2>(in, out, nblocks, m, to_layout, s);
+    default: return launch_small_dir<T, 3>(in, out, nblocks, m, to_layout, s);
   }
-  const int64_t grid = (batch + per_cta - 1) / per_cta;
-  batched_transpose<T><<<(unsigned)grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), batch, (int)rows,
-      (int)cols, per_cta, pitch);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The register route: (ncols * m) elements of `elem_size` bytes, as
-// (ncols / vl, vl, m) natural -> (ncols / vl, m, vl) layout (`to_layout`
-// != 0) or the inverse, both contiguous, on `stream`, one thread a
-// sub-column of `mi` elements (1..8 dividing m).  vl must be at least 4 and
-// divide ncols; a power of two with m in 1..8 (mi = m), 16 or 32 (mi = 8)
-// takes transpose_reg, every other shape transpose_any, whose
-// ncols * m / mi sub-columns must be fewer than 2^31.  Returns the CUDA
-// error code of the launch.
+// K2: (ncols * m) elements of `elem_size` bytes (2, 4 or 8), as (ncols / vl,
+// vl, m) natural -> (ncols / vl, m, vl) layout (`to_layout` != 0) or the
+// inverse, both contiguous, on `stream`, one thread a sub-column of `mi`
+// elements (1..8 dividing m; unused at vl < 4).  vl must divide ncols;
+// vl < 4 takes transpose_small, a power of two from 4
+// with m in 1..8 (mi = m), 16 or 32 (mi = 8) transpose_reg, every other
+// shape transpose_any (vl below 2^31).  Returns the CUDA error code of the
+// launch.
 extern "C" int repro_transpose_reg(const void* in, void* out, int64_t ncols, int64_t vl,
                                    int64_t m, int64_t mi, int64_t elem_size, int64_t to_layout,
                                    void* stream) {
-  if (vl < 4 || m < 1 || mi < 1 || mi > 8 || m % mi || ncols < 0 || ncols % vl)
+  if (vl < 1 || m < 1 || mi < 1 || mi > 8 || m % mi || ncols < 0 || ncols % vl ||
+      (elem_size != 2 && elem_size != 4 && elem_size != 8))
     return (int)cudaErrorInvalidValue;
   if (ncols == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = to_layout != 0;
+  if (vl < 4) {
+    switch (elem_size) {
+      case 2: return launch_small_vl<u16>(in, out, ncols, vl, m, dir, s);
+      case 4: return launch_small_vl<u32>(in, out, ncols, vl, m, dir, s);
+      default: return launch_small_vl<u64>(in, out, ncols, vl, m, dir, s);
+    }
+  }
   const int lv = reg_shift(ncols, vl);
   if (lv >= 0 && reg_m(m) && mi == (m <= 8 ? m : 8)) {
     switch (elem_size) {
       case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, s);
       case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, s);
-      case 8: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
-      default: return (int)cudaErrorInvalidValue;
+      default: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
     }
   }
   if (vl >= kMaxSub) return (int)cudaErrorInvalidValue;
   switch (elem_size) {
     case 2: return launch_any_m<u16>(in, out, ncols, vl, m, mi, dir, s);
     case 4: return launch_any_m<u32>(in, out, ncols, vl, m, mi, dir, s);
-    case 8: return launch_any_m<u64>(in, out, ncols, vl, m, mi, dir, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Shared memory, in bytes, that one launch of the shared-memory route parks
-// per CTA (the wrapper checks it against the card's limit before launching).
-extern "C" int64_t repro_transpose_smem_bytes(int64_t rows, int64_t cols,
-                                              int64_t elem_size) {
-  const int64_t mat = rows * cols;
-  const int64_t per_cta = mat >= kTargetElems ? 1 : kTargetElems / mat;
-  return per_cta * rows * (cols | 1) * elem_size;
-}
-
-// The shared-memory route: (batch, rows, cols) -> (batch, cols, rows), both
-// contiguous, on `stream`.  Returns the CUDA error code of the launch.
-extern "C" int repro_transpose(const void* in, void* out, int64_t batch,
-                               int64_t rows, int64_t cols, int64_t elem_size,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_size) {
-    case 2: return launch<uint16_t>(in, out, batch, rows, cols, s);
-    case 4: return launch<uint32_t>(in, out, batch, rows, cols, s);
-    case 8: return launch<uint64_t>(in, out, batch, rows, cols, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_any_m<u64>(in, out, ncols, vl, m, mi, dir, s);
   }
 }

@@ -2,9 +2,9 @@
 
   * K2 ``block_transpose`` / ``block_untranspose`` — ``csrc/transpose.cu``:
     (..., N) ↔ (..., nb, m, vl), the per-block (vl, m) ↔ (m, vl) transpose
-    (reference: ``stencil_kernels.py::_kernel_transpose``), on one of two
-    kernels chosen by :func:`transpose_route` before the launch: a register
-    kernel (one thread per column of a block) or a shared-memory kernel.
+    (reference: ``stencil_kernels.py::_kernel_transpose``), on its register
+    kernel at every vl and m (one thread per sub-column of a block, or at
+    vl < 4 a warp per span of whole blocks; :func:`transpose_route`).
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
     periodic depth-``ttile·k`` advance of the layout-resident grid in one
     launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and K3 each
@@ -30,10 +30,13 @@
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` (a
-sweep cut into consecutive launches adds one per launch), the routes
-apart: K2 under ``transpose`` (register kernel) and ``transpose_smem``; K1
-under ``sweep_1d`` (warp kernel) and ``sweep_1d_smem``; K4a under
+kernel or raises.  The stencil kernels (K1, K3, K4, K5) take float32 and
+bfloat16 (each product and sum rounded to the dtype, as the plain versions
+do); K2 moves elements of 2, 4 or 8 bytes.  Each launch adds one to
+``LAUNCHES[<kernel>]`` (a sweep cut into consecutive launches adds one per
+launch; a bfloat16 launch counts as a float32 one), the routes apart: K2
+under ``transpose``; K1 under ``sweep_1d`` (warp kernel) and
+``sweep_1d_smem``; K4a under
 ``multistep_1d`` (warp kernel) and ``multistep_1d_smem``; K3 under
 ``sweep_2d`` (2-D warp kernel), ``sweep_3d`` (3-D streaming kernel) and
 ``sweep_nd``; K4b under ``multistep_2d``, ``multistep_3d`` (the same
@@ -54,7 +57,7 @@ from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
+LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
             "sweep_2d": 0, "sweep_3d": 0, "sweep_nd": 0, "multistep_1d": 0,
             "multistep_1d_smem": 0, "multistep_2d": 0, "multistep_3d": 0, "multistep_nd": 0,
             "onestep_naive": 0, "onestep_transpose": 0}
@@ -62,10 +65,12 @@ LAUNCHES = {"transpose": 0, "transpose_smem": 0, "sweep_1d": 0, "sweep_1d_smem":
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
 _TILE_MID = 16                       # default output tile, 3-D mid axis
-# csrc/transpose.cu's register route: vl from TRANSPOSE_MIN_VL, any m; its
-# instances with every stride fixed (transpose_reg: vl a power of two, m in
-# TRANSPOSE_M), the others with G and vl at run time (transpose_any: fewer
-# than TRANSPOSE_MAX_SUB sub-columns of M, transpose_sub)
+# csrc/transpose.cu's forms: vl below TRANSPOSE_MIN_VL a warp a span of
+# whole blocks (transpose_small); from it a thread a sub-column of M =
+# transpose_sub(m), with every stride fixed (transpose_reg: vl a power of
+# two, m in TRANSPOSE_M) or G and vl at run time (transpose_any: sub-columns
+# in a grid, or past it in each super-chunk along blockIdx.y, fewer than
+# TRANSPOSE_MAX_SUB, for 32-bit indices)
 TRANSPOSE_MIN_VL = 4
 TRANSPOSE_M = frozenset(range(1, 9)) | {16, 32}
 TRANSPOSE_MAX_SUB = 1 << 31
@@ -147,13 +152,27 @@ def _into(out: torch.Tensor | None, value: torch.Tensor, what: str,
     return _out(out, value.shape, value, what).copy_(value)
 
 
+# the stencil kernels' element types: the suffix of their C entry points
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _kernel_io(t: torch.Tensor, out: torch.Tensor, what: str) -> None:
     """What every stencil kernel needs of its input and output buffers."""
-    if t.dtype != torch.float32:
-        raise NotImplementedError(f"{what} runs float32 only, got {t.dtype}; other "
-                                  "dtypes are ROADMAP D1")
+    if t.dtype not in _SUFFIX:
+        raise NotImplementedError(f"{what} runs float32 and bfloat16, got {t.dtype}; "
+                                  "other dtypes are ROADMAP D1")
     if out.data_ptr() == t.data_ptr():
         raise ValueError(f"{what} cannot update in place: out must be another buffer")
+
+
+def _entry(source: str, name: str, dtype: torch.dtype):
+    """The C entry point ``repro_<name>_<f32|bf16>`` for ``dtype``: in
+    ``csrc/<source>.cu``, or for bfloat16 in ``csrc/<source>_bf16.cu``
+    where that source exists (the register sweep kernels build their
+    bfloat16 instances apart)."""
+    suffix = _SUFFIX[dtype]
+    lib = f"{source}_bf16" if suffix == "bf16" and f"{source}_bf16" in build.SOURCES else source
+    return getattr(build.load(lib), f"repro_{name}_{suffix}")
 
 
 # ---------------------------------------------------------------------------
@@ -184,17 +203,14 @@ def transpose_sub(m: int) -> tuple[int, int]:
 
 def transpose_route(vl: int, m: int, itemsize: int, numel: int = 0) -> str:
     """The kernel a CUDA :func:`block_transpose` / :func:`block_untranspose`
-    launches on ``numel`` elements: ``"reg"`` (``csrc/transpose.cu``'s
-    register kernel, one thread per sub-column of ``M`` elements,
-    :func:`transpose_sub`) when ``vl >= 4`` and the elements are 2, 4 or 8
-    bytes, with fewer than ``TRANSPOSE_MAX_SUB`` sub-columns unless ``vl``
-    is a power of two and ``m`` in ``TRANSPOSE_M``; ``"smem"`` (its
-    shared-memory kernel) otherwise: ``vl < 4``."""
-    if vl < TRANSPOSE_MIN_VL or m < 1 or itemsize not in (2, 4, 8):
-        return "smem"
-    if vl & (vl - 1) == 0 and m in TRANSPOSE_M:
-        return "reg"
-    return "reg" if numel // transpose_sub(m)[0] < TRANSPOSE_MAX_SUB else "smem"
+    launches on ``numel`` elements of ``itemsize`` bytes: ``"reg"``, K2's
+    one route, at every shape (``csrc/transpose.cu``'s register kernel: at
+    ``vl < 4`` a warp a span of whole blocks, else a thread a sub-column of
+    ``M`` elements, ``M`` of :func:`transpose_sub`, past
+    ``TRANSPOSE_MAX_SUB`` sub-columns in super-chunks).  Its shared-memory
+    kernel, which took ``vl < 4``, is gone; the wrapper raises on elements
+    of another size."""
+    return "reg"
 
 
 def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
@@ -205,21 +221,10 @@ def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
         raise ValueError(f"transpose kernel: no {src.dtype} support ({size}-byte elements)")
     if src.numel() == 0:
         return
-    if transpose_route(vl, m, size, src.numel()) == "reg":
-        build.check(lib.repro_transpose_reg(src.data_ptr(), dst.data_ptr(), src.numel() // m,
-                                            vl, m, transpose_sub(m)[0], size, int(to_layout),
-                                            _stream()),
-                    "transpose kernel")
-        LAUNCHES["transpose"] += 1
-        return
-    rows, cols = (vl, m) if to_layout else (m, vl)
-    smem = lib.repro_transpose_smem_bytes(rows, cols, size)
-    if smem > SMEM_MAX:
-        raise ValueError(f"transpose kernel: a ({rows}, {cols}) block needs {smem} bytes "
-                         f"of shared memory, over the {SMEM_MAX} a CTA may use")
-    build.check(lib.repro_transpose(src.data_ptr(), dst.data_ptr(), src.numel() // (rows * cols),
-                                    rows, cols, size, _stream()), "transpose kernel")
-    LAUNCHES["transpose_smem"] += 1
+    build.check(lib.repro_transpose_reg(src.data_ptr(), dst.data_ptr(), src.numel() // m, vl, m,
+                                        transpose_sub(m)[0], size, int(to_layout), _stream()),
+                "transpose kernel")
+    LAUNCHES["transpose"] += 1
 
 
 def block_transpose(x: torch.Tensor, vl: int, m: int,
@@ -330,16 +335,17 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
 _EDGES = {"periodic": 0, "ring": 1, "open": 2}
 
 
-def _taps(spec: StencilSpec, width: int):
+def _taps(spec: StencilSpec, width: int, dtype: torch.dtype):
     """The taps as ctypes arrays: ``width`` int32 offsets per tap (the last
-    ``width`` axes, zero-filled in front) and the float32-rounded
-    coefficients."""
+    ``width`` axes, zero-filled in front) and the coefficients rounded to
+    ``dtype`` (the tensor's, as the plain versions' ``coeff``), as floats:
+    exact for float32 and bfloat16."""
     ntaps = len(spec.taps)
     offs = (ctypes.c_int32 * (width * ntaps))()
     coeffs = (ctypes.c_float * ntaps)()
     for i, (off, c) in enumerate(spec.taps):
         offs[width * i:width * (i + 1)] = list(((0,) * width + tuple(off))[-width:])
-        coeffs[i] = coeff(c, torch.float32)
+        coeffs[i] = coeff(c, dtype)
     return ntaps, offs, coeffs
 
 
@@ -357,11 +363,11 @@ def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
         raise ValueError(f"{spec.name}: minor extent {nat[2]} has 2^31 or more "
                          f"columns of m={m}")
     lib = build.load("stencil_sweep")
-    ntaps, offs, coeffs = _taps(spec, 3)
+    ntaps, offs, coeffs = _taps(spec, 3, t.dtype)
     if ntaps > lib.repro_stencil_max_taps():
         raise ValueError(f"{spec.name}: {ntaps} taps exceed the kernel's limit")
     nd, r = spec.ndim, spec.r
-    build.check(lib.repro_stencil_sweep_f32(
+    build.check(_entry("stencil_sweep", "stencil_sweep", t.dtype)(
         t.data_ptr(), out.data_ptr(), *nat, vl, m, tz, ty, tx, hz, hy, hx,
         r if nd == 3 else 0, r if nd >= 2 else 0, r, depth, _EDGES[edge],
         3 - nd,                              # the stencil's axis 0 in (z, y, x)
@@ -443,9 +449,8 @@ def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: i
         raise ValueError(f"{spec.name}: {nb * vl * g} columns at vl={vl}, m={m} (sub-columns "
                          f"of {big}); the warp kernel takes fewer than {MAX_COLS} off m in "
                          f"{SUB_M}")
-    lib = build.load("sweep1d_warp")
-    ntaps, offs, coeffs = _taps(spec, 1)
-    build.check(lib.repro_sweep1d_warp_f32(
+    ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
+    build.check(_entry("sweep1d_warp", "sweep1d_warp", t.dtype)(
         t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[big], depth, _EDGES[edge],
         ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
@@ -540,16 +545,16 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
     big, g = sub_columns(m)
-    if (vl != WARP_LANES or g != 1 or depth > WARP2D_DEPTH[big]) and nb * vl * g >= MAX_COLS:
+    any_form = vl != WARP_LANES or g != 1 or depth > WARP2D_DEPTH[big] or t.dtype != torch.float32
+    if any_form and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 2-D warp kernel takes fewer than "
-                         f"{MAX_COLS} off vl={WARP_LANES}, m = M and past its depth "
+                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m = M and past its depth "
                          f"{WARP2D_DEPTH[big]}")
     if seg_rows is None:
         seg_rows = sweep2d_segment(n0, warp_rows(nb * vl * g), _sm_count(t.device))
-    lib = build.load("sweep2d_warp")
-    ntaps, offs, coeffs = _taps(spec, 2)
-    build.check(lib.repro_sweep2d_warp_f32(
+    ntaps, offs, coeffs = _taps(spec, 2, t.dtype)
+    build.check(_entry("sweep2d_warp", "sweep2d_warp", t.dtype)(
         t.data_ptr(), out.data_ptr(), n0, nb, m, vl, spec.r, depth, _EDGES[edge], seg_rows, ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} 2-D warp sweep kernel")
@@ -630,17 +635,16 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
     :func:`sub_columns` names for ``m``."""
     n0, n1, nb, m, vl = t.shape
     big, g = sub_columns(m)
-    if (vl != WARP_LANES or g != 1) and nb * vl * g >= MAX_COLS:
+    if (vl != WARP_LANES or g != 1 or t.dtype != torch.float32) and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 3-D streaming kernel takes fewer than "
-                         f"{MAX_COLS} off vl={WARP_LANES}, m in {SUB_M}")
+                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m in {SUB_M}")
     _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
         seg = sweep3d_segment(n0, n1, nb * vl * g, big, depth, sweep3d_order(spec),
                               _sm_count(t.device))
-    lib = build.load("sweep3d")
-    ntaps, offs, coeffs = _taps(spec, 3)
-    build.check(lib.repro_sweep3d_f32(
+    ntaps, offs, coeffs = _taps(spec, 3, t.dtype)
+    build.check(_entry("sweep3d", "sweep3d", t.dtype)(
         t.data_ptr(), out.data_ptr(), n0, n1, nb, m, vl, spec.r, depth, _EDGES[edge], seg,
         ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
         _stream()), f"{spec.name} 3-D streaming sweep kernel")
@@ -863,13 +867,13 @@ def stencil1d_transpose_onestep_ref(spec: StencilSpec, t: torch.Tensor) -> torch
     return step_in_layout(spec, t, ndim=1)
 
 
-def _onestep_lib(spec: StencilSpec):
+def _check_onestep(spec: StencilSpec) -> None:
+    """Raise unless the one-step kernels take ``spec``'s reach and taps."""
     lib = build.load("onestep")
     if spec.r > lib.repro_onestep_max_reach() or len(spec.taps) > lib.repro_onestep_max_taps():
         raise ValueError(f"{spec.name}: the one-step kernels take r <= "
                          f"{lib.repro_onestep_max_reach()} and at most "
                          f"{lib.repro_onestep_max_taps()} taps")
-    return lib
 
 
 def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
@@ -887,9 +891,9 @@ def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
     _check_cuda(x, "stencil1d_naive_onestep")
     dst = _out(out, x.shape, x, "stencil1d_naive_onestep")
     _kernel_io(x, dst, "the naive one-step kernel")
-    lib = _onestep_lib(spec)
-    ntaps, offs, coeffs = _taps(spec, 1)
-    build.check(lib.repro_onestep_naive_f32(
+    _check_onestep(spec)
+    ntaps, offs, coeffs = _taps(spec, 1, x.dtype)
+    build.check(_entry("onestep", "onestep_naive", x.dtype)(
         x.data_ptr(), dst.data_ptr(), x.shape[0], ntaps, ctypes.cast(offs, ctypes.c_void_p),
         ctypes.cast(coeffs, ctypes.c_void_p), _stream()), f"{spec.name} naive one-step kernel")
     LAUNCHES["onestep_naive"] += 1
@@ -909,10 +913,10 @@ def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
     _check_cuda(t, "stencil1d_transpose_onestep")
     dst = _out(out, t.shape, t, "stencil1d_transpose_onestep")
     _kernel_io(t, dst, "the transpose one-step kernel")
-    lib = _onestep_lib(spec)
-    ntaps, offs, coeffs = _taps(spec, 1)
+    _check_onestep(spec)
+    ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
     nb, m, vl = t.shape
-    build.check(lib.repro_onestep_transpose_f32(
+    build.check(_entry("onestep", "onestep_transpose", t.dtype)(
         t.data_ptr(), dst.data_ptr(), nb, m, vl, spec.r, ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} transpose one-step kernel")

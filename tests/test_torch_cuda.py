@@ -2,7 +2,8 @@
 
 Every stencil case compares bit for bit (``torch.equal``): the kernels sum
 the taps in the spec's order with one multiply and one add each (built with
-``-fmad=false``), as the plain versions do.  K6 (the SSD chunk scan) sums
+``-fmad=false``), each rounded to the tensor's dtype (float32 or
+bfloat16), as the plain versions do.  K6 (the SSD chunk scan) sums
 its products in another order than the plain version's einsums and is held
 at the reference's tolerances: 2e-4 in float32, 5e-2 in bfloat16.  Without
 a CUDA device every test skips; run them where there is one with
@@ -46,7 +47,8 @@ def test_transpose_kernel_bitwise(cuda, shape, vl, m, dtype):
     assert torch.equal(back, x)
 
 
-_INT_OF = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+_INT_OF = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32,
+           torch.float64: torch.int64}
 
 
 def _bits(shape, dtype, seed, device):
@@ -62,32 +64,33 @@ def _same_bits(a, b):
     return a.shape == b.shape and torch.equal(a.view(_INT_OF[a.dtype]), b.view(_INT_OF[b.dtype]))
 
 
-# the register route's tiles with every stride fixed (vl a power of two, m
+# the register kernel's tiles with every stride fixed (vl a power of two, m
 # 1 to 8, 16 and 32: the tuner's pairs (8, 16), (16, 32) and the picker's odd
-# m), those with G and vl at run time (m 25 and 12, vl 256 and 96), and the
-# shared-memory route's (vl below 4)
+# m), those with G and vl at run time (m 25 and 12, vl 256 and 96), and
+# those of vl below 4 (a thread a sub-block: 2d5p 8192x8190's (2, 7), the
+# former shared-memory route's (3, 5) and (2, 8), G > 1 at m 16, 24, 25)
 TRANSPOSE_TILES = [(vl, m) for vl in (4, 8, 16, 32, 128) for m in (1, 3, 8, 16, 32)] + [
-    (8, 5), (16, 6), (32, 7), (8, 25), (3, 5), (8, 12), (256, 8), (96, 8), (2, 8)]
+    (8, 5), (16, 6), (32, 7), (8, 25), (3, 5), (8, 12), (256, 8), (96, 8), (2, 8)] + [
+    (vl, m) for vl in (1, 2, 3) for m in (1, 2, 3, 4, 6, 7, 16, 24, 25)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
 @pytest.mark.parametrize("vl,m", TRANSPOSE_TILES)
 def test_transpose_routes_bitwise(cuda, vl, m, dtype):
     x = _bits((2, 3, 37 * vl * m), dtype, vl + m, cuda)    # 37 blocks: a partial last CTA
-    route = sk.transpose_route(vl, m, x.element_size(), x.numel())
-    assert route == ("reg" if vl >= 4 else "smem")
+    assert sk.transpose_route(vl, m, x.element_size(), x.numel()) == "reg"
     sk.reset_launches()
     t = sk.block_transpose(x, vl, m)
     back = sk.block_untranspose(t, vl, m)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
-        "transpose" if route == "reg" else "transpose_smem": 2}
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2}
     assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
     assert _same_bits(back, x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
-@pytest.mark.parametrize("vl,m", [(32, 8), (8, 16), (16, 32), (8, 6)])
+@pytest.mark.parametrize("vl,m", [(32, 8), (8, 16), (16, 32), (8, 6), (2, 8), (3, 5), (1, 16),
+                                  (2, 24)])
 def test_transpose_unaligned_pointers(cuda, vl, m, dtype):
     """A contiguous view one element into its storage: the natural side
     moves element by element, bit for bit the same."""
@@ -104,20 +107,22 @@ def test_transpose_unaligned_pointers(cuda, vl, m, dtype):
 
 def test_transpose_reg_refuses_off_route(cuda):
     """The register kernel's entry point refuses a vl, an m or an M off its
-    route (vl below 4, m below 1, M not dividing m or above 8, vl not
+    route (vl below 1, m below 1, M not dividing m or above 8, vl not
     dividing the columns, 1-byte elements) and takes vl = 24 and m = 9 and
-    64 (transpose_any, on the M of ``transpose_sub``)."""
+    64 (transpose_any, on the M of ``transpose_sub``) and vl = 2
+    (transpose_small)."""
     import ctypes
     lib = build.load("transpose")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     x = _bits((41 * 32 * 8,), torch.float32, 12, cuda)
     t = torch.empty_like(x)
-    for ncols, vl, m, mi, size in ((32, 2, 8, 8, 4), (32, 32, 0, 1, 4), (32, 32, 8, 3, 4),
+    for ncols, vl, m, mi, size in ((32, 0, 8, 8, 4), (32, 32, 0, 1, 4), (32, 32, 8, 3, 4),
                                    (32, 32, 16, 16, 4), (32, 32, 8, 0, 4), (40, 24, 8, 8, 4),
-                                   (32, 32, 8, 8, 1)):
+                                   (32, 32, 8, 8, 1), (33, 2, 8, 8, 4)):
         assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m, mi, size, 1,
                                        stream) != 0, (ncols, vl, m, mi, size)
-    for ncols, vl, m in ((x.numel() // 8 // 24 * 24, 24, 8), (32, 32, 9), (32, 32, 64)):
+    for ncols, vl, m in ((x.numel() // 8 // 24 * 24, 24, 8), (32, 32, 9), (32, 32, 64),
+                         (32, 2, 8)):
         assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m,
                                        sk.transpose_sub(m)[0], 4, 1, stream) == 0
     torch.cuda.synchronize()
@@ -264,11 +269,11 @@ def test_sweep1d_warp_sub_columns_bitwise(cuda, m, vl, edge):
             _sweep1d_bitwise(cuda, name, m, vl, edge)
 
 
-def _sweep1d_bitwise(cuda, name, m, vl, edge):
+def _sweep1d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32):
     spec = stencils.make(name)
     big = sk.sub_columns(m)[0]
     for nb in _any_vl_nbs(vl, m):
-        t = layouts.to_transpose_layout(_x((nb * vl * m,), nb + vl, cuda), vl, m)
+        t = layouts.to_transpose_layout(_x((nb * vl * m,), nb + vl, cuda).to(dtype), vl, m)
         out = torch.empty_like(t)
         for depth in (1, 2, 5, 32 * big // spec.r):
             sk.reset_launches()
@@ -306,13 +311,14 @@ def test_sweep2d_warp_sub_columns_bitwise(cuda, m, vl, edge):
         _sweep2d_bitwise(cuda, name, m, vl, edge)
 
 
-def _sweep2d_bitwise(cuda, name, m, vl, edge):
+def _sweep2d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32):
     spec = stencils.make(name)
     big, g = sk.sub_columns(m)
     grids = [(3, -(-5 // (vl * g))), (9, -(-20 // (vl * g))),
              (14, -(-(32 * 8 + 40) // (vl * g))), (2048 + 64, 2048 // (vl * m) + 1)]
     for n0, nb in grids:
-        t = layouts.to_transpose_layout(_x((n0, nb * vl * m), n0 + nb + vl, cuda), vl, m)
+        t = layouts.to_transpose_layout(_x((n0, nb * vl * m), n0 + nb + vl, cuda).to(dtype),
+                                        vl, m)
         out = torch.empty_like(t)
         for depth in range(1, sk.WARP2D_DEPTH[big] + 1):
             sk.reset_launches()
@@ -460,7 +466,8 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
 
 
 def _k2_key(vl, m):
-    return "transpose" if sk.transpose_route(vl, m, 4) == "reg" else "transpose_smem"
+    assert sk.transpose_route(vl, m, 4) == "reg"
+    return "transpose"
 
 
 @pytest.mark.parametrize("vl,m,key", [(32, 8, "sweep_1d"), (128, 8, "sweep_1d"),
@@ -742,11 +749,12 @@ def test_sweep3d_sub_columns_bitwise(cuda, name, m, vl):
     _sweep3d_bitwise(cuda, name, m, vl)
 
 
-def _sweep3d_bitwise(cuda, name, m, vl):
+def _sweep3d_bitwise(cuda, name, m, vl, dtype=torch.float32):
     spec = stencils.make(name) if name.startswith("3d") else \
         stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
     for n0, n1, nb in _grids3(vl):
-        t = layouts.to_transpose_layout(_x((n0, n1, nb * vl * m), n0 + n1 + nb + m, cuda), vl, m)
+        x = _x((n0, n1, nb * vl * m), n0 + n1 + nb + m, cuda).to(dtype)
+        t = layouts.to_transpose_layout(x, vl, m)
         out = torch.empty_like(t)
         for depth in range(1, sk.SWEEP3D_DEPTH + 1):
             for edge in ("periodic", "ring", "open"):
@@ -1177,11 +1185,11 @@ def test_instance_tables_match_kernels(cuda):
     assert lib3.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
 
 
-def _deep_check(cuda, spec, shape, vl, m, depth, edge, launch=None):
+def _deep_check(cuda, spec, shape, vl, m, depth, edge, launch=None, dtype=torch.float32):
     """``depth`` steps with the ends ``edge`` through the wrapper (counted:
     one launch per instance of the route's plan) and, given ``launch``,
     through ``launch`` alone; bit for bit the plain version."""
-    t = layouts.to_transpose_layout(_x(shape, depth + m + vl, cuda), vl, m)
+    t = layouts.to_transpose_layout(_x(shape, depth + m + vl, cuda).to(dtype), vl, m)
     out = torch.empty_like(t)
     kind = "sweep" if edge == "periodic" else "multistep"
     plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
@@ -1279,3 +1287,185 @@ def test_main_path_deep_plans(cuda, name, shape, vl, m, k, ttile):
     want = prob.run(x, 16, StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2,
                                        vl=32, m=8))
     assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 in every stencil kernel (each product and sum rounded to
+# bfloat16, bit for bit the plain versions), f64 still raising (ROADMAP D1),
+# and K2 past 2^31 threads
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("name,vl,m", [("1d3p", 32, 8), ("1d3p", 8, 3), ("1d5p", 32, 4),
+                                       ("heat1d", 4, 16), ("1d5p", 3, 2), ("1d3p", 64, 1)])
+def test_bf16_sweep1d_warp_bitwise(cuda, name, vl, m, edge):
+    """K1 and K4a on the warp kernel in bfloat16 (vl = 32 on the any-vl
+    instances), every end, at depths up to the route's deepest."""
+    _sweep1d_bitwise(cuda, name, m, vl, edge, BF16)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("name,vl,m", [("2d5p", 32, 8), ("2d9p", 8, 2), ("heat2d", 16, 4),
+                                       ("2d5p", 3, 5), ("2d5p", 8, 16), ("2d9p", 2, 7)])
+def test_bf16_sweep2d_warp_bitwise(cuda, name, vl, m, edge):
+    """K3 and K4b on the 2-D warp kernel in bfloat16: the copies of
+    bfloat16 words, rows of an odd length (vl=3, m=5 and vl=2, m=7: the
+    element's half changes row by row), every depth of the instance."""
+    _sweep2d_bitwise(cuda, name, m, vl, edge, BF16)
+
+
+@pytest.mark.parametrize("vl,m", [(32, 8), (8, 4), (3, 5), (16, 2), (8, 16), (5, 1)])
+@pytest.mark.parametrize("name", ["3d7p", "3d27p", "runtime0"])
+def test_bf16_sweep3d_bitwise(cuda, name, vl, m):
+    """K3 and K4b on the 3-D streaming kernel in bfloat16: star, box and
+    run-time orders, periodic, ring and open, every depth, odd rows and
+    planes (vl=3, m=5; vl=5, m=1)."""
+    _sweep3d_bitwise(cuda, name, m, vl, BF16)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("name,shape,vl,m,depth", [
+    ("2d5p", (21, 320), 8, 8, 8), ("2d5p", (37, 256), 32, 2, 16),
+    ("heat2d", (19, 240), 8, 6, 16), ("3d7p", (19, 20, 512), 8, 8, 8),
+    ("3d27p", (11, 9, 96), 32, 3, 6)])
+def test_bf16_deep_bitwise(cuda, name, shape, vl, m, depth, edge):
+    """Deep sweeps in bfloat16: consecutive launches (2-D M=8, 3-D) and the
+    deep M=2 instance, bit for bit one plain deep sweep."""
+    _deep_check(cuda, stencils.make(name), shape, vl, m, depth, edge, dtype=BF16)
+
+
+def _star_r2(ndim):
+    return stencils.StencilSpec(f"{ndim}d-star-r2", ndim, 2, "star",
+                                stencils._star_taps(ndim, 2))
+
+
+@pytest.mark.parametrize("edge_mask", [None, True, False])
+@pytest.mark.parametrize("spec,shape,vl,m,t0,depth", [
+    (stencils.make("1d3p"), (32 * 8 * 3,), 8, 1, None, 34),      # depth·r > 32·M
+    (stencils.make("1d5p"), (96 * 5,), 32, 3, None, 3),           # r = 2 > M = 1
+    (_star_r2(2), (24, 512), 8, 8, 8, 3),
+    (_star_r2(3), (8, 12, 256), 8, 8, 4, 2),
+])
+def test_bf16_smem_routes_bitwise(cuda, spec, shape, vl, m, t0, depth, edge_mask):
+    """The shared-memory kernel (``stencil_sweep.cu``) in bfloat16 on the
+    shapes its routes keep: periodic (``edge_mask`` None), ring and open."""
+    t = layouts.to_transpose_layout(_x(shape, 3, cuda).to(BF16), vl, m)
+    nd = spec.ndim
+    route = (sk.sweep1d_route if nd == 1 else sk.sweep2d_route if nd == 2 else
+             sk.sweep3d_route)(vl, m, depth, spec.r)
+    assert route == "smem"
+    sk.reset_launches()
+    if edge_mask is None:
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1) if nd == 1 else \
+            sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+        want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1) if nd == 1 else \
+            sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+        key = "sweep_1d_smem" if nd == 1 else "sweep_nd"
+    else:
+        got = sk.stencil1d_multistep(spec, t, depth, edge_mask) if nd == 1 else \
+            sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
+        want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask) if nd == 1 else \
+            sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
+        key = "multistep_1d_smem" if nd == 1 else "multistep_nd"
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+    assert got.dtype == BF16 and torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
+def test_bf16_onestep_kernels_bitwise(cuda, name):
+    """K5a and K5b in bfloat16 (K5b also at m > 16, every tap from
+    memory)."""
+    spec = stencils.make(name)
+    for n, vl in ((1 << 20, 32), (96, 8), (16384 + 64, 32)):
+        x = _x((n,), 5, cuda).to(BF16)
+        assert torch.equal(sk.stencil1d_naive_onestep(spec, x, vl),
+                           sk.stencil1d_naive_onestep_ref(spec, x, vl))
+    for vl, m, nb in ((32, 8, 4096), (8, 4, 5), (3, 5, 4), (4, 32, 3)):
+        t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda).to(BF16), vl, m)
+        sk.reset_launches()
+        got = sk.stencil1d_transpose_onestep(spec, t)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["onestep_transpose"] == 1
+        assert torch.equal(got, sk.stencil1d_transpose_onestep_ref(spec, t))
+
+
+def _offset_by_one(t):
+    """``t`` copied into a contiguous view one element into its storage:
+    bfloat16 words then hold the element in their other half."""
+    view = torch.empty(1 + t.numel(), dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+@pytest.mark.parametrize("name,shape,vl,m", [("2d5p", (13, 3 * 3 * 5), 3, 5),
+                                             ("2d5p", (9, 512), 32, 8),
+                                             ("3d7p", (6, 5, 5 * 7), 5, 7),
+                                             ("3d27p", (5, 6, 256), 32, 8)])
+def test_bf16_unaligned_views(cuda, name, shape, vl, m):
+    """The 2-D and 3-D kernels on bfloat16 views one element into their
+    storage (input and output), bit for bit the plain versions."""
+    spec = stencils.make(name)
+    t = _offset_by_one(layouts.to_transpose_layout(_x(shape, 4, cuda).to(BF16), vl, m))
+    assert t.data_ptr() % 4 == 2
+    for depth in (1, 3):
+        out = _offset_by_one(torch.zeros_like(t))
+        for edge in ("periodic", "ring", "open"):
+            if edge == "periodic":
+                got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+                want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+            else:
+                got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+                want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (depth, edge)
+
+
+@pytest.mark.parametrize("name,shape", [("1d3p", (1 << 15,)), ("1d5p", (4096,)),
+                                        ("heat1d", (4096,)), ("2d5p", (64, 1024)),
+                                        ("2d9p", (32, 512)), ("heat2d", (64, 1024)),
+                                        ("3d7p", (16, 16, 256)), ("3d27p", (8, 8, 256))])
+def test_bf16_main_path_matches_plain(cuda, name, shape):
+    """``StencilProblem(..., dtype=bfloat16).run`` resident (k=2, ttile=2,
+    fused and native) and roundtrip, and ``ops.stencil_run``: the kernels
+    each run implies, bit for bit the same run on the CPU's plain
+    versions."""
+    prob = StencilProblem(name, shape, dtype=BF16)
+    cpu = StencilProblem(name, shape, dtype=BF16, device="cpu")
+    x = prob.init(2)
+    assert x.dtype == BF16
+    for sweep, ttile, remainder in (("resident", 2, "fused"), ("resident", 2, "native"),
+                                    ("roundtrip", 1, "fused")):
+        plan = StencilPlan(backend="pallas", sweep=sweep, k=2, ttile=ttile, remainder=remainder)
+        sk.reset_launches()
+        got = prob.run(x, 7, plan)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["transpose"] >= 2
+        assert sum(sk.LAUNCHES.values()) > sk.LAUNCHES["transpose"]
+        assert got.dtype == BF16 and torch.equal(got.cpu(), cpu.run(x.cpu(), 7, plan)), sweep
+    got = ops.stencil_run(prob.spec, x, 6, k=2)
+    assert torch.equal(got.cpu(), ops.stencil_run(prob.spec, x.cpu(), 6, k=2))
+
+
+@pytest.mark.parametrize("vl,m", [(5, 11), (1, 1)])
+def test_transpose_past_2_31_threads(cuda, vl, m):
+    """K2 past 2^31 elements (about 4 GiB a side in bfloat16):
+    transpose_any's wide instance (vl=5, m=11: 2^31 sub-columns of 1) and
+    transpose_small (vl=1, m=1: warp spans at 64-bit offsets), both
+    directions bit for bit, one launch each."""
+    numel = -(-((1 << 31) + 1) // (vl * m)) * vl * m
+    assert numel // sk.transpose_sub(m)[0] >= sk.TRANSPOSE_MAX_SUB
+    x = torch.empty(numel, dtype=torch.int16, device=cuda).random_(-(1 << 15), (1 << 15) - 1)
+    x = x.view(BF16)
+    sk.reset_launches()
+    t = sk.block_transpose(x, vl, m)
+    torch.cuda.synchronize()
+    assert _same_bits(t, sk.block_transpose_ref(x, vl, m))
+    back = sk.block_untranspose(t, vl, m)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2}
+    assert _same_bits(back, x)
+    del x, t, back
+    torch.cuda.empty_cache()

@@ -5,10 +5,10 @@ against the JAX reference and the f64 oracle.
     ttile) grid; plan dicts round-trip between the packages;
   * the GPU ``pick_tile`` picks, honours explicit tiles and raises;
   * ``run`` on the CPU equals the reference ``StencilProblem.run`` (Pallas in
-    interpret mode) within 2e-6 in f32 on a lean matrix, and the port's f64
-    run equals the numpy f64 oracle within 1e-12 on the full matrix
-    (1d3p/1d5p/2d5p/2d9p/3d7p × k∈{1,2,3} × both remainders × ttile∈{1,2}
-    × divisible and ragged steps);
+    interpret mode) within 2e-6 in f32 on a lean matrix over all eight
+    registry stencils, and the port's f64 run equals the numpy f64 oracle
+    within 1e-12 on the full matrix (every registry stencil × k∈{1,2,3} ×
+    both remainders × ttile∈{1,2} × divisible and ragged steps);
   * within the port any ttile is bitwise equal to ttile=1.
 """
 import dataclasses
@@ -29,9 +29,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import stencil_kernels as sk
 
 SHAPES = {"1d3p": (128,), "1d5p": (96,), "2d5p": (8, 64), "2d9p": (8, 32),
-          "3d7p": (4, 4, 64)}
+          "3d7p": (4, 4, 64), "3d27p": (4, 4, 32), "heat1d": (128,), "heat2d": (8, 64)}
 TILES = {"1d3p": dict(vl=8, m=8), "1d5p": dict(vl=8, m=4), "2d5p": dict(vl=8, m=4, t0=4),
-         "2d9p": dict(vl=8, m=4, t0=2), "3d7p": dict(vl=8, m=4, t0=4)}
+         "2d9p": dict(vl=8, m=4, t0=2), "3d7p": dict(vl=8, m=4, t0=4),
+         "3d27p": dict(vl=8, m=4, t0=2), "heat1d": dict(vl=4, m=4),
+         "heat2d": dict(vl=8, m=2, t0=4)}
 
 
 def _x(shape, seed, dtype=np.float32):
@@ -101,6 +103,7 @@ def test_pick_tile():
 @pytest.mark.parametrize("name,k,remainder,ttile,steps", [
     ("1d3p", 2, "native", 2, 7), ("1d5p", 3, "fused", 1, 5), ("2d5p", 2, "fused", 2, 9),
     ("2d9p", 1, "native", 2, 3), ("3d7p", 2, "native", 2, 7), ("3d7p", 3, "fused", 1, 4),
+    ("3d27p", 2, "fused", 2, 7), ("heat1d", 3, "native", 1, 8), ("heat2d", 2, "native", 2, 9),
 ])
 def test_run_matches_reference(name, k, remainder, ttile, steps):
     x = _x(SHAPES[name], 5)

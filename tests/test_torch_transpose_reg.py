@@ -1,7 +1,8 @@
-"""K2's register kernel (``csrc/transpose.cu``: ``transpose_reg`` and
-``transpose_any``) transcribed into numpy and held bit for bit against the
-plain versions ``block_transpose_ref`` / ``block_untranspose_ref``, and the
-route that picks it.
+"""K2's register kernel (``csrc/transpose.cu``: ``transpose_reg``,
+``transpose_any`` with its wide instance, and ``transpose_small``)
+transcribed into numpy and held bit for bit against the plain versions
+``block_transpose_ref`` / ``block_untranspose_ref``, and the route that
+names it.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 address map: CTAs of ``kRegThreads`` threads, one sub-column of M
@@ -13,10 +14,14 @@ aligned to its own size), and the layout side's row addresses
 in ``transpose_reg`` (vl a power of two, m in 1..8, 16, 32) by shifts and
 masks, ``(((g >> lv) * G + h) * M + s) << lv | g & mask``; in
 ``transpose_any`` (every other vl >= 4 and m) by one division by G and one
-by vl.  Every instance of the register route (vl from 4, powers of two and
-not, m = 1..8, 16, 32 and off them, elements of 2, 4 and 8 bytes, both
-directions, leading axes) must read each element once and write each once,
-to the position the plain version gives.  Inputs are random integer bits, so "equal" is bit for bit.
+by vl, past 2^31 sub-columns in super-chunks of whole blocks.  At vl < 4
+``transpose_small`` gives a warp a span of whole blocks instead: lane l
+stores output elements l, l + 32, ... of it, each loaded from its place
+in the same block.  Every instance (vl from 1, powers of two and not, m =
+1..8, 16, 32 and off them, elements of 2, 4 and 8 bytes, both directions,
+leading axes) must read each element once and write each once, to the
+position the plain version gives.  Inputs are random integer bits, so
+"equal" is bit for bit.
 One case is also held against the JAX package's Pallas kernel in
 interpret mode.
 """
@@ -29,6 +34,7 @@ from repro.kernels import stencil_kernels as jsk
 from repro_torch.kernels import stencil_kernels as sk
 
 REG_THREADS = 256            # csrc/transpose.cu's kRegThreads
+SMALL_K = 16                 # and its kSmallK
 INTS = {2: np.int16, 4: np.int32, 8: np.int64}
 
 
@@ -40,36 +46,61 @@ def chunk_elems(itemsize: int, m: int) -> int:
     return v
 
 
-def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bool = True):
+def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bool = True,
+                  chunk: int | None = None):
     """The kernel on the flat array ``src``: its output and how often each
-    element was read and written."""
+    element was read and written.  ``chunk``: blocks a super-chunk of
+    transpose_any's wide instance (by default the kernel's, which it takes
+    past ``TRANSPOSE_MAX_SUB`` sub-columns)."""
     assert sk.transpose_route(vl, m, src.itemsize, src.size) == "reg"
+    if vl < sk.TRANSPOSE_MIN_VL:
+        return small_kernel_np(src, vl, m, to_layout, aligned, chunk)
+    out = np.zeros_like(src)
+    reads = np.zeros(src.size, np.int64)
+    writes = np.zeros(src.size, np.int64)
     ncols = src.size // m
     assert ncols % vl == 0
     big, sub = sk.transpose_sub(m)              # the instance's M and G
-    kvec = chunk_elems(src.itemsize, big) if aligned else 1
     nsub = ncols * sub
+    fixed = vl & (vl - 1) == 0 and m in sk.TRANSPOSE_M
+    if fixed or (chunk is None and nsub < sk.TRANSPOSE_MAX_SUB):
+        _reg_threads(src, out, reads, writes, vl, m, to_layout, aligned, 0, nsub, fixed)
+        return out, reads, writes
+    # the wide instance: super-chunk y of `chunk` whole blocks along blockIdx.y
+    nblocks = ncols // vl
+    chunk = chunk or (sk.TRANSPOSE_MAX_SUB - 1) // (vl * sub)
+    for y in range(-(-nblocks // chunk)):
+        q0 = y * chunk
+        nsub_y = min(nblocks - q0, chunk) * vl * sub
+        assert nsub_y < sk.TRANSPOSE_MAX_SUB
+        _reg_threads(src, out, reads, writes, vl, m, to_layout, aligned, q0 * vl * m, nsub_y,
+                     False)
+    return out, reads, writes
+
+
+def _reg_threads(src, out, reads, writes, vl, m, to_layout, aligned, first, nsub, fixed):
+    """``nsub`` threads of transpose_reg (``fixed``) or transpose_any on the
+    arrays from element ``first`` on."""
+    big, sub = sk.transpose_sub(m)
+    kvec = chunk_elems(src.itemsize, big) if aligned else 1
     ctas = -(-nsub // REG_THREADS)
     u = np.arange(ctas * REG_THREADS)           # one thread per sub-column
     u = u[u < nsub]                             # the guard
-    natural = u * big
-    if vl & (vl - 1) == 0 and m in sk.TRANSPOSE_M:      # transpose_reg: shifts
+    natural = first + u * big
+    if fixed:                                   # transpose_reg: shifts
         lv, lg = vl.bit_length() - 1, sub.bit_length() - 1
         assert 1 << lg == sub
         g, h = u >> lg, u & (sub - 1)
         row0 = ((((g >> lv) * sub + h) * big) << lv) + (g & (vl - 1))
     else:                                       # transpose_any: 32-bit divisions
-        assert nsub < sk.TRANSPOSE_MAX_SUB
         u32 = u.astype(np.uint32)
         g = u32 // np.uint32(sub)
         h = u32 - g * np.uint32(sub)
         q = g // np.uint32(vl)
         rem = g - q * np.uint32(vl)
         row0 = (q.astype(np.int64) * sub + h) * big * vl + rem
+    row0 = first + row0
     m = big                                     # elements a thread moves
-    out = np.zeros_like(src)
-    reads = np.zeros(src.size, np.int64)
-    writes = np.zeros(src.size, np.int64)
     v = []
     if to_layout:
         for c in range(m // kvec):
@@ -91,6 +122,51 @@ def reg_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bo
             for e in range(kvec):
                 np.add.at(writes, at + e, 1)
                 out[at + e] = v[c * kvec + e]
+
+
+def small_kernel_np(src: np.ndarray, vl: int, m: int, to_layout: bool, aligned: bool = True,
+                    chunk: int | None = None):
+    """transpose_small (vl < 4) on the flat array ``src``: warp w owns
+    ``per_warp`` whole blocks of bs = vl·m elements (``chunk``, by default
+    the kernel's: kSmallK·32 / bs, at least 1), and in rounds of
+    kSmallK·32 elements lane l stores output elements l + 32·k of the span
+    (consecutive lanes, consecutive addresses), each loaded from input
+    element b·bs + perm(i) of its block b, (b, i) stepped by (32 // bs, 32
+    % bs) with a carry from the lane's first element.  ``aligned`` is
+    unused: the kernel moves single elements."""
+    out = np.zeros_like(src)
+    reads = np.zeros(src.size, np.int64)
+    writes = np.zeros(src.size, np.int64)
+    bs = vl * m
+    assert src.size % bs == 0
+    nblocks = src.size // bs
+    per_warp = chunk or max(1, SMALL_K * 32 // bs)
+    db, di = 32 // bs, 32 % bs
+    for q0 in range(0, nblocks, per_warp):
+        span = min(nblocks - q0, per_warp) * bs
+        base = q0 * bs
+        lane = np.arange(32)
+        b, i = lane // bs, lane % bs
+        for o0 in range(0, span, SMALL_K * 32):
+            live, srcs = [], []
+            for k in range(SMALL_K):
+                o = o0 + k * 32 + lane
+                ok = o < span
+                if to_layout:                   # layout place s·vl + j <- natural j·m + s
+                    s_, j = i // vl, i % vl
+                    at = b * bs + j * m + s_
+                else:                           # natural place j·m + s <- layout s·vl + j
+                    j = (i >= m).astype(int) + ((vl == 3) & (i >= 2 * m)).astype(int)
+                    at = b * bs + (i - j * m) * vl + j
+                np.add.at(reads, base + at[ok], 1)
+                live.append((o[ok], src[base + at[ok]]))
+                b, i = b + db, i + di
+                carry = i >= bs
+                i, b = np.where(carry, i - bs, i), np.where(carry, b + 1, b)
+            for o, v in live:                   # each store: consecutive addresses
+                assert (np.diff(o) == 1).all()
+                np.add.at(writes, base + o, 1)
+                out[base + o] = v
     return out, reads, writes
 
 
@@ -199,12 +275,12 @@ def test_reg_kernel_matches_pallas(vl, m, nb):
     (12, 16, 4, "reg"),         # vl not a power of two
     (96, 8, 4, "reg"),
     (256, 8, 4, "reg"),         # the former K2-smem row's tile (vl above 128)
-    (3, 5, 4, "smem"),          # vl below 4
-    (2, 4, 4, "smem"),
-    (1, 8, 8, "smem"),
+    (3, 5, 4, "reg"),           # vl below 4: transpose_small, no shared memory
+    (2, 4, 4, "reg"),
+    (1, 8, 8, "reg"),
     (256, 2, 4, "reg"),
-    (32, 8, 1, "smem"),         # no 1-byte instance
-    (32, 0, 4, "smem"),
+    (32, 8, 1, "reg"),          # K2's one route (the wrapper raises on 1-byte elements)
+    (32, 0, 4, "reg"),
 ])
 def test_transpose_route(vl, m, itemsize, route):
     assert sk.transpose_route(vl, m, itemsize) == route
@@ -212,8 +288,8 @@ def test_transpose_route(vl, m, itemsize, route):
 
 @pytest.mark.parametrize("vl,m,numel,route", [
     (96, 8, (1 << 31) * 8 - 8 * 96, "reg"),    # just under 2^31 sub-columns of 8
-    (96, 8, (1 << 31) * 8, "smem"),            # transpose_any's 32-bit index
-    (8, 25, (1 << 31) * 5, "smem"),
+    (96, 8, (1 << 31) * 8, "reg"),             # transpose_any's wide instance
+    (8, 25, (1 << 31) * 5, "reg"),
     (8, 8, 1 << 40, "reg"),                    # transpose_reg's 64-bit index
     (8, 16, 1 << 40, "reg"),
 ])
@@ -236,4 +312,34 @@ def test_cpu_wrapper_counts_no_route():
     back = sk.block_untranspose(t, 32, 8)
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
     assert torch.equal(back, x)
-    assert {"transpose", "transpose_smem"} <= set(sk.LAUNCHES)
+    assert "transpose" in sk.LAUNCHES and "transpose_smem" not in sk.LAUNCHES
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("m", range(1, 34))
+@pytest.mark.parametrize("vl", [1, 2, 3])
+def test_small_kernel_address_map(vl, m, itemsize):
+    """transpose_small at every m from 1 to 33 (blocks of 1 to 99
+    elements: many a warp, and at m = 33, vl = 3 a block past the 32
+    lanes), both directions, over a partial last warp and a leading
+    axis."""
+    x = _bits((2, 131 * vl * m), itemsize, seed=vl * 64 + m * 8 + itemsize)
+    _check(x, vl, m)
+
+
+@pytest.mark.parametrize("vl,m", [(2, 8), (3, 5), (1, 16), (2, 7), (3, 24), (2, 300)])
+def test_small_kernel_spans(vl, m):
+    """transpose_small with spans of 1, 2 and 5 blocks a warp (one block
+    of vl = 2, m = 300 takes two rounds of 512 elements)."""
+    x = _bits((2, 23 * vl * m), 4, seed=m)
+    for chunk in (1, 2, 5):
+        _check(x, vl, m, chunk=chunk)
+
+
+@pytest.mark.parametrize("vl,m", [(96, 8), (5, 11), (8, 25), (12, 3)])
+def test_any_kernel_super_chunks(vl, m):
+    """transpose_any's wide instance: super-chunks of whole blocks along
+    blockIdx.y, each with its own sub-column count and offset."""
+    x = _bits((3, 7 * vl * m), 4, seed=vl + m)
+    for chunk in (1, 2, 4):
+        _check(x, vl, m, chunk=chunk)

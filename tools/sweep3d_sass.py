@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Count the SASS instructions of each ``sweep3d_f32`` instance of a built
+"""Count the SASS instructions of each ``sweep3d`` instance of a built
 ``csrc/sweep3d.cu`` library (or of another register kernel's), in all and
 by opcode (loads, stores, the FP32 multiplies and adds, integer and address
 arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
@@ -9,9 +9,12 @@ arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
                                   [--base PATH]
 
 ``--source`` is ``sweep3d`` (the default), ``sweep2d_warp``,
-``sweep1d_warp`` (kernel ``<source>_f32``) or ``transpose`` (K2's
-``transpose_reg``, its instances named <element bytes, M, G, vec,
-to_layout>).  ``--lib`` is a built
+``sweep1d_warp``, their bfloat16 sources ``<source>_bf16`` (the kernel
+``<source>``, a float instance named by its template arguments without
+the element type, as a tree from before the bfloat16 instances named its
+``<source>_f32``, so ``--base`` compares the two; a bfloat16 one with
+``bf16`` first) or ``transpose`` (K2's ``transpose_reg``, its instances
+named <element bytes, M, G, vec, to_layout>).  ``--lib`` is a built
 library of that source (by default this checkout's, built if missing).  An
 instance is named by its template arguments, for ``sweep3d`` <M, D, order,
 ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older than the
@@ -54,12 +57,17 @@ def sass_counts(lib: str, kernel: str) -> dict:
         if found:
             name = found.group(1)
             fun = None
-            if kernel in name:
-                rest = name.split(kernel, 1)[1]
+            # the kernel's mangled identifier (an older tree's float kernel
+            # is <kernel>_f32); the anonymous namespace's name holds the
+            # file's name too
+            found = re.search(rf"\d+{kernel}(?:_f32)?I", name)
+            if found:
+                rest = name[found.end() - 1:]
                 args = re.findall(r"L[ib](\d+)E", rest)
-                typ = re.match(r"I([tjy])", rest)
+                typ = re.match(r"I(13__nv_bfloat16|[tjy])", rest)
                 if typ:
-                    args = [{"t": "2B", "j": "4B", "y": "8B"}[typ.group(1)]] + args
+                    args = [{"t": "2B", "j": "4B", "y": "8B",
+                             "13__nv_bfloat16": "bf16"}[typ.group(1)]] + args
                 fun = "<" + ", ".join(args) + ">"
                 counts[fun] = collections.Counter()
             continue
@@ -75,13 +83,14 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--source", default="sweep3d",
-                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp", "transpose"))
+                        choices=("sweep3d", "sweep2d_warp", "sweep1d_warp", "sweep3d_bf16",
+                                 "sweep2d_warp_bf16", "sweep1d_warp_bf16", "transpose"))
     parser.add_argument("--lib", default=None)
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--base", default=None, help="a library to compare with")
     args = parser.parse_args()
     lib = args.lib
-    kernel = "transpose_reg" if args.source == "transpose" else f"{args.source}_f32"
+    kernel = "transpose_reg" if args.source == "transpose" else args.source.removesuffix("_bf16")
     if lib is None:
         build.load(args.source)
         lib = str(build.build_dir() / f"{args.source}.so")

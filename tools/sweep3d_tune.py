@@ -4,13 +4,15 @@
     python3 tools/sweep3d_tune.py [VARIANT ...]
 
 A variant is ``name:const=value,...`` over the constants of
-``csrc/sweep3d.cu`` that shape its schedule: ``kStages`` and ``kStagesD1``
+``csrc/sweep3d.cuh`` (the float entry points are ``csrc/sweep3d.cu``) that
+shape its schedule: ``kStages`` and ``kStagesD1``
 (input planes in flight, and at depth 1), ``kLanes`` (columns a CTA stores
 per row) and ``kMaxThreads`` (the cap on a CTA's threads), e.g.
 ``s4:kStages=4,kStagesD1=4``.  ``base`` (the source as it is) always
-runs.  Each variant is the source with those constants replaced, built
-with the port's nvcc flags (and ``csrc/`` for its headers) into
-``build/sweep3d_tune/`` (all started together); its ptxas report gives
+runs.  Each variant is the header with those constants replaced, beside
+``sweep3d.cu`` including it, built with the port's nvcc flags (and
+``csrc/`` for the other headers) into ``build/sweep3d_tune/`` (all
+started together); its ptxas report gives
 registers and spills per instance.  Then,
 for each variant in turn, 3d7p at vl=32, m=8: K3 (periodic) on 512³ at
 depths 4, 2, 1 and K4b (ring) on 544 × 512² at depths 2, 1, each first
@@ -57,7 +59,8 @@ def main() -> int:
         print("sweep3d_tune: no CUDA device", file=sys.stderr)
         return 1
     variants = [("base", {})] + [parse(a) for a in sys.argv[1:]]
-    src = (build.CSRC / "sweep3d.cu").read_text()
+    src = (build.CSRC / "sweep3d.cuh").read_text()
+    entry = (build.CSRC / "sweep3d.cu").read_text()
     out_dir = os.path.join(ROOT, "build", "sweep3d_tune")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
@@ -67,9 +70,11 @@ def main() -> int:
             text, n = re.subn(rf"constexpr int {key} = \d+;", f"constexpr int {key} = {value};",
                               text)
             assert n == 1, key
+        with open(os.path.join(out_dir, f"{name}.cuh"), "w") as f:
+            f.write(text)
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
-            f.write(text)
+            f.write(entry.replace('#include "sweep3d.cuh"', f'#include "{name}.cuh"'))
         so = os.path.join(out_dir, f"{name}.so")
         jobs[name] = (subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                                         "-o", so, cu],
@@ -86,7 +91,7 @@ def main() -> int:
         regs = {}
         for fn, used in re.findall(r"Function properties for (\S+)[\s\S]*?Used (\d+) registers",
                                    err + out):
-            m = re.search(r"sweep3d_f32ILi8ELi(\d)ELi1ELb(\d)", fn)
+            m = re.search(r"sweep3dIfLi8ELi(\d)ELi1ELb(\d)", fn)
             if m:
                 regs[f"<8, {m.group(1)}, star, ends {m.group(2)}>"] = int(used)
         spills = len(re.findall(r"[1-9]\d* bytes spill", err + out))
@@ -108,7 +113,7 @@ def main() -> int:
         plain[label, depth] = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1) \
             if edge == "periodic" else sk.stencil_nd_multistep_ref(spec, t, depth, 1, True)
     saved = {v: getattr(sk, v) for v in CONSTS.values()}
-    ntaps, offs, coeffs = sk._taps(spec, 3)
+    ntaps, offs, coeffs = sk._taps(spec, 3, torch.float32)
     for name, consts in variants:
         for key, value in consts.items():
             setattr(sk, CONSTS[key], value)
