@@ -125,6 +125,30 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
              each counted, on the card and on the CPU against the float64
              numpy oracle;
+  schemes    the quickstart's plan table on the jnp backend at the cases'
+             sizes in float32, 16 steps: each of the paper's five schemes
+             (``StencilPlan(scheme=..., k=1, vl=8, m=8)``; DLT at vl=8),
+             "ours + 2-step" (``StencilPlan(scheme="transpose", k=2)``,
+             ``multistep_fused``) and ``plan="default"``, each counted (plain
+             PyTorch: no counter moves), timed (the counted run and the
+             median of 3 more, updates/s) and bit for bit the resident
+             fused-16 run of the same grid, whose median is beside it;
+  tessellate 2d5p 8192**2, ``tiling="tessellate"`` at heights 2 and 4, inner
+             transpose, 16 steps, the same way;
+  mxu        ``backend="mxu"`` (k=2, vl=8, m=8, fused 16) on the three grids
+             in float32 and bfloat16: K2 twice and one product a sweep
+             (``mxu``, 8), the counted run's seconds, the median of 3 more,
+             peak memory, the resident run's median beside it; against the
+             float64 oracle (the port's ``apply_steps`` on the card) within
+             1e-4 in float32, and in bfloat16 within Σ over the sweeps of
+             2·2^-8 of the sweep's largest value (the operator's
+             coefficients and its result each rounded to bfloat16), times
+             1 + 2^-6; then an mxu row a grid and dtype in the kernels line:
+             one depth-2 sweep against two plain layout steps (1e-4 f32,
+             4e-2 bf16), its GEMM alone (``matmul_ms``) beside the operations
+             bound (2·rows·n_off·B² at 67 TFLOP/s FP32, or 989 bf16);
+             each of these three phases ends with a line of its seconds
+             (``phase_seconds``);
   ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
              (H=80, P=64, N=128, B and C shared by the heads through a
              stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
@@ -240,6 +264,7 @@ SOURCES = {
     "sweep3d_bf16": "src/repro_torch/kernels/csrc/sweep3d_bf16.cu",
     "onestep": "src/repro_torch/kernels/csrc/onestep.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "mxu": "src/repro_torch/core/matrixize.py",
 }
 _SK = "src/repro/kernels/stencil_kernels.py"
 REPLACES = {
@@ -253,7 +278,16 @@ REPLACES = {
     "K5a": f"{_SK}:620 (_kernel_naive_1d via stencil1d_naive_onestep :634)",
     "K5b": f"{_SK}:651 (_kernel_transpose_1d via stencil1d_transpose_onestep :669)",
     "K6": "src/repro/kernels/ssd_kernel.py:33 (_kernel via ssd_chunk_scan :71)",
+    "mxu": f"{_SK}:516 / :526 (stencil1d_sweep_mxu / stencil_nd_sweep_mxu: a dot_general, "
+           "no Pallas kernel)",
 }
+# the paper's schemes (the quickstart's plan table) and the mxu engine, on
+# the cases' grids: plans at vl=8, m=8 (DLT: vl=8, m = n/8), 16 steps
+SCHEME_TILE = (8, 8)
+SCHEME_STEPS = 16
+TESS_CASE, TESS_HEIGHTS = ("2d5p", (8192, 8192)), (2, 4)
+MXU_K = 2
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores, dense
 SERVE_PROMPTS = (2048, 1024, 512, 1000, 2048, 256)    # tokens, drawn from the seed
 SERVE_NEW = 16
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
@@ -618,6 +652,162 @@ def profile_decode(model, params, dev, lanes: int, steps: int = 4) -> dict:
             "decode_profiled_ms_per_step": wall_us / steps / 1e3,
             "decode_device_busy_ms_per_step": busy_us / steps / 1e3,
             "decode_device_idle_share": 1 - busy_us / wall_us}
+
+
+def paper_phases(dev, counted, same, close, host_median, ms, row, conv_steps) -> None:
+    """The ``schemes``, ``tessellate`` and ``mxu`` phases, and the mxu rows
+    of the kernels line."""
+    import torch
+
+    from repro_torch.core import matrixize, stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem
+    from repro_torch.core.vectorize import step_in_layout
+    from repro_torch.kernels import stencil_kernels as sk
+
+    steps = SCHEME_STEPS
+    resident = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                           remainder="fused")
+    vl, m = SCHEME_TILE
+    table = [(s, StencilPlan(scheme=s, k=1, vl=vl, m=m))
+             for s in ("multiload", "reorg", "dlt", "transpose", "fused")]
+    table += [("ours + 2-step", StencilPlan(scheme="transpose", k=2)), ("default", "default")]
+
+    def timed(label, prob, x, plan, owned):
+        """A warm-up, the counted run, the median of 3 more."""
+        prob.run(x, 2, plan)
+        y, seconds, got = counted(label, lambda: prob.run(x, steps, plan), owned)
+        return y, seconds, host_median(lambda: prob.run(x, steps, plan), runs=3), got
+
+    def describe(plan):
+        return plan if isinstance(plan, str) else {
+            "scheme": plan.scheme, "k": plan.k, "vl": plan.vl, "m": plan.m,
+            "tiling": plan.tiling, "height": plan.height}
+
+    # -- schemes: the quickstart's plan table, each bit for bit the resident
+    # fused-16 run; plain PyTorch, so no counter moves ---------------------
+    start = time.perf_counter()
+    for name, shape in CASES:
+        prob = StencilProblem(name, shape)
+        x = prob.init(SEED)
+        prob.run(x, 2, resident)
+        want = prob.run(x, steps, resident)
+        res_s = host_median(lambda: prob.run(x, steps, resident), runs=3)
+        for label, plan in table:
+            y, seconds, median, got = timed(f"{name} {label}", prob, x, plan, {})
+            same(f"schemes {name} {label} vs resident", y, want)
+            del y
+            emit({"phase": "schemes", "case": name, "shape": list(shape), "plan": label,
+                  "spec": describe(plan), "steps": steps, "seconds": seconds,
+                  "seconds_median_of_3": median, "ms": median * 1e3,
+                  "gpoint_updates_per_s": x.numel() * steps / median / 1e9,
+                  "resident_ms_median_of_3": res_s * 1e3, "launches": {}, "bitwise": True})
+        del x, want
+        torch.cuda.empty_cache()
+    emit({"phase": "schemes", "phase_seconds": time.perf_counter() - start})
+
+    # -- tessellate: 2d5p 8192^2, inner transpose, heights 2 and 4 ----------
+    start = time.perf_counter()
+    name, shape = TESS_CASE
+    prob = StencilProblem(name, shape)
+    x = prob.init(SEED)
+    want = prob.run(x, steps, resident)
+    for h in TESS_HEIGHTS:
+        plan = StencilPlan(scheme="transpose", tiling="tessellate", height=h, vl=vl)
+        y, seconds, median, got = timed(f"{name} tessellate h={h}", prob, x, plan, {})
+        same(f"tessellate {name} h={h} vs resident", y, want)
+        del y
+        emit({"phase": "tessellate", "case": name, "shape": list(shape), "height": h,
+              "tile": list(prob._default_tile(h)), "inner": "transpose", "vl": vl,
+              "steps": steps, "seconds": seconds, "seconds_median_of_3": median,
+              "ms": median * 1e3, "gpoint_updates_per_s": x.numel() * steps / median / 1e9,
+              "launches": {}, "bitwise": True})
+    del x, want
+    torch.cuda.empty_cache()
+    emit({"phase": "tessellate", "phase_seconds": time.perf_counter() - start})
+
+    # -- mxu: k=2 at vl=8, m=8, fused 16, f32 and bf16, against the f64
+    # oracle on the card; then its rows in the kernels line ----------------
+    start = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for name, shape in CASES:
+            prob = StencilProblem(name, shape, dtype=dtype)
+            spec = prob.spec
+            x = prob.init(SEED)
+            plan = StencilPlan(backend="mxu", k=MXU_K, vl=vl, m=m, remainder="fused")
+            sweeps = steps // MXU_K
+            prob.run(x, 2, plan)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            y, seconds, got = counted(f"{name} {dname} mxu", lambda: prob.run(x, steps, plan),
+                                      {"transpose": 2, "mxu": sweeps})
+            peak = torch.cuda.max_memory_allocated()
+            median = host_median(lambda: prob.run(x, steps, plan), runs=3)
+            prob.run(x, 2, resident)
+            res_s = host_median(lambda: prob.run(x, steps, resident), runs=3)
+            # the f64 oracle, sweep by sweep, with the largest value at the
+            # start of each sweep
+            oracle, x_max = x.double(), []
+            for _ in range(sweeps):
+                x_max.append(oracle.abs().max().item())
+                oracle = stencils.apply_steps(spec, oracle, MXU_K)
+            if dtype == torch.float32:
+                rtol = atol = 1e-4
+            else:
+                # a sweep rounds the operator's coefficients (all >= 0, summing
+                # to 1) to bf16 and its result to bf16: each moves a point by
+                # at most u = 2^-8 of the sweep's largest value, and the
+                # operator carries an earlier error on without growing it;
+                # (1 + 2^-6) covers the second-order terms
+                rtol, atol = 0.0, (1 + 2.0 ** -6) * sum(2 * 2.0 ** -8 * v for v in x_max)
+            err = close(f"mxu {name} {dname} vs the f64 oracle", y, oracle, rtol, atol)
+            del y, oracle
+            op = matrixize.operator(spec, vl, m, MXU_K)
+            emit({"phase": "mxu", "case": name, "shape": list(shape), "dtype": dname,
+                  "plan": {"k": MXU_K, "vl": vl, "m": m, "remainder": "fused"},
+                  "steps": steps, "n_off": op.n_off, "seconds": seconds,
+                  "seconds_median_of_3": median, "ms": median * 1e3,
+                  "gpoint_updates_per_s": x.numel() * steps / median / 1e9,
+                  "resident_ms_median_of_3": res_s * 1e3, "peak_bytes": peak,
+                  "launches": got, "max_abs_err_vs_f64": err,
+                  "limit": {"rtol": rtol, "atol": atol}, "max_abs_per_sweep": x_max})
+
+            # the kernels line: one sweep, its matmul alone, its plain version
+            t = sk.block_transpose(x, vl, m)
+            sweep = sk.stencil1d_sweep_mxu if spec.ndim == 1 else sk.stencil_nd_sweep_mxu
+
+            def plain():
+                u = t
+                for _ in range(MXU_K):
+                    u = step_in_layout(spec, u, spec.ndim)
+                return u
+            tol = 1e-4 if dtype == torch.float32 else 4e-2
+            err = close(f"mxu {name} {dname} sweep vs plain", sweep(spec, t, MXU_K), plain(),
+                        tol, tol)
+            operand, _ = matrixize.neighbourhood(op, t)
+            tab = op.table_tensor(dtype, dev)
+
+            def product():
+                with matrixize.exact_products():
+                    return torch.matmul(operand, tab)
+            matmul_ms = ms(product)
+            rows = operand.shape[0]
+            item = x.element_size()
+            nbytes = 2 * x.numel() * item + tab.numel() * item
+            flops = 2 * rows * op.n_off * op.B * op.B
+            rate = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+            weight = torch.tensor(spec.coeff_array(), dtype=dtype, device=dev)[None, None]
+            dims = "x".join(map(str, shape))
+            row("mxu", "stencil1d_sweep_mxu" if spec.ndim == 1 else "stencil_nd_sweep_mxu",
+                f"{name} {dims} {dname} vl={vl} m={m} depth={MXU_K}; n_off={op.n_off}", "mxu",
+                got["mxu"], err, lambda: sweep(spec, t, MXU_K), plain, bound(nbytes, flops, rate),
+                lambda: ms(conv_steps, spec, x, MXU_K, weight), matmul_ms=matmul_ms,
+                matmul_bound_ms=flops / rate * 1e3, gemm=[rows, op.n_off * op.B, op.B],
+                product="torch.matmul (a cuBLAS GEMM): the mxu engine has no kernel of its own",
+                tolerance=tol)
+            del x, t, operand, weight
+            torch.cuda.empty_cache()
+    emit({"phase": "mxu", "phase_seconds": time.perf_counter() - start})
 
 
 def main() -> int:
@@ -1546,6 +1736,7 @@ def main() -> int:
           steps, kref.kernel_bc(2), k4_counts(spec, [(K, steps // K)], vl, m))
     del x
 
+    paper_phases(dev, counted, same, close, host_median, ms, row, conv_steps)
     k6_rows = ssd_phase(dev, ms, close, bound)
     serve = mamba2_serve(dev, counted, close)
     for entry in k6_rows:

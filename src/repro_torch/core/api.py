@@ -6,13 +6,25 @@
 
 ``StencilPlan`` keeps the reference's field set and values, so a plan dict
 round-trips between the two packages (:func:`plan_to_dict`,
-:func:`plan_from_dict`).  The port runs the two ``backend="pallas"``
-engines: the layout-resident sweep engine (``sweep="resident"``) and the
-per-sweep roundtrip engine (``sweep="roundtrip"``), whose kernels here are
-hand-written CUDA for Hopper rather than Pallas — the backend keeps its
-reference name so that plans stay interchangeable.  Every other backend
-and plan string raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+:func:`plan_from_dict`).  The port runs every single-device backend:
+
+  * ``backend="jnp"`` (the default, and ``plan="default"``): the paper's
+    vectorization schemes (``core/vectorize.py``), ``multistep_fused`` for
+    k > 1 (``core/unroll_jam.py``) and ``tiling="tessellate"``
+    (``core/tessellate.py``) — plain PyTorch programs on either device, as
+    the reference's jnp backend is plain XLA;
+  * ``backend="pallas"``: the layout-resident sweep engine
+    (``sweep="resident"``) and the per-sweep roundtrip engine
+    (``sweep="roundtrip"``), whose kernels here are hand-written CUDA for
+    Hopper rather than Pallas — the backend keeps its reference name so
+    that plans stay interchangeable;
+  * ``backend="mxu"``: the banded-operator engine (``core/matrixize.py``),
+    one matrix product a sweep.
+
+``plan="auto"`` (the autotuner, ROADMAP A6), ``backend="distributed"`` and
+an mxu plan with a ``decomp`` (the distributed runtime, ROADMAP A9) raise
+``NotImplementedError`` naming the item that ports them; the other backends
+ignore ``decomp``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -21,7 +33,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core import stencils
+from repro_torch.core import stencils, tessellate, unroll_jam, vectorize
 
 
 def sweep_schedule(k: int, steps: int | None,
@@ -92,11 +104,8 @@ def plan_from_dict(d: dict) -> StencilPlan:
 
 # ROADMAP items that port what the reference runs for these plan values.
 _NOT_PORTED = {
-    "jnp": "the jnp schemes (ROADMAP A5)",
-    "mxu": "the MXU matrixization engine (ROADMAP A7)",
     "distributed": "the distributed runtime (ROADMAP A9)",
     "auto": "the autotuner behind plan='auto' (ROADMAP A6)",
-    "default": "the default jnp plan (ROADMAP A5)",
 }
 
 
@@ -138,12 +147,14 @@ class StencilProblem:
         runs under ``plan.remainder`` (inside the same resident run, or as
         further roundtrip sweeps)."""
         if isinstance(plan, str):
-            if plan in ("auto", "default"):
+            if plan == "auto":
                 raise NotImplementedError(
-                    f"plan={plan!r} is not ported yet: it needs {_NOT_PORTED[plan]}; "
-                    "pass a StencilPlan")
-            raise ValueError(f"unknown plan {plan!r}; expected 'auto', "
-                             f"'default' or a StencilPlan")
+                    f"plan='auto' is not ported yet: it needs {_NOT_PORTED['auto']}; "
+                    "pass plan='default' or a StencilPlan")
+            if plan != "default":
+                raise ValueError(f"unknown plan {plan!r}; expected 'auto', "
+                                 f"'default' or a StencilPlan")
+            plan = self.default_plan()
         if not isinstance(plan, StencilPlan):
             raise TypeError(f"plan must be a StencilPlan, got {type(plan).__name__}")
         if tuple(x.shape) != self.shape:
@@ -162,26 +173,56 @@ class StencilProblem:
                 "overlap=True requires the distributed shard-resident "
                 "engine (backend='distributed', scheme='transpose', "
                 "sweep='resident')")
-        if plan.backend in ("jnp", "mxu", "distributed"):
+        if plan.backend == "distributed" or (plan.backend == "mxu"
+                                             and plan.decomp is not None):
             raise NotImplementedError(
-                f"backend={plan.backend!r} is not ported yet: it needs "
-                f"{_NOT_PORTED[plan.backend]}")
-        if plan.backend != "pallas":
-            raise ValueError(f"unknown backend {plan.backend!r}")
+                f"backend={plan.backend!r} with decomp={plan.decomp} is not ported "
+                f"yet: it needs {_NOT_PORTED['distributed']}")
         from repro_torch.kernels import ops
         # m=None means "pick the tile"; an explicit (vl, m) pair is honored.
         vl = plan.vl if plan.m is not None else None
-        if plan.sweep == "resident":
-            return ops.stencil_sweep_periodic(
-                self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
+        if plan.backend == "mxu":
+            return ops.stencil_sweep_mxu(
+                self.spec, x, steps, k=plan.k, vl=vl, m=plan.m,
                 remainder=plan.remainder, ttile=plan.ttile)
-        if plan.sweep != "roundtrip":
-            raise ValueError(f"unknown sweep engine {plan.sweep!r}")
-        return self._chunked(
-            x, steps, plan.k,
-            lambda v, n, k: ops.stencil_run_periodic(
-                self.spec, v, n, k=k, vl=vl, m=plan.m, t0=plan.t0),
-            remainder=plan.remainder)
+        if plan.backend == "pallas":
+            if plan.sweep == "resident":
+                return ops.stencil_sweep_periodic(
+                    self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
+                    remainder=plan.remainder, ttile=plan.ttile)
+            if plan.sweep != "roundtrip":
+                raise ValueError(f"unknown sweep engine {plan.sweep!r}")
+            return self._chunked(
+                x, steps, plan.k,
+                lambda v, n, k: ops.stencil_run_periodic(
+                    self.spec, v, n, k=k, vl=vl, m=plan.m, t0=plan.t0),
+                remainder=plan.remainder)
+        if plan.backend != "jnp":
+            raise ValueError(f"unknown backend {plan.backend!r}")
+        return self._run_jnp(x, steps, plan)
+
+    def _run_jnp(self, x: torch.Tensor, steps: int, plan: StencilPlan) -> torch.Tensor:
+        """The jnp backend: tessellation rounds, k-step ``multistep_fused``
+        blocks (the scheme is then not used, as in the reference) or
+        ``run_scheme``; plain PyTorch on either device."""
+        if plan.tiling == "tessellate":
+            h = plan.height or plan.k
+            tile = plan.tile or self._default_tile(h)
+            inner = plan.scheme if plan.scheme in ("fused", "transpose", "dlt") else "fused"
+
+            def tess(v, n, k):
+                if k == 1:          # the remainder: fused single steps
+                    return vectorize.run_scheme("fused", self.spec, v, n, plan.vl, plan.m)
+                return tessellate.tessellate_run(self.spec, v, n, tile, k, inner=inner,
+                                                 vl=plan.vl)
+            return self._chunked(x, steps, h, tess, remainder=plan.remainder)
+        if plan.k > 1:
+            def fused(v, n, k):
+                for _ in range(n // k):
+                    v = unroll_jam.multistep_fused(self.spec, v, k)
+                return v
+            return self._chunked(x, steps, plan.k, fused, remainder=plan.remainder)
+        return vectorize.run_scheme(plan.scheme, self.spec, x, steps, plan.vl, plan.m)
 
     def _chunked(self, x: torch.Tensor, steps: int, k: int, step,
                  remainder: str = "fused") -> torch.Tensor:
@@ -198,6 +239,16 @@ class StencilProblem:
         if rem:
             x = step(x, rem, rem if remainder == "native" else 1)
         return x
+
+    def default_plan(self) -> StencilPlan:
+        """The static plan before any tuning, the reference's: the local
+        transpose scheme's k=2 ``multistep_fused`` blocks on the jnp
+        backend — also the baseline the reference's tuner measures
+        against."""
+        return StencilPlan(scheme="transpose", k=2, vl=8)
+
+    def _default_tile(self, h: int) -> tuple[int, ...]:
+        return tessellate.fit_tile(self.spec, self.shape, h)
 
     # ------------------------------------------------------------------
     def model_flops(self, steps: int) -> int:

@@ -1,14 +1,111 @@
-"""One Jacobi step on a layout-resident array — the paper's execution model.
+"""The vectorization schemes discussed by the paper, as plain PyTorch programs.
 
-Only the layout step of the reference's ``core/vectorize.py`` is ported
-here: ``extend_vs`` (the Assemble lane carry) and ``step_in_layout``.  The
-five vectorization schemes are still to be ported (ROADMAP A5).
+Five schemes, all computing one Jacobi step with periodic BC, each written so
+that its data movement mirrors the paper's CPU implementation (reference:
+``core/vectorize.py``):
+
+  * ``multiload``  — §2.1 first solution: unaligned overlapping vector loads
+                     (wrap-pad + one slice a tap; re-reads each input 2r+1×).
+  * ``reorg``      — §2.1 second solution: aligned loads + inter-register
+                     permutes (whole-array rolls on the unit-stride axis).
+  * ``dlt``        — §2.2 Henretty's global dimension-lifting transpose:
+                     single-block transpose layout, locality destroyed.
+  * ``transpose``  — §3.2 the paper's scheme: local (vl×m) transpose per
+                     block; neighbour access = contiguous second-minor slices
+                     of an extended tile (``step_in_layout``).
+  * ``fused``      — the roll oracle (= ``stencils.apply_once``).
+
+Every scheme sums the taps in ``spec.taps`` order, each a product with the
+coefficient rounded to the dtype, so each equals ``apply_once`` bit for bit.
+For d-dimensional stencils the layout only affects the unit-stride (last)
+axis; offsets on the other axes are plain rolls.  These are plain tensor
+programs on either device: no kernel of ``kernels/csrc`` runs here.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from repro_torch.core.stencils import StencilSpec, coeff
+from repro_torch.core import layouts
+from repro_torch.core.stencils import StencilSpec, apply_once, coeff
+
+SchemeFn = Callable[..., torch.Tensor]
+
+
+def wrap_pad(x: torch.Tensor, pad: int, axis: int = 0) -> torch.Tensor:
+    """``x`` with ``pad`` periodic copies of its cells along ``axis`` on each
+    side (``pad`` may exceed the extent), by concatenating slices."""
+    n = x.shape[axis]
+    pieces, i, end = [], -pad, n + pad
+    while i < end:
+        start = i % n
+        size = min(n - start, end - i)
+        pieces.append(x.narrow(axis, start, size))
+        i += size
+    return torch.cat(pieces, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# multiload: wrap-pad, then one contiguous (unaligned) slice per tap.
+# ---------------------------------------------------------------------------
+
+def step_multiload(spec: StencilSpec, x: torch.Tensor) -> torch.Tensor:
+    r = spec.r
+    xp = x
+    for axis in range(x.ndim):
+        xp = wrap_pad(xp, r, axis)
+    acc = None
+    for off, c in spec.taps:
+        sl = xp
+        for axis, o in enumerate(off):
+            sl = sl.narrow(axis, r + o, x.shape[axis])
+        term = sl * coeff(c, x.dtype)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# reorg: aligned loads once, rolls (permute networks) for every tap.
+# ---------------------------------------------------------------------------
+
+def step_reorg(spec: StencilSpec, x: torch.Tensor) -> torch.Tensor:
+    return apply_once(spec, x, bc="periodic")
+
+
+step_fused = step_reorg  # semantic oracle
+
+
+# ---------------------------------------------------------------------------
+# dlt: global dimension-lifting transpose on the unit-stride axis.
+# ---------------------------------------------------------------------------
+
+def _dlt_m(x: torch.Tensor, vl: int) -> int:
+    """DLT's m: the whole minor axis is one (vl, n/vl) block."""
+    n = x.shape[-1]
+    if n % vl:
+        raise ValueError(f"dlt: minor extent {n} is not a multiple of vl={vl}")
+    return n // vl
+
+
+def step_dlt(spec: StencilSpec, x: torch.Tensor, vl: int = 128) -> torch.Tensor:
+    return _layout_step(spec, x, vl, _dlt_m(x, vl))
+
+
+# ---------------------------------------------------------------------------
+# transpose (the paper's): local per-block transpose layout.
+# ---------------------------------------------------------------------------
+
+def step_transpose(spec: StencilSpec, x: torch.Tensor, vl: int = 128,
+                   m: int | None = None) -> torch.Tensor:
+    return _layout_step(spec, x, vl, vl if m is None else m)
+
+
+def _layout_step(spec: StencilSpec, x: torch.Tensor, vl: int, m: int) -> torch.Tensor:
+    """One step in (local or global) transpose layout, round trip."""
+    t = layouts.to_transpose_layout(x, vl, m)          # (..., nb, m, vl)
+    out = step_in_layout(spec, t, ndim=x.ndim)
+    return layouts.from_transpose_layout(out, vl, m)
 
 
 def step_in_layout(spec: StencilSpec, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -48,3 +145,43 @@ def extend_vs(t: torch.Tensor, r: int) -> torch.Tensor:
         flat = t[..., q - 1, :].reshape(lead + (nb * vl,))
         right_rows.append(torch.roll(flat, -1, -1).reshape(lead + (nb, 1, vl)))
     return torch.cat(left_rows + [t] + right_rows, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+SCHEMES: dict[str, SchemeFn] = {
+    "multiload": step_multiload,
+    "reorg": step_reorg,
+    "fused": step_fused,
+    "dlt": step_dlt,
+    "transpose": step_transpose,
+}
+
+
+def get_scheme(name: str) -> SchemeFn:
+    try:
+        return SCHEMES[name]
+    except KeyError:
+        raise ValueError(f"unknown scheme {name!r}; have {sorted(SCHEMES)}") from None
+
+
+def run_scheme(name: str, spec: StencilSpec, x: torch.Tensor, steps: int,
+               vl: int = 128, m: int | None = None) -> torch.Tensor:
+    """``steps`` applications of the named scheme.
+
+    The layout schemes (dlt, transpose) stay layout-RESIDENT for the whole
+    run: transpose in once, step ``steps`` times, transpose out — the
+    paper's amortization (DLT pays one global transpose a run, the local
+    scheme one transpose a block a run)."""
+    if name in ("dlt", "transpose"):
+        mm = _dlt_m(x, vl) if name == "dlt" else (m or vl)
+        t = layouts.to_transpose_layout(x, vl, mm)
+        for _ in range(steps):
+            t = step_in_layout(spec, t, ndim=x.ndim)
+        return layouts.from_transpose_layout(t, vl, mm)
+    fn = get_scheme(name)
+    for _ in range(steps):
+        x = fn(spec, x)
+    return x

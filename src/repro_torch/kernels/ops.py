@@ -15,6 +15,9 @@
   * ``stencil_onestep_naive`` / ``stencil_onestep_transpose``: one periodic
     1-D step in the natural and in the transpose layout (K5), the paper's
     layout A/B.
+  * ``stencil_sweep_mxu`` is ``backend="mxu"``: the resident engine's shape
+    (K2 in, every ``sweep_schedule`` chunk, K2 out) with each depth-d launch
+    ONE matrix product against the banded operator ``A^d``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core.api import sweep_schedule
 from repro_torch.core.stencils import StencilSpec
+from repro_torch.core.vectorize import wrap_pad
 from repro_torch.kernels import stencil_kernels as sk
 
 DEFAULT_VL = 32                  # one warp of lanes: a 128-byte f32 row
@@ -109,17 +113,28 @@ def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
     return sk.block_untranspose(a, vl, m, out=x if donate else None)
 
 
-def wrap_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """``x`` with ``pad`` periodic copies of its axis-0 cells on each side
-    (``pad`` may exceed the extent)."""
-    n = x.shape[0]
-    pieces, i, end = [], -pad, n + pad
-    while i < end:
-        start = i % n
-        size = min(n - start, end - i)
-        pieces.append(x.narrow(0, start, size))
-        i += size
-    return torch.cat(pieces)
+def stencil_sweep_mxu(spec: StencilSpec, x: torch.Tensor, steps: int, k: int = 2,
+                      vl: int | None = None, m: int | None = None,
+                      remainder: str = "fused", ttile: int = 1) -> torch.Tensor:
+    """Advance ``x`` by ``steps`` periodic steps on the banded-operator
+    engine: the (steps, k, remainder, ttile) chunks of :func:`sweep_schedule`
+    as :func:`stencil_sweep_periodic` runs them, each launch ONE product
+    against ``A^depth`` (``core/matrixize.py``), between one K2 into the
+    layout and one out of it.  The tile is :func:`pick_tile`'s where ``vl``
+    is None.  Within the dtype's rounding of the f64 oracle, not bit for
+    bit the other engines: the product reassociates the tap sum."""
+    if remainder not in ("fused", "native"):
+        raise ValueError(f"unknown remainder policy {remainder!r}")
+    vl, m, _ = pick_tile(spec, tuple(x.shape), vl, m)
+    if steps <= 0:
+        return x
+    chunks, _ = sweep_schedule(k, steps, remainder, ttile)
+    sweep = sk.stencil1d_sweep_mxu if spec.ndim == 1 else sk.stencil_nd_sweep_mxu
+    t = sk.block_transpose(x.contiguous(), vl, m)
+    for depth, n in chunks:
+        for _ in range(n):
+            t = sweep(spec, t, depth)
+    return sk.block_untranspose(t, vl, m)
 
 
 def stencil_multistep(spec: StencilSpec, x: torch.Tensor, k: int,

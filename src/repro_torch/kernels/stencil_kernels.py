@@ -27,6 +27,12 @@
     ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
     the transpose layout, the paper's layout A/B (reference:
     ``_kernel_naive_1d`` and ``_kernel_transpose_1d``).
+  * ``stencil1d_sweep_mxu`` / ``stencil_nd_sweep_mxu`` (and their
+    ``_halo`` forms): a depth-d sweep as ONE matrix product against the
+    banded operator ``A^d`` (``core/matrixize.py``; reference: the
+    ``dot_general`` sweeps of ``stencil_kernels.py``, no Pallas kernel).
+    The product is ``torch.matmul`` on either device, a cuBLAS GEMM on the
+    card, as the reference leaves it to XLA; it has no kernel of its own.
 
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
@@ -40,9 +46,9 @@ under ``transpose``; K1 under ``sweep_1d`` (warp kernel) and
 ``multistep_1d`` (warp kernel) and ``multistep_1d_smem``; K3 under
 ``sweep_2d`` (2-D warp kernel), ``sweep_3d`` (3-D streaming kernel) and
 ``sweep_nd``; K4b under ``multistep_2d``, ``multistep_3d`` (the same
-kernels) and ``multistep_nd``.  The plain
-versions count nothing.  Outputs are allocated here (or passed in as
-``out``); the kernels allocate nothing.
+kernels) and ``multistep_nd``; the mxu sweeps' products on the card under
+``mxu``.  The plain versions count nothing.  Outputs are allocated here
+(or passed in as ``out``); the kernels allocate nothing.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ import functools
 
 import torch
 
-from repro_torch.core import layouts
+from repro_torch.core import layouts, matrixize
 from repro_torch.core.stencils import StencilSpec, apply_once, coeff
 from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
@@ -60,7 +66,7 @@ from repro_torch.kernels import build
 LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
             "sweep_2d": 0, "sweep_3d": 0, "sweep_nd": 0, "multistep_1d": 0,
             "multistep_1d_smem": 0, "multistep_2d": 0, "multistep_3d": 0, "multistep_nd": 0,
-            "onestep_naive": 0, "onestep_transpose": 0}
+            "onestep_naive": 0, "onestep_transpose": 0, "mxu": 0}
 
 SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
 _TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
@@ -922,3 +928,54 @@ def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
         f"{spec.name} transpose one-step kernel")
     LAUNCHES["onestep_transpose"] += 1
     return dst
+
+
+# ---------------------------------------------------------------------------
+# mxu: a depth-d sweep as one product against the banded operator A^d
+# ---------------------------------------------------------------------------
+
+def _mxu(spec: StencilSpec, t: torch.Tensor, depth: int, lead_halo=None,
+         block_halo: int = 0) -> torch.Tensor:
+    if t.ndim != spec.ndim + 2:
+        raise ValueError(f"{spec.name}: expected a ({spec.ndim - 1} lead, nb, m, vl) "
+                         f"layout, got shape {tuple(t.shape)}")
+    op = matrixize.operator(spec, t.shape[-1], t.shape[-2], depth)
+    if block_halo and block_halo < op.block_reach():
+        raise ValueError(f"block_halo {block_halo} is below the operator's block reach "
+                         f"{op.block_reach()}")
+    out = matrixize.apply_banded(op, t, lead_halo=lead_halo, block_halo=block_halo)
+    if t.device.type == "cuda":
+        LAUNCHES["mxu"] += 1
+    return out
+
+
+def stencil1d_sweep_mxu(spec: StencilSpec, t: torch.Tensor, depth: int) -> torch.Tensor:
+    """Advance the fully periodic resident (nb, m, vl) layout by ``depth``
+    steps with ONE product against the banded operator ``A^depth``."""
+    return _mxu(spec, t, depth)
+
+
+def stencil_nd_sweep_mxu(spec: StencilSpec, t: torch.Tensor, depth: int) -> torch.Tensor:
+    """n-D analogue: t is (n0, *mid, nb, m, vl); the operator carries the
+    leading-axis taps as periodic shifts of the operand and the minor-axis
+    coupling (lane carries included) in its block matrices."""
+    return _mxu(spec, t, depth)
+
+
+def stencil1d_sweep_mxu_halo(spec: StencilSpec, t: torch.Tensor, depth: int,
+                             block_halo: int) -> torch.Tensor:
+    """Depth-``depth`` advance of a ghost-EXTENDED resident shard (nb +
+    2·block_halo blocks, ghosts filled by a halo exchange); returns the nb
+    interior blocks — no ghost-zone compute, nothing for the caller to
+    crop.  ``block_halo`` must cover the operator's block reach."""
+    if block_halo < 1:
+        raise ValueError(f"block_halo {block_halo}: the halo form needs ghost blocks")
+    return _mxu(spec, t, depth, block_halo=block_halo)
+
+
+def stencil_nd_sweep_mxu_halo(spec: StencilSpec, t: torch.Tensor, depth: int,
+                              lead_halo, block_halo: int) -> torch.Tensor:
+    """n-D halo form: ``lead_halo[a]`` ghost rows a side on leading axis
+    ``a`` (0: the axis is whole and wraps), ``block_halo`` ghost blocks a
+    side on the block axis (0: it wraps)."""
+    return _mxu(spec, t, depth, lead_halo=lead_halo, block_halo=block_halo)

@@ -5,8 +5,12 @@ the taps in the spec's order with one multiply and one add each (built with
 ``-fmad=false``), each rounded to the tensor's dtype (float32 or
 bfloat16), as the plain versions do.  K6 (the SSD chunk scan) sums
 its products in another order than the plain version's einsums and is held
-at the reference's tolerances: 2e-4 in float32, 5e-2 in bfloat16.  Without
-a CUDA device every test skips; run them where there is one with
+at the reference's tolerances: 2e-4 in float32, 5e-2 in bfloat16.  The
+jnp plans (plain PyTorch on the card) equal the resident run bit for bit;
+the mxu engine (one cuBLAS product a sweep) is held at the reference's
+conformance tolerances of the f64 oracle, with the TF32 and bf16-reduction
+flags set both ways.  Without a CUDA device every test skips; run them
+where there is one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -1469,3 +1473,100 @@ def test_transpose_past_2_31_threads(cuda, vl, m):
     assert _same_bits(back, x)
     del x, t, back
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The jnp backend (the paper's schemes, multistep_fused, tessellation,
+# plan="default") and the mxu engine on CUDA tensors
+# ---------------------------------------------------------------------------
+
+JNP_PLANS = [StencilPlan(scheme=s, k=1, vl=8, m=4) for s in
+             ("multiload", "reorg", "fused", "dlt", "transpose")] + [
+    StencilPlan(scheme="transpose", k=2), StencilPlan(scheme="transpose", k=3, remainder="native"),
+    StencilPlan(scheme="transpose", tiling="tessellate", height=2, vl=8),
+    StencilPlan(scheme="dlt", tiling="tessellate", height=4, vl=8, remainder="native"),
+    StencilPlan(scheme="fused", tiling="tessellate", height=3), "default"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", [("1d3p", (1 << 14,)), ("1d5p", (4096,)),
+                                        ("2d5p", (64, 512)), ("2d9p", (48, 256)),
+                                        ("3d7p", (16, 16, 128)), ("3d27p", (8, 16, 64))])
+def test_jnp_plans_bitwise_resident(cuda, name, shape, dtype):
+    """Every jnp plan and ``plan="default"`` on a CUDA tensor equals the
+    resident pallas run (the CUDA kernels) bit for bit, and launches no
+    kernel."""
+    prob = StencilProblem(name, shape, dtype=dtype)
+    x = prob.init(4)
+    want = prob.run(x, 7, StencilPlan(backend="pallas", k=2, ttile=2))
+    for plan in JNP_PLANS:
+        sk.reset_launches()
+        got = prob.run(x, 7, plan)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0), plan
+        assert got.dtype == dtype and torch.equal(got, want), plan
+
+
+MXU_SHAPES = {1: (128,), 2: (8, 64), 3: (4, 4, 64)}      # the reference's conformance sizes
+
+
+@pytest.fixture(params=["ieee", "reduced"])
+def matmul_flags(request):
+    """The process-wide cuBLAS flags set to IEEE, or the wrong way (TF32 on,
+    bf16 reduced-precision reductions on); restored after the test."""
+    mm = torch.backends.cuda.matmul
+    tf32, bf16 = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = request.param == "reduced"
+    mm.allow_bf16_reduced_precision_reduction = request.param == "reduced"
+    yield request.param
+    assert mm.allow_tf32 == (request.param == "reduced")       # untouched by the engine
+    mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = tf32, bf16
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6), (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("name", ["1d3p", "2d5p", "3d7p"])
+def test_mxu_one_step_matches_f64_oracle(cuda, matmul_flags, name, dtype, tol):
+    """The conformance matrix's one-step cell (vl=8, m=4, k=1) within the
+    reference's tolerance of the f64 oracle, whatever the flags say; one
+    product between two K2 launches."""
+    spec = stencils.make(name)
+    x = _x(MXU_SHAPES[spec.ndim], 0, cuda).to(dtype)
+    sk.reset_launches()
+    got = ops.stencil_sweep_mxu(spec, x, 1, k=1, vl=8, m=4)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2, "mxu": 1}
+    want = stencils.apply_steps(spec, x.double(), 1)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("remainder", ["fused", "native"])
+@pytest.mark.parametrize("steps,k,ttile", [(4, 2, 1), (5, 2, 1), (3, 4, 1), (9, 2, 2)])
+@pytest.mark.parametrize("name", ["1d3p", "2d5p", "3d7p"])
+def test_mxu_multistep_matches_f64_oracle(cuda, matmul_flags, name, steps, k, ttile, remainder):
+    """The conformance matrix's multistep cells (and a temporal tile):
+    within 1e-4 of the f64 oracle in float32, one product a schedule
+    launch."""
+    spec = stencils.make(name)
+    x = _x(MXU_SHAPES[spec.ndim], 1, cuda)
+    prob = StencilProblem(name, x.shape)
+    plan = StencilPlan(backend="mxu", k=k, vl=8, m=4, ttile=ttile, remainder=remainder)
+    sk.reset_launches()
+    got = prob.run(x, steps, plan)
+    torch.cuda.synchronize()
+    launches = sum(n for _, n in sweep_schedule(k, steps, remainder, ttile)[0])
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {"transpose": 2, "mxu": launches}
+    want = stencils.apply_steps(spec, x.double(), steps)
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_mxu_table_uploaded_once(cuda):
+    from repro_torch.core import matrixize
+    spec = stencils.make("2d5p")
+    x = _x((64, 512), 2, cuda)
+    ops.stencil_sweep_mxu(spec, x, 6, k=2, vl=8, m=8)
+    op = matrixize.operator(spec, 8, 8, 2)
+    tab = op.table_tensor(torch.float32, cuda)
+    ops.stencil_sweep_mxu(spec, x, 6, k=2, vl=8, m=8)
+    assert op.table_tensor(torch.float32, cuda) is tab and tab.device.type == "cuda"

@@ -48,8 +48,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.base", "repro_torch.configs.mamba2_2p7b",
             "repro_torch.models.blocks", "repro_torch.models.ssm",
             "repro_torch.models.transformer", "repro_torch.models.zoo",
-            "repro_torch.serve.engine"} <= set(mods)
-    assert len(mods) >= 24
+            "repro_torch.serve.engine", "repro_torch.core.matrixize",
+            "repro_torch.core.tessellate", "repro_torch.core.unroll_jam"} <= set(mods)
+    assert len(mods) >= 27
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
