@@ -149,6 +149,21 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              bound (2·rows·n_off·B² at 67 TFLOP/s FP32, or 989 bf16);
              each of these three phases ends with a line of its seconds
              (``phase_seconds``);
+  auto       ``StencilProblem.run(x, 16)`` with its default plan, ``"auto"``
+             (the autotuner), on 1d3p 2**26, 2d5p 8192**2 and 3d7p 512**3 in
+             float32 and 2d5p 8192**2 in bfloat16, the plan cache and fitted
+             constants in a private temporary directory: the first run
+             tunes (every backend of the pool, jnp, pallas and mxu, has a
+             timed candidate, none failed); a second run hits the cache
+             (no timer call; counted: only the winner's launches); the
+             result is bit for bit the explicit run of the winner, and the
+             resident fused-16 run when the winner is jnp or pallas, else
+             within the mxu phase's limits of the f64 oracle; the pool's
+             size by backend, the measured plans with their seconds per
+             step, the winner, the tuning seconds, and the 16-step median
+             of 3 of the winner, of ``plan="default"`` and of the picker's
+             resident run; then the fitted constants (the fitted
+             ``hbm_bw`` at most 1.05 × 3.35e12) and ``phase_seconds``;
   ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
              (H=80, P=64, N=128, B and C shared by the heads through a
              stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
@@ -288,6 +303,13 @@ SCHEME_STEPS = 16
 TESS_CASE, TESS_HEIGHTS = ("2d5p", (8192, 8192)), (2, 4)
 MXU_K = 2
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores, dense
+# plan="auto", the autotuner: the cases' grids in float32 and 2d5p in
+# bfloat16, 16 steps; a fitted bandwidth past this share of the card's
+# memory rate means the model counts bytes the run does not move
+AUTO_CASES = (("1d3p", (1 << 26,), "float32"), ("2d5p", (8192, 8192), "float32"),
+              ("3d7p", (512, 512, 512), "float32"), ("2d5p", (8192, 8192), "bfloat16"))
+AUTO_STEPS = 16
+AUTO_HBM_SLACK = 1.05
 SERVE_PROMPTS = (2048, 1024, 512, 1000, 2048, 256)    # tokens, drawn from the seed
 SERVE_NEW = 16
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
@@ -808,6 +830,150 @@ def paper_phases(dev, counted, same, close, host_median, ms, row, conv_steps) ->
             del x, t, operand, weight
             torch.cuda.empty_cache()
     emit({"phase": "mxu", "phase_seconds": time.perf_counter() - start})
+
+
+def auto_phase(dev, counted, same, close, host_median, plan_counts) -> None:
+    """The ``auto`` phase: ``StencilProblem.run(x, 16)`` with its default
+    plan, ``"auto"``, on each of ``AUTO_CASES``, with the tuner's plan cache
+    and constants in a private temporary directory."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import autotune, stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
+    from repro_torch.roofline import calibrate
+
+    start = time.perf_counter()
+    steps = AUTO_STEPS
+    resident = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                           remainder="fused")
+    real_timer = autotune._default_timer
+    timer_calls = [0]
+
+    def counting_timer(fn, plan, device=None):
+        timer_calls[0] += 1
+        return real_timer(fn, plan, device=device)
+
+    def describe(plan):
+        d = autotune.plan_to_dict(plan)
+        return {k: d[k] for k in ("backend", "scheme", "sweep", "k", "ttile", "vl", "m", "t0",
+                                  "remainder", "tiling", "height")}
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_plans_") as tmp:
+        cache_path = os.path.join(tmp, "plan_cache.json")
+        env = {autotune.CACHE_ENV: cache_path,
+               calibrate.CONSTANTS_ENV: os.path.join(tmp, calibrate.CONSTANTS_BASENAME)}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        autotune._default_timer = counting_timer
+        try:
+            for name, shape, dname in AUTO_CASES:
+                dtype = getattr(torch, dname)
+                prob = StencilProblem(name, shape, dtype=dtype, device=dev)
+                spec = prob.spec
+                x = prob.init(SEED)
+                pool = autotune.candidate_plans(spec, shape, dtype, "auto",
+                                                autotune.normalize_steps(steps), device=dev)
+                # the first run tunes: every backend of the pool timed, none failed
+                timer_calls[0] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = prob.run(x, steps)
+                torch.cuda.synchronize()
+                tune_s = time.perf_counter() - t0
+                key = autotune.plan_key(name, shape, dtype, "auto",
+                                        device=autotune.device_signature(dev),
+                                        steps=autotune.normalize_steps(steps))
+                rec = autotune.get_cache(cache_path).get(key)
+                if rec is None or rec["failed"]:
+                    raise AssertionError(f"auto {name} {dname}: no record or failed candidates "
+                                         f"{rec and rec['failed']}")
+                timed = {m["plan"]["backend"] for m in rec["measurements"]}
+                if timed != {p.backend for p in pool} or timer_calls[0] != rec["n_measured"]:
+                    raise AssertionError(f"auto {name} {dname}: timed {timed} of the pool's "
+                                         f"{ {p.backend for p in pool} } in {timer_calls[0]} "
+                                         f"timer calls for {rec['n_measured']} measured")
+                winner = autotune.plan_from_dict(rec["plan"])
+                # the second run hits the cache: no timer call, only the winner's launches
+                timer_calls[0] = 0
+                y2, cached_s, got = counted(f"auto {name} {dname} cached",
+                                            lambda: prob.run(x, steps),
+                                            plan_counts(spec, winner, steps))
+                if timer_calls[0]:
+                    raise AssertionError(f"auto {name} {dname}: the cached run measured")
+                same(f"auto {name} {dname} cached vs tuned", y2, y)
+                del y2
+                same(f"auto {name} {dname} vs the explicit winner", prob.run(x, steps, winner), y)
+                if winner.backend in ("jnp", "pallas"):
+                    check = {"bitwise_resident": True}
+                    same(f"auto {name} {dname} vs resident fused 16", y,
+                         prob.run(x, steps, resident))
+                else:
+                    # the mxu phase's limits against the f64 oracle, launch by launch
+                    oracle, x_max = x.double(), []
+                    for depth, n in sweep_schedule(winner.k, steps, winner.remainder,
+                                                   winner.ttile)[0]:
+                        for _ in range(n):
+                            x_max.append(oracle.abs().max().item())
+                            oracle = stencils.apply_steps(spec, oracle, depth)
+                    if dtype == torch.float32:
+                        rtol = atol = 1e-4
+                    else:
+                        rtol, atol = 0.0, (1 + 2.0 ** -6) * sum(2 * 2.0 ** -8 * v for v in x_max)
+                    check = {"max_abs_err_vs_f64": close(f"auto {name} {dname} vs the f64 oracle",
+                                                         y, oracle, rtol, atol),
+                             "limit": {"rtol": rtol, "atol": atol}}
+                    del oracle
+                del y
+                winner_s = host_median(lambda: prob.run(x, steps, winner), runs=3)
+                default_s = host_median(lambda: prob.run(x, steps, "default"), runs=3)
+                prob.run(x, 2, resident)
+                resident_s = host_median(lambda: prob.run(x, steps, resident), runs=3)
+                by_backend = {}
+                for p in pool:
+                    by_backend[p.backend] = by_backend.get(p.backend, 0) + 1
+                emit({"phase": "auto", "case": name, "shape": list(shape), "dtype": dname,
+                      "steps": steps, "key": key, "candidates": rec["n_candidates"],
+                      "candidates_by_backend": by_backend,
+                      "measured": [{"plan": describe(autotune.plan_from_dict(m["plan"])),
+                                    "seconds_per_step": m["seconds_per_step"]}
+                                   for m in rec["measurements"]],
+                      "failed": rec["failed"], "winner": describe(winner),
+                      "winner_seconds_per_step_measured": rec["seconds_per_step"],
+                      "tuning_seconds": tune_s, "timer_calls": rec["n_measured"],
+                      "cached_run_seconds": cached_s, "cached_run_timer_calls": 0,
+                      "launches_cached_run": {k: n for k, n in got.items() if n},
+                      "winner_ms_median_of_3": winner_s * 1e3,
+                      "default_ms_median_of_3": default_s * 1e3,
+                      "resident_ms_median_of_3": resident_s * 1e3,
+                      "winner_over_resident": winner_s / resident_s, **check})
+                del x
+                torch.cuda.empty_cache()
+            kind = autotune.device_kind(dev)
+            fitted = calibrate._load_devices(calibrate.constants_path(cache_path)).get(kind, {})
+            served = calibrate.load_constants(device=kind, cache_path=cache_path)
+            emit({"phase": "auto", "fitted_constants": fitted, "device_kind": kind,
+                  "served_constants": {"source": served.source, "peak_flops": served.peak_flops,
+                                       "hbm_bw": served.hbm_bw,
+                                       "peak_flops_mxu": served.peak_flops_mxu,
+                                       "peak_flops_mxu_bf16": served.peak_flops_mxu_bf16},
+                  "static_constants": {"peak_flops": calibrate.PEAK_FLOPS,
+                                       "hbm_bw": calibrate.HBM_BW,
+                                       "peak_flops_mxu": calibrate.PEAK_FLOPS_MXU,
+                                       "peak_flops_mxu_bf16": calibrate.PEAK_FLOPS_MXU_BF16},
+                  "min_bandwidth_working_set": calibrate.min_bandwidth_working_set(dev)})
+            if not fitted.get("hbm_bw") or fitted["hbm_bw"] > AUTO_HBM_SLACK * HBM_BYTES_PER_S:
+                raise AssertionError(f"fitted hbm_bw {fitted.get('hbm_bw')} is not within "
+                                     f"{AUTO_HBM_SLACK} x {HBM_BYTES_PER_S}")
+        finally:
+            autotune._default_timer = real_timer
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    emit({"phase": "auto", "phase_seconds": time.perf_counter() - start})
 
 
 def main() -> int:
@@ -1737,6 +1903,21 @@ def main() -> int:
     del x
 
     paper_phases(dev, counted, same, close, host_median, ms, row, conv_steps)
+
+    def plan_counts(spec, plan, steps):
+        """The launches a run of ``plan`` makes on its engine's routes."""
+        if plan.backend == "jnp":
+            return {}
+        if plan.backend == "mxu":
+            return {"transpose": 2,
+                    "mxu": sum(n for _, n in sweep_schedule(plan.k, steps, plan.remainder,
+                                                            plan.ttile)[0])}
+        vl, m = plan.vl, plan.m
+        if plan.sweep == "resident":
+            return resident_counts(spec, steps, plan.remainder, vl, m, k=plan.k,
+                                   ttile=plan.ttile)
+        return k4_counts(spec, sweep_schedule(plan.k, steps, plan.remainder, 1)[0], vl, m)
+    auto_phase(dev, counted, same, close, host_median, plan_counts)
     k6_rows = ssd_phase(dev, ms, close, bound)
     serve = mamba2_serve(dev, counted, close)
     for entry in k6_rows:

@@ -21,10 +21,16 @@ round-trips between the two packages (:func:`plan_to_dict`,
   * ``backend="mxu"``: the banded-operator engine (``core/matrixize.py``),
     one matrix product a sweep.
 
-``plan="auto"`` (the autotuner, ROADMAP A6), ``backend="distributed"`` and
-an mxu plan with a ``decomp`` (the distributed runtime, ROADMAP A9) raise
-``NotImplementedError`` naming the item that ports them; the other backends
-ignore ``decomp``, as the reference's do.
+``plan="auto"``, the default of :meth:`StencilProblem.run`, runs the
+autotuner (``core/autotune.py``): it times the best-ranked jnp, pallas and
+mxu candidates on the problem's device (the CUDA kernels on the card, their
+plain versions on the CPU) for the run's step count, and caches the winner
+in ``~/.cache/repro_torch/plan_cache.json`` (``REPRO_TORCH_PLAN_CACHE``
+elsewhere), so that a later run of the same signature does not measure.
+``backend="distributed"`` and an mxu plan with a ``decomp`` (the
+distributed runtime, ROADMAP A9) raise ``NotImplementedError`` naming the
+item that ports them; the other backends ignore ``decomp``, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -105,7 +111,6 @@ def plan_from_dict(d: dict) -> StencilPlan:
 # ROADMAP items that port what the reference runs for these plan values.
 _NOT_PORTED = {
     "distributed": "the distributed runtime (ROADMAP A9)",
-    "auto": "the autotuner behind plan='auto' (ROADMAP A6)",
 }
 
 
@@ -143,18 +148,21 @@ class StencilProblem:
     def run(self, x: torch.Tensor, steps: int,
             plan: StencilPlan | str = "auto") -> torch.Tensor:
         """Advance ``x`` by ``steps`` Jacobi steps (periodic BC) under
-        ``plan``.  Any step count is valid: the ``steps % k`` remainder
-        runs under ``plan.remainder`` (inside the same resident run, or as
-        further roundtrip sweeps)."""
+        ``plan``: a ``StencilPlan``; ``"default"``, the static plan; or
+        ``"auto"``, the autotuner's cached or freshly measured plan for
+        this (stencil, shape, dtype, device, steps) signature
+        (``core/autotune.py``).  Any step count is valid: the ``steps % k``
+        remainder runs under ``plan.remainder`` (inside the same resident
+        run, or as further roundtrip sweeps)."""
         if isinstance(plan, str):
             if plan == "auto":
-                raise NotImplementedError(
-                    f"plan='auto' is not ported yet: it needs {_NOT_PORTED['auto']}; "
-                    "pass plan='default' or a StencilPlan")
-            if plan != "default":
+                from repro_torch.core import autotune
+                plan = autotune.best_plan(self, steps=steps)
+            elif plan == "default":
+                plan = self.default_plan()
+            else:
                 raise ValueError(f"unknown plan {plan!r}; expected 'auto', "
                                  f"'default' or a StencilPlan")
-            plan = self.default_plan()
         if not isinstance(plan, StencilPlan):
             raise TypeError(f"plan must be a StencilPlan, got {type(plan).__name__}")
         if tuple(x.shape) != self.shape:

@@ -36,14 +36,32 @@ _libs: dict[str, ctypes.CDLL] = {}
 SECONDS: dict[str, float] = {}     # wall seconds of each nvcc of the last build_all
 
 
+_hash_memo: dict[tuple, str] = {}
+
+
+def source_hash() -> str:
+    """Hex digest of the flags, every source and every header of ``CSRC``
+    (nothing is compiled): the build directory's name, and what the
+    autotuner's code fingerprint takes of the kernels.  Recomputed only
+    when a file's size or modification time changes."""
+    paths = [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
+    stamp = tuple((str(p), p.stat().st_mtime_ns, p.stat().st_size) for p in paths)
+    hit = _hash_memo.get(stamp)
+    if hit is None:
+        if len(_hash_memo) > 64:        # bound edit churn
+            _hash_memo.clear()
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in paths:
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+        hit = _hash_memo[stamp] = h.hexdigest()
+    return hit
+
+
 def build_dir() -> Path:
     """``build/repro_torch/<hash of sources and flags>`` under the checkout."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
     root = Path(__file__).resolve().parents[3]
-    return root / "build" / "repro_torch" / h.hexdigest()[:16]
+    return root / "build" / "repro_torch" / source_hash()[:16]
 
 
 def nvcc() -> str:

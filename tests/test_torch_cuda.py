@@ -1570,3 +1570,35 @@ def test_mxu_table_uploaded_once(cuda):
     tab = op.table_tensor(torch.float32, cuda)
     ops.stencil_sweep_mxu(spec, x, 6, k=2, vl=8, m=8)
     assert op.table_tensor(torch.float32, cuda) is tab and tab.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# plan="auto": the autotuner times the kernels on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,shape", [("1d3p", (1 << 16,)), ("2d5p", (256, 256)),
+                                        ("3d7p", (32, 32, 64))])
+def test_auto_tunes_on_the_card_and_runs_its_plan(cuda, tmp_path, monkeypatch, name, shape):
+    """``run(x, steps)`` with the default plan tunes on the card, caches the
+    winner under torch's device name, times a pallas and an mxu candidate
+    with none failing, and is bit for bit the explicit run of the cached
+    plan; a second run measures nothing."""
+    import json
+
+    from repro_torch.core import autotune
+    cache = str(tmp_path / "plans.json")
+    monkeypatch.setenv(autotune.CACHE_ENV, cache)
+    monkeypatch.setattr(autotune, "_caches", {})
+    prob = StencilProblem(name, shape)
+    x = prob.init(1)
+    y = prob.run(x, 16)
+    (key, rec), = json.load(open(cache))["entries"].items()
+    kind = torch.cuda.get_device_name(cuda).lower().replace(" ", "_")
+    assert autotune.device_kind(cuda) == kind
+    assert f"|{kind}x{torch.cuda.device_count()}|s*|" in key
+    assert rec["failed"] == []
+    assert {"jnp", "pallas", "mxu"} <= {m["plan"]["backend"] for m in rec["measurements"]}
+    plan = autotune.plan_from_dict(rec["plan"])
+    assert torch.equal(y, prob.run(x, 16, plan))
+    monkeypatch.setattr(autotune, "_default_timer", lambda *a, **k: pytest.fail("measured"))
+    assert torch.equal(prob.run(x, 16), y)

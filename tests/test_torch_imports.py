@@ -49,8 +49,11 @@ def test_every_module_imports_without_jax():
             "repro_torch.models.blocks", "repro_torch.models.ssm",
             "repro_torch.models.transformer", "repro_torch.models.zoo",
             "repro_torch.serve.engine", "repro_torch.core.matrixize",
-            "repro_torch.core.tessellate", "repro_torch.core.unroll_jam"} <= set(mods)
-    assert len(mods) >= 27
+            "repro_torch.core.tessellate", "repro_torch.core.unroll_jam",
+            "repro_torch.core.autotune", "repro_torch.core.locked_json",
+            "repro_torch.roofline", "repro_torch.roofline.calibrate",
+            "repro_torch.roofline.stencil"} <= set(mods)
+    assert len(mods) >= 32
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"

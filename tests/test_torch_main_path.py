@@ -182,7 +182,6 @@ def test_problem_init_reference_and_counts():
 
 
 @pytest.mark.parametrize("plan,match", [
-    ("auto", "A6"),
     (StencilPlan(backend="distributed", decomp=(2,)), "A9"),
     (StencilPlan(backend="mxu", decomp=(2,)), "A9"),
 ])
