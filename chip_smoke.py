@@ -17,7 +17,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              per instance of K2's register kernel ``transpose_reg`` /
              ``transpose_any`` (``wide`` 1: past 2^31 sub-columns) /
              ``transpose_small`` (vl < 4) and of the warp kernels
-             (K1's and K4a's ``sweep1d_warp <T, ...>``, the 2-D K3's and
+             (K1's and K4a's ``sweep1d_warp <T, ...>``, its r > M ones
+             also apart, the 2-D K3's and
              K4b's ``sweep2d_warp <T, ...>``: ``ends`` 0 the periodic K3's
              instances, 1 K4b's ring and open ones; ``vl`` 32 the instances
              of vl=32 (float32 only), 0 those of every other vl; the 3-D
@@ -59,8 +60,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              K4, K2, crop per sweep): K4 once and K2 twice per sweep; the
              result equals the resident run at ttile 1 and 2 bit for bit;
              the counted run's seconds, and the median of five more;
-             1d3p runs K4a on K1's warp kernel (``multistep_1d``; other
-             tiles ``multistep_1d_smem``), 2d5p K4b on the 2-D warp kernel
+             1d3p runs K4a on K1's warp kernel (``multistep_1d``), 2d5p K4b
+             on the 2-D warp kernel
              (``multistep_2d``) and 3d7p on the 3-D streaming kernel
              (``multistep_3d``), the fused run also at vl=8, m=8, vl=128,
              m=4 and vl=8, m=16, each equal to the resident run;
@@ -82,12 +83,14 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              at vl=128 and vl=32, m=4); 1-D and 2-D also at the odd-m grids
              above (sub-columns of 1); 2-D and 3-D K3 at depths 8 and 16
              at vl=32, m=8 and vl=8, m=8 (2-D also at vl=32, m=2; each row
-             lists its launches' instances (M, g, D));
-             K1-smem and K3-smem time the shared-memory route at a tile
-             and depth that keep it (1-D: vl=8, m=1 at depth 34 > 32·M;
-             2-D, 3-D: the reach-2 star ``_star_taps(ndim, 2)`` at vl=8,
-             m=8, depth 4 and 2; uncounted: no counted run launches it),
-             the route asserted before each launch; K4 at the case's
+             lists its launches' instances (M, g, D)); 1d3p K1 at vl=8,
+             m=1, depth 34 (past 32·M: two warp launches, 32 + 2, which
+             ``stencil_sweep.cu`` took until they existed); K1-smem and
+             K3-smem time the shared-memory route on a star of the reach
+             beyond the register kernels' (``_star_taps(ndim, r)``: r = 5
+             at 1-D, vl=8, m=8, depth 4; r = 2 at 2-D and 3-D, vl=8, m=8,
+             depth 4 and 2; uncounted: no counted run launches it), the
+             route asserted before each launch; K4 at the case's
              tile, at vl=8, m=8 and at vl=8, m=16 (2-D, 3-D also at depth
              8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
@@ -101,6 +104,17 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              a K2 row counts the launches of the case's runs at its own
              tile, a K1 or K3 row those of its route in the case's runs
              (``launches``) and at its own tile (``launches_at_tile``);
+  1d5p_odd   1d5p at 5·10^7 points (200 MB), whose picker tile is vl=32,
+             m=5: sub-columns of 1, r = 2 > M = 1, a halo from two lanes a
+             side on K1's warp kernel.  ``StencilProblem.run`` resident
+             fused 16 and native 7, a roundtrip run (K4a open) and
+             ``ops.stencil_run`` (K4a ring), each counted (``sweep_1d`` /
+             ``multistep_1d`` and K2 only: no ``stencil_sweep.cu`` launch)
+             and bit for bit the port's plain path (the roundtrip the
+             resident run), emitted as ``main_path``, ``roundtrip`` and
+             ``dirichlet`` lines; then K1 rows at d=4/2/1 at that tile and
+             on 3·2^24 at vl=8, m=3, and K4a open and ring rows at d=2/1,
+             each listing its launches (M, g, D);
   small_vl   2d5p at 8192x8190, whose picker tile is vl=2, m=7: the
              resident fused run counted (K2 on ``transpose_small``, K3 on
              the 2-D warp kernel at sub-columns of 1), bit for bit its plain
@@ -111,7 +125,9 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              depths 4, 2, 1 at the case's tile and at depth 4 at vl=64, m=8
              (a 128-byte bfloat16 layout row), K4 at depth 2 open and ring,
              each on the bfloat16 sources, bounds at 2-byte elements,
-             library calls in bfloat16;
+             library calls in bfloat16; and 1d5p_odd's resident fused run
+             in bfloat16, counted on ``sweep_1d``, bit for bit its plain
+             path, with its K1 rows at depths 4, 2, 1;
   tiles      shapes whose minor extent is no multiple of 32 (1d3p 1000,
              1d5p 96, 2d5p 64x48, 3d7p 16x8x16 and 12x8x80) at the tile the
              GPU picker chooses (vl 8 or 16, odd m): ``StencilProblem.run``
@@ -119,8 +135,7 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              ``ops.stencil_run``, each bit for bit the same call on the CPU
              (the plain versions), each run's route asserted: the register
              kernels on sub-columns of 1 (1d3p's m=5, 2d5p's m=3, 3d7p's
-             m=1 and 5), the shared-memory kernel for 1d5p's m=3 (r = 2 >
-             M = 1);
+             m=1 and 5, 1d5p's m=3, where r = 2 > M = 1);
   small      3d7p at (16, 16, 256) resident (nb = 1 on the 3-D streaming
              kernel), and 2d5p at (64, 256) through ``ops.stencil_run``,
              each counted, on the card and on the CPU against the float64
@@ -230,10 +245,18 @@ TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8
 # (vl, m): the tuner's pairs (vl, 2·vl), on the register kernels'
 # sub-columns of 8
 PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
-# ((vl, m), depth) by ndim: a tile and depth the shared-memory route keeps
-# (1-D: depth·r > 32·M; 2-D, 3-D: a star of reach 2, ``_star_taps(ndim,
-# 2)``, beyond the register kernels' reach at any depth)
-SMEM_ROWS = {1: ((8, 1), 34), 2: ((8, 8), 4), 3: ((8, 8), 2)}
+# ((vl, m), depth) by ndim: a tile and depth of the shared-memory route, on
+# a star of the reach beyond the register kernels' (``_star_taps(ndim,
+# SMEM_REACH[ndim])``: 5 at 1-D, 2 at 2-D and 3-D)
+SMEM_ROWS = {1: ((8, 8), 4), 2: ((8, 8), 4), 3: ((8, 8), 2)}
+SMEM_REACH = {1: 5, 2: 2, 3: 2}
+# ((vl, m), depth): 1d3p K1 at the shape the shared-memory route took until
+# depth·r > 32·M became consecutive warp launches (32 + 2 at m = 1)
+DEEP_1D_ROW = ((8, 1), 34)
+# 1d5p at 5·10^7 points (200 MB f32), whose picker tile is vl=32, m=5:
+# sub-columns of 1, r = 2 > M = 1, the warp kernel's halo of two lanes; its
+# K1 rows also on ODD_CASES[1]'s grid and tile (3·2^24, vl=8, m=3)
+ODD_REACH_CASE, ODD_REACH_TILE = ("1d5p", (50_000_000,)), (32, 5)
 # the reference tuner's deep plans (k, ttile): depths 8 and 16 (2-D, 3-D),
 # fused 16 at the case's tile and at the tuner's vl=8, m=8 (2-D also at
 # vl=32, m=2: the deep instance M=2 at depth 16)
@@ -266,7 +289,7 @@ BOX_CASE = ("3d27p", (256, 256, 256))   # the box order on the 3-D streaming ker
 MANGLED_TYPES = {"t": "2B", "j": "4B", "y": "8B", "f": "f32", "13__nv_bfloat16": "bf16"}
 # (name, shape, the route of the picker's tile: the register kernels or the
 # shared-memory kernel)
-TILE_CASES = (("1d3p", (1000,), "reg"), ("1d5p", (96,), "smem"), ("2d5p", (64, 48), "reg"),
+TILE_CASES = (("1d3p", (1000,), "reg"), ("1d5p", (96,), "reg"), ("2d5p", (64, 48), "reg"),
               ("3d7p", (16, 8, 16), "reg"), ("3d7p", (12, 8, 80), "reg"))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
@@ -1038,6 +1061,9 @@ def main() -> int:
           "transpose_small <T, vl, M, natural vec, layout vec, to_layout>": ptxas_kernels(
               build.report("transpose"), "transpose_small"),
           "sweep1d_warp instances": {dt: len(rows) for dt, rows in warp1d.items()},
+          "sweep1d_warp r > M <T, M, R, B, order, edge, vl>": {
+              dt: [row for row in rows if int(row["instance"][1:-1].split(", ")[2]) >
+                   int(row["instance"][1:-1].split(", ")[1])] for dt, rows in warp1d.items()},
           "sweep1d_warp <T, M, R, B, order, edge, vl> (vl 0: any)": warp1d,
           "sweep2d_warp instances": {dt: len(rows) for dt, rows in warp2d.items()},
           "sweep2d_warp <T, M, R, D, order, ends, vl> (vl 0: any)": warp2d,
@@ -1124,16 +1150,25 @@ def main() -> int:
 
     def launches_of(spec, vl, m, depth, kind="sweep"):
         """The counter and the launches of one depth-``depth`` call of K1/K3
-        (``kind`` sweep) or K4 (multistep) on its route: at 2-D and 3-D the
-        instances ``sweep2d_launches`` / ``sweep3d_launches`` name."""
+        (``kind`` sweep) or K4 (multistep) on its route: on the register
+        kernels the launches ``sweep1d_launches`` / ``sweep2d_launches`` /
+        ``sweep3d_launches`` name."""
+        if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, spec.r) == "warp":
+            return f"{kind}_1d", len(sk.sweep1d_launches(m, depth, spec.r))
         if spec.ndim == 1:
-            warp = sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
-            return (f"{kind}_1d" if warp else f"{kind}_1d_smem"), 1
+            return f"{kind}_1d_smem", 1
         if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
             return f"{kind}_2d", len(sk.sweep2d_launches(m, depth))
         if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
             return f"{kind}_3d", len(sk.sweep3d_launches(m, depth))
         return f"{kind}_nd", 1
+
+    def launches_at(spec, m, depth):
+        """The register kernels' launches (M, g, D) of a depth-``depth``
+        sweep of ``spec`` at ``m``."""
+        if spec.ndim == 1:
+            return sk.sweep1d_launches(m, depth, spec.r)
+        return (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
 
     def multi_key(spec, vl, m, depth):
         """K4's counter on the route a depth-``depth`` call takes."""
@@ -1497,9 +1532,8 @@ def main() -> int:
                     return sk.stencil_nd_sweep_ttile_ref(spec, t2, kk, tt, t02)
                 err = same(f"{spec.name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
                 extra = {}
-                if spec.ndim > 1 and key != smem_key:
-                    launcher = sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches
-                    extra["instances"] = [list(p) for p in launcher(m2, depth)]
+                if key != smem_key:
+                    extra["instances"] = [list(p) for p in launches_at(spec, m2, depth)]
                 row(rkid, fname, f"{spec.name} {xdims} vl={vl2} m={m2} depth={depth}; route {key}",
                     source, launched[key], err, kern, plain,
                     bound(2 * xx.numel() * itemsize, depth * spec.flops_per_point * xx.numel()),
@@ -1528,11 +1562,16 @@ def main() -> int:
         # kernels, at the deep runs' tiles
         for tile in DEEP_TILES.get(spec.ndim, ()):
             sweep_row(kid, tile, (8, 16), src, sweep_key, ops.pick_tile(spec, shape, *tile)[2])
-        # the shared-memory route at a tile and depth that still take it
-        # (2-D, 3-D: the reach-2 star, whose launch no counted run makes)
+        # 1-D: the shape the shared-memory route took until depth·r > 32·M
+        # became consecutive warp launches (32 + 2)
+        if spec.ndim == 1:
+            sweep_row(kid, DEEP_1D_ROW[0], (DEEP_1D_ROW[1],), src, sweep_key, None)
+        # the shared-memory route on a star beyond the register kernels'
+        # reach (5 at 1-D, 2 at 2-D and 3-D), whose launch no counted run makes
         smem_tile, smem_depth = SMEM_ROWS[spec.ndim]
-        sp = spec if spec.ndim == 1 else stencils.StencilSpec(
-            f"{spec.ndim}d-star-r2", spec.ndim, 2, "star", stencils._star_taps(spec.ndim, 2))
+        reach = SMEM_REACH[spec.ndim]
+        sp = stencils.StencilSpec(f"{spec.ndim}d-star-r{reach}", spec.ndim, reach, "star",
+                                  stencils._star_taps(spec.ndim, reach))
         sweep_row(f"{kid}-smem", smem_tile, (smem_depth,), "sweep", smem_key,
                   ops.pick_tile(sp, shape, *smem_tile)[2], sp=sp)
 
@@ -1571,9 +1610,8 @@ def main() -> int:
                     err = same(f"{name} {kid} vl={vl2} m={m2} {edge} depth {depth}", kern(),
                                plain())
                     extra = {}
-                    if source in ("sweep2d_warp", "sweep3d"):
-                        launcher = sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches
-                        extra["instances"] = [list(p) for p in launcher(m2, depth)]
+                    if source != "sweep":
+                        extra["instances"] = [list(p) for p in launches_at(spec, m2, depth)]
                     row(kid, fname,
                         f"{name} {pdims} vl={vl2} m={m2} {edge} depth={depth}; route {route} "
                         f"({key}); library: zero pad on axis 0, no ring restore", source,
@@ -1586,6 +1624,128 @@ def main() -> int:
             del tp, bufp
         del x, xp, weight
         torch.cuda.empty_cache()
+
+    # -- 1d5p_odd: 1d5p at 5·10^7 points on the picker's tile vl=32, m=5
+    # (sub-columns of 1: r = 2 > M = 1, the warp kernel's halo of two lanes):
+    # resident fused 16 and native 7, a roundtrip run (K4a open) and
+    # ops.stencil_run (K4a ring), each counted on the warp kernel, no
+    # launch of stencil_sweep.cu, and bit for bit the port's plain path;
+    # then its K1 rows (and on ODD_CASES[1]'s grid at vl=8, m=3) and K4a rows
+    name, shape = ODD_REACH_CASE
+    prob = StencilProblem(name, shape)
+    spec = prob.spec
+    x = prob.init(SEED)
+    vl, m, _ = ops.pick_tile(spec, shape)
+    if (vl, m) != ODD_REACH_TILE or sk.sub_columns(m)[0] >= spec.r:
+        raise AssertionError(f"{name} {shape}: the picker's tile ({vl}, {m}) is not "
+                             f"{ODD_REACH_TILE} with r > M")
+    dims = "x".join(map(str, shape))
+    weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+
+    def on_warp(label, owned, key):
+        if set(owned) != {"transpose", key} or any("smem" in k for k in owned):
+            raise AssertionError(f"1d5p_odd {label}: the schedule's launches {owned} are not "
+                                 f"on transpose and {key} alone")
+        return owned
+
+    odd_counts, resident = [], None
+    for remainder, steps in PLANS:
+        plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE,
+                           remainder=remainder)
+        owned = on_warp(f"resident {remainder}",
+                        resident_counts(spec, steps, remainder, vl, m), "sweep_1d")
+        prob.run(x, 2, plan)
+        y, seconds, got = counted(f"1d5p_odd resident {remainder}",
+                                  lambda: prob.run(x, steps, plan), owned)
+        err = same(f"1d5p_odd resident {remainder} vs plain", y,
+                   resident_plain(spec, x, steps, remainder, vl, m, None))
+        odd_counts.append(got)
+        emit({"phase": "main_path", "case": "1d5p_odd", "stencil": name, "shape": list(shape),
+              "plan": {"k": K, "ttile": TTILE, "remainder": remainder}, "steps": steps,
+              "schedule": sweep_schedule(K, steps, remainder, TTILE)[0],
+              "tile": {"vl": vl, "m": m}, "sub_columns": list(sk.sub_columns(m)),
+              "route": "sweep_1d", "seconds": seconds,
+              "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+              "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+              "max_abs_err_vs_plain": err, "bitwise": True})
+        if resident is None:
+            resident = y
+        else:
+            del y
+    remainder, steps = PLANS[0]
+    rplan = StencilPlan(backend="pallas", sweep="roundtrip", k=K, remainder=remainder)
+    owned = on_warp("roundtrip", k4_counts(spec, sweep_schedule(K, steps, remainder, 1)[0],
+                                           vl, m), "multistep_1d")
+    prob.run(x, 2, rplan)
+    y, seconds, got = counted("1d5p_odd roundtrip", lambda: prob.run(x, steps, rplan), owned)
+    err = same("1d5p_odd roundtrip vs resident", y, resident)
+    odd_counts.append(got)
+    emit({"phase": "roundtrip", "case": "1d5p_odd", "stencil": name, "shape": list(shape),
+          "plan": {"k": K, "remainder": remainder, "sweep": "roundtrip"},
+          "tile": {"vl": vl, "m": m}, "steps": steps, "edge": "open", "launches": got,
+          "seconds": seconds,
+          "seconds_median_of_5": host_median(lambda: prob.run(x, steps, rplan)),
+          "max_abs_err_vs_resident": err, "bitwise": True})
+    del y, resident
+
+    def run_ring(n=DIRICHLET_STEPS):
+        return ops.stencil_run(spec, x, n, k=K)
+    owned = on_warp("dirichlet", k4_counts(spec, [(K, DIRICHLET_STEPS // K)], vl, m),
+                    "multistep_1d")
+    run_ring(K)
+    y, seconds, got = counted("1d5p_odd dirichlet", run_ring, owned)
+    err = same("1d5p_odd dirichlet vs plain", y,
+               dirichlet_plain(spec, x, DIRICHLET_STEPS, vl, m, None))
+    odd_counts.append(got)
+    emit({"phase": "dirichlet", "case": "1d5p_odd", "stencil": name, "shape": list(shape),
+          "k": K, "steps": DIRICHLET_STEPS, "tile": {"vl": vl, "m": m}, "edge": "ring",
+          "launches": got, "seconds": seconds, "seconds_median_of_5": host_median(run_ring),
+          "max_abs_err": err, "bitwise": True})
+    del y
+    odd_launched = {key: sum(c[key] for c in odd_counts) for key in sk.LAUNCHES}
+    xo = StencilProblem(name, ODD_CASES[1][0]).init(SEED)
+    for xx, tile, at_tile in ((x, (vl, m), odd_launched["sweep_1d"]), (xo, ODD_CASES[1][1], 0)):
+        t = sk.block_transpose(xx, *tile)
+        buf = torch.empty_like(t)
+        xdims = "x".join(map(str, xx.shape))
+        for depth in (4, 2, 1):
+            if sk.sweep1d_route(*tile, depth, spec.r) != "warp":
+                raise AssertionError(f"1d5p_odd K1 at {tile} depth {depth} is off the warp route")
+            kk, tt = (K, depth // K) if depth > K else (depth, 1)
+            err = same(f"1d5p_odd K1 {xdims} at {tile} depth {depth}",
+                       sk.stencil1d_sweep_ttile(spec, t, kk, tt),
+                       sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt))
+            row("K1", "stencil1d_sweep_ttile",
+                f"{name} {xdims} vl={tile[0]} m={tile[1]} depth={depth}; route sweep_1d "
+                "(r = 2 > M = 1)", "sweep1d_warp", odd_launched["sweep_1d"], err,
+                lambda: sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf),
+                lambda: sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt),
+                bound(2 * xx.numel() * 4, depth * spec.flops_per_point * xx.numel()),
+                lambda: ms(conv_steps, spec, xx, depth, weight), launches_at_tile=at_tile,
+                instances=[list(p) for p in sk.sweep1d_launches(tile[1], depth, spec.r)])
+        del t, buf
+    del xo
+    block = vl * m
+    xp = ops.wrap_pad(x, sk.sweep_halo_blocks(spec.r, K, block) * block)
+    tp = sk.block_transpose(xp, vl, m)
+    bufp = torch.empty_like(tp)
+    for edge_mask in (False, True):
+        for depth in (K, 1):
+            edge = "ring" if edge_mask else "open"
+            err = same(f"1d5p_odd K4a {edge} depth {depth}",
+                       sk.stencil1d_multistep(spec, tp, depth, edge_mask),
+                       sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
+            row("K4a", "stencil1d_multistep",
+                f"{name} {xp.numel()} vl={vl} m={m} {edge} depth={depth}; route warp "
+                "(multistep_1d, r = 2 > M = 1); library: zero pad, no ring restore",
+                "sweep1d_warp", odd_launched["multistep_1d"], err,
+                lambda: sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=bufp),
+                lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask),
+                bound(2 * xp.numel() * 4, depth * spec.flops_per_point * xp.numel()),
+                lambda: ms(conv_steps, spec, xp, depth, weight, True),
+                instances=[list(p) for p in sk.sweep1d_launches(m, depth, spec.r)])
+    del x, xp, tp, bufp, weight
+    torch.cuda.empty_cache()
 
     # -- a grid whose picker tile has vl < 4: 2d5p 8192x8190 at (2, 7), the
     # resident fused run counted (K2 on transpose_small), then its K2 rows --
@@ -1733,6 +1893,49 @@ def main() -> int:
                 lambda: ms(conv_steps, spec, xp, K, weight, True))
         del x, xp, tp, bufp, weight
         torch.cuda.empty_cache()
+
+    # -- bfloat16 1d5p_odd: the resident fused run at the picker's vl=32,
+    # m=5 on the warp kernel's r > M instance, counted, bit for bit its plain
+    # path; its K1 rows at depths 4, 2, 1 -------------------------------
+    name, shape = ODD_REACH_CASE
+    prob = StencilProblem(name, shape, dtype=bf16)
+    spec = prob.spec
+    x = prob.init(SEED)
+    vl, m, _ = ops.pick_tile(spec, shape)
+    remainder, steps = PLANS[0]
+    plan = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE, remainder=remainder)
+    owned = resident_counts(spec, steps, remainder, vl, m)
+    if (vl, m) != ODD_REACH_TILE or set(owned) != {"transpose", "sweep_1d"}:
+        raise AssertionError(f"1d5p_odd bf16 at ({vl}, {m}): launches {owned} off the warp route")
+    prob.run(x, 2, plan)
+    y, seconds, got = counted(f"1d5p_odd bf16 resident {remainder}",
+                              lambda: prob.run(x, steps, plan), owned)
+    err = same(f"1d5p_odd bf16 resident {remainder} vs plain", y,
+               resident_plain(spec, x, steps, remainder, vl, m, None))
+    emit({"phase": "bf16", "run": "resident", "case": "1d5p_odd", "stencil": name,
+          "shape": list(shape), "plan": {"k": K, "ttile": TTILE, "remainder": remainder},
+          "steps": steps, "tile": {"vl": vl, "m": m}, "seconds": seconds,
+          "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
+          "gpoint_updates_per_s": x.numel() * steps / seconds, "launches": got,
+          "max_abs_err_vs_plain": err, "bitwise": True})
+    del y
+    t = sk.block_transpose(x, vl, m)
+    buf = torch.empty_like(t)
+    weight = torch.tensor(spec.coeff_array(), dtype=bf16, device=dev)[None, None]
+    for depth in (4, 2, 1):
+        kk, tt = (K, depth // K) if depth > K else (depth, 1)
+        err = same(f"1d5p_odd bf16 K1 depth {depth}", sk.stencil1d_sweep_ttile(spec, t, kk, tt),
+                   sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt))
+        row("K1", "stencil1d_sweep_ttile",
+            f"{name} {x.numel()} bf16 vl={vl} m={m} depth={depth}; route sweep_1d "
+            "(r = 2 > M = 1)", "sweep1d_warp_bf16", got["sweep_1d"], err,
+            lambda: sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf),
+            lambda: sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt),
+            bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel()),
+            lambda: ms(conv_steps, spec, x, depth, weight), launches_at_tile=got["sweep_1d"],
+            instances=[list(p) for p in sk.sweep1d_launches(m, depth, spec.r)])
+    del x, t, buf, weight
+    torch.cuda.empty_cache()
 
     # -- 3d27p: the box order on the 3-D streaming kernel, a resident fused
     # run counted at the picker's tile and at the tuner's (the any-vl

@@ -4,9 +4,10 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d (launched by
 // stencil1d_sweep_ttile, K1, and by stencil1d_multistep / stencil1d_sweep_halo,
 // K4a) and ::_kernel_nd (launched by stencil_nd_sweep_ttile, K3, and by
-// stencil_nd_multistep / stencil_nd_sweep_halo, K4b).  K1 and the 2-D K3
-// come here only for the shapes their warp kernels (csrc/sweep1d_warp.cu,
-// csrc/sweep2d_warp.cu) do not take: stencil_kernels.sweep{1,2}d_route.  One kernel serves
+// stencil_nd_multistep / stencil_nd_sweep_halo, K4b).  They come here only
+// for the reach their register kernels (csrc/sweep1d_warp.cu, sweep2d_warp.cu,
+// sweep3d.cu) do not take: r > 4 at 1-D, r > 1 at 2-D and 3-D
+// (stencil_kernels.sweep{1,2,3}d_route); no registry stencil has it.  One kernel serves
 // 1-D, 2-D and 3-D: a grid is seen as (nz, ny, nx) in natural coordinates
 // with size-1 leading axes where the stencil has none, and the minor axis nx
 // is addressed through the layout map (natural g of a row lives at block

@@ -5,10 +5,11 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_1d as launched by
 // stencil1d_sweep_ttile (K1, fully periodic) and by stencil1d_multistep /
 // stencil1d_sweep_halo (K4a, with `edge_mask`: a Dirichlet ring, or open
-// ends), for any vl and any m on the instance M (the largest of 8, 4, 2, 1
-// dividing m), with r <= M and depth * r <= 32 * M
-// (stencil_kernels.sweep1d_route picks it before the launch).  Every other
-// shape (r > M, as 1d5p at odd m; depth * r > 32 * M) takes the
+// ends), for any vl, any m on the instance M (the largest of 8, 4, 2, 1
+// dividing m) and any reach r <= 4: one launch takes depth * r <= 32 * M,
+// and stencil_kernels.sweep1d_launches cuts a deeper sweep into consecutive
+// launches (stencil_kernels.sweep1d_route picks this kernel before the
+// launch).  Only r > 4, which no registry stencil has, takes the
 // shared-memory kernel of csrc/stencil_sweep.cu.
 //
 // Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
@@ -46,15 +47,19 @@
 // csrc/sweep3d.cu does); vl = 32's instances take g = 1 only.
 //
 // Each step runs in registers.  A tap shift inside a column is a register
-// index.  The r rows beyond each end of a column come from lane j - 1 and
-// lane j + 1, one shuffle each; lane 0 (31) takes its left (right) rows from
-// lane 31 (0) of the previous (next) slot, which that lane sends in place of
-// its own: a select before the shuffle, the paper's Assemble.  Slots are
-// updated in place in ascending order.  The r old tail rows of the previous
-// slot are carried in registers, because lane 31 sends them to the next
-// slot's lane 0 after their slot was overwritten; the next slot's head rows
-// are still old when they are sent.  Every edge row of a slot is shuffled
-// before the slot is overwritten.
+// index.  The r rows beyond each end of a column come from the lanes beside
+// it, one shuffle a row: left halo row q (0 <= q < r) is row M-1-(q % M) of
+// lane j - d and right halo row q is row q % M of lane j + d, where d = 1 +
+// q / M (so at r <= M every halo row is a neighbour's; at r > M, as 1d5p at
+// odd m, the halo reaches ceil(r / M) lanes a side).  A lane j < d (j >= 32
+// - d) takes its left (right) rows from lane 32 + j - d (j + d - 32) of the
+// previous (next) slot, which that lane sends in place of its own: a select
+// a distance before the shuffle, the paper's Assemble.  Slots are updated
+// in place in ascending order.  The min(r, M) old tail rows of the previous
+// slot are carried in registers, because lanes 32 - d .. 31 send them to the
+// next slot's first lanes after their slot was overwritten; the next slot's
+// head rows are still old when they are sent.  Every edge row of a slot is
+// shuffled before the slot is overwritten.
 //
 // The two ends of the loaded span have no loaded neighbour (the slot's own
 // rows stand in), so after `depth` steps the outer depth * r elements of
@@ -71,13 +76,13 @@
 // - open: cells beyond either end read as 0 at every step.  A lane whose u
 //   lies outside [0, C) loads zeros and never writes them, so it is the
 //   exact neighbour of the end column.
-// - ring: the r cells nearest each end keep their value (rows < r of the
-//   lane with u = 0, rows >= m - r of the lane with u = C - 1).  The
-//   periodic update runs unchanged, and those two lanes put back the values
-//   they loaded as each slot is written.  A cell at least r from an end
-//   never reads beyond it, so what a wrapped column holds reaches only ring
-//   cells, which are restored: bit for bit the plain version's where(ring,
-//   old, step).
+// - ring: the r cells nearest each end keep their value: rows s of the
+//   lanes with u < ceil(r / M) where u * M + s < r, and of the lanes with
+//   u >= C - ceil(r / M) where u * M + s >= C * M - r.  The periodic update
+//   runs unchanged, and those lanes put back the values they loaded as each
+//   slot is written.  A cell at least r from an end never reads beyond it,
+//   so what a wrapped column holds reaches only ring cells, which are
+//   restored: bit for bit the plain version's where(ring, old, step).
 //
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to the element type and each product and
@@ -85,7 +90,9 @@
 // is bit for bit the plain PyTorch version.  The two orders the registry's 1-D
 // stencils use (0, -1, 1, -2, 2, ... and -r..r) are template parameters, so
 // every offset is a constant; any other tap list goes through a
-// warp-uniform switch per tap and slot, as in K5b.
+// warp-uniform switch per tap and slot, as in K5b.  Of the instances with
+// r > M only (M, r) = (1, 2), 1d5p's at odd m, has the compile-time orders:
+// the others read their taps at run time, which keeps the build short.
 //
 // Elements are float or bfloat16 (T), in device memory and in registers.
 // bfloat16 has the any-vl instances only (kVl = 0, vl = 32 included): its
@@ -132,6 +139,19 @@ struct Taps1 {
   int o[kMaxTaps];
   float c[kMaxTaps];
 };
+
+// One element from lane src.  A bfloat16 moves as its 16 bits in one word:
+// the library's bfloat16 shuffle packs it into a pair first, and at (M, r)
+// = (1, 2) those packs put the slots in local memory (PERF.md section 6).
+template <typename T>
+__device__ __forceinline__ T shuffle(T v, int src) {
+  if constexpr (kIsBf16<T>) {
+    return __ushort_as_bfloat16(
+        (unsigned short)__shfl_sync(kFull, (unsigned)__bfloat16_as_ushort(v), src));
+  } else {
+    return __shfl_sync(kFull, v, src);
+  }
+}
 
 // Offset of element 0 of column c (0 <= c < C); element s is s * vl on.
 template <int M>
@@ -259,6 +279,8 @@ __global__ void __launch_bounds__(kLanes * kWarps, kEdge == kRing ? 1 : 3)
 sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t nruns,
              int depth, Taps1 taps, Cols sub) {
   constexpr int S = B + 2;   // slots: the halo warp row, the run, the halo warp row
+  constexpr int kSpan = (R + M - 1) / M;   // lanes a halo reaches a side
+  constexpr int K = R < M ? R : M;         // rows of a slot a halo takes
   const int lane = threadIdx.x & (kLanes - 1);
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = w < nruns;
@@ -283,13 +305,6 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
       return u < 0 || u >= C;
     }
   };
-  auto holds_end = [&](int i) {   // column C - 1 is this lane's in slot i
-    if constexpr (kVl == kLanes) {
-      return i == last && lane == kLanes - 1;
-    } else {
-      return u0 + i * kLanes == C - 1;
-    }
-  };
   // element 0 of this lane's column in slot i (at vl = 32 slot i is layout
   // block ub / 32 + i), wrapped into the grid where it lies beyond it; at
   // g > 1 a SubWalk gives the slots' offsets in turn instead
@@ -305,7 +320,11 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
   };
   // v[i][s]: row s of this lane's column in slot i
   T v[S][M];
-  T ring_lo[R], ring_hi[R];   // ring mode: the loaded ring rows
+  // ring mode: the loaded ring rows, the first K of the lane's column in
+  // slot 1 of the first run (columns u < kSpan) and the last K of its
+  // column in slot hi_slot (columns C - 1 - hi_e, hi_e < kSpan), if any
+  T ring_lo[K], ring_hi[K];
+  int hi_slot = -1, hi_e = 0;
   if (one_col) {
 #pragma unroll
     for (int i = 0; i < S; ++i) {
@@ -329,29 +348,30 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
     }
   }
   if (kEdge == kRing) {
-    // column 0 is lane 0 of the first run's slot 1
+    // columns 0 .. kSpan - 1 are lanes 0 .. kSpan - 1 of the first run's slot 1
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-      ring_lo[q] = v[1][q];
-      ring_hi[q] = zero<T>();
+    for (int p = 0; p < K; ++p) {
+      ring_lo[p] = v[1][p];
+      ring_hi[p] = zero<T>();
     }
 #pragma unroll
     for (int i = 1; i < S; ++i) {
-      if (holds_end(i)) {
+      const int64_t e = C - 1 - (u0 + i * kLanes);
+      if (e >= 0 && e < kSpan) {
+        hi_slot = i;
+        hi_e = (int)e;
 #pragma unroll
-        for (int q = 0; q < R; ++q) ring_hi[q] = v[i][M - R + q];
+        for (int p = 0; p < K; ++p) ring_hi[p] = v[i][M - K + p];
       }
     }
   }
-  const int left = (lane + kLanes - 1) & (kLanes - 1);
-  const int right = (lane + 1) & (kLanes - 1);
 #pragma unroll 1
   for (int step = 0; step < depth; ++step) {
-    // old rows M-1-q of the previous slot (slot 0 has none loaded: its own
+    // old rows M-1-p of the previous slot (slot 0 has none loaded: its own
     // rows stand in, inside the error the left halo slot absorbs)
-    T tail[R];
+    T tail[K];
 #pragma unroll
-    for (int q = 0; q < R; ++q) tail[q] = v[0][M - 1 - q];
+    for (int p = 0; p < K; ++p) tail[p] = v[0][M - 1 - p];
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       constexpr int kLast = S - 1;
@@ -359,25 +379,30 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
       T ext[M + 2 * R];
 #pragma unroll
       for (int q = 0; q < R; ++q) {
-        const T to_right = lane == kLanes - 1 ? tail[q] : v[i][M - 1 - q];
-        ext[R - 1 - q] = __shfl_sync(kFull, to_right, left);
-        const T to_left = lane == 0 ? v[nxt][q] : v[i][q];
-        ext[R + M + q] = __shfl_sync(kFull, to_left, right);
+        const int d = 1 + q / M, p = q % M;   // the lane distance and the row
+        const T to_right = lane >= kLanes - d ? tail[p] : v[i][M - 1 - p];
+        ext[R - 1 - q] = shuffle(to_right, (lane + kLanes - d) & (kLanes - 1));
+        const T to_left = lane < d ? v[nxt][p] : v[i][p];
+        ext[R + M + q] = shuffle(to_left, (lane + d) & (kLanes - 1));
       }
 #pragma unroll
       for (int s = 0; s < M; ++s) ext[R + s] = v[i][s];
 #pragma unroll
-      for (int q = 0; q < R; ++q) tail[q] = v[i][M - 1 - q];
+      for (int p = 0; p < K; ++p) tail[p] = v[i][M - 1 - p];
       T acc[M] = {};
       apply_taps<T, M, R, kOrder>(acc, ext, taps);
       if (kEdge == kRing) {
-        if (i == 1 && first_run && lane == 0) {
+        // a row is a ring row when its natural point lies within r of an
+        // end (at kSpan = 1 every row of the K kept)
+        if (i == 1 && first_run && lane < kSpan) {
 #pragma unroll
-          for (int q = 0; q < R; ++q) acc[q] = ring_lo[q];
+          for (int p = 0; p < K; ++p)
+            if (kSpan == 1 || lane * M + p < R) acc[p] = ring_lo[p];
         }
-        if (holds_end(i)) {
+        if (i == hi_slot) {
 #pragma unroll
-          for (int q = 0; q < R; ++q) acc[M - R + q] = ring_hi[q];
+          for (int p = 0; p < K; ++p)
+            if (kSpan == 1 || hi_e * M + K - p <= R) acc[M - K + p] = ring_hi[p];
         }
       }
       const bool hold = kEdge == kOpen && beyond(i);
@@ -410,10 +435,22 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
   }
 }
 
+// The instance of tap order kOrder: vl = 32's own (float only, g = 1) or
+// the any-vl one.  At r > M the layout's m >= r makes g = m / M at least 2,
+// so those instances have no vl = 32 form.
+template <typename T, int M, int R, int B, int kOrder, int kEdge>
+auto instance(bool v32) {
+  constexpr int k32 = kIsBf16<T> || R > M ? 0 : kLanes;
+  return v32 ? sweep1d_warp<T, M, R, B, kOrder, kEdge, k32>
+             : sweep1d_warp<T, M, R, B, kOrder, kEdge, 0>;
+}
+
 template <typename T, int M, int R, int kEdge>
 int launch(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
            const Taps1& taps, int order, cudaStream_t stream) {
   constexpr int B = run_blocks(M);
+  // the compile-time tap orders: every r <= M, and 1d5p's (1, 2) of r > M
+  constexpr bool kFixed = R <= M || (M == 1 && R == 2);
   const int64_t wrows = (sub.n + kLanes - 1) / kLanes;   // warp rows of C' sub-columns
   const int64_t nruns = (wrows + B - 1) / B;
   const int64_t ctas = (nruns + kWarps - 1) / kWarps;
@@ -422,16 +459,12 @@ int launch(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
   constexpr int kThreads = kLanes * kWarps;
   // vl = 32 has instances of its own at g = 1, every stride a constant
   // (float only)
-  constexpr int k32 = kIsBf16<T> ? 0 : kLanes;
   const bool v32 = !kIsBf16<T> && cols.vl == kLanes && sub.vl == 1;
-  const auto kernel =
-      order == kCenterFirst
-          ? (v32 ? sweep1d_warp<T, M, R, B, kCenterFirst, kEdge, k32>
-                 : sweep1d_warp<T, M, R, B, kCenterFirst, kEdge, 0>)
-      : order == kAscending ? (v32 ? sweep1d_warp<T, M, R, B, kAscending, kEdge, k32>
-                                   : sweep1d_warp<T, M, R, B, kAscending, kEdge, 0>)
-                            : (v32 ? sweep1d_warp<T, M, R, B, kRuntime, kEdge, k32>
-                                   : sweep1d_warp<T, M, R, B, kRuntime, kEdge, 0>);
+  auto kernel = instance<T, M, R, B, kRuntime, kEdge>(v32);
+  if constexpr (kFixed) {
+    if (order == kCenterFirst) kernel = instance<T, M, R, B, kCenterFirst, kEdge>(v32);
+    if (order == kAscending) kernel = instance<T, M, R, B, kAscending, kEdge>(v32);
+  }
   kernel<<<grid, kThreads, 0, stream>>>(in, out, cols, nruns, depth, taps, sub);
   return (int)cudaGetLastError();
 }
@@ -448,27 +481,17 @@ int launch_edge(const T* in, T* out, const Cols& cols, const Cols& sub, int dept
   }
 }
 
-// r <= M: the instances that exist
+// Every reach 1 .. kMaxR at every M (r > M: a halo of ceil(r / M) lanes)
 template <typename T, int M>
 int launch_m(const T* in, T* out, const Cols& cols, const Cols& sub, int r, int depth,
              const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (r) {
     case 1: return launch_edge<T, M, 1>(in, out, cols, sub, depth, taps, order, edge, stream);
-    case 2:
-      if constexpr (M >= 2)
-        return launch_edge<T, M, 2>(in, out, cols, sub, depth, taps, order, edge, stream);
-      break;
-    case 3:
-      if constexpr (M >= 4)
-        return launch_edge<T, M, 3>(in, out, cols, sub, depth, taps, order, edge, stream);
-      break;
-    case 4:
-      if constexpr (M >= 4)
-        return launch_edge<T, M, 4>(in, out, cols, sub, depth, taps, order, edge, stream);
-      break;
-    default: break;
+    case 2: return launch_edge<T, M, 2>(in, out, cols, sub, depth, taps, order, edge, stream);
+    case 3: return launch_edge<T, M, 3>(in, out, cols, sub, depth, taps, order, edge, stream);
+    case 4: return launch_edge<T, M, 4>(in, out, cols, sub, depth, taps, order, edge, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 // Which Order the r-reach list of offsets is in.
@@ -486,7 +509,7 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
 // buffer) of T elements, for a stencil of reach r, with the grid's ends
 // `edge` (0 periodic, 1 ring, 2 open), at any vl and m: on the instance M,
 // the largest of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M
-// sub-columns, r <= M, depth * r <= 32 * M and, unless m = M, C' < 2^30.
+// sub-columns, r <= 4, depth * r <= 32 * M and, unless m = M, C' < 2^30.
 // `blocks` must be the run length this build uses for M; `offsets` /
 // `coeffs`: ntaps tap offsets and coefficients (rounded to T, as floats) in
 // host memory.  Returns the CUDA error code.
@@ -496,7 +519,7 @@ int sweep1d_warp_run(const void* in, void* out, int64_t nb, int64_t m, int64_t v
                      const int32_t* offsets, const float* coeffs, void* stream) {
   if (m < 1) return (int)cudaErrorInvalidValue;
   const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
-  if (blocks != run_blocks((int)mi) || nb < 1 || vl < 1 || vl > (1 << 30) || r < 1 || r > mi ||
+  if (blocks != run_blocks((int)mi) || nb < 1 || vl < 1 || vl > (1 << 30) || r < 1 ||
       r > kMaxR || depth < 0 || depth * r > kLanes * mi || ntaps < 1 || ntaps > kMaxTaps ||
       (m != mi && nb * vl * (m / mi) >= kMaxCols))
     return (int)cudaErrorInvalidValue;

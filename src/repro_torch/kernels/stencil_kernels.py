@@ -13,11 +13,11 @@
     ``csrc/sweep1d_warp.cu`` and :func:`sweep2d_route`:
     ``csrc/sweep2d_warp.cu``, a lane on each of 32 consecutive
     sub-columns of the layout; :func:`sweep3d_route`: ``csrc/sweep3d.cu``,
-    a thread on each sub-column; all three at any ``vl`` and ``m``, on
-    sub-columns of ``M`` points, :func:`sub_columns`), or the
+    a thread on each sub-column; all three at any ``vl``, ``m`` and depth,
+    on sub-columns of ``M`` points, :func:`sub_columns`; a sweep deeper
+    than one launch takes is consecutive launches of them), or the
     shared-memory kernel ``csrc/stencil_sweep.cu`` (reach beyond the
-    kernels', and at 1-D depth·r beyond ``32·M``; a 2-D or 3-D sweep deeper
-    than the register kernels' instances is consecutive launches of them).
+    kernels': r > 4 at 1-D, r > 1 at 2-D and 3-D).
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -305,8 +305,9 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     tile are ``t0``; the minor (then mid) extent shrinks until the two
     buffers fit.  Raises when no tile fits: this kernel never splits a
     launch (the register kernels' routes split a deep sweep into
-    consecutive launches, :func:`sweep2d_launches`, and take every depth of
-    reach 1 at 2-D and 3-D)."""
+    consecutive launches, :func:`sweep1d_launches`, :func:`sweep2d_launches`,
+    and take every depth of reach up to 4 at 1-D and of reach 1 at 2-D and
+    3-D)."""
     nz, ny, nx = nat
     nd, r = spec.ndim, spec.r
     rz, ry = (r if nd == 3 else 0), (r if nd >= 2 else 0)
@@ -430,20 +431,30 @@ def _chain(launch, t: torch.Tensor, dst: torch.Tensor, plan) -> None:
 def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
     """The kernel a CUDA :func:`stencil1d_sweep_ttile` or
     :func:`stencil1d_multistep` (``depth = k``) launches: ``"warp"``
-    (``csrc/sweep1d_warp.cu``, at any ``vl`` and ``m``: a warp row is 32
-    sub-columns of ``M`` points, one per lane, :func:`sub_columns`) when
-    a lane's ``M`` rows reach a neighbour's halo (``r <= M``), the reach is
-    the kernel's and the ``depth·r`` elements a sweep corrupts at each end
-    of a warp's span fit in its halo warp row (``depth·r <= 32·M``);
-    ``"smem"`` (``csrc/stencil_sweep.cu``) otherwise: ``r > M`` (1d5p at
-    odd ``m``) and ``depth·r > 32·M``.  The periodic, ring and open ends
-    take the same route at every column count."""
-    if vl < 1 or m < 1:
-        return "smem"
-    big, _ = sub_columns(m)
-    if r <= big and r <= WARP_MAX_R and depth * r <= WARP_LANES * big:
+    (``csrc/sweep1d_warp.cu``, at any ``vl``, ``m`` and depth: a warp row
+    is 32 sub-columns of ``M`` points, one per lane, :func:`sub_columns`;
+    a lane's halo comes from the lanes up to ``ceil(r / M)`` away, and the
+    launches are those :func:`sweep1d_launches` names) when the reach is
+    the kernel's (``r <= WARP_MAX_R``); ``"smem"``
+    (``csrc/stencil_sweep.cu``) for ``r > 4``, which no registry stencil
+    has.  The periodic, ring and open ends take the same route at every
+    column count."""
+    if vl >= 1 and m >= 1 and depth >= 0 and 1 <= r <= WARP_MAX_R:
         return "warp"
     return "smem"
+
+
+@functools.lru_cache(maxsize=None)
+def sweep1d_launches(m: int, depth: int, r: int) -> tuple[tuple[int, int, int], ...]:
+    """The launches ``(M, g, D)`` of ``csrc/sweep1d_warp.cu`` for a
+    depth-``depth`` sweep of reach ``r`` at ``m`` (:func:`_launch_plan`):
+    a launch corrupts ``D·r`` elements at each end of a warp's span, which
+    its halo warp row of ``32·M`` holds, so each launch is at most
+    ``32·M // r`` deep (m = 1, r = 1: depth 34 is 32 then 2).  Depth 0 is
+    one launch that copies."""
+    big, g = sub_columns(m)
+    plan = _launch_plan({big: tuple(range(1, WARP_LANES * big // r + 1))}, m, depth)
+    return plan or ((big, g, 0),)
 
 
 def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
@@ -467,8 +478,10 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                           ttile: int = 1, out: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps (``depth = ttile·k`` steps) of
-    the layout-resident (nb, m, vl) array in one launch, on the kernel
-    :func:`sweep1d_route` names."""
+    the layout-resident (nb, m, vl) array, on the kernel
+    :func:`sweep1d_route` names: the warp kernel's launches of
+    :func:`sweep1d_launches` (one unless the sweep is deeper than
+    ``32·M // r``), or one launch of the shared-memory kernel."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -476,14 +489,7 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_sweep_ttile_ref(spec, t, k, ttile), "stencil1d_sweep_ttile")
     _check_cuda(t, "stencil1d_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil1d_sweep_ttile")
-    depth = sweep_depth(k, ttile)
-    nb, m, vl = t.shape
-    if sweep1d_route(vl, m, depth, spec.r) == "warp":
-        _warp_launch(spec, t, dst, depth)
-        LAUNCHES["sweep_1d"] += 1
-    else:
-        _sweep_launch(spec, t, dst, depth, None)
-        LAUNCHES["sweep_1d_smem"] += 1
+    _launches(spec, t, dst, sweep_depth(k, ttile), None, "periodic")
     return dst
 
 
@@ -679,34 +685,37 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                      "stencil_nd_sweep_ttile")
     _check_cuda(t, "stencil_nd_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil_nd_sweep_ttile")
-    _nd_launches(spec, t, dst, sweep_depth(k, ttile), t0, "periodic")
+    _launches(spec, t, dst, sweep_depth(k, ttile), t0, "periodic")
     return dst
 
 
-def _nd_launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int, t0: int,
-                 edge: str) -> None:
-    """A depth-``depth`` n-D sweep with the ends ``edge`` (``periodic``:
-    K3; ``ring`` / ``open``: K4b) on the kernel the route names: the
-    register kernels' instances of :func:`sweep2d_launches` /
+def _launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int,
+              t0: int | None, edge: str) -> None:
+    """A depth-``depth`` sweep with the ends ``edge`` on axis 0
+    (``periodic``: K1 / K3; ``ring`` / ``open``: K4a / K4b) on the kernel
+    the route names: the register kernels' launches of
+    :func:`sweep1d_launches` / :func:`sweep2d_launches` /
     :func:`sweep3d_launches`, one after another, each counted; else one
-    launch of the shared-memory kernel."""
+    launch of the shared-memory kernel (``t0``: its axis-0 tile)."""
     # checked before the chain: its launches read and write other buffers
-    _kernel_io(t, dst, "the n-D sweep kernels")
+    _kernel_io(t, dst, "the sweep kernels")
     kind = "sweep" if edge == "periodic" else "multistep"
     nb, m, vl = t.shape[-3:]
-    if spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
-        def launch(src, out, d):
-            _warp2d_launch(spec, src, out, d, edge)
-            LAUNCHES[f"{kind}_2d"] += 1
-        _chain(launch, t, dst, sweep2d_launches(m, depth))
+    if spec.ndim == 1 and sweep1d_route(vl, m, depth, spec.r) == "warp":
+        kernel, key, plan = _warp_launch, "1d", sweep1d_launches(m, depth, spec.r)
+    elif spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
+        kernel, key, plan = _warp2d_launch, "2d", sweep2d_launches(m, depth)
     elif spec.ndim == 3 and sweep3d_route(vl, m, depth, spec.r) == "stream":
-        def launch(src, out, d):
-            _sweep3d_launch(spec, src, out, d, edge)
-            LAUNCHES[f"{kind}_3d"] += 1
-        _chain(launch, t, dst, sweep3d_launches(m, depth))
+        kernel, key, plan = _sweep3d_launch, "3d", sweep3d_launches(m, depth)
     else:
         _sweep_launch(spec, t, dst, depth, t0, edge)
-        LAUNCHES[f"{kind}_nd"] += 1
+        LAUNCHES[f"{kind}_1d_smem" if spec.ndim == 1 else f"{kind}_nd"] += 1
+        return
+
+    def launch(src, out, d):
+        kernel(spec, src, out, d, edge)
+        LAUNCHES[f"{kind}_{key}"] += 1
+    _chain(launch, t, dst, plan)
 
 
 def stencil1d_sweep_periodic(spec: StencilSpec, t: torch.Tensor, k: int,
@@ -790,7 +799,9 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
     no ring; cells beyond either end hold 0 at every step (read as zeros,
     never updated).  The reference's Pallas kernel leaves unspecified
     values within k·r of the ends in that mode, which its callers crop.
-    The kernel is the one :func:`sweep1d_route` names for depth k."""
+    The kernel is the one :func:`sweep1d_route` names for depth k, in the
+    launches of :func:`sweep1d_launches` on the warp kernel: each defines
+    the ends at every step, so a chain equals one deeper launch."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -798,14 +809,7 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_multistep_ref(spec, t, k, edge_mask), "stencil1d_multistep")
     _check_cuda(t, "stencil1d_multistep")
     dst = _out(out, t.shape, t, "stencil1d_multistep")
-    edge = "ring" if edge_mask else "open"
-    nb, m, vl = t.shape
-    if sweep1d_route(vl, m, k, spec.r) == "warp":
-        _warp_launch(spec, t, dst, k, edge)
-        LAUNCHES["multistep_1d"] += 1
-    else:
-        _sweep_launch(spec, t, dst, k, None, edge)
-        LAUNCHES["multistep_1d_smem"] += 1
+    _launches(spec, t, dst, k, None, "ring" if edge_mask else "open")
     return dst
 
 
@@ -834,7 +838,7 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
                      "stencil_nd_multistep")
     _check_cuda(t, "stencil_nd_multistep")
     dst = _out(out, t.shape, t, "stencil_nd_multistep")
-    _nd_launches(spec, t, dst, k, t0, "ring" if edge_mask else "open")
+    _launches(spec, t, dst, k, t0, "ring" if edge_mask else "open")
     return dst
 
 

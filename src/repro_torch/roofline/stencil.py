@@ -14,13 +14,13 @@ device constants, by default the H100 data-sheet rates of
 What the port executes, and so prices, where it differs from the
 reference's model:
 
-  * **pallas at 2-D and 3-D, past the deepest register instance.** A
-    depth-``d`` sweep runs as the consecutive launches that
-    ``sweep2d_launches(m, d)`` / ``sweep3d_launches(m, d)`` list
-    (``kernels/stencil_kernels.py``), and each launch reads and writes the
-    grid once, with the halo factor ``1 + 2·D·r/n0`` of its own depth
-    ``D``; the reference charges one pass a chunk.  At 1-D every depth is
-    one launch (``sweep1d_route``), as the reference assumes.
+  * **pallas past the deepest register launch.** A depth-``d`` sweep runs
+    as the consecutive launches that ``sweep1d_launches(m, d, r)`` (1-D:
+    each at most ``32·M // r`` deep) / ``sweep2d_launches(m, d)`` /
+    ``sweep3d_launches(m, d)`` list (``kernels/stencil_kernels.py``), and
+    each launch reads and writes the grid once, with the halo factor ``1 +
+    2·D·r/n0`` of its own depth ``D``; the reference charges one pass a
+    chunk.
   * **the roundtrip engine's crop is a view** (``narrow``): a sweep pays
     the wrap-pad copy and the layout round trip, 6 grid transfers beside
     the kernel's, not the reference's 8.
@@ -35,8 +35,8 @@ reference's model:
     (ghost rings, the overlap fraction, the collective term) come with the
     distributed runtime, ROADMAP A9.
 
-Everywhere else — mxu plans, pallas at 1-D and within the deepest instance
-— :func:`plan_terms` is the reference's, term for term.  The byte counts
+Everywhere else — mxu plans, pallas within the deepest launch —
+:func:`plan_terms` is the reference's, term for term.  The byte counts
 are lower bounds of what the port moves, so that a fitted bandwidth
 (``roofline/calibrate.py``) never exceeds the card's.
 """
@@ -104,9 +104,11 @@ def pallas_extra_bytes_per_step(pts: float, itemsize: int, sweep: str,
 def launch_depths(spec, vl: int, m: int, depth: int) -> tuple[int, ...]:
     """The depths of the launches one depth-``depth`` pallas sweep of
     ``spec`` at tile ``(vl, m)`` makes on the card: the register kernels'
-    consecutive instances at 2-D and 3-D (``sweep2d_launches`` /
+    consecutive launches (``sweep1d_launches`` / ``sweep2d_launches`` /
     ``sweep3d_launches``), else one launch."""
     from repro_torch.kernels import stencil_kernels as sk
+    if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, spec.r) == "warp":
+        return tuple(d for _, _, d in sk.sweep1d_launches(m, depth, spec.r))
     if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
         return tuple(d for _, _, d in sk.sweep2d_launches(m, depth))
     if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":

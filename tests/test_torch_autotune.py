@@ -258,6 +258,14 @@ def test_route_gate_refuses_what_the_kernels_raise_on():
         star, (256, 4096), StencilPlan(backend="pallas", k=16, ttile=4, vl=8, m=8, t0=32))
     # the roundtrip engine sweeps the padded grid
     assert autotune.pallas_routes_legal(s1, (4096,), 8, 8, None, "roundtrip", k=4)
+    # 1-D at r > M (1d5p at odd m) and past 32·M // r: the warp kernel's
+    # consecutive launches, under the same column limit off m = M
+    s5 = stencils.make("1d5p")
+    assert sk.sweep1d_route(32, 5, 64, 2) == "warp"
+    assert autotune.pallas_routes_legal(s5, (800,), 32, 5, None, k=16, ttile=4)
+    assert autotune.pallas_routes_legal(s5, (800,), 32, 5, None, "roundtrip", k=16)
+    assert not autotune.pallas_routes_legal(s5, (1 << 33,), 8, 5, None, k=16, ttile=4)
+    assert autotune.pallas_routes_legal(s1, (1 << 33,), 8, 1, None, k=16, ttile=4)
 
 
 def test_pallas_gate_on_the_card_takes_the_kernels_dtypes():

@@ -219,20 +219,34 @@ def test_sweep1d_warp_kernel_runtime_taps(cuda, taps):
         assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1))
 
 
+def _star_1d(r):
+    """A 1-D star of reach r: reach 5 is beyond the warp kernel's."""
+    return stencils.StencilSpec(f"star1d-r{r}", 1, r, "star", stencils._star_taps(1, r))
+
+
 def test_sweep1d_routes_count_and_raise(cuda):
-    spec = stencils.make("1d3p")
+    """The warp kernel at every depth of reach up to 4 (past 32·M // r as
+    consecutive launches, each counted: depth 33 at m = 1 is 32 + 1, 257
+    at m = 16 is 256 + 1), the shared-memory kernel at reach 5."""
     x = _x((1 << 15,), 3, cuda)
-    for vl, m, depth, key in ((32, 8, 4, "sweep_1d"), (128, 8, 4, "sweep_1d"),
-                              (32, 1, 33, "sweep_1d_smem"), (8, 16, 4, "sweep_1d"),
-                              (8, 16, 257, "sweep_1d_smem")):
+    for spec, vl, m, depth, key, launches in (
+            (stencils.make("1d3p"), 32, 8, 4, "sweep_1d", 1),
+            (stencils.make("1d3p"), 128, 8, 4, "sweep_1d", 1),
+            (stencils.make("1d3p"), 32, 1, 33, "sweep_1d", 2),
+            (stencils.make("1d3p"), 8, 16, 4, "sweep_1d", 1),
+            (stencils.make("1d3p"), 8, 16, 257, "sweep_1d", 2),
+            (_star_1d(5), 8, 8, 4, "sweep_1d_smem", 1)):
         t = layouts.to_transpose_layout(x, vl, m)
+        if key == "sweep_1d":
+            assert len(sk.sweep1d_launches(m, depth, spec.r)) == launches
         sk.reset_launches()
         got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
         torch.cuda.synchronize()
-        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
         assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1))
         with pytest.raises(ValueError, match="in place"):
             sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=t)
+    spec = stencils.make("1d3p")
     with pytest.raises(NotImplementedError, match="D1"):
         sk.stencil1d_sweep_ttile(spec, layouts.to_transpose_layout(x, 32, 8).double(), 2, 2)
     lib = build.load("sweep1d_warp")
@@ -273,13 +287,16 @@ def test_sweep1d_warp_sub_columns_bitwise(cuda, m, vl, edge):
             _sweep1d_bitwise(cuda, name, m, vl, edge)
 
 
-def _sweep1d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32):
-    spec = stencils.make(name)
+def _sweep1d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32, spec=None, past=False):
+    """K1 (periodic) or K4a (ring, open) at depths 1, 2, 5 and the deepest
+    launch (and, ``past``, one step more: two launches), each counted."""
+    spec = spec or stencils.make(name)
     big = sk.sub_columns(m)[0]
+    deepest = 32 * big // spec.r
     for nb in _any_vl_nbs(vl, m):
         t = layouts.to_transpose_layout(_x((nb * vl * m,), nb + vl, cuda).to(dtype), vl, m)
         out = torch.empty_like(t)
-        for depth in (1, 2, 5, 32 * big // spec.r):
+        for depth in (1, 2, 5, deepest) + ((deepest + 1,) if past else ()):
             sk.reset_launches()
             if edge == "periodic":
                 got = sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=out)
@@ -290,8 +307,29 @@ def _sweep1d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32):
                 want = sk.stencil1d_multistep_ref(spec, t, depth, edge == "ring")
                 key = "multistep_1d"
             torch.cuda.synchronize()
-            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+            launches = len(sk.sweep1d_launches(m, depth, spec.r))
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
             assert torch.equal(got, want), (nb, depth, (got - want).abs().max().item())
+
+
+# the instances with r > M: (stencil, m, M, r), each (M, r) pair once or more
+BEYOND_M = (("1d5p", 3, 1, 2), ("1d5p", 5, 1, 2), ("star3", 3, 1, 3), ("star4", 5, 1, 4),
+            ("star3", 6, 2, 3), ("star4", 6, 2, 4), ("star4", 10, 2, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [4, 8, 32])
+@pytest.mark.parametrize("name,m,mm,r", BEYOND_M)
+def test_sweep1d_warp_reach_beyond_m_bitwise(cuda, name, m, mm, r, vl, edge, dtype):
+    """The warp kernel's instances with r > M (a halo from ceil(r / M)
+    lanes a side; the ring over as many lanes at each end) on its route,
+    bit for bit the plain versions at every end, and one step past the
+    deepest launch as two launches."""
+    spec = _star_1d(r) if name.startswith("star") else stencils.make(name)
+    assert sk.sub_columns(m)[0] == mm and spec.r == r > mm
+    assert sk.sweep1d_route(vl, m, 1000, r) == "warp"
+    _sweep1d_bitwise(cuda, name, m, vl, edge, dtype, spec=spec, past=True)
 
 
 @pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
@@ -430,8 +468,8 @@ C1_TILES = [
 def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
     """K2, K1/K3 and K4 at the repaired picker's tiles, each bit for bit
     its plain version: the register kernels at odd m on sub-columns of 1
-    (12x8x80's m = 5 at 3-D too), the shared-memory kernel where r > M
-    (1d5p 96's m = 3)."""
+    (12x8x80's m = 5 at 3-D too; 1d5p 96's m = 3, where r = 2 > M = 1, on
+    the 1-D warp kernel's halo of two lanes)."""
     spec = stencils.make(name)
     vl, m, t0 = ops.pick_tile(spec, shape, vl, m, t0)
     x = _x(shape, 10, cuda)
@@ -580,20 +618,26 @@ def test_multistep_1d_routes_count(cuda):
     """The counters tell K4a's two routes apart, and the halo wrapper
     follows the route of its depth."""
     spec = stencils.make("1d3p")
-    for vl, m, k, key in ((32, 8, 2, "multistep_1d"), (32, 1, 33, "multistep_1d_smem"),
-                          (8, 4, 2, "multistep_1d"), (32, 3, 2, "multistep_1d"),
-                          (8, 16, 2, "multistep_1d"), (8, 16, 257, "multistep_1d_smem")):
+    for spec, vl, m, k, key in (
+            (stencils.make("1d3p"), 32, 8, 2, "multistep_1d"),
+            (stencils.make("1d3p"), 32, 1, 33, "multistep_1d"),       # 32 + 1
+            (stencils.make("1d3p"), 8, 4, 2, "multistep_1d"),
+            (stencils.make("1d3p"), 32, 3, 2, "multistep_1d"),
+            (stencils.make("1d3p"), 8, 16, 2, "multistep_1d"),
+            (stencils.make("1d3p"), 8, 16, 257, "multistep_1d"),      # 256 + 1
+            (_star_1d(5), 8, 8, 2, "multistep_1d_smem")):
         assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
+        launches = len(sk.sweep1d_launches(m, k, spec.r)) if key == "multistep_1d" else 1
         t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
         for edge_mask in (True, False):
             sk.reset_launches()
             got = sk.stencil1d_multistep(spec, t, k, edge_mask)
             torch.cuda.synchronize()
-            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+            assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
             assert torch.equal(got, sk.stencil1d_multistep_ref(spec, t, k, edge_mask))
         sk.reset_launches()
         halo = sk.stencil1d_sweep_halo(spec, t, k, k * spec.r)
-        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+        assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
         assert torch.equal(halo, sk.stencil1d_multistep_ref(spec, t, k, False))
 
 
@@ -1348,8 +1392,8 @@ def _star_r2(ndim):
 
 @pytest.mark.parametrize("edge_mask", [None, True, False])
 @pytest.mark.parametrize("spec,shape,vl,m,t0,depth", [
-    (stencils.make("1d3p"), (32 * 8 * 3,), 8, 1, None, 34),      # depth·r > 32·M
-    (stencils.make("1d5p"), (96 * 5,), 32, 3, None, 3),           # r = 2 > M = 1
+    (_star_1d(5), (32 * 8 * 5,), 8, 5, None, 2),                 # r = 5 > 4: beyond the warp
+    (_star_1d(5), (96 * 10,), 32, 6, None, 3),                   # kernel's reach
     (_star_r2(2), (24, 512), 8, 8, 8, 3),
     (_star_r2(3), (8, 12, 256), 8, 8, 4, 2),
 ])

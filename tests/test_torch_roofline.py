@@ -322,8 +322,39 @@ def test_deep_nd_plans_cost_a_pass_a_launch(name, shape, m, depths):
             assert b > jb
 
 
+@pytest.mark.parametrize("name,shape,vl,m,depths", [
+    ("1d3p", (4096,), 8, 1, {16: 1, 34: 2, 64: 2}),     # M = 1, r = 1: depth-32 launches
+    ("1d5p", (4000,), 32, 5, {16: 1, 20: 2, 64: 4}),    # M = 1, r = 2: depth-16 launches
+    ("1d5p", (4032,), 8, 6, {32: 1, 48: 2}),            # M = 2, r = 2: depth-32 launches
+    ("1d3p", (4096,), 8, 8, {64: 1, 256: 1}),           # M = 8: one launch to 256
+])
+def test_deep_1d_plans_cost_a_pass_a_launch(name, shape, vl, m, depths):
+    """A 1-D chunk deeper than 32·M // r is consecutive warp launches
+    (``sweep1d_launches``), each a read and write of the grid with the halo
+    factor of its own depth; one launch is the reference's accounting."""
+    spec, jspec = stencils.make(name), jstencils.make(name)
+    pts, n0 = math.prod(shape), shape[0]
+    for depth, launches in depths.items():
+        ds = rs.launch_depths(spec, vl, m, depth)
+        assert len(ds) == launches and sum(ds) == depth
+        assert ds == tuple(d for _, _, d in sk.sweep1d_launches(m, depth, spec.r))
+        plan = StencilPlan(backend="pallas", sweep="resident", k=depth, ttile=1, vl=vl, m=m)
+        f, b, _ = rs.plan_terms(spec, shape, 4, plan, depth)
+        ext = [1 + 2 * d * spec.r / n0 for d in ds]
+        assert b == pytest.approx(sum(2 * pts * 4 * e for e in ext) / depth
+                                  + 4 * pts * 4 / depth)
+        jf, jb, _ = jrs.plan_terms(jspec, shape, 4, _ref(plan), depth)
+        if launches == 1:
+            assert (f, b) == pytest.approx((jf, jb))
+        else:
+            assert b > jb
+
+
 def test_launch_depths_follow_the_routes():
     assert rs.launch_depths(stencils.make("1d3p"), 8, 8, 64) == (64,)
+    assert rs.launch_depths(stencils.make("1d3p"), 8, 1, 34) == (32, 2)
+    assert rs.launch_depths(stencils.make("1d5p"), 32, 5, 20) == (16, 4)
+    assert rs.launch_depths(stencils.make("1d5p"), 32, 3, 4) == (4,)
     assert rs.launch_depths(stencils.make("2d5p"), 8, 8, 16) == (4, 4, 4, 4)
     assert rs.launch_depths(stencils.make("2d5p"), 8, 12, 16) == (8, 8)
     assert rs.launch_depths(stencils.make("3d7p"), 8, 4, 6) == (4, 2)

@@ -3,7 +3,7 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME]
-                               [--only stencils|3d|deep|k2|k6]
+                               [--only stencils|3d|deep|k2|k6|odd5]
                                [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
@@ -58,6 +58,15 @@ plain versions, then timed with CUDA events in turns (one run of each
 plan a turn, 9 turns; the median and every turn's time).  A tree whose
 route raises at a depth prints the error in place of a time.
 
+1d5p at odd m and the deepest 1-D sweep (``--only odd5``; the tiles
+options do not apply): K1 (depths 4, 2, 1) on 3·2**24 elements at vl=8,
+m=3 and on 5·10**7 at vl=32, m=5 (the picker's tile there: sub-columns
+of 1, r = 2 > M = 1), K4a (open and ring, depths 2 and 1) on the latter's
+padded shape (5·10**7 + 320), 1d3p K1 at depth 34 on 2**26 at vl=8, m=1
+(past 32·M), and the 1d5p 5·10**7 resident run ``StencilProblem.run`` of
+16 steps (k=2, ttile=2, fused, the picker's tile), each held bit for bit
+against the plain versions and timed with CUDA events.
+
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
 the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
@@ -93,7 +102,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
-    parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6"),
+    parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6", "odd5"),
                         default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
@@ -119,6 +128,8 @@ def main() -> int:
         k2_rows(args.label, dev, tiles)
     if args.only == "deep":
         deep_rows(args.label, dev, tiles)
+    if args.only == "odd5":
+        odd5_rows(args.label, dev)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -222,6 +233,53 @@ def stencil_rows(label: str, dev, tiles) -> None:
 
     for spec, shape in ((spec, (N1,)), (spec2, (N2, N2))):
         dirichlet_row(label, spec, torch.randn(shape, generator=gen, device=dev))
+
+
+def odd5_rows(label: str, dev) -> None:
+    """1d5p K1 and K4a at odd m (r > M), 1d3p K1 past 32·M, and the 1d5p
+    resident run at 5·10**7 points (the group's docstring above)."""
+    import torch
+
+    from repro_torch.core import stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem
+    from repro_torch.kernels import stencil_kernels as sk
+
+    spec, spec3 = stencils.make("1d5p"), stencils.make("1d3p")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for sp, n, (vl, m), depths in ((spec, N1 // 4 * 3, (8, 3), (4, 2, 1)),
+                                   (spec, 50_000_000, (32, 5), (4, 2, 1)),
+                                   (spec3, N1, (8, 1), (34,))):
+        t = sk.block_transpose_ref(torch.randn(n, generator=gen, device=dev), vl, m)
+        buf = torch.empty_like(t)
+        for depth in depths:
+            k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+            _row(label, dev, f"K1 {sp.name} {n} vl={vl} m={m} depth={depth}",
+                 lambda: sk.stencil1d_sweep_ttile(sp, t, k, tt, out=buf),
+                 lambda: sk.stencil1d_sweep_ttile_ref(sp, t, k, tt))
+        del t, buf
+    n, (vl, m) = 50_000_000, (32, 5)
+    pad = sk.sweep_halo_blocks(spec.r, 2, vl * m) * vl * m
+    tp = sk.block_transpose_ref(torch.randn(n + 2 * pad, generator=gen, device=dev), vl, m)
+    buf = torch.empty_like(tp)
+    for edge_mask in (False, True):
+        for depth in (2, 1):
+            _row(label, dev, f"K4a 1d5p {n + 2 * pad} vl={vl} m={m} "
+                 f"{'ring' if edge_mask else 'open'} depth={depth}",
+                 lambda: sk.stencil1d_multistep(spec, tp, depth, edge_mask, out=buf),
+                 lambda: sk.stencil1d_multistep_ref(spec, tp, depth, edge_mask))
+    del tp, buf
+    prob = StencilProblem("1d5p", (n,))
+    x = prob.init(0)
+    plan = StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2, remainder="fused")
+
+    def plain():
+        t = sk.block_transpose_ref(x, vl, m)
+        for _ in range(4):
+            t = sk.stencil1d_sweep_ttile_ref(spec, t, 2, 2)
+        return sk.block_untranspose_ref(t, vl, m)
+    _row(label, dev, f"resident run 1d5p {n} 16 steps (k=2, ttile=2, fused; vl={vl} m={m})",
+         lambda: prob.run(x, 16, plan), plain)
+    torch.cuda.empty_cache()
 
 
 def _row(label, dev, kernel, fn, plain):

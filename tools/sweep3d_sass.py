@@ -2,7 +2,8 @@
 """Count the SASS instructions of each ``sweep3d`` instance of a built
 ``csrc/sweep3d.cu`` library (or of another register kernel's), in all and
 by opcode (loads, stores, the FP32 multiplies and adds, integer and address
-arithmetic, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
+arithmetic, local memory, shuffles, bfloat16 products and sums, byte
+permutes, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
 ``nvcc``.
 
     python3 tools/sweep3d_sass.py [--source NAME] [--lib PATH] [--label NAME]
@@ -39,8 +40,8 @@ from pathlib import Path
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "src"))
 
-OPCODES = ("LDGSTS", "STG", "LDS", "STS", "FMUL", "FADD", "IMAD", "IADD3", "LEA", "ISETP",
-           "SEL", "MOV", "BRA", "BAR", "CALL")
+OPCODES = ("LDGSTS", "STG", "LDS", "STS", "LDL", "STL", "SHFL", "FMUL", "FADD", "HMUL2",
+           "HADD2", "PRMT", "IMAD", "IADD3", "LEA", "ISETP", "SEL", "MOV", "BRA", "BAR", "CALL")
 
 
 def sass_counts(lib: str, kernel: str) -> dict:
