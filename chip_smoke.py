@@ -87,10 +87,10 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              m=1, depth 34 (past 32·M: two warp launches, 32 + 2, which
              ``stencil_sweep.cu`` took until they existed); K1-smem and
              K3-smem time the shared-memory route on a star of the reach
-             beyond the register kernels' (``_star_taps(ndim, r)``: r = 5
-             at 1-D, vl=8, m=8, depth 4; r = 2 at 2-D and 3-D, vl=8, m=8,
-             depth 4 and 2; uncounted: no counted run launches it), the
-             route asserted before each launch; K4 at the case's
+             beyond the register kernels' (``_star_taps(ndim, 5)``, vl=8,
+             m=8, depth 4 at 1-D and 2-D, 1 at 3-D; uncounted: no counted
+             run launches it), the route asserted before each launch; K4
+             at the case's
              tile, at vl=8, m=8 and at vl=8, m=16 (2-D, 3-D also at depth
              8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
@@ -115,6 +115,24 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              ``dirichlet`` lines; then K1 rows at d=4/2/1 at that tile and
              on 3·2^24 at vl=8, m=3, and K4a open and ring rows at d=2/1,
              each listing its launches (M, g, D);
+  reach2     the star of reach 2 (``_star_taps(ndim, 2)``, not in the
+             registry) at 2-D 8192**2 and 3-D 512**3, on the register
+             kernels (the 2-D warp kernel's halo from ceil(r / M) lanes,
+             the 3-D kernel's halo of depth·r rows; both the star's
+             compile-time order), in float32 and bfloat16: the resident
+             fused run (``ops.stencil_sweep_periodic``, k=2, ttile=2), a
+             roundtrip run (``ops.stencil_run_periodic``) and a Dirichlet
+             run (``ops.stencil_run``) at the picker's tile, each counted
+             with no ``stencil_sweep.cu`` launch (``sweep_nd``,
+             ``multistep_nd``), the resident run bit for bit the roundtrip
+             and the plain path, the Dirichlet run its plain path, each
+             within steps·2·taps·u·max|x| of the float64 oracle (u the
+             dtype's unit roundoff); then K3 rows at vl=8, m=8 (the former
+             K3-smem rows' shapes first: 2-D depths 4, 2, 1, 3-D 2, 1, and
+             the deep sweeps no one-launch instance has, 2-D 16 and 3-D 8,
+             which raised before), bf16 at the first depth, and K4b open
+             and ring at depths 2 and 1 on the padded grids, each bit for
+             bit its plain version and listing its launches (M, g, D);
   small_vl   2d5p at 8192x8190, whose picker tile is vl=2, m=7: the
              resident fused run counted (K2 on ``transpose_small``, K3 on
              the 2-D warp kernel at sub-columns of 1), bit for bit its plain
@@ -247,9 +265,19 @@ TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8
 PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
 # ((vl, m), depth) by ndim: a tile and depth of the shared-memory route, on
 # a star of the reach beyond the register kernels' (``_star_taps(ndim,
-# SMEM_REACH[ndim])``: 5 at 1-D, 2 at 2-D and 3-D)
-SMEM_ROWS = {1: ((8, 8), 4), 2: ((8, 8), 4), 3: ((8, 8), 2)}
-SMEM_REACH = {1: 5, 2: 2, 3: 2}
+# SMEM_REACH[ndim])``: 5 at every rank; 3-D at depth 1, the deepest whose
+# halo of 5 a shared-memory tile fits at t0 = 16)
+SMEM_ROWS = {1: ((8, 8), 4), 2: ((8, 8), 4), 3: ((8, 8), 1)}
+SMEM_REACH = {1: 5, 2: 5, 3: 5}
+# the star of reach 2 (``_star_taps(ndim, 2)``) at 2-D and 3-D on the
+# register kernels (``stencil_sweep.cu`` took it until they reached r = 4):
+# the grids, the K3 rows' tile and depths (the former K3-smem rows' shapes
+# first), the depth past every one-launch instance that no shared-memory
+# tile fitted (3-D: 8, which raised), and the K4b rows' depths
+REACH_R = 2
+REACH_CASES = ((2, (8192, 8192)), (3, (512, 512, 512)))
+REACH_ROWS = {2: ((8, 8), (4, 2, 1)), 3: ((8, 8), (2, 1))}
+REACH_DEEP = {2: 16, 3: 8}
 # ((vl, m), depth): 1d3p K1 at the shape the shared-memory route took until
 # depth·r > 32·M became consecutive warp launches (32 + 2 at m = 1)
 DEEP_1D_ROW = ((8, 1), 34)
@@ -1009,6 +1037,7 @@ def main() -> int:
 
     from repro_torch.core import stencils
     from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
+    from repro_torch.core.stencils import apply_steps
     from repro_torch.core.timing import bench
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
@@ -1033,15 +1062,25 @@ def main() -> int:
         ptxas_kernels(build.report("sweep3d_bf16"), "sweep3d")
     lib3d = build.load("sweep3d")
     for entry in sweep3d:
-        m3, d3, order3, _, _ = map(int, entry["instance"][1:-1].split(", ")[1:])
-        entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 3)
-        entry["threads"] = lib3d.repro_sweep3d_tile(m3, d3, order3, 2)
-    # m x depth x order x ends x (f32: vl = 32's instances and any vl's;
-    # bf16: any vl's)
-    want3d = len(sk.SUB_M) * sk.SWEEP3D_DEPTH * 3 * 2 * 3
+        m3, d3, r3, order3, _, _ = map(int, entry["instance"][1:-1].split(", ")[1:])
+        entry["smem_bytes"] = lib3d.repro_sweep3d_tile(m3, r3, d3, order3, 3)
+        entry["threads"] = lib3d.repro_sweep3d_tile(m3, r3, d3, order3, 2)
+    # r = 1: m x depth x order x ends x (f32: vl = 32's instances and any
+    # vl's; bf16: any vl's); r > 1: (m, r) x depth x ends x (f32, bf16), any
+    # vl only, the run-time order and at r = 2 the star's
+    want3d = sum(sk.SWEEP3D_DEPTH[mm, 1] for mm in sk.SUB_M) * 3 * 2 * 3 + sum(
+        d * (2 if r == 2 else 1) for (mm, r), d in sk.SWEEP3D_DEPTH.items() if r > 1) * 2 * 2
     if len(sweep3d) != want3d or any(row.get("spill_stores", 1) or row.get("spill_loads", 1)
                                      or row.get("stack_bytes", 1) for row in sweep3d):
         raise AssertionError(f"sweep3d build: spills, stack or not {want3d} instances {sweep3d}")
+    # the 2-D instances of r > 1 keep depth·(2r + 1)·M window values a lane:
+    # their depths are chosen so that no float32 periodic one spills
+    spilled2d = [row for row in warp2d["f32"] if int(row["instance"][1:-1].split(", ")[2]) > 1
+                 and row["instance"].split(", ")[5] == "0"
+                 and (row.get("spill_stores", 1) or row.get("spill_loads", 1))]
+    if spilled2d:
+        raise AssertionError(f"sweep2d_warp build: float32 periodic r > 1 instances spill "
+                             f"{spilled2d}")
     ssd_lib = build.load("ssd_scan")
     k6_ptxas = {f"{kern} <T{', PT' if kern == 'ssd_out' else ''}>":
                 ptxas_kernels(build.report("ssd_scan"), kern) for kern in ("ssd_state", "ssd_out")}
@@ -1071,7 +1110,10 @@ def main() -> int:
                                                     and row["instance"].endswith(f", {v}>")
                                                     for row in sweep3d)
                                 for dt in ("f32", "bf16") for v in (32, 0)},
-          "sweep3d <T, M, D, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
+          "sweep2d_warp r > 1 <T, M, R, D, order, ends, vl>": {
+              dt: [row for row in rows if int(row["instance"][1:-1].split(", ")[2]) > 1]
+              for dt, rows in warp2d.items()},
+          "sweep3d <T, M, D, R, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
               sweep3d,
           **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
@@ -1158,9 +1200,9 @@ def main() -> int:
         if spec.ndim == 1:
             return f"{kind}_1d_smem", 1
         if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
-            return f"{kind}_2d", len(sk.sweep2d_launches(m, depth))
+            return f"{kind}_2d", len(sk.sweep2d_launches(m, depth, spec.r))
         if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
-            return f"{kind}_3d", len(sk.sweep3d_launches(m, depth))
+            return f"{kind}_3d", len(sk.sweep3d_launches(m, depth, spec.r))
         return f"{kind}_nd", 1
 
     def launches_at(spec, m, depth):
@@ -1168,7 +1210,7 @@ def main() -> int:
         sweep of ``spec`` at ``m``."""
         if spec.ndim == 1:
             return sk.sweep1d_launches(m, depth, spec.r)
-        return (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
+        return (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth, spec.r)
 
     def multi_key(spec, vl, m, depth):
         """K4's counter on the route a depth-``depth`` call takes."""
@@ -1349,7 +1391,7 @@ def main() -> int:
                 emit({"phase": "main_path", "case": name, "shape": list(shape),
                       "plan": {"k": kd, "ttile": td, "remainder": remainder}, "steps": steps,
                       "schedule": sweep_schedule(kd, steps, remainder, td)[0],
-                      "instances": [list(p) for p in launcher(m2, kd * td)],
+                      "instances": [list(p) for p in launcher(m2, kd * td, spec.r)],
                       "tile": {"vl": vl2, "m": m2, "t0": t02}, "route": sweep_key,
                       "seconds": seconds,
                       "seconds_median_of_5": host_median(lambda: prob.run(x, steps, plan)),
@@ -1567,7 +1609,7 @@ def main() -> int:
         if spec.ndim == 1:
             sweep_row(kid, DEEP_1D_ROW[0], (DEEP_1D_ROW[1],), src, sweep_key, None)
         # the shared-memory route on a star beyond the register kernels'
-        # reach (5 at 1-D, 2 at 2-D and 3-D), whose launch no counted run makes
+        # reach (5 at every rank), whose launch no counted run makes
         smem_tile, smem_depth = SMEM_ROWS[spec.ndim]
         reach = SMEM_REACH[spec.ndim]
         sp = stencils.StencilSpec(f"{spec.ndim}d-star-r{reach}", spec.ndim, reach, "star",
@@ -1746,6 +1788,135 @@ def main() -> int:
                 instances=[list(p) for p in sk.sweep1d_launches(m, depth, spec.r)])
     del x, xp, tp, bufp, weight
     torch.cuda.empty_cache()
+
+    # -- reach2: the star of reach 2 at 2-D 8192² and 3-D 512³ on the
+    # register kernels, in float32 and bfloat16: resident fused 16
+    # (ops.stencil_sweep_periodic, k=2, ttile=2), a roundtrip run
+    # (ops.stencil_run_periodic: K4b with the ring on the wrap-padded grid)
+    # and ops.stencil_run (K4b, the Dirichlet ring), each counted with no
+    # stencil_sweep.cu launch; resident bit for bit the roundtrip and the
+    # plain path, Dirichlet its plain path, both within the float64
+    # oracle's rounding bound; then the K3 and K4b rows of reach 2 -------
+    for ndim, shape in REACH_CASES:
+        spec = stencils.StencilSpec(f"star{ndim}d-r{REACH_R}", ndim, REACH_R, "star",
+                                    stencils._star_taps(ndim, REACH_R))
+        vl, m, t0 = ops.pick_tile(spec, shape)
+        dims = "x".join(map(str, shape))
+        x32 = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+        remainder, steps = PLANS[0]
+        reach_counts = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            dname = str(dtype).split(".")[-1]
+            unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+            # |error| <= steps · 2·taps · unit · max|x|: each of a step's
+            # products and sums (and coefficients) rounds once, and a step of
+            # positive coefficients summing to 1 enlarges no error
+            tol = steps * 2 * len(spec.taps) * unit * x.abs().max().item()
+            runs = {
+                "resident": (lambda: ops.stencil_sweep_periodic(spec, x, steps, k=K,
+                                                                ttile=TTILE),
+                             resident_counts(spec, steps, remainder, vl, m), "periodic"),
+                "roundtrip": (lambda: ops.stencil_run_periodic(spec, x, steps, k=K),
+                              k4_counts(spec, [(K, steps // K)], vl, m), "periodic"),
+                "dirichlet": (lambda: ops.stencil_run(spec, x, steps, k=K),
+                              k4_counts(spec, [(K, steps // K)], vl, m),
+                              kref.kernel_bc(ndim)),
+            }
+            results = {}
+            for run, (fn, owned, bc) in runs.items():
+                if any(key in owned for key in ("sweep_nd", "multistep_nd")):
+                    raise AssertionError(f"reach2 {spec.name} {run}: {owned} launches "
+                                         "stencil_sweep.cu")
+                fn()
+                y, seconds, got = counted(f"reach2 {spec.name} {dname} {run}", fn, owned)
+                for key, n in got.items():
+                    reach_counts[key] = reach_counts.get(key, 0) + n
+                if run == "roundtrip":
+                    err = same(f"reach2 {spec.name} {dname} roundtrip vs resident", y,
+                               results["resident"])
+                elif run == "resident":
+                    err = same(f"reach2 {spec.name} {dname} resident vs plain", y,
+                               resident_plain(spec, x, steps, remainder, vl, m, t0))
+                else:
+                    err = same(f"reach2 {spec.name} {dname} dirichlet vs plain", y,
+                               dirichlet_plain(spec, x, steps, vl, m, t0))
+                oracle = apply_steps(spec, x.double(), steps, bc=bc)
+                oracle_err = (y.double() - oracle).abs().max().item()
+                del oracle
+                if oracle_err > tol:
+                    raise AssertionError(f"reach2 {spec.name} {dname} {run}: {oracle_err} off "
+                                         f"the float64 oracle, beyond {tol}")
+                results[run] = y
+                emit({"phase": "reach2", "case": spec.name, "shape": list(shape),
+                      "dtype": dname, "run": run, "steps": steps,
+                      "plan": {"k": K, "ttile": TTILE if run == "resident" else 1,
+                               "remainder": remainder},
+                      "tile": {"vl": vl, "m": m, "t0": t0}, "launches": got,
+                      "instances": [list(p) for p in launches_at(spec, m, K * TTILE
+                                                                 if run == "resident" else K)],
+                      "seconds": seconds, "seconds_median_of_5": host_median(fn),
+                      "gpoint_updates_per_s": x.numel() * steps / seconds,
+                      "max_abs_err_vs_plain" if run != "roundtrip" else
+                      "max_abs_err_vs_resident": err, "bitwise": True,
+                      "max_abs_err_vs_f64": oracle_err, "f64_bound": tol})
+            del results, y
+        # the K3 rows at the former K3-smem shapes (and their shallower
+        # depths), the depth no one-launch instance has, and K4b's, each
+        # bit for bit its plain version; bf16 at the first depth
+        (vl2, m2), depths = REACH_ROWS[ndim]
+        kid, fname = "K3", "stencil_nd_sweep_ttile"
+        src, key = ("sweep2d_warp", "sweep_2d") if ndim == 2 else ("sweep3d", "sweep_3d")
+        t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+        weight = torch.tensor(spec.coeff_array(), dtype=torch.float32, device=dev)[None, None]
+        for dtype, row_depths in ((torch.float32, depths + (REACH_DEEP[ndim],)),
+                                  (torch.bfloat16, depths[:1])):
+            x = x32.to(dtype)
+            wgt = weight.to(dtype)
+            t = sk.block_transpose(x, vl2, m2)
+            buf = torch.empty_like(t)
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            for depth in row_depths:
+                if (sk.sweep2d_route if ndim == 2 else sk.sweep3d_route)(
+                        vl2, m2, depth, spec.r) == "smem":
+                    raise AssertionError(f"reach2 {spec.name} depth {depth} is off the "
+                                         "register route")
+                kk, tt = (K, depth // K) if depth > K else (depth, 1)
+                err = same(f"reach2 {spec.name} K3 depth {depth} {dtype}",
+                           sk.stencil_nd_sweep_ttile(spec, t, kk, tt, t02),
+                           sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t02))
+                row(kid, fname, f"{spec.name} {dims} {str(dtype).split('.')[-1]} vl={vl2} "
+                    f"m={m2} depth={depth}; route {key}", src + sfx, reach_counts.get(key, 0),
+                    err, lambda: sk.stencil_nd_sweep_ttile(spec, t, kk, tt, t02, out=buf),
+                    lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t02),
+                    bound(2 * x.numel() * x.element_size(),
+                          depth * spec.flops_per_point * x.numel()),
+                    lambda: ms(conv_steps, spec, x, depth, wgt),
+                    instances=[list(p) for p in launches_at(spec, m2, depth)])
+            del t, buf
+        pad = sk.sweep_halo_blocks(spec.r, K, t0) * t0
+        xp = ops.wrap_pad(x32, pad)
+        tp = sk.block_transpose(xp, vl2, m2)
+        bufp = torch.empty_like(tp)
+        mkey = "multistep_2d" if ndim == 2 else "multistep_3d"
+        for edge_mask in (False, True):
+            for depth in (K, 1):
+                edge = "ring" if edge_mask else "open"
+                err = same(f"reach2 {spec.name} K4b {edge} depth {depth}",
+                           sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask),
+                           sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask))
+                row("K4b", "stencil_nd_multistep",
+                    f"{spec.name} {'x'.join(map(str, xp.shape))} vl={vl2} m={m2} {edge} "
+                    f"depth={depth}; route {mkey}; library: zero pad on axis 0, no ring "
+                    "restore", src, reach_counts.get(mkey, 0), err,
+                    lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=bufp),
+                    lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask),
+                    bound(2 * xp.numel() * 4, depth * spec.flops_per_point * xp.numel()),
+                    lambda: ms(conv_steps, spec, xp, depth, weight, True),
+                    instances=[list(p) for p in launches_at(spec, m2, depth)])
+        del x, x32, xp, tp, bufp, weight
+        torch.cuda.empty_cache()
 
     # -- a grid whose picker tile has vl < 4: 2d5p 8192x8190 at (2, 7), the
     # resident fused run counted (K2 on transpose_small), then its K2 rows --

@@ -364,13 +364,14 @@ def _launch_ok(spec, nat: tuple[int, ...], vl: int, m: int, t0: int | None,
     if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, r) == "warp":
         return not (g != 1 and nb * vl * g >= sk.MAX_COLS)
     if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, r) == "warp":
-        for mm, gg, d in sk.sweep2d_launches(m, depth):
-            any_form = vl != sk.WARP_LANES or gg != 1 or d > sk.WARP2D_DEPTH[mm] or not f32
+        for mm, gg, d in sk.sweep2d_launches(m, depth, r):
+            any_form = (vl != sk.WARP_LANES or gg != 1 or r != 1 or d > sk.WARP2D_DEPTH[mm, 1]
+                        or not f32)
             if any_form and nb * vl * gg >= sk.MAX_COLS:
                 return False
         return True
     if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, r) == "stream":
-        any_form = vl != sk.WARP_LANES or g != 1 or not f32
+        any_form = vl != sk.WARP_LANES or g != 1 or r != 1 or not f32
         return not (any_form and nb * vl * g >= sk.MAX_COLS)
     if spec.ndim > 3:
         return False

@@ -166,8 +166,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps,
                    lib.repro_sweep2d_warp_has_depth):
             fn.restype = i64
-        lib.repro_sweep2d_warp_max_depth.argtypes = [i64]
-        lib.repro_sweep2d_warp_has_depth.argtypes = [i64, i64]
+        lib.repro_sweep2d_warp_max_depth.argtypes = [i64, i64]
+        lib.repro_sweep2d_warp_has_depth.argtypes = [i64, i64, i64]
         lib.repro_sweep2d_warp_warps.argtypes = []
     elif name == "sweep3d_bf16":
         lib.repro_sweep3d_bf16.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
@@ -175,9 +175,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "sweep3d":
         lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
         lib.repro_sweep3d_f32.restype = ctypes.c_int
-        lib.repro_sweep3d_max_depth.argtypes = []
+        lib.repro_sweep3d_max_depth.argtypes = [i64, i64]
         lib.repro_sweep3d_max_depth.restype = i64
-        lib.repro_sweep3d_tile.argtypes = [i64] * 4
+        lib.repro_sweep3d_tile.argtypes = [i64] * 5
         lib.repro_sweep3d_tile.restype = i64
     elif name == "onestep":
         for suffix in ("f32", "bf16"):

@@ -25,7 +25,8 @@
 // the other half is discarded, and the shared-memory ring keeps 4 bytes an
 // element as for float.  word_parity() says which half is the element's,
 // word_elem() takes it, and ld_word() / st_word() read and write an element
-// kept in the low half of its word.
+// kept in the low half of its word.  shuffle() is the warp kernels' one
+// element from another lane, in the element type.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -133,6 +134,20 @@ __device__ __forceinline__ T ld_word(const float* p) {
 template <typename T>
 __device__ __forceinline__ void st_word(float* p, T v) {
   *reinterpret_cast<T*>(p) = v;
+}
+
+// One element from lane src of the full warp.  A bfloat16 moves as its 16
+// bits in one word: the library's bfloat16 shuffle packs it into a pair
+// first, and in the 1-D warp kernel at (M, r) = (1, 2) those packs put the
+// slots in local memory (PERF.md section 6).
+template <typename T>
+__device__ __forceinline__ T shuffle(T v, int src) {
+  if constexpr (kIsBf16<T>) {
+    return __ushort_as_bfloat16(
+        (unsigned short)__shfl_sync(0xffffffffu, (unsigned)__bfloat16_as_ushort(v), src));
+  } else {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
 }
 
 }  // namespace

@@ -121,7 +121,6 @@ constexpr int kLanes = 32;    // a warp row: one column per lane
 constexpr int kWarps = 4;     // warps per CTA
 constexpr int kMaxTaps = 16;
 constexpr int kMaxR = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 // the ends of the grid, numbered as csrc/stencil_sweep.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
@@ -139,19 +138,6 @@ struct Taps1 {
   int o[kMaxTaps];
   float c[kMaxTaps];
 };
-
-// One element from lane src.  A bfloat16 moves as its 16 bits in one word:
-// the library's bfloat16 shuffle packs it into a pair first, and at (M, r)
-// = (1, 2) those packs put the slots in local memory (PERF.md section 6).
-template <typename T>
-__device__ __forceinline__ T shuffle(T v, int src) {
-  if constexpr (kIsBf16<T>) {
-    return __ushort_as_bfloat16(
-        (unsigned short)__shfl_sync(kFull, (unsigned)__bfloat16_as_ushort(v), src));
-  } else {
-    return __shfl_sync(kFull, v, src);
-  }
-}
 
 // Offset of element 0 of column c (0 <= c < C); element s is s * vl on.
 template <int M>

@@ -2,9 +2,11 @@
 // of sweep2d_warp.cuh (design, bound and the TPU kernel it replaces there).
 #include "sweep2d_warp.cuh"
 
-extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m) { return max_depth((int)m); }
-extern "C" int64_t repro_sweep2d_warp_has_depth(int64_t m, int64_t depth) {
-  return has_depth(m, depth);
+extern "C" int64_t repro_sweep2d_warp_max_depth(int64_t m, int64_t r) {
+  return max_depth((int)m, (int)r);
+}
+extern "C" int64_t repro_sweep2d_warp_has_depth(int64_t m, int64_t r, int64_t depth) {
+  return has_depth(m, r, depth);
 }
 extern "C" int64_t repro_sweep2d_warp_warps() { return kWarps; }
 

@@ -5,26 +5,32 @@
 // Replaces: src/repro/kernels/stencil_kernels.py::_kernel_nd as launched by
 // stencil_nd_sweep_ttile (K3, fully periodic) and by stencil_nd_multistep /
 // stencil_nd_sweep_halo (K4b, with `edge_mask`: a Dirichlet ring, or open
-// ends of axis 0), for 2-D stencils of reach r = 1, any vl and any m on
+// ends of axis 0), for 2-D stencils of reach r <= 4, any vl and any m on
 // the instance M (the largest of 8, 4, 2, 1 dividing m), with depth up to
-// repro_sweep2d_warp_max_depth(M) or the deep instance's below
+// repro_sweep2d_warp_max_depth(M, r) or the deep instance's below
 // (stencil_kernels.sweep2d_launches cuts a deeper sweep into consecutive
-// launches before the launch).  2-D stencils of reach r > 1 take the
-// shared-memory kernel of csrc/stencil_sweep.cu.
+// launches before the launch).  Only 2-D stencils of reach r > 4, which no
+// registry stencil has, take the shared-memory kernel of
+// csrc/stencil_sweep.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
 // axis 0.  A row's C = nb * vl columns each hold m consecutive elements;
 // column c's element s lies at ((c / vl) * m + s) * vl + c % vl of the row.
 // A warp row is 32 consecutive columns, and lane j of warp row v holds
 // column (32 * v + j) mod C, whatever vl is: its m elements of a row, in m
-// registers, so a tap shift along x inside a column is a register index;
-// the r elements beyond a column's ends come from lanes j - 1 and j + 1 by
-// shuffle, and lane 0 (31) takes the previous (next) warp row's edge
-// elements instead, a select after the shuffle.  A CTA holds kWarps warps
+// registers, so a tap shift along x inside a column is a register index.
+// The r elements beyond a column's ends come from the lanes beside it by
+// shuffle, one a halo element: left halo element q (0 <= q < r) is element
+// m-1-(q % m) of lane j - d and right halo element q is element q % m of
+// lane j + d, d = 1 + q / m (at r <= m every one is a neighbour's; at r > m
+// the halo reaches ceil(r / m) lanes a side, as in csrc/sweep1d_warp.cu).
+// A lane j < d (j >= 32 - d) takes the previous (next) warp row's edge
+// element instead, a select after the shuffle.  A CTA holds kWarps warps
 // on kWarps consecutive warp rows, their columns unwrapped and taken mod C
 // lane by lane (so C < 32 and a partial last warp row work); a warp row's
-// neighbour is another warp, so each warp publishes the r edge elements of
-// its lanes 0 and 31 in shared memory.  The two end warps are halo: their
+// neighbour is another warp, so each warp publishes the r first and r last
+// elements of its row in shared memory, from its ceil(r / m) end lanes on
+// each side.  The two end warps are halo: their
 // outer neighbours are missing (their own edges stand in), the error this
 // makes moves r elements per step, and depth * r <= 32 * m keeps it inside
 // them.  Only the middle warps store, and a lane only when its unwrapped
@@ -99,12 +105,20 @@
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to the element type and each product and
 // sum rounded to it (elem.cuh's mul and add); built with -fmad=false this
-// is bit for bit the plain PyTorch version.  The two orders the registry's
-// 2-D
-// stencils use (the star (0,0), (-1,0), (1,0), (0,-1), (0,1) of 2d5p and
-// heat2d; row-major -1..1 x -1..1 of 2d9p) are template parameters, so
-// every offset is a constant; any other tap list goes through a
-// warp-uniform switch per tap.
+// is bit for bit the plain PyTorch version.  At r = 1 the two orders the
+// registry's 2-D stencils use (the star (0,0), (-1,0), (1,0), (0,-1),
+// (0,1) of 2d5p and heat2d; row-major -1..1 x -1..1 of 2d9p) are template
+// parameters, so every offset is a constant; any other tap list goes
+// through a warp-uniform switch per tap.  At r = 2 the star of
+// stencils._star_taps (centre, axis 0 at -1, +1, -2, +2, then axis 1) is
+// a template parameter too.  Any other tap list of r > 1 is read at run
+// time, which keeps the build short: the host cuts it into runs of
+// consecutive taps on one window row (Taps2's runs; a star of reach r is
+// 2r + 2 of them), and a run takes its row's x halo once, by shuffle, only
+// when one of its taps is off x = 0, then each tap through a warp-uniform
+// switch on its x offset (a switch on the row picks the window registers).
+// So the window rows keep their registers and only the run's row is
+// widened by its halo.  The r > 1 instances have the any-vl form only.
 //
 // Elements are float or bfloat16 (T) in device memory, registers and the
 // edge slots (the input ring holds 4-byte words).  bfloat16 has the any-vl
@@ -131,17 +145,23 @@ constexpr int kThreads = kLanes * kWarps;
 constexpr int kStages = 6;               // input rows in flight per warp
 constexpr int kSlots = kStages + 1;      // the ring of input rows
 constexpr int kMaxTaps = 64;
-constexpr int kR = 1;                    // the reach the instances take
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxR = 4;                 // the reaches the instances take: 1..kMaxR
 
 // the ends of axis 0, numbered as csrc/stencil_sweep.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
-// Deepest instance by m (stencil_kernels.WARP2D_DEPTH holds the same): the
-// register windows grow as depth * 3 * m, and ptxas caps a thread of a
-// 320-thread CTA at 168 registers; at m = 8 depth 5 spilled.
-__host__ __device__ constexpr int max_depth(int m) {
-  return m == 8 ? 4 : (m == 1 || m == 2 || m == 4) ? 8 : 0;
+// Deepest instance by (m, r) (stencil_kernels.WARP2D_DEPTH holds the
+// same; every depth up to it): the register windows grow as depth * (2r +
+// 1) * m, and ptxas caps a thread of a 320-thread CTA at 168 registers; at
+// m = 8, r = 1 depth 5 spilled.  At r > 1 the depths stop at 2 (1 at m = 8
+// beyond r = 2), which keeps the build short (each r > 1 instance builds
+// slower than an r = 1 one; PERF.md section 6); deeper sweeps are
+// consecutive launches.
+__host__ __device__ constexpr int max_depth(int m, int r) {
+  if (m != 1 && m != 2 && m != 4 && m != 8) return 0;
+  if (r == 1) return m == 8 ? 4 : 8;
+  if (r < 1 || r > kMaxR) return 0;
+  return m == 8 && r > 2 ? 1 : 2;
 }
 
 // The deep instance past max_depth (stencil_kernels.WARP2D_DEEP holds the
@@ -150,14 +170,21 @@ __host__ __device__ constexpr int max_depth(int m) {
 // instance dividing m (on an H100 4% faster than two of depth 8 at m = 2;
 // at m = 8 four depth-4 launches of M = 8 beat it 2×, PERF.md section 6:
 // a smaller M's deeper instance is issue-bound).  Built for the any-vl form
-// only.
+// only, at r = 1.
 constexpr int kDeepM = 2, kDeepD = 16;
 
+// The taps.  `runs` (r > 1): run q covers taps [end of run q - 1, end),
+// all on window row k = oy + r, packed as k | x << 8 | end << 16, x 1 when
+// a tap of the run is off x = 0.  The r > 1 path keeps its coefficients as
+// floats (`f`): a bfloat16 array indexed at run time put the whole struct
+// in local memory in the 1-D kernel.
 template <typename T>
 struct Taps2 {
-  int n;
+  int n, nruns;
   int oy[kMaxTaps], ox[kMaxTaps];
   T c[kMaxTaps];
+  float f[kMaxTaps];
+  int runs[kMaxTaps];
 };
 
 // Offset of element 0 of sub-column u mod C' (u unwrapped) in its row;
@@ -259,7 +286,7 @@ __device__ __forceinline__ void fixed(T (&acc)[M], const T (&ext)[2 * R + 1][M +
   }
 }
 
-// Taps read at run time (r = 1): a warp-uniform switch per tap.
+// Taps read at run time at r = 1: a warp-uniform switch per tap.
 template <typename T, int M>
 __device__ __forceinline__ void runtime(T (&acc)[M], const T (&ext)[3][M + 2],
                                         const Taps2<T>& taps) {
@@ -320,20 +347,113 @@ __device__ __forceinline__ void issue(const T* __restrict__ col, float* ring, un
 }
 
 // A level-l row v made at a step i = q mod (2R + 1): into the window and,
-// from lanes 0 and 31, its R edge elements into edge slot e = i mod (2R + 2).
+// from the ceil(R / M) lanes at each end of the warp row, its R first and R
+// last elements into edge slot e = i mod (2R + 2): element h of the first
+// (h from the row's start: lane h / M, element h % M) at eg[h], and of the
+// last (h from its end: lane 31 - h / M, element M - 1 - h % M) at eg[R + h].
 template <typename T, int M, int R, int D>
 __device__ __forceinline__ void publish(T (&win)[D][2 * R + 1][M], T* edges, int l, int q, int e,
                                         int w, int lane, const T (&v)[M]) {
+  constexpr int kSpan = (R + M - 1) / M;   // lanes an edge spans
 #pragma unroll
   for (int s = 0; s < M; ++s) win[l][q][s] = v[s];
   T* eg = edges + (((size_t)l * (2 * R + 2) + e) * kWarps + w) * 2 * R;
-  if (lane == 0) {
+  if (lane < kSpan) {
 #pragma unroll
-    for (int h = 0; h < R; ++h) eg[h] = v[h];
+    for (int s = 0; s < M; ++s)
+      if (lane * M + s < R) eg[lane * M + s] = v[s];
   }
-  if (lane == kLanes - 1) {
+  if (lane >= kLanes - kSpan) {
 #pragma unroll
-    for (int h = 0; h < R; ++h) eg[R + h] = v[M - 1 - h];
+    for (int s = 0; s < M; ++s) {
+      const int h = (kLanes - 1 - lane) * M + M - 1 - s;
+      if (h < R) eg[R + h] = v[s];
+    }
+  }
+}
+
+// Halo element q (0 <= q < R) beyond the left end of a lane's column: element
+// M-1-(q % M) of lane j - d, d = 1 + q / M, by shuffle; a lane j < d takes
+// element (d - 1 - j) * M + q % M of the previous warp row's last elements
+// (`last`, published) instead.
+template <typename T, int M>
+__device__ __forceinline__ T halo_left(const T (&v)[M], const T* last, int lane, int q) {
+  const int d = 1 + q / M, p = q % M;
+  const T sh = shuffle(v[M - 1 - p], (lane + kLanes - d) & (kLanes - 1));
+  return lane < d ? last[(d - 1 - lane) * M + p] : sh;
+}
+
+// Halo element q beyond the right end: element q % M of lane j + d; a lane
+// j >= 32 - d takes element (j + d - 32) * M + q % M of the next warp row's
+// first elements (`first`).
+template <typename T, int M>
+__device__ __forceinline__ T halo_right(const T (&v)[M], const T* first, int lane, int q) {
+  const int d = 1 + q / M, p = q % M;
+  const T sh = shuffle(v[p], (lane + d) & (kLanes - 1));
+  return lane >= kLanes - d ? first[(lane + d - kLanes) * M + p] : sh;
+}
+
+// acc[s] (+)= row[R + s + OX] * cf for the tap with x offset ox (r > 1):
+// a warp-uniform switch, a constant register index in each case.
+template <typename T, int M, int R, int OX = -R>
+__device__ __forceinline__ void tap_x(int ox, T (&acc)[M], const T (&row)[M + 2 * R], T cf,
+                                      bool first) {
+  if constexpr (OX <= R) {
+    if (ox != OX) {
+      tap_x<T, M, R, OX + 1>(ox, acc, row, cf, first);
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      const T term = mul(row[R + s + OX], cf);
+      acc[s] = first ? term : add(acc[s], term);
+    }
+  }
+}
+
+// Window row k into `row` (r > 1): the registers wv[(ph + K) % NW], a
+// constant index once ph is; a switch on k, a constant K in each case.
+template <typename T, int M, int R, int K = 0>
+__device__ __forceinline__ void row_of(int k, T (&row)[M + 2 * R], const T (&wv)[2 * R + 1][M],
+                                       int ph) {
+  if constexpr (K <= 2 * R) {
+    if (k != K) {
+      row_of<T, M, R, K + 1>(k, row, wv, ph);
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < M; ++s) row[R + s] = wv[(ph + K) % (2 * R + 1)][s];
+  }
+}
+
+// The r > 1 taps, their runs in order (Taps2): each run's row (row_of),
+// widened by its x halo when the run needs it (edge slot (i + 1 + k) % E of
+// the source level's edges `eg`), then its taps in order.
+template <typename T, int M, int R>
+__device__ __forceinline__ void runs(T (&acc)[M], const T (&wv)[2 * R + 1][M], int ph,
+                                     const T* eg, int i, int lane, int wl, int wr,
+                                     const Taps2<T>& taps) {
+  int t0 = 0;
+#pragma unroll 1
+  for (int q = 0; q < taps.nruns; ++q) {
+    const int run = taps.runs[q], k = run & 0xff, t1 = run >> 16;
+    T row[M + 2 * R];
+    row_of<T, M, R>(k, row, wv, ph);
+    if ((run >> 8) & 1) {   // the same on every thread
+      const T(&v)[M] = reinterpret_cast<const T(&)[M]>(row[R]);
+      const T* egk = eg + (size_t)((i + 1 + k) % (2 * R + 2)) * kWarps * 2 * R;
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const T left = halo_left(v, egk + (wl * 2 + 1) * R, lane, h);
+        const T right = halo_right(v, egk + (wr * 2) * R, lane, h);
+        row[R - 1 - h] = left;
+        row[R + M + h] = right;
+      }
+    }
+#pragma unroll 1
+    for (int t = t0; t < t1; ++t)
+      tap_x<T, M, R>(taps.ox[t], acc, row, from_f<T>(taps.f[t]), t == 0);
+    t0 = t1;
   }
 }
 
@@ -373,8 +493,6 @@ sweep2d_warp(const T* __restrict__ in, T* __restrict__ out, int64_t n0, Cols col
   const bool lane_stores = kVl == kLanes || u < C;
   const int wl = w > 0 ? w - 1 : 0;                  // the end warps see themselves
   const int wr = w < kWarps - 1 ? w + 1 : kWarps - 1;
-  const int left = (lane + kLanes - 1) & (kLanes - 1);
-  const int right = (lane + 1) & (kLanes - 1);
   float* ring = smem + w * (M * kLanes) + lane;      // this lane's elements of slot 0
   const T* lane_in = in + lane_col;
   unsigned halves = 0;                               // bfloat16: issue's bit a ring slot
@@ -416,30 +534,34 @@ sweep2d_warp(const T* __restrict__ in, T* __restrict__ out, int64_t n0, Cols col
       for (int l = D; l >= 1; --l) {
         // rows y + k - R of level l - 1, made at steps i - 1 - 2R + k:
         // window slot (ph + k) % NW, edge slot (i + 1 + k) % E
-        T ext[NW][X];
+        const T* eg = edges + (size_t)(l - 1) * E * kWarps * 2 * R;
+        T acc[M];
+        if constexpr (R == 1 || kOrder != kRuntime) {
+          T ext[NW][X];
 #pragma unroll
-        for (int k = 0; k < NW; ++k) {
-          const T(&v)[M] = win[l - 1][(ph + k) % NW];
+          for (int k = 0; k < NW; ++k) {
+            const T(&v)[M] = win[l - 1][(ph + k) % NW];
 #pragma unroll
-          for (int s = 0; s < M; ++s) ext[k][R + s] = v[s];
-          if (needs_x<R, kOrder>(k - R)) {
-            const T* eg = edges + ((size_t)(l - 1) * E + (i + 1 + k) % E) * kWarps * 2 * R;
+            for (int s = 0; s < M; ++s) ext[k][R + s] = v[s];
+            if (needs_x<R, kOrder>(k - R)) {
+              const T* egk = eg + (size_t)((i + 1 + k) % E) * kWarps * 2 * R;
 #pragma unroll
-            for (int h = 0; h < R; ++h) {
-              const T from_left = __shfl_sync(kFull, v[M - 1 - h], left);
-              const T from_right = __shfl_sync(kFull, v[h], right);
-              ext[k][R - 1 - h] = lane == 0 ? eg[(wl * 2 + 1) * R + h] : from_left;
-              ext[k][R + M + h] = lane == kLanes - 1 ? eg[(wr * 2) * R + h] : from_right;
+              for (int q = 0; q < R; ++q) {
+                ext[k][R - 1 - q] = halo_left(v, egk + (wl * 2 + 1) * R, lane, q);
+                ext[k][R + M + q] = halo_right(v, egk + (wr * 2) * R, lane, q);
+              }
             }
           }
+          apply_taps<T, M, R, kOrder>(acc, ext, taps);
+        } else {
+          runs<T, M, R>(acc, win[l - 1], ph, eg, i, lane, wl, wr, taps);
         }
-        T acc[M];
-        apply_taps<T, M, R, kOrder>(acc, ext, taps);
         if (kEnds) {
           const int64_t y = base + i - l * (R + 1);   // the row this level makes
           if (y < lo || y >= hi) {
+            const T(&prev)[M] = win[l - 1][(ph + R) % NW];   // the previous level's row y
 #pragma unroll
-            for (int s = 0; s < M; ++s) acc[s] = edge == kRing ? ext[R][R + s] : zero<T>();
+            for (int s = 0; s < M; ++s) acc[s] = edge == kRing ? prev[s] : zero<T>();
           }
         }
         if (l == D) {
@@ -471,8 +593,8 @@ int go(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub, int64
        int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
   // float's vl = 32 has instances of its own at g = 1, every stride a
-  // constant (the deep instance has the any-vl form only)
-  constexpr bool kHas32 = D <= max_depth(M) && !kIsBf16<T>;
+  // constant (the deep instance and r > 1 have the any-vl form only)
+  constexpr bool kHas32 = R == 1 && D <= max_depth(M, 1) && !kIsBf16<T>;
   constexpr int k32 = kHas32 ? kLanes : 0;
   const bool v32 = kHas32 && cols.vl == kLanes && sub.vl == 1;
   const auto kernel = edge == kPeriodic
@@ -493,14 +615,23 @@ template <typename T, int M, int R, int D>
 int launch_order(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub,
                  int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps,
                  int order, cudaStream_t stream) {
-  switch (order) {
-    case kStar:
-      return go<T, M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
-    case kBox:
-      return go<T, M, R, D, kBox>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
-    default:
-      return go<T, M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
-                                      stream);
+  if constexpr (R > 2) {   // run-time taps only
+    return go<T, M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+  } else if constexpr (R == 2) {   // the star's compile-time order, or run-time taps
+    return order == kStar
+               ? go<T, M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream)
+               : go<T, M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
+                                          stream);
+  } else {
+    switch (order) {
+      case kStar:
+        return go<T, M, R, D, kStar>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+      case kBox:
+        return go<T, M, R, D, kBox>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
+      default:
+        return go<T, M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
+                                        stream);
+    }
   }
 }
 
@@ -508,7 +639,7 @@ template <typename T, int M, int R, int D>
 int launch_depth(int depth, const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub,
                  int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps,
                  int order, cudaStream_t stream) {
-  if constexpr (M == kDeepM) {
+  if constexpr (M == kDeepM && R == 1) {
     if (depth == kDeepD)
       return launch_order<T, M, R, kDeepD>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps,
                                            order, stream);
@@ -524,31 +655,52 @@ int launch_depth(int depth, const T* in, T* out, int64_t n0, const Cols& cols, c
   }
 }
 
-// Whether the instance M has depth `depth`.
-constexpr bool has_depth(int64_t m, int64_t depth) {
-  return (depth >= 1 && depth <= max_depth((int)m)) || (m == kDeepM && depth == kDeepD);
+// The instances of M at reach 1 .. kMaxR, each from its deepest depth down.
+template <typename T, int M>
+int launch_m(int r, int depth, const T* in, T* out, int64_t n0, const Cols& cols,
+             const Cols& sub, int64_t ncol, int64_t seg, int edge, unsigned ctas,
+             const Taps2<T>& taps, int order, cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch_depth<T, M, 1, max_depth(M, 1)>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order, stream);
+    case 2: return launch_depth<T, M, 2, max_depth(M, 2)>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order, stream);
+    case 3: return launch_depth<T, M, 3, max_depth(M, 3)>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order, stream);
+    case 4: return launch_depth<T, M, 4, max_depth(M, 4)>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Which Order the (oy, ox) offsets are in (r = 1).
-int tap_order(const int32_t* offsets, int64_t ntaps) {
-  bool star = ntaps == fixed_taps<kR, kStar>(), box = ntaps == fixed_taps<kR, kBox>();
+// Whether the instance (M, r) has depth `depth`.
+constexpr bool has_depth(int64_t m, int64_t r, int64_t depth) {
+  return (depth >= 1 && depth <= max_depth((int)m, (int)r)) ||
+         (m == kDeepM && r == 1 && depth == kDeepD);
+}
+
+// Which Order the (oy, ox) offsets are in: the star or box at r = 1, the
+// star at r = 2; any other list is read at run time.
+template <int R>
+int order_of(const int32_t* offsets, int64_t ntaps) {
+  bool star = ntaps == fixed_taps<R, kStar>(), box = R == 1 && ntaps == fixed_taps<R, kBox>();
   for (int t = 0; t < ntaps; ++t) {
     const int oy = offsets[2 * t], ox = offsets[2 * t + 1];
-    star = star && oy == tap_oy<kR, kStar>(t) && ox == tap_ox<kR, kStar>(t);
-    box = box && oy == tap_oy<kR, kBox>(t) && ox == tap_ox<kR, kBox>(t);
+    star = star && oy == tap_oy<R, kStar>(t) && ox == tap_ox<R, kStar>(t);
+    box = box && oy == tap_oy<R, kBox>(t) && ox == tap_ox<R, kBox>(t);
   }
   return star ? kStar : box ? kBox : kRuntime;
+}
+
+int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
+  return r == 1 ? order_of<1>(offsets, ntaps) : r == 2 ? order_of<2>(offsets, ntaps) : kRuntime;
 }
 
 // `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
 // buffer) of T elements, at any vl and m (on the instance M, the largest
 // of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M sub-columns a row;
-// C' < 2^30 unless T is float, vl = 32 and m = M) that has `depth`, for a
-// 2-D stencil of reach r = 1, with the ends of axis 0 `edge` (0 periodic,
-// 1 ring, 2 open; the minor axis is periodic), in segments of `seg` rows
-// per CTA.  `offsets` holds ntaps (oy, ox) pairs and `coeffs` ntaps
-// coefficients (rounded to T, as floats), both in host memory.  Returns the
-// CUDA error code.
+// C' < 2^30 unless T is float, r = 1, vl = 32 and m = M) that has `depth`,
+// for a 2-D stencil of reach r <= 4 (depth * r <= 32 * M), with the ends of
+// axis 0 `edge` (0 periodic, 1 ring, 2 open; the minor axis is periodic),
+// in segments of `seg` rows per CTA.  `offsets` holds ntaps (oy, ox) pairs
+// and `coeffs` ntaps coefficients (rounded to T, as floats), both in host
+// memory.  Returns the CUDA error code.
 template <typename T>
 int sweep2d_warp_run(const void* in, void* out, int64_t n0, int64_t nb, int64_t m, int64_t vl,
                      int64_t r, int64_t depth, int64_t edge, int64_t seg, int64_t ntaps,
@@ -556,22 +708,30 @@ int sweep2d_warp_run(const void* in, void* out, int64_t n0, int64_t nb, int64_t 
   if (m < 1) return (int)cudaErrorInvalidValue;
   const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
   const int64_t g = m / mi;                                  // sub-columns a column
-  // the any-vl form's 32-bit column math (the deep instance and bfloat16
-  // have no other)
-  const bool any_form = kIsBf16<T> || vl != kLanes || g != 1 || depth > max_depth((int)mi);
-  if (r != kR || !has_depth(mi, depth) || depth * r > kLanes * mi ||
+  // the any-vl form's 32-bit column math (the deep instance, r > 1 and
+  // bfloat16 have no other)
+  const bool any_form =
+      kIsBf16<T> || vl != kLanes || g != 1 || r != 1 || depth > max_depth((int)mi, 1);
+  if (r < 1 || r > kMaxR || !has_depth(mi, r, depth) || depth * r > kLanes * mi ||
       edge < kPeriodic || edge > kOpen || n0 < 1 || nb < 1 || vl < 1 ||
       (any_form && nb * vl * g >= kMaxCols) || seg < 1 || seg > (1 << 24) ||
       ntaps < 1 || ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   Taps2<T> taps;
   taps.n = (int)ntaps;
+  taps.nruns = 0;
   for (int t = 0; t < ntaps; ++t) {
     taps.oy[t] = offsets[2 * t];
     taps.ox[t] = offsets[2 * t + 1];
     taps.c[t] = coeff_of<T>(coeffs[t]);
+    taps.f[t] = coeffs[t];
     if (taps.oy[t] < -r || taps.oy[t] > r || taps.ox[t] < -r || taps.ox[t] > r)
       return (int)cudaErrorInvalidValue;
+    // a tap on another row than the last one's starts a run
+    const int k = taps.oy[t] + (int)r;
+    if (t == 0 || (taps.runs[taps.nruns - 1] & 0xff) != k) taps.runs[taps.nruns++] = k;
+    int& run = taps.runs[taps.nruns - 1];
+    run = (run & 0x1ff) | (taps.ox[t] != 0 ? 0x100 : 0) | ((t + 1) << 16);
   }
   const Cols cols = make_cols(nb, vl);
   const Cols sub = make_cols(nb * vl, g);   // C' sub-columns, g to a column
@@ -582,13 +742,13 @@ int sweep2d_warp_run(const void* in, void* out, int64_t n0, int64_t nb, int64_t 
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = (int)depth, e = (int)edge, order = tap_order(offsets, ntaps);
+  const int d = (int)depth, e = (int)edge, rr = (int)r, order = tap_order(offsets, ntaps, r);
   const unsigned grid = (unsigned)ctas;
   switch (mi) {
-    case 1: return launch_depth<T, 1, kR, max_depth(1)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
-    case 2: return launch_depth<T, 2, kR, max_depth(2)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
-    case 4: return launch_depth<T, 4, kR, max_depth(4)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
-    default: return launch_depth<T, 8, kR, max_depth(8)>(d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    case 1: return launch_m<T, 1>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    case 2: return launch_m<T, 2>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    case 4: return launch_m<T, 4>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
+    default: return launch_m<T, 8>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
   }
 }
 

@@ -17,7 +17,7 @@
     on sub-columns of ``M`` points, :func:`sub_columns`; a sweep deeper
     than one launch takes is consecutive launches of them), or the
     shared-memory kernel ``csrc/stencil_sweep.cu`` (reach beyond the
-    kernels': r > 4 at 1-D, r > 1 at 2-D and 3-D).
+    kernels': r > 4 at every rank).
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
@@ -94,27 +94,41 @@ SUB_M = (1, 2, 4, 8)
 WARP_BLOCKS = {1: 32, 2: 32, 4: 16, 8: 8}
 WARP_MAX_R = 4
 # csrc/sweep2d_warp.cu: warps per CTA (two of them halo), its deepest
-# instance by M (every depth up to it), its deep instances past that (the
-# any-vl form only), its reach and the shortest axis-0 segment a CTA walks
+# instance by (M, r) (every depth up to it: the register windows hold
+# depth·(2r + 1)·M values a lane; at r > 1 at most 2, which keeps the
+# build short), its deep instances past that (the any-vl form only), its
+# reach and the shortest axis-0 segment a CTA walks
 WARP2D_WARPS = 10
-WARP2D_DEPTH = {1: 8, 2: 8, 4: 8, 8: 4}
-WARP2D_DEEP = {2: (16,)}
-WARP2D_MAX_R = 1
+WARP2D_DEPTH = {(1, 1): 8, (2, 1): 8, (4, 1): 8, (8, 1): 4, (8, 2): 2, (8, 3): 1, (8, 4): 1,
+                **{(mm, r): 2 for mm in (1, 2, 4) for r in (2, 3, 4)}}
+WARP2D_DEEP = {(2, 1): (16,)}
+WARP2D_MAX_R = 4
 WARP2D_SEG_MIN = 32
 # csrc/sweep3d.cu: columns a CTA stores per row, its cap on threads, the
 # input planes in flight (and at depth 1), the shared memory a CTA may use,
-# its deepest instance (every M; a deeper sweep is consecutive launches),
-# its reach and the shortest z segment a CTA walks
+# its deepest instance by (M, r) (every depth up to it; a deeper sweep is
+# consecutive launches: at r > 1 the depths whose tile stores at least 0.4
+# of what it computes, :func:`sweep3d_tile`), its reach and the shortest z
+# segment a CTA walks
 SWEEP3D_LANES = 16
 SWEEP3D_THREADS = 512
 SWEEP3D_STAGES, SWEEP3D_STAGES_D1 = 2, 3
 SWEEP3D_SMEM = 232448
-SWEEP3D_DEPTH = 4
-SWEEP3D_MAX_R = 1
+SWEEP3D_DEPTH = {**{(mm, 1): 4 for mm in (1, 2, 4, 8)},
+                 (1, 2): 2, (2, 2): 2, (4, 2): 3, (8, 2): 2,
+                 (1, 3): 1, (2, 3): 1, (4, 3): 2, (8, 3): 1,
+                 **{(mm, 4): 1 for mm in (1, 2, 4, 8)}}
+SWEEP3D_MAX_R = 4
 SWEEP3D_SEG_MIN = 8
-# the tap orders csrc/sweep3d.cu knows at compile time (its Order)
-_STAR3 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+# taps a 2-D or 3-D stencil may have on the register kernels (kMaxTaps of
+# csrc/sweep2d_warp.cu and csrc/sweep3d.cu, as of csrc/stencil_sweep.cu)
+ND_MAX_TAPS = 64
+# the tap orders csrc/sweep3d.cu knows at compile time (its Order): the box
+# of reach 1 and the star (``stencils._star_taps``' order) of reach 1 and 2
 _BOX3 = tuple((oz, oy, ox) for oz in (-1, 0, 1) for oy in (-1, 0, 1) for ox in (-1, 0, 1))
+_STAR3 = {r: ((0, 0, 0),) + tuple(tuple(sign * s if a == axis else 0 for a in range(3))
+                                  for axis in range(3) for s in range(1, r + 1)
+                                  for sign in (-1, 1)) for r in (1, 2)}
 
 
 def reset_launches() -> None:
@@ -304,10 +318,10 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
     launch on the natural (nz, ny, nx) grid.  The axis-0 rows of an n-D
     tile are ``t0``; the minor (then mid) extent shrinks until the two
     buffers fit.  Raises when no tile fits: this kernel never splits a
-    launch (the register kernels' routes split a deep sweep into
-    consecutive launches, :func:`sweep1d_launches`, :func:`sweep2d_launches`,
-    and take every depth of reach up to 4 at 1-D and of reach 1 at 2-D and
-    3-D)."""
+    launch (the register kernels' routes take every depth of reach up to 4
+    at every rank, a deep sweep as consecutive launches,
+    :func:`sweep1d_launches`, :func:`sweep2d_launches`,
+    :func:`sweep3d_launches`)."""
     nz, ny, nx = nat
     nd, r = spec.ndim, spec.r
     rz, ry = (r if nd == 3 else 0), (r if nd >= 2 else 0)
@@ -333,8 +347,9 @@ def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
             raise ValueError(
                 f"{spec.name}: a depth-{depth} sweep needs a halo of {depth * r} "
                 f"per side that no CUDA tile fits in shared memory (axis-0 tile "
-                f"t0={t0}); ROADMAP D2 is closed on the register kernels only (reach 1 "
-                "at 2-D and 3-D, consecutive launches past their deepest instance)")
+                f"t0={t0}); the shared-memory kernel serves reach r > 4 only, and "
+                "ROADMAP D2 is closed on the register kernels (reach up to 4 at every "
+                "rank, consecutive launches past their deepest instance)")
     return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
 
 
@@ -493,14 +508,16 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     return dst
 
 
-def sweep2d_depths() -> dict[int, tuple[int, ...]]:
-    """The depths of ``csrc/sweep2d_warp.cu``'s instances by ``M``, all of
-    them on the route."""
-    return {mm: tuple(range(1, WARP2D_DEPTH[mm] + 1)) + WARP2D_DEEP.get(mm, ()) for mm in SUB_M}
+def sweep2d_depths(r: int) -> dict[int, tuple[int, ...]]:
+    """The depths of ``csrc/sweep2d_warp.cu``'s instances of reach ``r`` by
+    ``M``, all of them on the route."""
+    return {mm: tuple(range(1, WARP2D_DEPTH[mm, r] + 1)) + WARP2D_DEEP.get((mm, r), ())
+            for mm in SUB_M}
 
 
-# every instance's depth·r (r = 1) fits its halo warps: depth·r <= 32·M
-assert all(d * WARP2D_MAX_R <= WARP_LANES * mm for mm, ds in sweep2d_depths().items() for d in ds)
+# every instance's depth·r fits its halo warps: depth·r <= 32·M
+assert all(d * r <= WARP_LANES * mm for r in range(1, WARP2D_MAX_R + 1)
+           for mm, ds in sweep2d_depths(r).items() for d in ds)
 
 
 def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
@@ -508,21 +525,23 @@ def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
     stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl``, ``m`` and
     ``depth``: a warp covers 32 sub-columns of ``M`` points of a row, one
-    per lane, on the instances :func:`sweep2d_launches` names) when the
-    reach is the kernel's; ``"smem"`` (``csrc/stencil_sweep.cu``) for
-    ``r > 1``."""
+    per lane, a lane's x halo from the lanes up to ``ceil(r / M)`` away, on
+    the instances :func:`sweep2d_launches` names) when the reach is the
+    kernel's (``r <= WARP2D_MAX_R``); ``"smem"`` (``csrc/stencil_sweep.cu``)
+    for ``r > 4``, which no registry stencil has."""
     if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= WARP2D_MAX_R:
         return "warp"
     return "smem"
 
 
 @functools.lru_cache(maxsize=None)
-def sweep2d_launches(m: int, depth: int) -> tuple[tuple[int, int, int], ...]:
+def sweep2d_launches(m: int, depth: int, r: int) -> tuple[tuple[int, int, int], ...]:
     """The launches ``(M, g, D)`` of ``csrc/sweep2d_warp.cu`` for a
-    depth-``depth`` sweep at ``m`` (:func:`_launch_plan`): past the deepest
-    instance of ``M`` consecutive launches (m = 8: depth 8 two of depth 4,
-    16 four; m = 2: depth 16 one)."""
-    return _launch_plan(sweep2d_depths(), m, depth)
+    depth-``depth`` sweep of reach ``r`` at ``m`` (:func:`_launch_plan`):
+    past the deepest instance of ``(M, r)`` consecutive launches (r = 1,
+    m = 8: depth 8 two of depth 4, 16 four; m = 2: depth 16 one; r = 2, m =
+    8: depth 4 two of depth 2)."""
+    return _launch_plan(sweep2d_depths(r), m, depth)
 
 
 def warp_rows(cols: int) -> int:
@@ -557,12 +576,13 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     _kernel_io(t, out, "the 2-D warp sweep kernel")
     n0, nb, m, vl = t.shape
     big, g = sub_columns(m)
-    any_form = vl != WARP_LANES or g != 1 or depth > WARP2D_DEPTH[big] or t.dtype != torch.float32
+    any_form = (vl != WARP_LANES or g != 1 or spec.r != 1 or depth > WARP2D_DEPTH[big, 1]
+                or t.dtype != torch.float32)
     if any_form and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 2-D warp kernel takes fewer than "
-                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m = M and past its depth "
-                         f"{WARP2D_DEPTH[big]}")
+                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m = M, r = 1 and past its "
+                         f"depth {WARP2D_DEPTH[big, 1]}")
     if seg_rows is None:
         seg_rows = sweep2d_segment(n0, warp_rows(nb * vl * g), _sm_count(t.device))
     ntaps, offs, coeffs = _taps(spec, 2, t.dtype)
@@ -577,63 +597,73 @@ def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
     stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl``, ``m`` and
     ``depth``: a thread owns a sub-column of the layout, on the instances
-    :func:`sweep3d_launches` names) when the reach is the kernel's;
-    ``"smem"`` (``csrc/stencil_sweep.cu``) for ``r > 1``.  The periodic,
-    ring and open ends take the same route."""
+    :func:`sweep3d_launches` names) when the reach is the kernel's (``r <=
+    SWEEP3D_MAX_R``); ``"smem"`` (``csrc/stencil_sweep.cu``) for ``r > 4``,
+    which no registry stencil has.  The periodic, ring and open ends take
+    the same route."""
     if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= SWEEP3D_MAX_R:
         return "stream"
     return "smem"
 
 
 @functools.lru_cache(maxsize=None)
-def sweep3d_launches(m: int, depth: int) -> tuple[tuple[int, int, int], ...]:
+def sweep3d_launches(m: int, depth: int, r: int) -> tuple[tuple[int, int, int], ...]:
     """The launches ``(M, g, D)`` of ``csrc/sweep3d.cu`` for a
-    depth-``depth`` sweep at ``m`` (:func:`_launch_plan` over the depths
-    1 to ``SWEEP3D_DEPTH``): past depth 4 consecutive launches."""
-    return _launch_plan({mm: tuple(range(1, SWEEP3D_DEPTH + 1)) for mm in SUB_M}, m, depth)
+    depth-``depth`` sweep of reach ``r`` at ``m`` (:func:`_launch_plan` over
+    the depths 1 to ``SWEEP3D_DEPTH[M, r]``): past the deepest consecutive
+    launches (r = 1: past depth 4; r = 2, m = 8: past depth 2)."""
+    return _launch_plan({mm: tuple(range(1, SWEEP3D_DEPTH[mm, r] + 1)) for mm in SUB_M}, m,
+                        depth)
 
 
 def sweep3d_order(spec: StencilSpec) -> str:
     """The tap order ``csrc/sweep3d.cu`` compiles in for ``spec``:
-    ``"star"`` (3d7p's), ``"box"`` (3d27p's), else ``"runtime"``."""
+    ``"star"`` (3d7p's, and the star of reach 2 in ``_star_taps``' order),
+    ``"box"`` (3d27p's), else ``"runtime"``."""
     offs = tuple(tuple(off) for off, _ in spec.taps)
-    return "star" if offs == _STAR3 else "box" if offs == _BOX3 else "runtime"
+    if offs == _STAR3.get(spec.r):
+        return "star"
+    return "box" if offs == _BOX3 else "runtime"
 
 
-def sweep3d_slots(depth: int) -> int:
+def sweep3d_slots(depth: int, r: int) -> int:
     """Input planes in the ring of a depth-``depth`` instance of
-    ``csrc/sweep3d.cu``: those in flight, the landed one, and the 2r + 1
-    the first level reads."""
-    return (SWEEP3D_STAGES_D1 if depth == 1 else SWEEP3D_STAGES) + 4
+    ``csrc/sweep3d.cu`` of reach ``r``: those in flight, the landed one,
+    and the 2r + 1 the first level reads."""
+    return (SWEEP3D_STAGES_D1 if depth == 1 else SWEEP3D_STAGES) + 2 * r + 2
 
 
-def sweep3d_tile(m: int, depth: int, order: str) -> tuple[int, int, int, int]:
-    """The tile of the ``csrc/sweep3d.cu`` instance ``M = m`` (its
-    ``Tile``; ``m`` in ``SUB_M``): rows ``ty`` and (sub-)columns ``cx``
-    a CTA computes, and its halo (sub-)columns ``hx`` and rows ``hy`` per
-    side.  The star's levels publish into 2 plane slots, the others' into
-    4; ``ty`` is as many rows as ``SWEEP3D_THREADS`` threads and the
+def sweep3d_tile(m: int, depth: int, order: str, r: int) -> tuple[int, int, int, int]:
+    """The tile of the ``csrc/sweep3d.cu`` instance ``M = m`` of reach
+    ``r`` (its ``Tile``; ``m`` in ``SUB_M``): rows ``ty`` and
+    (sub-)columns ``cx`` a CTA computes, and its halo (sub-)columns ``hx =
+    ceil(depth·r / M)`` and rows ``hy = depth·r`` per side.  The star's
+    levels publish into 2 plane slots, the others' into 2r + 2; each
+    element row of a plane has ``r·cx + ceil(r / M)`` unwritten words a
+    side; ``ty`` is as many rows as ``SWEEP3D_THREADS`` threads and the
     shared memory allow."""
-    hx, hy = -(-depth // m), depth
+    hx, hy = -(-depth * r // m), depth * r
     cx = SWEEP3D_LANES + 2 * hx
-    planes = sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
-    ty = min(SWEEP3D_THREADS // cx, (SWEEP3D_SMEM // 4 // (planes * m) - 2 * (cx + 1)) // cx)
+    planes = sweep3d_slots(depth, r) + (depth - 1) * (2 if order == "star" else 2 * r + 2)
+    pad = r * cx - (-r // m)
+    ty = min(SWEEP3D_THREADS // cx, (SWEEP3D_SMEM // 4 // (planes * m) - 2 * pad) // cx)
     return ty, cx, hx, hy
 
 
 def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
-                    ctas: int) -> int:
-    """Axis-0 planes per CTA of the 3-D kernel's instance ``M = m`` on rows
-    of ``cols`` (sub-)columns (``C' = g·nb·vl``): the segment length whose
-    waves of ``ctas`` CTAs (one per SM) times the steps of a segment (its
-    planes and 3·depth warm-up steps) are fewest; no segment shorter than
-    ``SWEEP3D_SEG_MIN`` planes unless the grid is."""
-    ty, _, _, hy = sweep3d_tile(m, depth, order)
+                    ctas: int, r: int) -> int:
+    """Axis-0 planes per CTA of the 3-D kernel's instance ``M = m`` of
+    reach ``r`` on rows of ``cols`` (sub-)columns (``C' = g·nb·vl``): the
+    segment length whose waves of ``ctas`` CTAs (one per SM) times the
+    steps of a segment (its planes and (2r + 1)·depth warm-up steps) are
+    fewest; no segment shorter than ``SWEEP3D_SEG_MIN`` planes unless the
+    grid is."""
+    ty, _, _, hy = sweep3d_tile(m, depth, order, r)
     tiles = -(-cols // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
     best = None
     for nseg in range(1, -(-n0 // SWEEP3D_SEG_MIN) + 1):
         seg = -(-n0 // nseg)
-        cost = -(-tiles * -(-n0 // seg) // ctas) * (seg + 3 * depth)
+        cost = -(-tiles * -(-n0 // seg) // ctas) * (seg + (2 * r + 1) * depth)
         if best is None or cost < best[0]:
             best = (cost, seg)
     return best[1]
@@ -641,20 +671,21 @@ def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
 
 def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
                     edge: str = "periodic", seg: int | None = None) -> None:
-    """One launch of the 3-D streaming kernel (depth 1 to ``SWEEP3D_DEPTH``)
-    with the ends ``edge`` on axis 0, ``seg`` axis-0 planes per CTA (by
-    default :func:`sweep3d_segment` over the card's SMs), on the instance
-    :func:`sub_columns` names for ``m``."""
+    """One launch of the 3-D streaming kernel (depth 1 to
+    ``SWEEP3D_DEPTH[M, r]``) with the ends ``edge`` on axis 0, ``seg``
+    axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
+    card's SMs), on the instance :func:`sub_columns` names for ``m``."""
     n0, n1, nb, m, vl = t.shape
     big, g = sub_columns(m)
-    if (vl != WARP_LANES or g != 1 or t.dtype != torch.float32) and nb * vl * g >= MAX_COLS:
+    any_form = vl != WARP_LANES or g != 1 or spec.r != 1 or t.dtype != torch.float32
+    if any_form and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns a row at vl={vl}, m={m} "
                          f"(sub-columns of {big}); the 3-D streaming kernel takes fewer than "
-                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m in {SUB_M}")
+                         f"{MAX_COLS} off float32 at vl={WARP_LANES}, m in {SUB_M}, r = 1")
     _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
         seg = sweep3d_segment(n0, n1, nb * vl * g, big, depth, sweep3d_order(spec),
-                              _sm_count(t.device))
+                              _sm_count(t.device), spec.r)
     ntaps, offs, coeffs = _taps(spec, 3, t.dtype)
     build.check(_entry("sweep3d", "sweep3d", t.dtype)(
         t.data_ptr(), out.data_ptr(), n0, n1, nb, m, vl, spec.r, depth, _EDGES[edge], seg,
@@ -704,9 +735,11 @@ def _launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int,
     if spec.ndim == 1 and sweep1d_route(vl, m, depth, spec.r) == "warp":
         kernel, key, plan = _warp_launch, "1d", sweep1d_launches(m, depth, spec.r)
     elif spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
-        kernel, key, plan = _warp2d_launch, "2d", sweep2d_launches(m, depth)
+        _check_nd_taps(spec)
+        kernel, key, plan = _warp2d_launch, "2d", sweep2d_launches(m, depth, spec.r)
     elif spec.ndim == 3 and sweep3d_route(vl, m, depth, spec.r) == "stream":
-        kernel, key, plan = _sweep3d_launch, "3d", sweep3d_launches(m, depth)
+        _check_nd_taps(spec)
+        kernel, key, plan = _sweep3d_launch, "3d", sweep3d_launches(m, depth, spec.r)
     else:
         _sweep_launch(spec, t, dst, depth, t0, edge)
         LAUNCHES[f"{kind}_1d_smem" if spec.ndim == 1 else f"{kind}_nd"] += 1
@@ -716,6 +749,12 @@ def _launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int,
         kernel(spec, src, out, d, edge)
         LAUNCHES[f"{kind}_{key}"] += 1
     _chain(launch, t, dst, plan)
+
+
+def _check_nd_taps(spec: StencilSpec) -> None:
+    if len(spec.taps) > ND_MAX_TAPS:
+        raise ValueError(f"{spec.name}: {len(spec.taps)} taps exceed the register kernels' "
+                         f"limit of {ND_MAX_TAPS}")
 
 
 def stencil1d_sweep_periodic(spec: StencilSpec, t: torch.Tensor, k: int,

@@ -16,8 +16,10 @@ reference's model:
 
   * **pallas past the deepest register launch.** A depth-``d`` sweep runs
     as the consecutive launches that ``sweep1d_launches(m, d, r)`` (1-D:
-    each at most ``32·M // r`` deep) / ``sweep2d_launches(m, d)`` /
-    ``sweep3d_launches(m, d)`` list (``kernels/stencil_kernels.py``), and
+    each at most ``32·M // r`` deep) / ``sweep2d_launches(m, d, r)`` /
+    ``sweep3d_launches(m, d, r)`` list (``kernels/stencil_kernels.py``; at
+    r > 1 the register kernels' deepest launches are shallower: 2-D
+    ``WARP2D_DEPTH[M, r]``, 3-D ``SWEEP3D_DEPTH[M, r]``), and
     each launch reads and writes the grid once, with the halo factor ``1 +
     2·D·r/n0`` of its own depth ``D``; the reference charges one pass a
     chunk.
@@ -110,9 +112,9 @@ def launch_depths(spec, vl: int, m: int, depth: int) -> tuple[int, ...]:
     if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, spec.r) == "warp":
         return tuple(d for _, _, d in sk.sweep1d_launches(m, depth, spec.r))
     if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
-        return tuple(d for _, _, d in sk.sweep2d_launches(m, depth))
+        return tuple(d for _, _, d in sk.sweep2d_launches(m, depth, spec.r))
     if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
-        return tuple(d for _, _, d in sk.sweep3d_launches(m, depth))
+        return tuple(d for _, _, d in sk.sweep3d_launches(m, depth, spec.r))
     return (depth,)
 
 

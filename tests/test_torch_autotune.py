@@ -237,7 +237,8 @@ def test_mxu_gate_bounds_card_memory(monkeypatch):
 def test_route_gate_refuses_what_the_kernels_raise_on():
     """``pallas_routes_legal`` refuses a plan whose launch the wrappers
     would raise on: the register kernels' column limit off their fixed
-    forms, and a deep reach-2 sweep no shared-memory tile fits (D2)."""
+    forms, and a deep reach-5 sweep no shared-memory tile fits (D2); a
+    reach-2 sweep of any depth takes the register kernels' launches."""
     s1 = stencils.make("1d3p")
     # 1-D at m=3: sub-columns of 1, 2^33 / 24 blocks · 8 · 3 >= 2^30 columns
     assert not autotune.pallas_routes_legal(s1, (1 << 33,), 8, 3, None, k=2)
@@ -249,13 +250,25 @@ def test_route_gate_refuses_what_the_kernels_raise_on():
     assert not autotune.pallas_routes_legal(s2, (8, 1 << 33), 32, 8, 8, k=2,
                                             dtype=torch.bfloat16)
     star = stencils.StencilSpec("star2d_r2", 2, 2, "star", stencils._star_taps(2, 2))
-    assert sk.sweep2d_route(8, 8, 4, 2) == "smem"
+    assert sk.sweep2d_route(8, 8, 4, 2) == "warp"
     assert autotune.pallas_routes_legal(star, (64, 4096), 8, 8, 32, k=4)
-    with pytest.raises(ValueError, match="D2"):
-        sk.sweep_tile(star, (1, 64, 4096), 8, 64, 32)
-    assert not autotune.pallas_routes_legal(star, (64, 4096), 8, 8, 32, k=16, ttile=4)
-    assert not autotune.ttile_plan_legal(
+    assert autotune.pallas_routes_legal(star, (64, 4096), 8, 8, 32, k=16, ttile=4)
+    assert autotune.ttile_plan_legal(
         star, (256, 4096), StencilPlan(backend="pallas", k=16, ttile=4, vl=8, m=8, t0=32))
+    # reach 2 at 2-D and 3-D on the register kernels' any-vl form only:
+    # past 2^30 columns a row even at vl=32, m=8 float32
+    assert not autotune.pallas_routes_legal(star, (8, 1 << 33), 32, 8, 8, k=2)
+    star3 = stencils.StencilSpec("star3d_r2", 3, 2, "star", stencils._star_taps(3, 2))
+    assert sk.sweep3d_route(8, 8, 8, 2) == "stream"
+    assert autotune.pallas_routes_legal(star3, (32, 32, 512), 8, 8, 16, k=4, ttile=2)
+    star5 = stencils.StencilSpec("star2d_r5", 2, 5, "star", stencils._star_taps(2, 5))
+    assert sk.sweep2d_route(8, 8, 4, 5) == "smem"
+    assert autotune.pallas_routes_legal(star5, (64, 4096), 8, 8, 32, k=4)
+    with pytest.raises(ValueError, match="D2"):
+        sk.sweep_tile(star5, (1, 64, 4096), 8, 64, 32)
+    assert not autotune.pallas_routes_legal(star5, (64, 4096), 8, 8, 32, k=16, ttile=4)
+    assert not autotune.ttile_plan_legal(
+        star5, (256, 4096), StencilPlan(backend="pallas", k=16, ttile=4, vl=8, m=8, t0=32))
     # the roundtrip engine sweeps the padded grid
     assert autotune.pallas_routes_legal(s1, (4096,), 8, 8, None, "roundtrip", k=4)
     # 1-D at r > M (1d5p at odd m) and past 32·M // r: the warp kernel's

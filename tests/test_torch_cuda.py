@@ -219,9 +219,11 @@ def test_sweep1d_warp_kernel_runtime_taps(cuda, taps):
         assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1))
 
 
-def _star_1d(r):
-    """A 1-D star of reach r: reach 5 is beyond the warp kernel's."""
-    return stencils.StencilSpec(f"star1d-r{r}", 1, r, "star", stencils._star_taps(1, r))
+def _star(ndim, r):
+    """The star of reach r (``_star_taps(ndim, r)``), named ``star<ndim>d-r<r>``:
+    reach 5 is beyond the register kernels'."""
+    return stencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                stencils._star_taps(ndim, r))
 
 
 def test_sweep1d_routes_count_and_raise(cuda):
@@ -235,7 +237,7 @@ def test_sweep1d_routes_count_and_raise(cuda):
             (stencils.make("1d3p"), 32, 1, 33, "sweep_1d", 2),
             (stencils.make("1d3p"), 8, 16, 4, "sweep_1d", 1),
             (stencils.make("1d3p"), 8, 16, 257, "sweep_1d", 2),
-            (_star_1d(5), 8, 8, 4, "sweep_1d_smem", 1)):
+            (_star(1, 5), 8, 8, 4, "sweep_1d_smem", 1)):
         t = layouts.to_transpose_layout(x, vl, m)
         if key == "sweep_1d":
             assert len(sk.sweep1d_launches(m, depth, spec.r)) == launches
@@ -326,7 +328,7 @@ def test_sweep1d_warp_reach_beyond_m_bitwise(cuda, name, m, mm, r, vl, edge, dty
     lanes a side; the ring over as many lanes at each end) on its route,
     bit for bit the plain versions at every end, and one step past the
     deepest launch as two launches."""
-    spec = _star_1d(r) if name.startswith("star") else stencils.make(name)
+    spec = _star(1, r) if name.startswith("star") else stencils.make(name)
     assert sk.sub_columns(m)[0] == mm and spec.r == r > mm
     assert sk.sweep1d_route(vl, m, 1000, r) == "warp"
     _sweep1d_bitwise(cuda, name, m, vl, edge, dtype, spec=spec, past=True)
@@ -354,23 +356,29 @@ def test_sweep2d_warp_sub_columns_bitwise(cuda, m, vl, edge):
 
 
 def _sweep2d_bitwise(cuda, name, m, vl, edge, dtype=torch.float32):
-    spec = stencils.make(name)
+    """Every depth of the instance (M, r), at the wrapper's segment and at 4
+    rows; ``name`` a registry stencil or ``star2d-r<r>`` (grids of at least
+    r rows, t0 = n0)."""
+    spec = _star(2, int(name[-1])) if name.startswith("star2d-r") else stencils.make(name)
     big, g = sk.sub_columns(m)
     grids = [(3, -(-5 // (vl * g))), (9, -(-20 // (vl * g))),
              (14, -(-(32 * 8 + 40) // (vl * g))), (2048 + 64, 2048 // (vl * m) + 1)]
     for n0, nb in grids:
+        if n0 < spec.r:
+            continue
+        t0 = 1 if spec.r == 1 else n0
         t = layouts.to_transpose_layout(_x((n0, nb * vl * m), n0 + nb + vl, cuda).to(dtype),
                                         vl, m)
         out = torch.empty_like(t)
-        for depth in range(1, sk.WARP2D_DEPTH[big] + 1):
+        for depth in range(1, sk.WARP2D_DEPTH[big, spec.r] + 1):
             sk.reset_launches()
             if edge == "periodic":
-                got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
-                want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+                got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0, out=out)
+                want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
                 key = "sweep_2d"
             else:
-                got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
-                want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+                got = sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring", out=out)
+                want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge == "ring")
                 key = "multistep_2d"
             torch.cuda.synchronize()
             assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
@@ -388,7 +396,7 @@ def _warp2d_grids():
     return ((1, 1), (2, nb - 1), (3, nb), (4, nb + 1), (5, 2 * nb + 1), (14, nb))
 
 
-@pytest.mark.parametrize("m", sorted(sk.WARP2D_DEPTH))
+@pytest.mark.parametrize("m", sk.SUB_M)
 @pytest.mark.parametrize("name", ["2d5p", "2d9p", "heat2d"])
 def test_sweep2d_warp_kernel_bitwise(cuda, name, m):
     """Every depth of the route on the transcription's grid (at its segment
@@ -398,7 +406,7 @@ def test_sweep2d_warp_kernel_bitwise(cuda, name, m):
     for n0, nb in _warp2d_grids() + ((2048, 2048 // (32 * m)),):
         t = layouts.to_transpose_layout(_x((n0, nb * 32 * m), n0 + nb + m, cuda), 32, m)
         out = torch.empty_like(t)
-        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+        for depth in range(1, sk.WARP2D_DEPTH[m, 1] + 1):
             want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
             sk.reset_launches()
             got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
@@ -432,15 +440,15 @@ def test_sweep2d_routes_count_and_raise(cuda):
     spec = stencils.make("2d5p")
     x = _x((64, 4096), 3, cuda)
     for vl, m, depth, key in ((32, 8, 4, "sweep_2d"), (128, 8, 4, "sweep_2d"),
-                              (32, 8, sk.WARP2D_DEPTH[8] + 1, "sweep_2d"),    # 4, then 1
+                              (32, 8, sk.WARP2D_DEPTH[8, 1] + 1, "sweep_2d"),    # 4, then 1
                               (16, 4, 2, "sweep_2d"), (8, 16, 2, "sweep_2d"),
-                              (8, 16, sk.WARP2D_DEPTH[8] + 1, "sweep_2d")):
+                              (8, 16, sk.WARP2D_DEPTH[8, 1] + 1, "sweep_2d")):
         t = layouts.to_transpose_layout(x, vl, m)
         sk.reset_launches()
         got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32)
         torch.cuda.synchronize()
         assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {
-            key: len(sk.sweep2d_launches(m, depth))}
+            key: len(sk.sweep2d_launches(m, depth, 1))}
         assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 32))
         with pytest.raises(ValueError, match="in place"):
             sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 32, out=t)
@@ -448,7 +456,8 @@ def test_sweep2d_routes_count_and_raise(cuda):
         sk.stencil_nd_sweep_ttile(spec, layouts.to_transpose_layout(x, 32, 8).double(), 2, 2, 32)
     lib = build.load("sweep2d_warp")
     assert lib.repro_sweep2d_warp_warps() == sk.WARP2D_WARPS
-    assert {m: lib.repro_sweep2d_warp_max_depth(m) for m in sk.WARP2D_DEPTH} == sk.WARP2D_DEPTH
+    assert {(m, r): lib.repro_sweep2d_warp_max_depth(m, r)
+            for m, r in sk.WARP2D_DEPTH} == sk.WARP2D_DEPTH
 
 
 # the tiles the reference takes and the GPU picker used to refuse: vl 8 and
@@ -625,7 +634,7 @@ def test_multistep_1d_routes_count(cuda):
             (stencils.make("1d3p"), 32, 3, 2, "multistep_1d"),
             (stencils.make("1d3p"), 8, 16, 2, "multistep_1d"),
             (stencils.make("1d3p"), 8, 16, 257, "multistep_1d"),      # 256 + 1
-            (_star_1d(5), 8, 8, 2, "multistep_1d_smem")):
+            (_star(1, 5), 8, 8, 2, "multistep_1d_smem")):
         assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
         launches = len(sk.sweep1d_launches(m, k, spec.r)) if key == "multistep_1d" else 1
         t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
@@ -647,13 +656,13 @@ def _edge2d_grids(m):
     grid at real size: the roundtrip's padded 2048² (n0 + 64 rows)."""
     nb = sk.WARP2D_WARPS - 2
     grids = set(_warp2d_grids()) | {(5, 3)}
-    for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+    for depth in range(1, sk.WARP2D_DEPTH[m, 1] + 1):
         grids |= {(8 + depth, nb + 2), (2 * depth, 2), (2 * depth + 1, nb)}
     return sorted(grids) + [(2048 + 64, 2048 // (32 * m))]
 
 
 @pytest.mark.parametrize("edge_mask", [True, False])
-@pytest.mark.parametrize("m", sorted(sk.WARP2D_DEPTH))
+@pytest.mark.parametrize("m", sk.SUB_M)
 @pytest.mark.parametrize("name", ["2d5p", "2d9p", "heat2d"])
 def test_multistep_2d_warp_route_bitwise(cuda, name, m, edge_mask):
     """K4b on the 2-D warp kernel: every depth of the route on grids whose
@@ -665,7 +674,7 @@ def test_multistep_2d_warp_route_bitwise(cuda, name, m, edge_mask):
     for n0, nb in _edge2d_grids(m):
         t = layouts.to_transpose_layout(_x((n0, nb * 32 * m), n0 + nb + m, cuda), 32, m)
         out = torch.empty_like(t)
-        for depth in range(1, sk.WARP2D_DEPTH[m] + 1):
+        for depth in range(1, sk.WARP2D_DEPTH[m, 1] + 1):
             want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge_mask)
             sk.reset_launches()
             got = sk.stencil_nd_multistep(spec, t, depth, 1, edge_mask, out=out)
@@ -700,17 +709,23 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 def test_multistep_2d_routes_count(cuda):
     """The counters tell K4b's routes apart at 2-D and 3-D (the register
     kernels at any vl, m and depth, past the deepest instance in
-    consecutive launches, each counted; the shared-memory kernel at r = 2),
-    and the halo wrapper follows the route of its depth."""
+    consecutive launches, each counted, reach 2 included; the shared-memory
+    kernel at r = 5), and the halo wrapper follows the route of its
+    depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
+    r5 = stencils.StencilSpec("2d-star-r5", 2, 5, "star", stencils._star_taps(2, 5))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
              (stencils.make("2d9p"), (64, 4096), 32, 1, 8, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 128, 8, 2, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 8, 16, 2, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 8, 16, 5, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4080), 16, 3, 2, "multistep_2d"),
-             (r2, (64, 4096), 32, 8, 2, "multistep_nd"),
-             (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8] + 1, "multistep_2d"),
+             (r2, (64, 4096), 32, 8, 2, "multistep_2d"),
+             (r2, (64, 4096), 8, 8, 5, "multistep_2d"),                         # 2 + 2 + 1
+             (r5, (64, 4096), 32, 8, 2, "multistep_nd"),
+             (_star(3, 2), (16, 8, 256), 8, 8, 5, "multistep_3d"),              # 2 + 2 + 1
+             (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8, 1] + 1,
+              "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 8, 8, 16, "multistep_2d"),
              (stencils.make("2d5p"), (64, 4096), 8, 8, 12, "multistep_2d"),   # 8 + 4
              (stencils.make("3d7p"), (16, 8, 256), 32, 8, 2, "multistep_3d"),
@@ -727,7 +742,7 @@ def test_multistep_2d_routes_count(cuda):
              (stencils.make("3d7p"), (16, 8, 256), 8, 8, 16, "multistep_3d"))
     for spec, shape, vl, m, k, key in cases:
         launches = 1 if key.endswith("_nd") else len(
-            (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, k))
+            (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, k, spec.r))
         if spec.ndim == 2:
             assert sk.sweep2d_route(vl, m, k, spec.r) == \
                 ("warp" if key == "multistep_2d" else "smem")
@@ -798,22 +813,31 @@ def test_sweep3d_sub_columns_bitwise(cuda, name, m, vl):
 
 
 def _sweep3d_bitwise(cuda, name, m, vl, dtype=torch.float32):
+    """Every depth of the instance (M, r), periodic, ring and open, at the
+    wrapper's segment and at 3 planes; ``name`` a registry stencil,
+    ``runtime<i>`` (RUNTIME_TAPS3[i]) or ``star3d-r<r>`` (grids of at least
+    r planes, t0 = n0)."""
     spec = stencils.make(name) if name.startswith("3d") else \
+        _star(3, int(name[-1])) if name.startswith("star3d-r") else \
         stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
+    big, _ = sk.sub_columns(m)
     for n0, n1, nb in _grids3(vl):
+        if n0 < spec.r:
+            continue
+        t0 = 1 if spec.r == 1 else n0
         x = _x((n0, n1, nb * vl * m), n0 + n1 + nb + m, cuda).to(dtype)
         t = layouts.to_transpose_layout(x, vl, m)
         out = torch.empty_like(t)
-        for depth in range(1, sk.SWEEP3D_DEPTH + 1):
+        for depth in range(1, sk.SWEEP3D_DEPTH[big, spec.r] + 1):
             for edge in ("periodic", "ring", "open"):
                 sk.reset_launches()
                 if edge == "periodic":
-                    want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
-                    got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+                    want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+                    got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0, out=out)
                     key = "sweep_3d"
                 else:
-                    want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
-                    got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+                    want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge == "ring")
+                    got = sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring", out=out)
                     key = "multistep_3d"
                 torch.cuda.synchronize()
                 assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
@@ -877,14 +901,16 @@ def test_sweep3d_tile_matches_library(cuda):
     """The library's tiles are the ones ``sweep3d_tile`` computes (the
     segment choice and the CPU transcription use the Python copy)."""
     lib = build.load("sweep3d")
-    assert lib.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
-    for m in sk.SUB_M:
-        for depth in range(1, sk.SWEEP3D_DEPTH + 1):
-            for order, code in (("runtime", 0), ("star", 1), ("box", 2)):
-                ty, cx, _, _ = sk.sweep3d_tile(m, depth, order)
-                got = [lib.repro_sweep3d_tile(m, depth, code, w) for w in range(4)]
-                assert got[:3] == [ty, cx, ty * cx], (m, depth, order)
+    for (m, r), top in sk.SWEEP3D_DEPTH.items():
+        assert lib.repro_sweep3d_max_depth(m, r) == top, (m, r)
+        orders = (("runtime", 0), ("star", 1), ("box", 2)) if r == 1 else (("runtime", 0),)
+        for depth in range(1, top + 1):
+            for order, code in orders:
+                ty, cx, _, _ = sk.sweep3d_tile(m, depth, order, r)
+                got = [lib.repro_sweep3d_tile(m, r, depth, code, w) for w in range(4)]
+                assert got[:3] == [ty, cx, ty * cx], (m, r, depth, order)
                 assert got[3] <= sk.SWEEP3D_SMEM
+        assert lib.repro_sweep3d_tile(m, r, top + 1, 0, 0) == -1
 
 
 def test_sweep3d_main_path_shape(cuda):
@@ -1223,14 +1249,16 @@ def test_transpose_any_unaligned_pointers(cuda, vl, m):
 
 
 def test_instance_tables_match_kernels(cuda):
-    """The Python table of the 2-D kernel's instances is the library's own,
-    and the 3-D kernel's deepest instance is ``SWEEP3D_DEPTH``."""
+    """The Python tables of the 2-D and 3-D kernels' instances at every
+    reach are the libraries' own."""
     lib2, lib3 = build.load("sweep2d_warp"), build.load("sweep3d")
-    for mm in sk.SUB_M:
-        for depth in range(0, 34):
-            assert bool(lib2.repro_sweep2d_warp_has_depth(mm, depth)) == \
-                (depth in sk.sweep2d_depths()[mm]), (mm, depth)
-    assert lib3.repro_sweep3d_max_depth() == sk.SWEEP3D_DEPTH
+    for r in range(1, sk.WARP2D_MAX_R + 2):
+        for mm in sk.SUB_M:
+            for depth in range(0, 34):
+                want = r <= sk.WARP2D_MAX_R and depth in sk.sweep2d_depths(r)[mm]
+                assert bool(lib2.repro_sweep2d_warp_has_depth(mm, r, depth)) == want, \
+                    (mm, r, depth)
+            assert lib3.repro_sweep3d_max_depth(mm, r) == sk.SWEEP3D_DEPTH.get((mm, r), 0)
 
 
 def _deep_check(cuda, spec, shape, vl, m, depth, edge, launch=None, dtype=torch.float32):
@@ -1240,16 +1268,17 @@ def _deep_check(cuda, spec, shape, vl, m, depth, edge, launch=None, dtype=torch.
     t = layouts.to_transpose_layout(_x(shape, depth + m + vl, cuda).to(dtype), vl, m)
     out = torch.empty_like(t)
     kind = "sweep" if edge == "periodic" else "multistep"
-    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
+    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth, spec.r)
+    t0 = 1 if spec.r == 1 else shape[0]
     if edge == "periodic":
-        want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, 1)
+        want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
     else:
-        want = sk.stencil_nd_multistep_ref(spec, t, depth, 1, edge == "ring")
+        want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge == "ring")
     sk.reset_launches()
     if edge == "periodic":
-        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, 1, out=out)
+        got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0, out=out)
     else:
-        got = sk.stencil_nd_multistep(spec, t, depth, 1, edge == "ring", out=out)
+        got = sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring", out=out)
     torch.cuda.synchronize()
     assert got.data_ptr() == out.data_ptr()
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {f"{kind}_{spec.ndim}d": len(plan)}
@@ -1271,7 +1300,7 @@ def test_sweep2d_deep_bitwise(cuda, name, m, depth, edge):
     alone at a 4-row segment, on grids near the CTA's columns and at 2048²
     (vl 8 and 32)."""
     spec = stencils.make(name)
-    assert len(sk.sweep2d_launches(m, depth)) == 1
+    assert len(sk.sweep2d_launches(m, depth, 1)) == 1
 
     def launch(spec, t, out, d, edge):
         sk._warp2d_launch(spec, t, out, d, edge, seg_rows=4)
@@ -1285,7 +1314,7 @@ def test_sweep2d_deep_bitwise(cuda, name, m, depth, edge):
 @pytest.mark.parametrize("m,depth", [(8, 12), (8, 32), (1, 16), (3, 9), (16, 20)])
 def test_sweep2d_split_bitwise(cuda, m, depth, edge):
     """Depths no instance has: consecutive launches, each counted."""
-    assert len(sk.sweep2d_launches(m, depth)) > 1
+    assert len(sk.sweep2d_launches(m, depth, 1)) > 1
     _deep_check(cuda, stencils.make("2d5p"), (2 * depth + 5, 64 * 8 * m), 8, m, depth, edge)
 
 
@@ -1299,7 +1328,7 @@ def test_sweep3d_deep_sub_columns_bitwise(cuda, name, m, edge):
     spec = stencils.make(name) if name.startswith("3d") else \
         stencils.StencilSpec(name, 3, 1, "box", RUNTIME_TAPS3[int(name[-1])])
     big, g = sk.sub_columns(m)
-    assert sk.sweep3d_launches(m, 8) == ((big, g, 4),) * 2
+    assert sk.sweep3d_launches(m, 8, 1) == ((big, g, 4),) * 2
     for n0, n1, cols, vl in ((3, 5, 5, 8), (19, 45, 70, 8), (6, 12, 40, 32)):
         nb = -(-cols // (vl * g))
         _deep_check(cuda, spec, (n0, n1, nb * vl * m), vl, m, 8, edge)
@@ -1323,7 +1352,7 @@ def test_main_path_deep_plans(cuda, name, shape, vl, m, k, ttile):
     x = prob.init(0)
     spec = prob.spec
     depth = k * ttile
-    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth)
+    plan = (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth, spec.r)
     chunks = sweep_schedule(k, 16, "fused", ttile)[0]
     assert chunks == [(depth, 16 // depth)]
     sk.reset_launches()
@@ -1385,21 +1414,17 @@ def test_bf16_deep_bitwise(cuda, name, shape, vl, m, depth, edge):
     _deep_check(cuda, stencils.make(name), shape, vl, m, depth, edge, dtype=BF16)
 
 
-def _star_r2(ndim):
-    return stencils.StencilSpec(f"{ndim}d-star-r2", ndim, 2, "star",
-                                stencils._star_taps(ndim, 2))
-
-
 @pytest.mark.parametrize("edge_mask", [None, True, False])
 @pytest.mark.parametrize("spec,shape,vl,m,t0,depth", [
-    (_star_1d(5), (32 * 8 * 5,), 8, 5, None, 2),                 # r = 5 > 4: beyond the warp
-    (_star_1d(5), (96 * 10,), 32, 6, None, 3),                   # kernel's reach
-    (_star_r2(2), (24, 512), 8, 8, 8, 3),
-    (_star_r2(3), (8, 12, 256), 8, 8, 4, 2),
+    (_star(1, 5), (32 * 8 * 5,), 8, 5, None, 2),                 # r = 5 > 4: beyond the
+    (_star(1, 5), (96 * 10,), 32, 6, None, 3),                   # register kernels' reach
+    (_star(2, 5), (24, 512), 8, 8, 8, 3),
+    (_star(3, 5), (8, 12, 256), 8, 8, 8, 2),
 ])
 def test_bf16_smem_routes_bitwise(cuda, spec, shape, vl, m, t0, depth, edge_mask):
     """The shared-memory kernel (``stencil_sweep.cu``) in bfloat16 on the
-    shapes its routes keep: periodic (``edge_mask`` None), ring and open."""
+    shapes its routes keep (reach 5 at every rank): periodic (``edge_mask``
+    None), ring and open."""
     t = layouts.to_transpose_layout(_x(shape, 3, cuda).to(BF16), vl, m)
     nd = spec.ndim
     route = (sk.sweep1d_route if nd == 1 else sk.sweep2d_route if nd == 2 else
@@ -1646,3 +1671,71 @@ def test_auto_tunes_on_the_card_and_runs_its_plan(cuda, tmp_path, monkeypatch, n
     assert torch.equal(y, prob.run(x, 16, plan))
     monkeypatch.setattr(autotune, "_default_timer", lambda *a, **k: pytest.fail("measured"))
     assert torch.equal(prob.run(x, 16), y)
+
+
+# ---------------------------------------------------------------------------
+# reach r = 2..4 on the 2-D warp and 3-D streaming kernels: every instance
+# (M, r) in float32 and bfloat16 at each end, the sweeps that raised for
+# want of a shared-memory tile, and the halo wrapper
+# ---------------------------------------------------------------------------
+
+# (r, vl, m): each instance M of each reach (M = 8 at m = 8 and 16, 4 at
+# m = 4, 2 at m = 2 and 6, 1 at m = 3 and 5: r > M on sub-columns), vl = 32
+# and others
+REACH_TILES = [(2, 32, 8), (2, 8, 4), (2, 16, 2), (2, 8, 3), (2, 8, 16),
+               (3, 32, 8), (3, 8, 4), (3, 4, 6), (3, 8, 3),
+               (4, 32, 8), (4, 8, 4), (4, 8, 6), (4, 3, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,vl,m", REACH_TILES)
+def test_sweep2d_warp_reach_bitwise(cuda, r, vl, m, edge, dtype):
+    """The star of reach r on the 2-D warp kernel: every depth of its
+    instance (M, r), at the wrapper's segment and at 4 rows, one counted
+    launch each, bit for bit the plain versions."""
+    _sweep2d_bitwise(cuda, f"star2d-r{r}", m, vl, edge, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("r,vl,m", REACH_TILES)
+def test_sweep3d_reach_bitwise(cuda, r, vl, m, dtype):
+    """The star of reach r on the 3-D streaming kernel (run-time taps from
+    shared memory): every depth of its instance (M, r), periodic, ring and
+    open, at the wrapper's segment and at 3 planes, bit for bit."""
+    _sweep3d_bitwise(cuda, f"star3d-r{r}", m, vl, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("ndim,r,shape,vl,m,depth", [
+    (3, 2, (19, 20, 512), 8, 8, 8),      # raised before: no shared-memory tile
+    (3, 3, (13, 20, 512), 8, 8, 4),      # likewise
+    (3, 4, (13, 20, 512), 8, 8, 4),      # likewise
+    (3, 2, (16, 24, 1024), 32, 8, 16),
+    (2, 2, (37, 2048), 8, 8, 16),
+    (2, 4, (41, 1280), 8, 5, 9),         # r > M = 1 past its deepest
+])
+def test_reach_deep_bitwise(cuda, ndim, r, shape, vl, m, depth, edge, dtype):
+    """Sweeps of reach r deeper than their instance's deepest, as the
+    counted launches of ``sweep2d_launches`` / ``sweep3d_launches``, bit
+    for bit one plain deep sweep."""
+    _deep_check(cuda, _star(ndim, r), shape, vl, m, depth, edge, dtype=dtype)
+
+
+@pytest.mark.parametrize("ndim,shape", [(2, (64, 4096)), (3, (16, 8, 512))])
+def test_sweep_halo_reach2(cuda, ndim, shape):
+    """``stencil_nd_sweep_halo`` at r = 2 (open ends, halo >= k·r in whole
+    t0-row tiles) on the register kernels: their counted launches, bit for
+    bit the open multistep's plain version."""
+    spec, k, t0 = _star(ndim, 2), 2, 4
+    t = layouts.to_transpose_layout(_x(shape, 17, cuda), 8, 8)
+    key = f"multistep_{ndim}d"
+    launches = len((sk.sweep2d_launches if ndim == 2 else sk.sweep3d_launches)(8, k, 2))
+    sk.reset_launches()
+    got = sk.stencil_nd_sweep_halo(spec, t, k, t0, 4)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
+    assert torch.equal(got, sk.stencil_nd_multistep_ref(spec, t, k, t0, False))
+    with pytest.raises(ValueError, match="halo"):
+        sk.stencil_nd_sweep_halo(spec, t, k, t0, 2)

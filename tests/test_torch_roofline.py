@@ -359,7 +359,7 @@ def test_launch_depths_follow_the_routes():
     assert rs.launch_depths(stencils.make("2d5p"), 8, 12, 16) == (8, 8)
     assert rs.launch_depths(stencils.make("3d7p"), 8, 4, 6) == (4, 2)
     assert rs.launch_depths(stencils.make("3d27p"), 32, 8, 8) == \
-        tuple(d for _, _, d in sk.sweep3d_launches(8, 8))
+        tuple(d for _, _, d in sk.sweep3d_launches(8, 8, 1))
 
 
 @pytest.mark.parametrize("steps", [None, 16, 7])
@@ -462,3 +462,56 @@ def test_ttile_cuts_modeled_hbm_bytes_at_1d():
         _, b_base, _ = rs.plan_terms(spec, shape, 4, base, steps)
         _, b_tt, _ = rs.plan_terms(spec, shape, 4, dataclasses.replace(base, ttile=4), steps)
         assert b_base / b_tt >= 2.0
+
+
+def _star(ndim, r):
+    return (stencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                 stencils._star_taps(ndim, r)),
+            jstencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                  jstencils._star_taps(ndim, r)))
+
+
+def test_launch_depths_follow_the_routes_at_reach():
+    """At r = 2..4 the 2-D and 3-D sweeps take the register kernels' chains
+    (``sweep2d_launches`` / ``sweep3d_launches`` of reach r); r > 4 is one
+    shared-memory launch."""
+    assert rs.launch_depths(_star(2, 2)[0], 8, 8, 4) == (2, 2)
+    assert rs.launch_depths(_star(2, 2)[0], 8, 8, 16) == (2,) * 8
+    assert rs.launch_depths(_star(2, 4)[0], 8, 5, 9) == (2, 2, 2, 2, 1)
+    assert rs.launch_depths(_star(3, 2)[0], 8, 8, 2) == (2,)
+    assert rs.launch_depths(_star(3, 2)[0], 8, 8, 8) == (2,) * 4
+    assert rs.launch_depths(_star(3, 3)[0], 8, 8, 4) == (1,) * 4
+    assert rs.launch_depths(_star(3, 4)[0], 16, 4, 3) == (1,) * 3
+    assert rs.launch_depths(_star(2, 5)[0], 8, 8, 16) == (16,)
+    assert rs.launch_depths(_star(3, 5)[0], 8, 8, 4) == (4,)
+
+
+@pytest.mark.parametrize("ndim,r,shape,vl,m,depths", [
+    (2, 2, (256, 4096), 8, 8, {2: 1, 4: 2, 16: 8}),     # M = 8, r = 2: depth-2 launches
+    (2, 3, (256, 4096), 8, 4, {2: 1, 3: 2, 8: 4}),      # M = 4, r = 3: depth-2 launches
+    (3, 2, (64, 64, 512), 8, 8, {2: 1, 8: 4}),          # M = 8, r = 2: depth-2 launches
+    (3, 4, (64, 64, 512), 8, 8, {1: 1, 4: 4}),          # M = 8, r = 4: depth-1 launches
+])
+def test_reach_chains_cost_a_pass_a_launch(ndim, r, shape, vl, m, depths):
+    """A 2-D or 3-D chunk of reach r > 1 deeper than its instance's deepest
+    is consecutive register launches, each a read and write of the grid
+    with the halo factor of its own depth; one launch is the reference's
+    accounting, term for term."""
+    spec, jspec = _star(ndim, r)
+    pts, n0 = math.prod(shape), shape[0]
+    launcher = sk.sweep2d_launches if ndim == 2 else sk.sweep3d_launches
+    for depth, launches in depths.items():
+        ds = rs.launch_depths(spec, vl, m, depth)
+        assert len(ds) == launches and sum(ds) == depth
+        assert ds == tuple(d for _, _, d in launcher(m, depth, r))
+        plan = StencilPlan(backend="pallas", sweep="resident", k=depth, ttile=1, vl=vl, m=m,
+                           t0=16)
+        f, b, _ = rs.plan_terms(spec, shape, 4, plan, depth)
+        ext = [1 + 2 * d * r / n0 for d in ds]
+        assert b == pytest.approx(sum(2 * pts * 4 * e for e in ext) / depth
+                                  + 4 * pts * 4 / depth)
+        jf, jb, _ = jrs.plan_terms(jspec, shape, 4, _ref(plan), depth)
+        if launches == 1:
+            assert (f, b) == pytest.approx((jf, jb))
+        else:
+            assert b > jb

@@ -2,7 +2,7 @@
 transcribed into numpy line for line and held bit for bit against the plain
 versions ``stencil_nd_sweep_ttile_ref`` (periodic) and
 ``stencil_nd_multistep_ref`` (the ring and open ends of axis 0), and the
-route that picks it.
+route that picks it, at every reach r = 1..4.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs of ``kWarps`` warps on consecutive warp rows with the two
@@ -13,8 +13,12 @@ in the (n0, nb, m, vl) layout at any m (the instance M =
 of M, sub-column u = g·c + h's element s at ((c // vl)·m + h·M + s)·vl +
 c % vl of its row, C' = g·C of them; "column" below means sub-column, m
 the instance's M and C the C'), a shuffle as a gather along the lane axis
-with the lane-0 / lane-31 select after it, the edge exchange between warps
-through the edge slots, the segment's warm-up rows with wrapped row
+with the select after it (halo element q of a column from the lane
+d = 1 + q // M away, the lanes within d of a warp row's end taking the
+neighbouring warp row's published edge element instead), the edge exchange
+between warps through the edge slots (the r first and r last elements of
+each warp row, from its ceil(r / M) end lanes), the segment's warm-up rows
+with wrapped row
 indices, the per-level skew of r + 1 rows with the levels run from the
 deepest down, the ring of input rows filled ``kStages`` steps ahead, and
 the store rule (a lane of a middle warp stores when its unwrapped column
@@ -58,8 +62,13 @@ VLS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def _needs_x(taps, r):
-    """csrc/sweep2d_warp.cu's tap_order and needs_x: in the star order
-    only the centre row takes the lanes' x halo."""
+    """Which window rows take the lanes' x halo: at r = 1
+    csrc/sweep2d_warp.cu's tap_order and needs_x (in the star order only the
+    centre row; in any other, every row); at r > 1 the rows of a run of taps
+    with one off x = 0 (Taps2's runs), here the rows with such a tap."""
+    if r > 1:
+        rows = {oy for oy, ox, _ in taps if ox != 0}
+        return lambda oy: oy in rows
     star = [(0, 0)] + [(s * g, 0) for s in range(1, r + 1) for g in (-1, 1)] + \
         [(0, s * g) for s in range(1, r + 1) for g in (-1, 1)]
     if [(oy, ox) for oy, ox, _ in taps] == star:
@@ -67,12 +76,23 @@ def _needs_x(taps, r):
     return lambda oy: True
 
 
+def _spec(name):
+    """A registry stencil, or ``star2d-r<r>`` / ``box2d-r<r>``: the star of
+    reach r (``_star_taps``) and the box (``_box_taps``, at most 64 taps:
+    the kernels' limit)."""
+    if name.startswith(("star2d-r", "box2d-r")):
+        r = int(name[-1])
+        taps = tst._star_taps(2, r) if name.startswith("star") else tst._box_taps(2, r)
+        return tst.StencilSpec(name, 2, r, name[:4], taps)
+    return tst.make(name)
+
+
 def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """One launch of the kernel (a depth its instance has): its output and
     how often each (row, column) was stored."""
     n0, nb, m_layout, vl = t.shape
     assert sk.sweep2d_route(vl, m_layout, depth, spec.r) == "warp"
-    assert sk.sweep2d_launches(m_layout, depth) == (sk.sub_columns(m_layout) + (depth,),)
+    assert sk.sweep2d_launches(m_layout, depth, spec.r) == (sk.sub_columns(m_layout) + (depth,),)
     m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     W, R, D = sk.WARP2D_WARPS, spec.r, depth
     NW, E, P = 2 * R + 1, 2 * R + 2, K_STAGES
@@ -98,7 +118,6 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     elems = lane_col[:, :, None, :] + np.arange(m)[:, None] * vl             # (ctas, W, m, lanes)
     stores = ((w >= 1) & (w <= W - 2))[None, :, None] & (u < C)
     wl, wr = np.maximum(w - 1, 0), np.minimum(w + 1, W - 1)
-    left, right = (lane + LANES - 1) % LANES, (lane + 1) % LANES
     nan = np.float32(np.nan)
     rows_in = t.reshape(n0, -1)
     ring = np.full((NS, len(cta), W, m, LANES), nan, np.float32)
@@ -121,10 +140,15 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     def shfl(x, src):
         return x[..., src]
 
+    hh = np.arange(R)
+
     def publish(l, i, q, v, written):
+        # the first R elements of each warp row (element h: lane h // m,
+        # row h % m) and the last R (h from the end: lane 31 - h // m, row
+        # m - 1 - h % m), from the ceil(R / m) lanes at each end
         win[l, q] = v
-        edges[l, i % E, :, :, 0, :] = v[:, :, :R, 0]
-        edges[l, i % E, :, :, 1, :] = v[:, :, m - 1 - np.arange(R), LANES - 1]
+        edges[l, i % E, :, :, 0, :] = v[:, :, hh % m, hh // m]
+        edges[l, i % E, :, :, 1, :] = v[:, :, m - 1 - hh % m, LANES - 1 - hh // m]
         written.add((l, i % E))
 
     for p in range(P):
@@ -144,14 +168,17 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
                 if needs_x(k - R):
                     es = (i + 1 + k) % E
                     read.add((lv - 1, es))
-                    for h in range(R):
-                        from_left = shfl(v[:, :, m - 1 - h], left)
-                        from_right = shfl(v[:, :, h], right)
-                        e[:, :, R - 1 - h] = np.where(
-                            lane == 0, edges[lv - 1, es][:, wl, 1, h][..., None], from_left)
-                        e[:, :, R + m + h] = np.where(
-                            lane == LANES - 1, edges[lv - 1, es][:, wr, 0, h][..., None],
-                            from_right)
+                    for q in range(R):
+                        # halo element q from the lane d away; the lanes
+                        # within d of the warp row's end take the
+                        # neighbouring warp row's edge element instead
+                        d, p = 1 + q // m, q % m
+                        from_left = shfl(v[:, :, m - 1 - p], (lane - d) % LANES)
+                        from_right = shfl(v[:, :, p], (lane + d) % LANES)
+                        last = edges[lv - 1, es][:, wl, 1][..., np.maximum(d - 1 - lane, 0) * m + p]
+                        first = edges[lv - 1, es][:, wr, 0][..., np.maximum(lane + d - LANES, 0) * m + p]
+                        e[:, :, R - 1 - q] = np.where(lane < d, last, from_left)
+                        e[:, :, R + m + q] = np.where(lane >= LANES - d, first, from_right)
                 ext.append(e)
             acc = None
             for oy, ox, cf in taps:
@@ -185,36 +212,61 @@ NB = sk.WARP2D_WARPS - 2
 # (n0, nb) pairs: every n0 in {1, 2, L-1, L, L+1, 3L+2} and nb around the
 # stored blocks of a CTA, several columns included
 GRIDS = ((1, 1), (2, NB - 1), (L - 1, NB), (L, NB + 1), (L + 1, 2 * NB + 1), (3 * L + 2, NB))
+# a layout m whose instance is M at reach r (m >= r): M itself where it
+# reaches r, else sub-columns (M = 1: m = 3 or 5; M = 2: m = 6)
+REACH_M = {(mm, r): mm if mm >= r else {1: 3 if r <= 3 else 5, 2: 6}[mm]
+           for mm in sk.SUB_M for r in range(2, sk.WARP2D_MAX_R + 1)}
 CASES = [(name, m, depth) for name in ("2d5p", "2d9p", "heat2d") for m in (1, 2, 4, 8)
-         for depth in range(1, sk.WARP2D_DEPTH[m] + 1)]
+         for depth in range(1, sk.WARP2D_DEPTH[m, 1] + 1)] + [
+    (f"star2d-r{r}", REACH_M[mm, r], depth) for r in range(2, sk.WARP2D_MAX_R + 1)
+    for mm in sk.SUB_M for depth in range(1, sk.WARP2D_DEPTH[mm, r] + 1)] + [
+    ("box2d-r2", REACH_M[mm, 2], depth) for mm in sk.SUB_M
+    for depth in range(1, sk.WARP2D_DEPTH[mm, 2] + 1)]
 
 
 @pytest.mark.parametrize("name,m,depth", CASES)
 def test_warp2d_kernel_schedule_bitwise(name, m, depth):
-    spec = tst.make(name)
+    """Every instance's depths on the transcription's grids, bit for bit
+    the plain version, every element stored once; at r = 2..4 the star of
+    reach r on every instance M (r > M on sub-columns: a halo from
+    ceil(r / M) lanes) and the box of reach 2 (25 taps, 5 runs)."""
+    spec = _spec(name)
     for n0, nb in GRIDS:
         t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m)
         got, stored = warp2d_kernel_np(spec, t, depth, L)
-        np.testing.assert_array_equal(stored, np.ones((n0, nb * VL), dtype=np.int64))
+        np.testing.assert_array_equal(stored, np.ones((n0, nb * VL * sk.sub_columns(m)[1]),
+                                                      dtype=np.int64))
         want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1).numpy()
         np.testing.assert_array_equal(got, want, err_msg=f"n0={n0} nb={nb}")
 
 
 # tap lists in no order the kernel knows at compile time: it reads them at
-# run time (the registry's 2-D stencils all take a compile-time order)
+# run time (the registry's 2-D stencils all take a compile-time order; at
+# r > 1 every list is read at run time, in runs of taps on one row: rows
+# revisited, runs with no tap off x = 0, duplicates)
 RUNTIME_TAPS = (
     (((0, 1), 0.125), ((0, -1), 0.125), ((1, 0), 0.125), ((-1, 0), 0.125), ((0, 0), 0.5)),
     (((0, 0), 0.375), ((-1, 1), 0.25), ((1, -1), 0.25), ((0, 0), 0.125)),     # (0,0) twice
     tuple(((oy, ox), (2 + oy + 3 * ox) / 40) for ox in (-1, 0, 1) for oy in (-1, 0, 1)),
+    (((0, 2), 0.125), ((-2, 0), 0.125), ((0, -1), 0.0625), ((0, 0), 0.25), ((2, -2), 0.125),
+     ((2, 1), 0.0625), ((-1, 0), 0.125), ((0, 2), 0.125)),                  # r = 2
+    (((1, -3), 0.125), ((1, 3), 0.125), ((0, 0), 0.25), ((-3, 0), 0.125), ((-3, 0), 0.125),
+     ((0, 4), 0.0625), ((-4, -4), 0.0625), ((2, 0), 0.125)),                # r = 4
 )
+
+
+def _reach(taps):
+    return max(abs(o) for off, _ in taps for o in off)
 
 
 @pytest.mark.parametrize("depth", [1, 3, 5])
 @pytest.mark.parametrize("taps", RUNTIME_TAPS)
 def test_warp2d_kernel_schedule_runtime_taps(taps, depth):
-    spec = tst.StencilSpec("custom2d", 2, 1, "box", taps)
+    """A sweep past the instance's deepest (r > 1) is the chain of
+    ``sweep2d_launches``."""
+    spec = tst.StencilSpec("custom2d", 2, _reach(taps), "box", taps)
     t = _t(2 * L + 1, NB + 3, 4, seed=9)
-    got, _ = warp2d_kernel_np(spec, t, depth, L)
+    got = warp2d_chain_np(spec, t, depth, L)
     want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -240,7 +292,8 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
     (32, 3, 2, 1, "warp"),        # m = 3: sub-columns of 1
     (32, 16, 2, 1, "warp"),       # m = 16: sub-columns of 8
-    (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+    (32, 8, 2, 2, "warp"),        # reach 2 on the warp kernel
+    (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
     (4, 1, 8, 1, "warp"),
     (64, 2, 8, 1, "warp"),
     (128, 8, 5, 1, "warp"),       # past the deepest m=8 instance at any vl
@@ -254,7 +307,15 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (8, 12, 9, 1, "warp"),
     (8, 8, 16, 1, "warp"),        # the reference tuner's deepest plan (k=4, ttile=4)
     (8, 8, 32, 1, "warp"),
-    (8, 16, 2, 2, "smem"),        # beyond the kernel's reach at any m
+    (8, 16, 2, 2, "warp"),        # reach 2 at any m
+    (8, 16, 2, 5, "smem"),        # beyond the kernel's reach at any m
+    (8, 8, 4, 2, "warp"),         # the former K3-smem row's star: two depth-2 launches
+    (8, 8, 16, 2, "warp"),        # the deepest plan at reach 2: eight launches
+    (8, 3, 4, 3, "warp"),         # reach 3 > M = 1: a halo from three lanes
+    (8, 5, 9, 4, "warp"),         # reach 4 > M = 1, past the deepest: a chain
+    (1, 4, 300, 4, "warp"),
+    (128, 8, 1, 4, "warp"),
+    (8, 8, 1, 5, "smem"),
     (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep2d_route(vl, m, depth, r, route):
@@ -283,7 +344,7 @@ def test_sweep2d_route(vl, m, depth, r, route):
 def test_sweep2d_launches(m, depth, launches):
     """The largest M dividing m, each of its depths one launch (every depth
     up to WARP2D_DEPTH[M], and 16 at M = 2), deeper sweeps split."""
-    assert sk.sweep2d_launches(m, depth) == launches
+    assert sk.sweep2d_launches(m, depth, 1) == launches
     assert sum(d for _, _, d in launches) == depth
     assert all(big * g == m for big, g, _ in launches)
 
@@ -318,16 +379,27 @@ def test_cpu_wrapper_counts_no_route():
 # K4b: the ring and open ends of axis 0
 # ---------------------------------------------------------------------------
 
-def _edge_grids(depth):
+def _edge_grids(depth, r=1):
     """GRIDS, and n0 where a segment of L rows starts or ends within
-    depth·r rows of an end (r = 1) or the whole grid is no more than
-    2·depth·r rows: n0 = L + 1 (a one-row last segment), 2L + depth, and
-    2·depth (and 2·depth + 1)."""
-    extra = {(L + 1, 3), (2 * L + depth, NB + 2), (2 * depth, 2), (2 * depth + 1, NB)}
+    depth·r rows of an end or the whole grid is no more than 2·depth·r
+    rows: n0 = L + 1 (a one-row last segment), 2L + depth·r, and 2·depth·r
+    (and 2·depth·r + 1)."""
+    dr = depth * r
+    extra = {(L + 1, 3), (2 * L + dr, NB + 2), (2 * dr, 2), (2 * dr + 1, NB)}
     return sorted(set(GRIDS) | extra)
 
 
 def _edge_check(spec, t, depth, edge, seg=L):
+    """One launch (or, past the instance's deepest, the chain) with the
+    ends ``edge``, bit for bit the plain version; a launch stores every
+    element once."""
+    if len(sk.sweep2d_launches(t.shape[2], depth, spec.r)) > 1:
+        got = warp2d_chain_np(spec, t, depth, seg, edge)
+        assert np.isfinite(got).all()
+        want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1,
+                                           edge == "ring").numpy()
+        np.testing.assert_array_equal(got, want)
+        return
     got, stored = warp2d_kernel_np(spec, t, depth, seg, edge)
     n0, nb, m, vl = t.shape
     np.testing.assert_array_equal(stored, np.ones((n0, nb * vl * sk.sub_columns(m)[1]),
@@ -341,8 +413,8 @@ def _edge_check(spec, t, depth, edge, seg=L):
 @pytest.mark.parametrize("edge", ["ring", "open"])
 @pytest.mark.parametrize("name,m,depth", CASES)
 def test_warp2d_kernel_edges_bitwise(name, m, depth, edge):
-    spec = tst.make(name)
-    for n0, nb in _edge_grids(depth):
+    spec = _spec(name)
+    for n0, nb in _edge_grids(depth, spec.r):
         _edge_check(spec, _t(n0, nb, m, seed=n0 * 64 + nb * 4 + m + depth), depth, edge)
 
 
@@ -350,7 +422,7 @@ def test_warp2d_kernel_edges_bitwise(name, m, depth, edge):
 @pytest.mark.parametrize("depth", [1, 3, 5])
 @pytest.mark.parametrize("taps", RUNTIME_TAPS)
 def test_warp2d_kernel_edges_runtime_taps(taps, depth, edge):
-    spec = tst.StencilSpec("custom2d", 2, 1, "box", taps)
+    spec = tst.StencilSpec("custom2d", 2, _reach(taps), "box", taps)
     _edge_check(spec, _t(2 * L + 1, NB + 3, 4, seed=9), depth, edge)
 
 
@@ -390,7 +462,7 @@ def test_warp2d_kernel_any_vl_bitwise(name, m, vl, edge):
     columns; depth 1 and the deepest instance."""
     spec = tst.make(name)
     for n0, nb in _vl_grids(vl):
-        for depth in (1, sk.WARP2D_DEPTH[m]):
+        for depth in (1, sk.WARP2D_DEPTH[m, 1]):
             t = _t(n0, nb, m, seed=n0 * 64 + nb * 4 + vl + depth, vl=vl)
             if edge == "periodic":
                 got, stored = warp2d_kernel_np(spec, t, depth, L)
@@ -442,7 +514,7 @@ def test_warp2d_kernel_sub_columns_bitwise(m, vl, edge):
     near 32·(kWarps - 2) + 40 (two CTA columns, the last warp row
     partial), bit for bit the plain versions, every element stored once."""
     big, g = sk.sub_columns(m)
-    cases = [("2d5p", 1), ("2d5p", sk.WARP2D_DEPTH[big]), ("2d9p", 2)]
+    cases = [("2d5p", 1), ("2d5p", sk.WARP2D_DEPTH[big, 1]), ("2d9p", 2)]
     for n0, c in ((3, 5), (L + 1, 20), (2 * L + 3, 32 * NB + 40)):
         nb = -(-c // (vl * g))
         for name, depth in cases:
@@ -514,7 +586,7 @@ def test_warp2d_kernel_deep_bitwise(m, depth, edge):
 def warp2d_chain_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """The launches ``sweep2d_launches`` names, one after another (the
     wrapper's chain through a scratch buffer)."""
-    for _, _, d in sk.sweep2d_launches(t.shape[2], depth):
+    for _, _, d in sk.sweep2d_launches(t.shape[2], depth, spec.r):
         t, _ = warp2d_kernel_np(spec, t, d, seg, edge)
     return t
 
@@ -524,7 +596,7 @@ def warp2d_chain_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "peri
 def test_warp2d_kernel_split_bitwise(m, depth, edge):
     """A depth no instance has: consecutive launches, bit for bit one
     depth-``depth`` plain sweep."""
-    assert len(sk.sweep2d_launches(m, depth)) > 1
+    assert len(sk.sweep2d_launches(m, depth, 1)) > 1
     spec = tst.make("2d9p")
     t = _t(2 * depth + 3, 5, m, seed=depth + m, vl=8)
     got = warp2d_chain_np(spec, t, depth, L, edge)
@@ -582,3 +654,129 @@ def test_chain_alternates_buffers(n):
     sk._chain(launch, t, dst, ((8, 1, 2),) * n)
     assert len(outs) == n and outs[-1] is dst
     assert torch.equal(dst, torch.arange(3.0) + 2 * n) and torch.equal(t, torch.arange(3.0))
+
+
+# ---------------------------------------------------------------------------
+# reach r = 2..4: the launch plans, any vl, chains, and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,depth,r,launches", [
+    (8, 4, 2, ((8, 1, 2),) * 2),             # the former K3-smem row: two depth-2 launches
+    (8, 2, 2, ((8, 1, 2),)),
+    (8, 5, 2, ((8, 1, 2), (8, 1, 2), (8, 1, 1))),
+    (8, 16, 2, ((8, 1, 2),) * 8),            # the tuner's deepest plan
+    (8, 3, 3, ((8, 1, 1),) * 3),
+    (8, 2, 4, ((8, 1, 1),) * 2),
+    (4, 4, 2, ((4, 1, 2),) * 2),
+    (4, 7, 3, ((4, 1, 2),) * 3 + ((4, 1, 1),)),
+    (4, 4, 4, ((4, 1, 2),) * 2),
+    (2, 4, 2, ((2, 1, 2),) * 2),
+    (6, 9, 3, ((2, 3, 2),) * 4 + ((2, 3, 1),)),
+    (5, 8, 4, ((1, 5, 2),) * 4),             # r = 4 > M = 1: depth-2 launches
+    (3, 5, 3, ((1, 3, 2), (1, 3, 2), (1, 3, 1))),
+    (16, 4, 2, ((8, 2, 2),) * 2),
+    (16, 1, 4, ((8, 2, 1),)),
+])
+def test_sweep2d_launches_reach(m, depth, r, launches):
+    """At r > 1 the deepest instance of (M, r) is WARP2D_DEPTH[M, r]
+    (its windows hold depth·(2r + 1)·M values a lane); deeper sweeps split."""
+    assert sk.sweep2d_launches(m, depth, r) == launches
+    assert sum(d for _, _, d in launches) == depth
+    assert all(d * r <= LANES * big for big, _, d in launches)
+
+
+def test_sweep2d_reach_tables():
+    """Every (M, r) up to WARP2D_MAX_R has depths 1..WARP2D_DEPTH[M, r]
+    within its halo warps (depth·r <= 32·M), and only r > 4 leaves the
+    register kernel at any vl, m >= 1 and depth >= 1."""
+    for r in range(1, sk.WARP2D_MAX_R + 1):
+        for big in sk.SUB_M:
+            assert sk.WARP2D_DEPTH[big, r] >= 1
+            assert all(d * r <= LANES * big for d in sk.sweep2d_depths(r)[big])
+    assert sk.WARP2D_MAX_R == sk.WARP_MAX_R == 4
+    for vl in (1, 3, 8, 32, 128):
+        for m in (1, 2, 3, 5, 8, 16):
+            for depth in (1, 2, 5, 33):
+                for r in range(1, 7):
+                    assert sk.sweep2d_route(vl, m, depth, r) == ("warp" if r <= 4 else "smem")
+
+
+REACH_VL_CASES = [(r, vl, m) for r, m in ((2, 8), (2, 2), (3, 3), (4, 4), (4, 5), (3, 6))
+                  for vl in (1, 8, 128)]
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,vl,m", REACH_VL_CASES)
+def test_warp2d_kernel_reach_any_vl_bitwise(r, vl, m, edge):
+    """The star of reach r off vl = 32 (the r > 1 instances' one form), at
+    C' near 20 and over two CTA columns, at depth 1 and the deepest
+    instance, bit for bit the plain versions, every element stored once."""
+    spec = _spec(f"star2d-r{r}")
+    big, g = sk.sub_columns(m)
+    for n0, c in ((L + 1, 20), (2 * L + 3, 32 * NB + 40)):
+        nb = -(-c // (vl * g))
+        for depth in sorted({1, sk.WARP2D_DEPTH[big, r]}):
+            t = _t(n0, nb, m, seed=n0 + nb + vl + m + depth + r, vl=vl)
+            if edge == "periodic":
+                got, stored = warp2d_kernel_np(spec, t, depth, L)
+                np.testing.assert_array_equal(stored, np.ones((n0, nb * vl * g), dtype=np.int64))
+                want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+                np.testing.assert_array_equal(got, want.numpy())
+            else:
+                _edge_check(spec, t, depth, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,m,depth", [(2, 8, 5), (3, 4, 7), (4, 5, 9), (2, 6, 10)])
+def test_warp2d_kernel_reach_split_bitwise(r, m, depth, edge):
+    """Past the deepest instance of (M, r): the chain of
+    ``sweep2d_launches``, bit for bit one depth-``depth`` plain sweep."""
+    spec = _spec(f"star2d-r{r}")
+    assert len(sk.sweep2d_launches(m, depth, r)) > 1
+    t = _t(2 * depth * r + 3, 5, m, seed=depth + m + r, vl=8)
+    got = warp2d_chain_np(spec, t, depth, L, edge)
+    if edge == "periodic":
+        want = sk.stencil_nd_sweep_ttile_ref(spec, torch.from_numpy(t), depth, 1, 1)
+    else:
+        want = sk.stencil_nd_multistep_ref(spec, torch.from_numpy(t), depth, 1, edge == "ring")
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,vl,m", [(2, 8, 8), (3, 8, 3), (4, 4, 4), (2, 16, 6)])
+def test_warp2d_kernel_reach_matches_pallas(r, vl, m, edge):
+    """The star of reach r (each package's own ``_star_taps(2, r)``) against
+    the JAX package's Pallas kernel in interpret mode at the same (vl, m)
+    (rtol = atol = 2e-6, as above; k=2, t0 = 2r): the periodic sweep at
+    ttile 2 (depth 4, the chain of ``sweep2d_launches``), the ring over the
+    whole array, open ends at k·r or more rows from them."""
+    k, t0 = 2, 2 * r
+    t = _t(4 * t0, 3, m, seed=r + vl + m, vl=vl)
+    spec = _spec(f"star2d-r{r}")
+    jspec = jst.StencilSpec(f"star2d-r{r}", 2, r, "star", jst._star_taps(2, r))
+    if edge == "periodic":
+        want = jsk.stencil_nd_sweep_ttile(jspec, jnp.asarray(t), k, 2, t0, interpret=True)
+        got = warp2d_chain_np(spec, t, 2 * k, 3)
+        width = 0
+    else:
+        want = jsk.stencil_nd_multistep(jspec, jnp.asarray(t), k, t0, interpret=True,
+                                        edge_mask=edge == "ring")
+        got = warp2d_chain_np(spec, t, k, 3, edge)
+        width = k * r if edge == "open" else 0
+    want = np.asarray(want)
+    n0 = t.shape[0]
+    np.testing.assert_allclose(got[width:n0 - width], want[width:n0 - width],
+                               rtol=2e-6, atol=2e-6)
+
+
+def test_register_kernels_tap_limit():
+    """A 2-D or 3-D stencil of more taps than the register kernels hold
+    (``ND_MAX_TAPS``, as ``stencil_sweep.cu``'s) raises before any launch:
+    the box of reach 4 (81 taps); that of reach 3 (49) passes."""
+    for r, ok in ((3, True), (4, False)):
+        spec = tst.StencilSpec(f"box2d-r{r}", 2, r, "box", tst._box_taps(2, r))
+        if ok:
+            sk._check_nd_taps(spec)
+        else:
+            with pytest.raises(ValueError, match="taps exceed"):
+                sk._check_nd_taps(spec)

@@ -1,7 +1,8 @@
 """K3's and K4b's 3-D streaming kernel (``csrc/sweep3d.cu``), transcribed
 into numpy line for line and held bit for bit against the plain versions
 ``stencil_nd_sweep_ttile_ref`` (periodic) and ``stencil_nd_multistep_ref``
-(the ring and open ends of axis 0), and the route that picks it.
+(the ring and open ends of axis 0), and the route that picks it, at every
+reach r = 1..4.
 
 The CPU has no CUDA compiler, so this transcription checks the kernel's
 schedule: CTAs over (column tile, row tile, z segment) with ``Hx`` halo
@@ -12,12 +13,14 @@ m (the instance M = ``sub_columns(m)``: a layout column of m = g·M
 elements is g sub-columns of M, sub-column u = g·c + h's element s at
 ((c // vl)·m + h·M + s)·vl + c % vl of its row: loads and stores through
 those flat offsets; "column" below means sub-column), the shared-memory
-planes stored [element][thread] with Cx + 1
+planes stored [element][thread] with r·Cx + ceil(r / M)
 unwritten words on each side, the input ring filled ``kStages`` planes
 ahead, the segment's warm-up planes with wrapped plane indices, the
 per-level skew of r + 1 planes with the levels run from the deepest down,
-each level's own column of its last 3 planes in registers, its published
-planes (the star one step late into 2 slots, the others at once into 4),
+each level's own column of its last 2r + 1 planes in registers (at r > 1
+only for the star of reach 2: any other tap list of r > 1 reads every tap
+from shared memory), its published planes (the star r steps late into 2
+slots, the others at once into 2r + 2),
 a warp skipping a level whose rows it makes no stored row needs (its
 registers and published rows of that level keep what they held), and the
 store guard (each element written exactly once, also when C is below
@@ -60,16 +63,20 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     """One launch of the kernel (a depth it has): its output and how often
     each of its elements was stored."""
     n0, n1, nb, m_layout, vl = t.shape
-    assert sk.sweep3d_route(vl, m_layout, depth, spec.r) == "stream"
-    assert sk.sweep3d_launches(m_layout, depth) == (sk.sub_columns(m_layout) + (depth,),)
+    R = spec.r
+    assert sk.sweep3d_route(vl, m_layout, depth, R) == "stream"
+    assert sk.sweep3d_launches(m_layout, depth, R) == (sk.sub_columns(m_layout) + (depth,),)
     order = sk.sweep3d_order(spec)
     m, g = sk.sub_columns(m_layout)            # m: the instance's M from here on
-    Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order)
-    R, D, NW, L, NS = spec.r, depth, 2 * spec.r + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth)
+    Ty, Cx, Hx, Hy = sk.sweep3d_tile(m, depth, order, R)
+    D, NW, L, NS = depth, 2 * R + 1, sk.SWEEP3D_LANES, sk.sweep3d_slots(depth, R)
     STAGES = NS - 2 * R - 2      # input planes in flight beyond the landed one
-    star_pub = order == "star"                   # publish one step late, 2 slots
+    star_pub = order == "star"                   # publish R steps late, 2 slots
+    # a level keeps its column's planes in registers, unless the taps of
+    # r > 1 are read at run time
+    regs = R == 1 or order != "runtime"
     E = 2 if star_pub else 2 * R + 2
-    A, P = Ty * Cx, Cx + 1                       # threads; unwritten words per side
+    A, P = Ty * Cx, R * Cx - (-R // m)           # threads; unwritten words per side
     taps = [(off, np.float32(coeff(c, torch.float32))) for off, c in spec.taps]
     ncol = nb * vl * g                           # C' sub-columns a row
     ntx, nty, nseg = -(-ncol // L), -(-n1 // (Ty - 2 * Hy)), -(-n0 // seg)
@@ -148,19 +155,19 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
                     assert (ring_tag[ring_slot[k]] == made).all() or made < 0, (i, k)
                     own = None
                 else:
-                    own = win[lv - 2, (ph + k) % NW]
+                    own = win[lv - 2, (ph + k) % NW] if regs else None
                     src = levels[lv - 2, pub[k]]
-                e = np.full((len(cta), A, m + 2), nan, np.float32)
+                e = np.full((len(cta), A, m + 2 * R), nan, np.float32)
                 for x in range(reach[k, oy][0], m + reach[k, oy][1]):   # what the taps read
                     if own is not None and oy == 0 and 0 <= x < m:
-                        e[..., x + 1] = own[..., x]
+                        e[..., x + R] = own[..., x]
                         continue
                     if lv > 1:
                         read.add((lv - 2, pub[k]))
                         assert not star_pub or k == R, "the star reads neighbours on the centre"
                         want = i - 2 * R - 1 + k if not star_pub else i - 1 - R
                         assert (level_tag[lv - 2, pub[k]] == want).all() or want < 0, (i, lv, k)
-                    e[..., x + 1] = column(src, x % m, oy * Cx + (x // m))
+                    e[..., x + R] = column(src, x % m, oy * Cx + (x // m))
                 return e
 
             cache = {}
@@ -169,13 +176,13 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
                 key = (oz + R, oy)
                 if key not in cache:
                     cache[key] = ext(*key)
-                term = cache[key][..., 1 + ox:1 + ox + m] * cf
+                term = cache[key][..., R + ox:R + ox + m] * cf
                 acc = term if acc is None else acc + term
             if edge != "periodic":
                 if edge == "ring":     # the source's own column of the centre plane
                     if (R, 0) not in reach:
                         reach[R, 0] = (0, 0)
-                    keep = (cache[R, 0] if (R, 0) in cache else ext(R, 0))[..., 1:1 + m]
+                    keep = (cache[R, 0] if (R, 0) in cache else ext(R, 0))[..., R:R + m]
                 else:
                     keep = np.float32(0)
                 acc = np.where(beyond(base + i - lv * (R + 1), lo, hi), keep, acc)
@@ -190,10 +197,12 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
             else:
                 slot = i % E
                 written.add((lv - 1, slot))
-                pubv = win[lv - 1, (ph + 2) % NW] if star_pub else acc
+                # the star publishes the plane it made R steps ago
+                pubv = win[lv - 1, (ph + R + 1) % NW] if star_pub else acc
                 levels[lv - 1, slot][:, :, P + th[live]] = np.moveaxis(pubv[:, live], -1, 1)
-                level_tag[lv - 1, slot] = i - 1 if star_pub else i
-                win[lv - 1, ph][:, live] = acc[:, live]
+                level_tag[lv - 1, slot] = i - R if star_pub else i
+                if regs:
+                    win[lv - 1, ph][:, live] = acc[:, live]
         written.add(("ring", (i + STAGES) % NS))
         issue(i + STAGES)
         assert not read & written, (i, read & written)   # one barrier per step
@@ -211,8 +220,23 @@ S = 3              # planes per segment in the transcription's cases
 # but one), nb 1 (the tile wraps onto its own block) and 2, 3 (several
 # column tiles)
 GRIDS = ((1, 1, 1), (2, 5, 2), (S, 3, 1), (S + 1, 13, 3), (3 * S + 1, 2, 1))
+# a layout m whose instance is M at reach r (m >= r): M itself where it
+# reaches r, else sub-columns (M = 1: m = 3 or 5; M = 2: m = 6)
+REACH_M = {(mm, r): mm if mm >= r else {1: 3 if r <= 3 else 5, 2: 6}[mm]
+           for mm in sk.SUB_M for r in range(2, sk.SWEEP3D_MAX_R + 1)}
 CASES = [(name, m, depth) for name in ("3d7p", "3d27p") for m in sk.SUB_M
-         for depth in range(1, sk.SWEEP3D_DEPTH + 1)]
+         for depth in range(1, sk.SWEEP3D_DEPTH[m, 1] + 1)] + [
+    (f"star3d-r{r}", REACH_M[mm, r], depth) for r in range(2, sk.SWEEP3D_MAX_R + 1)
+    for mm in sk.SUB_M for depth in range(1, sk.SWEEP3D_DEPTH[mm, r] + 1)]
+
+
+def _spec(name):
+    """A registry stencil, or ``star3d-r<r>``: the star of reach r
+    (``_star_taps``)."""
+    if name.startswith("star3d-r"):
+        r = int(name[-1])
+        return tst.StencilSpec(name, 3, r, "star", tst._star_taps(3, r))
+    return tst.make(name)
 
 
 def _check(spec, t, depth, edge, seg=S):
@@ -228,7 +252,11 @@ def _check(spec, t, depth, edge, seg=S):
 @pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
 @pytest.mark.parametrize("name,m,depth", CASES)
 def test_sweep3d_kernel_bitwise(name, m, depth, edge):
-    spec = tst.make(name)
+    """Every instance's depths on the transcription's grids, bit for bit
+    the plain versions, every element stored once; at r = 2..4 the star of
+    reach r (run-time taps, every tap from shared memory) on every M (r > M
+    on sub-columns)."""
+    spec = _spec(name)
     for n0, n1, nb in GRIDS:
         _check(spec, _t(n0, n1, nb, m, seed=n0 * 64 + n1 * 4 + nb + m), depth, edge)
 
@@ -237,7 +265,7 @@ def test_sweep3d_kernel_tall_tile():
     """n1 above two of a tile's stored rows and n0 beyond several segments,
     3d7p at m = 8 (the main path's tile) at depth 4."""
     spec = tst.make("3d7p")
-    ty, _, _, hy = sk.sweep3d_tile(8, 4, "star")
+    ty, _, _, hy = sk.sweep3d_tile(8, 4, "star", 1)
     for edge in ("periodic", "ring", "open"):
         _check(spec, _t(7, 2 * (ty - 2 * hy) + 3, 1, 8, seed=3), 4, edge, seg=2)
 
@@ -287,6 +315,10 @@ RUNTIME_TAPS = (
     (((0, 0, 0), 0.375), ((-1, 1, 1), 0.25), ((1, -1, -1), 0.25), ((0, 0, 0), 0.125)),
     tuple(((oz, oy, ox), (3 + oz + 2 * oy + 5 * ox) / 80)
           for ox in (-1, 0, 1) for oz in (-1, 0, 1) for oy in (-1, 0, 1)),
+    (((0, 0, 2), 0.125), ((-2, 1, 0), 0.125), ((0, -2, -1), 0.0625), ((0, 0, 0), 0.25),
+     ((2, -2, -2), 0.125), ((1, 2, 1), 0.0625), ((0, 0, 2), 0.125)),        # r = 2
+    (((3, -3, 1), 0.125), ((0, 0, 0), 0.25), ((-4, 0, 0), 0.125), ((0, 4, -4), 0.0625),
+     ((0, 0, 3), 0.125), ((-1, -2, -3), 0.0625), ((2, 0, -1), 0.125)),      # r = 4
 )
 
 
@@ -294,9 +326,19 @@ RUNTIME_TAPS = (
 @pytest.mark.parametrize("depth", [1, 4])
 @pytest.mark.parametrize("taps", RUNTIME_TAPS)
 def test_sweep3d_kernel_runtime_taps(taps, depth, edge):
-    spec = tst.StencilSpec("custom3d", 3, 1, "box", taps)
+    """Past the deepest instance (r > 1) the chain of ``sweep3d_launches``."""
+    r = max(abs(o) for off, _ in taps for o in off)
+    spec = tst.StencilSpec("custom3d", 3, r, "box", taps)
     assert sk.sweep3d_order(spec) == "runtime"
-    _check(spec, _t(2 * S + 1, 4, 2, 4, seed=9), depth, edge)
+    t = _t(2 * S + 1, 4, 2, 4, seed=9)
+    if len(sk.sweep3d_launches(4, depth, r)) == 1:
+        _check(spec, t, depth, edge)
+        return
+    got = sweep3d_chain_np(spec, t, depth, S, edge)
+    tt = torch.from_numpy(t)
+    want = sk.stencil_nd_sweep_ttile_ref(spec, tt, depth, 1, 1) if edge == "periodic" else \
+        sk.stencil_nd_multistep_ref(spec, tt, depth, 1, edge == "ring")
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
@@ -369,18 +411,27 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (8, 5, 2, 1, "stream"),       # odd m: sub-columns of 1
     (8, 8, 5, 1, "stream"),       # past the deepest instance: consecutive launches
     (128, 4, 5, 1, "stream"),
-    (8, 8, 2, 2, "smem"),         # beyond the kernel's reach
-    (128, 4, 1, 2, "smem"),
+    (8, 8, 2, 2, "stream"),       # the former K3-smem 3-D row's star
+    (8, 8, 2, 5, "smem"),         # beyond the kernel's reach
+    (128, 4, 1, 2, "stream"),
+    (128, 4, 1, 5, "smem"),
     (32, 3, 2, 1, "stream"),      # m = 3 on the instance M = 1
     (32, 16, 2, 1, "stream"),
-    (32, 8, 2, 2, "smem"),        # beyond the kernel's reach
+    (32, 8, 2, 2, "stream"),      # reach 2 on the streaming kernel
+    (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
     (16, 32, 4, 1, "stream"),     # the tuner's pair (16, 32): sub-columns of 8
     (8, 16, 5, 1, "stream"),      # m = 16 past the deepest instance
     (16, 32, 8, 1, "stream"),     # the former K3-smem 3-D row's depth
     (8, 8, 16, 1, "stream"),      # the reference tuner's deepest plan (k=4, ttile=4)
     (8, 8, 32, 1, "stream"),      # ROADMAP D2's depth: eight launches
-    (8, 16, 2, 2, "smem"),        # m = 16 beyond the kernel's reach
-    (4, 6, 1, 2, "smem"),
+    (8, 16, 2, 2, "stream"),      # m = 16 at reach 2
+    (8, 16, 2, 5, "smem"),        # m = 16 beyond the kernel's reach
+    (4, 6, 1, 2, "stream"),
+    (4, 6, 1, 5, "smem"),
+    (8, 8, 8, 2, "stream"),       # raised before (no shared-memory tile): four launches
+    (8, 8, 4, 3, "stream"),       # likewise: four depth-1 launches
+    (8, 8, 4, 4, "stream"),
+    (8, 5, 3, 4, "stream"),       # r = 4 > M = 1 on sub-columns
     (8, 0, 2, 1, "smem"),         # no column
 ])
 def test_sweep3d_route(vl, m, depth, r, route):
@@ -397,9 +448,9 @@ def test_sweep3d_route(vl, m, depth, r, route):
     (1, 4, "box", (21, 24, 4, 4)),
 ])
 def test_sweep3d_tile(m, depth, order, tile):
-    assert sk.sweep3d_tile(m, depth, order) == tile
+    assert sk.sweep3d_tile(m, depth, order, 1) == tile
     ty, cx, _, hy = tile
-    planes = sk.sweep3d_slots(depth) + (depth - 1) * (2 if order == "star" else 4)
+    planes = sk.sweep3d_slots(depth, 1) + (depth - 1) * (2 if order == "star" else 4)
     assert ty * cx <= sk.SWEEP3D_THREADS
     assert ty > 2 * hy
     assert planes * m * (ty * cx + 2 * (cx + 1)) * 4 <= sk.SWEEP3D_SMEM
@@ -414,7 +465,7 @@ def test_sweep3d_tile(m, depth, order, tile):
     (1, 1, 1, 1, 1, 132, 1),
 ])
 def test_sweep3d_segment(n0, n1, nb, m, depth, ctas, seg):
-    assert sk.sweep3d_segment(n0, n1, nb * VL, m, depth, "star", ctas) == seg
+    assert sk.sweep3d_segment(n0, n1, nb * VL, m, depth, "star", ctas, 1) == seg
 
 
 @pytest.mark.parametrize("n0,n1,nb,vl,m,depth,seg", [
@@ -425,7 +476,7 @@ def test_sweep3d_segment(n0, n1, nb, m, depth, ctas, seg):
 ])
 def test_sweep3d_segment_any_vl(n0, n1, nb, vl, m, depth, seg):
     """Column tiles are ceil(nb·vl / 16) whatever vl is."""
-    assert sk.sweep3d_segment(n0, n1, nb * vl, m, depth, "star", 132) == seg
+    assert sk.sweep3d_segment(n0, n1, nb * vl, m, depth, "star", 132, 1) == seg
 
 
 @pytest.mark.parametrize("m,split", [
@@ -445,7 +496,7 @@ def test_sweep3d_split(m, split):
 def test_sweep3d_segment_sub_columns(n0, n1, nb, vl, m, depth, seg):
     """The wrapper sizes segments on the instance M and C' = g·nb·vl."""
     big, g = sk.sub_columns(m)
-    assert sk.sweep3d_segment(n0, n1, nb * vl * g, big, depth, "star", 132) == seg
+    assert sk.sweep3d_segment(n0, n1, nb * vl * g, big, depth, "star", 132, 1) == seg
 
 
 @pytest.mark.parametrize("m,depth,launches", [
@@ -469,7 +520,7 @@ def test_sweep3d_launches(m, depth, launches):
     """Depths 1 to 4 on the largest M dividing m, deeper sweeps split (a
     depth-8 instance at M = 1 or 2 lost to two depth-4 launches on an
     H100)."""
-    assert sk.sweep3d_launches(m, depth) == launches
+    assert sk.sweep3d_launches(m, depth, 1) == launches
     assert sum(d for _, _, d in launches) == depth
 
 
@@ -507,8 +558,8 @@ def test_sweep3d_kernel_deep_bitwise(m, name, edge):
     every element stored once a launch."""
     spec = tst.make(name)
     big, g = sk.sub_columns(m)
-    assert sk.sweep3d_launches(m, 8) == ((big, g, 4),) * 2
-    ty, _, _, hy = sk.sweep3d_tile(big, 4, sk.sweep3d_order(spec))
+    assert sk.sweep3d_launches(m, 8, 1) == ((big, g, 4),) * 2
+    ty, _, _, hy = sk.sweep3d_tile(big, 4, sk.sweep3d_order(spec), 1)
     for n0, n1, c in ((2, 3, 5), (2 * S + 3, ty - 2 * hy + 3, 40)):
         nb = -(-c // (8 * g))
         t = _t(n0, n1, nb, m, seed=n0 + n1 + nb + m + big, vl=8)
@@ -526,7 +577,7 @@ def test_sweep3d_kernel_deep_bitwise(m, name, edge):
 def sweep3d_chain_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "periodic"):
     """The launches ``sweep3d_launches`` names, one after another (the
     wrapper's chain through a scratch buffer)."""
-    for _, _, d in sk.sweep3d_launches(t.shape[3], depth):
+    for _, _, d in sk.sweep3d_launches(t.shape[3], depth, spec.r):
         t, _ = sweep3d_kernel_np(spec, t, d, seg, edge)
     return t
 
@@ -577,3 +628,122 @@ def test_deep_multistep_matches_pallas(k, edge_mask):
                                rtol=2e-6, atol=2e-6)
     edge = "ring" if edge_mask else "open"
     np.testing.assert_array_equal(sweep3d_chain_np(spec, t, k, 8, edge), port)
+
+
+# ---------------------------------------------------------------------------
+# reach r = 2..4: tiles, launch plans, any vl, chains, and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,depth,r,tile", [
+    (8, 2, 2, (24, 18, 1, 4)),          # the former K3-smem row's star: 432 threads
+    (8, 1, 2, (28, 18, 1, 2)),
+    (4, 3, 2, (25, 20, 2, 6)),
+    (1, 2, 2, (21, 24, 4, 4)),
+    (8, 1, 3, (28, 18, 1, 3)),
+    (4, 2, 3, (25, 20, 2, 6)),
+    (8, 1, 4, (22, 18, 1, 4)),          # the shared memory caps the rows
+    (1, 1, 4, (21, 24, 4, 4)),
+])
+def test_sweep3d_tile_reach(m, depth, r, tile):
+    """The run-time order's tile at reach r: 2r + 2 slots a published level,
+    r·Cx + ceil(r / M) unwritten words a side of each element row."""
+    assert sk.sweep3d_tile(m, depth, "runtime", r) == tile
+    ty, cx, hx, hy = tile
+    assert (hx, hy) == (-(-depth * r // m), depth * r)
+    planes = sk.sweep3d_slots(depth, r) + (depth - 1) * (2 * r + 2)
+    assert ty * cx <= sk.SWEEP3D_THREADS and ty > 2 * hy
+    assert planes * m * (ty * cx + 2 * (r * cx - (-r // m))) * 4 <= sk.SWEEP3D_SMEM
+
+
+def test_sweep3d_reach_tables():
+    """Depth 1 at every (M, r); every depth of the table fits a tile that
+    stores rows, and the next one stores less than 0.4 of what it computes
+    or does not fit; only r > 4 leaves the streaming kernel."""
+    def kept(m, depth, r):
+        ty, cx, _, hy = sk.sweep3d_tile(m, depth, "star" if r == 1 else "runtime", r)
+        return (ty - 2 * hy) * sk.SWEEP3D_LANES / (ty * cx) if ty > 2 * hy else 0.0
+    for r in range(2, sk.SWEEP3D_MAX_R + 1):
+        for m in sk.SUB_M:
+            top = sk.SWEEP3D_DEPTH[m, r]
+            assert top >= 1 and all(kept(m, d, r) >= 0.4 for d in range(1, top + 1))
+            assert kept(m, top + 1, r) < 0.4
+    for vl in (1, 8, 32, 128):
+        for m in (1, 3, 8, 16):
+            for r in range(1, 7):
+                assert sk.sweep3d_route(vl, m, 5, r) == ("stream" if r <= 4 else "smem")
+
+
+@pytest.mark.parametrize("m,depth,r,launches", [
+    (8, 2, 2, ((8, 1, 2),)),                 # the former K3-smem row: one launch
+    (8, 8, 2, ((8, 1, 2),) * 4),             # raised before: four launches
+    (8, 16, 2, ((8, 1, 2),) * 8),
+    (8, 4, 3, ((8, 1, 1),) * 4),             # raised before
+    (8, 4, 4, ((8, 1, 1),) * 4),             # raised before
+    (4, 7, 2, ((4, 1, 3), (4, 1, 3), (4, 1, 1))),
+    (4, 4, 3, ((4, 1, 2),) * 2),
+    (16, 5, 2, ((8, 2, 2), (8, 2, 2), (8, 2, 1))),
+    (5, 3, 4, ((1, 5, 1),) * 3),
+    (6, 3, 2, ((2, 3, 2), (2, 3, 1))),
+])
+def test_sweep3d_launches_reach(m, depth, r, launches):
+    assert sk.sweep3d_launches(m, depth, r) == launches
+    assert sum(d for _, _, d in launches) == depth
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,vl,m", [(2, 8, 8), (2, 1, 2), (3, 16, 3), (4, 4, 4), (4, 128, 5)])
+def test_sweep3d_kernel_reach_any_vl_bitwise(r, vl, m, edge):
+    """The star of reach r off vl = 32 (the r > 1 instances' one form) at
+    every depth of its instance, on the any-vl grids, bit for bit the plain
+    versions, every element stored once."""
+    spec = _spec(f"star3d-r{r}")
+    big, _ = sk.sub_columns(m)
+    for depth in range(1, sk.SWEEP3D_DEPTH[big, r] + 1):
+        n0, n1, c = ANY_VL_GRIDS[(depth + r) % 3]
+        nb = -(-c // vl)
+        _check(spec, _t(n0, n1, nb, m, seed=n0 + n1 + nb + vl + m + r, vl=vl), depth, edge)
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,m,depth", [(2, 8, 8), (3, 8, 4), (4, 8, 4), (2, 6, 5)])
+def test_sweep3d_kernel_reach_split_bitwise(r, m, depth, edge):
+    """Sweeps that raised before (no shared-memory tile: reach 2 at depth 8,
+    reach 3 and 4 at depth 4, m = 8) as the chain of ``sweep3d_launches``,
+    bit for bit one depth-``depth`` plain sweep (n0 below and above
+    2·depth·r)."""
+    spec = _spec(f"star3d-r{r}")
+    assert len(sk.sweep3d_launches(m, depth, r)) > 1
+    for n0 in (2 * S, 2 * depth * r + 1):
+        t = _t(n0, 5, 1, m, seed=depth + m + n0 + r, vl=8)
+        got = sweep3d_chain_np(spec, t, depth, S, edge)
+        tt = torch.from_numpy(t)
+        want = sk.stencil_nd_sweep_ttile_ref(spec, tt, depth, 1, 1) if edge == "periodic" else \
+            sk.stencil_nd_multistep_ref(spec, tt, depth, 1, edge == "ring")
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("r,vl,m", [(2, 8, 8), (3, 8, 3), (4, 4, 4)])
+def test_sweep3d_kernel_reach_matches_pallas(r, vl, m, edge):
+    """The star of reach r (each package's own ``_star_taps(3, r)``) against
+    the JAX package's Pallas kernel in interpret mode at the same (vl, m)
+    (rtol = atol = 2e-6, as above; k=2, t0 = 2r): the periodic sweep at
+    ttile 2 and the ring / open multistep, each as the chain of
+    ``sweep3d_launches``; open ends at k·r or more planes from them."""
+    k, t0 = 2, 2 * r
+    spec = _spec(f"star3d-r{r}")
+    jspec = jst.StencilSpec(f"star3d-r{r}", 3, r, "star", jst._star_taps(3, r))
+    t = _t(2 * t0, 2 * r + 3, 1, m, seed=r + vl + m, vl=vl)
+    if edge == "periodic":
+        want = jsk.stencil_nd_sweep_ttile(jspec, jnp.asarray(t), k, 2, t0, interpret=True)
+        got = sweep3d_chain_np(spec, t, 2 * k, S)
+        width = 0
+    else:
+        want = jsk.stencil_nd_multistep(jspec, jnp.asarray(t), k, t0, interpret=True,
+                                        edge_mask=edge == "ring")
+        got = sweep3d_chain_np(spec, t, k, S, edge)
+        width = k * r if edge == "open" else 0
+    want = np.asarray(want)
+    n0 = t.shape[0]
+    np.testing.assert_allclose(got[width:n0 - width], want[width:n0 - width],
+                               rtol=2e-6, atol=2e-6)

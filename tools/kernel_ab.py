@@ -3,7 +3,7 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME]
-                               [--only stencils|3d|deep|k2|k6|odd5]
+                               [--only stencils|3d|deep|k2|k6|odd5|reach2]
                                [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
@@ -67,6 +67,20 @@ padded shape (5·10**7 + 320), 1d3p K1 at depth 34 on 2**26 at vl=8, m=1
 16 steps (k=2, ttile=2, fused, the picker's tile), each held bit for bit
 against the plain versions and timed with CUDA events.
 
+Reach 2 at 2-D and 3-D (``--only reach2``; the tiles options do not
+apply): the star of reach 2 (``_star_taps(ndim, 2)``) at vl=8, m=8: K3 at
+depths 4, 2, 1 on 8192² and 2, 1 on 512³ (the former ``K3-smem`` rows),
+in float32 and (the first depth) bfloat16; K4b (open and ring, depths 2
+and 1) on the padded shapes 8256 × 8192 and 544 × 512²; K3 at the first
+and last of those depths on the same taps in reverse order (``rev``: no
+order a kernel compiles in, so the register kernels read them at run
+time); K3 on 512³ at depth 8 and, for the stars of reach 3 and 4, depth 4
+(a tree whose route raises there prints the error); and the resident
+fused-16 run
+``ops.stencil_sweep_periodic`` (k=2, ttile=2) of both grids at the
+picker's tile, each held bit for bit against the plain versions and timed
+with CUDA events.
+
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
 the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
@@ -102,8 +116,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
-    parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6", "odd5"),
-                        default=None)
+    parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6", "odd5",
+                                           "reach2"), default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
     parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
@@ -130,6 +144,8 @@ def main() -> int:
         deep_rows(args.label, dev, tiles)
     if args.only == "odd5":
         odd5_rows(args.label, dev)
+    if args.only == "reach2":
+        reach2_rows(args.label, dev)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -280,6 +296,74 @@ def odd5_rows(label: str, dev) -> None:
     _row(label, dev, f"resident run 1d5p {n} 16 steps (k=2, ttile=2, fused; vl={vl} m={m})",
          lambda: prob.run(x, 16, plan), plain)
     torch.cuda.empty_cache()
+
+
+def reach2_rows(label: str, dev) -> None:
+    """The stars of reach 2 (and 3, 4) at 2-D and 3-D (the group's
+    docstring above)."""
+    import torch
+
+    from repro_torch.core import stencils
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_kernels as sk
+
+    def star(ndim, r):
+        return stencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                    stencils._star_taps(ndim, r))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vl, m = 8, 8
+    for ndim, shape, t0, depths in ((2, (N2, N2), 32, (4, 2, 1)),
+                                    (3, (512, 512, 512), 16, (2, 1))):
+        spec = star(ndim, 2)
+        what = "x".join(map(str, shape))
+        x = torch.randn(shape, generator=gen, device=dev)
+        rev = stencils.StencilSpec(f"{spec.name} rev", ndim, 2, "star", spec.taps[::-1])
+        for sp, dtype, ds in ((spec, torch.float32, depths), (spec, torch.bfloat16, depths[:1]),
+                              (rev, torch.float32, (depths[0], depths[-1]))):
+            t = sk.block_transpose_ref(x.to(dtype), vl, m)
+            buf = torch.empty_like(t)
+            for depth in ds:
+                k, tt = (2, depth // 2) if depth > 2 else (depth, 1)
+                _row(label, dev, f"K3 {sp.name} {what} {str(dtype)[6:]} vl={vl} m={m} "
+                     f"depth={depth}",
+                     lambda: sk.stencil_nd_sweep_ttile(sp, t, k, tt, t0, out=buf),
+                     lambda: sk.stencil_nd_sweep_ttile_ref(sp, t, k, tt, t0))
+            del t, buf
+        xp = torch.randn((shape[0] + 2 * t0,) + shape[1:], generator=gen, device=dev)
+        tp = sk.block_transpose_ref(xp, vl, m)
+        buf = torch.empty_like(tp)
+        for edge_mask in (False, True):
+            for depth in (2, 1):
+                kname = (f"K4b {spec.name} {'x'.join(map(str, xp.shape))} vl={vl} m={m} "
+                         f"{'ring' if edge_mask else 'open'} depth={depth}")
+                _row(label, dev, kname,
+                     lambda: sk.stencil_nd_multistep(spec, tp, depth, t0, edge_mask, out=buf),
+                     lambda: sk.stencil_nd_multistep_ref(spec, tp, depth, t0, edge_mask))
+        del xp, tp, buf
+        if ndim == 3:
+            t = sk.block_transpose_ref(x, vl, m)
+            buf = torch.empty_like(t)
+            for r, depth in ((2, 8), (3, 4), (4, 4)):
+                sp = star(3, r)
+                kname = f"K3 {sp.name} {what} vl={vl} m={m} depth={depth}"
+                _or_raises(label, kname, lambda: _row(
+                    label, dev, kname,
+                    lambda: sk.stencil_nd_sweep_ttile(sp, t, depth, 1, t0, out=buf),
+                    lambda: sk.stencil_nd_sweep_ttile_ref(sp, t, depth, 1, t0)))
+            del t, buf
+        tvl, tm, tt0 = ops.pick_tile(spec, shape)
+
+        def plain():
+            t = sk.block_transpose_ref(x, tvl, tm)
+            for _ in range(4):
+                t = sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, tt0)
+            return sk.block_untranspose_ref(t, tvl, tm)
+        _row(label, dev, f"resident run {spec.name} {what} 16 steps (k=2, ttile=2, fused; "
+             f"vl={tvl} m={tm})", lambda: ops.stencil_sweep_periodic(spec, x, 16, k=2, ttile=2),
+             plain)
+        del x
+        torch.cuda.empty_cache()
 
 
 def _row(label, dev, kernel, fn, plain):

@@ -43,7 +43,7 @@ def main() -> int:
     args = parser.parse_args()
     m, n1 = args.m, args.n1
     big, g = sk.sub_columns(m)
-    ty, cx, hx, hy = sk.sweep3d_tile(big, args.depth, "star")
+    ty, cx, hx, hy = sk.sweep3d_tile(big, args.depth, "star", 1)
     threads = ty * cx
     t = np.arange(threads)
     row, col = t // cx, t % cx

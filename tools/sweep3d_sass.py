@@ -17,11 +17,12 @@ the element type, as a tree from before the bfloat16 instances named its
 ``bf16`` first) or ``transpose`` (K2's ``transpose_reg``, its instances
 named <element bytes, M, G, vec, to_layout>).  ``--lib`` is a built
 library of that source (by default this checkout's, built if missing).  An
-instance is named by its template arguments, for ``sweep3d`` <M, D, order,
-ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older than the
-``vl`` argument has four).  Prints one JSON line per instance.  The loop of
-a 3-D step is unrolled over its three phases, so a count is about three
-steps' instructions plus the set-up.  ``--base`` is a second library of the
+instance is named by its template arguments, for ``sweep3d`` <M, D, R,
+order, ends, vl> as in ``chip_smoke.py``'s ``build`` line (a tree older
+than the reach argument R has five, one older than the ``vl`` argument
+four).  Prints one JSON line per instance.  The loop of a 3-D step is
+unrolled over its 2r + 1 phases, so a count is about 2r + 1 steps'
+instructions plus the set-up.  ``--base`` is a second library of the
 same source (another tree's build): each line then also says whether the
 instance's counts by opcode equal the base's, and a last line lists the
 instances whose counts differ.

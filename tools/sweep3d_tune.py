@@ -121,7 +121,7 @@ def main() -> int:
             t = grids[n0]
             buf = torch.empty_like(t)
             seg = sk.sweep3d_segment(n0, t.shape[1], t.shape[2] * t.shape[4], 8, depth, "star",
-                                     sk._sm_count(dev))
+                                     sk._sm_count(dev), 1)
 
             def launch():
                 build.check(libs[name].repro_sweep3d_f32(
@@ -133,7 +133,7 @@ def main() -> int:
                 raise AssertionError(f"variant {name} {label} depth {depth}: differs")
             ms = bench(launch, device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3
             print(json.dumps({"variant": name, "row": f"{label} depth={depth}", "seg": seg,
-                              "tile": sk.sweep3d_tile(8, depth, "star"), "ms": ms}), flush=True)
+                              "tile": sk.sweep3d_tile(8, depth, "star", 1), "ms": ms}), flush=True)
         for attr, value in saved.items():
             setattr(sk, attr, value)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
