@@ -85,12 +85,8 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              at vl=32, m=8 and vl=8, m=8 (2-D also at vl=32, m=2; each row
              lists its launches' instances (M, g, D)); 1d3p K1 at vl=8,
              m=1, depth 34 (past 32·M: two warp launches, 32 + 2, which
-             ``stencil_sweep.cu`` took until they existed); K1-smem and
-             K3-smem time the shared-memory route on a star of the reach
-             beyond the register kernels' (``_star_taps(ndim, 5)``, vl=8,
-             m=8, depth 4 at 1-D and 2-D, 1 at 3-D; uncounted: no counted
-             run launches it), the route asserted before each launch; K4
-             at the case's
+             the retired shared-memory kernel took until they existed),
+             the route asserted before each launch; K4 at the case's
              tile, at vl=8, m=8 and at vl=8, m=16 (2-D, 3-D also at depth
              8); the 3d27p K3 at depth 4 at both its tiles
              (depths 2, 1 and K4b's ring and open bit for bit, untimed);
@@ -109,7 +105,7 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              side on K1's warp kernel.  ``StencilProblem.run`` resident
              fused 16 and native 7, a roundtrip run (K4a open) and
              ``ops.stencil_run`` (K4a ring), each counted (``sweep_1d`` /
-             ``multistep_1d`` and K2 only: no ``stencil_sweep.cu`` launch)
+             ``multistep_1d`` and K2 only: no ``sweep_far.cu`` launch)
              and bit for bit the port's plain path (the roundtrip the
              resident run), emitted as ``main_path``, ``roundtrip`` and
              ``dirichlet`` lines; then K1 rows at d=4/2/1 at that tile and
@@ -123,16 +119,35 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              fused run (``ops.stencil_sweep_periodic``, k=2, ttile=2), a
              roundtrip run (``ops.stencil_run_periodic``) and a Dirichlet
              run (``ops.stencil_run``) at the picker's tile, each counted
-             with no ``stencil_sweep.cu`` launch (``sweep_nd``,
-             ``multistep_nd``), the resident run bit for bit the roundtrip
+             with no ``sweep_far.cu`` launch (``sweep_far``,
+             ``multistep_far``), the resident run bit for bit the roundtrip
              and the plain path, the Dirichlet run its plain path, each
              within steps·2·taps·u·max|x| of the float64 oracle (u the
-             dtype's unit roundoff); then K3 rows at vl=8, m=8 (the former
-             K3-smem rows' shapes first: 2-D depths 4, 2, 1, 3-D 2, 1, and
+             dtype's unit roundoff); then K3 rows at vl=8, m=8 (the
+             shared-memory kernel's former rows' shapes first: 2-D depths
+             4, 2, 1, 3-D 2, 1, and
              the deep sweeps no one-launch instance has, 2-D 16 and 3-D 8,
              which raised before), bf16 at the first depth, and K4b open
              and ring at depths 2 and 1 on the padded grids, each bit for
              bit its plain version and listing its launches (M, g, D);
+  reach5     the star of reach 5 (``_star_taps(ndim, 5)``) at 1-D 2**26,
+             2-D 8192**2 and 3-D 512**3 on the far-reach kernel
+             ``csrc/sweep_far.cu`` (reach > 4, or more taps than the
+             register kernels hold), in float32 and bfloat16: resident
+             fused 16, roundtrip and Dirichlet runs as in reach2, each
+             counted on ``sweep_far`` / ``multistep_far`` and K2 alone, bit
+             for bit the plain path and within the f64 oracle's rounding
+             bound; then K1-far / K3-far rows at vl=8, m=8, depths 4, 2, 1
+             (3-D 2 and 4 raised before this kernel; bf16 at depth 4) and
+             K4a-far / K4b-far open and ring at depths 2 and 1 on the
+             padded grid, each listing its launch depths; the shapes that
+             raised before it: K3-far on 3-D stars of reach 6 (depths 2, 4)
+             and 8 (depth 2) at 512**3, the 3-D box of reach 2 (125 taps,
+             512**3) and the 2-D box of reach 5 (121 taps, 8192**2) at
+             depths 1 and 2; K5a and K5b (counted) at reach 6 and at 20
+             taps on 2**26, past their register forms (``onestep_form``);
+             every row bit for bit its plain version, whose time and the
+             library's are one timed call after one untimed;
   small_vl   2d5p at 8192x8190, whose picker tile is vl=2, m=7: the
              resident fused run counted (K2 on ``transpose_small``, K3 on
              the 2-D warp kernel at sub-columns of 1), bit for bit its plain
@@ -249,6 +264,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_SIMT_FLOPS_PER_S = 133.8e12   # H100 SXM bfloat16 outside the tensor cores (white paper)
 TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense (K6's products)
 SEED = 0
 CASES = (("1d3p", (1 << 26,)), ("2d5p", (8192, 8192)), ("3d7p", (512, 512, 512)))
@@ -263,15 +279,22 @@ TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8
 # (vl, m): the tuner's pairs (vl, 2·vl), on the register kernels'
 # sub-columns of 8
 PAIR_TILE, PAIR_TILE_32 = (8, 16), (16, 32)
-# ((vl, m), depth) by ndim: a tile and depth of the shared-memory route, on
-# a star of the reach beyond the register kernels' (``_star_taps(ndim,
-# SMEM_REACH[ndim])``: 5 at every rank; 3-D at depth 1, the deepest whose
-# halo of 5 a shared-memory tile fits at t0 = 16)
-SMEM_ROWS = {1: ((8, 8), 4), 2: ((8, 8), 4), 3: ((8, 8), 1)}
-SMEM_REACH = {1: 5, 2: 5, 3: 5}
+# the far-reach kernel (``csrc/sweep_far.cu``): the star of reach 5
+# (``_star_taps(ndim, 5)``, beyond the register kernels') on the cases'
+# grids, f32 and bf16: the counted runs, and the K1-far / K3-far rows' tile
+# and depths (3-D d=2 and 4 raised before it); the shapes that raised
+# before it: 3-D stars of reach 6 and 8 past depth 1, the 3-D box of reach
+# 2 (125 taps) on 256³ and the 2-D box of reach 5 (121 taps) at k = 1, 2,
+# K5 at reach 6 and at 20 taps
+FAR_R = 5
+FAR_CASES = ((1, (1 << 26,)), (2, (8192, 8192)), (3, (512, 512, 512)))
+FAR_ROW_TILE, FAR_ROW_DEPTHS = (8, 8), (4, 2, 1)
+FAR_C3_STARS = ((3, 6, (2, 4)), (3, 8, (2,)))          # (ndim, r, depths) on 512³
+FAR_C3_BOXES = ((3, 2, (256, 256, 256)), (2, 5, (8192, 8192)))   # (ndim, r, grid), k = 1, 2
+FAR_K5 = ("star1d-r6", "taps20")     # K5's specs: 13 taps of reach 6; 20 taps of reach 10
 # the star of reach 2 (``_star_taps(ndim, 2)``) at 2-D and 3-D on the
-# register kernels (``stencil_sweep.cu`` took it until they reached r = 4):
-# the grids, the K3 rows' tile and depths (the former K3-smem rows' shapes
+# register kernels (the retired shared-memory kernel took it until they reached r = 4):
+# the grids, the K3 rows' tile and depths (the former shared-memory rows' shapes
 # first), the depth past every one-launch instance that no shared-memory
 # tile fitted (3-D: 8, which raised), and the K4b rows' depths
 REACH_R = 2
@@ -321,7 +344,7 @@ TILE_CASES = (("1d3p", (1000,), "reg"), ("1d5p", (96,), "reg"), ("2d5p", (64, 48
               ("3d7p", (16, 8, 16), "reg"), ("3d7p", (12, 8, 80), "reg"))
 SOURCES = {
     "transpose": "src/repro_torch/kernels/csrc/transpose.cu",
-    "sweep": "src/repro_torch/kernels/csrc/stencil_sweep.cu",
+    "far": "src/repro_torch/kernels/csrc/sweep_far.cu",
     "sweep1d_warp": "src/repro_torch/kernels/csrc/sweep1d_warp.cu",
     "sweep2d_warp": "src/repro_torch/kernels/csrc/sweep2d_warp.cu",
     "sweep3d": "src/repro_torch/kernels/csrc/sweep3d.cu",
@@ -335,10 +358,13 @@ SOURCES = {
 _SK = "src/repro/kernels/stencil_kernels.py"
 REPLACES = {
     "K1": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
-    "K1-smem": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
+    "K1-far": f"{_SK}:114 (_kernel_1d via stencil1d_sweep_ttile)",
     "K2": f"{_SK}:567 (_kernel_transpose via block_transpose/block_untranspose)",
     "K3": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
-    "K3-smem": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
+    "K3-far": f"{_SK}:339 (_kernel_nd via stencil_nd_sweep_ttile)",
+    "K4a-far": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
+    "K4b-far": f"{_SK}:339 (_kernel_nd via stencil_nd_multistep :398, stencil_nd_sweep_halo "
+               ":262)",
     "K4a": f"{_SK}:114 (_kernel_1d via stencil1d_multistep :174, stencil1d_sweep_halo :243)",
     "K4b": f"{_SK}:339 (_kernel_nd via stencil_nd_multistep :398, stencil_nd_sweep_halo :262)",
     "K5a": f"{_SK}:620 (_kernel_naive_1d via stencil1d_naive_onestep :634)",
@@ -425,6 +451,13 @@ def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S) -> tuple[
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def simt_bound(nbytes: float, flops: float, itemsize: int) -> tuple[float, str]:
+    """:func:`bound` at the card's peak outside the tensor cores for
+    elements of ``itemsize`` bytes (4 float32, 2 bfloat16): the rate of the
+    sweep kernels' products and sums."""
+    return bound(nbytes, flops, FP32_FLOPS_PER_S if itemsize == 4 else BF16_SIMT_FLOPS_PER_S)
 
 
 def ssd_phase(dev, ms, close, bound) -> list:
@@ -1115,6 +1148,8 @@ def main() -> int:
               for dt, rows in warp2d.items()},
           "sweep3d <T, M, D, R, order, ends, vl> (order 0 run time, 1 star, 2 box; vl 0: any)":
               sweep3d,
+          "sweep_far <T, edge> (edge 0 periodic, 1 ring, 2 open)": ptxas_kernels(
+              build.report("sweep_far"), "sweep_far"),
           **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
               f"{kern} {dtype}": ssd_lib.repro_ssd_smem_bytes(i, dtype == "bf16", 64, 128)
@@ -1190,48 +1225,42 @@ def main() -> int:
             raise AssertionError(f"K2 at vl={vl}, m={m} is off its register route")
         return "transpose"
 
-    def launches_of(spec, vl, m, depth, kind="sweep"):
-        """The counter and the launches of one depth-``depth`` call of K1/K3
-        (``kind`` sweep) or K4 (multistep) on its route: on the register
-        kernels the launches ``sweep1d_launches`` / ``sweep2d_launches`` /
-        ``sweep3d_launches`` name."""
-        if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, spec.r) == "warp":
-            return f"{kind}_1d", len(sk.sweep1d_launches(m, depth, spec.r))
-        if spec.ndim == 1:
-            return f"{kind}_1d_smem", 1
-        if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
-            return f"{kind}_2d", len(sk.sweep2d_launches(m, depth, spec.r))
-        if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
-            return f"{kind}_3d", len(sk.sweep3d_launches(m, depth, spec.r))
-        return f"{kind}_nd", 1
+    def on_far(spec, vl, m, depth):
+        """Whether a depth-``depth`` sweep of ``spec`` at (vl, m) takes the
+        far-reach kernel (``csrc/sweep_far.cu``)."""
+        return sk.sweep_plan(spec, vl, m, depth)[0] == "far"
 
-    def launches_at(spec, m, depth):
-        """The register kernels' launches (M, g, D) of a depth-``depth``
-        sweep of ``spec`` at ``m``."""
-        if spec.ndim == 1:
-            return sk.sweep1d_launches(m, depth, spec.r)
-        return (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, depth, spec.r)
+    def launches_at(spec, m, depth, itemsize=4, vl=8):
+        """The launches (M, g, D) of a depth-``depth`` sweep of ``spec`` at
+        ``m`` on its route (``sweep_plan``)."""
+        return sk.sweep_plan(spec, vl, m, depth, itemsize)[1]
+
+    def launches_of(spec, vl, m, depth, kind="sweep", itemsize=4):
+        """The counter and the launches of one depth-``depth`` call of K1/K3
+        (``kind`` sweep) or K4 (multistep) on its route."""
+        key, plan = sk.sweep_plan(spec, vl, m, depth, itemsize)
+        return f"{kind}_{key}", len(plan)
 
     def multi_key(spec, vl, m, depth):
         """K4's counter on the route a depth-``depth`` call takes."""
         return launches_of(spec, vl, m, depth, "multistep")[0]
 
-    def k4_counts(spec, chunks, vl, m):
+    def k4_counts(spec, chunks, vl, m, itemsize=4):
         """The launches of roundtrip or Dirichlet sweeps, ``chunks`` of
         (depth, sweeps): K2 twice and K4's launches once per sweep, by
         route."""
         owned = {}
         for depth, n in chunks:
-            key, per = launches_of(spec, vl, m, depth, "multistep")
+            key, per = launches_of(spec, vl, m, depth, "multistep", itemsize)
             for key, count in ((k2_key(vl, m), 2 * n), (key, per * n)):
                 owned[key] = owned.get(key, 0) + count
         return owned
 
-    def resident_counts(spec, steps, remainder, vl, m, k=K, ttile=TTILE):
+    def resident_counts(spec, steps, remainder, vl, m, k=K, ttile=TTILE, itemsize=4):
         """The launches a resident run makes, by the route of each chunk."""
         owned = {k2_key(vl, m): 2}
         for depth, n in sweep_schedule(k, steps, remainder, ttile)[0]:
-            key, per = launches_of(spec, vl, m, depth)
+            key, per = launches_of(spec, vl, m, depth, itemsize=itemsize)
             owned[key] = owned.get(key, 0) + per * n
         return owned
 
@@ -1264,12 +1293,18 @@ def main() -> int:
 
     entries = []
 
-    def row(kid, fname, label, src, launches, err, kern, plain, b, library, **extra):
+    def ms_slow(fn, *args):
+        """One timed call after one untimed (CUDA events): the plain versions
+        and library calls that take up to seconds a call."""
+        return bench(fn, *args, device=dev, warmup=0, iters=1, min_time_s=0) * 1e3
+
+    def row(kid, fname, label, src, launches, err, kern, plain, b, library, slow=False,
+            **extra):
         entries.append({
             "name": f"{kid} {fname} [{label}]", "route": "cuda", "source": SOURCES[src],
             "replaces": REPLACES[kid], "launches": launches, "max_abs_err": err,
-            "ms": ms(kern), "plain_ms": ms(plain), "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": library() if library else None, **extra,
+            "ms": ms(kern), "plain_ms": (ms_slow if slow else ms)(plain), "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": library() if library else None, **extra,
         })
         emit({"phase": "kernels", **entries[-1]})
 
@@ -1295,6 +1330,223 @@ def main() -> int:
             lambda: sk.block_untranspose_ref(t, vl, m), bound(grid_bytes, 0),
             lambda: ms(lambda: t.view(nb_total, m, vl).transpose(-1, -2).contiguous()))
 
+    # -- reach5: the star of reach 5 on the far-reach kernel
+    # (csrc/sweep_far.cu) at 2^26, 8192² and 512³, f32 and bf16: resident
+    # fused 16 (ops.stencil_sweep_periodic, k=2, ttile=2), a roundtrip run
+    # (ops.stencil_run_periodic) and ops.stencil_run, each counted on
+    # sweep_far / multistep_far and K2 alone, resident bit for bit the
+    # roundtrip and the plain path, Dirichlet its plain path, each within
+    # the f64 oracle's rounding bound; then the K1-far / K3-far rows at
+    # vl=8, m=8 d=4/2/1 (bf16 at d=4), K4-far open and ring d=2/1 on the
+    # padded grid, and the shapes that raised before this kernel ----------
+    def reach5_phase():
+        def star(ndim, r):
+            return stencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                        stencils._star_taps(ndim, r))
+
+        far_launched = {}
+        start = time.perf_counter()
+        for ndim, shape in FAR_CASES:
+            spec = star(ndim, FAR_R)
+            vl, m, t0 = ops.pick_tile(spec, shape)
+            dims = "x".join(map(str, shape))
+            x32 = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                              device=dev)
+            remainder, steps = PLANS[0]
+            case_launched = {}          # the case's counted launches, its rows' `launches`
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                isz = x.element_size()
+                dname = str(dtype).split(".")[-1]
+                unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+                tol = steps * 2 * len(spec.taps) * unit * x.abs().max().item()
+                runs = {
+                    "resident": (lambda: ops.stencil_sweep_periodic(spec, x, steps, k=K,
+                                                                    ttile=TTILE),
+                                 resident_counts(spec, steps, remainder, vl, m, itemsize=isz),
+                                 "periodic"),
+                    "roundtrip": (lambda: ops.stencil_run_periodic(spec, x, steps, k=K),
+                                  k4_counts(spec, [(K, steps // K)], vl, m, isz), "periodic"),
+                    "dirichlet": (lambda: ops.stencil_run(spec, x, steps, k=K),
+                                  k4_counts(spec, [(K, steps // K)], vl, m, isz),
+                                  kref.kernel_bc(ndim)),
+                }
+                results, oracles = {}, {}
+                for run, (fn, owned, bc) in runs.items():
+                    if set(owned) - {"transpose", "sweep_far", "multistep_far"}:
+                        raise AssertionError(f"reach5 {spec.name} {run}: {owned} leaves the "
+                                             "far-reach kernel")
+                    fn()
+                    y, seconds, got = counted(f"reach5 {spec.name} {dname} {run}", fn, owned)
+                    for key, n in got.items():
+                        far_launched[key] = far_launched.get(key, 0) + n
+                        case_launched[key] = case_launched.get(key, 0) + n
+                    if run == "roundtrip":
+                        err = same(f"reach5 {spec.name} {dname} roundtrip vs resident", y,
+                                   results["resident"])
+                    elif run == "resident":
+                        err = same(f"reach5 {spec.name} {dname} resident vs plain", y,
+                                   resident_plain(spec, x, steps, remainder, vl, m, t0))
+                    else:
+                        err = same(f"reach5 {spec.name} {dname} dirichlet vs plain", y,
+                                   dirichlet_plain(spec, x, steps, vl, m, t0))
+                    if bc not in oracles:
+                        oracles[bc] = apply_steps(spec, x.double(), steps, bc=bc)
+                    oracle_err = (y.double() - oracles[bc]).abs().max().item()
+                    if oracle_err > tol:
+                        raise AssertionError(f"reach5 {spec.name} {dname} {run}: {oracle_err} off "
+                                             f"the float64 oracle, beyond {tol}")
+                    results[run] = y
+                    emit({"phase": "reach5", "case": spec.name, "shape": list(shape),
+                          "dtype": dname, "run": run, "steps": steps,
+                          "plan": {"k": K, "ttile": TTILE if run == "resident" else 1,
+                                   "remainder": remainder},
+                          "tile": {"vl": vl, "m": m, "t0": t0}, "launches": got,
+                          "launch_depths": [d for *_, d in launches_at(
+                              spec, m, K * TTILE if run == "resident" else K, isz, vl)],
+                          "seconds": seconds, "seconds_median_of_5": host_median(fn),
+                          "gpoint_updates_per_s": x.numel() * steps / seconds,
+                          "max_abs_err_vs_plain" if run != "roundtrip" else
+                          "max_abs_err_vs_resident": err, "bitwise": True,
+                          "max_abs_err_vs_f64": oracle_err, "f64_bound": tol})
+                del results, oracles, y
+            # K1-far / K3-far rows (bf16 at the first depth) and K4-far rows
+            kid = "K1-far" if ndim == 1 else "K3-far"
+            fname = "stencil1d_sweep_ttile" if ndim == 1 else "stencil_nd_sweep_ttile"
+            vl2, m2 = FAR_ROW_TILE
+            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+            weight = torch.tensor(spec.coeff_array(), dtype=torch.float32, device=dev)[None, None]
+            for dtype, row_depths in ((torch.float32, FAR_ROW_DEPTHS),
+                                      (torch.bfloat16, FAR_ROW_DEPTHS[:1])):
+                x = x32.to(dtype)
+                wgt = weight.to(dtype)
+                t = sk.block_transpose(x, vl2, m2)
+                buf = torch.empty_like(t)
+                for depth in row_depths:
+                    if not on_far(spec, vl2, m2, depth):
+                        raise AssertionError(f"reach5 {spec.name} depth {depth} is off the far "
+                                             "route")
+
+                    def kern(out=None, d=depth):
+                        return sk.stencil1d_sweep_ttile(spec, t, d, 1, out=out) if ndim == 1 else \
+                            sk.stencil_nd_sweep_ttile(spec, t, d, 1, t02, out=out)
+
+                    def plain(d=depth):
+                        return sk.stencil1d_sweep_ttile_ref(spec, t, d, 1) if ndim == 1 else \
+                            sk.stencil_nd_sweep_ttile_ref(spec, t, d, 1, t02)
+                    err = same(f"reach5 {spec.name} {kid} depth {depth} {dtype}", kern(), plain())
+                    row(kid, fname, f"{spec.name} {dims} {str(dtype).split('.')[-1]} vl={vl2} "
+                        f"m={m2} depth={depth}; route sweep_far", "far",
+                        case_launched.get("sweep_far", 0), err, lambda: kern(buf), plain,
+                        simt_bound(2 * x.numel() * x.element_size(),
+                                   depth * spec.flops_per_point * x.numel(), x.element_size()),
+                        lambda: ms_slow(conv_steps, spec, x, depth, wgt), slow=True,
+                        launch_depths=[d for *_, d in launches_at(spec, m2, depth,
+                                                                  x.element_size(), vl2)])
+                del t, buf
+            block = vl2 * m2 if ndim == 1 else t02
+            pad = sk.sweep_halo_blocks(spec.r, K, block) * block
+            xp = ops.wrap_pad(x32, pad)
+            tp = sk.block_transpose(xp, vl2, m2)
+            bufp = torch.empty_like(tp)
+            k4 = "K4a-far" if ndim == 1 else "K4b-far"
+            for edge_mask in (False, True):
+                for depth in (K, 1):
+                    edge = "ring" if edge_mask else "open"
+
+                    def kern(out=None, d=depth, em=edge_mask):
+                        return sk.stencil1d_multistep(spec, tp, d, em, out=out) if ndim == 1 else \
+                            sk.stencil_nd_multistep(spec, tp, d, t02, em, out=out)
+
+                    def plain(d=depth, em=edge_mask):
+                        return sk._multistep_ref(spec, tp, d, em)
+                    err = same(f"reach5 {spec.name} {k4} {edge} depth {depth}", kern(), plain())
+                    row(k4, "stencil1d_multistep" if ndim == 1 else "stencil_nd_multistep",
+                        f"{spec.name} {'x'.join(map(str, xp.shape))} vl={vl2} m={m2} {edge} "
+                        f"depth={depth}; route multistep_far; library: zero pad on axis 0, no "
+                        "ring restore", "far", case_launched.get("multistep_far", 0), err,
+                        lambda: kern(bufp), plain,
+                        bound(2 * xp.numel() * 4, depth * spec.flops_per_point * xp.numel()),
+                        lambda: ms_slow(conv_steps, spec, xp, depth, weight, True), slow=True)
+            del x, x32, xp, tp, bufp, weight
+            torch.cuda.empty_cache()
+
+        # the shapes that raised before the far-reach kernel, each bit for bit
+        # its plain version: 3-D stars of reach 6 and 8 past depth 1 on 512³,
+        # the boxes of 125 and 121 taps at k = 1, 2, K5 at reach 6 and 20 taps
+        vl2, m2 = FAR_ROW_TILE
+        c3 = [(star(nd, r), (512, 512, 512), depths) for nd, r, depths in FAR_C3_STARS]
+        c3 += [(stencils.StencilSpec(f"box{nd}d-r{r}", nd, r, "box", stencils._box_taps(nd, r)),
+                grid, (1, 2)) for nd, r, grid in FAR_C3_BOXES]
+        for spec, shape, depths in c3:
+            x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+            t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
+            t = sk.block_transpose(x, vl2, m2)
+            buf = torch.empty_like(t)
+            wgt = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+            for depth in depths:
+                if not on_far(spec, vl2, m2, depth):
+                    raise AssertionError(f"{spec.name} depth {depth} is off the far route")
+                # the shape's own counted run: its launches are the row's
+                y, _, got = counted(f"{spec.name} K3-far depth {depth}",
+                                    lambda: sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t02),
+                                    {"sweep_far": len(launches_at(spec, m2, depth, 4, vl2))})
+                err = same(f"{spec.name} K3-far depth {depth}", y,
+                           sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t02))
+                del y
+                row("K3-far", "stencil_nd_sweep_ttile",
+                    f"{spec.name} {'x'.join(map(str, shape))} ({len(spec.taps)} taps) vl={vl2} "
+                    f"m={m2} depth={depth}; route sweep_far; raised before sweep_far.cu", "far",
+                    got["sweep_far"], err,
+                    lambda: sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t02, out=buf),
+                    lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t02),
+                    bound(2 * x.numel() * 4, depth * spec.flops_per_point * x.numel()),
+                    lambda: ms_slow(conv_steps, spec, x, depth, wgt), slow=True,
+                    launch_depths=[d for *_, d in launches_at(spec, m2, depth, 4, vl2)])
+            del x, t, buf
+            torch.cuda.empty_cache()
+        n = ONESTEP[0][1]
+        for label in FAR_K5:
+            spec = star(1, 6) if label == "star1d-r6" else stencils.StencilSpec(
+                label, 1, 10, "star", tuple(((o,), 1.0 / (20 + abs(o)))
+                                            for o in range(-10, 11) if o))
+            vl, m = 32, 8 if spec.r <= 8 else 16
+            x = torch.randn((n,), generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+            want = kref.onestep_periodic_ref(spec, x)
+            ops.stencil_onestep_naive(spec, x, vl)
+            ops.stencil_onestep_transpose(spec, x, vl, m)
+            naive, _, c_naive = counted(f"{label} onestep naive",
+                                        lambda: ops.stencil_onestep_naive(spec, x, vl),
+                                        {"onestep_naive": 1})
+            trans, _, c_trans = counted(f"{label} onestep transpose",
+                                        lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
+                                        {"onestep_transpose": 1, k2_key(vl, m): 2})
+            err_naive = same(f"{label} onestep naive", naive, want)
+            err_trans = same(f"{label} onestep transpose", trans, want)
+            weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+            b = bound(2 * n * x.element_size(), spec.flops_per_point * n)
+            out = torch.empty_like(x)
+            form = sk.onestep_form("naive", spec)
+            row("K5a", "stencil1d_naive_onestep", f"{label} {n} float32 vl={vl}; form {form}",
+                "onestep", c_naive["onestep_naive"], err_naive,
+                lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
+                lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
+                lambda: ms(conv_steps, spec, x, 1, weight))
+            t = sk.block_transpose(x, vl, m)
+            tout = torch.empty_like(t)
+            form = sk.onestep_form("transpose", spec, m)
+            row("K5b", "stencil1d_transpose_onestep", f"{label} {n} float32 vl={vl} m={m}; "
+                f"form {form}", "onestep", c_trans["onestep_transpose"], err_trans,
+                lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
+                lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
+                lambda: ms(conv_steps, spec, x, 1, weight))
+            del x, want, naive, trans, t, tout, out
+        emit({"phase": "reach5", "launches": far_launched,
+              "phase_seconds": time.perf_counter() - start})
+        torch.cuda.empty_cache()
+
     for name, shape in CASES:
         prob = StencilProblem(name, shape)
         spec = prob.spec
@@ -1310,7 +1562,6 @@ def main() -> int:
             if key not in lib_ms:
                 lib_ms[key] = fn()
             return lib_ms[key]
-        smem_key = "sweep_1d_smem" if spec.ndim == 1 else "sweep_nd"
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
         def plan_of(sweep, remainder, ttile=1, tile=(None, None)):
@@ -1346,7 +1597,7 @@ def main() -> int:
             t02 = ops.pick_tile(spec, shape, vl2, m2)[2]
             plan = plan_of("resident", remainder, TTILE, tile)
             owned = resident_counts(spec, steps, remainder, vl2, m2)
-            want_key = sweep_key if route == "reg" else smem_key
+            want_key = sweep_key if route == "reg" else "sweep_far"
             if set(owned) - {k2_key(vl2, m2)} != {want_key}:
                 raise AssertionError(f"{name} at vl={vl2}, m={m2}: the schedule's launches "
                                      f"{owned} are not on the {want_key} route")
@@ -1540,7 +1791,6 @@ def main() -> int:
         kid = "K1" if spec.ndim == 1 else "K3"
         fname = "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile"
         src = {1: "sweep1d_warp", 2: "sweep2d_warp", 3: "sweep3d"}[spec.ndim]
-        route_of = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[spec.ndim - 1]
 
         def sweep_row(rkid, tile, depths, source, key, t02, xx=x, at_tile=None, sp=spec):
             """K1 / K3 rows of the stencil ``sp`` (the case's unless given)
@@ -1558,7 +1808,7 @@ def main() -> int:
             if at_tile is None:
                 at_tile = sum(c[key] for (t, *_), c in counts.items() if t == tile)
             for depth in depths:
-                if (route_of(vl2, m2, depth, spec.r) == "smem") != (key == smem_key):
+                if on_far(spec, vl2, m2, depth) != (key == "sweep_far"):
                     raise AssertionError(f"{name} vl={vl2} m={m2} depth {depth} does not take "
                                          f"the {key} route")
                 kk, tt = (K, depth // K) if depth > K else (depth, 1)
@@ -1573,12 +1823,12 @@ def main() -> int:
                         return sk.stencil1d_sweep_ttile_ref(spec, t2, kk, tt)
                     return sk.stencil_nd_sweep_ttile_ref(spec, t2, kk, tt, t02)
                 err = same(f"{spec.name} {rkid} vl={vl2} m={m2} depth {depth}", kern(), plain())
-                extra = {}
-                if key != smem_key:
-                    extra["instances"] = [list(p) for p in launches_at(spec, m2, depth)]
+                extra = {"instances": [list(p) for p in launches_at(spec, m2, depth,
+                                                                   xx.element_size(), vl2)]}
                 row(rkid, fname, f"{spec.name} {xdims} vl={vl2} m={m2} depth={depth}; route {key}",
                     source, launched[key], err, kern, plain,
-                    bound(2 * xx.numel() * itemsize, depth * spec.flops_per_point * xx.numel()),
+                    simt_bound(2 * xx.numel() * itemsize,
+                               depth * spec.flops_per_point * xx.numel(), itemsize),
                     lambda: library_once(("sweep", spec.name, depth, xdims),
                                          lambda: ms(conv_steps, spec, xx, depth, wgt)),
                     launches_at_tile=at_tile, **extra)
@@ -1608,14 +1858,6 @@ def main() -> int:
         # became consecutive warp launches (32 + 2)
         if spec.ndim == 1:
             sweep_row(kid, DEEP_1D_ROW[0], (DEEP_1D_ROW[1],), src, sweep_key, None)
-        # the shared-memory route on a star beyond the register kernels'
-        # reach (5 at every rank), whose launch no counted run makes
-        smem_tile, smem_depth = SMEM_ROWS[spec.ndim]
-        reach = SMEM_REACH[spec.ndim]
-        sp = stencils.StencilSpec(f"{spec.ndim}d-star-r{reach}", spec.ndim, reach, "star",
-                                  stencils._star_taps(spec.ndim, reach))
-        sweep_row(f"{kid}-smem", smem_tile, (smem_depth,), "sweep", smem_key,
-                  ops.pick_tile(sp, shape, *smem_tile)[2], sp=sp)
 
         # -- K4: the multistep sweep at the roundtrip's padded shape, at the
         # case's tile, the tuner's and its pair vl=8, m=16 ------------------
@@ -1646,20 +1888,18 @@ def main() -> int:
                     edge = "ring" if edge_mask else "open"
                     key = multi_key(spec, vl2, m2, depth)
                     source = {"multistep_1d": "sweep1d_warp", "multistep_2d": "sweep2d_warp",
-                              "multistep_3d": "sweep3d"}.get(key, "sweep")
-                    route = "smem" if source == "sweep" else \
+                              "multistep_3d": "sweep3d"}.get(key, "far")
+                    route = "far" if source == "far" else \
                         "stream" if source == "sweep3d" else "warp"
                     err = same(f"{name} {kid} vl={vl2} m={m2} {edge} depth {depth}", kern(),
                                plain())
-                    extra = {}
-                    if source != "sweep":
-                        extra["instances"] = [list(p) for p in launches_at(spec, m2, depth)]
+                    extra = {"instances": [list(p) for p in launches_at(spec, m2, depth, 4, vl2)]}
                     row(kid, fname,
                         f"{name} {pdims} vl={vl2} m={m2} {edge} depth={depth}; route {route} "
                         f"({key}); library: zero pad on axis 0, no ring restore", source,
                         launched[key], err, kern, plain,
-                        bound(2 * xp.numel() * itemsize,
-                              depth * spec.flops_per_point * xp.numel()),
+                        simt_bound(2 * xp.numel() * itemsize,
+                                   depth * spec.flops_per_point * xp.numel(), itemsize),
                         lambda: library_once(("edge", depth),
                                              lambda: ms(conv_steps, spec, xp, depth, weight,
                                                         True)), **extra)
@@ -1671,7 +1911,7 @@ def main() -> int:
     # (sub-columns of 1: r = 2 > M = 1, the warp kernel's halo of two lanes):
     # resident fused 16 and native 7, a roundtrip run (K4a open) and
     # ops.stencil_run (K4a ring), each counted on the warp kernel, no
-    # launch of stencil_sweep.cu, and bit for bit the port's plain path;
+    # launch of sweep_far.cu, and bit for bit the port's plain path;
     # then its K1 rows (and on ODD_CASES[1]'s grid at vl=8, m=3) and K4a rows
     name, shape = ODD_REACH_CASE
     prob = StencilProblem(name, shape)
@@ -1685,7 +1925,7 @@ def main() -> int:
     weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
 
     def on_warp(label, owned, key):
-        if set(owned) != {"transpose", key} or any("smem" in k for k in owned):
+        if set(owned) != {"transpose", key} or any("far" in k for k in owned):
             raise AssertionError(f"1d5p_odd {label}: the schedule's launches {owned} are not "
                                  f"on transpose and {key} alone")
         return owned
@@ -1751,7 +1991,7 @@ def main() -> int:
         buf = torch.empty_like(t)
         xdims = "x".join(map(str, xx.shape))
         for depth in (4, 2, 1):
-            if sk.sweep1d_route(*tile, depth, spec.r) != "warp":
+            if sk.sweep1d_route(*tile, depth, spec.r, len(spec.taps)) != "warp":
                 raise AssertionError(f"1d5p_odd K1 at {tile} depth {depth} is off the warp route")
             kk, tt = (K, depth // K) if depth > K else (depth, 1)
             err = same(f"1d5p_odd K1 {xdims} at {tile} depth {depth}",
@@ -1794,7 +2034,7 @@ def main() -> int:
     # (ops.stencil_sweep_periodic, k=2, ttile=2), a roundtrip run
     # (ops.stencil_run_periodic: K4b with the ring on the wrap-padded grid)
     # and ops.stencil_run (K4b, the Dirichlet ring), each counted with no
-    # stencil_sweep.cu launch; resident bit for bit the roundtrip and the
+    # sweep_far.cu launch; resident bit for bit the roundtrip and the
     # plain path, Dirichlet its plain path, both within the float64
     # oracle's rounding bound; then the K3 and K4b rows of reach 2 -------
     for ndim, shape in REACH_CASES:
@@ -1826,9 +2066,9 @@ def main() -> int:
             }
             results = {}
             for run, (fn, owned, bc) in runs.items():
-                if any(key in owned for key in ("sweep_nd", "multistep_nd")):
+                if any(key in owned for key in ("sweep_far", "multistep_far")):
                     raise AssertionError(f"reach2 {spec.name} {run}: {owned} launches "
-                                         "stencil_sweep.cu")
+                                         "sweep_far.cu")
                 fn()
                 y, seconds, got = counted(f"reach2 {spec.name} {dname} {run}", fn, owned)
                 for key, n in got.items():
@@ -1862,7 +2102,7 @@ def main() -> int:
                       "max_abs_err_vs_resident": err, "bitwise": True,
                       "max_abs_err_vs_f64": oracle_err, "f64_bound": tol})
             del results, y
-        # the K3 rows at the former K3-smem shapes (and their shallower
+        # the K3 rows at the former shared-memory shapes (and their shallower
         # depths), the depth no one-launch instance has, and K4b's, each
         # bit for bit its plain version; bf16 at the first depth
         (vl2, m2), depths = REACH_ROWS[ndim]
@@ -1878,8 +2118,7 @@ def main() -> int:
             buf = torch.empty_like(t)
             sfx = "" if dtype == torch.float32 else "_bf16"
             for depth in row_depths:
-                if (sk.sweep2d_route if ndim == 2 else sk.sweep3d_route)(
-                        vl2, m2, depth, spec.r) == "smem":
+                if on_far(spec, vl2, m2, depth):
                     raise AssertionError(f"reach2 {spec.name} depth {depth} is off the "
                                          "register route")
                 kk, tt = (K, depth // K) if depth > K else (depth, 1)
@@ -1890,8 +2129,8 @@ def main() -> int:
                     f"m={m2} depth={depth}; route {key}", src + sfx, reach_counts.get(key, 0),
                     err, lambda: sk.stencil_nd_sweep_ttile(spec, t, kk, tt, t02, out=buf),
                     lambda: sk.stencil_nd_sweep_ttile_ref(spec, t, kk, tt, t02),
-                    bound(2 * x.numel() * x.element_size(),
-                          depth * spec.flops_per_point * x.numel()),
+                    simt_bound(2 * x.numel() * x.element_size(),
+                               depth * spec.flops_per_point * x.numel(), x.element_size()),
                     lambda: ms(conv_steps, spec, x, depth, wgt),
                     instances=[list(p) for p in launches_at(spec, m2, depth)])
             del t, buf
@@ -1917,6 +2156,8 @@ def main() -> int:
                     instances=[list(p) for p in launches_at(spec, m2, depth)])
         del x, x32, xp, tp, bufp, weight
         torch.cuda.empty_cache()
+
+    reach5_phase()
 
     # -- a grid whose picker tile has vl < 4: 2d5p 8192x8190 at (2, 7), the
     # resident fused run counted (K2 on transpose_small), then its K2 rows --
@@ -2034,7 +2275,7 @@ def main() -> int:
                 err = same(f"{name} bf16 {kid} vl={vl2} m={m2} depth {depth}", kern(), plain())
                 row(kid, fname, f"{name} {dims} bf16 vl={vl2} m={m2} depth={depth}; route "
                     f"{key}", src, launched[key], err, kern, plain,
-                    bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel()),
+                    simt_bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel(), 2),
                     lambda: ms(conv_steps, spec, x, depth, weight),
                     launches_at_tile=launched[key] if tile == (vl, m) else 0)
             del t, buf
@@ -2060,7 +2301,7 @@ def main() -> int:
             row(kid, fname, f"{name} {'x'.join(map(str, xp.shape))} bf16 vl={vl} m={m} {edge} "
                 f"depth={K}; route {key}; library: zero pad on axis 0, no ring restore",
                 src, launched[key], err, kern, plain,
-                bound(2 * xp.numel() * 2, K * spec.flops_per_point * xp.numel()),
+                simt_bound(2 * xp.numel() * 2, K * spec.flops_per_point * xp.numel(), 2),
                 lambda: ms(conv_steps, spec, xp, K, weight, True))
         del x, xp, tp, bufp, weight
         torch.cuda.empty_cache()
@@ -2102,7 +2343,7 @@ def main() -> int:
             "(r = 2 > M = 1)", "sweep1d_warp_bf16", got["sweep_1d"], err,
             lambda: sk.stencil1d_sweep_ttile(spec, t, kk, tt, out=buf),
             lambda: sk.stencil1d_sweep_ttile_ref(spec, t, kk, tt),
-            bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel()),
+            simt_bound(2 * x.numel() * 2, depth * spec.flops_per_point * x.numel(), 2),
             lambda: ms(conv_steps, spec, x, depth, weight), launches_at_tile=got["sweep_1d"],
             instances=[list(p) for p in sk.sweep1d_launches(m, depth, spec.r)])
     del x, t, buf, weight
@@ -2194,7 +2435,7 @@ def main() -> int:
               "transpose": {"seconds": s_trans, "launches": c_trans},
               "bitwise": True})
         weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
-        b = bound(2 * n * x.element_size(), spec.flops_per_point * n)
+        b = simt_bound(2 * n * x.element_size(), spec.flops_per_point * n, x.element_size())
         out = torch.empty_like(x)
         row("K5a", "stencil1d_naive_onestep", f"{name} {n} {dname} vl={vl}", "onestep",
             c_naive["onestep_naive"], err_naive,
@@ -2214,8 +2455,7 @@ def main() -> int:
     # -- tiles: the GPU picker's tiles off vl=32, each run vs the CPU's ------
     tile_keys = {"reg": {1: {"sweep_1d", "multistep_1d"}, 2: {"sweep_2d", "multistep_2d"},
                          3: {"sweep_3d", "multistep_3d"}},
-                 "smem": {1: {"sweep_1d_smem", "multistep_1d_smem"},
-                          2: {"sweep_nd", "multistep_nd"}, 3: {"sweep_nd", "multistep_nd"}}}
+                 "far": {nd: {"sweep_far", "multistep_far"} for nd in (1, 2, 3)}}
     for name, shape, tile_route in TILE_CASES:
         prob, prob_cpu = StencilProblem(name, shape), StencilProblem(name, shape, device="cpu")
         spec = prob.spec

@@ -352,35 +352,44 @@ def _launch_ok(spec, nat: tuple[int, ...], vl: int, m: int, t0: int | None,
                depth: int, dtype) -> bool:
     """Whether one depth-``depth`` sweep (periodic, or the ring/open
     multistep: the same routes) of the natural grid ``nat`` at tile (vl, m,
-    t0) runs on the card: the route the wrapper takes, and the limits at
-    which it raises (``kernels/stencil_kernels.py``: the register kernels'
-    column count off their fixed forms, ``sweep_tile``'s shared-memory fit,
-    the shared-memory kernel's tile count and 2^31 columns)."""
+    t0) runs on the card: the route and launches
+    ``stencil_kernels.sweep_plan`` names, and the limits at which the
+    wrappers raise (the register kernels' column count off their fixed
+    forms; the far-reach kernel's fit of one step, each launch's tile, its
+    tile count and 2^31 columns)."""
     from repro_torch.kernels import stencil_kernels as sk
-    r, n = spec.r, nat[-1]
+    if spec.ndim > 3:
+        return False
+    r, n, ntaps = spec.r, nat[-1], len(spec.taps)
     nb = n // (vl * m)
-    big, g = sk.sub_columns(m)
+    _, g = sk.sub_columns(m)
     f32 = dtype == torch.float32
-    if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, r) == "warp":
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    try:
+        key, plan = sk.sweep_plan(spec, vl, m, depth, itemsize)
+    except ValueError:
+        return False
+    if key == "1d":
         return not (g != 1 and nb * vl * g >= sk.MAX_COLS)
-    if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, r) == "warp":
-        for mm, gg, d in sk.sweep2d_launches(m, depth, r):
+    if key == "2d":
+        for mm, gg, d in plan:
             any_form = (vl != sk.WARP_LANES or gg != 1 or r != 1 or d > sk.WARP2D_DEPTH[mm, 1]
                         or not f32)
             if any_form and nb * vl * gg >= sk.MAX_COLS:
                 return False
         return True
-    if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, r) == "stream":
+    if key == "3d":
         any_form = vl != sk.WARP_LANES or g != 1 or r != 1 or not f32
         return not (any_form and nb * vl * g >= sk.MAX_COLS)
-    if spec.ndim > 3:
-        return False
-    box = (1,) * (3 - len(nat)) + tuple(nat)
+    nz, ny = (1, 1) if spec.ndim == 1 else (nat[0], 1) if spec.ndim == 2 else tuple(nat[:2])
     try:
-        (tz, ty, _), _, _ = sk.sweep_tile(spec, box, m, depth, t0)
+        for _, _, d in plan:
+            ty, _, _, _ = sk.far_tile(spec.ndim, (nz, ny, n), m, r, d, ntaps, itemsize)
+            if -(-ny // ty) > 65535:
+                return False
     except ValueError:
         return False
-    return -(-box[0] // tz) <= 65535 and -(-box[1] // ty) <= 65535 and box[2] // m < 2 ** 31
+    return nb * vl < 2 ** 31
 
 
 def pallas_routes_legal(spec: stencils.StencilSpec, shape: Sequence[int], vl: int, m: int,

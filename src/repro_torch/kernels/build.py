@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("transpose", "stencil_sweep", "sweep1d_warp", "sweep1d_warp_bf16", "sweep2d_warp",
+SOURCES = ("transpose", "sweep_far", "sweep1d_warp", "sweep1d_warp_bf16", "sweep2d_warp",
            "sweep2d_warp_bf16", "sweep3d", "sweep3d_bf16", "onestep", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,12 +143,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "transpose":
         lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 6 + [ptr]
         lib.repro_transpose_reg.restype = ctypes.c_int
-    elif name == "stencil_sweep":
-        for fn in (lib.repro_stencil_sweep_f32, lib.repro_stencil_sweep_bf16):
-            fn.argtypes = [ptr, ptr] + [i64] * 18 + [ptr, ptr, i64, ptr]
+    elif name == "sweep_far":
+        for fn in (lib.repro_sweep_far_f32, lib.repro_sweep_far_bf16):
+            fn.argtypes = [ptr, ptr] + [i64] * 16 + [ptr, ptr]
             fn.restype = ctypes.c_int
-        lib.repro_stencil_max_taps.argtypes = []
-        lib.repro_stencil_max_taps.restype = i64
+        lib.repro_sweep_far_smem.argtypes = [i64] * 10
+        lib.repro_sweep_far_smem.restype = i64
     elif name == "sweep1d_warp_bf16":
         lib.repro_sweep1d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
         lib.repro_sweep1d_warp_bf16.restype = ctypes.c_int
@@ -187,7 +187,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             trans = getattr(lib, f"repro_onestep_transpose_{suffix}")
             trans.argtypes = [ptr, ptr] + [i64] * 5 + [ptr, ptr, ptr]
             trans.restype = ctypes.c_int
-        for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_max_taps):
+            naive_mem = getattr(lib, f"repro_onestep_naive_mem_{suffix}")
+            naive_mem.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
+            naive_mem.restype = ctypes.c_int
+            trans_mem = getattr(lib, f"repro_onestep_transpose_mem_{suffix}")
+            trans_mem.argtypes = [ptr, ptr] + [i64] * 4 + [ptr, ptr]
+            trans_mem.restype = ctypes.c_int
+        for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_naive_max_reach,
+                   lib.repro_onestep_max_taps, lib.repro_onestep_max_m):
             fn.argtypes = []
             fn.restype = i64
     elif name == "ssd_scan":

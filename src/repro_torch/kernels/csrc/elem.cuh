@@ -1,4 +1,4 @@
-// The element types of the stencil kernels (stencil_sweep.cu, onestep.cu,
+// The element types of the stencil kernels (sweep_far.cu, onestep.cu,
 // sweep1d_warp.cuh, sweep2d_warp.cuh, sweep3d.cuh): float and __nv_bfloat16.
 //
 // The plain versions compute in the tensor's dtype: each product of a value
@@ -15,9 +15,10 @@
 // kernels no conversion (a first form kept float registers and rounded
 // every product and sum with cvt.rn.bf16.f32, which runs at a quarter of
 // the FP32 rate: the 2-D sweep at depth 4 took 0.99 ms against float32's
-// 0.21; PERF.md section 6).  The shared-memory kernel (stencil_sweep.cu)
-// and the one-step kernels (onestep.cu) keep float registers and shared
-// memory and round with rnd().
+// 0.21; PERF.md section 6).  The far-reach kernel (sweep_far.cu) holds
+// the element type in shared memory and registers and computes with mul()
+// and add() too; the one-step kernels (onestep.cu) keep float registers
+// and round with rnd().
 //
 // cp.async moves 4, 8 or 16 bytes, so the kernels that stage device memory
 // in shared memory with it (sweep2d_warp, sweep3d) copy a bfloat16 element

@@ -12,6 +12,7 @@
 // of each vector takes two warp shuffles (this vector and its neighbour) and
 // a select on the lanes that cross — the paper's cross-lane roll per tap.
 // Any vl: the natural layout is the flat array whatever its row width.
+// One neighbouring vector a side reaches |o| <= 32.
 //
 // K5b, transpose layout (nb, m, vl).  A thread holds the m values of one
 // natural column (block c / vl, lane c % vl) in registers, and neighbouring
@@ -19,8 +20,14 @@
 // register index; only the 2r boundary rows need one shuffle from the
 // neighbouring thread plus a select (the warp's first and last lane, whose
 // neighbour lives in another warp, load it instead) — the paper's Assemble.
-// The register version covers m <= 16; a larger m takes a kernel that
-// reads every tap from memory.
+// The register version covers m <= 16 and r <= kMaxR.
+//
+// Past the register forms (more than kMaxTaps taps, K5a past |o| = 32, K5b
+// past r = kMaxR or m = 16) each has a form that reads its taps from device
+// memory (onestep_naive_mem, onestep_transpose_mem: any tap count and
+// reach): one thread an element, every tap's element read from device
+// memory, wrapped periodically (K5b: the column beside it found by a step
+// of its block and lane, no division a tap).
 //
 // Taps are summed in the spec's order, one multiply and one add each, with
 // the coefficients already rounded to the element type and each product and
@@ -44,9 +51,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTaps = 16;
-constexpr int kMaxR = 4;      // reach of a tap, both kernels
-constexpr int kVec = 8;       // K5a: vectors per warp run
+constexpr int kMaxTaps = 16;   // the register forms' taps
+constexpr int kMaxR = 4;       // K5b's register form: reach of a tap
+constexpr int kMaxM = 16;      // K5b's register form: rows of a column
+constexpr int kNaiveR = 32;    // K5a's register form: one neighbouring vector
+constexpr int kVec = 8;        // K5a: vectors per warp run
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Taps1 {
@@ -166,21 +175,54 @@ onestep_transpose(const T* __restrict__ in, T* __restrict__ out, int64_t ncols, 
   }
 }
 
-// Any m: one thread per element, every tap read from memory.
+// The "mem" forms: one thread per element, tap t an int2 (offset, float
+// bits of the coefficient rounded to T) in device memory, any count.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-onestep_transpose_any(const T* __restrict__ in, T* __restrict__ out, int64_t n, int vl, int m,
-                      Taps1 taps) {
+onestep_naive_mem(const T* __restrict__ x, T* __restrict__ y, int64_t n, int ntaps,
+                  const int2* __restrict__ taps) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  float acc = 0.0f;
+  for (int t = 0; t < ntaps; ++t) {
+    const int2 tp = taps[t];
+    const float term = rnd<T>(to_f(x[wrap(e + tp.x, n)]) * __int_as_float(tp.y));
+    acc = t == 0 ? term : rnd<T>(acc + term);
+  }
+  y[e] = from_f<T>(acc);
+}
+
+// Element (b, s, j) of the layout: tap o reads row s + o of the same
+// column, or of the column beside it (|o| <= r <= m): the block and lane of
+// that column step by one, wrapping across blocks and around the row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+onestep_transpose_mem(const T* __restrict__ in, T* __restrict__ out, int64_t nb, int vl, int m,
+                      int ntaps, const int2* __restrict__ taps) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= nb * m * vl) return;
   const int64_t row = e / vl;                    // b * m + s
   const int64_t b = row / m;
   const int s = (int)(row - b * m);
-  const int64_t g = (b * vl + (e - row * vl)) * m + s;   // natural index
+  const int j = (int)(e - row * vl);
   float acc = 0.0f;
-  for (int t = 0; t < taps.n; ++t) {
-    const int64_t h = wrap(g + taps.o[t], n);
-    const float term = rnd<T>(to_f(in[col_addr(h / m, (int)(h % m), vl, m)]) * taps.c[t]);
+  for (int t = 0; t < ntaps; ++t) {
+    const int2 tp = taps[t];
+    int s2 = s + tp.x, j2 = j;
+    int64_t b2 = b;
+    if (s2 < 0 || s2 >= m) {
+      const int dc = s2 < 0 ? -1 : 1;
+      s2 -= dc * m;
+      j2 += dc;
+      if (j2 < 0) {
+        j2 += vl;
+        b2 = b2 == 0 ? nb - 1 : b2 - 1;
+      } else if (j2 >= vl) {
+        j2 -= vl;
+        b2 = b2 == nb - 1 ? 0 : b2 + 1;
+      }
+    }
+    const float term = rnd<T>(to_f(in[(b2 * m + s2) * vl + j2]) * __int_as_float(tp.y));
     acc = t == 0 ? term : rnd<T>(acc + term);
   }
   out[e] = from_f<T>(acc);
@@ -195,11 +237,12 @@ int launch_transpose(const T* in, T* out, int64_t ncols, int vl, int r, const Ta
   return (int)cudaGetLastError();
 }
 
-bool fill_taps(Taps1& taps, int64_t ntaps, const int32_t* offsets, const float* coeffs) {
+bool fill_taps(Taps1& taps, int64_t ntaps, const int32_t* offsets, const float* coeffs,
+               int reach) {
   if (ntaps < 1 || ntaps > kMaxTaps) return false;
   taps.n = (int)ntaps;
   for (int t = 0; t < ntaps; ++t) {
-    if (offsets[t] < -kMaxR || offsets[t] > kMaxR) return false;
+    if (offsets[t] < -reach || offsets[t] > reach) return false;
     taps.o[t] = offsets[t];
     taps.c[t] = coeffs[t];
   }
@@ -213,7 +256,8 @@ template <typename T>
 int naive(const void* x, void* y, int64_t n, int64_t ntaps, const int32_t* offsets,
           const float* coeffs, void* stream) {
   Taps1 taps;
-  if (n < 1 || !fill_taps(taps, ntaps, offsets, coeffs)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || !fill_taps(taps, ntaps, offsets, coeffs, kNaiveR))
+    return (int)cudaErrorInvalidValue;
   const int64_t per_block = (int64_t)kThreads * kVec;   // elements per CTA
   const int64_t blocks = (n + per_block - 1) / per_block;
   onestep_naive<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -222,12 +266,13 @@ int naive(const void* x, void* y, int64_t n, int64_t ntaps, const int32_t* offse
 }
 
 // One periodic step of the (nb, m, vl) layout array `in` into `out`, for a
-// stencil of reach r <= m.  Returns the CUDA error code.
+// stencil of reach r <= min(m, kMaxR) at m <= kMaxM.  Returns the CUDA
+// error code.
 template <typename T>
 int transpose(const void* in, void* out, int64_t nb, int64_t m, int64_t vl, int64_t r,
               int64_t ntaps, const int32_t* offsets, const float* coeffs, void* stream) {
   Taps1 taps;
-  if (nb < 1 || m < r || r > kMaxR || !fill_taps(taps, ntaps, offsets, coeffs))
+  if (nb < 1 || m < r || r > kMaxR || !fill_taps(taps, ntaps, offsets, coeffs, kMaxR))
     return (int)cudaErrorInvalidValue;
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
@@ -251,19 +296,43 @@ int transpose(const void* in, void* out, int64_t nb, int64_t m, int64_t vl, int6
     case 14: return launch_transpose<T, 14>(src, dst, ncols, v, rr, taps, st);
     case 15: return launch_transpose<T, 15>(src, dst, ncols, v, rr, taps, st);
     case 16: return launch_transpose<T, 16>(src, dst, ncols, v, rr, taps, st);
-    default: {
-      const int64_t n = ncols * m;
-      onestep_transpose_any<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                                 st>>>(src, dst, n, v, (int)m, taps);
-      return (int)cudaGetLastError();
-    }
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The "mem" forms (above) of the natural-layout step (n elements) and of
+// the layout step ((nb, m, vl), any m, every |offset| <= m): `taps` ntaps
+// int2 (offset, coefficient bits) in device memory.  Returns the CUDA
+// error code.
+template <typename T>
+int naive_mem(const void* x, void* y, int64_t n, int64_t ntaps, const void* taps, void* stream) {
+  if (n < 1 || ntaps < 1) return (int)cudaErrorInvalidValue;
+  onestep_naive_mem<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n, (int)ntaps,
+      static_cast<const int2*>(taps));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int transpose_mem(const void* in, void* out, int64_t nb, int64_t m, int64_t vl, int64_t ntaps,
+                  const void* taps, void* stream) {
+  if (nb < 1 || m < 1 || vl < 1 || ntaps < 1) return (int)cudaErrorInvalidValue;
+  const int64_t n = nb * m * vl;
+  onestep_transpose_mem<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), nb, (int)vl, (int)m, (int)ntaps,
+      static_cast<const int2*>(taps));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the register forms' limits (stencil_kernels.ONESTEP_*)
 extern "C" int64_t repro_onestep_max_reach() { return kMaxR; }
+extern "C" int64_t repro_onestep_naive_max_reach() { return kNaiveR; }
 extern "C" int64_t repro_onestep_max_taps() { return kMaxTaps; }
+extern "C" int64_t repro_onestep_max_m() { return kMaxM; }
 
 // naive / transpose (above) on float and on bfloat16 elements.
 extern "C" int repro_onestep_naive_f32(const void* x, void* y, int64_t n, int64_t ntaps,
@@ -290,4 +359,27 @@ extern "C" int repro_onestep_transpose_bf16(const void* in, void* out, int64_t n
                                             const int32_t* offsets, const float* coeffs,
                                             void* stream) {
   return transpose<__nv_bfloat16>(in, out, nb, m, vl, r, ntaps, offsets, coeffs, stream);
+}
+
+// naive_mem / transpose_mem (above) on float and on bfloat16 elements.
+extern "C" int repro_onestep_naive_mem_f32(const void* x, void* y, int64_t n, int64_t ntaps,
+                                           const void* taps, void* stream) {
+  return naive_mem<float>(x, y, n, ntaps, taps, stream);
+}
+
+extern "C" int repro_onestep_naive_mem_bf16(const void* x, void* y, int64_t n, int64_t ntaps,
+                                            const void* taps, void* stream) {
+  return naive_mem<__nv_bfloat16>(x, y, n, ntaps, taps, stream);
+}
+
+extern "C" int repro_onestep_transpose_mem_f32(const void* in, void* out, int64_t nb, int64_t m,
+                                               int64_t vl, int64_t ntaps, const void* taps,
+                                               void* stream) {
+  return transpose_mem<float>(in, out, nb, m, vl, ntaps, taps, stream);
+}
+
+extern "C" int repro_onestep_transpose_mem_bf16(const void* in, void* out, int64_t nb,
+                                                int64_t m, int64_t vl, int64_t ntaps,
+                                                const void* taps, void* stream) {
+  return transpose_mem<__nv_bfloat16>(in, out, nb, m, vl, ntaps, taps, stream);
 }

@@ -9,8 +9,8 @@
 // dividing m) and any reach r <= 4: one launch takes depth * r <= 32 * M,
 // and stencil_kernels.sweep1d_launches cuts a deeper sweep into consecutive
 // launches (stencil_kernels.sweep1d_route picks this kernel before the
-// launch).  Only r > 4, which no registry stencil has, takes the
-// shared-memory kernel of csrc/stencil_sweep.cu.
+// launch).  Only r > 4 or more than kMaxTaps taps, which no registry
+// stencil has, takes the far-reach kernel of csrc/sweep_far.cu.
 //
 // Design: K5b (csrc/onestep.cu) carried through `depth` steps in registers.
 // The layout's C = nb * vl columns each hold m consecutive natural
@@ -122,7 +122,7 @@ constexpr int kWarps = 4;     // warps per CTA
 constexpr int kMaxTaps = 16;
 constexpr int kMaxR = 4;
 
-// the ends of the grid, numbered as csrc/stencil_sweep.cu's Edge
+// the ends of the grid, numbered as csrc/sweep_far.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
 // Warp rows per warp run, by m (stencil_kernels.WARP_BLOCKS holds the same).

@@ -9,9 +9,9 @@
 // the instance M (the largest of 8, 4, 2, 1 dividing m), with depth up to
 // repro_sweep2d_warp_max_depth(M, r) or the deep instance's below
 // (stencil_kernels.sweep2d_launches cuts a deeper sweep into consecutive
-// launches before the launch).  Only 2-D stencils of reach r > 4, which no
-// registry stencil has, take the shared-memory kernel of
-// csrc/stencil_sweep.cu.
+// launches before the launch).  Only 2-D stencils of reach r > 4 or of
+// more than kMaxTaps taps, which no registry stencil has, take the
+// far-reach kernel of csrc/sweep_far.cu.
 //
 // Design: K1's warp-register kernel (csrc/sweep1d_warp.cu) streamed along
 // axis 0.  A row's C = nb * vl columns each hold m consecutive elements;
@@ -147,7 +147,7 @@ constexpr int kSlots = kStages + 1;      // the ring of input rows
 constexpr int kMaxTaps = 64;
 constexpr int kMaxR = 4;                 // the reaches the instances take: 1..kMaxR
 
-// the ends of axis 0, numbered as csrc/stencil_sweep.cu's Edge
+// the ends of axis 0, numbered as csrc/sweep_far.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
 // Deepest instance by (m, r) (stencil_kernels.WARP2D_DEPTH holds the

@@ -8,9 +8,9 @@
 // ends of axis 0), for 3-D stencils of reach r <= 4 at any vl, any m and
 // depth 1..max_depth(M, r) (stencil_kernels.sweep3d_route picks it before
 // the launch, and stencil_kernels.sweep3d_launches cuts a deeper sweep into
-// consecutive launches).  Only 3-D stencils of reach r > 4, which no
-// registry stencil has, take the shared-memory kernel of
-// csrc/stencil_sweep.cu.
+// consecutive launches).  Only 3-D stencils of reach r > 4 or of more
+// than kMaxTaps taps, which no registry stencil has, take the far-reach
+// kernel of csrc/sweep_far.cu.
 //
 // Design: 2.5-D blocking, streamed along axis 0 (z) as csrc/sweep2d_warp.cu
 // streams along y.
@@ -150,7 +150,7 @@ constexpr int kStagesD1 = 3;
 constexpr int kMaxTaps = 64;
 constexpr int kSmemMax = 232448;         // H100: dynamic shared memory a CTA may use
 
-// the ends of axis 0, numbered as csrc/stencil_sweep.cu's Edge
+// the ends of axis 0, numbered as csrc/sweep_far.cu's Edge
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
 // The order of the taps, when it is one the kernel knows at compile time.

@@ -6,23 +6,22 @@
     kernel at every vl and m (one thread per sub-column of a block, or at
     vl < 4 a warp per span of whole blocks; :func:`transpose_route`).
   * K1 ``stencil1d_sweep_ttile`` and K3 ``stencil_nd_sweep_ttile``: a fully
-    periodic depth-``ttile·k`` advance of the layout-resident grid in one
-    launch (reference: ``_kernel_1d`` and ``_kernel_nd``).  K1 and K3 each
-    take one of two kernels, chosen by shape before the launch: a register
-    kernel where one applies (:func:`sweep1d_route`:
-    ``csrc/sweep1d_warp.cu`` and :func:`sweep2d_route`:
-    ``csrc/sweep2d_warp.cu``, a lane on each of 32 consecutive
-    sub-columns of the layout; :func:`sweep3d_route`: ``csrc/sweep3d.cu``,
-    a thread on each sub-column; all three at any ``vl``, ``m`` and depth,
-    on sub-columns of ``M`` points, :func:`sub_columns`; a sweep deeper
-    than one launch takes is consecutive launches of them), or the
-    shared-memory kernel ``csrc/stencil_sweep.cu`` (reach beyond the
-    kernels': r > 4 at every rank).
+    periodic depth-``ttile·k`` advance of the layout-resident grid (reference:
+    ``_kernel_1d`` and ``_kernel_nd``).  K1 and K3 each take one of two
+    kernels, chosen by shape before the launch: a register kernel where one
+    applies (:func:`sweep1d_route`: ``csrc/sweep1d_warp.cu`` and
+    :func:`sweep2d_route`: ``csrc/sweep2d_warp.cu``, a lane on each of 32
+    consecutive sub-columns of the layout; :func:`sweep3d_route`:
+    ``csrc/sweep3d.cu``, a thread on each sub-column; all three at any
+    ``vl``, ``m`` and depth, on sub-columns of ``M`` points,
+    :func:`sub_columns`), or the far-reach kernel ``csrc/sweep_far.cu``
+    (reach r > 4, or more taps than the register kernels hold, at every
+    rank: its taps at run time, streamed along axis 0 in 2-D and 3-D).  A
+    sweep deeper than one launch takes is consecutive launches of either.
   * K4 ``stencil1d_multistep`` / ``stencil_nd_multistep`` (and the halo
     wrappers ``stencil{1d,_nd}_sweep_halo``) — the same kernels with a
     Dirichlet ring or open edges along axis 0 (reference: the same Pallas
-    bodies with ``edge_mask``): on the routes of K1, and of K3 in 2-D and
-    3-D.
+    bodies with ``edge_mask``), on the routes of K1 and K3.
   * K5 ``stencil1d_naive_onestep`` / ``stencil1d_transpose_onestep`` —
     ``csrc/onestep.cu``: one periodic 1-D step in the natural layout and in
     the transpose layout, the paper's layout A/B (reference:
@@ -41,12 +40,11 @@ bfloat16 (each product and sum rounded to the dtype, as the plain versions
 do); K2 moves elements of 2, 4 or 8 bytes.  Each launch adds one to
 ``LAUNCHES[<kernel>]`` (a sweep cut into consecutive launches adds one per
 launch; a bfloat16 launch counts as a float32 one), the routes apart: K2
-under ``transpose``; K1 under ``sweep_1d`` (warp kernel) and
-``sweep_1d_smem``; K4a under
-``multistep_1d`` (warp kernel) and ``multistep_1d_smem``; K3 under
-``sweep_2d`` (2-D warp kernel), ``sweep_3d`` (3-D streaming kernel) and
-``sweep_nd``; K4b under ``multistep_2d``, ``multistep_3d`` (the same
-kernels) and ``multistep_nd``; the mxu sweeps' products on the card under
+under ``transpose``; K1 under ``sweep_1d`` (warp kernel); K4a under
+``multistep_1d``; K3 under ``sweep_2d`` (2-D warp kernel) and ``sweep_3d``
+(3-D streaming kernel); K4b under ``multistep_2d`` and ``multistep_3d``;
+the far-reach kernel at every rank under ``sweep_far`` (K1, K3) and
+``multistep_far`` (K4); the mxu sweeps' products on the card under
 ``mxu``.  The plain versions count nothing.  Outputs are allocated here
 (or passed in as ``out``); the kernels allocate nothing.
 """
@@ -63,14 +61,9 @@ from repro_torch.core.vectorize import step_in_layout
 from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_1d_smem": 0,
-            "sweep_2d": 0, "sweep_3d": 0, "sweep_nd": 0, "multistep_1d": 0,
-            "multistep_1d_smem": 0, "multistep_2d": 0, "multistep_3d": 0, "multistep_nd": 0,
+LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_2d": 0, "sweep_3d": 0, "sweep_far": 0,
+            "multistep_1d": 0, "multistep_2d": 0, "multistep_3d": 0, "multistep_far": 0,
             "onestep_naive": 0, "onestep_transpose": 0, "mxu": 0}
-
-SMEM_MAX = 232448 - 1024    # H100 per-block shared memory less static use
-_TILE_X = {1: 4096, 2: 256, 3: 32}   # default output tile, minor axis
-_TILE_MID = 16                       # default output tile, 3-D mid axis
 # csrc/transpose.cu's forms: vl below TRANSPOSE_MIN_VL a warp a span of
 # whole blocks (transpose_small); from it a thread a sub-column of M =
 # transpose_sub(m), with every stride fixed (transpose_reg: vl a power of
@@ -120,9 +113,28 @@ SWEEP3D_DEPTH = {**{(mm, 1): 4 for mm in (1, 2, 4, 8)},
                  **{(mm, 4): 1 for mm in (1, 2, 4, 8)}}
 SWEEP3D_MAX_R = 4
 SWEEP3D_SEG_MIN = 8
-# taps a 2-D or 3-D stencil may have on the register kernels (kMaxTaps of
-# csrc/sweep2d_warp.cu and csrc/sweep3d.cu, as of csrc/stencil_sweep.cu)
+# taps a stencil may have on the register kernels (kMaxTaps of
+# csrc/sweep1d_warp.cuh, and of csrc/sweep2d_warp.cuh and csrc/sweep3d.cuh):
+# a spec of more takes the far-reach kernel
+WARP_MAX_TAPS = 16
 ND_MAX_TAPS = 64
+# csrc/sweep_far.cu: threads a CTA, the shared memory a CTA may take (the
+# card's limit), an SM's, and the share its tile aims at (two CTAs an SM),
+# the deepest launch by rank (a deeper sweep is consecutive launches; the
+# kernel takes one step a launch along a stream axis), and the output tile
+# (rows, columns of m points) it starts from by rank: the columns, then the
+# rows, halve until the planes fit the aim.  On an H100 (reach 5,
+# tools/kernel_ab.py --only reach5, PERF.md section 6) 1-D depth 16 as 8 + 8
+# beat 16 and 4 × 4; 2-D depth 4 as 4 × 1 beat 2 + 2 and one launch (when
+# the kernel still kept a ring of 2r + 2 planes a level), and 3-D depth 2 as
+# one launch ran 20× 1 + 1; 1-D tiles of 512 columns beat 256 and 1024,
+# 2-D 256 beat 128 and tied 512
+FAR_THREADS = 256
+FAR_SMEM = 232448
+FAR_SMEM_SM = 233472
+FAR_SMEM_AIM = FAR_SMEM_SM // 2 - 1024
+FAR_DEPTH = {1: 8, 2: 1, 3: 1}
+FAR_TILE = {1: (1, 512), 2: (1, 256), 3: (16, 8)}
 # the tap orders csrc/sweep3d.cu knows at compile time (its Order): the box
 # of reach 1 and the star (``stencils._star_taps``' order) of reach 1 and 2
 _BOX3 = tuple((oz, oy, ox) for oz in (-1, 0, 1) for oy in (-1, 0, 1) for ox in (-1, 0, 1))
@@ -311,49 +323,7 @@ def _check_layout(spec: StencilSpec, t: torch.Tensor) -> None:
         raise ValueError(f"{spec.name}: m={t.shape[-2]} is below the stencil radius {spec.r}")
 
 
-def sweep_tile(spec: StencilSpec, nat: tuple[int, int, int], m: int, depth: int,
-               t0: int | None = None) -> tuple[tuple[int, int, int], tuple[int, int, int], int]:
-    """Output tile (tz, ty, tx), loaded halo (hz, hy, hx) and dynamic
-    shared memory of one CTA of the sweep kernel for a depth-``depth``
-    launch on the natural (nz, ny, nx) grid.  The axis-0 rows of an n-D
-    tile are ``t0``; the minor (then mid) extent shrinks until the two
-    buffers fit.  Raises when no tile fits: this kernel never splits a
-    launch (the register kernels' routes take every depth of reach up to 4
-    at every rank, a deep sweep as consecutive launches,
-    :func:`sweep1d_launches`, :func:`sweep2d_launches`,
-    :func:`sweep3d_launches`)."""
-    nz, ny, nx = nat
-    nd, r = spec.ndim, spec.r
-    rz, ry = (r if nd == 3 else 0), (r if nd >= 2 else 0)
-    hz, hy = depth * rz, depth * ry
-    hx = -(-depth * r // m) * m
-    tx = min(-(-_TILE_X[nd] // m) * m, nx)
-    if nd == 1:
-        tz = ty = 1
-    elif nd == 2:
-        tz, ty = 1, t0
-    else:
-        tz, ty = t0, min(_TILE_MID, ny)
-
-    def smem(tz, ty, tx):
-        return 2 * (tz + 2 * hz) * (ty + 2 * hy) * (tx + 2 * hx) * 4
-
-    while smem(tz, ty, tx) > SMEM_MAX:
-        if tx > m:
-            tx = max(m, tx // 2 // m * m)
-        elif nd == 3 and ty > 1:
-            ty //= 2
-        else:
-            raise ValueError(
-                f"{spec.name}: a depth-{depth} sweep needs a halo of {depth * r} "
-                f"per side that no CUDA tile fits in shared memory (axis-0 tile "
-                f"t0={t0}); the shared-memory kernel serves reach r > 4 only, and "
-                "ROADMAP D2 is closed on the register kernels (reach up to 4 at every "
-                "rank, consecutive launches past their deepest instance)")
-    return (tz, ty, tx), (hz, hy, hx), smem(tz, ty, tx)
-
-
-# the Edge of stencil_sweep.cu, sweep1d_warp.cu and sweep2d_warp.cu
+# the Edge of the sweep kernels (sweep_far.cu, sweep1d_warp, sweep2d_warp, sweep3d)
 _EDGES = {"periodic": 0, "ring": 1, "open": 2}
 
 
@@ -371,30 +341,189 @@ def _taps(spec: StencilSpec, width: int, dtype: torch.dtype):
     return ntaps, offs, coeffs
 
 
-def _sweep_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor,
-                  depth: int, t0: int | None, edge: str = "periodic") -> None:
-    _kernel_io(t, out, "the CUDA sweep kernel")
+def far_smem(m: int, rz: int, ry: int, r: int, depth: int, ty: int, tc: int, ncp: int,
+             ntaps: int, itemsize: int) -> int:
+    """Dynamic shared memory (bytes) of one CTA of ``csrc/sweep_far.cu``
+    (its ``layout``): the tap table (8 bytes a row s and a tap, 4 a tap's
+    coefficient), the loaded plane's device offsets (8 bytes) and
+    shared-memory indices (4) a point of a row, the output tile's device
+    offsets (8), the 3-D tile's point indices (4), then the planes: a ring
+    of ``2rz + 3`` along a stream axis (``rz > 0``, one step a launch),
+    else one or two shared by the levels.  A plane is ``ty + 2·depth·ry``
+    rows of ``m`` runs of ``ncp`` elements; in 1-D and 2-D 64 elements
+    more, read and dropped by the lanes past a level's last point."""
+    if rz and depth > 1:
+        raise ValueError(f"the far-reach kernel takes one step a launch along a stream axis, "
+                         f"not {depth}")
+    hc = -(-r // m)
+    py, nc = ty + 2 * depth * ry, tc + 2 * depth * hc
+    qt = 0 if py == 1 else ty * tc
+    tab = -(-(8 * m * ntaps + 4 * ntaps) // 8) * 8
+    tables = -(-(tab + 12 * py * nc + 8 * ty * tc + 4 * qt) // 16) * 16
+    planes = 2 * rz + 3 if rz else min(max(depth, 1), 2)
+    return tables + itemsize * (py * m * ncp * planes + (64 if py == 1 else 0))
+
+
+def far_pitch(ty: int, tc: int, nc: int, m: int, itemsize: int, fits=None) -> int | None:
+    """The column pitch ``ncp >= nc`` of ``csrc/sweep_far.cu``'s planes: at
+    one row a tile (1-D, 2-D) ``nc`` (a warp's lanes read consecutive
+    words); with rows (3-D) the pitch in ``[nc, nc + 32)`` for which
+    ``fits(ncp)`` holds whose output points, 32 a warp over the tile's rows
+    and columns, fall on the fewest words in one bank (None when none
+    fits)."""
+    if ty == 1:
+        return nc if fits is None or fits(nc) else None
+    best = None
+    for ncp in range(nc, nc + 32):
+        if fits is not None and not fits(ncp):
+            continue
+        worst = 0
+        for q0 in range(0, ty * tc, 32):
+            words = {((q // tc) * m * ncp + q % tc) * itemsize // 4
+                     for q in range(q0, min(q0 + 32, ty * tc))}
+            banks: dict[int, int] = {}
+            for w in words:
+                banks[w % 32] = banks.get(w % 32, 0) + 1
+            worst = max(worst, max(banks.values()))
+        if best is None or worst < best[0]:
+            best = (worst, ncp)
+    return best[1] if best else None
+
+
+def _far_reach(ndim: int, r: int) -> tuple[int, int]:
+    """``(rz, ry)``: the reach along the stream axis (axis 0 of a 2-D or 3-D
+    stencil; none in 1-D) and the 3-D mid axis."""
+    return (r if ndim >= 2 else 0), (r if ndim == 3 else 0)
+
+
+def far_depth(ndim: int, m: int, r: int, ntaps: int, itemsize: int = 4) -> int:
+    """The deepest launch of ``csrc/sweep_far.cu`` for a stencil of rank
+    ``ndim``, reach ``r`` and ``ntaps`` taps at ``m``: at most
+    ``FAR_DEPTH[ndim]``, and as deep as a tile of one row and one column
+    fits ``FAR_SMEM``.  Raises, naming the limit, when depth 1 does not."""
+    rz, ry = _far_reach(ndim, r)
+    hc = -(-r // m)
+    for depth in range(FAR_DEPTH[ndim], 0, -1):
+        smem = far_smem(m, rz, ry, r, depth, 1, 1, 1 + 2 * depth * hc, ntaps, itemsize)
+        if smem <= FAR_SMEM:
+            return depth
+    raise ValueError(f"a {ndim}-D stencil of reach {r} and {ntaps} taps at m={m}: one step of "
+                     f"the far-reach kernel needs {smem} bytes of shared memory at its "
+                     f"smallest tile (one row, one column), above the {FAR_SMEM} a CTA may take")
+
+
+@functools.lru_cache(maxsize=None)
+def far_launches(ndim: int, m: int, depth: int, r: int, ntaps: int,
+                 itemsize: int = 4) -> tuple[tuple[int, int, int], ...]:
+    """The launches ``(m, 1, D)`` of ``csrc/sweep_far.cu`` for a
+    depth-``depth`` sweep: launches of :func:`far_depth` and the rest.
+    Each launch defines the ends at every step, so the chain is bit for bit
+    one deeper launch.  Depth 0 is one launch that copies."""
+    deepest = far_depth(ndim, m, r, ntaps, itemsize)
+    plan, left = [], depth
+    while left > 0:
+        plan.append((m, 1, min(deepest, left)))
+        left -= plan[-1][2]
+    return tuple(plan) or ((m, 1, 0),)
+
+
+def far_tile(ndim: int, nat: tuple[int, int, int], m: int, r: int, depth: int, ntaps: int,
+             itemsize: int) -> tuple[int, int, int, int]:
+    """``(ty, tc, ncp, smem)``: the output tile of one CTA of
+    ``csrc/sweep_far.cu`` (rows ``ty``, columns ``tc`` of ``m`` points; no
+    larger than the grid), its planes' column pitch and its shared memory
+    for a depth-``depth`` launch on the (nz, ny, nx) grid ``nat``: from
+    ``FAR_TILE[ndim]``, the columns (or, when narrower in points, the rows)
+    halve until the CTA, at the best pitch that fits, takes
+    ``FAR_SMEM_AIM`` (a tile whose points fill a warp's lanes, with a bank
+    conflict, beat a narrower one without: 3-D reach 5, PERF.md section
+    6).  Raises, naming the limit, when one row and one column exceed
+    ``FAR_SMEM``."""
+    _, ny, nx = nat
+    rz, ry = _far_reach(ndim, r)
+    hc = -(-r // m)
+    ty, tc = FAR_TILE[ndim]
+    ty, tc = min(ty, ny), min(tc, nx // m)
+
+    def size(ty, tc):
+        def smem(ncp):
+            return far_smem(m, rz, ry, r, depth, ty, tc, ncp, ntaps, itemsize)
+        nc = tc + 2 * depth * hc
+        ncp = far_pitch(ty, tc, nc, m, itemsize, lambda p: smem(p) <= FAR_SMEM_AIM)
+        if ncp is None:
+            ncp = far_pitch(ty, tc, nc, m, itemsize)
+        return ncp, smem(ncp)
+    ncp, smem = size(ty, tc)
+    while smem > FAR_SMEM_AIM and (ty > 1 or tc > 1):
+        if tc > 1 and (tc * m >= ty or ty == 1):
+            tc //= 2
+        else:
+            ty //= 2
+        ncp, smem = size(ty, tc)
+    if smem > FAR_SMEM:
+        raise ValueError(f"a depth-{depth} launch of the far-reach kernel (reach {r}, {ntaps} "
+                         f"taps, m={m}) needs {smem} bytes of shared memory at its smallest "
+                         f"tile, above the {FAR_SMEM} a CTA may take")
+    return ty, tc, ncp, smem
+
+
+@functools.lru_cache(maxsize=None)
+def far_segment(nz: int, tiles: int, smem: int, depth: int, rz: int, sms: int) -> int:
+    """Axis-0 positions a CTA of ``csrc/sweep_far.cu`` stores: the segment
+    whose waves of resident CTAs (``sms`` SMs, as many an SM as the shared
+    memory and 2048 threads allow) times the steps of a segment (its
+    positions and the ``2·depth·rz + depth`` steps it starts early and ends
+    late) are fewest.  1 without a stream axis."""
+    if rz == 0:
+        return 1
+    resident = sms * max(1, min(2048 // FAR_THREADS, FAR_SMEM_SM // (smem + 1024)))
+    warm = 2 * depth * rz + max(depth, 1)
+    best = None
+    for nseg in range(1, min(nz, 65535) + 1):
+        seg = -(-nz // nseg)
+        cost = -(-tiles * -(-nz // seg) // resident) * (seg + warm)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _far_taps(taps, ndim: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``csrc/sweep_far.cu``'s taps in device memory: an int32 quadruple a
+    tap, (axis-0 offset along the stream axis, mid, minor, the coefficient
+    rounded to ``dtype`` as that dtype's bits)."""
+    rows = []
+    for off, c in taps:
+        oz, oy, ox = ((0, 0, off[0]) if ndim == 1 else (off[0], 0, off[1]) if ndim == 2
+                      else tuple(off))
+        bits = torch.tensor([coeff(c, dtype)], dtype=dtype).view(
+            torch.int32 if dtype == torch.float32 else torch.int16).item()
+        rows.append((oz, oy, ox, bits & 0xFFFF if dtype != torch.float32 else bits))
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _far_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
+                edge: str = "periodic") -> None:
+    """One depth-``depth`` launch of ``csrc/sweep_far.cu`` (at most
+    :func:`far_depth`) with the ends ``edge`` on axis 0."""
+    _kernel_io(t, out, "the far-reach sweep kernel")
     nb, m, vl = t.shape[-3:]
-    lead = tuple(t.shape[:-3])
-    nat = (1,) * (2 - len(lead)) + lead + (nb * m * vl,)
-    (tz, ty, tx), (hz, hy, hx), smem = sweep_tile(spec, nat, m, depth, t0)
-    if -(-nat[0] // tz) > 65535 or -(-nat[1] // ty) > 65535:
-        raise ValueError(f"{spec.name}: grid {nat} needs more than 65535 tiles on a "
-                         "leading axis")
-    if nat[2] // m >= 2**31:
-        raise ValueError(f"{spec.name}: minor extent {nat[2]} has 2^31 or more "
-                         f"columns of m={m}")
-    lib = build.load("stencil_sweep")
-    ntaps, offs, coeffs = _taps(spec, 3, t.dtype)
-    if ntaps > lib.repro_stencil_max_taps():
-        raise ValueError(f"{spec.name}: {ntaps} taps exceed the kernel's limit")
     nd, r = spec.ndim, spec.r
-    build.check(_entry("stencil_sweep", "stencil_sweep", t.dtype)(
-        t.data_ptr(), out.data_ptr(), *nat, vl, m, tz, ty, tx, hz, hy, hx,
-        r if nd == 3 else 0, r if nd >= 2 else 0, r, depth, _EDGES[edge],
-        3 - nd,                              # the stencil's axis 0 in (z, y, x)
-        ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
-        smem, _stream()), f"{spec.name} sweep kernel")
+    lead = tuple(t.shape[:-3])
+    nx = nb * m * vl
+    nz, ny = (1, 1) if nd == 1 else (lead[0], 1) if nd == 2 else lead
+    rz, ry = _far_reach(nd, r)
+    ty, tc, ncp, smem = far_tile(nd, (nz, ny, nx), m, r, depth, len(spec.taps), t.element_size())
+    tiles = -(-(nb * vl) // tc) * -(-ny // ty)
+    seg = far_segment(nz, tiles, smem, depth, rz, _sm_count(t.device))
+    if -(-ny // ty) > 65535 or -(-nz // seg) > 65535 or nb * vl >= 2**31:
+        raise ValueError(f"{spec.name}: grid {(nz, ny, nx)} at vl={vl}, m={m} needs more than "
+                         "65535 tiles on a leading axis or 2^31 columns")
+    taps = _far_taps(spec.taps, nd, t.dtype, t.device)
+    build.check(_entry("sweep_far", "sweep_far", t.dtype)(
+        t.data_ptr(), out.data_ptr(), nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg,
+        _EDGES[edge], int(nd == 1), len(spec.taps), taps.data_ptr(), _stream()),
+        f"{spec.name} far-reach sweep kernel")
 
 
 def sub_columns(m: int) -> tuple[int, int]:
@@ -443,20 +572,21 @@ def _chain(launch, t: torch.Tensor, dst: torch.Tensor, plan) -> None:
         src = target
 
 
-def sweep1d_route(vl: int, m: int, depth: int, r: int) -> str:
+def sweep1d_route(vl: int, m: int, depth: int, r: int, ntaps: int) -> str:
     """The kernel a CUDA :func:`stencil1d_sweep_ttile` or
-    :func:`stencil1d_multistep` (``depth = k``) launches: ``"warp"``
-    (``csrc/sweep1d_warp.cu``, at any ``vl``, ``m`` and depth: a warp row
-    is 32 sub-columns of ``M`` points, one per lane, :func:`sub_columns`;
-    a lane's halo comes from the lanes up to ``ceil(r / M)`` away, and the
-    launches are those :func:`sweep1d_launches` names) when the reach is
-    the kernel's (``r <= WARP_MAX_R``); ``"smem"``
-    (``csrc/stencil_sweep.cu``) for ``r > 4``, which no registry stencil
-    has.  The periodic, ring and open ends take the same route at every
-    column count."""
-    if vl >= 1 and m >= 1 and depth >= 0 and 1 <= r <= WARP_MAX_R:
+    :func:`stencil1d_multistep` (``depth = k``) launches for a stencil of
+    reach ``r`` and ``ntaps`` taps: ``"warp"`` (``csrc/sweep1d_warp.cu``,
+    at any ``vl``, ``m`` and depth: a warp row is 32 sub-columns of ``M``
+    points, one per lane, :func:`sub_columns`; a lane's halo comes from the
+    lanes up to ``ceil(r / M)`` away, and the launches are those
+    :func:`sweep1d_launches` names) when the reach and the taps are the
+    kernel's (``r <= WARP_MAX_R``, ``ntaps <= WARP_MAX_TAPS``); else
+    ``"far"`` (``csrc/sweep_far.cu``, the launches of :func:`far_launches`),
+    which no registry stencil takes.  The periodic, ring and open ends take
+    the same route at every column count."""
+    if vl >= 1 and m >= 1 and depth >= 0 and 1 <= r <= WARP_MAX_R and ntaps <= WARP_MAX_TAPS:
         return "warp"
-    return "smem"
+    return "far"
 
 
 @functools.lru_cache(maxsize=None)
@@ -496,7 +626,7 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     the layout-resident (nb, m, vl) array, on the kernel
     :func:`sweep1d_route` names: the warp kernel's launches of
     :func:`sweep1d_launches` (one unless the sweep is deeper than
-    ``32·M // r``), or one launch of the shared-memory kernel."""
+    ``32·M // r``), or the far-reach kernel's of :func:`far_launches`."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -504,7 +634,7 @@ def stencil1d_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_sweep_ttile_ref(spec, t, k, ttile), "stencil1d_sweep_ttile")
     _check_cuda(t, "stencil1d_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil1d_sweep_ttile")
-    _launches(spec, t, dst, sweep_depth(k, ttile), None, "periodic")
+    _launches(spec, t, dst, sweep_depth(k, ttile), "periodic")
     return dst
 
 
@@ -520,18 +650,19 @@ assert all(d * r <= WARP_LANES * mm for r in range(1, WARP2D_MAX_R + 1)
            for mm, ds in sweep2d_depths(r).items() for d in ds)
 
 
-def sweep2d_route(vl: int, m: int, depth: int, r: int) -> str:
+def sweep2d_route(vl: int, m: int, depth: int, r: int, ntaps: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 2-D
-    stencil: ``"warp"`` (``csrc/sweep2d_warp.cu``, at any ``vl``, ``m`` and
-    ``depth``: a warp covers 32 sub-columns of ``M`` points of a row, one
-    per lane, a lane's x halo from the lanes up to ``ceil(r / M)`` away, on
-    the instances :func:`sweep2d_launches` names) when the reach is the
-    kernel's (``r <= WARP2D_MAX_R``); ``"smem"`` (``csrc/stencil_sweep.cu``)
-    for ``r > 4``, which no registry stencil has."""
-    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= WARP2D_MAX_R:
+    stencil of reach ``r`` and ``ntaps`` taps: ``"warp"``
+    (``csrc/sweep2d_warp.cu``, at any ``vl``, ``m`` and ``depth``: a warp
+    covers 32 sub-columns of ``M`` points of a row, one per lane, a lane's x
+    halo from the lanes up to ``ceil(r / M)`` away, on the instances
+    :func:`sweep2d_launches` names) when the reach and the taps are the
+    kernel's (``r <= WARP2D_MAX_R``, ``ntaps <= ND_MAX_TAPS``); else
+    ``"far"`` (``csrc/sweep_far.cu``), which no registry stencil takes."""
+    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= WARP2D_MAX_R and ntaps <= ND_MAX_TAPS:
         return "warp"
-    return "smem"
+    return "far"
 
 
 @functools.lru_cache(maxsize=None)
@@ -592,18 +723,19 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
         f"{spec.name} 2-D warp sweep kernel")
 
 
-def sweep3d_route(vl: int, m: int, depth: int, r: int) -> str:
+def sweep3d_route(vl: int, m: int, depth: int, r: int, ntaps: int) -> str:
     """The kernel a CUDA :func:`stencil_nd_sweep_ttile` or
     :func:`stencil_nd_multistep` (``depth = k``) launches for a 3-D
-    stencil: ``"stream"`` (``csrc/sweep3d.cu``, at any ``vl``, ``m`` and
-    ``depth``: a thread owns a sub-column of the layout, on the instances
-    :func:`sweep3d_launches` names) when the reach is the kernel's (``r <=
-    SWEEP3D_MAX_R``); ``"smem"`` (``csrc/stencil_sweep.cu``) for ``r > 4``,
-    which no registry stencil has.  The periodic, ring and open ends take
-    the same route."""
-    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= SWEEP3D_MAX_R:
+    stencil of reach ``r`` and ``ntaps`` taps: ``"stream"``
+    (``csrc/sweep3d.cu``, at any ``vl``, ``m`` and ``depth``: a thread owns
+    a sub-column of the layout, on the instances :func:`sweep3d_launches`
+    names) when the reach and the taps are the kernel's (``r <=
+    SWEEP3D_MAX_R``, ``ntaps <= ND_MAX_TAPS``); else ``"far"``
+    (``csrc/sweep_far.cu``), which no registry stencil takes.  The
+    periodic, ring and open ends take the same route."""
+    if vl >= 1 and m >= 1 and depth >= 1 and 1 <= r <= SWEEP3D_MAX_R and ntaps <= ND_MAX_TAPS:
         return "stream"
-    return "smem"
+    return "far"
 
 
 @functools.lru_cache(maxsize=None)
@@ -697,13 +829,13 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                            ttile: int, t0: int, out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """``ttile`` fully periodic k-step sweeps of the layout-resident
-    (n0, *mid, nb, m, vl) array; ``t0`` is the axis-0 rows of the
-    shared-memory kernel's output tile (it must divide n0 and reach the
-    radius, as the reference's pipeline tile must).  A sweep that
-    :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
-    kernel runs as the launches :func:`sweep2d_launches` /
-    :func:`sweep3d_launches` name and picks its own segment length: results
-    never depend on the tile or the split."""
+    (n0, *mid, nb, m, vl) array; ``t0`` shapes only the reference's
+    pipeline (it must divide n0 and reach the radius, as the reference
+    asserts).  The sweep runs as the launches of the kernel
+    :func:`sweep2d_route` or :func:`sweep3d_route` names
+    (:func:`sweep2d_launches` / :func:`sweep3d_launches` /
+    :func:`far_launches`), each picking its own tile and segment length:
+    results never depend on the tile or the split."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -716,45 +848,50 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
                      "stencil_nd_sweep_ttile")
     _check_cuda(t, "stencil_nd_sweep_ttile")
     dst = _out(out, t.shape, t, "stencil_nd_sweep_ttile")
-    _launches(spec, t, dst, sweep_depth(k, ttile), t0, "periodic")
+    _launches(spec, t, dst, sweep_depth(k, ttile), "periodic")
     return dst
 
 
+def sweep_plan(spec: StencilSpec, vl: int, m: int, depth: int, itemsize: int = 4
+               ) -> tuple[str, tuple[tuple[int, int, int], ...]]:
+    """``(key, launches)`` of a depth-``depth`` sweep of ``spec`` at the
+    tile ``(vl, m)`` on elements of ``itemsize`` bytes: the kernel its
+    route takes (``"1d"`` / ``"2d"`` / ``"3d"``, the register kernels of
+    :func:`sweep1d_route` / :func:`sweep2d_route` / :func:`sweep3d_route`,
+    or ``"far"``, the far-reach kernel; the suffix of its ``LAUNCHES``
+    counters) and its consecutive launches ``(M, g, D)``
+    (:func:`sweep1d_launches` / :func:`sweep2d_launches` /
+    :func:`sweep3d_launches` / :func:`far_launches`).  The one place the
+    wrappers, the tuner's gate and the roofline read a route from; raises,
+    naming the limit, where no far-reach launch fits."""
+    r, ntaps = spec.r, len(spec.taps)
+    if spec.ndim == 1 and sweep1d_route(vl, m, depth, r, ntaps) == "warp":
+        return "1d", sweep1d_launches(m, depth, r)
+    if spec.ndim == 2 and sweep2d_route(vl, m, depth, r, ntaps) == "warp":
+        return "2d", sweep2d_launches(m, depth, r)
+    if spec.ndim == 3 and sweep3d_route(vl, m, depth, r, ntaps) == "stream":
+        return "3d", sweep3d_launches(m, depth, r)
+    return "far", far_launches(spec.ndim, m, depth, r, ntaps, itemsize)
+
+
 def _launches(spec: StencilSpec, t: torch.Tensor, dst: torch.Tensor, depth: int,
-              t0: int | None, edge: str) -> None:
+              edge: str) -> None:
     """A depth-``depth`` sweep with the ends ``edge`` on axis 0
     (``periodic``: K1 / K3; ``ring`` / ``open``: K4a / K4b) on the kernel
-    the route names: the register kernels' launches of
-    :func:`sweep1d_launches` / :func:`sweep2d_launches` /
-    :func:`sweep3d_launches`, one after another, each counted; else one
-    launch of the shared-memory kernel (``t0``: its axis-0 tile)."""
+    and launches :func:`sweep_plan` names, one after another, each
+    counted."""
     # checked before the chain: its launches read and write other buffers
     _kernel_io(t, dst, "the sweep kernels")
     kind = "sweep" if edge == "periodic" else "multistep"
-    nb, m, vl = t.shape[-3:]
-    if spec.ndim == 1 and sweep1d_route(vl, m, depth, spec.r) == "warp":
-        kernel, key, plan = _warp_launch, "1d", sweep1d_launches(m, depth, spec.r)
-    elif spec.ndim == 2 and sweep2d_route(vl, m, depth, spec.r) == "warp":
-        _check_nd_taps(spec)
-        kernel, key, plan = _warp2d_launch, "2d", sweep2d_launches(m, depth, spec.r)
-    elif spec.ndim == 3 and sweep3d_route(vl, m, depth, spec.r) == "stream":
-        _check_nd_taps(spec)
-        kernel, key, plan = _sweep3d_launch, "3d", sweep3d_launches(m, depth, spec.r)
-    else:
-        _sweep_launch(spec, t, dst, depth, t0, edge)
-        LAUNCHES[f"{kind}_1d_smem" if spec.ndim == 1 else f"{kind}_nd"] += 1
-        return
+    _, m, vl = t.shape[-3:]
+    key, plan = sweep_plan(spec, vl, m, depth, t.element_size())
+    kernel = {"1d": _warp_launch, "2d": _warp2d_launch, "3d": _sweep3d_launch,
+              "far": _far_launch}[key]
 
     def launch(src, out, d):
         kernel(spec, src, out, d, edge)
         LAUNCHES[f"{kind}_{key}"] += 1
     _chain(launch, t, dst, plan)
-
-
-def _check_nd_taps(spec: StencilSpec) -> None:
-    if len(spec.taps) > ND_MAX_TAPS:
-        raise ValueError(f"{spec.name}: {len(spec.taps)} taps exceed the register kernels' "
-                         f"limit of {ND_MAX_TAPS}")
 
 
 def stencil1d_sweep_periodic(spec: StencilSpec, t: torch.Tensor, k: int,
@@ -839,8 +976,9 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
     never updated).  The reference's Pallas kernel leaves unspecified
     values within k·r of the ends in that mode, which its callers crop.
     The kernel is the one :func:`sweep1d_route` names for depth k, in the
-    launches of :func:`sweep1d_launches` on the warp kernel: each defines
-    the ends at every step, so a chain equals one deeper launch."""
+    launches of :func:`sweep1d_launches` on the warp kernel or of
+    :func:`far_launches`: each defines the ends at every step, so a chain
+    equals one deeper launch."""
     _check_layout(spec, t)
     if spec.ndim != 1:
         raise ValueError(f"{spec.name} is not a 1-D stencil")
@@ -848,7 +986,7 @@ def stencil1d_multistep(spec: StencilSpec, t: torch.Tensor, k: int,
         return _into(out, stencil1d_multistep_ref(spec, t, k, edge_mask), "stencil1d_multistep")
     _check_cuda(t, "stencil1d_multistep")
     dst = _out(out, t.shape, t, "stencil1d_multistep")
-    _launches(spec, t, dst, k, None, "ring" if edge_mask else "open")
+    _launches(spec, t, dst, k, "ring" if edge_mask else "open")
     return dst
 
 
@@ -858,13 +996,12 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
     """k steps of the (n0, *mid, nb, m, vl) layout array: axis 0 has the
     Dirichlet ring (``edge_mask=True``, its r first and last
     rows keep their value) or open edges (``edge_mask=False``, rows beyond
-    either end hold 0), every other axis is periodic.  ``t0`` is the axis-0
-    rows of the shared-memory kernel's tile; it must divide n0 and reach the
-    radius, as the reference's pipeline tile must.  A sweep that
-    :func:`sweep2d_route` or :func:`sweep3d_route` sends to a streaming
-    kernel (depth k) runs as the launches of :func:`sweep2d_launches` /
-    :func:`sweep3d_launches`, picks its own segment length and ignores
-    ``t0``: results never depend on the tile or the split."""
+    either end hold 0), every other axis is periodic.  ``t0`` shapes only
+    the reference's pipeline; it must divide n0 and reach the radius, as the
+    reference asserts.  The sweep (depth k) runs as the launches of the
+    kernel :func:`sweep2d_route` or :func:`sweep3d_route` names, each
+    picking its own tile and segment length: results never depend on the
+    tile or the split."""
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
@@ -877,7 +1014,7 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
                      "stencil_nd_multistep")
     _check_cuda(t, "stencil_nd_multistep")
     dst = _out(out, t.shape, t, "stencil_nd_multistep")
-    _launches(spec, t, dst, k, t0, "ring" if edge_mask else "open")
+    _launches(spec, t, dst, k, "ring" if edge_mask else "open")
     return dst
 
 
@@ -916,13 +1053,37 @@ def stencil1d_transpose_onestep_ref(spec: StencilSpec, t: torch.Tensor) -> torch
     return step_in_layout(spec, t, ndim=1)
 
 
-def _check_onestep(spec: StencilSpec) -> None:
-    """Raise unless the one-step kernels take ``spec``'s reach and taps."""
-    lib = build.load("onestep")
-    if spec.r > lib.repro_onestep_max_reach() or len(spec.taps) > lib.repro_onestep_max_taps():
-        raise ValueError(f"{spec.name}: the one-step kernels take r <= "
-                         f"{lib.repro_onestep_max_reach()} and at most "
-                         f"{lib.repro_onestep_max_taps()} taps")
+# csrc/onestep.cu's register forms: their taps (kMaxTaps), K5a's reach (one
+# neighbouring vector of 32 a side), K5b's reach (kMaxR) and its columns of
+# m <= 16 points in registers; past any of them a form that reads its taps
+# from device memory, one thread an element
+ONESTEP_MAX_TAPS = 16
+ONESTEP_NAIVE_REACH = 32
+ONESTEP_REACH = 4
+ONESTEP_MAX_M = 16
+
+
+def onestep_form(kind: str, spec: StencilSpec, m: int = 1) -> str:
+    """The form of ``csrc/onestep.cu`` a CUDA K5a (``kind`` "naive") or
+    K5b ("transpose", at ``m``) launches for ``spec``: ``"reg"`` (taps as
+    kernel arguments, a vector or a column in registers) within the
+    register forms' taps and reach, else ``"mem"`` (taps in device memory,
+    any tap count and reach)."""
+    if len(spec.taps) > ONESTEP_MAX_TAPS:
+        return "mem"
+    if kind == "naive":
+        reach = max(abs(off[-1]) for off, _ in spec.taps)
+        return "reg" if reach <= ONESTEP_NAIVE_REACH else "mem"
+    return "reg" if spec.r <= ONESTEP_REACH and m <= ONESTEP_MAX_M else "mem"
+
+
+@functools.lru_cache(maxsize=256)
+def _onestep_taps(taps, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The "mem" forms' taps in device memory: an int32 pair a tap (offset,
+    the coefficient rounded to ``dtype`` as float32 bits)."""
+    rows = [(off[-1], torch.tensor([coeff(c, dtype)], dtype=torch.float32).view(torch.int32)
+             .item()) for off, c in taps]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
@@ -940,11 +1101,16 @@ def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
     _check_cuda(x, "stencil1d_naive_onestep")
     dst = _out(out, x.shape, x, "stencil1d_naive_onestep")
     _kernel_io(x, dst, "the naive one-step kernel")
-    _check_onestep(spec)
-    ntaps, offs, coeffs = _taps(spec, 1, x.dtype)
-    build.check(_entry("onestep", "onestep_naive", x.dtype)(
-        x.data_ptr(), dst.data_ptr(), x.shape[0], ntaps, ctypes.cast(offs, ctypes.c_void_p),
-        ctypes.cast(coeffs, ctypes.c_void_p), _stream()), f"{spec.name} naive one-step kernel")
+    if onestep_form("naive", spec) == "reg":
+        ntaps, offs, coeffs = _taps(spec, 1, x.dtype)
+        build.check(_entry("onestep", "onestep_naive", x.dtype)(
+            x.data_ptr(), dst.data_ptr(), x.shape[0], ntaps, ctypes.cast(offs, ctypes.c_void_p),
+            ctypes.cast(coeffs, ctypes.c_void_p), _stream()), f"{spec.name} naive one-step kernel")
+    else:
+        build.check(_entry("onestep", "onestep_naive_mem", x.dtype)(
+            x.data_ptr(), dst.data_ptr(), x.shape[0], len(spec.taps),
+            _onestep_taps(spec.taps, x.dtype, x.device).data_ptr(), _stream()),
+            f"{spec.name} naive one-step kernel")
     LAUNCHES["onestep_naive"] += 1
     return dst
 
@@ -962,13 +1128,18 @@ def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
     _check_cuda(t, "stencil1d_transpose_onestep")
     dst = _out(out, t.shape, t, "stencil1d_transpose_onestep")
     _kernel_io(t, dst, "the transpose one-step kernel")
-    _check_onestep(spec)
-    ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
     nb, m, vl = t.shape
-    build.check(_entry("onestep", "onestep_transpose", t.dtype)(
-        t.data_ptr(), dst.data_ptr(), nb, m, vl, spec.r, ntaps,
-        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
-        f"{spec.name} transpose one-step kernel")
+    if onestep_form("transpose", spec, m) == "reg":
+        ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
+        build.check(_entry("onestep", "onestep_transpose", t.dtype)(
+            t.data_ptr(), dst.data_ptr(), nb, m, vl, spec.r, ntaps,
+            ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
+            f"{spec.name} transpose one-step kernel")
+    else:
+        build.check(_entry("onestep", "onestep_transpose_mem", t.dtype)(
+            t.data_ptr(), dst.data_ptr(), nb, m, vl, len(spec.taps),
+            _onestep_taps(spec.taps, t.dtype, t.device).data_ptr(), _stream()),
+            f"{spec.name} transpose one-step kernel")
     LAUNCHES["onestep_transpose"] += 1
     return dst
 

@@ -103,19 +103,17 @@ def pallas_extra_bytes_per_step(pts: float, itemsize: int, sweep: str,
     return 1.5 * roundtrip * sweeps_per_step
 
 
-def launch_depths(spec, vl: int, m: int, depth: int) -> tuple[int, ...]:
+def launch_depths(spec, vl: int, m: int, depth: int, itemsize: int = 4) -> tuple[int, ...]:
     """The depths of the launches one depth-``depth`` pallas sweep of
-    ``spec`` at tile ``(vl, m)`` makes on the card: the register kernels'
-    consecutive launches (``sweep1d_launches`` / ``sweep2d_launches`` /
-    ``sweep3d_launches``), else one launch."""
+    ``spec`` at tile ``(vl, m)`` on ``itemsize``-byte elements makes on the
+    card, on the route ``stencil_kernels.sweep_plan`` names.  A sweep no
+    far-reach launch fits (the tuner's gate refuses its plans) is priced as
+    one launch."""
     from repro_torch.kernels import stencil_kernels as sk
-    if spec.ndim == 1 and sk.sweep1d_route(vl, m, depth, spec.r) == "warp":
-        return tuple(d for _, _, d in sk.sweep1d_launches(m, depth, spec.r))
-    if spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, spec.r) == "warp":
-        return tuple(d for _, _, d in sk.sweep2d_launches(m, depth, spec.r))
-    if spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, spec.r) == "stream":
-        return tuple(d for _, _, d in sk.sweep3d_launches(m, depth, spec.r))
-    return (depth,)
+    try:
+        return tuple(d for *_, d in sk.sweep_plan(spec, vl, m, depth, itemsize)[1])
+    except ValueError:
+        return (depth,)
 
 
 def _pallas_tile(spec, shape, plan) -> tuple[int, int]:
@@ -137,7 +135,7 @@ def _pallas_terms(spec, shape, itemsize, plan, steps):
     reorg = reorg_ops_per_point(spec, "transpose", plan.vl, plan.m)
     vl, m = _pallas_tile(spec, shape, plan)
     chunks, total = sweep_schedule(plan.k, steps, remainder, ttile)
-    split = any(len(launch_depths(spec, vl, m, d)) > 1 for d, _ in chunks)
+    split = any(len(launch_depths(spec, vl, m, d, itemsize)) > 1 for d, _ in chunks)
     if ttile == 1 and not split:
         # the reference's model: HBM once per k-block, its halo ring factor
         sweeps = _sweeps_per_step(plan.k, steps, remainder)
@@ -150,7 +148,7 @@ def _pallas_terms(spec, shape, itemsize, plan, steps):
     # runs is the reference's temporal-tile accounting
     flops = mem = 0.0
     for depth, n in chunks:
-        for d in launch_depths(spec, vl, m, depth):
+        for d in launch_depths(spec, vl, m, depth, itemsize):
             ext = 1.0 + 2.0 * d * spec.r / max(n0, 1)
             flops += n * d * pts * (arith + reorg) * ext
             mem += n * 2.0 * pts * itemsize * ext

@@ -237,8 +237,9 @@ def test_mxu_gate_bounds_card_memory(monkeypatch):
 def test_route_gate_refuses_what_the_kernels_raise_on():
     """``pallas_routes_legal`` refuses a plan whose launch the wrappers
     would raise on: the register kernels' column limit off their fixed
-    forms, and a deep reach-5 sweep no shared-memory tile fits (D2); a
-    reach-2 sweep of any depth takes the register kernels' launches."""
+    forms, and a far-reach launch no tile fits; a reach-2 sweep of any
+    depth takes the register kernels' launches, a deep reach-5 sweep the
+    far-reach kernel's."""
     s1 = stencils.make("1d3p")
     # 1-D at m=3: sub-columns of 1, 2^33 / 24 blocks · 8 · 3 >= 2^30 columns
     assert not autotune.pallas_routes_legal(s1, (1 << 33,), 8, 3, None, k=2)
@@ -250,7 +251,7 @@ def test_route_gate_refuses_what_the_kernels_raise_on():
     assert not autotune.pallas_routes_legal(s2, (8, 1 << 33), 32, 8, 8, k=2,
                                             dtype=torch.bfloat16)
     star = stencils.StencilSpec("star2d_r2", 2, 2, "star", stencils._star_taps(2, 2))
-    assert sk.sweep2d_route(8, 8, 4, 2) == "warp"
+    assert sk.sweep2d_route(8, 8, 4, 2, len(star.taps)) == "warp"
     assert autotune.pallas_routes_legal(star, (64, 4096), 8, 8, 32, k=4)
     assert autotune.pallas_routes_legal(star, (64, 4096), 8, 8, 32, k=16, ttile=4)
     assert autotune.ttile_plan_legal(
@@ -259,22 +260,31 @@ def test_route_gate_refuses_what_the_kernels_raise_on():
     # past 2^30 columns a row even at vl=32, m=8 float32
     assert not autotune.pallas_routes_legal(star, (8, 1 << 33), 32, 8, 8, k=2)
     star3 = stencils.StencilSpec("star3d_r2", 3, 2, "star", stencils._star_taps(3, 2))
-    assert sk.sweep3d_route(8, 8, 8, 2) == "stream"
+    assert sk.sweep3d_route(8, 8, 8, 2, len(star3.taps)) == "stream"
     assert autotune.pallas_routes_legal(star3, (32, 32, 512), 8, 8, 16, k=4, ttile=2)
     star5 = stencils.StencilSpec("star2d_r5", 2, 5, "star", stencils._star_taps(2, 5))
-    assert sk.sweep2d_route(8, 8, 4, 5) == "smem"
+    assert sk.sweep2d_route(8, 8, 4, 5, len(star5.taps)) == "far"
     assert autotune.pallas_routes_legal(star5, (64, 4096), 8, 8, 32, k=4)
-    with pytest.raises(ValueError, match="D2"):
-        sk.sweep_tile(star5, (1, 64, 4096), 8, 64, 32)
-    assert not autotune.pallas_routes_legal(star5, (64, 4096), 8, 8, 32, k=16, ttile=4)
+    # a deep reach-5 sweep is consecutive far-reach launches (it raised
+    # before them), and legal
+    assert sk.far_launches(2, 8, 64, 5, len(star5.taps)) == ((8, 1, 1),) * 64
+    assert autotune.pallas_routes_legal(star5, (64, 4096), 8, 8, 32, k=16, ttile=4)
+    assert autotune.ttile_plan_legal(
+        star5, (512, 4096), StencilPlan(backend="pallas", k=16, ttile=4, vl=8, m=8, t0=32))
+    # (the reference's rule: the depth-64 halo slope of reach 5 exceeds 256 rows)
     assert not autotune.ttile_plan_legal(
         star5, (256, 4096), StencilPlan(backend="pallas", k=16, ttile=4, vl=8, m=8, t0=32))
+    # where one step of the far-reach kernel fits no tile, the gate refuses
+    star32 = stencils.StencilSpec("star3d_r32", 3, 32, "star", stencils._star_taps(3, 32))
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.far_launches(3, 32, 1, 32, len(star32.taps))
+    assert not autotune.pallas_routes_legal(star32, (64, 64, 1024), 1, 32, 32, k=1)
     # the roundtrip engine sweeps the padded grid
     assert autotune.pallas_routes_legal(s1, (4096,), 8, 8, None, "roundtrip", k=4)
     # 1-D at r > M (1d5p at odd m) and past 32·M // r: the warp kernel's
     # consecutive launches, under the same column limit off m = M
     s5 = stencils.make("1d5p")
-    assert sk.sweep1d_route(32, 5, 64, 2) == "warp"
+    assert sk.sweep1d_route(32, 5, 64, 2, len(s5.taps)) == "warp"
     assert autotune.pallas_routes_legal(s5, (800,), 32, 5, None, k=16, ttile=4)
     assert autotune.pallas_routes_legal(s5, (800,), 32, 5, None, "roundtrip", k=16)
     assert not autotune.pallas_routes_legal(s5, (1 << 33,), 8, 5, None, k=16, ttile=4)

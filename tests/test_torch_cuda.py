@@ -229,7 +229,8 @@ def _star(ndim, r):
 def test_sweep1d_routes_count_and_raise(cuda):
     """The warp kernel at every depth of reach up to 4 (past 32·M // r as
     consecutive launches, each counted: depth 33 at m = 1 is 32 + 1, 257
-    at m = 16 is 256 + 1), the shared-memory kernel at reach 5."""
+    at m = 16 is 256 + 1), the far-reach kernel at reach 5 (depth 20: 8 +
+    8 + 4)."""
     x = _x((1 << 15,), 3, cuda)
     for spec, vl, m, depth, key, launches in (
             (stencils.make("1d3p"), 32, 8, 4, "sweep_1d", 1),
@@ -237,10 +238,13 @@ def test_sweep1d_routes_count_and_raise(cuda):
             (stencils.make("1d3p"), 32, 1, 33, "sweep_1d", 2),
             (stencils.make("1d3p"), 8, 16, 4, "sweep_1d", 1),
             (stencils.make("1d3p"), 8, 16, 257, "sweep_1d", 2),
-            (_star(1, 5), 8, 8, 4, "sweep_1d_smem", 1)):
+            (_star(1, 5), 8, 8, 4, "sweep_far", 1),
+            (_star(1, 5), 8, 8, 20, "sweep_far", 3)):
         t = layouts.to_transpose_layout(x, vl, m)
         if key == "sweep_1d":
             assert len(sk.sweep1d_launches(m, depth, spec.r)) == launches
+        else:
+            assert len(sk.far_launches(1, m, depth, spec.r, len(spec.taps))) == launches
         sk.reset_launches()
         got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
         torch.cuda.synchronize()
@@ -330,7 +334,7 @@ def test_sweep1d_warp_reach_beyond_m_bitwise(cuda, name, m, mm, r, vl, edge, dty
     deepest launch as two launches."""
     spec = _star(1, r) if name.startswith("star") else stencils.make(name)
     assert sk.sub_columns(m)[0] == mm and spec.r == r > mm
-    assert sk.sweep1d_route(vl, m, 1000, r) == "warp"
+    assert sk.sweep1d_route(vl, m, 1000, r, len(spec.taps)) == "warp"
     _sweep1d_bitwise(cuda, name, m, vl, edge, dtype, spec=spec, past=True)
 
 
@@ -490,8 +494,8 @@ def test_c1_tiles_on_the_card(cuda, name, shape, vl, m, t0):
         if spec.ndim == 1:
             got = sk.stencil1d_sweep_ttile(spec, t, depth, 1)
             want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
-            keys = {"sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp"
-                    else "sweep_1d_smem": 1}
+            keys = {"sweep_1d" if sk.sweep1d_route(vl, m, depth, spec.r, len(spec.taps)) ==
+                    "warp" else "sweep_far": 1}
         else:
             got = sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
             want = sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
@@ -591,15 +595,16 @@ def test_multistep_kernel_bitwise(cuda, name, shape, vl, m, t0, depth, edge_mask
     if spec.ndim == 1:
         got = sk.stencil1d_multistep(spec, t, depth, edge_mask)
         want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask)
-        key = "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r) == "warp" \
-            else "multistep_1d_smem"
+        key = "multistep_1d" if sk.sweep1d_route(vl, m, depth, spec.r, len(spec.taps)) == \
+            "warp" else "multistep_far"
     else:
         got = sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
         want = sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
         key = "multistep_2d" if spec.ndim == 2 and \
-            sk.sweep2d_route(vl, m, depth, spec.r) == "warp" else \
+            sk.sweep2d_route(vl, m, depth, spec.r, len(spec.taps)) == "warp" else \
             "multistep_3d" if spec.ndim == 3 and \
-            sk.sweep3d_route(vl, m, depth, spec.r) == "stream" else "multistep_nd"
+            sk.sweep3d_route(vl, m, depth, spec.r, len(spec.taps)) == "stream" else \
+            "multistep_far"
     torch.cuda.synchronize()
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
     assert torch.equal(got, want), (got - want).abs().max().item()
@@ -634,8 +639,9 @@ def test_multistep_1d_routes_count(cuda):
             (stencils.make("1d3p"), 32, 3, 2, "multistep_1d"),
             (stencils.make("1d3p"), 8, 16, 2, "multistep_1d"),
             (stencils.make("1d3p"), 8, 16, 257, "multistep_1d"),      # 256 + 1
-            (_star(1, 5), 8, 8, 2, "multistep_1d_smem")):
-        assert sk.sweep1d_route(vl, m, k, spec.r) == ("warp" if key == "multistep_1d" else "smem")
+            (_star(1, 5), 8, 8, 2, "multistep_far")):
+        assert sk.sweep1d_route(vl, m, k, spec.r, len(spec.taps)) == \
+            ("warp" if key == "multistep_1d" else "far")
         launches = len(sk.sweep1d_launches(m, k, spec.r)) if key == "multistep_1d" else 1
         t = layouts.to_transpose_layout(_x((5 * vl * m,), 13, cuda), vl, m)
         for edge_mask in (True, False):
@@ -709,9 +715,9 @@ def test_multistep_2d_warp_runtime_taps(cuda, taps):
 def test_multistep_2d_routes_count(cuda):
     """The counters tell K4b's routes apart at 2-D and 3-D (the register
     kernels at any vl, m and depth, past the deepest instance in
-    consecutive launches, each counted, reach 2 included; the shared-memory
-    kernel at r = 5), and the halo wrapper follows the route of its
-    depth."""
+    consecutive launches, each counted, reach 2 included; the far-reach
+    kernel at r = 5 and at 81 taps, likewise), and the halo wrapper follows
+    the route of its depth."""
     r2 = stencils.StencilSpec("2d9p-star-r2", 2, 2, "star", stencils._star_taps(2, 2))
     r5 = stencils.StencilSpec("2d-star-r5", 2, 5, "star", stencils._star_taps(2, 5))
     cases = ((stencils.make("2d5p"), (64, 4096), 32, 8, 2, "multistep_2d"),
@@ -722,7 +728,11 @@ def test_multistep_2d_routes_count(cuda):
              (stencils.make("2d5p"), (64, 4080), 16, 3, 2, "multistep_2d"),
              (r2, (64, 4096), 32, 8, 2, "multistep_2d"),
              (r2, (64, 4096), 8, 8, 5, "multistep_2d"),                         # 2 + 2 + 1
-             (r5, (64, 4096), 32, 8, 2, "multistep_nd"),
+             (r5, (64, 4096), 32, 8, 2, "multistep_far"),
+             (r5, (64, 4096), 8, 8, 3, "multistep_far"),                      # three launches
+             (stencils.StencilSpec("box2d-r4", 2, 4, "box", stencils._box_taps(2, 4)),
+              (64, 4096), 32, 8, 2, "multistep_far"),                          # 81 taps
+             (_star(3, 5), (16, 8, 256), 8, 8, 3, "multistep_far"),             # 1 + 1 + 1
              (_star(3, 2), (16, 8, 256), 8, 8, 5, "multistep_3d"),              # 2 + 2 + 1
              (stencils.make("2d5p"), (64, 4096), 32, 8, sk.WARP2D_DEPTH[8, 1] + 1,
               "multistep_2d"),
@@ -741,14 +751,16 @@ def test_multistep_2d_routes_count(cuda):
              (stencils.make("3d7p"), (16, 8, 256), 128, 2, 5, "multistep_3d"),
              (stencils.make("3d7p"), (16, 8, 256), 8, 8, 16, "multistep_3d"))
     for spec, shape, vl, m, k, key in cases:
-        launches = 1 if key.endswith("_nd") else len(
-            (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, k, spec.r))
+        ntaps = len(spec.taps)
+        launches = len(sk.far_launches(spec.ndim, m, k, spec.r, ntaps)) \
+            if key == "multistep_far" else len(
+                (sk.sweep2d_launches if spec.ndim == 2 else sk.sweep3d_launches)(m, k, spec.r))
         if spec.ndim == 2:
-            assert sk.sweep2d_route(vl, m, k, spec.r) == \
-                ("warp" if key == "multistep_2d" else "smem")
+            assert sk.sweep2d_route(vl, m, k, spec.r, ntaps) == \
+                ("warp" if key == "multistep_2d" else "far")
         else:
-            assert sk.sweep3d_route(vl, m, k, spec.r) == \
-                ("stream" if key == "multistep_3d" else "smem")
+            assert sk.sweep3d_route(vl, m, k, spec.r, ntaps) == \
+                ("stream" if key == "multistep_3d" else "far")
         t = layouts.to_transpose_layout(_x(shape, 13, cuda), vl, m)
         for edge_mask in (True, False):
             sk.reset_launches()
@@ -975,12 +987,14 @@ def test_roundtrip_equals_resident(cuda, name, shape, remainder):
     for depth, n in chunks:
         if prob.spec.ndim == 1:
             key = "multistep_1d"
-        elif prob.spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, prob.spec.r) == "warp":
+        elif prob.spec.ndim == 2 and sk.sweep2d_route(vl, m, depth, prob.spec.r,
+                                                      len(prob.spec.taps)) == "warp":
             key = "multistep_2d"
-        elif prob.spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, prob.spec.r) == "stream":
+        elif prob.spec.ndim == 3 and sk.sweep3d_route(vl, m, depth, prob.spec.r,
+                                                      len(prob.spec.taps)) == "stream":
             key = "multistep_3d"
         else:
-            key = "multistep_nd"
+            key = "multistep_far"
         want[key] = want.get(key, 0) + n
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | want
     for ttile in (1, 2):
@@ -1422,29 +1436,30 @@ def test_bf16_deep_bitwise(cuda, name, shape, vl, m, depth, edge):
     (_star(3, 5), (8, 12, 256), 8, 8, 8, 2),
 ])
 def test_bf16_smem_routes_bitwise(cuda, spec, shape, vl, m, t0, depth, edge_mask):
-    """The shared-memory kernel (``stencil_sweep.cu``) in bfloat16 on the
-    shapes its routes keep (reach 5 at every rank): periodic (``edge_mask``
-    None), ring and open."""
+    """The far-reach kernel (``sweep_far.cu``) in bfloat16 on the shapes its
+    routes take (reach 5 at every rank, chains past its deepest launch):
+    periodic (``edge_mask`` None), ring and open."""
     t = layouts.to_transpose_layout(_x(shape, 3, cuda).to(BF16), vl, m)
     nd = spec.ndim
     route = (sk.sweep1d_route if nd == 1 else sk.sweep2d_route if nd == 2 else
-             sk.sweep3d_route)(vl, m, depth, spec.r)
-    assert route == "smem"
+             sk.sweep3d_route)(vl, m, depth, spec.r, len(spec.taps))
+    assert route == "far"
+    launches = len(sk.far_launches(nd, m, depth, spec.r, len(spec.taps), 2))
     sk.reset_launches()
     if edge_mask is None:
         got = sk.stencil1d_sweep_ttile(spec, t, depth, 1) if nd == 1 else \
             sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
         want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1) if nd == 1 else \
             sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
-        key = "sweep_1d_smem" if nd == 1 else "sweep_nd"
+        key = "sweep_far"
     else:
         got = sk.stencil1d_multistep(spec, t, depth, edge_mask) if nd == 1 else \
             sk.stencil_nd_multistep(spec, t, depth, t0, edge_mask)
         want = sk.stencil1d_multistep_ref(spec, t, depth, edge_mask) if nd == 1 else \
             sk.stencil_nd_multistep_ref(spec, t, depth, t0, edge_mask)
-        key = "multistep_1d_smem" if nd == 1 else "multistep_nd"
+        key = "multistep_far"
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: 1}
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
     assert got.dtype == BF16 and torch.equal(got, want), (got.float() - want.float()).abs().max()
 
 
@@ -1739,3 +1754,160 @@ def test_sweep_halo_reach2(cuda, ndim, shape):
     assert torch.equal(got, sk.stencil_nd_multistep_ref(spec, t, k, t0, False))
     with pytest.raises(ValueError, match="halo"):
         sk.stencil_nd_sweep_halo(spec, t, k, t0, 2)
+
+
+# ---------------------------------------------------------------------------
+# the far-reach kernel (csrc/sweep_far.cu) and K5's forms that read their
+# taps from device memory
+# ---------------------------------------------------------------------------
+
+def _box(ndim, r):
+    return stencils.StencilSpec(f"box{ndim}d-r{r}", ndim, r, "box", stencils._box_taps(ndim, r))
+
+
+def _taps20():
+    """A 1-D stencil of 20 taps (offsets -10..-1, 1..10), reach 10."""
+    return stencils.StencilSpec("ring20", 1, 10, "star", tuple(
+        ((o,), 1.0 / (20 + abs(o))) for o in range(-10, 11) if o))
+
+
+def _t0(n0, r):
+    """An axis-0 tile the wrappers accept (it divides n0 and reaches r; the
+    kernels ignore it)."""
+    return min(d for d in range(r, n0 + 1) if n0 % d == 0)
+
+
+def _far_check(cuda, spec, shape, vl, m, depth, edge, dtype):
+    """One sweep on the far-reach route, its launches counted, bit for bit
+    its plain version."""
+    nd, ntaps = spec.ndim, len(spec.taps)
+    route = (sk.sweep1d_route, sk.sweep2d_route, sk.sweep3d_route)[nd - 1](
+        vl, m, depth, spec.r, ntaps)
+    assert route == "far"
+    t = layouts.to_transpose_layout(_x(shape, depth + ntaps, cuda).to(dtype), vl, m)
+    t0 = _t0(shape[0], spec.r)
+    launches = len(sk.far_launches(nd, m, depth, spec.r, ntaps, t.element_size()))
+    sk.reset_launches()
+    if edge == "periodic":
+        got = sk.stencil1d_sweep_ttile(spec, t, depth, 1) if nd == 1 else \
+            sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+        key = "sweep_far"
+    else:
+        got = sk.stencil1d_multistep(spec, t, depth, edge == "ring") if nd == 1 else \
+            sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring")
+        key = "multistep_far"
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {key: launches}
+    if edge == "periodic":
+        want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1) if nd == 1 else \
+            sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+    else:
+        want = sk._multistep_ref(spec, t, depth, edge == "ring")
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("spec,shape,vl,m,depth", [
+    (_star(1, 5), (1 << 16,), 8, 8, 4),
+    (_star(1, 8), (3 * 8 * 8 * 50,), 8, 8, 11),         # 8 + 3
+    (_star(1, 5), (5 * 32 * 7,), 32, 5, 1),              # odd m, m = r
+    (_star(2, 5), (96, 2048), 8, 8, 2),
+    (_star(2, 6), (70, 1088), 8, 8, 5),                  # five launches, no divisible tiles
+    (_star(2, 5), (40, 768), 32, 6, 1),
+    (_star(3, 5), (24, 40, 256), 8, 8, 1),
+    (_star(3, 6), (19, 23, 192), 8, 8, 3),               # 1 + 1 + 1
+    (_star(3, 8), (20, 17, 128), 16, 8, 2),
+    (_box(3, 2), (12, 20, 256), 8, 8, 2),                # 125 taps
+    (_box(2, 5), (40, 1024), 8, 8, 2),                   # 121 taps
+    (_box(2, 4), (40, 1024), 32, 8, 3),                  # 81 taps at reach 4
+    (_taps20(), (16 * 8 * 40,), 8, 16, 3),               # 20 taps at 1-D
+])
+def test_far_kernel_bitwise(cuda, spec, shape, vl, m, depth, edge, dtype):
+    """Every instance of the far-reach kernel (float32 and bfloat16 by the
+    three ends) at every rank: reach 5-8, 81-125 taps, chains past its
+    deepest launch, tiles and segments that do not divide the grid."""
+    _far_check(cuda, spec, shape, vl, m, depth, edge, dtype)
+
+
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_far_kernel_depth0_copies(cuda, nd):
+    spec = _star(nd, 5)
+    shape = {1: (4096,), 2: (32, 512), 3: (12, 10, 128)}[nd]
+    t = layouts.to_transpose_layout(_x(shape, 2, cuda), 8, 8)
+    got = sk.stencil1d_sweep_ttile(spec, t, 0, 1) if nd == 1 else \
+        sk.stencil_nd_sweep_ttile(spec, t, 0, 1, _t0(shape[0], 5))
+    assert torch.equal(got, t)
+
+
+def test_far_smem_matches_the_kernel(cuda):
+    """The wrapper's shared-memory formula (``far_smem``) is the kernel's
+    ``layout``."""
+    lib = build.load("sweep_far")
+    for args in ((8, 0, 0, 5, 8, 1, 512, 528, 11, 4), (8, 5, 0, 5, 1, 1, 128, 130, 21, 4),
+                 (8, 5, 5, 5, 1, 16, 4, 7, 31, 4), (8, 2, 2, 2, 1, 16, 8, 11, 125, 2),
+                 (16, 8, 8, 8, 1, 3, 5, 9, 49, 4), (8, 5, 0, 5, 0, 1, 64, 64, 21, 2)):
+        assert lib.repro_sweep_far_smem(*args) == sk.far_smem(*args), args
+
+
+@pytest.mark.parametrize("r", [5, 6, 8])
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_far_c3_shapes_at_size(cuda, nd, r):
+    """The shapes that raised before the far-reach kernel: stars of reach
+    5, 6 and 8 at every depth 1-16 on chip_smoke.py's grids (2^26, 8192²,
+    512³, vl=8, m=8), periodic, ring and open, each bit for bit the plain
+    version (built a step at a time beside the kernel's sweeps)."""
+    spec = _star(nd, r)
+    shape = {1: (1 << 26,), 2: (8192, 8192), 3: (512, 512, 512)}[nd]
+    t = layouts.to_transpose_layout(_x(shape, r, cuda), 8, 8)
+    t0 = _t0(shape[0], r)
+    for edge in ("periodic", "ring", "open"):
+        want = t
+        for depth in range(1, 17):
+            if edge == "periodic":
+                want = sk.stencil1d_sweep_ttile_ref(spec, want, 1, 1) if nd == 1 else \
+                    sk.stencil_nd_sweep_ttile_ref(spec, want, 1, 1, t0)
+                got = sk.stencil1d_sweep_ttile(spec, t, depth, 1) if nd == 1 else \
+                    sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+            else:
+                want = sk._multistep_ref(spec, want, 1, edge == "ring")
+                got = sk.stencil1d_multistep(spec, t, depth, edge == "ring") if nd == 1 else \
+                    sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring")
+            assert torch.equal(got, want), (edge, depth)
+            del got
+        del want
+    torch.cuda.empty_cache()
+
+
+def test_onestep_forms_match_the_kernels(cuda):
+    lib = build.load("onestep")
+    assert (lib.repro_onestep_max_taps(), lib.repro_onestep_naive_max_reach(),
+            lib.repro_onestep_max_reach(), lib.repro_onestep_max_m()) == \
+        (sk.ONESTEP_MAX_TAPS, sk.ONESTEP_NAIVE_REACH, sk.ONESTEP_REACH, sk.ONESTEP_MAX_M)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("spec", [_star(1, 6), _taps20(), _star(1, 16),
+                                  stencils.StencilSpec("far40", 1, 40, "star", (
+                                      ((0,), 0.5), ((-40,), 0.25), ((33,), 0.25)))])
+def test_onestep_mem_forms_bitwise(cuda, spec, dtype):
+    """K5 past its register forms: reach 6 (K5b's memory form), 20 and 33
+    taps (both memory forms), offsets past 32 (K5a's memory form), each bit
+    for bit its plain version at every m."""
+    for n, vl in ((1 << 20, 32), (96 * 41, 41)):
+        x = _x((n,), 5, cuda).to(dtype)
+        sk.reset_launches()
+        got = sk.stencil1d_naive_onestep(spec, x, vl)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["onestep_naive"] == 1
+        assert torch.equal(got, sk.stencil1d_naive_onestep_ref(spec, x, vl))
+    for vl, m, nb in ((32, 8, 4096), (8, 16, 5), (4, 32, 3), (3, 40, 7)):
+        if spec.r > m:
+            continue
+        t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda).to(dtype), vl, m)
+        assert sk.onestep_form("transpose", spec, m) == "mem"
+        sk.reset_launches()
+        got = sk.stencil1d_transpose_onestep(spec, t)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["onestep_transpose"] == 1
+        assert torch.equal(got, sk.stencil1d_transpose_onestep_ref(spec, t))

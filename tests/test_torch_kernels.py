@@ -108,22 +108,30 @@ def test_onestep_ref_matches_reference():
 
 
 def test_sweep_tile_sizing():
-    """The CUDA tile is sized from depth: the minor (then mid) extent
-    shrinks until two buffers fit, and a depth no tile fits raises."""
-    spec = tst.make("3d7p")
-    (tz, ty, tx), (hz, hy, hx), smem = sk.sweep_tile(spec, (512, 512, 512), 8, 4, 16)
-    assert (tz, ty, tx) == (16, 16, 32) and (hz, hy, hx) == (4, 4, 8)
-    assert smem == 2 * 24 * 24 * 48 * 4 <= sk.SMEM_MAX
-    (tz, ty, tx), _, smem = sk.sweep_tile(spec, (512, 512, 512), 8, 8, 16)
-    assert (tz, ty, tx) == (16, 16, 8) and smem <= sk.SMEM_MAX
-    (tz, ty, tx), _, _ = sk.sweep_tile(spec, (4, 3, 64), 4, 1, 2)
-    assert (tz, ty, tx) == (2, 3, 32)
-    with pytest.raises(ValueError, match="D2"):
-        sk.sweep_tile(spec, (512, 512, 512), 8, 32, 16)
-    (tz, ty, tx), (hz, hy, hx), _ = sk.sweep_tile(tst.make("1d5p"), (1, 1, 1 << 20), 4, 3, None)
-    assert (tz, ty, tx) == (1, 1, 4096) and (hz, hy, hx) == (0, 0, 8)
-    _, (hz, hy, hx), _ = sk.sweep_tile(tst.make("2d9p"), (1, 64, 512), 8, 2, 16)
-    assert (hz, hy, hx) == (0, 2, 8)
+    """The far-reach kernel's CUDA tile is sized from depth: from
+    ``FAR_TILE`` the columns (then the rows) halve until the planes fit two
+    CTAs an SM, no larger than the grid; a depth no tile fits raises,
+    naming the shared memory, and along a stream axis a launch is one
+    step."""
+    star = {nd: tst.StencilSpec(f"s{nd}", nd, 5, "star", tst._star_taps(nd, 5))
+            for nd in (1, 2, 3)}
+    ty, tc, ncp, smem = sk.far_tile(3, (512, 512, 512), 8, 5, 1, 31, 4)
+    # 16 x 8 columns fill a warp's lanes 4 times; the pitch that fits two
+    # CTAs an SM (10) leaves a 2-way bank conflict that 11 would not
+    assert (ty, tc, ncp) == (16, 8, 10) and smem <= sk.FAR_SMEM_AIM
+    assert sk.far_tile(3, (512, 512, 512), 8, 5, 1, 31, 2)[:2] == (16, 8)   # bfloat16
+    assert sk.far_tile(3, (512, 512, 512), 8, 6, 1, 37, 4)[:2] == (16, 4)
+    assert sk.far_tile(2, (8192, 1, 8192), 8, 5, 1, 21, 4)[:3] == (1, 256, 258)
+    assert sk.far_tile(2, (8192, 1, 8192), 8, 8, 1, 33, 4)[:3] == (1, 128, 130)   # reach 8
+    with pytest.raises(ValueError, match="one step a launch"):       # a stream axis: depth 1
+        sk.far_tile(2, (8192, 1, 8192), 8, 5, 2, 21, 4)
+    assert sk.far_tile(1, (1, 1, 1 << 20), 8, 5, 8, 11, 4)[:3] == (1, 512, 528)
+    assert sk.far_tile(3, (4, 3, 64), 8, 5, 1, 31, 4)[:2] == (3, 8)          # the grid's
+    assert sk.far_tile(1, (1, 1, 96), 8, 5, 4, 11, 4)[:2] == (1, 12)
+    for nd, spec in star.items():
+        assert sk.far_depth(nd, 8, 5, len(spec.taps)) == sk.FAR_DEPTH[nd]
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.far_tile(3, (512, 512, 512), 32, 32, 1, 193, 4)
 
 
 def test_wrapper_argument_checks():

@@ -473,8 +473,9 @@ def _star(ndim, r):
 
 def test_launch_depths_follow_the_routes_at_reach():
     """At r = 2..4 the 2-D and 3-D sweeps take the register kernels' chains
-    (``sweep2d_launches`` / ``sweep3d_launches`` of reach r); r > 4 is one
-    shared-memory launch."""
+    (``sweep2d_launches`` / ``sweep3d_launches`` of reach r); r > 4 and
+    more taps than the register kernels hold take the far-reach kernel's
+    chain (``far_launches``: depth 8 a launch at 1-D, 1 at 2-D and 3-D)."""
     assert rs.launch_depths(_star(2, 2)[0], 8, 8, 4) == (2, 2)
     assert rs.launch_depths(_star(2, 2)[0], 8, 8, 16) == (2,) * 8
     assert rs.launch_depths(_star(2, 4)[0], 8, 5, 9) == (2, 2, 2, 2, 1)
@@ -482,8 +483,11 @@ def test_launch_depths_follow_the_routes_at_reach():
     assert rs.launch_depths(_star(3, 2)[0], 8, 8, 8) == (2,) * 4
     assert rs.launch_depths(_star(3, 3)[0], 8, 8, 4) == (1,) * 4
     assert rs.launch_depths(_star(3, 4)[0], 16, 4, 3) == (1,) * 3
-    assert rs.launch_depths(_star(2, 5)[0], 8, 8, 16) == (16,)
-    assert rs.launch_depths(_star(3, 5)[0], 8, 8, 4) == (4,)
+    assert rs.launch_depths(_star(2, 5)[0], 8, 8, 16) == (1,) * 16
+    assert rs.launch_depths(_star(3, 5)[0], 8, 8, 4) == (1,) * 4
+    assert rs.launch_depths(_star(1, 5)[0], 8, 8, 20) == (8, 8, 4)
+    box = stencils.StencilSpec("box3d-r2", 3, 2, "box", stencils._box_taps(3, 2))
+    assert rs.launch_depths(box, 8, 8, 2) == (1, 1)
 
 
 @pytest.mark.parametrize("ndim,r,shape,vl,m,depths", [

@@ -76,7 +76,7 @@ def warp_kernel_np(spec, t: np.ndarray, depth: int, edge: str = "periodic"
                    ) -> tuple[np.ndarray, np.ndarray]:
     """One launch's output and how often each (sub-)column was stored."""
     nb, m_layout, vl = t.shape
-    assert sk.sweep1d_route(vl, m_layout, depth, spec.r) == "warp"
+    assert sk.sweep1d_route(vl, m_layout, depth, spec.r, len(spec.taps)) == "warp"
     m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     B, R = sk.WARP_BLOCKS[m], spec.r
     assert depth * R <= LANES * m                # one launch's corruption fits its halo slot
@@ -265,7 +265,7 @@ def test_warp_kernel_schedule_matches_pallas(name, m, nb, depth):
     (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
     (32, 3, 2, 1, "warp"),        # m = 3: sub-columns of 1
     (32, 16, 2, 1, "warp"),       # m = 16: sub-columns of 8
-    (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
+    (32, 8, 2, 5, "far"),         # beyond the kernel's reach
     (4, 1, 32, 1, "warp"),
     (16, 2, 16, 2, "warp"),
     (64, 4, 128, 1, "warp"),
@@ -283,23 +283,25 @@ def test_warp_kernel_schedule_matches_pallas(name, m, nb, depth):
     (16, 32, 257, 1, "warp"),
     (32, 3, 32, 1, "warp"),       # depth·r = 32·M at M = 1
     (32, 3, 33, 1, "warp"),
-    (8, 0, 2, 1, "smem"),         # no column
+    (8, 0, 2, 1, "far"),          # no column
 ])
 def test_sweep1d_route(vl, m, depth, r, route):
-    assert sk.sweep1d_route(vl, m, depth, r) == route
+    assert sk.sweep1d_route(vl, m, depth, r, 2 * r + 1) == route
+    # more taps than the kernel holds (16) take the far-reach kernel
+    assert sk.sweep1d_route(vl, m, depth, r, sk.WARP_MAX_TAPS + 1) == "far"
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
 def test_sweep1d_route_takes_every_shape_of_its_reach(r):
     """Every vl 1–256, m 1–32 and depth 1–300 of a reach up to
-    ``WARP_MAX_R`` takes the warp kernel; reach 5 the shared-memory one."""
+    ``WARP_MAX_R`` takes the warp kernel; reach 5 the far-reach one."""
     for vl in range(1, 257):
         for m in range(1, 33):
             for depth in range(1, 301):
-                assert sk.sweep1d_route(vl, m, depth, r) == "warp", (vl, m, depth)
+                assert sk.sweep1d_route(vl, m, depth, r, 2 * r + 1) == "warp", (vl, m, depth)
     assert sk.WARP_MAX_R == 4
-    assert {sk.sweep1d_route(vl, m, d, 5) for vl in (1, 32) for m in (5, 8) for d in (1, 300)} \
-        == {"smem"}
+    assert {sk.sweep1d_route(vl, m, d, 5, 11) for vl in (1, 32) for m in (5, 8)
+            for d in (1, 300)} == {"far"}
 
 
 @pytest.mark.parametrize("m,depth,r,launches", [
@@ -334,7 +336,7 @@ def test_cpu_wrapper_counts_no_route():
     assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0)       # CPU: no kernel
     assert torch.equal(got, sk.stencil1d_sweep_ttile_ref(spec, t, 2, 2))
     assert torch.equal(multi, sk.stencil1d_multistep_ref(spec, t, 2, True))
-    assert {"sweep_1d", "sweep_1d_smem", "multistep_1d", "multistep_1d_smem"} <= set(sk.LAUNCHES)
+    assert {"sweep_1d", "sweep_far", "multistep_1d", "multistep_far"} <= set(sk.LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +609,7 @@ def test_main_path_1d5p_odd_m_matches_reference(sweep, ttile, steps, remainder):
     name, shape = "1d5p", (800,)
     vl, m, _ = ops.pick_tile(tst.make(name), shape)
     assert (vl, m) == (32, 5) and sk.sub_columns(m) == (1, 5)
-    assert sk.sweep1d_route(vl, m, 2 * ttile, 2) == "warp"
+    assert sk.sweep1d_route(vl, m, 2 * ttile, 2, 5) == "warp"
     x = np.random.default_rng(17).standard_normal(shape).astype(np.float32)
     jplan = japi.StencilPlan(scheme="transpose", backend="pallas", sweep=sweep, k=2,
                              remainder=remainder, ttile=ttile, vl=vl, m=m)

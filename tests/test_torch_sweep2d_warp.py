@@ -91,7 +91,7 @@ def warp2d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "per
     """One launch of the kernel (a depth its instance has): its output and
     how often each (row, column) was stored."""
     n0, nb, m_layout, vl = t.shape
-    assert sk.sweep2d_route(vl, m_layout, depth, spec.r) == "warp"
+    assert sk.sweep2d_route(vl, m_layout, depth, spec.r, len(spec.taps)) == "warp"
     assert sk.sweep2d_launches(m_layout, depth, spec.r) == (sk.sub_columns(m_layout) + (depth,),)
     m, g = sk.sub_columns(m_layout)              # m: the instance's M from here on
     W, R, D = sk.WARP2D_WARPS, spec.r, depth
@@ -286,14 +286,14 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (32, 4, 8, 1, "warp"),
     (32, 4, 9, 1, "warp"),        # consecutive launches
     (32, 1, 8, 1, "warp"),
-    (32, 2, 0, 1, "smem"),        # depth 0: no instance
+    (32, 2, 0, 1, "far"),         # depth 0: no instance
     (128, 8, 4, 1, "warp"),       # a plan carried over from the JAX package
     (16, 4, 2, 1, "warp"),
     (8, 8, 4, 1, "warp"),         # the reference tuner's vl 8
     (32, 3, 2, 1, "warp"),        # m = 3: sub-columns of 1
     (32, 16, 2, 1, "warp"),       # m = 16: sub-columns of 8
     (32, 8, 2, 2, "warp"),        # reach 2 on the warp kernel
-    (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
+    (32, 8, 2, 5, "far"),         # beyond the kernel's reach
     (4, 1, 8, 1, "warp"),
     (64, 2, 8, 1, "warp"),
     (128, 8, 5, 1, "warp"),       # past the deepest m=8 instance at any vl
@@ -308,18 +308,20 @@ def test_warp2d_kernel_schedule_matches_pallas():
     (8, 8, 16, 1, "warp"),        # the reference tuner's deepest plan (k=4, ttile=4)
     (8, 8, 32, 1, "warp"),
     (8, 16, 2, 2, "warp"),        # reach 2 at any m
-    (8, 16, 2, 5, "smem"),        # beyond the kernel's reach at any m
+    (8, 16, 2, 5, "far"),         # beyond the kernel's reach at any m
     (8, 8, 4, 2, "warp"),         # the former K3-smem row's star: two depth-2 launches
     (8, 8, 16, 2, "warp"),        # the deepest plan at reach 2: eight launches
     (8, 3, 4, 3, "warp"),         # reach 3 > M = 1: a halo from three lanes
     (8, 5, 9, 4, "warp"),         # reach 4 > M = 1, past the deepest: a chain
     (1, 4, 300, 4, "warp"),
     (128, 8, 1, 4, "warp"),
-    (8, 8, 1, 5, "smem"),
-    (8, 0, 2, 1, "smem"),         # no column
+    (8, 8, 1, 5, "far"),
+    (8, 0, 2, 1, "far"),          # no column
 ])
 def test_sweep2d_route(vl, m, depth, r, route):
-    assert sk.sweep2d_route(vl, m, depth, r) == route
+    assert sk.sweep2d_route(vl, m, depth, r, 4 * r + 1) == route
+    # more taps than the kernel holds (64) take the far-reach kernel
+    assert sk.sweep2d_route(vl, m, depth, r, sk.ND_MAX_TAPS + 1) == "far"
 
 
 @pytest.mark.parametrize("m,depth,launches", [
@@ -372,7 +374,7 @@ def test_cpu_wrapper_counts_no_route():
     assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, 4))
     assert torch.equal(multi, sk.stencil_nd_multistep_ref(spec, t, 2, 4, True))
     assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, 2, 4, False))
-    assert {"sweep_2d", "sweep_nd", "multistep_2d", "multistep_nd"} <= set(sk.LAUNCHES)
+    assert {"sweep_2d", "sweep_far", "multistep_2d", "multistep_far"} <= set(sk.LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +700,8 @@ def test_sweep2d_reach_tables():
         for m in (1, 2, 3, 5, 8, 16):
             for depth in (1, 2, 5, 33):
                 for r in range(1, 7):
-                    assert sk.sweep2d_route(vl, m, depth, r) == ("warp" if r <= 4 else "smem")
+                    assert sk.sweep2d_route(vl, m, depth, r, 4 * r + 1) == \
+                        ("warp" if r <= 4 else "far")
 
 
 REACH_VL_CASES = [(r, vl, m) for r, m in ((2, 8), (2, 2), (3, 3), (4, 4), (4, 5), (3, 6))
@@ -771,12 +774,16 @@ def test_warp2d_kernel_reach_matches_pallas(r, vl, m, edge):
 
 def test_register_kernels_tap_limit():
     """A 2-D or 3-D stencil of more taps than the register kernels hold
-    (``ND_MAX_TAPS``, as ``stencil_sweep.cu``'s) raises before any launch:
-    the box of reach 4 (81 taps); that of reach 3 (49) passes."""
-    for r, ok in ((3, True), (4, False)):
+    (``ND_MAX_TAPS``) takes the far-reach kernel and runs: the box of reach
+    4 (81 taps) as four depth-1 launches, the far-reach kernel's schedule
+    (transcribed in ``test_torch_sweep_far.py``) bit for bit the plain
+    version on the CPU; that of reach 3 (49) stays on the warp kernel."""
+    from test_torch_sweep_far import far_chain_np
+    for r, route in ((3, "warp"), (4, "far")):
         spec = tst.StencilSpec(f"box2d-r{r}", 2, r, "box", tst._box_taps(2, r))
-        if ok:
-            sk._check_nd_taps(spec)
-        else:
-            with pytest.raises(ValueError, match="taps exceed"):
-                sk._check_nd_taps(spec)
+        assert sk.sweep2d_route(8, 8, 4, r, len(spec.taps)) == route
+    assert sk.far_launches(2, 8, 4, 4, 81) == ((8, 1, 1),) * 4
+    t = torch.from_numpy(_t(16, 2, 8, 4))
+    got = far_chain_np(spec, t, 4)
+    assert torch.equal(got, sk.stencil_nd_sweep_ttile(spec, t, 2, 2, 8))
+    assert bool(torch.isfinite(got).all())

@@ -64,7 +64,7 @@ def sweep3d_kernel_np(spec, t: np.ndarray, depth: int, seg: int, edge: str = "pe
     each of its elements was stored."""
     n0, n1, nb, m_layout, vl = t.shape
     R = spec.r
-    assert sk.sweep3d_route(vl, m_layout, depth, R) == "stream"
+    assert sk.sweep3d_route(vl, m_layout, depth, R, len(spec.taps)) == "stream"
     assert sk.sweep3d_launches(m_layout, depth, R) == (sk.sub_columns(m_layout) + (depth,),)
     order = sk.sweep3d_order(spec)
     m, g = sk.sub_columns(m_layout)            # m: the instance's M from here on
@@ -397,7 +397,7 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (32, 4, 4, 1, "stream"),
     (32, 2, 3, 1, "stream"),
     (32, 1, 4, 1, "stream"),
-    (32, 2, 0, 1, "smem"),        # depth 0: no instance
+    (32, 2, 0, 1, "far"),         # depth 0: no instance
     (128, 4, 4, 1, "stream"),     # the JAX package's 3-D tile: any vl streams
     (16, 8, 2, 1, "stream"),
     (8, 2, 1, 1, "stream"),
@@ -412,30 +412,33 @@ def test_sweep3d_kernel_any_vl_matches_pallas(vl, m, nb, edge):
     (8, 8, 5, 1, "stream"),       # past the deepest instance: consecutive launches
     (128, 4, 5, 1, "stream"),
     (8, 8, 2, 2, "stream"),       # the former K3-smem 3-D row's star
-    (8, 8, 2, 5, "smem"),         # beyond the kernel's reach
+    (8, 8, 2, 5, "far"),          # beyond the kernel's reach
     (128, 4, 1, 2, "stream"),
-    (128, 4, 1, 5, "smem"),
+    (128, 4, 1, 5, "far"),
     (32, 3, 2, 1, "stream"),      # m = 3 on the instance M = 1
     (32, 16, 2, 1, "stream"),
     (32, 8, 2, 2, "stream"),      # reach 2 on the streaming kernel
-    (32, 8, 2, 5, "smem"),        # beyond the kernel's reach
+    (32, 8, 2, 5, "far"),         # beyond the kernel's reach
     (16, 32, 4, 1, "stream"),     # the tuner's pair (16, 32): sub-columns of 8
     (8, 16, 5, 1, "stream"),      # m = 16 past the deepest instance
     (16, 32, 8, 1, "stream"),     # the former K3-smem 3-D row's depth
     (8, 8, 16, 1, "stream"),      # the reference tuner's deepest plan (k=4, ttile=4)
     (8, 8, 32, 1, "stream"),      # ROADMAP D2's depth: eight launches
     (8, 16, 2, 2, "stream"),      # m = 16 at reach 2
-    (8, 16, 2, 5, "smem"),        # m = 16 beyond the kernel's reach
+    (8, 16, 2, 5, "far"),         # m = 16 beyond the kernel's reach
     (4, 6, 1, 2, "stream"),
-    (4, 6, 1, 5, "smem"),
+    (4, 6, 1, 5, "far"),
     (8, 8, 8, 2, "stream"),       # raised before (no shared-memory tile): four launches
     (8, 8, 4, 3, "stream"),       # likewise: four depth-1 launches
     (8, 8, 4, 4, "stream"),
     (8, 5, 3, 4, "stream"),       # r = 4 > M = 1 on sub-columns
-    (8, 0, 2, 1, "smem"),         # no column
+    (8, 0, 2, 1, "far"),          # no column
 ])
 def test_sweep3d_route(vl, m, depth, r, route):
-    assert sk.sweep3d_route(vl, m, depth, r) == route
+    assert sk.sweep3d_route(vl, m, depth, r, 6 * r + 1) == route
+    # more taps than the kernel holds (64: the box of reach 2 has 125) take
+    # the far-reach kernel
+    assert sk.sweep3d_route(vl, m, depth, r, sk.ND_MAX_TAPS + 1) == "far"
 
 
 @pytest.mark.parametrize("m,depth,order,tile", [
@@ -541,7 +544,7 @@ def test_cpu_wrapper_counts_no_route():
     assert torch.equal(got, sk.stencil_nd_sweep_ttile_ref(spec, t, 2, 2, 4))
     assert torch.equal(multi, sk.stencil_nd_multistep_ref(spec, t, 2, 4, True))
     assert torch.equal(halo, sk.stencil_nd_multistep_ref(spec, t, 2, 4, False))
-    assert {"sweep_3d", "sweep_nd", "multistep_3d", "multistep_nd"} <= set(sk.LAUNCHES)
+    assert {"sweep_3d", "sweep_far", "multistep_3d", "multistep_far"} <= set(sk.LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -670,7 +673,7 @@ def test_sweep3d_reach_tables():
     for vl in (1, 8, 32, 128):
         for m in (1, 3, 8, 16):
             for r in range(1, 7):
-                assert sk.sweep3d_route(vl, m, 5, r) == ("stream" if r <= 4 else "smem")
+                assert sk.sweep3d_route(vl, m, 5, r, 6 * r + 1) == ("stream" if r <= 4 else "far")
 
 
 @pytest.mark.parametrize("m,depth,r,launches", [

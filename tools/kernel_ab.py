@@ -3,7 +3,7 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME]
-                               [--only stencils|3d|deep|k2|k6|odd5|reach2]
+                               [--only stencils|3d|deep|k2|k6|odd5|reach2|reach5]
                                [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
@@ -81,6 +81,20 @@ fused-16 run
 picker's tile, each held bit for bit against the plain versions and timed
 with CUDA events.
 
+Reach 5 (``--only reach5``; the tiles options do not apply): the star of
+reach 5 (``_star_taps(ndim, 5)``) at vl=8, m=8 on the kernel its route
+takes (``sweep_far.cu`` since it exists, ``stencil_sweep.cu`` before):
+K1 on 2**26 and K3 on 8192² at depths 4, 2, 1, K3 on 512³ at depths 1,
+2, 4 (a tree whose route raises there prints the error), bfloat16 at the
+first depth; then, on a tree that has the far-reach kernel, that kernel
+called directly at other depths a launch (1-D depth 16 as 16, 8 + 8 and
+4 × 4 launches; 2-D and 3-D take one step a launch), at other tiles,
+and on the stars of reach 3 and 4 at 512³, depths 4, 2, 1,
+beside the route they take (``sweep3d.cu``'s run-time taps), with the
+plain version's time and the library's (``conv3d``, circular padding, one
+a step) on those rows, each held bit for bit against the plain versions
+and timed with CUDA events.
+
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
 the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
@@ -94,7 +108,7 @@ Prints one JSON line per row, then the card's name and power limit.
 
 ``chip_smoke.py`` times the same kernels, but only on the tree it belongs
 to: it asserts this tree's route functions and counter keys
-(``transpose_route``, ``multistep_1d_smem``, ``multistep_2d``), which an
+(``transpose_route``, ``multistep_far``, ``multistep_2d``), which an
 older tree lacks.  This script calls nothing but the entry points both
 trees share, so it can time a parent tree beside its child.
 """
@@ -117,7 +131,7 @@ def main() -> int:
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6", "odd5",
-                                           "reach2"), default=None)
+                                           "reach2", "reach5"), default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
     parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
@@ -146,6 +160,8 @@ def main() -> int:
         odd5_rows(args.label, dev)
     if args.only == "reach2":
         reach2_rows(args.label, dev)
+    if args.only == "reach5":
+        reach5_rows(args.label, dev)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -364,6 +380,122 @@ def reach2_rows(label: str, dev) -> None:
              plain)
         del x
         torch.cuda.empty_cache()
+
+
+def reach5_rows(label: str, dev) -> None:
+    """The star of reach 5 at every rank, and the far-reach kernel's depths
+    a launch and its rows at reach 3 and 4 (the group's docstring above)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import stencils
+    from repro_torch.core.timing import bench
+    from repro_torch.kernels import stencil_kernels as sk
+
+    def star(ndim, r):
+        return stencils.StencilSpec(f"star{ndim}d-r{r}", ndim, r, "star",
+                                    stencils._star_taps(ndim, r))
+
+    def sweep(spec, t, depth, t0, out=None):
+        if spec.ndim == 1:
+            return sk.stencil1d_sweep_ttile(spec, t, depth, 1, out=out)
+        return sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0, out=out)
+
+    def plain(spec, t, depth, t0):
+        if spec.ndim == 1:
+            return sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1)
+        return sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0)
+
+    far = hasattr(sk, "far_launches")
+
+    def far_chain(spec, t, out, depths):
+        """The far-reach kernel's launches of ``depths``, one after another."""
+        sk._chain(lambda s, o, d: sk._far_launch(spec, s, o, d), t, out,
+                  tuple((t.shape[-2], 1, d) for d in depths))
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vl, m = 8, 8
+    for ndim, shape, t0, depths in ((1, (N1,), None, (4, 2, 1)), (2, (N2, N2), 32, (4, 2, 1)),
+                                    (3, (512, 512, 512), 16, (1, 2, 4))):
+        spec = star(ndim, 5)
+        what = "x".join(map(str, shape))
+        x = torch.randn(shape, generator=gen, device=dev)
+        for dtype, ds in ((torch.float32, depths), (torch.bfloat16, depths[:1])):
+            t = sk.block_transpose_ref(x.to(dtype), vl, m)
+            buf = torch.empty_like(t)
+            for depth in ds:
+                kname = (f"{'K1' if ndim == 1 else 'K3'} {spec.name} {what} {str(dtype)[6:]} "
+                         f"vl={vl} m={m} depth={depth}")
+                _or_raises(label, kname, lambda: _row(
+                    label, dev, kname, lambda: sweep(spec, t, depth, t0, buf),
+                    lambda: plain(spec, t, depth, t0)))
+            del t, buf
+        if far:
+            t = sk.block_transpose_ref(x, vl, m)
+            buf = torch.empty_like(t)
+            if ndim == 1:    # 2-D and 3-D take one step a launch
+                want = plain(spec, t, 16, t0)
+                for launches in ((16,), (8, 8), (4,) * 4):
+                    kname = (f"far {spec.name} {what} vl={vl} m={m} depth=16 as "
+                             f"{'+'.join(map(str, launches))}")
+                    _row(label, dev, kname, lambda: far_chain(spec, t, buf, launches),
+                         lambda: want)
+            # the tile's choices: the column (then row) tile it starts from
+            # and the shared memory it aims at (FAR_SMEM: one CTA an SM), at
+            # the first depth (the tile printed: its launches')
+            depth = depths[0]
+            want = plain(spec, t, depth, t0)
+            saved = (dict(sk.FAR_TILE), sk.FAR_SMEM_AIM)
+            variants = {1: [("tile 256", {"tile": (1, 256)}), ("tile 1024", {"tile": (1, 1024)})],
+                        2: [("tile 128", {"tile": (1, 128)}), ("tile 512", {"tile": (1, 512)})],
+                        3: [("aim one CTA an SM", {"aim": sk.FAR_SMEM}),
+                            ("tile 16x4", {"tile": (16, 4)})]}[ndim]
+            for vname, var in variants:
+                sk.FAR_TILE[ndim] = var.get("tile", saved[0][ndim])
+                sk.FAR_SMEM_AIM = var.get("aim", saved[1])
+                nat = ((1, 1, shape[0]) if ndim == 1 else (shape[0], 1, shape[1]) if ndim == 2
+                       else shape)
+                tile = sk.far_tile(ndim, nat, m, 5, sk.far_launches(
+                    ndim, m, depth, 5, len(spec.taps))[0][2], len(spec.taps), 4)
+                kname = (f"far {spec.name} {what} vl={vl} m={m} depth={depth} {vname} "
+                         f"(ty, tc, ncp, smem) = {tile}")
+                _row(label, dev, kname, lambda: sweep(spec, t, depth, t0, buf), lambda: want)
+                sk.FAR_TILE[ndim], sk.FAR_SMEM_AIM = saved[0][ndim], saved[1]
+            del t, buf, want
+        del x
+        torch.cuda.empty_cache()
+    # the stars of reach 3 and 4 at 512³: sweep3d.cu's run-time taps (the
+    # route) beside the far-reach kernel, with the plain and library times
+    if not far:
+        return
+    x = torch.randn((512, 512, 512), generator=gen, device=dev)
+    t = sk.block_transpose_ref(x, vl, m)
+    buf = torch.empty_like(t)
+    for r in (3, 4):
+        spec = star(3, r)
+        weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
+        for depth in (4, 2, 1):
+            kname = f"K3 {spec.name} 512x512x512 vl={vl} m={m} depth={depth}"
+            _row(label, dev, kname + " (route)", lambda: sweep(spec, t, depth, 16, buf),
+                 lambda: plain(spec, t, depth, 16))
+            _row(label, dev, kname + " (far-reach kernel)",
+                 lambda: far_chain(spec, t, buf, (1,) * depth),
+                 lambda: plain(spec, t, depth, 16))
+
+            def conv():
+                v = x[None, None]
+                for _ in range(depth):
+                    v = F.conv3d(F.pad(v, (r,) * 6, mode="circular"), weight)
+                return v
+            print(json.dumps({
+                "tree": label, "kernel": kname,
+                "plain_ms": bench(lambda: plain(spec, t, depth, 16), device=dev, warmup=1,
+                                  iters=3, min_time_s=0.0) * 1e3,
+                "library_ms": bench(conv, device=dev, warmup=1, iters=3,
+                                    min_time_s=0.0) * 1e3}), flush=True)
+    del x, t, buf
+    torch.cuda.empty_cache()
 
 
 def _row(label, dev, kernel, fn, plain):

@@ -10,7 +10,8 @@ permutes, moves, calls), with ``cuobjdump`` from the CUDA toolkit beside
                                   [--base PATH]
 
 ``--source`` is ``sweep3d`` (the default), ``sweep2d_warp``,
-``sweep1d_warp``, their bfloat16 sources ``<source>_bf16`` (the kernel
+``sweep1d_warp``, ``sweep_far`` (instances <edge>, float, and <bf16, edge>),
+their bfloat16 sources ``<source>_bf16`` (the kernel
 ``<source>``, a float instance named by its template arguments without
 the element type, as a tree from before the bfloat16 instances named its
 ``<source>_f32``, so ``--base`` compares the two; a bfloat16 one with
@@ -86,7 +87,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--source", default="sweep3d",
                         choices=("sweep3d", "sweep2d_warp", "sweep1d_warp", "sweep3d_bf16",
-                                 "sweep2d_warp_bf16", "sweep1d_warp_bf16", "transpose"))
+                                 "sweep2d_warp_bf16", "sweep1d_warp_bf16", "transpose",
+                                 "sweep_far"))
     parser.add_argument("--lib", default=None)
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--base", default=None, help="a library to compare with")
