@@ -71,8 +71,12 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              also at vl=8, m=8, vl=128, m=4 and vl=8, m=16
              (``multistep_3d``), each equal to the run at the case's tile;
   onestep    ``ops.stencil_onestep_naive`` / ``stencil_onestep_transpose``
-             (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, in
-             float32 and bfloat16, bit for bit the periodic oracle;
+             (K5a; K2, K5b, K2) for 1d3p and 1d5p at 2**26, vl=32, m=8, and
+             K5b alone for 1d3p at the odd m=3 on 3·2**24, in float32 and
+             bfloat16, each counted, bit for bit the periodic step's plain
+             version and within 3·taps·u·Σ|c|·max|x| of the float64
+             oracle, with the form it took; then a line of the phase's
+             seconds (``phase_seconds``);
   kernels    at those paths' shapes, each kernel against its plain PyTorch
              version, bit for bit, and its time beside the plain version's,
              a library call's and its bound (CUDA events, median of repeats,
@@ -144,8 +148,12 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              raised before it: K3-far on 3-D stars of reach 6 (depths 2, 4)
              and 8 (depth 2) at 512**3, the 3-D box of reach 2 (125 taps,
              512**3) and the 2-D box of reach 5 (121 taps, 8192**2) at
-             depths 1 and 2; K5a and K5b (counted) at reach 6 and at 20
-             taps on 2**26, past their register forms (``onestep_form``);
+             depths 1 and 2; K5a and K5b (counted, as in the onestep
+             phase) on 2**26, in float32 and bfloat16, at reach 6 (m=8)
+             and at 20 taps (m=16), past the register forms before their
+             reach reached 16 and their taps 64, at 3 taps of reach 20
+             (m=32: K5a's lane form, K5b's memory form) and of reach 40
+             (m=64: both memory forms), each form asserted;
              every row bit for bit its plain version, whose time and the
              library's are one timed call after one untimed;
   small_vl   2d5p at 8192x8190, whose picker tile is vl=2, m=7: the
@@ -272,7 +280,8 @@ PLANS = (("fused", 16), ("native", 7))     # (remainder, steps), k=2
 K = 2
 TTILE = 2                                  # the resident plans' temporal tile
 DIRICHLET_STEPS = 16
-ONESTEP = (("1d3p", 1 << 26), ("1d5p", 1 << 26))   # K5 at vl=32, m=8
+# K5 at vl=32: (case, points, m, K5a too); K5b alone at the odd m = 3
+ONESTEP = (("1d3p", 1 << 26, 8, True), ("1d5p", 1 << 26, 8, True), ("1d3p", 3 << 24, 3, False))
 JAX_TILE = (128, 8)      # (vl, m): the JAX package's tile
 JAX_TILE_3D = (128, 4)   # (vl, m): the JAX package's 3-D tile (vl·m divides 512)
 TUNER_TILE = (8, 8)      # (vl, m): a tile of the reference's tuner (vl in {4, 8, 16})
@@ -291,7 +300,11 @@ FAR_CASES = ((1, (1 << 26,)), (2, (8192, 8192)), (3, (512, 512, 512)))
 FAR_ROW_TILE, FAR_ROW_DEPTHS = (8, 8), (4, 2, 1)
 FAR_C3_STARS = ((3, 6, (2, 4)), (3, 8, (2,)))          # (ndim, r, depths) on 512³
 FAR_C3_BOXES = ((3, 2, (256, 256, 256)), (2, 5, (8192, 8192)))   # (ndim, r, grid), k = 1, 2
-FAR_K5 = ("star1d-r6", "taps20")     # K5's specs: 13 taps of reach 6; 20 taps of reach 10
+# K5's specs, their m and the forms (K5a, K5b) they must take: 13 taps of
+# reach 6; 20 taps of reach 10; 3 taps at -20, 0, 20 (K5a's lane form, K5b's
+# memory form) and 3 taps at 0, -40, 33 (both memory forms)
+FAR_K5 = (("star1d-r6", 8, ("reg", "reg")), ("taps20", 16, ("reg", "reg")),
+          ("r20-3taps", 32, ("lane", "mem")), ("far40", 64, ("mem", "mem")))
 # the star of reach 2 (``_star_taps(ndim, 2)``) at 2-D and 3-D on the
 # register kernels (the retired shared-memory kernel took it until they reached r = 4):
 # the grids, the K3 rows' tile and depths (the former shared-memory rows' shapes
@@ -1150,6 +1163,10 @@ def main() -> int:
               sweep3d,
           "sweep_far <T, edge> (edge 0 periodic, 1 ring, 2 open)": ptxas_kernels(
               build.report("sweep_far"), "sweep_far"),
+          "onestep_naive <T, R>": ptxas_kernels(build.report("onestep"), "onestep_naive"),
+          "onestep_naive_lane <T>": ptxas_kernels(build.report("onestep"), "onestep_naive_lane"),
+          "onestep_transpose <T, E, R, P>": ptxas_kernels(build.report("onestep"),
+                                                          "onestep_transpose"),
           **k6_ptxas,
           "ssd dynamic shared memory bytes at P=64, N=128": {
               f"{kern} {dtype}": ssd_lib.repro_ssd_smem_bytes(i, dtype == "bf16", 64, 128)
@@ -1307,6 +1324,71 @@ def main() -> int:
             "bound_by": b[1], "library_ms": library() if library else None, **extra,
         })
         emit({"phase": "kernels", **entries[-1]})
+
+    def k5_rows(phase, spec, n, m, dtype, naive=True, forms=None):
+        """K5a (unless not ``naive``) and K5b of ``spec`` on ``n`` random
+        points at vl=32 and ``m``, in ``dtype``: each entry point
+        (``ops.stencil_onestep_naive``; K2, ``stencil_onestep_transpose``,
+        K2) counted, bit for bit the periodic step's plain version and
+        within 3·taps·u·Σ|c|·max|x| of the float64 oracle (u the dtype's
+        unit roundoff: a coefficient's rounding, a product's and a sum's a
+        tap, each within u of a partial sum's bound), then its row with the
+        form it took (``onestep_form``; ``forms``, if given, the (K5a, K5b)
+        forms it must take), its bound and the library's circular
+        convolution."""
+        vl = 32
+        x = torch.randn((n,), generator=torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev).to(dtype)
+        dname = str(dtype).split(".")[-1]
+        want = kref.onestep_periodic_ref(spec, x)
+        oracle = kref.onestep_periodic_ref(spec, x.double())
+        unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+        tol = 3 * len(spec.taps) * unit * sum(abs(c) for _, c in spec.taps) * \
+            x.abs().max().item()
+        weight = torch.tensor(spec.coeff_array(), dtype=dtype, device=dev)[None, None]
+        b = simt_bound(2 * n * x.element_size(), spec.flops_per_point * n, x.element_size())
+        kinds = [("K5b", "transpose", lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
+                  {"onestep_transpose": 1, k2_key(vl, m): 2})]
+        if naive:
+            kinds.insert(0, ("K5a", "naive", lambda: ops.stencil_onestep_naive(spec, x, vl),
+                             {"onestep_naive": 1}))
+        for kid, kind, fn, owned in kinds:
+            form = sk.onestep_form(kind, spec, dtype)
+            if forms and form != forms[kind == "transpose"]:
+                raise AssertionError(f"{kid} {spec.name} takes the {form} form, not "
+                                     f"{forms[kind == 'transpose']}")
+            fn()                                  # uncounted: loads the kernels
+            what = f"{phase} {spec.name} {n} {dname} onestep {kind} m={m}"
+            y, seconds, got = counted(what, fn, owned)
+            err = same(what, y, want)
+            oracle_err = (y.double() - oracle).abs().max().item()
+            if oracle_err > tol:
+                raise AssertionError(f"{what}: {oracle_err} off the float64 oracle, beyond {tol}")
+            emit({"phase": phase, "case": spec.name, "kernel": kid, "shape": [n],
+                  "dtype": dname, "vl": vl, "m": m, "form": form, "taps": len(spec.taps),
+                  "seconds": seconds, "launches": got, "bitwise": True,
+                  "max_abs_err_vs_plain": err, "max_abs_err_vs_f64": oracle_err,
+                  "f64_bound": tol})
+            del y
+            if kind == "naive":
+                out = torch.empty_like(x)
+                row(kid, "stencil1d_naive_onestep", f"{spec.name} {n} {dname} vl={vl}; form "
+                    f"{form}", "onestep", got["onestep_naive"], err,
+                    lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
+                    lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
+                    lambda: ms(conv_steps, spec, x, 1, weight))
+                del out
+            else:
+                t = sk.block_transpose(x, vl, m)
+                tout = torch.empty_like(t)
+                row(kid, "stencil1d_transpose_onestep", f"{spec.name} {n} {dname} vl={vl} m={m}; "
+                    f"form {form}", "onestep", got["onestep_transpose"], err,
+                    lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
+                    lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
+                    lambda: ms(conv_steps, spec, x, 1, weight))
+                del t, tout
+        del x, want, oracle
+        torch.cuda.empty_cache()
 
     def k2_rows(name, dims, x, vl, m, launches, grid_bytes):
         """K2's rows in both directions at the (vl, m) tile, on its register
@@ -1506,43 +1588,17 @@ def main() -> int:
                     launch_depths=[d for *_, d in launches_at(spec, m2, depth, 4, vl2)])
             del x, t, buf
             torch.cuda.empty_cache()
-        n = ONESTEP[0][1]
-        for label in FAR_K5:
-            spec = star(1, 6) if label == "star1d-r6" else stencils.StencilSpec(
-                label, 1, 10, "star", tuple(((o,), 1.0 / (20 + abs(o)))
-                                            for o in range(-10, 11) if o))
-            vl, m = 32, 8 if spec.r <= 8 else 16
-            x = torch.randn((n,), generator=torch.Generator(device=dev).manual_seed(SEED),
-                            device=dev)
-            want = kref.onestep_periodic_ref(spec, x)
-            ops.stencil_onestep_naive(spec, x, vl)
-            ops.stencil_onestep_transpose(spec, x, vl, m)
-            naive, _, c_naive = counted(f"{label} onestep naive",
-                                        lambda: ops.stencil_onestep_naive(spec, x, vl),
-                                        {"onestep_naive": 1})
-            trans, _, c_trans = counted(f"{label} onestep transpose",
-                                        lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
-                                        {"onestep_transpose": 1, k2_key(vl, m): 2})
-            err_naive = same(f"{label} onestep naive", naive, want)
-            err_trans = same(f"{label} onestep transpose", trans, want)
-            weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
-            b = bound(2 * n * x.element_size(), spec.flops_per_point * n)
-            out = torch.empty_like(x)
-            form = sk.onestep_form("naive", spec)
-            row("K5a", "stencil1d_naive_onestep", f"{label} {n} float32 vl={vl}; form {form}",
-                "onestep", c_naive["onestep_naive"], err_naive,
-                lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
-                lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
-                lambda: ms(conv_steps, spec, x, 1, weight))
-            t = sk.block_transpose(x, vl, m)
-            tout = torch.empty_like(t)
-            form = sk.onestep_form("transpose", spec, m)
-            row("K5b", "stencil1d_transpose_onestep", f"{label} {n} float32 vl={vl} m={m}; "
-                f"form {form}", "onestep", c_trans["onestep_transpose"], err_trans,
-                lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
-                lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
-                lambda: ms(conv_steps, spec, x, 1, weight))
-            del x, want, naive, trans, t, tout, out
+        k5_specs = {
+            "star1d-r6": star(1, 6),
+            "taps20": stencils.StencilSpec("taps20", 1, 10, "star", tuple(
+                ((o,), 1.0 / (20 + abs(o))) for o in range(-10, 11) if o)),
+            "r20-3taps": stencils.StencilSpec("r20-3taps", 1, 20, "star", (
+                ((-20,), 0.25), ((0,), 0.5), ((20,), 0.25))),
+            "far40": stencils.StencilSpec("far40", 1, 40, "star", (
+                ((0,), 0.5), ((-40,), 0.25), ((33,), 0.25)))}
+        for label, m_k5, forms in FAR_K5:
+            for dtype in (torch.float32, torch.bfloat16):
+                k5_rows("reach5", k5_specs[label], 1 << 26, m_k5, dtype, forms=forms)
         emit({"phase": "reach5", "launches": far_launched,
               "phase_seconds": time.perf_counter() - start})
         torch.cuda.empty_cache()
@@ -2413,44 +2469,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- onestep: the layout A/B, and its K5 rows (float32 and bfloat16) ----
-    vl, m = 32, 8
-    for (name, n), dtype in [(case, dt) for dt in (torch.float32, torch.bfloat16)
-                             for case in ONESTEP]:
-        spec = stencils.make(name)
-        x = StencilProblem(name, (n,), dtype=dtype).init(SEED)
-        dname = str(dtype).split(".")[-1]
-        want = kref.onestep_periodic_ref(spec, x)
-        ops.stencil_onestep_naive(spec, x, vl)            # uncounted: loads the kernels
-        ops.stencil_onestep_transpose(spec, x, vl, m)
-        naive, s_naive, c_naive = counted(f"{name} {dname} onestep naive",
-                                          lambda: ops.stencil_onestep_naive(spec, x, vl),
-                                          {"onestep_naive": 1})
-        trans, s_trans, c_trans = counted(f"{name} {dname} onestep transpose",
-                                          lambda: ops.stencil_onestep_transpose(spec, x, vl, m),
-                                          {"onestep_transpose": 1, k2_key(vl, m): 2})
-        err_naive = same(f"{name} {dname} onestep naive", naive, want)
-        err_trans = same(f"{name} {dname} onestep transpose", trans, want)
-        emit({"phase": "onestep", "case": name, "shape": [n], "dtype": str(dtype), "vl": vl,
-              "m": m, "naive": {"seconds": s_naive, "launches": c_naive},
-              "transpose": {"seconds": s_trans, "launches": c_trans},
-              "bitwise": True})
-        weight = torch.tensor(spec.coeff_array(), dtype=x.dtype, device=dev)[None, None]
-        b = simt_bound(2 * n * x.element_size(), spec.flops_per_point * n, x.element_size())
-        out = torch.empty_like(x)
-        row("K5a", "stencil1d_naive_onestep", f"{name} {n} {dname} vl={vl}", "onestep",
-            c_naive["onestep_naive"], err_naive,
-            lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
-            lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl), b,
-            lambda: ms(conv_steps, spec, x, 1, weight))
-        t = sk.block_transpose(x, vl, m)
-        tout = torch.empty_like(t)
-        row("K5b", "stencil1d_transpose_onestep", f"{name} {n} {dname} vl={vl} m={m}", "onestep",
-            c_trans["onestep_transpose"], err_trans,
-            lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
-            lambda: sk.stencil1d_transpose_onestep_ref(spec, t), b,
-            lambda: ms(conv_steps, spec, x, 1, weight))
-        del x, want, naive, trans, t, tout, out
-        torch.cuda.empty_cache()
+    start = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, n, m, naive in ONESTEP:
+            k5_rows("onestep", stencils.make(name), n, m, dtype, naive, ("reg", "reg"))
+    emit({"phase": "onestep", "phase_seconds": time.perf_counter() - start})
 
     # -- tiles: the GPU picker's tiles off vl=32, each run vs the CPU's ------
     tile_keys = {"reg": {1: {"sweep_1d", "multistep_1d"}, 2: {"sweep_2d", "multistep_2d"},

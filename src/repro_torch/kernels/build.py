@@ -194,7 +194,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             trans_mem.argtypes = [ptr, ptr] + [i64] * 4 + [ptr, ptr]
             trans_mem.restype = ctypes.c_int
         for fn in (lib.repro_onestep_max_reach, lib.repro_onestep_naive_max_reach,
-                   lib.repro_onestep_max_taps, lib.repro_onestep_max_m):
+                   lib.repro_onestep_max_taps, lib.repro_onestep_lane_taps):
             fn.argtypes = []
             fn.restype = i64
     elif name == "ssd_scan":

@@ -17,8 +17,8 @@
 // the FP32 rate: the 2-D sweep at depth 4 took 0.99 ms against float32's
 // 0.21; PERF.md section 6).  The far-reach kernel (sweep_far.cu) holds
 // the element type in shared memory and registers and computes with mul()
-// and add() too; the one-step kernels (onestep.cu) keep float registers
-// and round with rnd().
+// and add() too, as do the one-step kernels' register forms (onestep.cu);
+// only their memory-tap forms keep float registers and round with rnd().
 //
 // cp.async moves 4, 8 or 16 bytes, so the kernels that stage device memory
 // in shared memory with it (sweep2d_warp, sweep3d) copy a bfloat16 element

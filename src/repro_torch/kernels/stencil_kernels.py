@@ -1053,28 +1053,40 @@ def stencil1d_transpose_onestep_ref(spec: StencilSpec, t: torch.Tensor) -> torch
     return step_in_layout(spec, t, ndim=1)
 
 
-# csrc/onestep.cu's register forms: their taps (kMaxTaps), K5a's reach (one
-# neighbouring vector of 32 a side), K5b's reach (kMaxR) and its columns of
-# m <= 16 points in registers; past any of them a form that reads its taps
-# from device memory, one thread an element
-ONESTEP_MAX_TAPS = 16
+# csrc/onestep.cu's register forms: a thread's runs of points in registers
+# with a window of 4, 8 or ONESTEP_REACH points a side (every |offset|
+# within it; kMaxR), a tap a switch on its offset, the taps as kernel
+# arguments (kMaxTaps), at any m and vl; K5a's lane form (a vector of 32
+# points across a warp, a tap a shuffle: every |offset| up to
+# ONESTEP_NAIVE_REACH, kLaneR) past the windows, and past the narrow one
+# at up to ONESTEP_LANE_TAPS taps (kLaneTaps; bfloat16: past the middle
+# one); past them a form that reads its taps from device memory, one thread
+# an element
+ONESTEP_MAX_TAPS = 64
+ONESTEP_REACH = 16
 ONESTEP_NAIVE_REACH = 32
-ONESTEP_REACH = 4
-ONESTEP_MAX_M = 16
+ONESTEP_LANE_TAPS = 7
 
 
-def onestep_form(kind: str, spec: StencilSpec, m: int = 1) -> str:
+def onestep_form(kind: str, spec: StencilSpec, dtype: torch.dtype) -> str:
     """The form of ``csrc/onestep.cu`` a CUDA K5a (``kind`` "naive") or
-    K5b ("transpose", at ``m``) launches for ``spec``: ``"reg"`` (taps as
-    kernel arguments, a vector or a column in registers) within the
-    register forms' taps and reach, else ``"mem"`` (taps in device memory,
-    any tap count and reach)."""
+    K5b ("transpose") launches for ``spec`` on ``dtype`` elements:
+    ``"reg"`` (taps as kernel arguments, a run of points and its halo in
+    registers) within the register windows' taps and reach, K5a's
+    ``"lane"`` (taps as kernel arguments, a tap a shuffle) past them up to
+    its reach and past the narrow window (bfloat16: the middle one) at a
+    few taps, else ``"mem"`` (taps in device memory, any tap count and
+    reach)."""
     if len(spec.taps) > ONESTEP_MAX_TAPS:
         return "mem"
     if kind == "naive":
-        reach = max(abs(off[-1]) for off, _ in spec.taps)
-        return "reg" if reach <= ONESTEP_NAIVE_REACH else "mem"
-    return "reg" if spec.r <= ONESTEP_REACH and m <= ONESTEP_MAX_M else "mem"
+        reach = max(abs(off[-1]) for off, _ in spec.taps)     # the kernel's own
+        # 4, 8: the narrow and the middle window
+        lane = len(spec.taps) <= ONESTEP_LANE_TAPS and not (dtype == torch.bfloat16 and reach <= 8)
+        if reach <= 4 or (reach <= ONESTEP_REACH and not lane):
+            return "reg"
+        return "lane" if reach <= ONESTEP_NAIVE_REACH else "mem"
+    return "reg" if spec.r <= ONESTEP_REACH else "mem"
 
 
 @functools.lru_cache(maxsize=256)
@@ -1101,7 +1113,7 @@ def stencil1d_naive_onestep(spec: StencilSpec, x: torch.Tensor, vl: int = 32,
     _check_cuda(x, "stencil1d_naive_onestep")
     dst = _out(out, x.shape, x, "stencil1d_naive_onestep")
     _kernel_io(x, dst, "the naive one-step kernel")
-    if onestep_form("naive", spec) == "reg":
+    if onestep_form("naive", spec, x.dtype) != "mem":
         ntaps, offs, coeffs = _taps(spec, 1, x.dtype)
         build.check(_entry("onestep", "onestep_naive", x.dtype)(
             x.data_ptr(), dst.data_ptr(), x.shape[0], ntaps, ctypes.cast(offs, ctypes.c_void_p),
@@ -1129,7 +1141,7 @@ def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
     dst = _out(out, t.shape, t, "stencil1d_transpose_onestep")
     _kernel_io(t, dst, "the transpose one-step kernel")
     nb, m, vl = t.shape
-    if onestep_form("transpose", spec, m) == "reg":
+    if onestep_form("transpose", spec, t.dtype) == "reg":
         ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
         build.check(_entry("onestep", "onestep_transpose", t.dtype)(
             t.data_ptr(), dst.data_ptr(), nb, m, vl, spec.r, ntaps,

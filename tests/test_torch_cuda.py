@@ -942,25 +942,52 @@ def test_sweep3d_main_path_shape(cuda):
             assert torch.equal(got, want), (depth, edge_mask)
 
 
-@pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
-@pytest.mark.parametrize("n,vl", [(1 << 20, 32), (96, 8), (40, 8), (16384 + 64, 32)])
+# K5's stencils and their reach: the registry's, the star of reach 6, 8
+# and 16, 20 taps of reach 10, 5 taps reaching 16 on one side (_k5_spec)
+K5_REACH = {"1d3p": 1, "1d5p": 2, "heat1d": 1, "star1d-r6": 6, "star1d-r8": 8, "taps20": 10,
+            "star1d-r16": 16, "lopsided": 16}
+
+
+def _k5_spec(name):
+    if name.startswith("star1d-r"):
+        return _star(1, int(name[len("star1d-r"):]))
+    if name == "taps20":
+        return _taps20()
+    if name == "lopsided":
+        return stencils.StencilSpec("lopsided", 1, 16, "star", (
+            ((3,), 0.125), ((-16,), 0.25), ((0,), 0.5), ((16,), 0.0625), ((-1,), 0.0625)))
+    return stencils.make(name)
+
+
+@pytest.mark.parametrize("name", list(K5_REACH))
+@pytest.mark.parametrize("n,vl", [(1 << 20, 32), (96, 8), (40, 8), (16384 + 64, 32),
+                                  (96 * 41, 41)])
 def test_onestep_naive_kernel_bitwise(cuda, name, n, vl):
-    spec = stencils.make(name)
+    """K5a's register form, in 16-byte words and (input and output one
+    element into their storage) element by element, bit for bit its plain
+    version (the 5 taps of "lopsided" on the lane form)."""
+    spec = _k5_spec(name)
     x = _x((n,), 5, cuda)
-    sk.reset_launches()
-    got = sk.stencil1d_naive_onestep(spec, x, vl)
-    want = sk.stencil1d_naive_onestep_ref(spec, x, vl)
-    torch.cuda.synchronize()
-    assert sk.LAUNCHES["onestep_naive"] == 1
-    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert sk.onestep_form("naive", spec, x.dtype) == ("lane" if name == "lopsided" else "reg")
+    for src, out in ((x, None), (_offset_by_one(x), _offset_by_one(torch.empty_like(x)))):
+        sk.reset_launches()
+        got = sk.stencil1d_naive_onestep(spec, src, vl, out=out)
+        want = sk.stencil1d_naive_onestep_ref(spec, src, vl)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["onestep_naive"] == 1
+        assert torch.equal(got, want), (got - want).abs().max().item()
 
 
-@pytest.mark.parametrize("name", ["1d3p", "1d5p"])
-@pytest.mark.parametrize("vl,m,nb", [
-    (32, 8, 4096), (8, 4, 5), (4, 2, 7), (32, 2, 33), (3, 5, 4), (4, 32, 3),   # m > 16
-])
+K5B_TILES = [(32, 8, 4096), (8, 4, 5), (4, 2, 7), (32, 2, 33), (3, 5, 4), (4, 32, 3),
+             (8, 16, 5), (41, 6, 3), (1, 12, 9), (32, 3, 2), (5, 7, 1), (3, 40, 7), (64, 16, 2)]
+
+
+@pytest.mark.parametrize("name,vl,m,nb", [(name, *tile) for name in K5_REACH
+                                          for tile in K5B_TILES if K5_REACH[name] <= tile[1]])
 def test_onestep_transpose_kernel_bitwise(cuda, name, vl, m, nb):
-    spec = stencils.make(name)
+    """K5b's register form on runs of 8, 4, 2 and 1 rows, m past 16, r = m,
+    nb = 1, vl = 1 and off 32, bit for bit its plain version."""
+    spec = _k5_spec(name)
     t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda), vl, m)
     sk.reset_launches()
     got = sk.stencil1d_transpose_onestep(spec, t)
@@ -1463,22 +1490,29 @@ def test_bf16_smem_routes_bitwise(cuda, spec, shape, vl, m, t0, depth, edge_mask
     assert got.dtype == BF16 and torch.equal(got, want), (got.float() - want.float()).abs().max()
 
 
-@pytest.mark.parametrize("name", ["1d3p", "1d5p", "heat1d"])
+@pytest.mark.parametrize("name", list(K5_REACH))
 def test_bf16_onestep_kernels_bitwise(cuda, name):
-    """K5a and K5b in bfloat16 (K5b also at m > 16, every tap from
-    memory)."""
-    spec = stencils.make(name)
-    for n, vl in ((1 << 20, 32), (96, 8), (16384 + 64, 32)):
+    """K5a and K5b in bfloat16: K5a in 16-byte words and (one element into
+    its storage) element by element, K5b at every run length, m past 16
+    and r = m, each counted."""
+    spec = _k5_spec(name)
+    for n, vl in ((1 << 20, 32), (96, 8), (16384 + 64, 32), (96 * 41, 41)):
         x = _x((n,), 5, cuda).to(BF16)
-        assert torch.equal(sk.stencil1d_naive_onestep(spec, x, vl),
-                           sk.stencil1d_naive_onestep_ref(spec, x, vl))
-    for vl, m, nb in ((32, 8, 4096), (8, 4, 5), (3, 5, 4), (4, 32, 3)):
+        for src in (x, _offset_by_one(x)):
+            sk.reset_launches()
+            got = sk.stencil1d_naive_onestep(spec, src, vl)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES["onestep_naive"] == 1
+            assert torch.equal(got, sk.stencil1d_naive_onestep_ref(spec, src, vl)), (n, vl)
+    for vl, m, nb in K5B_TILES:
+        if K5_REACH[name] > m:
+            continue
         t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda).to(BF16), vl, m)
         sk.reset_launches()
         got = sk.stencil1d_transpose_onestep(spec, t)
         torch.cuda.synchronize()
         assert sk.LAUNCHES["onestep_transpose"] == 1
-        assert torch.equal(got, sk.stencil1d_transpose_onestep_ref(spec, t))
+        assert torch.equal(got, sk.stencil1d_transpose_onestep_ref(spec, t)), (vl, m, nb)
 
 
 def _offset_by_one(t):
@@ -1881,20 +1915,38 @@ def test_far_c3_shapes_at_size(cuda, nd, r):
 
 def test_onestep_forms_match_the_kernels(cuda):
     lib = build.load("onestep")
-    assert (lib.repro_onestep_max_taps(), lib.repro_onestep_naive_max_reach(),
-            lib.repro_onestep_max_reach(), lib.repro_onestep_max_m()) == \
-        (sk.ONESTEP_MAX_TAPS, sk.ONESTEP_NAIVE_REACH, sk.ONESTEP_REACH, sk.ONESTEP_MAX_M)
+    assert (lib.repro_onestep_max_taps(), lib.repro_onestep_max_reach(),
+            lib.repro_onestep_naive_max_reach(), lib.repro_onestep_lane_taps()) == \
+        (sk.ONESTEP_MAX_TAPS, sk.ONESTEP_REACH, sk.ONESTEP_NAIVE_REACH, sk.ONESTEP_LANE_TAPS)
+
+
+def _k5_offsets(name, *offs):
+    return stencils.StencilSpec(name, 1, max(abs(o) for o in offs), "star",
+                                tuple(((o,), 1.0 / (len(offs) + i)) for i, o in enumerate(offs)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("spec", [_star(1, 6), _taps20(), _star(1, 16),
-                                  stencils.StencilSpec("far40", 1, 40, "star", (
-                                      ((0,), 0.5), ((-40,), 0.25), ((33,), 0.25)))])
-def test_onestep_mem_forms_bitwise(cuda, spec, dtype):
-    """K5 past its register forms: reach 6 (K5b's memory form), 20 and 33
-    taps (both memory forms), offsets past 32 (K5a's memory form), each bit
-    for bit its plain version at every m."""
-    for n, vl in ((1 << 20, 32), (96 * 41, 41)):
+@pytest.mark.parametrize("spec,forms", [
+    (_star(1, 6), ("reg", "reg")), (_taps20(), ("reg", "reg")), (_star(1, 16), ("reg", "reg")),
+    (_star(1, 17), ("lane", "lane")), (_k5_offsets("r20-3taps", -20, 0, 20), ("lane", "lane")),
+    (_k5_offsets("ends32", 32, 0, -31, 17), ("lane", "lane")),
+    (_k5_offsets("all64", *range(-32, 32)), ("lane", "lane")),
+    (_k5_offsets("r5-3taps", -5, 0, 5), ("lane", "reg")),
+    (_k5_offsets("r5-7taps", -5, -2, -1, 0, 1, 2, 5), ("lane", "reg")),
+    (_k5_offsets("r16-3taps", 0, 16, 9), ("lane", "lane")),
+    (stencils.StencilSpec("far40", 1, 40, "star", (((0,), 0.5), ((-40,), 0.25), ((33,), 0.25))),
+     ("mem", "mem"))])
+def test_onestep_mem_forms_bitwise(cuda, spec, forms, dtype):
+    """K5 at reach 6, 20 taps and reach 16 (33 taps), which the register
+    windows take, K5a's lane form at reach 17 to 32 (K5b there on its
+    memory form), at 3 and 7 taps of reach 5 (float32; bfloat16 and K5b on
+    the windows) and at 3 of reach 16, and past it (offsets past 32: the
+    forms that read their taps from device memory), each bit for bit its
+    plain version at every m.  ``forms``: K5a's form in float32 and in
+    bfloat16."""
+    assert sk.onestep_form("naive", spec, dtype) == forms[dtype == BF16]
+    assert sk.onestep_form("transpose", spec, dtype) == ("reg" if spec.r <= 16 else "mem")
+    for n, vl in ((1 << 20, 32), (96 * 41, 41), (40, 8)):
         x = _x((n,), 5, cuda).to(dtype)
         sk.reset_launches()
         got = sk.stencil1d_naive_onestep(spec, x, vl)
@@ -1905,7 +1957,6 @@ def test_onestep_mem_forms_bitwise(cuda, spec, dtype):
         if spec.r > m:
             continue
         t = layouts.to_transpose_layout(_x((nb * vl * m,), 6, cuda).to(dtype), vl, m)
-        assert sk.onestep_form("transpose", spec, m) == "mem"
         sk.reset_launches()
         got = sk.stencil1d_transpose_onestep(spec, t)
         torch.cuda.synchronize()

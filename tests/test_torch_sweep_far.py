@@ -4,7 +4,7 @@ take past the register kernels' reach (r > 4) or taps (16 at 1-D, 64 at
 ``stencil{1d,_nd}_sweep_ttile_ref`` (periodic) and ``stencil{1d,_nd}_multistep_ref``
 (the ring and open ends of axis 0); its routes, launch plans and tiles;
 the shapes that raised before it (reach 5–8 at every depth, the 3-D box of
-reach 2, the 2-D box of reach 5) and K5 past its register forms, held
+reach 2, the 2-D box of reach 5) and K5 past its former register forms, held
 against the JAX package's Pallas kernels in interpret mode.
 
 The CPU has no CUDA compiler, so the transcription checks the kernel's
@@ -512,11 +512,13 @@ def test_1d_star_matches_pallas(r):
     np.testing.assert_allclose(port.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("spec,m", [(_star(1, 6), 8), (_ring20(), 16)])
+@pytest.mark.parametrize("spec,m", [(_star(1, 6), 8), (_ring20(), 16), (_star(1, 6), 6),
+                                    (_ring20(), 24), (_star(1, 16), 16)])
 def test_onestep_past_the_register_forms_matches_pallas(spec, m):
-    """K5 at reach 6 and at 20 taps (K5b past its register form, and K5a
-    past its taps at 20) against the reference's kernels; the forms the
-    card takes."""
+    """K5 at reach 6 and at 20 taps, the shapes past the register forms
+    before they held reach 16 and 64 taps at any m (r = m, m past 16 and
+    reach 16 too), against the reference's kernels; the form the card
+    takes."""
     vl = 4
     x = _t((8 * m * vl,), seed=len(spec.taps))
     want = np.asarray(jsk.stencil1d_naive_onestep(_jspec(spec), jnp.asarray(x.numpy()), vl,
@@ -527,17 +529,21 @@ def test_onestep_past_the_register_forms_matches_pallas(spec, m):
     want = np.asarray(jsk.stencil1d_transpose_onestep(_jspec(spec), jnp.asarray(t.numpy()),
                                                       interpret=True))
     np.testing.assert_allclose(sk.stencil1d_transpose_onestep(spec, t).numpy(), want, **TOL)
-    assert sk.onestep_form("transpose", spec, m) == "mem"
-    assert sk.onestep_form("naive", spec) == ("reg" if len(spec.taps) <= 16 else "mem")
+    for dtype in (torch.float32, torch.bfloat16):
+        assert sk.onestep_form("naive", spec, dtype) == \
+            sk.onestep_form("transpose", spec, dtype) == "reg"
 
 
 def test_onestep_forms():
-    assert sk.onestep_form("naive", tst.make("1d5p")) == "reg"
-    assert sk.onestep_form("transpose", tst.make("1d5p"), 8) == "reg"
-    assert sk.onestep_form("transpose", tst.make("1d5p"), 32) == "mem"
-    far = tst.StencilSpec("far", 1, 33, "star", (((0,), 0.5), ((33,), 0.25), ((-33,), 0.25)))
-    assert sk.onestep_form("naive", far) == "mem"
-    assert sk.onestep_form("naive", _star(1, 16)) == "mem"      # 33 taps
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("naive", "transpose"):
+            assert sk.onestep_form(kind, tst.make("1d5p"), dtype) == "reg"
+            assert sk.onestep_form(kind, _star(1, 16), dtype) == "reg"          # 33 taps
+        far = tst.StencilSpec("far", 1, 33, "star", (((0,), 0.5), ((33,), 0.25), ((-33,), 0.25)))
+        assert sk.onestep_form("naive", far, dtype) == \
+            sk.onestep_form("transpose", far, dtype) == "mem"
+        assert sk.onestep_form("naive", _star(1, 17), dtype) == "lane"
+        assert sk.onestep_form("transpose", _star(1, 17), dtype) == "mem"
 
 
 @pytest.mark.parametrize("nd", [1, 2, 3])

@@ -3,7 +3,7 @@
 the port, to hold two trees against each other on one CUDA card.
 
     python3 tools/kernel_ab.py [--src DIR] [--label NAME]
-                               [--only stencils|3d|deep|k2|k6|odd5|reach2|reach5]
+                               [--only stencils|3d|deep|k2|k6|odd5|reach2|reach5|onestep]
                                [--vl 32[,8,...]] [--m 8[,16,...]] [--tiles 8:16[,16:3,...]]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
@@ -95,6 +95,19 @@ plain version's time and the library's (``conv3d``, circular padding, one
 a step) on those rows, each held bit for bit against the plain versions
 and timed with CUDA events.
 
+The one-step kernels (``--only onestep``; the tiles options do not
+apply): K5a (``stencil1d_naive_onestep``, vl=32) and K5b
+(``stencil1d_transpose_onestep``, vl=32) on 2**26 elements, float32 and
+bfloat16: 1d3p and 1d5p at m=8, the star of reach 6 (13 taps) at m=8, 20
+taps of reach 10 at m=16, K5b of 1d3p at the odd m=3 on 3·2**24, two
+probes that part reach from tap count (3 taps of reach 5; 13 taps of reach
+1) at m=8, K5a's lane form against its windows (5 and 7 taps of reach 5 at
+m=8, 3 taps of reach 12 at m=16), 3 taps of reach 20 at m=32 and of reach
+40 at m=64, and K5b of
+1d3p at m=6 on 3·2**24 and m=7 on 7·2**23, each held bit for bit against
+the plain version and timed with CUDA events, with the library's time
+(``conv1d``, circular padding) on each row.
+
 K6: ``ssd_chunk_scan(..., return_state=True)`` at mamba2-2.7b's layer shape
 (H=80, P=64, N=128, B and C with a head stride of 0 unless per head) in
 the five cases of ``chip_smoke.py``'s ``ssd_kernel`` phase (2048 tokens at
@@ -131,7 +144,7 @@ def main() -> int:
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--only", choices=("stencils", "3d", "deep", "k2", "k6", "odd5",
-                                           "reach2", "reach5"), default=None)
+                                           "reach2", "reach5", "onestep"), default=None)
     parser.add_argument("--vl", default="32",
                         help="comma-separated vl of the stencil rows' tiles")
     parser.add_argument("--m", default="8", help="comma-separated m of the stencil rows' tiles")
@@ -162,6 +175,8 @@ def main() -> int:
         reach2_rows(args.label, dev)
     if args.only == "reach5":
         reach5_rows(args.label, dev)
+    if args.only == "onestep":
+        onestep_rows(args.label, dev)
     if args.only in (None, "k6"):
         k6_rows(args.label, dev)
     print(gpu)
@@ -496,6 +511,71 @@ def reach5_rows(label: str, dev) -> None:
                                     min_time_s=0.0) * 1e3}), flush=True)
     del x, t, buf
     torch.cuda.empty_cache()
+
+
+def onestep_rows(label: str, dev) -> None:
+    """K5a and K5b (the group's docstring above)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import stencils
+    from repro_torch.core.timing import bench
+    from repro_torch.kernels import stencil_kernels as sk
+
+    taps20 = stencils.StencilSpec("taps20", 1, 10, "star", tuple(
+        ((o,), 1.0 / (20 + abs(o))) for o in range(-10, 11) if o))
+    star6 = stencils.StencilSpec("star1d-r6", 1, 6, "star", stencils._star_taps(1, 6))
+    # probes that part reach from tap count: 3 taps of reach 5, and 13 taps
+    # of reach 1 (the offsets -1, 0, 1 in turn)
+    r5t3 = stencils.StencilSpec("r5-3taps", 1, 5, "star", (((-5,), 0.25), ((0,), 0.5),
+                                                           ((5,), 0.25)))
+    r1t13 = stencils.StencilSpec("r1-13taps", 1, 1, "star", tuple(
+        ((t % 3 - 1,), 1.0 / 13) for t in range(13)))
+    # K5a's lane form against its windows at reach 5 (5 and 7 taps) and 12 (3 taps)
+    r5t5 = stencils.StencilSpec("r5-5taps", 1, 5, "star", tuple(
+        ((o,), 0.2) for o in (-5, -1, 0, 1, 5)))
+    r5t7 = stencils.StencilSpec("r5-7taps", 1, 5, "star", tuple(
+        ((o,), 1.0 / 7) for o in (-5, -2, -1, 0, 1, 2, 5)))
+    r12t3 = stencils.StencilSpec("r12-3taps", 1, 12, "star", (((-12,), 0.25), ((0,), 0.5),
+                                                             ((12,), 0.25)))
+    # past the register windows: 3 taps of reach 20 and of reach 40
+    r20t3 = stencils.StencilSpec("r20-3taps", 1, 20, "star", (((-20,), 0.25), ((0,), 0.5),
+                                                             ((20,), 0.25)))
+    far40 = stencils.StencilSpec("far40", 1, 40, "star", (((0,), 0.5), ((-40,), 0.25),
+                                                         ((33,), 0.25)))
+    p3 = stencils.make("1d3p")
+    cases = ((p3, N1, 8, True), (stencils.make("1d5p"), N1, 8, True),
+             (star6, N1, 8, True), (taps20, N1, 16, True),
+             (p3, N1 // 4 * 3, 3, False), (r5t3, N1, 8, True),
+             (r1t13, N1, 8, True), (r5t5, N1, 8, True), (r5t7, N1, 8, True),
+             (r12t3, N1, 16, True), (r20t3, N1, 32, True), (far40, N1, 64, True),
+             (p3, N1 // 4 * 3, 6, False), (p3, N1 // 8 * 7, 7, False))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vl = 32
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for spec, n, m, naive in cases:
+            x = torch.randn(n, generator=gen, device=dev).to(dtype)
+            if naive:
+                out = torch.empty_like(x)
+                _row(label, dev, f"K5a {spec.name} {n} {dname} vl={vl}",
+                     lambda: sk.stencil1d_naive_onestep(spec, x, vl, out=out),
+                     lambda: sk.stencil1d_naive_onestep_ref(spec, x, vl))
+                del out
+            t = sk.block_transpose_ref(x, vl, m)
+            tout = torch.empty_like(t)
+            _row(label, dev, f"K5b {spec.name} {n} {dname} vl={vl} m={m}",
+                 lambda: sk.stencil1d_transpose_onestep(spec, t, out=tout),
+                 lambda: sk.stencil1d_transpose_onestep_ref(spec, t))
+            weight = torch.tensor(spec.coeff_array(), dtype=dtype, device=dev)[None, None]
+            print(json.dumps({
+                "tree": label, "kernel": f"K5 {spec.name} {n} {dname}",
+                "library_ms": bench(lambda: F.conv1d(F.pad(x[None, None], (spec.r, spec.r),
+                                                           mode="circular"), weight),
+                                    device=dev, warmup=2, iters=10, min_time_s=0.1) * 1e3}),
+                  flush=True)
+            del x, t, tout
+        torch.cuda.empty_cache()
 
 
 def _row(label, dev, kernel, fn, plain):
