@@ -220,6 +220,36 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              of 3 of the winner, of ``plan="default"`` and of the picker's
              resident run; then the fitted constants (the fitted
              ``hbm_bw`` at most 1.05 × 3.35e12) and ``phase_seconds``;
+  stencil_serve  stencil serving (``serve/batcher.py``): a
+             ``StencilService`` on the card whose plan cache (a private
+             temporary directory) holds the picker's resident plan (k=2,
+             ttile=2) for each signature; ``sweep_async`` serves 8
+             requests of two tenants, fused 16 steps, as one batch of 8
+             slots for each of 1d3p 2**26, 2d5p 8192**2 and 3d7p 512**3
+             (f32; the 3-D batch is 2^32 bytes, its last grid starting at
+             3.5 GiB: offsets past 2^31 elements are the card tests'),
+             counted: K2 exactly twice (in, from the 8 requests where they
+             lie through a table of their pointers; out) and each sweep
+             launch once for the batch, every result
+             bit for bit ``svc.sweep`` of its grid; the batched seconds
+             and the batch's own run (the batcher's log) beside the 8
+             sequential ``svc.sweep`` (host clock, median of 3), with the
+             card's name and power limit; likewise 2d5p 256**2
+             (dispatch, not bytes, sets the time), 2d5p 2048**2 in
+             bfloat16, and two near-miss requests 2d5p (1024, 960) that
+             bucket to (1024, 1920) by two periodic copies, cropped back
+             bit for bit; ``run_batched`` of 4 grids under
+             ``sweep="roundtrip"`` (K4, bitwise), ``backend="mxu"``
+             (within 2e-6 f32 / 8e-3 bf16) and ``backend="jnp"``
+             (bitwise), each counted against the sequential runs; a
+             batch of 4 grids of the reach-5 star ``_star_taps(2, 5)``
+             through ``ops.stencil_sweep_periodic``, counted on
+             ``sweep_far``, bit for bit its plain version; ``kernels``
+             rows for each full-width case: K2 from the 8 requests where
+             they lie (``block_transpose_parts``, with ``stack_then_k2_ms``,
+             the stack it replaced and K2) and the batched sweep launch
+             (batch of 8, depth 4) with its plain version, a batched
+             library convolution and its bound; ``phase_seconds``;
   ssd_kernel K6 (the Mamba2 SSD chunk scan) at mamba2-2.7b's layer shape
              (H=80, P=64, N=128, B and C shared by the heads through a
              stride of 0): 2048 tokens at Q=128 in bf16 and f32, 1000 at
@@ -410,6 +440,21 @@ F32_CHECK = (1e-3, 1e-3)        # (rtol, atol): float32 logits, 64 layers
 # absolute difference, set from sound runs (PERF.md §6)
 BF16_CHECK = {"mean_abs": 0.15, "max_abs": 1.0}
 SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (5e-2, 5e-2)}
+# stencil serving: requests a full-width batch (the batcher's largest slot
+# count), its two tenants, the steps, how long the batcher's first request
+# waits for the others, and the other batched checks' grids (a small grid,
+# bfloat16, a near-miss shape that buckets by two copies, run_batched's
+# other engines, the reach-5 star on the far-reach kernel) and batch
+STENCIL_SLOTS = 8
+STENCIL_TENANTS = ("tenant-a", "tenant-b")
+STENCIL_STEPS = 16
+STENCIL_WAIT_S = 0.05
+STENCIL_SMALL = ("2d5p", (256, 256))
+STENCIL_BF16 = ("2d5p", (2048, 2048))
+STENCIL_BUCKET = ("2d5p", (1024, 960))
+STENCIL_ENGINES = ("2d5p", (1024, 1024))
+STENCIL_FAR = (2, (2048, 2048))
+STENCIL_BATCH = 4
 
 
 def emit(obj) -> None:
@@ -1071,6 +1116,249 @@ def auto_phase(dev, counted, same, close, host_median, plan_counts) -> None:
                 else:
                     os.environ[k] = v
     emit({"phase": "auto", "phase_seconds": time.perf_counter() - start})
+
+
+def stencil_serve_phase(dev, gpu, counted, same, close, host_median, row, ms, ms_slow,
+                        resident_counts, k4_counts, resident_plain) -> None:
+    """The ``stencil_serve`` phase: the port's stencil serving on the card
+    (``StencilService.sweep_async`` and ``StencilProblem.run_batched``)."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import autotune, stencils
+    from repro_torch.core.api import StencilPlan, StencilProblem, sweep_schedule
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_kernels as sk
+    from repro_torch.serve.batcher import bucket_shape
+    from repro_torch.serve.engine import StencilService
+
+    start = time.perf_counter()
+    steps = STENCIL_STEPS
+    resident = StencilPlan(backend="pallas", sweep="resident", k=K, ttile=TTILE)
+
+    def grids(shape, dtype, n, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(n)]
+
+    def conv_batch(spec, xb, depth, weight):
+        """``depth`` library convolutions of the batch (N = B), circular."""
+        conv = (F.conv1d, F.conv2d, F.conv3d)[spec.ndim - 1]
+        v = xb[:, None]
+        for _ in range(depth):
+            v = conv(F.pad(v, (spec.r,) * (2 * spec.ndim), mode="circular"), weight)
+        return v[:, 0]
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_serve_") as tmp:
+        cache_path = os.path.join(tmp, "plan_cache.json")
+        cache = autotune.PlanCache(cache_path)
+        signatures = [(n, sh, torch.float32) for n, sh in CASES + (STENCIL_SMALL,)] + [
+            STENCIL_BF16 + (torch.bfloat16,),
+            STENCIL_BUCKET + (torch.float32,),
+            (STENCIL_BUCKET[0], bucket_shape(STENCIL_BUCKET[1])[0], torch.float32)]
+        for name, shape, dtype in signatures:
+            cache.put(autotune.plan_key(name, shape, dtype, "auto",
+                                        device=autotune.device_signature(dev),
+                                        steps=autotune.normalize_steps(steps)),
+                      {"plan": autotune.plan_to_dict(resident), "seconds_per_step": 0.0})
+        cache.save()
+        with StencilService(cache_path=cache_path) as svc:
+            def served(what, name, xs, owned):
+                """The requests ``xs`` through ``sweep_async``, tenants in
+                turn, as one counted batch; (results, seconds, launches)."""
+                def go():
+                    futs = [svc.sweep_async(name, x, steps, tenant=STENCIL_TENANTS[i % 2],
+                                            max_wait_s=STENCIL_WAIT_S)
+                            for i, x in enumerate(xs)]
+                    return [f.result(timeout=600) for f in futs]
+                ys, seconds, got = counted(what, go, owned)
+                log = svc._batcher.stats["batch_log"][-1]
+                if log["n"] != len(xs) or log["slots"] < len(xs) or \
+                        sorted(set(log["tenants"])) != sorted(STENCIL_TENANTS[:len(xs)]):
+                    raise AssertionError(f"{what}: not one batch of {len(xs)}: {log}")
+                return ys, seconds, got, log, go
+
+            def compare(what, name, xs, ys, go, label, extra=None):
+                """Each result bit for bit ``svc.sweep``; the batched and the
+                sequential host-clock median of 3, and the batch's own run
+                as the batcher logs it (its worker's run and synchronize:
+                the batched time less it is the queue's thread hand-off);
+                one phase line."""
+                for i, (x, y) in enumerate(zip(xs, ys)):
+                    same(f"{what} request {i} vs svc.sweep", y, svc.sweep(name, x, steps))
+                batched_s = host_median(go, runs=3)
+                run_s = sorted(b["wall_s"] for b in svc._batcher.stats["batch_log"][-3:])[1]
+                sequential_s = host_median(lambda: [svc.sweep(name, x, steps) for x in xs],
+                                           runs=3)
+                emit({"phase": "stencil_serve", "case": label, "stencil": name,
+                      "shape": list(xs[0].shape), "dtype": str(xs[0].dtype)[6:],
+                      "requests": len(xs), "steps": steps, "bitwise_vs_sweep": True,
+                      "batched_ms_median_of_3": batched_s * 1e3,
+                      "batch_run_ms_median_of_3": run_s * 1e3,
+                      f"sequential_{len(xs)}_ms_median_of_3": sequential_s * 1e3,
+                      "sequential_over_batched": sequential_s / batched_s, "gpu": gpu,
+                      **(extra or {})})
+
+            # -- full width: 8 requests a case, one batch of 8 slots ------
+            for name, shape in CASES:
+                spec = stencils.make(name)
+                vl, m, t0 = ops.pick_tile(spec, shape)
+                owned = resident_counts(spec, steps, "fused", vl, m)
+                xs = grids(shape, torch.float32, STENCIL_SLOTS, SEED)
+                what = f"stencil_serve {name} batch of {STENCIL_SLOTS}"
+                if svc.plan_for(name, shape, steps=steps) != resident:
+                    raise AssertionError(f"{what}: the service does not serve the resident plan")
+                ys, seconds, got, log, go = served(what, name, xs, owned)
+                compare(what, name, xs, ys, go, "full_width", {
+                    "tile": {"vl": vl, "m": m, "t0": t0}, "launches": got,
+                    "counted_seconds": seconds, "batch": {k: log[k] for k in ("n", "slots",
+                                                                             "tenants")},
+                    "batch_bytes": STENCIL_SLOTS * xs[0].numel() * 4})
+                del ys
+                # K2 from the 8 requests where they lie, as the served run
+                # took them, and the batched sweep launch of the resident
+                # chunk as kernels rows
+                xb = torch.stack(xs)
+                dims = "x".join(map(str, shape))
+                err = same(f"{what} K2 from the requests vs its plain version",
+                           sk.block_transpose_parts(xs, vl, m), sk.block_transpose_ref(xb, vl, m))
+                row("K2", "block_transpose_parts",
+                    f"{name} {dims} batch of {STENCIL_SLOTS} requests where they lie vl={vl} "
+                    f"m={m}; one launch, a table of their pointers", "transpose",
+                    got["transpose"], err, lambda: sk.block_transpose_parts(xs, vl, m),
+                    lambda: sk.block_transpose_ref(torch.stack(xs), vl, m),
+                    bound(2 * xb.numel() * 4, 0), None,
+                    stack_then_k2_ms=ms(lambda: sk.block_transpose(torch.stack(xs), vl, m)))
+                del xs
+                tb = sk.block_transpose(xb, vl, m)
+                buf = torch.empty_like(tb)
+                depth = K * TTILE
+                if spec.ndim == 1:
+                    def kern():
+                        return sk.stencil1d_sweep_ttile(spec, tb, K, TTILE, out=buf)
+
+                    def plain():
+                        return sk.stencil1d_sweep_ttile_ref(spec, tb, K, TTILE)
+                else:
+                    def kern():
+                        return sk.stencil_nd_sweep_ttile(spec, tb, K, TTILE, t0, out=buf)
+
+                    def plain():
+                        return sk.stencil_nd_sweep_ttile_ref(spec, tb, K, TTILE, t0)
+                err = same(f"{what} batched sweep vs its plain version", kern(), plain())
+                key = sk.sweep_plan(spec, vl, m, depth)[0]
+                weight = torch.tensor(spec.coeff_array(), dtype=torch.float32,
+                                      device=dev)[None, None]
+                row("K1" if spec.ndim == 1 else "K3",
+                    "stencil1d_sweep_ttile" if spec.ndim == 1 else "stencil_nd_sweep_ttile",
+                    f"{name} {'x'.join(map(str, shape))} batch of {STENCIL_SLOTS} vl={vl} "
+                    f"m={m} depth={depth}; one launch, the batch along gridDim.y",
+                    {"1d": "sweep1d_warp", "2d": "sweep2d_warp", "3d": "sweep3d"}[key],
+                    got[f"sweep_{key}"], err, kern, plain,
+                    bound(2 * xb.numel() * 4, depth * spec.flops_per_point * xb.numel()),
+                    lambda: ms_slow(conv_batch, spec, xb, depth, weight), slow=True,
+                    batch=STENCIL_SLOTS)
+                del xb, tb, buf, weight
+                torch.cuda.empty_cache()
+
+            # -- a small grid, where dispatch sets the time; bfloat16 -----
+            for (name, shape), dtype, label in ((STENCIL_SMALL, torch.float32, "small_grid"),
+                                                (STENCIL_BF16, torch.bfloat16, "bf16")):
+                spec = stencils.make(name)
+                vl, m, _ = ops.pick_tile(spec, shape)
+                xs = grids(shape, dtype, STENCIL_SLOTS, SEED + 1)
+                what = f"stencil_serve {name} {shape} {label} batch of {STENCIL_SLOTS}"
+                ys, _, got, _, go = served(what, name, xs, resident_counts(
+                    spec, steps, "fused", vl, m, itemsize=xs[0].element_size()))
+                compare(what, name, xs, ys, go, label, {"tile": {"vl": vl, "m": m},
+                                                        "launches": got})
+                del xs, ys
+
+            # -- a near-miss shape: two periodic copies, cropped back ------
+            name, shape = STENCIL_BUCKET
+            spec = stencils.make(name)
+            bshape, reps = bucket_shape(shape)
+            vl, m, _ = ops.pick_tile(spec, bshape)
+            xs = grids(shape, torch.float32, 2, SEED + 2)
+            what = f"stencil_serve {name} {shape} bucketed to {bshape}"
+            before = svc._batcher.stats.get("bucketed", 0)
+            ys, _, got, log, go = served(what, name, xs, resident_counts(spec, steps, "fused",
+                                                                         vl, m))
+            if log["sig"][1] != bshape or reps != 2 or \
+                    svc._batcher.stats["bucketed"] - before != 2:
+                raise AssertionError(f"{what}: not bucketed by 2 copies: {log}")
+            compare(what, name, xs, ys, go, "bucketed", {
+                "bucket": list(bshape), "copies": reps, "tile": {"vl": vl, "m": m},
+                "launches": got, "batched_ms_includes_admission_window_s": STENCIL_WAIT_S})
+            del xs, ys
+
+        # -- run_batched on the other engines, against sequential runs -----
+        name, shape = STENCIL_ENGINES
+        spec = stencils.make(name)
+        for dtype in (torch.float32, torch.bfloat16):
+            prob = StencilProblem(name, shape, dtype=dtype)
+            xb = torch.stack(grids(shape, dtype, STENCIL_BATCH, SEED + 3))
+            plans = [("mxu", StencilPlan(backend="mxu", k=K, vl=8, m=8))]
+            if dtype == torch.float32:
+                plans = [("roundtrip", StencilPlan(backend="pallas", sweep="roundtrip", k=K)),
+                         ("jnp", StencilPlan(scheme="transpose", k=K, vl=8, m=8))] + plans
+            for label, plan in plans:
+                what = f"stencil_serve run_batched {label} {name} {shape} {str(dtype)[6:]}"
+                if label == "roundtrip":
+                    vl, m, _ = ops.pick_tile(spec, shape)
+                    owned = k4_counts(spec, sweep_schedule(K, steps, "fused", 1)[0], vl, m)
+                elif label == "mxu":
+                    owned = {"transpose": 2, "mxu": sum(
+                        n for _, n in sweep_schedule(K, steps, plan.remainder, 1)[0])}
+                else:
+                    owned = {}
+                yb, seconds, got = counted(what, lambda: prob.run_batched(xb, steps, plan),
+                                           owned)
+                errs = []
+                for i in range(STENCIL_BATCH):
+                    one = prob.run(xb[i], steps, plan)
+                    if label == "mxu":
+                        tol = 2e-6 if dtype == torch.float32 else 8e-3
+                        errs.append(close(f"{what} grid {i}", yb[i], one, tol, tol))
+                    else:
+                        errs.append(same(f"{what} grid {i}", yb[i], one))
+                batched_s = host_median(lambda: prob.run_batched(xb, steps, plan), runs=3)
+                sequential_s = host_median(
+                    lambda: [prob.run(xb[i], steps, plan) for i in range(STENCIL_BATCH)], runs=3)
+                emit({"phase": "stencil_serve", "case": f"run_batched {label}", "stencil": name,
+                      "shape": list(shape), "dtype": str(dtype)[6:], "batch": STENCIL_BATCH,
+                      "steps": steps, "launches": got, "max_abs_err_vs_sequential": max(errs),
+                      "bitwise_vs_sequential": label != "mxu",
+                      "batched_ms_median_of_3": batched_s * 1e3,
+                      f"sequential_{STENCIL_BATCH}_ms_median_of_3": sequential_s * 1e3,
+                      "gpu": gpu})
+                del yb
+            del xb
+
+        # -- the reach-5 star on the far-reach kernel, a batch of 4 --------
+        nd, shape = STENCIL_FAR
+        spec = stencils.StencilSpec(f"star{nd}d-r{FAR_R}", nd, FAR_R, "star",
+                                    stencils._star_taps(nd, FAR_R))
+        vl, m, t0 = ops.pick_tile(spec, shape, 8, 8)
+        xb = torch.stack(grids(shape, torch.float32, STENCIL_BATCH, SEED + 4))
+        what = f"stencil_serve {spec.name} {shape} batch of {STENCIL_BATCH} on sweep_far"
+        owned = resident_counts(spec, steps, "fused", vl, m)
+        if set(owned) != {"transpose", "sweep_far"}:
+            raise AssertionError(f"{what}: off the far-reach route {owned}")
+        yb, seconds, got = counted(what, lambda: ops.stencil_sweep_periodic(
+            spec, xb, steps, k=K, vl=vl, m=m, ttile=TTILE), owned)
+        err = same(what, yb, resident_plain(spec, xb, steps, "fused", vl, m, t0))
+        for i in range(STENCIL_BATCH):
+            same(f"{what} grid {i}", yb[i], ops.stencil_sweep_periodic(
+                spec, xb[i], steps, k=K, vl=vl, m=m, ttile=TTILE))
+        emit({"phase": "stencil_serve", "case": "far_reach", "stencil": spec.name,
+              "shape": list(shape), "batch": STENCIL_BATCH, "steps": steps, "launches": got,
+              "counted_seconds": seconds, "max_abs_err_vs_plain": err, "bitwise": True,
+              "gpu": gpu})
+        del xb, yb
+        torch.cuda.empty_cache()
+    emit({"phase": "stencil_serve", "phase_seconds": time.perf_counter() - start})
 
 
 def main() -> int:
@@ -2555,6 +2843,8 @@ def main() -> int:
                                    ttile=plan.ttile)
         return k4_counts(spec, sweep_schedule(plan.k, steps, plan.remainder, 1)[0], vl, m)
     auto_phase(dev, counted, same, close, host_median, plan_counts)
+    stencil_serve_phase(dev, gpu, counted, same, close, host_median, row, ms, ms_slow,
+                        resident_counts, k4_counts, resident_plain)
     k6_rows = ssd_phase(dev, ms, close, bound)
     serve = mamba2_serve(dev, counted, close)
     for entry in k6_rows:

@@ -31,11 +31,20 @@ elsewhere), so that a later run of the same signature does not measure.
 distributed runtime, ROADMAP A9) raise ``NotImplementedError`` naming the
 item that ports them; the other backends ignore ``decomp``, as the
 reference's do.
+
+:meth:`StencilProblem.run_batched` advances a batch of grids, ``(B,) +
+shape``, under one plan: the serving path's entry
+(``serve/batcher.py``).  The batch is a launch dimension of every sweep
+kernel, so B grids share one K2 in, one K2 out and each launch of the
+sweep schedule; each grid's result is bit for bit its own ``run`` (mxu:
+within the rounding of a product with more rows).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Sequence
+import threading
+from typing import Callable, Sequence
 
 import torch
 
@@ -125,6 +134,46 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """One resolved run of ``(steps, plan)`` on a problem's shape: what
+    :meth:`StencilProblem.run`, :meth:`~StencilProblem.run_batched` and
+    :meth:`~StencilProblem.run_batched_parts` build once and reuse, the
+    port's counterpart of the reference's jitted executable.  ``engine`` is
+    "jnp", "mxu", "resident" or "roundtrip"; ``tile`` the engine's (vl, m,
+    t0) (None on the jnp backend); ``schedule`` the (depth, sweeps) chunks
+    of :func:`sweep_schedule`.  ``fn`` takes one grid, a batch ``(B,) +
+    shape``, or a sequence of B grids, the parts of a batch (the resident
+    and mxu engines' K2 reads them where they lie; the others stack them
+    first), and returns a grid or a batch."""
+    spec: stencils.StencilSpec
+    engine: str
+    tile: tuple[int, int, int | None] | None
+    schedule: tuple[tuple[int, int], ...]
+    itemsize: int
+    fn: Callable
+
+    def __call__(self, x):
+        return self.fn(x)
+
+    @property
+    def route(self) -> tuple[str, ...]:
+        """The kernel each chunk's sweeps launch: ``stencil_kernels.
+        sweep_plan``'s key ("1d", "2d", "3d" or "far"), or the engine
+        ("jnp", "mxu") where it has no sweep kernel."""
+        if self.engine in ("jnp", "mxu"):
+            return (self.engine,)
+        from repro_torch.kernels import stencil_kernels as sk
+        vl, m, _ = self.tile
+        return tuple(sk.sweep_plan(self.spec, vl, m, depth, self.itemsize)[0]
+                     for depth, _ in self.schedule)
+
+
+def _stacked(x):
+    """A batch given as a sequence of grids, stacked; a tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else torch.stack(list(x))
+
+
 class StencilProblem:
     def __init__(self, name: str, shape: Sequence[int],
                  dtype: torch.dtype = torch.float32, device=None):
@@ -134,6 +183,11 @@ class StencilProblem:
         self.shape = tuple(shape)
         self.dtype = dtype
         self.device = resolve_device(device)
+        # the programs, one per (steps, plan), and how often
+        # _build_program ran for each (once, unless the memo missed a key)
+        self._programs: dict[tuple, Program] = {}
+        self._program_builds: collections.Counter = collections.Counter()
+        self._programs_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> torch.Tensor:
@@ -154,6 +208,15 @@ class StencilProblem:
         (``core/autotune.py``).  Any step count is valid: the ``steps % k``
         remainder runs under ``plan.remainder`` (inside the same resident
         run, or as further roundtrip sweeps)."""
+        plan = self._resolve(plan, steps)
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"expected a grid of shape {self.shape}, got {tuple(x.shape)}")
+        self._check_plan(plan)
+        return self._program(steps, plan)(x)
+
+    def _resolve(self, plan: StencilPlan | str, steps: int) -> StencilPlan:
+        """A plan argument as a ``StencilPlan``: ``"auto"`` the tuner's,
+        ``"default"`` :meth:`default_plan`."""
         if isinstance(plan, str):
             if plan == "auto":
                 from repro_torch.core import autotune
@@ -165,8 +228,10 @@ class StencilProblem:
                                  f"'default' or a StencilPlan")
         if not isinstance(plan, StencilPlan):
             raise TypeError(f"plan must be a StencilPlan, got {type(plan).__name__}")
-        if tuple(x.shape) != self.shape:
-            raise ValueError(f"expected a grid of shape {self.shape}, got {tuple(x.shape)}")
+        return plan
+
+    def _check_plan(self, plan: StencilPlan) -> None:
+        """Refuse what no engine of the port runs as the plan asks."""
         if plan.ttile > 1 and not (
                 plan.backend in ("distributed", "mxu")
                 or (plan.backend == "pallas" and plan.sweep == "resident")):
@@ -186,28 +251,109 @@ class StencilProblem:
             raise NotImplementedError(
                 f"backend={plan.backend!r} with decomp={plan.decomp} is not ported "
                 f"yet: it needs {_NOT_PORTED['distributed']}")
+        if plan.backend == "pallas" and plan.sweep not in ("resident", "roundtrip"):
+            raise ValueError(f"unknown sweep engine {plan.sweep!r}")
+        if plan.backend not in ("jnp", "pallas", "mxu"):
+            raise ValueError(f"unknown backend {plan.backend!r}")
+
+    # ------------------------------------------------------------------
+    def run_batched(self, xb: torch.Tensor, steps: int,
+                    plan: StencilPlan | str = "auto") -> torch.Tensor:
+        """Advance a batch of grids, ``xb`` of shape ``(B,) + shape``, by
+        ``steps`` under one plan: the continuous-batching entry of stencil
+        serving.  The batch is a launch dimension of every sweep kernel, so
+        the B grids share one K2 into the layout, one out of it and each
+        launch of the ``sweep_schedule`` (``LAUNCHES`` counts each launch
+        once, not B times); the jnp backend is ``torch.func.vmap`` over the
+        one-grid run; the mxu engine's product takes the batch as more
+        rows.  Each grid's result is bit for bit its own :meth:`run`
+        (mxu: within the rounding of the larger product).  It runs the
+        :class:`Program` :meth:`run` runs, resolved once per (steps, plan)
+        for every batch size.  Distributed plans raise, naming ROADMAP A9."""
+        plan = self._batched_plan(plan, steps)
+        if tuple(xb.shape[1:]) != self.shape or xb.ndim != len(self.shape) + 1:
+            raise ValueError(f"run_batched expects (B,) + {self.shape}, got {tuple(xb.shape)}")
+        return self._program(steps, plan)(xb)
+
+    def run_batched_parts(self, xs: Sequence[torch.Tensor], steps: int,
+                          plan: StencilPlan | str = "auto") -> list[torch.Tensor]:
+        """:meth:`run_batched` on a sequence of B grids of this shape, run
+        as one batch where they lie: the resident and mxu engines' first K2
+        reads each grid through a table of pointers (no stacking copy), the
+        others stack them once.  The B results come back as views of the
+        batch's output."""
+        for x in xs:
+            if tuple(x.shape) != self.shape:
+                raise ValueError(f"run_batched_parts expects grids of shape {self.shape}, "
+                                 f"got {tuple(x.shape)}")
+        plan = self._batched_plan(plan, steps)
+        return list(self._program(steps, plan)(list(xs)).unbind(0))
+
+    def _batched_plan(self, plan: StencilPlan | str, steps: int) -> StencilPlan:
+        """Resolve a plan for the batched entries and hold it to the
+        batch-invariance gate (:func:`autotune.plan_batch_invariant`)."""
+        plan = self._resolve(plan, steps)
+        from repro_torch.core import autotune
+        if not autotune.plan_batch_invariant(plan):
+            raise ValueError(f"plan {plan} is not batch-invariant; "
+                             "it cannot serve a batched run unchanged")
+        self._check_plan(plan)
+        return plan
+
+    def _program(self, steps: int, plan: StencilPlan) -> Program:
+        """The memoized :class:`Program` of ``(steps, plan)``, built under
+        a lock on first use."""
+        key = (steps, plan)
+        with self._programs_lock:
+            program = self._programs.get(key)
+            if program is None:
+                program = self._programs[key] = self._build_program(steps, plan)
+        return program
+
+    def _build_program(self, steps: int, plan: StencilPlan) -> Program:
+        """Resolve the engine, tile and schedule of ``plan`` once; the
+        program runs them on a grid, a batch or the parts of a batch."""
+        self._program_builds[(steps, plan)] += 1
         from repro_torch.kernels import ops
+        spec, ndim = self.spec, len(self.shape)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if plan.backend == "jnp":
+            block = (plan.height or plan.k) if plan.tiling == "tessellate" else plan.k
+            chunks = sweep_schedule(block, steps, plan.remainder)[0]
+
+            def one(v):
+                return self._run_jnp(v, steps, plan)
+
+            def fn(x):
+                x = _stacked(x)
+                return one(x) if x.ndim == ndim else torch.func.vmap(one)(x)
+            return Program(spec, "jnp", None, tuple(chunks), itemsize, fn)
         # m=None means "pick the tile"; an explicit (vl, m) pair is honored.
         vl = plan.vl if plan.m is not None else None
         if plan.backend == "mxu":
-            return ops.stencil_sweep_mxu(
-                self.spec, x, steps, k=plan.k, vl=vl, m=plan.m,
-                remainder=plan.remainder, ttile=plan.ttile)
-        if plan.backend == "pallas":
-            if plan.sweep == "resident":
-                return ops.stencil_sweep_periodic(
-                    self.spec, x, steps, k=plan.k, vl=vl, m=plan.m, t0=plan.t0,
-                    remainder=plan.remainder, ttile=plan.ttile)
-            if plan.sweep != "roundtrip":
-                raise ValueError(f"unknown sweep engine {plan.sweep!r}")
-            return self._chunked(
-                x, steps, plan.k,
-                lambda v, n, k: ops.stencil_run_periodic(
-                    self.spec, v, n, k=k, vl=vl, m=plan.m, t0=plan.t0),
-                remainder=plan.remainder)
-        if plan.backend != "jnp":
-            raise ValueError(f"unknown backend {plan.backend!r}")
-        return self._run_jnp(x, steps, plan)
+            vl, m, _ = ops.pick_tile(spec, self.shape, vl, plan.m)
+            chunks = sweep_schedule(plan.k, steps, plan.remainder, plan.ttile)[0]
+
+            def fn(x):
+                return ops.stencil_sweep_mxu(spec, x, steps, k=plan.k, vl=vl, m=m,
+                                             remainder=plan.remainder, ttile=plan.ttile)
+            return Program(spec, "mxu", (vl, m, None), tuple(chunks), itemsize, fn)
+        vl, m, t0 = ops.pick_tile(spec, self.shape, vl, plan.m, plan.t0)
+        if plan.sweep == "resident":
+            chunks = sweep_schedule(plan.k, steps, plan.remainder, plan.ttile)[0]
+
+            def fn(x):
+                return ops.stencil_sweep_periodic(spec, x, steps, k=plan.k, vl=vl, m=m, t0=t0,
+                                                  remainder=plan.remainder, ttile=plan.ttile)
+        else:
+            chunks = sweep_schedule(plan.k, steps, plan.remainder)[0]
+
+            def fn(x):
+                return self._chunked(
+                    _stacked(x), steps, plan.k,
+                    lambda v, n, k: ops.stencil_run_periodic(spec, v, n, k=k, vl=vl, m=m, t0=t0),
+                    remainder=plan.remainder)
+        return Program(spec, plan.sweep, (vl, m, t0), tuple(chunks), itemsize, fn)
 
     def _run_jnp(self, x: torch.Tensor, steps: int, plan: StencilPlan) -> torch.Tensor:
         """The jnp backend: tessellation rounds, k-step ``multistep_fused``

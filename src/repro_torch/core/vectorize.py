@@ -112,16 +112,17 @@ def step_in_layout(spec: StencilSpec, t: torch.Tensor, ndim: int) -> torch.Tenso
     """One periodic step on a layout-RESIDENT array (..., nb, m, vl): build
     the extended tile [left r rows | VS | right r rows], sum contiguous
     second-minor slices (taps in ``spec.taps`` order), roll the leading
-    spatial axes."""
+    spatial axes.  The ``ndim - 1`` leading spatial axes are the ones just
+    before (nb, m, vl): a batch of grids ahead of them is never rolled."""
     r = spec.r
     m = t.shape[-2]
     ext = extend_vs(t, r)                              # (..., nb, m+2r, vl)
     acc = None
     for off, c in spec.taps:
         sl = ext.narrow(ext.ndim - 2, r + off[-1], m)
-        axes = [a for a, o in enumerate(off[:-1]) if o]
+        axes = [a - ndim - 2 for a, o in enumerate(off[:-1]) if o]
         if axes:
-            sl = torch.roll(sl, [-off[a] for a in axes], axes)
+            sl = torch.roll(sl, [-o for o in off[:-1] if o], axes)
         term = sl * coeff(c, t.dtype)
         acc = term if acc is None else acc + term
     return acc

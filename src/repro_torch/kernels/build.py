@@ -141,27 +141,27 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     if name == "transpose":
-        lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 6 + [ptr]
+        lib.repro_transpose_reg.argtypes = [ptr, ptr] + [i64] * 6 + [ptr, i64, ptr]
         lib.repro_transpose_reg.restype = ctypes.c_int
     elif name == "sweep_far":
         for fn in (lib.repro_sweep_far_f32, lib.repro_sweep_far_bf16):
-            fn.argtypes = [ptr, ptr] + [i64] * 16 + [ptr, ptr]
+            fn.argtypes = [ptr, ptr] + [i64] * 17 + [ptr, ptr]
             fn.restype = ctypes.c_int
         lib.repro_sweep_far_smem.argtypes = [i64] * 10
         lib.repro_sweep_far_smem.restype = i64
     elif name == "sweep1d_warp_bf16":
-        lib.repro_sweep1d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
+        lib.repro_sweep1d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
         lib.repro_sweep1d_warp_bf16.restype = ctypes.c_int
     elif name == "sweep1d_warp":
-        lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 8 + [ptr, ptr, ptr]
+        lib.repro_sweep1d_warp_f32.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
         lib.repro_sweep1d_warp_f32.restype = ctypes.c_int
         lib.repro_sweep1d_warp_blocks.argtypes = [i64]
         lib.repro_sweep1d_warp_blocks.restype = i64
     elif name == "sweep2d_warp_bf16":
-        lib.repro_sweep2d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
+        lib.repro_sweep2d_warp_bf16.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
         lib.repro_sweep2d_warp_bf16.restype = ctypes.c_int
     elif name == "sweep2d_warp":
-        lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 9 + [ptr, ptr, ptr]
+        lib.repro_sweep2d_warp_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
         lib.repro_sweep2d_warp_f32.restype = ctypes.c_int
         for fn in (lib.repro_sweep2d_warp_max_depth, lib.repro_sweep2d_warp_warps,
                    lib.repro_sweep2d_warp_has_depth):
@@ -170,10 +170,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sweep2d_warp_has_depth.argtypes = [i64, i64, i64]
         lib.repro_sweep2d_warp_warps.argtypes = []
     elif name == "sweep3d_bf16":
-        lib.repro_sweep3d_bf16.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
+        lib.repro_sweep3d_bf16.argtypes = [ptr, ptr] + [i64] * 11 + [ptr, ptr, ptr]
         lib.repro_sweep3d_bf16.restype = ctypes.c_int
     elif name == "sweep3d":
-        lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 10 + [ptr, ptr, ptr]
+        lib.repro_sweep3d_f32.argtypes = [ptr, ptr] + [i64] * 11 + [ptr, ptr, ptr]
         lib.repro_sweep3d_f32.restype = ctypes.c_int
         lib.repro_sweep3d_max_depth.argtypes = [i64, i64]
         lib.repro_sweep3d_max_depth.restype = i64

@@ -28,6 +28,10 @@ namespace {
 // split warp.
 constexpr int64_t kMaxCols = int64_t(1) << 30;
 
+// Grids of a batch a launch takes, one a blockIdx.y: the card's limit on
+// gridDim.y (stencil_kernels.MAX_BATCH holds the same).
+constexpr int64_t kMaxBatch = 65535;
+
 __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   if (i >= 0 && i < n) return i;
   const int64_t r = i % n;

@@ -271,6 +271,9 @@ sweep1d_warp(const T* __restrict__ in, T* __restrict__ out, Cols cols, int64_t n
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = w < nruns;
   const int64_t C = kVl == kLanes ? cols.n : sub.n;   // C' (g = 1 at vl = 32)
+  // grid blockIdx.y of the batch: C' * M elements a grid, offset in 64 bits
+  in += (int64_t)blockIdx.y * (C * M);
+  out += (int64_t)blockIdx.y * (C * M);
   const int vl = kVl > 0 ? kVl : cols.vl;
   // lane 0's column in slot 0, unwrapped (only the first run's slot 0 lies
   // before column 0), and this lane's: slot i holds u0 + 32 * i
@@ -432,7 +435,7 @@ auto instance(bool v32) {
 }
 
 template <typename T, int M, int R, int kEdge>
-int launch(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
+int launch(const T* in, T* out, unsigned batch, const Cols& cols, const Cols& sub, int depth,
            const Taps1& taps, int order, cudaStream_t stream) {
   constexpr int B = run_blocks(M);
   // the compile-time tap orders: every r <= M, and 1d5p's (1, 2) of r > M
@@ -441,7 +444,7 @@ int launch(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
   const int64_t nruns = (wrows + B - 1) / B;
   const int64_t ctas = (nruns + kWarps - 1) / kWarps;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)ctas;
+  const dim3 grid((unsigned)ctas, batch);   // the batch's grids along y
   constexpr int kThreads = kLanes * kWarps;
   // vl = 32 has instances of its own at g = 1, every stride a constant
   // (float only)
@@ -456,26 +459,32 @@ int launch(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
 }
 
 template <typename T, int M, int R>
-int launch_edge(const T* in, T* out, const Cols& cols, const Cols& sub, int depth,
-                const Taps1& taps, int order, int edge, cudaStream_t stream) {
+int launch_edge(const T* in, T* out, unsigned batch, const Cols& cols, const Cols& sub,
+                int depth, const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (edge) {
     case kPeriodic:
-      return launch<T, M, R, kPeriodic>(in, out, cols, sub, depth, taps, order, stream);
-    case kRing: return launch<T, M, R, kRing>(in, out, cols, sub, depth, taps, order, stream);
-    case kOpen: return launch<T, M, R, kOpen>(in, out, cols, sub, depth, taps, order, stream);
+      return launch<T, M, R, kPeriodic>(in, out, batch, cols, sub, depth, taps, order, stream);
+    case kRing:
+      return launch<T, M, R, kRing>(in, out, batch, cols, sub, depth, taps, order, stream);
+    case kOpen:
+      return launch<T, M, R, kOpen>(in, out, batch, cols, sub, depth, taps, order, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Every reach 1 .. kMaxR at every M (r > M: a halo of ceil(r / M) lanes)
 template <typename T, int M>
-int launch_m(const T* in, T* out, const Cols& cols, const Cols& sub, int r, int depth,
-             const Taps1& taps, int order, int edge, cudaStream_t stream) {
+int launch_m(const T* in, T* out, unsigned batch, const Cols& cols, const Cols& sub, int r,
+             int depth, const Taps1& taps, int order, int edge, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_edge<T, M, 1>(in, out, cols, sub, depth, taps, order, edge, stream);
-    case 2: return launch_edge<T, M, 2>(in, out, cols, sub, depth, taps, order, edge, stream);
-    case 3: return launch_edge<T, M, 3>(in, out, cols, sub, depth, taps, order, edge, stream);
-    case 4: return launch_edge<T, M, 4>(in, out, cols, sub, depth, taps, order, edge, stream);
+    case 1:
+      return launch_edge<T, M, 1>(in, out, batch, cols, sub, depth, taps, order, edge, stream);
+    case 2:
+      return launch_edge<T, M, 2>(in, out, batch, cols, sub, depth, taps, order, edge, stream);
+    case 3:
+      return launch_edge<T, M, 3>(in, out, batch, cols, sub, depth, taps, order, edge, stream);
+    case 4:
+      return launch_edge<T, M, 4>(in, out, batch, cols, sub, depth, taps, order, edge, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -491,7 +500,8 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
   return center ? kCenterFirst : ascending ? kAscending : kRuntime;
 }
 
-// `depth` steps of the (nb, m, vl) layout array `in` into `out` (another
+// `depth` steps of each of the `batch` (nb, m, vl) layout arrays `in`
+// (contiguous, a grid a blockIdx.y, batch <= kMaxBatch) into `out` (another
 // buffer) of T elements, for a stencil of reach r, with the grid's ends
 // `edge` (0 periodic, 1 ring, 2 open), at any vl and m: on the instance M,
 // the largest of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M
@@ -500,10 +510,10 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
 // `coeffs`: ntaps tap offsets and coefficients (rounded to T, as floats) in
 // host memory.  Returns the CUDA error code.
 template <typename T>
-int sweep1d_warp_run(const void* in, void* out, int64_t nb, int64_t m, int64_t vl, int64_t r,
-                     int64_t blocks, int64_t depth, int64_t edge, int64_t ntaps,
+int sweep1d_warp_run(const void* in, void* out, int64_t batch, int64_t nb, int64_t m, int64_t vl,
+                     int64_t r, int64_t blocks, int64_t depth, int64_t edge, int64_t ntaps,
                      const int32_t* offsets, const float* coeffs, void* stream) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || batch < 1 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
   const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
   if (blocks != run_blocks((int)mi) || nb < 1 || vl < 1 || vl > (1 << 30) || r < 1 ||
       r > kMaxR || depth < 0 || depth * r > kLanes * mi || ntaps < 1 || ntaps > kMaxTaps ||
@@ -524,10 +534,10 @@ int sweep1d_warp_run(const void* in, void* out, int64_t nb, int64_t m, int64_t v
   const Cols cols = make_cols(nb, vl);
   const Cols sub = make_cols(nb * vl, m / mi);   // C' sub-columns, g = m / M to a column
   switch (mi) {
-    case 1: return launch_m<T, 1>(src, dst, cols, sub, rr, d, taps, order, e, st);
-    case 2: return launch_m<T, 2>(src, dst, cols, sub, rr, d, taps, order, e, st);
-    case 4: return launch_m<T, 4>(src, dst, cols, sub, rr, d, taps, order, e, st);
-    default: return launch_m<T, 8>(src, dst, cols, sub, rr, d, taps, order, e, st);
+    case 1: return launch_m<T, 1>(src, dst, (unsigned)batch, cols, sub, rr, d, taps, order, e, st);
+    case 2: return launch_m<T, 2>(src, dst, (unsigned)batch, cols, sub, rr, d, taps, order, e, st);
+    case 4: return launch_m<T, 4>(src, dst, (unsigned)batch, cols, sub, rr, d, taps, order, e, st);
+    default: return launch_m<T, 8>(src, dst, (unsigned)batch, cols, sub, rr, d, taps, order, e, st);
   }
 }
 

@@ -468,6 +468,10 @@ sweep2d_warp(const T* __restrict__ in, T* __restrict__ out, int64_t n0, Cols col
   extern __shared__ float smem[];
   // [D][E][kWarps][2][R]: lane 0's, lane 31's
   T* edges = reinterpret_cast<T*>(smem + (size_t)kSlots * kRow);
+  // grid blockIdx.y of the batch: n0 rows of C' * M elements a grid, offset
+  // in 64 bits
+  in += (int64_t)blockIdx.y * n0 * ((kVl > 0 ? cols.n : sub.n) * M);
+  out += (int64_t)blockIdx.y * n0 * ((kVl > 0 ? cols.n : sub.n) * M);
   const int lane = threadIdx.x & (kLanes - 1);
   const int w = threadIdx.x >> 5;
   const int64_t col = blockIdx.x % ncol;
@@ -590,7 +594,7 @@ sweep2d_warp(const T* __restrict__ in, T* __restrict__ out, int64_t n0, Cols col
 
 template <typename T, int M, int R, int D, int kOrder>
 int go(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub, int64_t ncol,
-       int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps, cudaStream_t stream) {
+       int64_t seg, int edge, dim3 ctas, const Taps2<T>& taps, cudaStream_t stream) {
   const size_t smem = smem_floats<M, R, D>() * sizeof(float);
   // float's vl = 32 has instances of its own at g = 1, every stride a
   // constant (the deep instance and r > 1 have the any-vl form only)
@@ -613,7 +617,7 @@ int go(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub, int64
 
 template <typename T, int M, int R, int D>
 int launch_order(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub,
-                 int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps,
+                 int64_t ncol, int64_t seg, int edge, dim3 ctas, const Taps2<T>& taps,
                  int order, cudaStream_t stream) {
   if constexpr (R > 2) {   // run-time taps only
     return go<T, M, R, D, kRuntime>(in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, stream);
@@ -637,7 +641,7 @@ int launch_order(const T* in, T* out, int64_t n0, const Cols& cols, const Cols& 
 
 template <typename T, int M, int R, int D>
 int launch_depth(int depth, const T* in, T* out, int64_t n0, const Cols& cols, const Cols& sub,
-                 int64_t ncol, int64_t seg, int edge, unsigned ctas, const Taps2<T>& taps,
+                 int64_t ncol, int64_t seg, int edge, dim3 ctas, const Taps2<T>& taps,
                  int order, cudaStream_t stream) {
   if constexpr (M == kDeepM && R == 1) {
     if (depth == kDeepD)
@@ -658,7 +662,7 @@ int launch_depth(int depth, const T* in, T* out, int64_t n0, const Cols& cols, c
 // The instances of M at reach 1 .. kMaxR, each from its deepest depth down.
 template <typename T, int M>
 int launch_m(int r, int depth, const T* in, T* out, int64_t n0, const Cols& cols,
-             const Cols& sub, int64_t ncol, int64_t seg, int edge, unsigned ctas,
+             const Cols& sub, int64_t ncol, int64_t seg, int edge, dim3 ctas,
              const Taps2<T>& taps, int order, cudaStream_t stream) {
   switch (r) {
     case 1: return launch_depth<T, M, 1, max_depth(M, 1)>(depth, in, out, n0, cols, sub, ncol, seg, edge, ctas, taps, order, stream);
@@ -692,7 +696,8 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
   return r == 1 ? order_of<1>(offsets, ntaps) : r == 2 ? order_of<2>(offsets, ntaps) : kRuntime;
 }
 
-// `depth` steps of the (n0, nb, m, vl) layout array `in` into `out` (another
+// `depth` steps of each of the `batch` (n0, nb, m, vl) layout arrays `in`
+// (contiguous, a grid a blockIdx.y, batch <= kMaxBatch) into `out` (another
 // buffer) of T elements, at any vl and m (on the instance M, the largest
 // of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M sub-columns a row;
 // C' < 2^30 unless T is float, r = 1, vl = 32 and m = M) that has `depth`,
@@ -702,10 +707,10 @@ int tap_order(const int32_t* offsets, int64_t ntaps, int64_t r) {
 // and `coeffs` ntaps coefficients (rounded to T, as floats), both in host
 // memory.  Returns the CUDA error code.
 template <typename T>
-int sweep2d_warp_run(const void* in, void* out, int64_t n0, int64_t nb, int64_t m, int64_t vl,
-                     int64_t r, int64_t depth, int64_t edge, int64_t seg, int64_t ntaps,
-                     const int32_t* offsets, const float* coeffs, void* stream) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
+int sweep2d_warp_run(const void* in, void* out, int64_t batch, int64_t n0, int64_t nb, int64_t m,
+                     int64_t vl, int64_t r, int64_t depth, int64_t edge, int64_t seg,
+                     int64_t ntaps, const int32_t* offsets, const float* coeffs, void* stream) {
+  if (m < 1 || batch < 1 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
   const int64_t mi = m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1;   // the instance M
   const int64_t g = m / mi;                                  // sub-columns a column
   // the any-vl form's 32-bit column math (the deep instance, r > 1 and
@@ -743,7 +748,7 @@ int sweep2d_warp_run(const void* in, void* out, int64_t n0, int64_t nb, int64_t 
   T* dst = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = (int)depth, e = (int)edge, rr = (int)r, order = tap_order(offsets, ntaps, r);
-  const unsigned grid = (unsigned)ctas;
+  const dim3 grid((unsigned)ctas, (unsigned)batch);   // the batch's grids along y
   switch (mi) {
     case 1: return launch_m<T, 1>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);
     case 2: return launch_m<T, 2>(rr, d, src, dst, n0, cols, sub, ncol, seg, e, grid, taps, order, st);

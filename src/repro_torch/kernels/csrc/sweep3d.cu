@@ -23,10 +23,10 @@ extern "C" int64_t repro_sweep3d_tile(int64_t m, int64_t r, int64_t depth, int64
 }
 
 // sweep3d_run (sweep3d.cuh) on float elements.
-extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t n0, int64_t n1, int64_t nb,
-                                 int64_t m, int64_t vl, int64_t r, int64_t depth, int64_t edge,
-                                 int64_t seg, int64_t ntaps, const int32_t* offsets,
-                                 const float* coeffs, void* stream) {
-  return sweep3d_run<float>(in, out, n0, n1, nb, m, vl, r, depth, edge, seg, ntaps, offsets,
-                            coeffs, stream);
+extern "C" int repro_sweep3d_f32(const void* in, void* out, int64_t batch, int64_t n0,
+                                 int64_t n1, int64_t nb, int64_t m, int64_t vl, int64_t r,
+                                 int64_t depth, int64_t edge, int64_t seg, int64_t ntaps,
+                                 const int32_t* offsets, const float* coeffs, void* stream) {
+  return sweep3d_run<float>(in, out, batch, n0, n1, nb, m, vl, r, depth, edge, seg, ntaps,
+                            offsets, coeffs, stream);
 }

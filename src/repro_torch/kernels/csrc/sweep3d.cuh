@@ -437,6 +437,9 @@ sweep3d(const El* __restrict__ in, El* __restrict__ out, int64_t n0, int64_t n1,
   const bool stores = cx >= T::Hx && cx < T::Cx - T::Hx && gu < ncol && ty >= T::Hy &&
                       ty < T::Ty - T::Hy && yu < n1;
   const int64_t plane = n1 * nb * (vl * M * gs);     // vl * m < 2^31
+  // grid blockIdx.y of the batch: n0 planes a grid, offset in 64 bits
+  in += (int64_t)blockIdx.y * n0 * plane;
+  out += (int64_t)blockIdx.y * n0 * plane;
   const int64_t col = col_offset<M, kVl>(y, gu, nb, cols, sub);   // element 0 in plane 0
   float* const mine = smem + T::Pad + t;             // element 0 of this column, ring slot 0
   float* const levels = mine + T::Slots * T::Plane;  // the published levels' slots
@@ -554,8 +557,9 @@ sweep3d(const El* __restrict__ in, El* __restrict__ out, int64_t n0, int64_t n1,
 }
 
 template <typename El, int M, int D, int R, int kOrder>
-int go(const El* in, El* out, int64_t n0, int64_t n1, int64_t nb, const Cols& cols,
-       const Cols& sub, int64_t seg, int edge, const Taps3<El>& taps, cudaStream_t stream) {
+int go(const El* in, El* out, unsigned batch, int64_t n0, int64_t n1, int64_t nb,
+       const Cols& cols, const Cols& sub, int64_t seg, int edge, const Taps3<El>& taps,
+       cudaStream_t stream) {
   using T = Tile<M, D, R, kOrder>;
   // float's vl = 32 has instances of its own at g = 1 and r = 1, every
   // stride a constant
@@ -575,34 +579,39 @@ int go(const El* in, El* out, int64_t n0, int64_t n1, int64_t nb, const Cols& co
   const int64_t nty = (n1 + T::Ty - 2 * T::Hy - 1) / (T::Ty - 2 * T::Hy);
   const int64_t ctas = ntx * nty * ((n0 + seg - 1) / seg);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)ctas, T::Threads, T::Bytes, stream>>>(in, out, n0, n1, nb, ntx, nty, seg,
-                                                            edge, taps, cols, sub);
+  const dim3 grid((unsigned)ctas, batch);   // the batch's grids along y
+  kernel<<<grid, T::Threads, T::Bytes, stream>>>(in, out, n0, n1, nb, ntx, nty, seg, edge, taps,
+                                                  cols, sub);
   return (int)cudaGetLastError();
 }
 
 template <typename El, int M, int R, int D>
-int launch_depth(int depth, int order, const El* in, El* out, int64_t n0, int64_t n1,
-                 int64_t nb, const Cols& cols, const Cols& sub, int64_t seg, int edge,
-                 const Taps3<El>& taps, cudaStream_t stream) {
+int launch_depth(int depth, int order, const El* in, El* out, unsigned batch, int64_t n0,
+                 int64_t n1, int64_t nb, const Cols& cols, const Cols& sub, int64_t seg,
+                 int edge, const Taps3<El>& taps, cudaStream_t stream) {
   if constexpr (D >= 1) {
     if (depth != D)
-      return launch_depth<El, M, R, D - 1>(depth, order, in, out, n0, n1, nb, cols, sub, seg,
-                                           edge, taps, stream);
+      return launch_depth<El, M, R, D - 1>(depth, order, in, out, batch, n0, n1, nb, cols, sub,
+                                           seg, edge, taps, stream);
     if constexpr (R > 2) {   // run-time taps only
-      return go<El, M, D, R, kRuntime>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+      return go<El, M, D, R, kRuntime>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
+                                       stream);
     } else if constexpr (R == 2) {   // the star's compile-time order, or run-time taps
       return order == kStar
-                 ? go<El, M, D, R, kStar>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream)
-                 : go<El, M, D, R, kRuntime>(in, out, n0, n1, nb, cols, sub, seg, edge, taps,
+                 ? go<El, M, D, R, kStar>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
+                                          stream)
+                 : go<El, M, D, R, kRuntime>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
                                              stream);
     } else {
       switch (order) {
         case kStar:
-          return go<El, M, D, R, kStar>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+          return go<El, M, D, R, kStar>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
+                                        stream);
         case kBox:
-          return go<El, M, D, R, kBox>(in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+          return go<El, M, D, R, kBox>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
+                                       stream);
         default:
-          return go<El, M, D, R, kRuntime>(in, out, n0, n1, nb, cols, sub, seg, edge, taps,
+          return go<El, M, D, R, kRuntime>(in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps,
                                            stream);
       }
     }
@@ -613,14 +622,14 @@ int launch_depth(int depth, int order, const El* in, El* out, int64_t n0, int64_
 
 // The instances of M at reach 1 .. kMaxR, each from its deepest depth down.
 template <typename El, int M>
-int launch_m(int r, int depth, int order, const El* in, El* out, int64_t n0, int64_t n1,
-             int64_t nb, const Cols& cols, const Cols& sub, int64_t seg, int edge,
+int launch_m(int r, int depth, int order, const El* in, El* out, unsigned batch, int64_t n0,
+             int64_t n1, int64_t nb, const Cols& cols, const Cols& sub, int64_t seg, int edge,
              const Taps3<El>& taps, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_depth<El, M, 1, max_depth(M, 1)>(depth, order, in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
-    case 2: return launch_depth<El, M, 2, max_depth(M, 2)>(depth, order, in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
-    case 3: return launch_depth<El, M, 3, max_depth(M, 3)>(depth, order, in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
-    case 4: return launch_depth<El, M, 4, max_depth(M, 4)>(depth, order, in, out, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+    case 1: return launch_depth<El, M, 1, max_depth(M, 1)>(depth, order, in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+    case 2: return launch_depth<El, M, 2, max_depth(M, 2)>(depth, order, in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+    case 3: return launch_depth<El, M, 3, max_depth(M, 3)>(depth, order, in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps, stream);
+    case 4: return launch_depth<El, M, 4, max_depth(M, 4)>(depth, order, in, out, batch, n0, n1, nb, cols, sub, seg, edge, taps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -676,7 +685,8 @@ int64_t tile_of_m(int64_t r, int64_t depth, int64_t order, int64_t what) {
   }
 }
 
-// `depth` steps of the (n0, n1, nb, m, vl) layout array `in` into `out`
+// `depth` steps of each of the `batch` (n0, n1, nb, m, vl) layout arrays
+// `in` (contiguous, a grid a blockIdx.y, batch <= kMaxBatch) into `out`
 // (another buffer) of El elements, at any vl and m (on the instance M, the
 // largest of 8, 4, 2, 1 dividing m, with C' = nb * vl * m / M sub-columns
 // a row; C' < 2^30 unless El is float, r = 1, vl = 32 and m = M), for a
@@ -686,10 +696,10 @@ int64_t tile_of_m(int64_t r, int64_t depth, int64_t order, int64_t what) {
 // (oz, oy, ox) triples and `coeffs` ntaps coefficients (rounded to El, as
 // floats), both in host memory.  Returns the CUDA error code.
 template <typename El>
-int sweep3d_run(const void* in, void* out, int64_t n0, int64_t n1, int64_t nb, int64_t m,
-                int64_t vl, int64_t r, int64_t depth, int64_t edge, int64_t seg, int64_t ntaps,
-                const int32_t* offsets, const float* coeffs, void* stream) {
-  if (m < 1 || r < 1 || r > kMaxR || depth < 1 || edge < kPeriodic || edge > kOpen || n0 < 1 ||
+int sweep3d_run(const void* in, void* out, int64_t batch, int64_t n0, int64_t n1, int64_t nb,
+                int64_t m, int64_t vl, int64_t r, int64_t depth, int64_t edge, int64_t seg,
+                int64_t ntaps, const int32_t* offsets, const float* coeffs, void* stream) {
+  if (m < 1 || batch < 1 || batch > kMaxBatch || r < 1 || r > kMaxR || depth < 1 || edge < kPeriodic || edge > kOpen || n0 < 1 ||
       n1 < 1 || nb < 1 || vl < 1 || seg < 1 || seg > (1 << 24) || ntaps < 1 ||
       ntaps > kMaxTaps)
     return (int)cudaErrorInvalidValue;
@@ -717,10 +727,10 @@ int sweep3d_run(const void* in, void* out, int64_t n0, int64_t n1, int64_t nb, i
   const Cols cols = make_cols(nb, vl);
   const Cols sub = make_cols(nb * vl, g);   // C' sub-columns, g to a column
   switch (mi) {
-    case 1: return launch_m<El, 1>(rr, d, order, src, dst, n0, n1, nb, cols, sub, seg, e, taps, st);
-    case 2: return launch_m<El, 2>(rr, d, order, src, dst, n0, n1, nb, cols, sub, seg, e, taps, st);
-    case 4: return launch_m<El, 4>(rr, d, order, src, dst, n0, n1, nb, cols, sub, seg, e, taps, st);
-    default: return launch_m<El, 8>(rr, d, order, src, dst, n0, n1, nb, cols, sub, seg, e, taps, st);
+    case 1: return launch_m<El, 1>(rr, d, order, src, dst, (unsigned)batch, n0, n1, nb, cols, sub, seg, e, taps, st);
+    case 2: return launch_m<El, 2>(rr, d, order, src, dst, (unsigned)batch, n0, n1, nb, cols, sub, seg, e, taps, st);
+    case 4: return launch_m<El, 4>(rr, d, order, src, dst, (unsigned)batch, n0, n1, nb, cols, sub, seg, e, taps, st);
+    default: return launch_m<El, 8>(rr, d, order, src, dst, (unsigned)batch, n0, n1, nb, cols, sub, seg, e, taps, st);
   }
 }
 

@@ -5,10 +5,10 @@
 
 // sweep3d_run (sweep3d.cuh) on bfloat16 elements: the any-vl instances at
 // every vl, each product and sum rounded to bfloat16.
-extern "C" int repro_sweep3d_bf16(const void* in, void* out, int64_t n0, int64_t n1, int64_t nb,
-                                  int64_t m, int64_t vl, int64_t r, int64_t depth, int64_t edge,
-                                  int64_t seg, int64_t ntaps, const int32_t* offsets,
-                                  const float* coeffs, void* stream) {
-  return sweep3d_run<__nv_bfloat16>(in, out, n0, n1, nb, m, vl, r, depth, edge, seg, ntaps,
-                                    offsets, coeffs, stream);
+extern "C" int repro_sweep3d_bf16(const void* in, void* out, int64_t batch, int64_t n0,
+                                  int64_t n1, int64_t nb, int64_t m, int64_t vl, int64_t r,
+                                  int64_t depth, int64_t edge, int64_t seg, int64_t ntaps,
+                                  const int32_t* offsets, const float* coeffs, void* stream) {
+  return sweep3d_run<__nv_bfloat16>(in, out, batch, n0, n1, nb, m, vl, r, depth, edge, seg,
+                                    ntaps, offsets, coeffs, stream);
 }

@@ -84,6 +84,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kP = 8;    // points a lane computes a work unit (one row s), 1-D and 2-D
 constexpr int kP3 = 4;   // the same in 3-D
+// blockIdx.z's limit, gridDim.z on the card: the batch's grids times their
+// axis-0 segments (stencil_kernels.MAX_BATCH holds the same)
+constexpr int64_t kMaxZ = 65535;
 
 enum Edge : int { kPeriodic = 0, kRing = 1, kOpen = 2 };
 
@@ -284,9 +287,15 @@ sweep_far(const T* __restrict__ in, T* __restrict__ out, Geom g, const int4* __r
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t c0 = (int64_t)blockIdx.x * g.tc;
   const int y0 = blockIdx.y * g.ty;
-  const int64_t z0 = (int64_t)blockIdx.z * g.seg;
+  // blockIdx.z = b * nseg + the axis-0 segment: grid b of the batch, its
+  // offset in 64 bits
+  const int64_t nseg = (g.nz + g.seg - 1) / g.seg;
+  const int64_t b = blockIdx.z / nseg;
+  const int64_t z0 = ((int64_t)blockIdx.z - b * nseg) * g.seg;
   const int hy = g.depth * g.ry, hcol = g.depth * g.hc;
   const int64_t zstride = (int64_t)g.ny * g.nx;
+  in += b * g.nz * zstride;
+  out += b * g.nz * zstride;
 
   // the tap table: row s, tap t -> (offset in a plane, offset of the
   // tap's plane from the ring slot of position p - rz); the coefficients
@@ -435,7 +444,8 @@ sweep_far(const T* __restrict__ in, T* __restrict__ out, Geom g, const int4* __r
 }
 
 template <typename T>
-int launch(const T* in, T* out, const Geom& g, const int4* taps, int edge, cudaStream_t stream) {
+int launch(const T* in, T* out, int64_t batch, const Geom& g, const int4* taps, int edge,
+           cudaStream_t stream) {
   const Layout L = layout(g, (int)sizeof(T));
   auto kernel = edge == kRing ? sweep_far<T, kRing>
                 : edge == kOpen ? sweep_far<T, kOpen> : sweep_far<T, kPeriodic>;
@@ -444,8 +454,10 @@ int launch(const T* in, T* out, const Geom& g, const int4* taps, int edge, cudaS
                                            (int)L.bytes);
     if (err != cudaSuccess) return (int)err;
   }
+  const int64_t zs = batch * ((g.nz + g.seg - 1) / g.seg);   // the batch's segments
+  if (zs > kMaxZ) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((g.ncols + g.tc - 1) / g.tc), (unsigned)((g.ny + g.ty - 1) / g.ty),
-                  (unsigned)((g.nz + g.seg - 1) / g.seg));
+                  (unsigned)zs);
   kernel<<<grid, kThreads, (size_t)L.bytes, stream>>>(in, out, g, taps);
   return (int)cudaGetLastError();
 }
@@ -478,9 +490,10 @@ Geom make_geom(int64_t nz, int64_t ny, int64_t nx, int64_t vl, int64_t m, int64_
   return g;
 }
 
-// Advance `in` by `depth` steps (at most 1 where rz > 0) into `out` (both
-// contiguous (nz, ny, nx) in the layout, of T elements, distinct buffers)
-// on `stream`: rz / ry / r the
+// Advance each of the `batch` grids of `in` by `depth` steps (at most 1
+// where rz > 0) into `out` (both contiguous (batch, nz, ny, nx) in the
+// layout, of T elements, distinct buffers; batch times the axis-0 segments
+// at most kMaxZ) on `stream`: rz / ry / r the
 // reach along axis 0 (the stream axis, 0 in 1-D), the 3-D mid axis (else 0)
 // and the minor axis; a CTA stores ty rows by tc columns of seg axis-0
 // positions, its planes' columns ncp words apart; `edge` the ends of the
@@ -488,16 +501,17 @@ Geom make_geom(int64_t nz, int64_t ny, int64_t nx, int64_t vl, int64_t m, int64_
 // 1-D, else axis 0); `taps` ntaps int4s (oz, oy, ox, the coefficient's
 // bits as T) in device memory.  Returns the CUDA error code.
 template <typename T>
-int sweep(const void* in, void* out, int64_t nz, int64_t ny, int64_t nx, int64_t vl, int64_t m,
-          int64_t rz, int64_t ry, int64_t r, int64_t depth, int64_t ty, int64_t tc, int64_t ncp,
-          int64_t seg, int64_t edge, int64_t xends, int64_t ntaps, const void* taps,
-          void* stream) {
-  if (ntaps < 1 || m < 1 || vl < 1 || nx % m || depth < 0 || ty < 1 || tc < 1 || seg < 1 ||
-      edge < 0 || edge > 2 || (rz == 0 && (nz != 1 || seg != 1)) || (rz > 0 && depth > 1))
+int sweep(const void* in, void* out, int64_t batch, int64_t nz, int64_t ny, int64_t nx,
+          int64_t vl, int64_t m, int64_t rz, int64_t ry, int64_t r, int64_t depth, int64_t ty,
+          int64_t tc, int64_t ncp, int64_t seg, int64_t edge, int64_t xends, int64_t ntaps,
+          const void* taps, void* stream) {
+  if (batch < 1 || ntaps < 1 || m < 1 || vl < 1 || nx % m || depth < 0 || ty < 1 || tc < 1 ||
+      seg < 1 || edge < 0 || edge > 2 || (rz == 0 && (nz != 1 || seg != 1)) ||
+      (rz > 0 && depth > 1))
     return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg, ntaps, xends);
   if (g.ncp < g.nc) return (int)cudaErrorInvalidValue;
-  return launch<T>(static_cast<const T*>(in), static_cast<T*>(out), g,
+  return launch<T>(static_cast<const T*>(in), static_cast<T*>(out), batch, g,
                    static_cast<const int4*>(taps), (int)edge, static_cast<cudaStream_t>(stream));
 }
 
@@ -514,21 +528,21 @@ extern "C" int64_t repro_sweep_far_smem(int64_t m, int64_t rz, int64_t ry, int64
 }
 
 // sweep (above) on float elements.
-extern "C" int repro_sweep_far_f32(const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,
-                                   int64_t vl, int64_t m, int64_t rz, int64_t ry, int64_t r,
-                                   int64_t depth, int64_t ty, int64_t tc, int64_t ncp,
-                                   int64_t seg, int64_t edge, int64_t xends, int64_t ntaps,
-                                   const void* taps, void* stream) {
-  return sweep<float>(in, out, nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg, edge, xends,
-                      ntaps, taps, stream);
+extern "C" int repro_sweep_far_f32(const void* in, void* out, int64_t batch, int64_t nz,
+                                   int64_t ny, int64_t nx, int64_t vl, int64_t m, int64_t rz,
+                                   int64_t ry, int64_t r, int64_t depth, int64_t ty, int64_t tc,
+                                   int64_t ncp, int64_t seg, int64_t edge, int64_t xends,
+                                   int64_t ntaps, const void* taps, void* stream) {
+  return sweep<float>(in, out, batch, nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg, edge,
+                      xends, ntaps, taps, stream);
 }
 
 // sweep (above) on bfloat16 elements.
-extern "C" int repro_sweep_far_bf16(const void* in, void* out, int64_t nz, int64_t ny,
-                                    int64_t nx, int64_t vl, int64_t m, int64_t rz, int64_t ry,
-                                    int64_t r, int64_t depth, int64_t ty, int64_t tc,
+extern "C" int repro_sweep_far_bf16(const void* in, void* out, int64_t batch, int64_t nz,
+                                    int64_t ny, int64_t nx, int64_t vl, int64_t m, int64_t rz,
+                                    int64_t ry, int64_t r, int64_t depth, int64_t ty, int64_t tc,
                                     int64_t ncp, int64_t seg, int64_t edge, int64_t xends,
                                     int64_t ntaps, const void* taps, void* stream) {
-  return sweep<__nv_bfloat16>(in, out, nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg,
-                              edge, xends, ntaps, taps, stream);
+  return sweep<__nv_bfloat16>(in, out, batch, nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp,
+                              seg, edge, xends, ntaps, taps, stream);
 }

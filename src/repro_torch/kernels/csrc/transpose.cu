@@ -70,6 +70,14 @@
 //   replaced a shared-memory kernel (batched_transpose) that served vl < 4
 //   at 1.37x the time of torch's transpose().contiguous() (PERF.md,
 //   section 6).
+//
+// A batch whose grids lie in separate tensors (the requests of a served
+// batch) moves into one layout tensor in one launch: the C entry takes a
+// table of the natural side's pointers (Parts, a kernel argument read from
+// the constant bank), and grid axis z is the part.  Part z reads from its
+// own pointer and writes the z-th slice of the layout, z * numel elements
+// in (64-bit), so no copy stacks the grids first.  Each part is whole
+// blocks, so every form runs on a part as on one array.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +93,29 @@ constexpr bool reg_m(int64_t m) { return (m >= 1 && m <= 8) || m == 16 || m == 3
 // Threads (sub-columns, or sub-blocks at vl < 4) a grid of transpose_any
 // or a super-chunk along blockIdx.y holds: below it, 32-bit indices.
 constexpr int64_t kMaxSub = int64_t(1) << 31;
+
+// The parts one launch into the layout reads (stencil_kernels.
+// TRANSPOSE_MAX_PARTS): the natural pointer of each and the elements of one
+// (n = 0: one contiguous array, the kernel's own `in`).
+constexpr int kMaxParts = 64;
+struct Parts {
+  const void* p[kMaxParts];
+  int64_t numel;
+  int64_t n;
+};
+
+// Into the layout from part blockIdx.z: its own natural pointer, and its
+// slice of the layout.
+template <bool kToLayout, typename T>
+__device__ __forceinline__ void take_part(const T* __restrict__& in, T* __restrict__& out,
+                                          const Parts& parts) {
+  if constexpr (kToLayout) {
+    if (parts.n) {
+      in = static_cast<const T*>(parts.p[blockIdx.z]);
+      out += (int64_t)blockIdx.z * parts.numel;
+    }
+  }
+}
 
 using u16 = unsigned short;
 using u32 = unsigned int;
@@ -143,8 +174,10 @@ __device__ __forceinline__ void store_run(T* p, const T (&v)[M]) {
 // (0.208 against 0.185 ms at 2^26 f32, vl=32, m=8; tools/kernel_ab.py).
 template <typename T, int M, int G, int kVec, bool kToLayout>
 __global__ void __launch_bounds__(kRegThreads)
-transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int lv) {
+transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int lv,
+              const __grid_constant__ Parts parts) {
   static_assert(G == 1 || G == 2 || G == 4, "sub-columns a column");
+  take_part<kToLayout>(in, out, parts);
   constexpr int kLg = G == 4 ? 2 : G == 2 ? 1 : 0;
   const int64_t u = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
   const int64_t g = u >> kLg, h = u & (G - 1);
@@ -178,7 +211,8 @@ transpose_reg(const T* __restrict__ in, T* __restrict__ out, int64_t nsub, int l
 template <typename T, int M, int kVec, bool kToLayout, bool kWide>
 __global__ void __launch_bounds__(kRegThreads)
 transpose_any(const T* __restrict__ in, T* __restrict__ out, unsigned nsub, unsigned G,
-              unsigned vl, int64_t nblocks, unsigned chunk) {
+              unsigned vl, int64_t nblocks, unsigned chunk, const __grid_constant__ Parts parts) {
+  take_part<kToLayout>(in, out, parts);
   if constexpr (kWide) {
     const int64_t q0 = (int64_t)blockIdx.y * chunk;
     const int64_t left = nblocks - q0;
@@ -220,7 +254,8 @@ transpose_any(const T* __restrict__ in, T* __restrict__ out, unsigned nsub, unsi
 template <typename T, int VL, bool kToLayout>
 __global__ void __launch_bounds__(kRegThreads)
 transpose_small(const T* __restrict__ in, T* __restrict__ out, int64_t nblocks, unsigned m,
-                unsigned per_warp, unsigned db, unsigned di) {
+                unsigned per_warp, unsigned db, unsigned di, const __grid_constant__ Parts parts) {
+  take_part<kToLayout>(in, out, parts);
   const unsigned bs = VL * m;
   const unsigned lane = threadIdx.x & 31;
   const int64_t q0 = (((int64_t)blockIdx.x * kRegThreads + threadIdx.x) >> 5) * per_warp;
@@ -261,22 +296,33 @@ transpose_small(const T* __restrict__ in, T* __restrict__ out, int64_t nblocks, 
   }
 }
 
+// Whether the natural side (`natural`, or every part's pointer) is aligned
+// to `bytes`.
+bool natural_aligned(const void* natural, const Parts& parts, int64_t bytes) {
+  if (parts.n == 0) return reinterpret_cast<uintptr_t>(natural) % bytes == 0;
+  for (int64_t i = 0; i < parts.n; ++i)
+    if (reinterpret_cast<uintptr_t>(parts.p[i]) % bytes) return false;
+  return true;
+}
+
+// The grid axis z: one a part
+unsigned part_z(const Parts& parts) { return parts.n ? (unsigned)parts.n : 1u; }
+
 template <typename T, int M, bool kToLayout>
 int launch_any(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
-               cudaStream_t stream) {
+               const Parts& parts, cudaStream_t stream) {
   constexpr int kVec = chunk_elems<T, M>();
   const int64_t nsub = ncols * g;
-  const void* natural = kToLayout ? in : out;
-  const bool aligned = reinterpret_cast<uintptr_t>(natural) % (kVec * sizeof(T)) == 0;
+  const bool aligned = natural_aligned(kToLayout ? in : out, parts, kVec * sizeof(T));
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   const bool vec = kVec > 1 && aligned;
   if (nsub < kMaxSub) {
-    const unsigned ctas = (unsigned)((nsub + kRegThreads - 1) / kRegThreads);
+    const dim3 grid((unsigned)((nsub + kRegThreads - 1) / kRegThreads), 1, part_z(parts));
     const auto kernel = vec ? transpose_any<T, M, kVec, kToLayout, false>
                             : transpose_any<T, M, 1, kToLayout, false>;
-    kernel<<<ctas, kRegThreads, 0, stream>>>(src, dst, (unsigned)nsub, (unsigned)g,
-                                             (unsigned)vl, 0, 0);
+    kernel<<<grid, kRegThreads, 0, stream>>>(src, dst, (unsigned)nsub, (unsigned)g,
+                                             (unsigned)vl, 0, 0, parts);
     return (int)cudaGetLastError();
   }
   // super-chunks of whole blocks, each fewer than 2^31 sub-columns
@@ -286,55 +332,56 @@ int launch_any(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
   const int64_t ys = (nblocks + chunk - 1) / chunk;
   if (ys > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((chunk * per_block + kRegThreads - 1) / kRegThreads),
-                  (unsigned)ys);
+                  (unsigned)ys, part_z(parts));
   const auto kernel = vec ? transpose_any<T, M, kVec, kToLayout, true>
                           : transpose_any<T, M, 1, kToLayout, true>;
   kernel<<<grid, kRegThreads, 0, stream>>>(src, dst, 0, (unsigned)g, (unsigned)vl, nblocks,
-                                           (unsigned)chunk);
+                                           (unsigned)chunk, parts);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int M>
 int launch_any_dir(const void* in, void* out, int64_t ncols, int64_t g, int64_t vl,
-                   bool to_layout, cudaStream_t s) {
-  return to_layout ? launch_any<T, M, true>(in, out, ncols, g, vl, s)
-                   : launch_any<T, M, false>(in, out, ncols, g, vl, s);
+                   bool to_layout, const Parts& parts, cudaStream_t s) {
+  return to_layout ? launch_any<T, M, true>(in, out, ncols, g, vl, parts, s)
+                   : launch_any<T, M, false>(in, out, ncols, g, vl, parts, s);
 }
 
 // m = G * M on the instance M the caller names (1..8 dividing m)
 template <typename T>
 int launch_any_m(const void* in, void* out, int64_t ncols, int64_t vl, int64_t m, int64_t mi,
-                 bool to_layout, cudaStream_t s) {
+                 bool to_layout, const Parts& parts, cudaStream_t s) {
   const int64_t g = m / mi;
   switch (mi) {
-    case 1: return launch_any_dir<T, 1>(in, out, ncols, g, vl, to_layout, s);
-    case 2: return launch_any_dir<T, 2>(in, out, ncols, g, vl, to_layout, s);
-    case 3: return launch_any_dir<T, 3>(in, out, ncols, g, vl, to_layout, s);
-    case 4: return launch_any_dir<T, 4>(in, out, ncols, g, vl, to_layout, s);
-    case 5: return launch_any_dir<T, 5>(in, out, ncols, g, vl, to_layout, s);
-    case 6: return launch_any_dir<T, 6>(in, out, ncols, g, vl, to_layout, s);
-    case 7: return launch_any_dir<T, 7>(in, out, ncols, g, vl, to_layout, s);
-    default: return launch_any_dir<T, 8>(in, out, ncols, g, vl, to_layout, s);
+    case 1: return launch_any_dir<T, 1>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 2: return launch_any_dir<T, 2>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 3: return launch_any_dir<T, 3>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 4: return launch_any_dir<T, 4>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 5: return launch_any_dir<T, 5>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 6: return launch_any_dir<T, 6>(in, out, ncols, g, vl, to_layout, parts, s);
+    case 7: return launch_any_dir<T, 7>(in, out, ncols, g, vl, to_layout, parts, s);
+    default: return launch_any_dir<T, 8>(in, out, ncols, g, vl, to_layout, parts, s);
   }
 }
 
 template <typename T, int M, int G, bool kToLayout>
-int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t stream) {
+int launch_reg(const void* in, void* out, int64_t ncols, int lv, const Parts& parts,
+               cudaStream_t stream) {
   constexpr int kVec = chunk_elems<T, M>();
   const int64_t nsub = ncols * G;
   const int64_t ctas = (nsub + kRegThreads - 1) / kRegThreads;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // the natural side moves whole chunks only where its pointer is aligned
-  const void* natural = kToLayout ? in : out;
-  const bool aligned = reinterpret_cast<uintptr_t>(natural) % (kVec * sizeof(T)) == 0;
+  // the natural side moves whole chunks only where its pointers are aligned
+  const bool aligned = natural_aligned(kToLayout ? in : out, parts, kVec * sizeof(T));
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
+  const dim3 grid((unsigned)ctas, 1, part_z(parts));
   if (kVec > 1 && aligned) {
-    transpose_reg<T, M, G, kVec, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
-        src, dst, nsub, lv);
+    transpose_reg<T, M, G, kVec, kToLayout><<<grid, kRegThreads, 0, stream>>>(
+        src, dst, nsub, lv, parts);
   } else {
-    transpose_reg<T, M, G, 1, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
-        src, dst, nsub, lv);
+    transpose_reg<T, M, G, 1, kToLayout><<<grid, kRegThreads, 0, stream>>>(
+        src, dst, nsub, lv, parts);
   }
   return (int)cudaGetLastError();
 }
@@ -342,25 +389,25 @@ int launch_reg(const void* in, void* out, int64_t ncols, int lv, cudaStream_t st
 // M elements a thread, G sub-columns a column: m = G * M
 template <typename T, int M, int G = 1>
 int launch_dir(const void* in, void* out, int64_t ncols, int lv, bool to_layout,
-               cudaStream_t s) {
-  return to_layout ? launch_reg<T, M, G, true>(in, out, ncols, lv, s)
-                   : launch_reg<T, M, G, false>(in, out, ncols, lv, s);
+               const Parts& parts, cudaStream_t s) {
+  return to_layout ? launch_reg<T, M, G, true>(in, out, ncols, lv, parts, s)
+                   : launch_reg<T, M, G, false>(in, out, ncols, lv, parts, s);
 }
 
 template <typename T>
 int launch_m(const void* in, void* out, int64_t ncols, int lv, int m, bool to_layout,
-             cudaStream_t s) {
+             const Parts& parts, cudaStream_t s) {
   switch (m) {
-    case 1: return launch_dir<T, 1>(in, out, ncols, lv, to_layout, s);
-    case 2: return launch_dir<T, 2>(in, out, ncols, lv, to_layout, s);
-    case 3: return launch_dir<T, 3>(in, out, ncols, lv, to_layout, s);
-    case 4: return launch_dir<T, 4>(in, out, ncols, lv, to_layout, s);
-    case 5: return launch_dir<T, 5>(in, out, ncols, lv, to_layout, s);
-    case 6: return launch_dir<T, 6>(in, out, ncols, lv, to_layout, s);
-    case 7: return launch_dir<T, 7>(in, out, ncols, lv, to_layout, s);
-    case 8: return launch_dir<T, 8>(in, out, ncols, lv, to_layout, s);
-    case 16: return launch_dir<T, 8, 2>(in, out, ncols, lv, to_layout, s);
-    case 32: return launch_dir<T, 8, 4>(in, out, ncols, lv, to_layout, s);
+    case 1: return launch_dir<T, 1>(in, out, ncols, lv, to_layout, parts, s);
+    case 2: return launch_dir<T, 2>(in, out, ncols, lv, to_layout, parts, s);
+    case 3: return launch_dir<T, 3>(in, out, ncols, lv, to_layout, parts, s);
+    case 4: return launch_dir<T, 4>(in, out, ncols, lv, to_layout, parts, s);
+    case 5: return launch_dir<T, 5>(in, out, ncols, lv, to_layout, parts, s);
+    case 6: return launch_dir<T, 6>(in, out, ncols, lv, to_layout, parts, s);
+    case 7: return launch_dir<T, 7>(in, out, ncols, lv, to_layout, parts, s);
+    case 8: return launch_dir<T, 8>(in, out, ncols, lv, to_layout, parts, s);
+    case 16: return launch_dir<T, 8, 2>(in, out, ncols, lv, to_layout, parts, s);
+    case 32: return launch_dir<T, 8, 4>(in, out, ncols, lv, to_layout, parts, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -378,34 +425,36 @@ int reg_shift(int64_t ncols, int64_t vl) {
 // vl in {1, 2, 3}: transpose_small, about kSmallK * 32 elements a warp in
 // whole blocks
 template <typename T, int VL, bool kToLayout>
-int launch_small(const void* in, void* out, int64_t nblocks, int64_t m, cudaStream_t stream) {
+int launch_small(const void* in, void* out, int64_t nblocks, int64_t m, const Parts& parts,
+                 cudaStream_t stream) {
   const int64_t bs = VL * m;
   if (bs >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
   const int64_t per_warp = bs >= kSmallK * 32 ? 1 : kSmallK * 32 / bs;
   const int64_t ctas = ((nblocks + per_warp - 1) / per_warp + kRegThreads / 32 - 1) /
                        (kRegThreads / 32);
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  transpose_small<T, VL, kToLayout><<<(unsigned)ctas, kRegThreads, 0, stream>>>(
+  const dim3 grid((unsigned)ctas, 1, part_z(parts));
+  transpose_small<T, VL, kToLayout><<<grid, kRegThreads, 0, stream>>>(
       static_cast<const T*>(in), static_cast<T*>(out), nblocks, (unsigned)m,
-      (unsigned)per_warp, (unsigned)(32 / bs), (unsigned)(32 % bs));
+      (unsigned)per_warp, (unsigned)(32 / bs), (unsigned)(32 % bs), parts);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VL>
 int launch_small_dir(const void* in, void* out, int64_t nblocks, int64_t m, bool to_layout,
-                     cudaStream_t s) {
-  return to_layout ? launch_small<T, VL, true>(in, out, nblocks, m, s)
-                   : launch_small<T, VL, false>(in, out, nblocks, m, s);
+                     const Parts& parts, cudaStream_t s) {
+  return to_layout ? launch_small<T, VL, true>(in, out, nblocks, m, parts, s)
+                   : launch_small<T, VL, false>(in, out, nblocks, m, parts, s);
 }
 
 template <typename T>
 int launch_small_vl(const void* in, void* out, int64_t ncols, int64_t vl, int64_t m,
-                    bool to_layout, cudaStream_t s) {
+                    bool to_layout, const Parts& parts, cudaStream_t s) {
   const int64_t nblocks = ncols / vl;
   switch (vl) {
-    case 1: return launch_small_dir<T, 1>(in, out, nblocks, m, to_layout, s);
-    case 2: return launch_small_dir<T, 2>(in, out, nblocks, m, to_layout, s);
-    default: return launch_small_dir<T, 3>(in, out, nblocks, m, to_layout, s);
+    case 1: return launch_small_dir<T, 1>(in, out, nblocks, m, to_layout, parts, s);
+    case 2: return launch_small_dir<T, 2>(in, out, nblocks, m, to_layout, parts, s);
+    default: return launch_small_dir<T, 3>(in, out, nblocks, m, to_layout, parts, s);
   }
 }
 
@@ -417,36 +466,44 @@ int launch_small_vl(const void* in, void* out, int64_t ncols, int64_t vl, int64_
 // elements (1..8 dividing m; unused at vl < 4).  vl must divide ncols;
 // vl < 4 takes transpose_small, a power of two from 4
 // with m in 1..8 (mi = m), 16 or 32 (mi = 8) transpose_reg, every other
-// shape transpose_any (vl below 2^31).  Returns the CUDA error code of the
-// launch.
+// shape transpose_any (vl below 2^31).  `nparts` > 0 (into the layout
+// only, up to kMaxParts): `in` is unused, the natural side is the `nparts`
+// arrays at parts[0 .. nparts), each of ncols * m elements, and `out` their
+// layouts one after another.  Returns the CUDA error code of the launch.
 extern "C" int repro_transpose_reg(const void* in, void* out, int64_t ncols, int64_t vl,
                                    int64_t m, int64_t mi, int64_t elem_size, int64_t to_layout,
-                                   void* stream) {
+                                   const void* const* parts, int64_t nparts, void* stream) {
   if (vl < 1 || m < 1 || mi < 1 || mi > 8 || m % mi || ncols < 0 || ncols % vl ||
-      (elem_size != 2 && elem_size != 4 && elem_size != 8))
+      (elem_size != 2 && elem_size != 4 && elem_size != 8) || nparts < 0 ||
+      nparts > kMaxParts || (nparts && !to_layout))
     return (int)cudaErrorInvalidValue;
   if (ncols == 0) return 0;
+  Parts table{};
+  table.n = nparts;
+  table.numel = ncols * m;
+  for (int64_t i = 0; i < nparts; ++i) table.p[i] = parts[i];
+  if (nparts) in = parts[0];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = to_layout != 0;
   if (vl < 4) {
     switch (elem_size) {
-      case 2: return launch_small_vl<u16>(in, out, ncols, vl, m, dir, s);
-      case 4: return launch_small_vl<u32>(in, out, ncols, vl, m, dir, s);
-      default: return launch_small_vl<u64>(in, out, ncols, vl, m, dir, s);
+      case 2: return launch_small_vl<u16>(in, out, ncols, vl, m, dir, table, s);
+      case 4: return launch_small_vl<u32>(in, out, ncols, vl, m, dir, table, s);
+      default: return launch_small_vl<u64>(in, out, ncols, vl, m, dir, table, s);
     }
   }
   const int lv = reg_shift(ncols, vl);
   if (lv >= 0 && reg_m(m) && mi == (m <= 8 ? m : 8)) {
     switch (elem_size) {
-      case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, s);
-      case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, s);
-      default: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, s);
+      case 2: return launch_m<u16>(in, out, ncols, lv, (int)m, dir, table, s);
+      case 4: return launch_m<u32>(in, out, ncols, lv, (int)m, dir, table, s);
+      default: return launch_m<u64>(in, out, ncols, lv, (int)m, dir, table, s);
     }
   }
   if (vl >= kMaxSub) return (int)cudaErrorInvalidValue;
   switch (elem_size) {
-    case 2: return launch_any_m<u16>(in, out, ncols, vl, m, mi, dir, s);
-    case 4: return launch_any_m<u32>(in, out, ncols, vl, m, mi, dir, s);
-    default: return launch_any_m<u64>(in, out, ncols, vl, m, mi, dir, s);
+    case 2: return launch_any_m<u16>(in, out, ncols, vl, m, mi, dir, table, s);
+    case 4: return launch_any_m<u32>(in, out, ncols, vl, m, mi, dir, table, s);
+    default: return launch_any_m<u64>(in, out, ncols, vl, m, mi, dir, table, s);
   }
 }

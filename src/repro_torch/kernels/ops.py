@@ -18,6 +18,15 @@
   * ``stencil_sweep_mxu`` is ``backend="mxu"``: the resident engine's shape
     (K2 in, every ``sweep_schedule`` chunk, K2 out) with each depth-d launch
     ONE matrix product against the banded operator ``A^d``.
+
+Every engine but the one-step ones also takes a batch of grids, ``x`` of
+shape ``(B,) + grid``: the tile is the one grid's, K2 moves the whole
+batch once in and once out, and each sweep is one launch over all B grids
+(a grid dimension of the kernel; the mxu product's rows), each grid
+advanced bit for bit as alone.  ``stencil_sweep_periodic`` and
+``stencil_sweep_mxu`` also take the batch as a sequence of B grids, each
+where it lies (the requests of a served batch): their first K2 reads them
+through a table of pointers, so no copy stacks them.
 """
 from __future__ import annotations
 
@@ -31,6 +40,22 @@ from repro_torch.kernels import stencil_kernels as sk
 DEFAULT_VL = 32                  # one warp of lanes: a 128-byte f32 row
 MAX_AUTO_M = 8                   # largest vectors per set an auto pick takes
 DEFAULT_T0 = {2: 32, 3: 16}      # axis-0 rows of a sweep kernel's tile
+
+
+def grid_shape(spec: StencilSpec, x) -> tuple[int, ...]:
+    """The shape of one grid of ``x``: ``x`` itself (rank ``spec.ndim``), a
+    leading batch of grids (rank ``spec.ndim + 1``) or a sequence of grids
+    of one shape."""
+    if not isinstance(x, torch.Tensor):
+        shapes = {tuple(v.shape) for v in x}
+        if len(shapes) != 1 or len(next(iter(shapes))) != spec.ndim:
+            raise ValueError(f"{spec.name}: expected a sequence of {spec.ndim}-D grids of one "
+                             f"shape, got shapes {sorted(shapes)}")
+        return shapes.pop()
+    if x.ndim not in (spec.ndim, spec.ndim + 1):
+        raise ValueError(f"{spec.name}: expected a {spec.ndim}-D grid or a batch of them, "
+                         f"got shape {tuple(x.shape)}")
+    return tuple(x.shape[x.ndim - spec.ndim:])
 
 
 def _fit_m(n_minor: int, vl: int, r: int, m: int) -> int | None:
@@ -79,6 +104,14 @@ def pick_tile(spec: StencilSpec, shape, vl: int | None = None,
     return vl, m, t0
 
 
+def _into_layout(x, vl: int, m: int) -> torch.Tensor:
+    """K2 into the layout of a grid, a batch, or a sequence of grids read
+    where they lie (:func:`stencil_kernels.block_transpose_parts`)."""
+    if isinstance(x, torch.Tensor):
+        return sk.block_transpose(x.contiguous(), vl, m)
+    return sk.block_transpose_parts([v.contiguous() for v in x], vl, m)
+
+
 def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
                            k: int = 2, vl: int | None = None,
                            m: int | None = None, t0: int | None = None,
@@ -91,12 +124,14 @@ def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
     k-blocks and the remainder ("native": one k=rem sweep, "fused": rem
     single steps) run at ``ttile=1``.  ``donate=True`` writes the result
     into ``x``'s storage (the input is then overwritten) instead of a new
-    tensor."""
+    tensor; a sequence of grids returns the batch of their results."""
     if remainder not in ("fused", "native"):
         raise ValueError(f"unknown remainder policy {remainder!r}")
-    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
+    vl, m, t0 = pick_tile(spec, grid_shape(spec, x), vl, m, t0)
+    if donate and not isinstance(x, torch.Tensor):
+        raise ValueError("donate=True needs one tensor to write the result into")
     if steps <= 0:
-        return x
+        return x if isinstance(x, torch.Tensor) else torch.stack(list(x))
     chunks, _ = sweep_schedule(k, steps, remainder, ttile)
     if spec.ndim == 1:
         def sweep(v, kk, tt, out):
@@ -104,7 +139,7 @@ def stencil_sweep_periodic(spec: StencilSpec, x: torch.Tensor, steps: int,
     else:
         def sweep(v, kk, tt, out):
             return sk.stencil_nd_sweep_ttile(spec, v, kk, tt, t0, out=out)
-    a = sk.block_transpose(x.contiguous(), vl, m)
+    a = _into_layout(x, vl, m)
     b = torch.empty_like(a)
     for depth, n in chunks:
         kk, tt = (k, depth // k) if depth > k and depth % k == 0 else (depth, 1)
@@ -125,12 +160,12 @@ def stencil_sweep_mxu(spec: StencilSpec, x: torch.Tensor, steps: int, k: int = 2
     bit the other engines: the product reassociates the tap sum."""
     if remainder not in ("fused", "native"):
         raise ValueError(f"unknown remainder policy {remainder!r}")
-    vl, m, _ = pick_tile(spec, tuple(x.shape), vl, m)
+    vl, m, _ = pick_tile(spec, grid_shape(spec, x), vl, m)
     if steps <= 0:
-        return x
+        return x if isinstance(x, torch.Tensor) else torch.stack(list(x))
     chunks, _ = sweep_schedule(k, steps, remainder, ttile)
     sweep = sk.stencil1d_sweep_mxu if spec.ndim == 1 else sk.stencil_nd_sweep_mxu
-    t = sk.block_transpose(x.contiguous(), vl, m)
+    t = _into_layout(x, vl, m)
     for depth, n in chunks:
         for _ in range(n):
             t = sweep(spec, t, depth)
@@ -143,7 +178,7 @@ def stencil_multistep(spec: StencilSpec, x: torch.Tensor, k: int,
     """Advance ``x`` by k steps in one multistep launch: Dirichlet along
     axis 0 (the r first and last cells keep their value; in 1-D the
     spatial axis itself), periodic along every other axis."""
-    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
+    vl, m, t0 = pick_tile(spec, grid_shape(spec, x), vl, m, t0)
     t = sk.block_transpose(x.contiguous(), vl, m)
     if spec.ndim == 1:
         out = sk.stencil1d_multistep(spec, t, k)
@@ -170,18 +205,20 @@ def stencil_multistep_periodic(spec: StencilSpec, x: torch.Tensor, k: int,
     """Advance ``x`` by k periodic steps: wrap-pad axis 0 by whole layout
     blocks (1-D, open edges) or whole axis-0 tiles (n-D, Dirichlet ring)
     covering k·r, run the multistep kernel in layout, crop.  What the
-    edges disturb lies within k·r of them, inside the pad."""
-    vl, m, t0 = pick_tile(spec, tuple(x.shape), vl, m, t0)
-    n0, r = x.shape[0], spec.r
+    edges disturb lies within k·r of them, inside the pad.  Axis 0 is the
+    grid's: a leading batch is neither padded nor cropped."""
+    vl, m, t0 = pick_tile(spec, grid_shape(spec, x), vl, m, t0)
+    axis = x.ndim - spec.ndim
+    n0, r = x.shape[axis], spec.r
     if spec.ndim == 1:
         pad = sk.sweep_halo_blocks(r, k, vl * m) * vl * m
-        t = sk.block_transpose(wrap_pad(x, pad), vl, m)
+        t = sk.block_transpose(wrap_pad(x, pad, axis), vl, m)
         out = sk.stencil1d_multistep(spec, t, k, edge_mask=False)
     else:
         pad = sk.sweep_halo_blocks(r, k, t0) * t0
-        t = sk.block_transpose(wrap_pad(x, pad), vl, m)
+        t = sk.block_transpose(wrap_pad(x, pad, axis), vl, m)
         out = sk.stencil_nd_multistep(spec, t, k, t0)
-    return sk.block_untranspose(out, vl, m).narrow(0, pad, n0)
+    return sk.block_untranspose(out, vl, m).narrow(axis, pad, n0)
 
 
 def stencil_run_periodic(spec: StencilSpec, x: torch.Tensor, steps: int, k: int = 2,

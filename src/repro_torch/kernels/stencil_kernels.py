@@ -33,6 +33,14 @@
     The product is ``torch.matmul`` on either device, a cuBLAS GEMM on the
     card, as the reference leaves it to XLA; it has no kernel of its own.
 
+Every sweep wrapper (K1, K3, K4 and the far-reach kernel's routes) also
+takes a batch of grids, a layout ``(B, …layout)`` of rank ``spec.ndim +
+3``: the batch is a grid dimension of the launch (``gridDim.y`` of the
+register kernels, folded into ``blockIdx.z`` with the axis-0 segments in
+``csrc/sweep_far.cu``; at most ``MAX_BATCH`` grids), each grid advanced
+bit for bit as alone, and the launch counts once.  K2 moves a batch as
+more rows.
+
 A wrapper dispatches on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``*_ref``), a CUDA tensor launches the
 kernel or raises.  The stencil kernels (K1, K3, K4, K5) take float32 and
@@ -73,8 +81,16 @@ LAUNCHES = {"transpose": 0, "sweep_1d": 0, "sweep_2d": 0, "sweep_3d": 0, "sweep_
 TRANSPOSE_MIN_VL = 4
 TRANSPOSE_M = frozenset(range(1, 9)) | {16, 32}
 TRANSPOSE_MAX_SUB = 1 << 31
+# grids one launch into the layout reads where they lie (csrc/transpose.cu's
+# kMaxParts: a table of their pointers as a kernel argument)
+TRANSPOSE_MAX_PARTS = 64
 # a warp row of the register kernels: 32 sub-columns of the layout, one a lane
 WARP_LANES = 32
+# grids a sweep launch takes: a leading batch of the layout is a grid
+# dimension of every sweep kernel (gridDim.y of the register kernels; folded
+# into gridDim.z with the axis-0 segments in csrc/sweep_far.cu), whose limit
+# on the card this is (the kernels' kMaxBatch / kMaxZ)
+MAX_BATCH = 65535
 # sub-columns a row may have off vl = 32 (or off m = M) in the 2-D and 3-D
 # register kernels, and off m = M in the 1-D one (csrc/cols.cuh's kMaxCols:
 # 32-bit column math)
@@ -246,15 +262,20 @@ def transpose_route(vl: int, m: int, itemsize: int, numel: int = 0) -> str:
 
 
 def _transpose_launch(src: torch.Tensor, dst: torch.Tensor, vl: int, m: int,
-                      to_layout: bool) -> None:
+                      to_layout: bool, parts: list[torch.Tensor] | None = None) -> None:
+    """One K2 launch from ``src`` to ``dst``; with ``parts`` (into the
+    layout) the natural side is those grids, each read where it lies, and
+    ``src`` the first of them."""
     lib = build.load("transpose")
     size = src.element_size()
     if size not in (2, 4, 8):
         raise ValueError(f"transpose kernel: no {src.dtype} support ({size}-byte elements)")
     if src.numel() == 0:
         return
+    table = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts]) if parts else None
     build.check(lib.repro_transpose_reg(src.data_ptr(), dst.data_ptr(), src.numel() // m, vl, m,
-                                        transpose_sub(m)[0], size, int(to_layout), _stream()),
+                                        transpose_sub(m)[0], size, int(to_layout), table,
+                                        len(parts) if parts else 0, _stream()),
                 "transpose kernel")
     LAUNCHES["transpose"] += 1
 
@@ -271,6 +292,36 @@ def block_transpose(x: torch.Tensor, vl: int, m: int,
     _check_cuda(x, "block_transpose")
     dst = _out(out, shape, x, "block_transpose")
     _transpose_launch(x, dst, vl, m, True)
+    return dst
+
+
+def block_transpose_parts(xs, vl: int, m: int) -> torch.Tensor:
+    """A batch given as B grids of one shape, dtype and device, each where
+    it lies, → ``(B, …, N/(vl·m), m, vl)``: :func:`block_transpose` of
+    their stack without the stack.  On the card one launch reads every
+    grid through a table of pointers (a launch per ``TRANSPOSE_MAX_PARTS``
+    grids past that many)."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("block_transpose_parts: no grids")
+    first = xs[0]
+    for x in xs[1:]:
+        if x.shape != first.shape or x.dtype != first.dtype or x.device != first.device:
+            raise ValueError(f"block_transpose_parts: the grids differ ({tuple(first.shape)} "
+                             f"{first.dtype} {first.device} against {tuple(x.shape)} "
+                             f"{x.dtype} {x.device})")
+    n = first.shape[-1]
+    if n % (vl * m):
+        raise ValueError(f"minor extent {n} is not a multiple of vl*m={vl * m}")
+    if first.device.type == "cpu":
+        return block_transpose_ref(torch.stack(xs), vl, m)
+    for x in xs:
+        _check_cuda(x, "block_transpose_parts")
+    dst = torch.empty((len(xs),) + tuple(first.shape[:-1]) + (n // (vl * m), m, vl),
+                      dtype=first.dtype, device=first.device)
+    for i in range(0, len(xs), TRANSPOSE_MAX_PARTS):
+        part = xs[i:i + TRANSPOSE_MAX_PARTS]
+        _transpose_launch(part[0], dst[i:i + len(part)], vl, m, True, part)
     return dst
 
 
@@ -315,12 +366,24 @@ def stencil_nd_sweep_ttile_ref(spec: StencilSpec, t: torch.Tensor, k: int,
     return t
 
 
+def batch_of(spec: StencilSpec, t: torch.Tensor) -> int:
+    """The grids ``t`` holds: ``B`` for a batched ``(B, …layout)`` of rank
+    ``spec.ndim + 3``, else 1."""
+    return t.shape[0] if t.ndim == spec.ndim + 3 else 1
+
+
 def _check_layout(spec: StencilSpec, t: torch.Tensor) -> None:
-    if t.ndim != spec.ndim + 2:
-        raise ValueError(f"{spec.name}: expected a ({spec.ndim - 1} lead, nb, m, vl) "
+    """A layout of one grid, ``(n0, …, nb, m, vl)`` of rank ``spec.ndim +
+    2``, or of a batch of grids, ``(B, n0, …, nb, m, vl)``; every sweep
+    advances each grid of a batch on its own, bit for bit as alone."""
+    if t.ndim not in (spec.ndim + 2, spec.ndim + 3):
+        raise ValueError(f"{spec.name}: expected a ([B,] {spec.ndim - 1} lead, nb, m, vl) "
                          f"layout, got shape {tuple(t.shape)}")
     if spec.r > t.shape[-2]:
         raise ValueError(f"{spec.name}: m={t.shape[-2]} is below the stencil radius {spec.r}")
+    if t.device.type == "cuda" and not 1 <= batch_of(spec, t) <= MAX_BATCH:
+        raise ValueError(f"{spec.name}: a batch of {batch_of(spec, t)} grids; a sweep launch "
+                         f"takes 1 to {MAX_BATCH} (the card's limit on a grid dimension)")
 
 
 # the Edge of the sweep kernels (sweep_far.cu, sweep1d_warp, sweep2d_warp, sweep3d)
@@ -468,18 +531,24 @@ def far_tile(ndim: int, nat: tuple[int, int, int], m: int, r: int, depth: int, n
 
 
 @functools.lru_cache(maxsize=None)
-def far_segment(nz: int, tiles: int, smem: int, depth: int, rz: int, sms: int) -> int:
+def far_segment(nz: int, tiles: int, smem: int, depth: int, rz: int, sms: int,
+                batch: int = 1) -> int:
     """Axis-0 positions a CTA of ``csrc/sweep_far.cu`` stores: the segment
     whose waves of resident CTAs (``sms`` SMs, as many an SM as the shared
-    memory and 2048 threads allow) times the steps of a segment (its
-    positions and the ``2·depth·rz + depth`` steps it starts early and ends
-    late) are fewest.  1 without a stream axis."""
+    memory and 2048 threads allow) over one grid times the steps of a
+    segment (its positions and the ``2·depth·rz + depth`` steps it starts
+    early and ends late) are fewest, with ``batch`` times the segments at
+    most ``MAX_BATCH`` (the grids of a batch share blockIdx.z).  One
+    grid's segment, not one sized for the batch: 8 grids of the reach-5
+    star at 8192² took 5.537 ms at its 125 rows and 5.556 ms at the 1024 of
+    a batch-sized one (H100, tools/batch_segments.py, PERF.md section 6).
+    1 without a stream axis."""
     if rz == 0:
         return 1
     resident = sms * max(1, min(2048 // FAR_THREADS, FAR_SMEM_SM // (smem + 1024)))
     warm = 2 * depth * rz + max(depth, 1)
     best = None
-    for nseg in range(1, min(nz, 65535) + 1):
+    for nseg in range(1, max(1, min(nz, MAX_BATCH // batch)) + 1):
         seg = -(-nz // nseg)
         cost = -(-tiles * -(-nz // seg) // resident) * (seg + warm)
         if best is None or cost < best[0]:
@@ -503,26 +572,31 @@ def _far_taps(taps, ndim: int, dtype: torch.dtype, device: torch.device) -> torc
 
 
 def _far_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
-                edge: str = "periodic") -> None:
+                edge: str = "periodic", seg: int | None = None) -> None:
     """One depth-``depth`` launch of ``csrc/sweep_far.cu`` (at most
-    :func:`far_depth`) with the ends ``edge`` on axis 0."""
+    :func:`far_depth`) with the ends ``edge`` on axis 0, on every grid of a
+    batch, ``seg`` axis-0 positions per CTA (by default
+    :func:`far_segment` over the card's SMs and the batch)."""
     _kernel_io(t, out, "the far-reach sweep kernel")
     nb, m, vl = t.shape[-3:]
     nd, r = spec.ndim, spec.r
-    lead = tuple(t.shape[:-3])
+    batch = batch_of(spec, t)
+    lead = tuple(t.shape[t.ndim - nd - 2:-3])
     nx = nb * m * vl
     nz, ny = (1, 1) if nd == 1 else (lead[0], 1) if nd == 2 else lead
     rz, ry = _far_reach(nd, r)
     ty, tc, ncp, smem = far_tile(nd, (nz, ny, nx), m, r, depth, len(spec.taps), t.element_size())
     tiles = -(-(nb * vl) // tc) * -(-ny // ty)
-    seg = far_segment(nz, tiles, smem, depth, rz, _sm_count(t.device))
-    if -(-ny // ty) > 65535 or -(-nz // seg) > 65535 or nb * vl >= 2**31:
-        raise ValueError(f"{spec.name}: grid {(nz, ny, nx)} at vl={vl}, m={m} needs more than "
-                         "65535 tiles on a leading axis or 2^31 columns")
+    if seg is None:
+        seg = far_segment(nz, tiles, smem, depth, rz, _sm_count(t.device), batch)
+    if -(-ny // ty) > 65535 or batch * -(-nz // seg) > MAX_BATCH or nb * vl >= 2**31:
+        raise ValueError(f"{spec.name}: {batch} grid(s) {(nz, ny, nx)} at vl={vl}, m={m} need "
+                         f"more than 65535 tiles on a leading axis, more than {MAX_BATCH} "
+                         "grids times axis-0 segments, or 2^31 columns")
     taps = _far_taps(spec.taps, nd, t.dtype, t.device)
     build.check(_entry("sweep_far", "sweep_far", t.dtype)(
-        t.data_ptr(), out.data_ptr(), nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp, seg,
-        _EDGES[edge], int(nd == 1), len(spec.taps), taps.data_ptr(), _stream()),
+        t.data_ptr(), out.data_ptr(), batch, nz, ny, nx, vl, m, rz, ry, r, depth, ty, tc, ncp,
+        seg, _EDGES[edge], int(nd == 1), len(spec.taps), taps.data_ptr(), _stream()),
         f"{spec.name} far-reach sweep kernel")
 
 
@@ -605,7 +679,7 @@ def sweep1d_launches(m: int, depth: int, r: int) -> tuple[tuple[int, int, int], 
 def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: int,
                  edge: str = "periodic") -> None:
     _kernel_io(t, out, "the warp sweep kernel")
-    nb, m, vl = t.shape
+    nb, m, vl = t.shape[-3:]
     big, g = sub_columns(m)
     if g != 1 and nb * vl * g >= MAX_COLS:
         raise ValueError(f"{spec.name}: {nb * vl * g} columns at vl={vl}, m={m} (sub-columns "
@@ -613,8 +687,8 @@ def _warp_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth: i
                          f"{SUB_M}")
     ntaps, offs, coeffs = _taps(spec, 1, t.dtype)
     build.check(_entry("sweep1d_warp", "sweep1d_warp", t.dtype)(
-        t.data_ptr(), out.data_ptr(), nb, m, vl, spec.r, WARP_BLOCKS[big], depth, _EDGES[edge],
-        ntaps,
+        t.data_ptr(), out.data_ptr(), batch_of(spec, t), nb, m, vl, spec.r, WARP_BLOCKS[big],
+        depth, _EDGES[edge], ntaps,
         ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} warp sweep kernel")
 
@@ -684,9 +758,13 @@ def warp_rows(cols: int) -> int:
 
 def sweep2d_segment(n0: int, wrows: int, ctas: int) -> int:
     """Axis-0 rows per CTA of the 2-D warp kernel: about ``ctas`` CTAs over
-    the grid (``WARP2D_WARPS - 2`` of the ``wrows`` warp rows of a row
+    one grid (``WARP2D_WARPS - 2`` of the ``wrows`` warp rows of a row
     each), and no segment shorter than ``WARP2D_SEG_MIN`` rows, whose
-    2·depth·r warm-up rows are read twice."""
+    2·depth·r warm-up rows are read twice.  A batch of B grids launches B
+    times these CTAs, B whole waves: 8 grids of 2d5p 8192² at depth 4 took
+    2.101 ms at one grid's 249 rows (1056 CTAs) and 3.303 ms at the 1639
+    rows of about ``ctas`` CTAs over the batch (160 CTAs, a wave and a
+    fifth; H100, tools/batch_segments.py, PERF.md section 6)."""
     ncol = -(-wrows // (WARP2D_WARPS - 2))
     nseg = max(1, min(-(-ctas // ncol), -(-n0 // WARP2D_SEG_MIN)))
     return -(-n0 // nseg)
@@ -705,7 +783,8 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
     warm-up rows, ``tools/sweep2d_segments.py``), on the instance
     :func:`sub_columns` names for ``m``, which must have ``depth``."""
     _kernel_io(t, out, "the 2-D warp sweep kernel")
-    n0, nb, m, vl = t.shape
+    n0, nb, m, vl = t.shape[-4:]
+    batch = batch_of(spec, t)
     big, g = sub_columns(m)
     any_form = (vl != WARP_LANES or g != 1 or spec.r != 1 or depth > WARP2D_DEPTH[big, 1]
                 or t.dtype != torch.float32)
@@ -718,8 +797,8 @@ def _warp2d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth:
         seg_rows = sweep2d_segment(n0, warp_rows(nb * vl * g), _sm_count(t.device))
     ntaps, offs, coeffs = _taps(spec, 2, t.dtype)
     build.check(_entry("sweep2d_warp", "sweep2d_warp", t.dtype)(
-        t.data_ptr(), out.data_ptr(), n0, nb, m, vl, spec.r, depth, _EDGES[edge], seg_rows, ntaps,
-        ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
+        t.data_ptr(), out.data_ptr(), batch, n0, nb, m, vl, spec.r, depth, _EDGES[edge], seg_rows,
+        ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p), _stream()),
         f"{spec.name} 2-D warp sweep kernel")
 
 
@@ -783,15 +862,18 @@ def sweep3d_tile(m: int, depth: int, order: str, r: int) -> tuple[int, int, int,
 
 
 def sweep3d_segment(n0: int, n1: int, cols: int, m: int, depth: int, order: str,
-                    ctas: int, r: int) -> int:
+                    ctas: int, r: int, batch: int = 1) -> int:
     """Axis-0 planes per CTA of the 3-D kernel's instance ``M = m`` of
     reach ``r`` on rows of ``cols`` (sub-)columns (``C' = g·nb·vl``): the
-    segment length whose waves of ``ctas`` CTAs (one per SM) times the
-    steps of a segment (its planes and (2r + 1)·depth warm-up steps) are
-    fewest; no segment shorter than ``SWEEP3D_SEG_MIN`` planes unless the
-    grid is."""
+    segment length whose waves of ``ctas`` CTAs (one per SM) over the
+    ``batch`` grids times the steps of a segment (its planes and (2r +
+    1)·depth warm-up steps) are fewest; no segment shorter than
+    ``SWEEP3D_SEG_MIN`` planes unless the grid is.  Counting the batch
+    won: 8 grids of 3d7p 512³ at depth 4 took 7.491 ms at its 171 planes
+    and 7.806 ms at one grid's 103 (H100, tools/batch_segments.py, PERF.md
+    section 6)."""
     ty, _, _, hy = sweep3d_tile(m, depth, order, r)
-    tiles = -(-cols // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
+    tiles = batch * -(-cols // SWEEP3D_LANES) * -(-n1 // (ty - 2 * hy))
     best = None
     for nseg in range(1, -(-n0 // SWEEP3D_SEG_MIN) + 1):
         seg = -(-n0 // nseg)
@@ -806,8 +888,9 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
     """One launch of the 3-D streaming kernel (depth 1 to
     ``SWEEP3D_DEPTH[M, r]``) with the ends ``edge`` on axis 0, ``seg``
     axis-0 planes per CTA (by default :func:`sweep3d_segment` over the
-    card's SMs), on the instance :func:`sub_columns` names for ``m``."""
-    n0, n1, nb, m, vl = t.shape
+    card's SMs and the batch), on the instance :func:`sub_columns` names for ``m``."""
+    n0, n1, nb, m, vl = t.shape[-5:]
+    batch = batch_of(spec, t)
     big, g = sub_columns(m)
     any_form = vl != WARP_LANES or g != 1 or spec.r != 1 or t.dtype != torch.float32
     if any_form and nb * vl * g >= MAX_COLS:
@@ -817,10 +900,10 @@ def _sweep3d_launch(spec: StencilSpec, t: torch.Tensor, out: torch.Tensor, depth
     _kernel_io(t, out, "the 3-D streaming sweep kernel")
     if seg is None:
         seg = sweep3d_segment(n0, n1, nb * vl * g, big, depth, sweep3d_order(spec),
-                              _sm_count(t.device), spec.r)
+                              _sm_count(t.device), spec.r, batch)
     ntaps, offs, coeffs = _taps(spec, 3, t.dtype)
     build.check(_entry("sweep3d", "sweep3d", t.dtype)(
-        t.data_ptr(), out.data_ptr(), n0, n1, nb, m, vl, spec.r, depth, _EDGES[edge], seg,
+        t.data_ptr(), out.data_ptr(), batch, n0, n1, nb, m, vl, spec.r, depth, _EDGES[edge], seg,
         ntaps, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(coeffs, ctypes.c_void_p),
         _stream()), f"{spec.name} 3-D streaming sweep kernel")
 
@@ -839,7 +922,7 @@ def stencil_nd_sweep_ttile(spec: StencilSpec, t: torch.Tensor, k: int,
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
-    n0 = t.shape[0]
+    n0 = t.shape[-spec.ndim - 2]
     if t0 < spec.r or n0 % t0:
         raise ValueError(f"{spec.name}: axis-0 tile t0={t0} must divide n0={n0} "
                          f"and be at least r={spec.r}")
@@ -917,27 +1000,32 @@ def sweep_halo_blocks(r: int, k: int, block: int) -> int:
 
 
 def _ring_mask(spec: StencilSpec, t: torch.Tensor) -> torch.Tensor:
-    """True on the r cells nearest each end of axis 0, in layout."""
+    """True on the r cells nearest each end of axis 0, in layout (of one
+    grid; it broadcasts over a batch)."""
     r = spec.r
     if spec.ndim == 1:
-        nb, m, vl = t.shape
+        nb, m, vl = t.shape[-3:]
         g = (torch.arange(nb, device=t.device)[:, None, None] * (vl * m)
              + torch.arange(vl, device=t.device)[None, None, :] * m
              + torch.arange(m, device=t.device)[None, :, None])     # natural index
         n = nb * vl * m
     else:
-        n = t.shape[0]
-        g = torch.arange(n, device=t.device).reshape((n,) + (1,) * (t.ndim - 1))
+        n = t.shape[-spec.ndim - 2]
+        g = torch.arange(n, device=t.device).reshape((n,) + (1,) * (spec.ndim + 1))
     return (g < r) | (g >= n - r)
 
 
 def _open_step(spec: StencilSpec, t: torch.Tensor) -> torch.Tensor:
     """One layout step with zeros outside axis 0: a zero block (1-D) or r
-    zero rows (n-D) on each side, a periodic step, the domain cut out."""
+    zero rows (n-D) on each side, a periodic step, the domain cut out (axis
+    0 counted from the end: a leading batch stays as it is)."""
     width = 1 if spec.ndim == 1 else spec.r
-    z = t.new_zeros((width,) + tuple(t.shape[1:]))
-    ext = step_in_layout(spec, torch.cat([z, t, z]), ndim=spec.ndim)
-    return ext.narrow(0, width, t.shape[0])
+    axis = t.ndim - spec.ndim - 2
+    shape = list(t.shape)
+    shape[axis] = width
+    z = t.new_zeros(shape)
+    ext = step_in_layout(spec, torch.cat([z, t, z], dim=axis), ndim=spec.ndim)
+    return ext.narrow(axis, width, t.shape[axis])
 
 
 def _multistep_ref(spec: StencilSpec, t: torch.Tensor, k: int, edge_mask: bool) -> torch.Tensor:
@@ -1005,7 +1093,7 @@ def stencil_nd_multistep(spec: StencilSpec, t: torch.Tensor, k: int, t0: int,
     _check_layout(spec, t)
     if spec.ndim not in (2, 3):
         raise ValueError(f"{spec.name} is not a 2-D or 3-D stencil")
-    n0 = t.shape[0]
+    n0 = t.shape[-spec.ndim - 2]
     if t0 < spec.r or n0 % t0:
         raise ValueError(f"{spec.name}: axis-0 tile t0={t0} must divide n0={n0} "
                          f"and be at least r={spec.r}")
@@ -1162,8 +1250,9 @@ def stencil1d_transpose_onestep(spec: StencilSpec, t: torch.Tensor,
 
 def _mxu(spec: StencilSpec, t: torch.Tensor, depth: int, lead_halo=None,
          block_halo: int = 0) -> torch.Tensor:
-    if t.ndim != spec.ndim + 2:
-        raise ValueError(f"{spec.name}: expected a ({spec.ndim - 1} lead, nb, m, vl) "
+    """One product; a leading batch of grids is more rows of it."""
+    if t.ndim not in (spec.ndim + 2, spec.ndim + 3):
+        raise ValueError(f"{spec.name}: expected a ([B,] {spec.ndim - 1} lead, nb, m, vl) "
                          f"layout, got shape {tuple(t.shape)}")
     op = matrixize.operator(spec, t.shape[-1], t.shape[-2], depth)
     if block_halo and block_halo < op.block_reach():

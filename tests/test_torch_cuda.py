@@ -14,6 +14,8 @@ where there is one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -112,8 +114,9 @@ def test_transpose_unaligned_pointers(cuda, vl, m, dtype):
 def test_transpose_reg_refuses_off_route(cuda):
     """The register kernel's entry point refuses a vl, an m or an M off its
     route (vl below 1, m below 1, M not dividing m or above 8, vl not
-    dividing the columns, 1-byte elements) and takes vl = 24 and m = 9 and
-    64 (transpose_any, on the M of ``transpose_sub``) and vl = 2
+    dividing the columns, 1-byte elements), a table of parts past
+    ``TRANSPOSE_MAX_PARTS`` or out of the layout, and takes vl = 24 and
+    m = 9 and 64 (transpose_any, on the M of ``transpose_sub``) and vl = 2
     (transpose_small)."""
     import ctypes
     lib = build.load("transpose")
@@ -124,11 +127,16 @@ def test_transpose_reg_refuses_off_route(cuda):
                                    (32, 32, 16, 16, 4), (32, 32, 8, 0, 4), (40, 24, 8, 8, 4),
                                    (32, 32, 8, 8, 1), (33, 2, 8, 8, 4)):
         assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m, mi, size, 1,
-                                       stream) != 0, (ncols, vl, m, mi, size)
+                                       None, 0, stream) != 0, (ncols, vl, m, mi, size)
+    many = sk.TRANSPOSE_MAX_PARTS + 1
+    table = (ctypes.c_void_p * many)(*[x.data_ptr()] * many)
+    for nparts, to_layout in ((many, 1), (1, 0), (-1, 1)):
+        assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), 32, 32, 8, 8, 4, to_layout,
+                                       table, nparts, stream) != 0, (nparts, to_layout)
     for ncols, vl, m in ((x.numel() // 8 // 24 * 24, 24, 8), (32, 32, 9), (32, 32, 64),
                          (32, 2, 8)):
         assert lib.repro_transpose_reg(x.data_ptr(), t.data_ptr(), ncols, vl, m,
-                                       sk.transpose_sub(m)[0], 4, 1, stream) == 0
+                                       sk.transpose_sub(m)[0], 4, 1, None, 0, stream) == 0
     torch.cuda.synchronize()
 
 
@@ -1962,3 +1970,169 @@ def test_onestep_mem_forms_bitwise(cuda, spec, forms, dtype):
         torch.cuda.synchronize()
         assert sk.LAUNCHES["onestep_transpose"] == 1
         assert torch.equal(got, sk.stencil1d_transpose_onestep_ref(spec, t))
+
+
+# ---------------------------------------------------------------------------
+# a batch of grids as a launch dimension of every sweep kernel
+# ---------------------------------------------------------------------------
+
+# (spec, one grid's shape, m, depth): K1 / K4a on the 1-D warp kernel (r =
+# 1 and r > M), K3 / K4b on the 2-D warp kernel (star, box, deep) and on the
+# 3-D streaming kernel (star and box order), the far-reach kernel at each rank
+BATCH_CASES = [
+    (stencils.make("1d3p"), (4096,), 8, 4),
+    (stencils.make("1d5p"), (3 * 32 * 40,), 3, 2),
+    (stencils.make("2d5p"), (40, 512), 8, 4),
+    (stencils.make("2d9p"), (33, 256), 2, 8),
+    (stencils.make("3d7p"), (20, 9, 256), 8, 4),
+    (stencils.make("3d27p"), (12, 10, 256), 4, 2),
+    (_star(1, 5), (8192,), 8, 4),
+    (_star(2, 5), (40, 512), 8, 2),
+    (_star(3, 5), (12, 10, 256), 8, 1),
+]
+
+
+def _batch_sweep(spec, t, depth, edge, t0):
+    if edge == "periodic":
+        return sk.stencil1d_sweep_ttile(spec, t, depth, 1) if spec.ndim == 1 else \
+            sk.stencil_nd_sweep_ttile(spec, t, depth, 1, t0)
+    return sk.stencil1d_multistep(spec, t, depth, edge == "ring") if spec.ndim == 1 else \
+        sk.stencil_nd_multistep(spec, t, depth, t0, edge == "ring")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("edge", ["periodic", "ring", "open"])
+@pytest.mark.parametrize("vl", [32, 8])
+@pytest.mark.parametrize("spec,shape,m,depth", BATCH_CASES,
+                         ids=[f"{c[0].name}-m{c[2]}-d{c[3]}" for c in BATCH_CASES])
+def test_batched_sweep_bitwise_single_launches(cuda, spec, shape, m, depth, vl, edge, dtype):
+    """B = 3 grids in one launch (a grid dimension of the kernel): bit for
+    bit three launches of one grid each, and the plain version; counted
+    once per launch, not once per grid."""
+    xb = _x((3,) + shape, 17, cuda).to(dtype)
+    t = sk.block_transpose(xb, vl, m)
+    t0 = _t0(shape[0], spec.r) if spec.ndim > 1 else None
+    key, plan = sk.sweep_plan(spec, vl, m, depth, t.element_size())
+    counter = f"{'sweep' if edge == 'periodic' else 'multistep'}_{key}"
+    sk.reset_launches()
+    got = _batch_sweep(spec, t, depth, edge, t0)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == dict.fromkeys(sk.LAUNCHES, 0) | {counter: len(plan)}
+    for i in range(3):
+        single = _batch_sweep(spec, t[i].contiguous(), depth, edge, t0)
+        assert torch.equal(got[i], single), (i, (got[i].float() - single.float()).abs().max())
+    want = sk.stencil1d_sweep_ttile_ref(spec, t, depth, 1) if edge == "periodic" and \
+        spec.ndim == 1 else sk.stencil_nd_sweep_ttile_ref(spec, t, depth, 1, t0) \
+        if edge == "periodic" else sk._multistep_ref(spec, t, depth, edge == "ring")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("spec,shape,m,depth", [c for c in BATCH_CASES if c[0].ndim > 1],
+                         ids=[f"{c[0].name}" for c in BATCH_CASES if c[0].ndim > 1])
+def test_batched_segments_do_not_change_results(cuda, spec, shape, m, depth):
+    """The axis-0 segment of a batched launch (sized for one grid, for the
+    batch, or one CTA a grid) never changes a result."""
+    t = sk.block_transpose(_x((4,) + shape, 5, cuda), 8, m)
+    key = sk.sweep_plan(spec, 8, m, depth)[0]
+    launch = {"2d": sk._warp2d_launch, "3d": sk._sweep3d_launch, "far": sk._far_launch}[key]
+    d = sk.sweep_plan(spec, 8, m, depth)[1][0][2]
+    outs = []
+    for seg in (1 if key == "far" else sk.WARP2D_SEG_MIN if key == "2d" else sk.SWEEP3D_SEG_MIN,
+                shape[0], None):
+        out = torch.empty_like(t)
+        launch(spec, t, out, d, "periodic", seg)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[-1]) for o in outs)
+
+
+@pytest.mark.parametrize("spec,shape,t0,dtype,n", [
+    (stencils.make("1d3p"), (1 << 26,), None, torch.float32, 17),
+    (stencils.make("3d7p"), (256, 512, 512), 16, torch.float32, 17),
+    (stencils.make("1d3p"), (1 << 27,), None, BF16, 33),
+    (stencils.make("2d5p"), (8192, 16384), 32, BF16, 33),
+    (stencils.make("3d7p"), (256, 512, 1024), 16, BF16, 33),
+    (_star(1, 5), (1 << 27,), None, BF16, 33),
+], ids=lambda v: getattr(v, "name", None))
+def test_batched_offsets_past_2_32_bytes(cuda, spec, shape, t0, dtype, n):
+    """n grids of 256 MiB: the last grid starts past 2^32 bytes, and (in
+    bfloat16, 33 grids of 2^27 elements) at element 2^32, where an offset
+    in 32-bit elements, signed or unsigned, would wrap.  K2 reads the n
+    grids where they lie (a table of parts) and the sweep kernel takes
+    them as one batch: the last grid's layout and sweep equal its own K2
+    and its own launch."""
+    xs = [torch.randn(shape, device=cuda).to(dtype) for _ in range(n)]
+    t = sk.block_transpose_parts(xs, 32, 8)
+    last = (t[n - 1].data_ptr() - t.data_ptr()) // t.element_size()
+    assert last * t.element_size() >= 1 << 32
+    assert dtype == torch.float32 or last >= 1 << 32
+    assert torch.equal(t[n - 1], sk.block_transpose(xs[n - 1], 32, 8))
+    got = _batch_sweep(spec, t, 2, "periodic", t0)
+    for i in (0, n - 1):
+        assert torch.equal(got[i], _batch_sweep(spec, t[i].contiguous(), 2, "periodic", t0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, torch.float64])
+@pytest.mark.parametrize("vl,m", [(32, 8), (8, 16), (4, 3), (24, 8), (8, 12), (2, 8), (1, 5)])
+@pytest.mark.parametrize("nparts", [1, 3, sk.TRANSPOSE_MAX_PARTS + 2])
+def test_transpose_parts_bitwise(cuda, vl, m, dtype, nparts):
+    """K2 into the layout from B grids where they lie, on every form
+    (transpose_reg, transpose_any, transpose_small): bit for bit K2 of
+    their stack; one launch a ``TRANSPOSE_MAX_PARTS`` grids.  Every third
+    grid is a view one element off its buffer's start (the natural side
+    then moves element by element)."""
+    n = 6 * 24 * 16 * vl * m // math.gcd(vl * m, 6 * 24 * 16)
+    base = [_bits((n + 1,), dtype, 40 + i, cuda) for i in range(nparts)]
+    xs = [b[1:] if i % 3 == 2 else b[:n] for i, b in enumerate(base)]
+    sk.reset_launches()
+    got = sk.block_transpose_parts(xs, vl, m)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["transpose"] == -(-nparts // sk.TRANSPOSE_MAX_PARTS)
+    assert _same_bits(got, sk.block_transpose(torch.stack(xs), vl, m))
+
+
+def test_transpose_parts_refuses_mixed_grids(cuda):
+    x = torch.zeros(256, device=cuda)
+    for other in (torch.zeros(512, device=cuda), torch.zeros(256, device=cuda, dtype=BF16),
+                  torch.zeros(256)):
+        with pytest.raises(ValueError, match="differ"):
+            sk.block_transpose_parts([x, other], 8, 4)
+
+
+def test_batch_limit_raises_naming_it(cuda):
+    spec = stencils.make("1d3p")
+    t = torch.empty((sk.MAX_BATCH + 1, 1, 1, 32), device=cuda)
+    with pytest.raises(ValueError, match=str(sk.MAX_BATCH)):
+        sk.stencil1d_sweep_ttile(spec, t, 1, 1)
+
+
+@pytest.mark.parametrize("plan", [
+    StencilPlan(backend="pallas", sweep="resident", k=2, ttile=2),
+    StencilPlan(backend="pallas", sweep="resident", k=2, vl=8, m=8, remainder="native"),
+    StencilPlan(backend="pallas", sweep="roundtrip", k=2, vl=8, m=8),
+    StencilPlan(backend="mxu", k=2, vl=8, m=8),
+    StencilPlan(scheme="transpose", k=2, vl=8, m=8),
+    StencilPlan(scheme="fused", k=1),
+], ids=lambda p: f"{p.backend}-{p.sweep}-{p.scheme}-{p.remainder}")
+@pytest.mark.parametrize("name,shape", [("1d3p", (1 << 14,)), ("2d5p", (64, 512)),
+                                        ("3d7p", (16, 16, 256))])
+def test_run_batched_on_the_card(cuda, name, shape, plan):
+    """``run_batched`` of 4 grids: K2 twice and each sweep once for the
+    whole batch; each grid bit for bit its own ``run`` (mxu: 2e-6)."""
+    prob = StencilProblem(name, shape)
+    xb = _x((4,) + shape, 23, cuda)
+    sk.reset_launches()
+    yb = prob.run_batched(xb, 7, plan)
+    torch.cuda.synchronize()
+    batched = dict(sk.LAUNCHES)
+    sk.reset_launches()
+    singles = [prob.run(xb[i], 7, plan) for i in range(4)]
+    torch.cuda.synchronize()
+    assert {k: 4 * v for k, v in batched.items()} == sk.LAUNCHES
+    if plan.backend == "pallas":
+        assert batched["transpose"] == 2 * (1 if plan.sweep == "resident" else 4)
+    for y, s in zip(yb, singles):
+        if plan.backend == "mxu":
+            torch.testing.assert_close(y, s, rtol=2e-6, atol=2e-6)
+        else:
+            assert torch.equal(y, s)

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.base", "repro_torch.configs.mamba2_2p7b",
             "repro_torch.models.blocks", "repro_torch.models.ssm",
             "repro_torch.models.transformer", "repro_torch.models.zoo",
-            "repro_torch.serve.engine", "repro_torch.core.matrixize",
+            "repro_torch.serve.engine", "repro_torch.serve.batcher",
+            "repro_torch.core.matrixize",
             "repro_torch.core.tessellate", "repro_torch.core.unroll_jam",
             "repro_torch.core.autotune", "repro_torch.core.locked_json",
             "repro_torch.roofline", "repro_torch.roofline.calibrate",

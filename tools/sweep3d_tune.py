@@ -125,7 +125,7 @@ def main() -> int:
 
             def launch():
                 build.check(libs[name].repro_sweep3d_f32(
-                    t.data_ptr(), buf.data_ptr(), *t.shape[:3], 8, 32, 1, depth,
+                    t.data_ptr(), buf.data_ptr(), 1, *t.shape[:3], 8, 32, 1, depth,
                     sk._EDGES[edge], seg, ntaps, ctypes.cast(offs, ctypes.c_void_p),
                     ctypes.cast(coeffs, ctypes.c_void_p), sk._stream()), name)
                 return buf
