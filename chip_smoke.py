@@ -264,7 +264,11 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              ``bound_ms_fp32``, at the float32 rate of earlier rows); the
              kernels' integer TF32 rounding equal to ``cvt.rna.tf32.f32``
              on every non-NaN float32; small shapes against the
-             token-recurrence oracle;
+             token-recurrence oracle; and zamba2-2.7b's layer (N=64, B
+             and C shared) at the chunk lengths its serve run gives K6:
+             2048 tokens at Q=128 and 1000 at Q=125 in bf16, 271 at Q=1
+             in bf16 and f32; each row's launches those of the serve run
+             of the model whose layer it is;
   mamba2_serve  mamba2-2.7b at full width (64 layers, random weights from
              the seed, bf16 copy of the weights) served by
              ``ContinuousBatcher(n_slots=4, max_seq=4096)``, greedy: six
@@ -279,8 +283,18 @@ too).  Cases: 1d3p at 2**26, 2d5p at 8192**2, 3d7p at 512**3 (f32,
              largest absolute difference (``BF16_CHECK``; over 64 layers
              bf16 rounding exceeds the 2-layer grain rtol 6e-2, atol 0.2,
              whose excess is reported); prefill tokens/s, decode ms per
-             step, peak memory, and (``torch.profiler``) kernels per decode
-             step and the device's idle share.
+             step, a 2048-token prefill (CUDA events), peak memory, and
+             (``torch.profiler``) kernels per decode step and the device's
+             idle share;
+  zamba2_serve  the same for zamba2-2.7b at full width (the hybrid: 54
+             Mamba2 layers, d_model 2560, N=64, and one weight-shared
+             attention + GeGLU block after every 6, 32 heads of 80, a KV
+             cache a super-block): the same prompts, slots and checks,
+             each K6 kernel 54 times per prefill and never in decode;
+  gemma2b_serve  the same for gemma-2b at full width (dense: 18 layers,
+             d_model 2048, MQA 8 heads of 256, vocab 256000), prompts of
+             2048, 1000 and 256 tokens, no K6 launch.  Each serving phase
+             frees its model before the next.
 
 Then the whole run's and the build's seconds (``total``), the ``kernels``
 summary line, the card's name and power limit as
@@ -439,6 +453,13 @@ F32_CHECK = (1e-3, 1e-3)        # (rtol, atol): float32 logits, 64 layers
 # bf16 logits (std about 1), 64 layers: limits on the mean and the largest
 # absolute difference, set from sound runs (PERF.md §6)
 BF16_CHECK = {"mean_abs": 0.15, "max_abs": 1.0}
+# the serving phases: (phase, architecture, prompts, requests re-served
+# alone); each at full width, random weights from the seed
+SERVE_MODELS = (
+    ("mamba2_serve", "mamba2-2.7b", SERVE_PROMPTS, SERVE_SINGLES),
+    ("zamba2_serve", "zamba2-2.7b", SERVE_PROMPTS, SERVE_SINGLES),
+    ("gemma2b_serve", "gemma-2b", (2048, 1000, 256), (1, 2)),
+)
 SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (5e-2, 5e-2)}
 # stencil serving: requests a full-width batch (the batcher's largest slot
 # count), its two tenants, the steps, how long the batcher's first request
@@ -521,15 +542,13 @@ def simt_bound(nbytes: float, flops: float, itemsize: int) -> tuple[float, str]:
 def ssd_phase(dev, ms, close, bound) -> list:
     """K6 against its plain version (and, small, the oracle), the whole call
     and each of its two kernels alone; returns the rows for the kernels
-    line, launches to be filled from the serve run."""
+    line, launches to be filled from the serve runs."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ssd_kernel as ssd
 
-    cfg = get_arch("mamba2-2.7b")
-    h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
     mismatches = ssd.tf32_rounding_mismatches(dev)
     emit({"phase": "ssd_kernel", "check": "TF32 rounding vs cvt.rna.tf32.f32, all 2^32 "
           "float32 bit patterns but NaN", "mismatches": mismatches})
@@ -550,14 +569,25 @@ def ssd_phase(dev, ms, close, bound) -> list:
         return xh, bm, cm, dt, a_neg
 
     rows = []
-    cases = (("2048 tokens Q=128", 16, 128, torch.bfloat16, True),
-             ("2048 tokens Q=128", 16, 128, torch.float32, True),
-             ("1000 tokens Q=125", 8, 125, torch.bfloat16, True),
-             ("251 tokens Q=1", 251, 1, torch.bfloat16, True),
-             ("2048 tokens Q=128, B and C per head", 16, 128, torch.bfloat16, False),
-             ("251 tokens Q=1 (a prime length)", 251, 1, torch.float32, True),
-             ("4096 tokens Q=128 (max_seq)", 32, 128, torch.bfloat16, True))
-    for label, nc, q, dtype, shared in cases:
+    # (label, chunks, Q, dtype, B and C shared, the model whose layer it is);
+    # zamba2's rows are the chunk lengths its serve run gives K6: a 2048-token
+    # prompt, the 1000-token one, and the 256 + 15 tokens (a prime length)
+    # the teacher-forced check runs forward in bf16 and f32
+    m2, z2 = "mamba2-2.7b", "zamba2-2.7b"
+    cases = (("2048 tokens Q=128", 16, 128, torch.bfloat16, True, m2),
+             ("2048 tokens Q=128", 16, 128, torch.float32, True, m2),
+             ("1000 tokens Q=125", 8, 125, torch.bfloat16, True, m2),
+             ("251 tokens Q=1", 251, 1, torch.bfloat16, True, m2),
+             ("2048 tokens Q=128, B and C per head", 16, 128, torch.bfloat16, False, m2),
+             ("251 tokens Q=1 (a prime length)", 251, 1, torch.float32, True, m2),
+             ("4096 tokens Q=128 (max_seq)", 32, 128, torch.bfloat16, True, m2),
+             ("2048 tokens Q=128 (zamba2-2.7b's layer)", 16, 128, torch.bfloat16, True, z2),
+             ("1000 tokens Q=125 (zamba2-2.7b's layer)", 8, 125, torch.bfloat16, True, z2),
+             ("271 tokens Q=1 (zamba2-2.7b's layer)", 271, 1, torch.bfloat16, True, z2),
+             ("271 tokens Q=1 (zamba2-2.7b's layer)", 271, 1, torch.float32, True, z2))
+    for label, nc, q, dtype, shared, model in cases:
+        cfg = get_arch(model)
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
         args = inputs(nc, 1, q, h, p, n, dtype, shared)
         xh, bm, cm, dt, a_neg = args
         y, state = ssd.ssd_chunk_scan(*args, return_state=True)
@@ -608,7 +638,7 @@ def ssd_phase(dev, ms, close, bound) -> list:
                         lambda: ssd.ssd_out_ref(xh, bm, cm, dt, a_neg, h_in),
                         out_bytes, out_flops, err_out)}
         dims = f"nc={nc} B=1 Q={q} H={h} P={p} N={n} {dname}"
-        line = {"phase": "ssd_kernel", "case": label, "shape": list(xh.shape),
+        line = {"phase": "ssd_kernel", "case": label, "model": model, "shape": list(xh.shape),
                 "dtype": str(dtype), "head_stride_bc": bm.stride(3), "internal_chunks": nk,
                 "max_abs_err": err, "max_abs_err_state": err_state,
                 "max_abs_err_h_in": err_h, "max_abs_err_out": err_out,
@@ -621,7 +651,8 @@ def ssd_phase(dev, ms, close, bound) -> list:
                 "route": "cuda", "source": SOURCES["ssd"], "replaces": REPLACES["K6"],
                 "launches": None, "max_abs_err": e, "ms": ms(kern), "plain_ms": ms(plain),
                 "bound_ms": b[0], "bound_by": b[1],
-                "bound_ms_fp32": bound(nb, fl)[0], "library_ms": None, "kernel": fname}
+                "bound_ms_fp32": bound(nb, fl)[0], "library_ms": None, "kernel": fname,
+                "model": model}
             rows.append(entry)
             line[fname] = {"ms": entry["ms"], "plain_ms": entry["plain_ms"], "bytes": nb,
                            "flops": fl, "bound_ms": b[0], "bound_by": b[1]}
@@ -641,8 +672,9 @@ def ssd_phase(dev, ms, close, bound) -> list:
     return rows
 
 
-def mamba2_serve(dev, counted, close) -> dict:
-    """mamba2-2.7b at full width served by the continuous batcher."""
+def serve_phase(dev, counted, close, phase, arch, lengths, singles) -> dict:
+    """``arch`` at full width served by the continuous batcher: the phase
+    ``phase`` (mamba2_serve, zamba2_serve, gemma2b_serve)."""
     import numpy as np
     import torch
 
@@ -651,16 +683,21 @@ def mamba2_serve(dev, counted, close) -> dict:
     from repro_torch.models import transformer, zoo
     from repro_torch.serve.engine import ContinuousBatcher, Request
 
-    cfg = get_arch("mamba2-2.7b")
+    phase_start = time.perf_counter()
+    cfg = get_arch(arch)
     model = zoo.build(cfg)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     params = transformer.cast_params(model.init(torch.Generator(device=dev).manual_seed(SEED)))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - start
     init_peak = torch.cuda.max_memory_allocated()
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, length) for length in SERVE_PROMPTS]
+    prompts = [rng.integers(0, cfg.vocab, length) for length in lengths]
+    # K6 launches once a SSM layer and prefill, never in decode
+    ssm_layers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    k6 = {"ssd_state": ssm_layers * len(prompts), "ssd_out": ssm_layers * len(prompts)}
 
     # one short uncounted request loads the libraries and the GEMM handles
     warm = ContinuousBatcher(model, params, n_slots=1, max_seq=SERVE_MAX_SEQ)
@@ -687,29 +724,28 @@ def mamba2_serve(dev, counted, close) -> dict:
     eng.step_fn, eng.prefill_fn = step_checked, prefill_checked
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new=SERVE_NEW))
-    done, seconds, got = counted(
-        "mamba2 serve", lambda: eng.run(max_steps=4 * SERVE_NEW),
-        {"ssd_state": cfg.n_layers * len(prompts), "ssd_out": cfg.n_layers * len(prompts)})
+    done, seconds, got = counted(f"{arch} serve", lambda: eng.run(max_steps=4 * SERVE_NEW), k6)
     peak = torch.cuda.max_memory_allocated()
     done = sorted(done, key=lambda r: r.rid)
     if [r.rid for r in done] != list(range(len(prompts))) or \
             any(len(r.out) != SERVE_NEW for r in done):
-        raise AssertionError("mamba2 serve: not every request finished with its tokens")
+        raise AssertionError(f"{arch} serve: not every request finished with its tokens")
     if not all(finite):
-        raise AssertionError(f"mamba2 serve: non-finite logits in {finite.count(False)} calls")
+        raise AssertionError(f"{arch} serve: non-finite logits in {finite.count(False)} calls")
     stats, lanes = dict(eng.stats), eng.lanes
     del eng
     torch.cuda.empty_cache()
 
-    # two of the requests again, each in a fresh 1-slot engine
-    for rid in SERVE_SINGLES:
+    # some of the requests again, each in a fresh 1-slot engine
+    for rid in singles:
         one = ContinuousBatcher(model, params, n_slots=1, max_seq=SERVE_MAX_SEQ)
         one.submit(Request(rid=rid, prompt=prompts[rid], max_new=SERVE_NEW))
         alone = one.run(max_steps=4 * SERVE_NEW)[0].out
         if alone != done[rid].out:
-            raise AssertionError(f"mamba2 serve: request {rid} gives {done[rid].out} in the "
+            raise AssertionError(f"{arch} serve: request {rid} gives {done[rid].out} in the "
                                  f"batch and {alone} alone")
         del one
+    torch.cuda.empty_cache()
 
     # prefill + decode logits of the last request against forward: the
     # float32 model (float32 weights and activations) within F32_CHECK, the
@@ -723,36 +759,38 @@ def mamba2_serve(dev, counted, close) -> dict:
     f32 = teacher_forced(zoo.build(cfg, act_dtype=torch.float32), masters, seq, s0)
     del masters
     torch.cuda.empty_cache()
-    f32_errs = [close(f"mamba2 float32 {what} vs forward", got, want, *F32_CHECK)
+    f32_errs = [close(f"{arch} float32 {what} vs forward", got, want, *F32_CHECK)
                 for what, got, want in f32["pairs"]]
     served = torch.stack([g.float() for _, g, _ in bf16["pairs"]])
     ref = torch.stack([w.float() for _, _, w in bf16["pairs"]])
     if not bool(torch.isfinite(served).all()):
-        raise AssertionError("mamba2 bf16 prefill/decode: non-finite logits")
+        raise AssertionError(f"{arch} bf16 prefill/decode: non-finite logits")
     diff = (served - ref).abs()
     bf16_err = {"mean_abs": diff.mean().item(), "max_abs": diff.max().item()}
-    if any(bf16_err[k] > limit for k, limit in BF16_CHECK.items()):
-        raise AssertionError(f"mamba2 bf16 prefill/decode vs forward: {bf16_err}, "
-                             f"over {BF16_CHECK}")
-    grain_excess = (diff - (GRAIN[1] + GRAIN[0] * ref.abs())).max().item()
     noise = (bf16["forward"].float() - f32["forward"].float()).abs()
     noise = {"mean_abs": noise.mean().item(), "max_abs": noise.max().item()}
+    if any(bf16_err[k] > limit for k, limit in BF16_CHECK.items()):
+        raise AssertionError(f"{arch} bf16 prefill/decode vs forward: {bf16_err}, over "
+                             f"{BF16_CHECK} (bf16 forward vs f32 forward: {noise})")
+    grain_excess = (diff - (GRAIN[1] + GRAIN[0] * ref.abs())).max().item()
     del bf16, f32, served, ref, diff
 
-    # a 2048-token prefill alone (CUDA events), for K6's share of it
+    # a 2048-token prefill alone (CUDA events)
+    if len(prompts[0]) != 2048:
+        raise AssertionError(f"{arch} serve: the first prompt is not 2048 tokens")
     p2048 = torch.as_tensor(prompts[0], device=dev)[None]
-    prefill_ms = bench(lambda: model.prefill(params, {"tokens": p2048}), device=dev,
-                       warmup=1, iters=3, min_time_s=0.0) * 1e3
+    prefill_ms = bench(lambda: model.prefill(params, {"tokens": p2048}, max_seq=SERVE_MAX_SEQ),
+                       device=dev, warmup=1, iters=3, min_time_s=0.0) * 1e3
 
     # kernels per decode step and the device's idle share, under the profiler
     prof_line = profile_decode(model, params, dev, lanes)
 
     new_tokens = SERVE_NEW * len(prompts)
-    out = {"phase": "mamba2_serve", "model": cfg.name, "layers": cfg.n_layers,
+    out = {"phase": phase, "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "params": zoo.param_count(params),
            "weights_dtype": "bfloat16 copy (cast once)", "slots": SERVE_SLOTS,
            "decode_lanes": lanes, "max_seq": SERVE_MAX_SEQ,
-           "prompts": list(SERVE_PROMPTS), "max_new": SERVE_NEW, "seconds": seconds,
+           "prompts": list(lengths), "max_new": SERVE_NEW, "seconds": seconds,
            "init_seconds": init_s, "launches": got,
            "prefill_tokens_per_s": stats["prefill_tokens"] / stats["prefill_s"],
            "prefill_seconds": stats["prefill_s"], "prefills": stats["prefills"],
@@ -761,7 +799,7 @@ def mamba2_serve(dev, counted, close) -> dict:
            "decode_tokens_per_s": new_tokens / stats["decode_s"],
            "prefill_2048_ms": prefill_ms,
            "peak_memory_bytes": peak, "init_peak_memory_bytes": init_peak,
-           "singles_match": list(SERVE_SINGLES),
+           "singles_match": list(singles),
            "check_positions": len(f32_errs),
            "f32_prefill_decode_vs_forward_max_abs_err": max(f32_errs),
            "f32_check_rtol_atol": F32_CHECK,
@@ -769,6 +807,11 @@ def mamba2_serve(dev, counted, close) -> dict:
            "bf16_forward_vs_f32_forward": noise,
            "bf16_excess_over_grain": grain_excess, "grain_rtol_atol": GRAIN,
            "all_logits_finite": True, **prof_line}
+    if cfg.family == "hybrid":
+        out["attention_blocks"] = cfg.n_layers // cfg.shared_attn_every
+    del model, params
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - phase_start
     emit(out)
     return out
 
@@ -2846,14 +2889,17 @@ def main() -> int:
     stencil_serve_phase(dev, gpu, counted, same, close, host_median, row, ms, ms_slow,
                         resident_counts, k4_counts, resident_plain)
     k6_rows = ssd_phase(dev, ms, close, bound)
-    serve = mamba2_serve(dev, counted, close)
+    served = {out["model"]: out for out in
+              (serve_phase(dev, counted, close, *args) for args in SERVE_MODELS)}
+    # K6's launches on the main path: the serve run of the model whose layer
+    # the row describes
     for entry in k6_rows:
-        kernel = entry.pop("kernel")
+        kernel, run = entry.pop("kernel"), served[entry["model"]]
         # a call of the whole scan launches each kernel once
-        launched = serve["launches"][kernel] if kernel in ssd.LAUNCHES else \
-            min(serve["launches"][k] for k in ssd.LAUNCHES)
+        launched = run["launches"][kernel] if kernel in ssd.LAUNCHES else \
+            min(run["launches"][k] for k in ssd.LAUNCHES)
         entry["launches"] = launched
-        entry["launches_per_prefill"] = launched / serve["prefills"]
+        entry["launches_per_prefill"] = launched / run["prefills"]
         entries.append(entry)
         emit({"phase": "kernels", **entry})
 

@@ -4,8 +4,9 @@ reference's ``configs/base.py``.
 One ``ArchConfig`` per architecture lives in ``configs/<id>.py``; the four
 LM shape points are global ``ShapeConfig``s.  ``smoke()`` derives a reduced
 same-family config for CPU tests.  Only the architectures whose family the
-port runs have a file here; ``get_arch`` on any other assigned id raises
-``NotImplementedError`` naming ROADMAP A11.
+port runs (ssm, dense, hybrid) have a file here; ``get_arch`` on any other
+assigned id (the MoE, audio and VLM configs) raises ``NotImplementedError``
+naming ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -174,6 +175,6 @@ def get_arch(name: str) -> ArchConfig:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
     except ModuleNotFoundError:
         raise NotImplementedError(
-            f"{name!r} is not ported yet: the port runs the SSM family only; the "
-            "other families are ROADMAP A11") from None
+            f"{name!r} is not ported yet: the port runs the ssm, dense and hybrid "
+            "families; MoE and the audio and VLM frontends are ROADMAP A11") from None
     return mod.CONFIG

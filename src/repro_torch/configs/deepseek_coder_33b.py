@@ -1,0 +1,20 @@
+"""deepseek-coder-33b — dense llama-arch.
+
+[arXiv:2401.14196; hf]  62L d_model=7168 56H (GQA kv=8) d_ff=19200
+vocab=32256, SwiGLU, RMSNorm."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-coder-33b",
+    family="dense",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=19200,
+    vocab=32_256,
+    act="swiglu",
+    norm="rmsnorm",
+    rope_theta=100_000.0,
+)

@@ -45,8 +45,12 @@ def tensors_from_reference(tree, device) -> dict:
 def lm_params_from_reference(tree: dict, cfg: ArchConfig, device) -> dict:
     """``tree`` is ``jax.tree.map(np.asarray, params)`` of the reference's
     ``transformer.init_params``: layers stacked on a leading ``n_layers``
-    axis, as the port keeps them, so the structure carries over as is."""
+    axis, as the port keeps them, so the structure carries over as is (the
+    hybrid's weight-shared ``shared`` block is one block, not stacked)."""
     transformer.check_family(cfg)
+    if ("shared" in tree) != (cfg.family == "hybrid"):
+        raise ValueError(f"{cfg.name}: a {cfg.family} tree "
+                         f"{'needs' if cfg.family == 'hybrid' else 'has no'} a 'shared' block")
     params = tensors_from_reference(tree, device)
     stacked = {t.shape[0] for t in transformer.tree_leaves(params["layers"])}
     if stacked != {cfg.n_layers}:

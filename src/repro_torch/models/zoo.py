@@ -2,7 +2,8 @@
 synthetic inputs.
 
 Inputs are drawn from an explicit ``torch.Generator`` (on the device the
-inputs go to).  ``loss_fn`` waits for training (ROADMAP A11).
+inputs go to).  The token families (ssm, dense, hybrid) are built;
+``loss_fn`` waits for training (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ def build(cfg: ArchConfig, act_dtype: torch.dtype = blocks.ACT_DTYPE) -> transfo
 
 
 def batch_inputs(cfg: ArchConfig, batch: int, seq: int, gen: torch.Generator) -> dict:
-    """Random token ids and labels on ``gen``'s device (the SSM family
-    reads tokens; embedding and M-RoPE frontends wait for ROADMAP A11)."""
+    """Random token ids and labels on ``gen``'s device (the ported families
+    read tokens; embedding and M-RoPE frontends wait for ROADMAP A11)."""
     transformer.check_family(cfg)
     return {name: torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device)
             for name in ("tokens", "labels")}

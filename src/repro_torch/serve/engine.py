@@ -84,8 +84,8 @@ class ContinuousBatcher:
                  temperature: float = 0.0, device=None, seed: int = 0):
         transformer.check_family(model.cfg)
         if model.cfg.frontend != "token":
-            raise NotImplementedError("non-token frontends serve with the attention "
-                                      "families (ROADMAP A11)")
+            raise NotImplementedError("non-token frontends (audio frames, VLM patches) "
+                                      "are not ported yet (ROADMAP A11)")
         self.model, self.params = model, params
         self.cfg = model.cfg
         self.device = resolve_device(device)

@@ -1078,6 +1078,9 @@ SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,shared_bc", [
     ((16, 1, 128, 80, 64, 128), True),      # mamba2-2.7b, a 2048-token prompt
+    ((16, 1, 128, 80, 64, 64), True),       # zamba2-2.7b (N = 64), a 2048-token prompt
+    ((8, 1, 125, 80, 64, 64), True),        # zamba2-2.7b, a 1000-token prompt at Q = 125
+    ((271, 1, 1, 80, 64, 64), True),        # zamba2-2.7b, 256 + 15 tokens (a prime) at Q = 1
     ((8, 1, 125, 80, 64, 128), True),       # a 1000-token prompt runs at Q = 125
     ((37, 2, 1, 4, 64, 128), False),        # a prime length runs at Q = 1
     ((4, 2, 8, 2, 8, 4), False),            # the reference test's shapes
@@ -1239,6 +1242,74 @@ def test_batcher_past_eight_slots_matches_single_slot_engines(cuda):
         eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
     done = sorted(eng.run(max_steps=64), key=lambda r: r.rid)
     assert [r.rid for r in done] == list(range(len(prompts)))
+    for req, want in zip(done, expected):
+        assert req.out == want, (req.rid, req.out, want)
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "gemma-2b", "starcoder2-7b"])
+def test_lm_on_card_matches_cpu(cuda, name):
+    """The hybrid (K6 in each SSM layer's prefill, the shared attention
+    block) and dense families at ``smoke()`` size, float32: forward, then
+    prefill and decode at per-sequence positions, on the card against the
+    same model's plain path on the CPU, within 1e-4; each prefill launches
+    K6 once a SSM layer and decode never."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer, zoo
+    cfg = get_arch(name).smoke()
+    model = zoo.build(cfg, act_dtype=torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    on_card = transformer.tree_map(lambda a: a.to(cuda), params)
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 14)))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    ssm_layers = cfg.n_layers if cfg.family == "hybrid" else 0
+    ssd.reset_launches()
+    full = model.forward(on_card, {"tokens": toks.to(cuda)})[0]
+    torch.testing.assert_close(full.cpu(), model.forward(params, {"tokens": toks})[0], **tol)
+    last, cache = model.prefill(on_card, {"tokens": toks[:, :9].to(cuda)}, max_seq=14)
+    last_cpu, cache_cpu = model.prefill(params, {"tokens": toks[:, :9]}, max_seq=14)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_state": 2 * ssm_layers, "ssd_out": 2 * ssm_layers}
+    torch.testing.assert_close(last.cpu(), last_cpu, **tol)
+    for got, want in zip(transformer.tree_leaves(cache), transformer.tree_leaves(cache_cpu)):
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    for i in range(9, 14):
+        pos = torch.tensor([i, i])
+        logits, cache = model.decode_step(on_card, cache, {"tokens": toks[:, i:i + 1].to(cuda)},
+                                          pos.to(cuda))
+        want, cache_cpu = model.decode_step(params, cache_cpu, {"tokens": toks[:, i:i + 1]}, pos)
+        torch.testing.assert_close(logits.cpu(), want, **tol)
+        torch.testing.assert_close(logits[:, 0].cpu(), full[:, i].cpu(), **tol)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_state": 2 * ssm_layers, "ssd_out": 2 * ssm_layers}
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "gemma-2b"])
+def test_lm_batcher_on_card_matches_single_slot_engines(cuda, name):
+    """Ragged prompts through a 3-slot batcher on the card (bf16 weights)
+    give the greedy tokens of fresh 1-slot engines; K6 launches once a SSM
+    layer and prefill."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = get_arch(name).smoke()
+    model = zoo.build(cfg)
+    params = transformer.cast_params(model.init(torch.Generator(device=cuda).manual_seed(0)))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 17, 9, 12)]
+
+    def alone(prompt):
+        eng = ContinuousBatcher(model, params, n_slots=1, max_seq=64)
+        eng.submit(Request(rid=0, prompt=prompt, max_new=6))
+        return eng.run(max_steps=64)[0].out
+    expected = [alone(p) for p in prompts]
+    eng = ContinuousBatcher(model, params, n_slots=3, max_seq=64)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=6))
+    ssd.reset_launches()
+    done = sorted(eng.run(max_steps=64), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    ssm_layers = cfg.n_layers if cfg.family == "hybrid" else 0
+    assert ssd.LAUNCHES == {"ssd_state": 4 * ssm_layers, "ssd_out": 4 * ssm_layers}
     for req, want in zip(done, expected):
         assert req.out == want, (req.rid, req.out, want)
 

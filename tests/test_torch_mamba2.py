@@ -167,15 +167,16 @@ def test_inputs_follow_their_generator():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_arch("gemma-2b")
+    for name in ("mixtral-8x22b", "qwen2-vl-2b"):       # a MoE and a VLM config
+        with pytest.raises(NotImplementedError, match="A11"):
+            get_arch(name)
     with pytest.raises(ValueError, match="unknown arch"):
         get_arch("no-such-model")
-    dense = dataclasses.replace(get_arch("mamba2-2.7b").smoke(), family="dense")
+    moe = dataclasses.replace(get_arch("mamba2-2.7b").smoke(), family="moe")
     with pytest.raises(NotImplementedError, match="A11"):
-        zoo.build(dense)
+        zoo.build(moe)
     with pytest.raises(NotImplementedError, match="A11"):
-        convert.lm_params_from_reference({}, dense, "cpu")
+        convert.lm_params_from_reference({}, moe, "cpu")
 
 
 def test_entry_points_default_to_the_card(models):
